@@ -1,0 +1,145 @@
+"""Scaffolding of the fused training loop (twin of dist_dqn_tpu/loop_common.py).
+
+Config resolution (train batch, replay ratio, shard sizes, flat ring
+storage), the epsilon / beta schedules, the per-step episode trackers and
+the sampler routing. The schedules are host functions of the host-int
+iteration counter, computed in float32 as optax's ``linear_schedule``
+computes them, so the loop never reads the device to know them.
+"""
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+from dist_dqn_tpu_torch.config import ExperimentConfig
+
+
+def pad_pow2(n: int) -> int:
+    """Smallest power of two >= n (the JAX package's ingest bucket rule,
+    dist_dqn_tpu/replay/host.py)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def resolve_train_batch(cfg: ExperimentConfig) -> int:
+    """Effective train-event batch width: ``learner.batch_size`` when
+    ``replay.train_batch`` is 0, else that many rows rounded up to the next
+    power of two."""
+    if cfg.replay.train_batch <= 0:
+        return cfg.learner.batch_size
+    return pad_pow2(cfg.replay.train_batch)
+
+
+def resolve_replay_ratio(cfg: ExperimentConfig) -> int:
+    """Validated replay ratio (``replay.updates_per_chunk``). Only 1 is
+    ported: ratios above 1 need the batched last-write-wins priority
+    write-back, which comes with the replay-ratio slice."""
+    r = cfg.replay.updates_per_chunk
+    if r < 1:
+        raise ValueError(f"replay.updates_per_chunk must be >= 1, got {r}")
+    if r > 1:
+        raise NotImplementedError(
+            f"replay.updates_per_chunk={r}: replay ratios above 1 are not "
+            "ported yet (ROADMAP.md)")
+    return r
+
+
+def shard_sizes(cfg: ExperimentConfig, num_shards: int = 1
+                ) -> Tuple[int, int]:
+    """Validate divisibility and return per-shard (num_envs, train_batch)."""
+    train_batch = resolve_train_batch(cfg)
+    for name, total in (("num_envs", cfg.actor.num_envs),
+                        ("train_batch", train_batch)):
+        if total % num_shards:
+            raise ValueError(f"{name}={total} not divisible by "
+                             f"num_shards={num_shards}")
+    return cfg.actor.num_envs // num_shards, train_batch // num_shards
+
+
+FLAT_AUTO_BYTES = 2 << 30
+
+
+def resolve_flat_storage(rcfg, obs_shape, obs_dtype: torch.dtype,
+                         num_slots: int, B: int,
+                         store_final: bool = False) -> bool:
+    """Merged-row ("flat") obs storage for a device ring: the JAX package's
+    rule, kept so both packages lay a config's ring out alike. Auto
+    (``replay.flat_storage=None``): flat for multi-dim obs whose ring
+    exceeds FLAT_AUTO_BYTES logical bytes."""
+    if rcfg.flat_storage is None:
+        obs_bytes = num_slots * B * torch.empty((), dtype=obs_dtype
+                                                ).element_size()
+        for d in obs_shape:
+            obs_bytes *= d
+        return (len(obs_shape) >= 2
+                and obs_bytes * (2 if store_final else 1) > FLAT_AUTO_BYTES)
+    return bool(rcfg.flat_storage) and len(obs_shape) >= 2
+
+
+def flat_obs_codecs(flat_storage: bool, obs_shape):
+    """(flatten_batched, unflatten_rows): [B, *obs_shape] -> [B, prod] at
+    the insert boundary and [..., prod] -> [..., *obs_shape] after a
+    gather; identities when the ring is not flat."""
+    obs_shape = tuple(obs_shape)
+    if not flat_storage:
+        return (lambda x: x), (lambda x: x)
+    return ((lambda x: x.reshape(x.shape[0], -1)),
+            (lambda x: x.reshape(x.shape[:-1] + obs_shape)))
+
+
+def _linear_schedule(init: float, end: float, steps: int
+                     ) -> Callable[[int], float]:
+    """optax.linear_schedule(init, end, steps)(count) in float32."""
+    f32 = np.float32
+    delta = f32(init - end)
+
+    def at(count: int) -> float:
+        frac = f32(1) - f32(min(max(count, 0), steps)) / f32(steps)
+        return float(delta * frac + f32(end))
+
+    return at
+
+
+def make_schedules(cfg: ExperimentConfig, B: int, num_shards: int = 1
+                   ) -> Tuple[Callable[[int], float], Callable[[int], float]]:
+    """(epsilon(iteration), beta(iteration)): exploration decay and the PER
+    importance exponent annealing beta0 -> 1 over the configured run, in
+    iteration units, as host floats."""
+    epsilon = _linear_schedule(
+        cfg.actor.epsilon_start, cfg.actor.epsilon_end,
+        max(cfg.actor.epsilon_decay_steps // (B * num_shards), 1))
+    total_iters = max(cfg.total_env_steps // (B * num_shards), 1)
+    f32 = np.float32
+    beta0 = cfg.replay.importance_exponent
+
+    def beta_at(iteration: int) -> float:
+        frac = min(f32(iteration) / f32(total_iters), f32(1.0))
+        return float(f32(beta0) + f32(1.0 - beta0) * frac)
+
+    return epsilon, beta_at
+
+
+def episode_stats_update(ep_return: torch.Tensor,
+                         completed_return: torch.Tensor,
+                         completed_count: torch.Tensor,
+                         reward: torch.Tensor, done: torch.Tensor):
+    """Fold one step's rewards/dones into the per-env episode trackers, on
+    the device. Returns (ep_return, completed_return, completed_count)."""
+    ep_return = ep_return + reward
+    zero = torch.zeros_like(ep_return)
+    completed_return = completed_return + torch.where(done, ep_return,
+                                                      zero).sum()
+    completed_count = completed_count + done.float().sum()
+    ep_return = torch.where(done, zero, ep_return)
+    return ep_return, completed_return, completed_count
+
+
+def kernel_routing(enabled: bool, device: torch.device) -> bool:
+    """Whether the priority draw goes through the sampler kernel's wrapper
+    (``replay.pallas_sampler``). The wrapper then picks by the plane's
+    device: the CUDA kernel on the card, its plain PyTorch version on the
+    CPU, and nothing else — there is no fallback from one to the other."""
+    if torch.device(device).type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return bool(enabled)

@@ -1,0 +1,217 @@
+"""Fused single-device training loop (twin of dist_dqn_tpu/train_loop.py:68-374).
+
+Every iteration acts epsilon-greedily, steps the batched on-device env,
+appends the time slice to the device ring and — once the ring is filled —
+samples a batch (PER through the sampler kernel with
+``replay.pallas_sampler``), takes a grad step and writes the priorities
+back. The JAX package compiles this into one ``lax.scan``; here the scan
+and the train ``lax.cond`` are Python loops and branches over host-int
+counters. Everything per-iteration stays on the device: the chunk
+accumulators are device tensors the caller reads once per chunk, and the
+only values the host decides on (ring position and size, iteration,
+grad-step count) advance deterministically, so no iteration waits on the
+device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dist_dqn_tpu_torch import loop_common
+from dist_dqn_tpu_torch.agents.dqn import (LearnerState, make_actor_step,
+                                           make_learner)
+from dist_dqn_tpu_torch.config import ExperimentConfig
+from dist_dqn_tpu_torch.envs.base import TorchEnv
+from dist_dqn_tpu_torch.replay import device as ring
+from dist_dqn_tpu_torch.replay import prioritized_device as pring
+from dist_dqn_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class TrainCarry:
+    env_state: NamedTuple
+    obs: torch.Tensor
+    replay: object               # TimeRingState or PrioritizedRingState
+    learner: LearnerState
+    gen_env: torch.Generator     # env draws (serves, resets)
+    gen_act: torch.Generator     # exploration draws
+    gen_sample: torch.Generator  # replay draws
+    iteration: int               # env vector steps taken
+    # Per-env episode trackers and chunk-level accumulators (device).
+    ep_return: torch.Tensor      # [B]
+    completed_return: torch.Tensor
+    completed_count: torch.Tensor
+    loss_sum: torch.Tensor
+    train_count: int             # grad steps in the current chunk
+
+
+def _generators(seed: int, device: torch.device, n: int):
+    """``n`` device generators with independent seeds spawned from
+    ``seed``."""
+    seeds = np.random.SeedSequence(seed).generate_state(n, dtype=np.uint64)
+    return [torch.Generator(device=device).manual_seed(int(s))
+            for s in seeds]
+
+
+def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
+                     device=None):
+    """Returns (init, run_chunk): ``init(seed)`` builds the carry around
+    ``net`` (the online Q-network, on ``device``); ``run_chunk(carry,
+    num_iters)`` runs ``num_iters`` fused iterations and returns the carry
+    and the chunk's metrics as device tensors (``env_frames`` and
+    ``grad_steps_in_chunk`` are host ints)."""
+    dev = resolve_device(device)
+    if cfg.replay.frame_dedup:
+        raise NotImplementedError(
+            "replay.frame_dedup is not ported yet: it comes with the "
+            "frame-dedup ring slice (ROADMAP.md)")
+    prioritized = cfg.replay.prioritized
+    init_learner, train_step = make_learner(cfg.learner)
+    act = make_actor_step(env.num_actions)
+    updates = cfg.updates_per_train * loop_common.resolve_replay_ratio(cfg)
+    B, batch_size = loop_common.shard_sizes(cfg)
+    min_fill = max(cfg.replay.min_fill, 1)
+    num_slots = max(cfg.replay.capacity // B, cfg.learner.n_step + 2)
+    n_step = cfg.learner.n_step
+    gamma = cfg.learner.gamma
+    # Exact truncation bootstrap for cheap (non-pixel) observations; pixel
+    # rings skip final_obs to halve their memory (truncation treated as
+    # terminal). cfg.replay.store_final_obs overrides the heuristic.
+    store_final = (env.observation_dtype != torch.uint8
+                   if cfg.replay.store_final_obs is None
+                   else cfg.replay.store_final_obs)
+    epsilon, beta_at = loop_common.make_schedules(cfg, B)
+    use_kernel = loop_common.kernel_routing(
+        prioritized and cfg.replay.pallas_sampler, dev)
+    obs_shape = tuple(env.observation_shape)
+    flat_storage = loop_common.resolve_flat_storage(
+        cfg.replay, obs_shape, env.observation_dtype, num_slots, B,
+        store_final=store_final)
+    flatten, unflatten = loop_common.flat_obs_codecs(flat_storage, obs_shape)
+
+    def ring_of(replay) -> ring.TimeRingState:
+        return replay.ring if prioritized else replay
+
+    def can_train(replay, iteration: int) -> bool:
+        r = ring_of(replay)
+        return (r.size * B >= min_fill
+                and ring.time_ring_can_sample(r, n_step)
+                and iteration % cfg.train_every == 0)
+
+    def init(seed: int) -> TrainCarry:
+        gen_env, gen_act, gen_sample = _generators(seed, dev, 3)
+        env_state, obs = env.v_reset(B, gen_env)
+        example = flatten(obs)[0]
+        if prioritized:
+            replay = pring.prioritized_ring_init(
+                num_slots, B, example, store_final_obs=store_final,
+                merge_obs_rows=flat_storage)
+        else:
+            replay = ring.time_ring_init(num_slots, B, example,
+                                         store_final_obs=store_final,
+                                         merge_obs_rows=flat_storage)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        return TrainCarry(
+            env_state=env_state, obs=obs, replay=replay,
+            learner=init_learner(net), gen_env=gen_env, gen_act=gen_act,
+            gen_sample=gen_sample, iteration=0,
+            ep_return=torch.zeros((B,), dtype=torch.float32, device=dev),
+            completed_return=zero.clone(), completed_count=zero.clone(),
+            loss_sum=zero.clone(), train_count=0)
+
+    def train_event(c: TrainCarry, beta: float) -> torch.Tensor:
+        """``updates`` grad steps; returns their summed loss (device)."""
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        for _ in range(updates):
+            if prioritized:
+                s = pring.prioritized_ring_sample(
+                    c.replay, c.gen_sample, batch_size, n_step, gamma,
+                    cfg.replay.priority_exponent, beta,
+                    use_kernel=use_kernel, merge_obs_rows=flat_storage)
+                batch = s.batch._replace(obs=unflatten(s.batch.obs),
+                                         next_obs=unflatten(s.batch.next_obs))
+                _, metrics = train_step(c.learner, batch, s.weights)
+                pring.prioritized_ring_update(
+                    c.replay, s.t_idx, s.b_idx, metrics["priorities"],
+                    eps=cfg.replay.priority_eps)
+            else:
+                batch = ring.time_ring_sample(
+                    c.replay, c.gen_sample, batch_size, n_step, gamma,
+                    merge_obs_rows=flat_storage)
+                batch = batch._replace(obs=unflatten(batch.obs),
+                                       next_obs=unflatten(batch.next_obs))
+                _, metrics = train_step(c.learner, batch)
+            loss = loss + metrics["loss"]
+        return loss
+
+    def one_iteration(c: TrainCarry) -> None:
+        actions = act(c.learner.net, c.obs, c.gen_act, epsilon(c.iteration))
+        c.env_state, out = env.v_step(c.env_state, actions, c.gen_env)
+        add = pring.prioritized_ring_add if prioritized else \
+            ring.time_ring_add
+        add(c.replay, flatten(c.obs), actions, out.reward, out.terminated,
+            out.truncated,
+            final_obs=flatten(out.next_obs) if store_final else None,
+            merge_obs_rows=flat_storage)
+        if can_train(c.replay, c.iteration):
+            c.loss_sum = c.loss_sum + train_event(c, beta_at(c.iteration))
+            c.train_count += updates
+        done = out.terminated | out.truncated
+        c.ep_return, c.completed_return, c.completed_count = \
+            loop_common.episode_stats_update(
+                c.ep_return, c.completed_return, c.completed_count,
+                out.reward, done)
+        c.obs = out.obs
+        c.iteration += 1
+
+    def run_chunk(carry: TrainCarry, num_iters: int
+                  ) -> Tuple[TrainCarry, Dict[str, object]]:
+        """Run ``num_iters`` iterations; the chunk accumulators are zeroed
+        on entry."""
+        carry.completed_return = torch.zeros_like(carry.completed_return)
+        carry.completed_count = torch.zeros_like(carry.completed_count)
+        carry.loss_sum = torch.zeros_like(carry.loss_sum)
+        carry.train_count = 0
+        for _ in range(num_iters):
+            one_iteration(carry)
+        metrics = {
+            "env_frames": carry.iteration * B,
+            "episode_return": carry.completed_return
+            / carry.completed_count.clamp(min=1.0),
+            "episodes": carry.completed_count,
+            "loss": carry.loss_sum / max(carry.train_count, 1),
+            "grad_steps_in_chunk": carry.train_count,
+        }
+        return carry, metrics
+
+    return init, run_chunk
+
+
+def make_evaluator(cfg: ExperimentConfig, env: TorchEnv,
+                   num_episodes: int = 10, epsilon: float = 0.001):
+    """Greedy-policy evaluation: one episode per env lane.
+
+    ``evaluate(net, generator)`` runs ``env.max_steps`` steps under a mask
+    that freezes each lane at its first episode end and returns the mean
+    undiscounted return as a device scalar.
+    """
+    act = make_actor_step(env.num_actions)
+
+    def evaluate(net, generator: Optional[torch.Generator]) -> torch.Tensor:
+        env_state, obs = env.v_reset(num_episodes, generator)
+        ret = torch.zeros((num_episodes,), dtype=torch.float32,
+                          device=env.device)
+        alive = torch.ones_like(ret)
+        for _ in range(env.max_steps):
+            a = act(net, obs, generator, epsilon)
+            env_state, out = env.v_step(env_state, a, generator)
+            ret = ret + out.reward * alive
+            done = out.terminated | out.truncated
+            alive = ((alive > 0) & ~done).float()
+            obs = out.obs
+        return ret.mean()
+
+    return evaluate

@@ -1,0 +1,61 @@
+"""Carry flax Q-network weights across into the port's modules.
+
+``from_flax(params_numpy, net)`` converts a flax param tree of the JAX
+package's ``QNetwork`` (numpy leaves, e.g. ``jax.tree.map(np.asarray,
+params)``) into a ``state_dict`` for the port's ``QNetwork`` — the way
+every parity test shares weights between the two packages. Only numpy
+crosses the boundary; this module imports no JAX.
+
+  * conv kernels HWIO -> OIHW;
+  * Dense kernels [in, out] -> [out, in];
+  * ``CNNTorso_0/Conv_i`` -> ``torso.convs.i``, ``MLPTorso_0/Dense_i`` ->
+    ``torso.layers.i``, top-level ``Dense_0`` -> ``hidden``, and the
+    ``advantage`` / ``value`` heads keep their names.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
+
+
+def _dense(prefix: str, leaf: Mapping, out: Dict[str, torch.Tensor]):
+    out[f"{prefix}.weight"] = _tensor(np.asarray(leaf["kernel"]).T)
+    out[f"{prefix}.bias"] = _tensor(leaf["bias"])
+
+
+def from_flax(params: Mapping, net: torch.nn.Module
+              ) -> Dict[str, torch.Tensor]:
+    """State dict for ``net`` from the flax tree ``params`` (with or
+    without the outer ``{"params": ...}`` collection). Raises KeyError on
+    a tree that does not match ``net``'s layers."""
+    tree = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        if name == "CNNTorso_0":
+            for conv, sub in leaf.items():
+                i = int(conv.split("_")[1])
+                out[f"torso.convs.{i}.weight"] = _tensor(
+                    np.transpose(np.asarray(sub["kernel"]), (3, 2, 0, 1)))
+                out[f"torso.convs.{i}.bias"] = _tensor(sub["bias"])
+        elif name == "MLPTorso_0":
+            for dense, sub in leaf.items():
+                _dense(f"torso.layers.{int(dense.split('_')[1])}", sub, out)
+        elif name == "Dense_0":
+            _dense("hidden", leaf, out)
+        elif name in ("advantage", "value"):
+            _dense(name, leaf, out)
+        else:
+            raise KeyError(f"flax layer {name!r} has no counterpart in the "
+                           "port's QNetwork")
+    expected = set(net.state_dict())
+    if set(out) != expected:
+        raise KeyError(f"flax tree does not match the module: missing "
+                       f"{sorted(expected - set(out))}, extra "
+                       f"{sorted(set(out) - expected)}")
+    return out

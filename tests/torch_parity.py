@@ -1,0 +1,79 @@
+"""Helpers of the port's parity tests (tests/test_torch_*.py).
+
+The JAX envs draw from per-env threefry keys inside ``vmap``; the port's
+envs take their draws as explicit tensors. These helpers replay the JAX
+envs' key splits to compute the exact numbers a JAX step or reset
+consumes, so both packages step in lockstep on the same trajectory.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from dist_dqn_tpu_torch.envs.cartpole import CartPoleDraws
+from dist_dqn_tpu_torch.envs.pixel_pong import PongDraws
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def _pong_reset_key(key):
+    # PixelPong.reset: rng, k_serve, k_side = split(rng, 3)
+    _, k_serve, k_side = jax.random.split(key, 3)
+    return (jax.random.bernoulli(k_side),
+            jax.random.uniform(k_serve, (), jnp.float32, -1.0, 1.0))
+
+
+def _pong_step_key(key):
+    # PixelPong.env_step: rng, k_serve = split(state.rng); then JaxEnv.step
+    # resets from the advanced rng.
+    rng, k_serve = jax.random.split(key)
+    serve_vy = jax.random.uniform(k_serve, (), jnp.float32, -1.0, 1.0)
+    side, reset_vy = _pong_reset_key(rng)
+    return serve_vy, side, reset_vy
+
+
+def pong_reset_draws(rng, num_envs: int) -> PongDraws:
+    side, vy = jax.vmap(_pong_reset_key)(jax.random.split(rng, num_envs))
+    return PongDraws(serve_vy=torch.zeros(num_envs), reset_side=_t(side),
+                     reset_vy=_t(vy))
+
+
+def pong_step_draws(jax_state) -> PongDraws:
+    serve_vy, side, reset_vy = jax.vmap(_pong_step_key)(jax_state.rng)
+    return PongDraws(serve_vy=_t(serve_vy), reset_side=_t(side),
+                     reset_vy=_t(reset_vy))
+
+
+def _cartpole_reset_key(key):
+    # CartPole.reset: rng, sub = split(rng); phys ~ U(-0.05, 0.05)^4
+    _, sub = jax.random.split(key)
+    return jax.random.uniform(sub, (4,), jnp.float32, -0.05, 0.05)
+
+
+def _cartpole_step_key(key):
+    # CartPole.env_step: rng, _ = split(state.rng); reset from rng.
+    rng, _ = jax.random.split(key)
+    return _cartpole_reset_key(rng)
+
+
+def cartpole_reset_draws(rng, num_envs: int) -> CartPoleDraws:
+    return CartPoleDraws(reset_phys=_t(jax.vmap(_cartpole_reset_key)(
+        jax.random.split(rng, num_envs))))
+
+
+def cartpole_step_draws(jax_state) -> CartPoleDraws:
+    return CartPoleDraws(reset_phys=_t(jax.vmap(_cartpole_step_key)(
+        jax_state.rng)))
+
+
+RESET_DRAWS = {"pixel_pong": pong_reset_draws,
+               "cartpole": cartpole_reset_draws}
+STEP_DRAWS = {"pixel_pong": pong_step_draws, "cartpole": cartpole_step_draws}
+
+
+def to_numpy_tree(tree):
+    return jax.tree.map(np.asarray, tree)
