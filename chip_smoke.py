@@ -13,7 +13,10 @@ them or outside a checkout of the repository. Phases, each fatal:
    library call computing the same function and the card's bound. Times
    are device times (CUDA events around replays of a CUDA graph of 20
    calls); the ``*eager_ms`` keys time the same calls launched from
-   Python one by one, which is what the main path pays.
+   Python one by one, which is what the main path pays. The kernel's
+   outputs from CUDA graph replays must equal an eager call's, and
+   ``device_launches_per_call`` counts the kernels the card runs per
+   call (torch.profiler).
 3. Drive the main path: ``dist_dqn_tpu_torch.train.train`` on the apex
    preset at full width (1M-transition PER ring, batch 512, Nature CNN,
    bf16) past ``min_fill`` for a few hundred grad steps and an eval, with
@@ -96,6 +99,49 @@ def _device_ms(fn, calls_per_graph: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * calls_per_graph)
 
 
+def _device_launches_per_call(fn, calls: int = 10) -> float:
+    """Kernels (and copies or memsets) the card runs per call of ``fn``,
+    from torch.profiler's device events over ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(events) / calls
+
+
+def _graph_replay_matches(fn, calls: int = 20, replays: int = 2) -> bool:
+    """Whether a CUDA graph of ``calls`` calls of ``fn``, replayed
+    ``replays`` times, and two back-to-back eager calls, all return
+    exactly what one eager call returns."""
+    import torch
+    want = [x.clone() for x in fn()]
+
+    def same(got):
+        return all(torch.equal(g, x) for g, x in zip(got, want))
+
+    ok = same(fn()) and same(fn())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(calls)]
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = ok and all(same(o) for o in outs)
+    return ok and same(fn())
+
+
 def _mass(rng, T, B, zero_frac):
     import numpy as np
     w = rng.uniform(0.1, 2.0, (T, B)).astype(np.float32)
@@ -155,13 +201,25 @@ def check_sampler(sampler, iters: int) -> dict:
             apex = (w, u, T, B, S)
 
     w, u, T, B, S = apex
+
+    def kernel():
+        return sampler.kernel_stratified_sample(w, u)
+
+    replay_ok = _graph_replay_matches(kernel)
+    launches_per_call = _device_launches_per_call(kernel)
+    print(json.dumps({"sampler_graph_replay_equal": replay_ok,
+                      "device_launches_per_call": launches_per_call}),
+          flush=True)
+    if not replay_ok:
+        _fail("sampler kernel outputs differ between eager calls and CUDA "
+              "graph replays")
     flat = w.reshape(-1)
 
     def library():
         cdf = torch.cumsum(flat, dim=0)
         return torch.searchsorted(cdf, u * cdf[-1])
 
-    fns = {"": lambda: sampler.kernel_stratified_sample(w, u),
+    fns = {"": kernel,
            "plain_": lambda: sampler.plain_stratified_sample(w, u),
            "library_": library}
     device = {f"{k}ms": _device_ms(fn) for k, fn in fns.items()}
@@ -178,7 +236,8 @@ def check_sampler(sampler, iters: int) -> dict:
               else "operations"}
     print(json.dumps({"sampler_timing": "apex", "T": T, "B": B, "S": S,
                       **timing, **eager}), flush=True)
-    return {"max_abs_err": max_err, **timing}
+    return {"max_abs_err": max_err, **timing, **eager,
+            "device_launches_per_call": launches_per_call}
 
 
 def drive_main_path(total_env_steps: int, chunk_iters: int):
@@ -296,6 +355,9 @@ def main() -> int:
         "bound_ms": sampler_report["bound_ms"],
         "bound_by": sampler_report["bound_by"],
         "library_ms": sampler_report["library_ms"],
+        "eager_ms": sampler_report["eager_ms"],
+        "device_launches_per_call":
+            sampler_report["device_launches_per_call"],
         "pass": True,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

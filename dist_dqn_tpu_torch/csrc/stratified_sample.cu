@@ -1,4 +1,4 @@
-// Stratified inverse-CDF priority sampler for Hopper (sm_90a).
+// Stratified inverse-CDF priority sampler for Hopper (sm_90a), one launch.
 //
 // Replaces the TPU kernel `_sample_kernel` / `pallas_stratified_sample`
 // of dist_dqn_tpu/ops/pallas_sampler.py (body :70, wrapper :262). Same
@@ -11,15 +11,41 @@
 // mass reaches the residual, clamped to row_total * (1 - 1e-6). t_idx is
 // clamped to T - 1 and zero-mass cells are never chosen.
 //
-// Design for this card, not the TPU's: the TPU kernel builds prefix sums
-// from triangular matmuls and gathers rows with one-hot matmuls only
-// because Mosaic has no cumsum and no dynamic indexing. Here three plain
-// launches on the caller's stream do the work:
-//   (a) row_sums_kernel: one thread per row sums its B lanes in order;
-//   (b) row_cdf_kernel:  one block scans the T row sums tile by tile
-//       (cub::BlockScan, carried offset) into the row CDF and the total;
-//   (c) draw_kernel:     one thread per sample binary-searches the row
-//       CDF and walks the selected row's lanes in order.
+// What bounds it. The plane is read once: at the apex preset's shape
+// (T=62500, B=16) that is 4.0 MB, about 1.2 us at 3.35 TB/s, so bytes
+// bound it. At this size the card never comes near that bound: launch
+// gaps and the latency of a scan over T rows and of S dependent searches
+// set the time. So the design spends as few of those as it can:
+//   * One launch of G + P blocks. G chunk blocks each own a chunk of R
+//     consecutive rows (launch_geometry in ops/sampler.py: R=256, G=245 at
+//     the apex shape, so every SM scans a chunk; no block walks all T
+//     rows). P draw blocks take 32 samples each (P=16 at S=512).
+//   * Phase 1, in every chunk block: one thread per row sums its lanes in
+//     lane order, read as float4 (scalar loads when B % 4 != 0 or w is not
+//     16-byte aligned); a block scan turns the chunk's row sums into a
+//     chunk-local row CDF; the row sums, the local CDF and the chunk's
+//     total go to scratch.
+//   * Hand-off, with no grid-wide barrier: each chunk block fences its
+//     writes and counts itself done.
+//   * Phase 2, in the draw blocks, which start with the chunk blocks and
+//     wait for that count: each scans the G chunk totals in shared memory
+//     into chunk offsets and the total; then one thread per sample finds
+//     the chunk by binary search of the offsets, the row by a search of
+//     that chunk's R local CDF entries (not all T) in rounds of 16
+//     independent loads (two rounds for R=256, where a binary search would
+//     wait on eight loads one after another), and the lane from the row
+//     read as float4 in flight with its mass.
+//   * Why draw blocks, and not the last chunk block, draw: in a first
+//     version that block drew all 512 samples, which took over half the
+//     kernel's time on an H100 and kept it slower than one torch.cumsum +
+//     torch.searchsorted: the draws' scattered loads queued on one SM's
+//     load unit. Spread over 16 SMs they wait on latency only. A second
+//     launch would spread them too, at the price of a launch gap.
+//   * Every sync word goes back to zero before the kernel ends (atomicInc
+//     wraps at its last ticket; the last draw block to see the done count
+//     resets it), so a CUDA graph captures the launch and replays it. One
+//     set of sync words and one scratch buffer serve one stream at a time,
+//     which is how the port draws.
 //
 // Precision: the sums and the CDF are accumulated in f64, where the TPU
 // kernel uses f32. At the apex shape (1M cells, total ~7e5) an f32 CDF is
@@ -27,143 +53,420 @@
 // apart by many ulps: an f32 version of this kernel agreed with the plain
 // f32 version on only 96.1% of picks (chip_smoke.py on an H100). In f64 a
 // plane of f32 values sums exactly whenever its values span less than
-// 2^53, whatever the order, so the kernel, its plain version and a float64
-// reference pick the same cells. Inputs and outputs stay f32.
+// 2^53 of the smallest one's ulps, whatever the order, so the kernel, its
+// plain version and a float64 reference pick the same cells. Inputs and
+// outputs stay f32.
 //
-// Bound: the plane is read once. At the apex preset's shape (T=62500,
-// B=16, 4.0 MB) that is about 1.2 us at 3.35 TB/s. At this size the three
-// launches and the single-block scan, not bytes, set the time; making the
-// kernel fast is later work (ROADMAP.md).
+// Why the split into chunks is exact. The row CDF at row t of chunk c is
+// offset[c] + local[t]. Whenever the plane's sums are exact in f64 (values
+// in [0.1, 2) over 1M cells need under 53 bits), that equals the global
+// cumsum at t, so the two-level search picks the row a search of the
+// global CDF picks. Whatever the rounding, the search stays defined: a
+// search within the chunk that finds no row there returns the next
+// chunk's first row, whose CDF is at least that chunk's offset.
 //
 // Zero-mass safety. A zero lane adds exactly nothing to an in-order sum,
 // so the first lane whose cumulative mass reaches a positive residual has
 // mass (the TPU kernel's plateau-start argument). Should a rounded CDF
-// still land a pick on a zero-mass row, (c) moves it to the nearest row
-// with mass after it (else before it). The plain PyTorch version in
+// still land a pick on a zero-mass row, the draw moves it to the nearest
+// row with mass after it (else before it), across chunk boundaries. With
+// exact sums only a target of 0 gets there. The plain PyTorch version in
 // ops/sampler.py applies the same rules.
 
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <cub/block/block_scan.cuh>
 
 namespace {
 
-constexpr int kRowThreads = 256;
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 4;
-constexpr int kDrawThreads = 128;
+// Mirrored by SAMPLER_THREADS and SAMPLER_MAX_CHUNKS in ops/sampler.py.
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunks = 2048;
+constexpr int kGroup = 16;  // lanes loaded at once
+constexpr int kFan = 16;    // independent probes per search round
+constexpr unsigned kFullMask = 0xffffffffu;
 
-__global__ void row_sums_kernel(const float* __restrict__ w, int T, int B,
-                                double* __restrict__ rs) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const float* row = w + static_cast<size_t>(t) * B;
-  double s = 0.0;
-  for (int j = 0; j < B; ++j) s += row[j];
-  rs[t] = s;
-}
+// The kernel's only shared memory (16,464 bytes).
+struct Shared {
+  double offset[kMaxChunks + 1];  // chunk totals, then chunk offsets
+  double warp[kWarps];            // block_scan's per-warp sums
+  unsigned ticket;                // this block's start ticket
+};
 
-__global__ void __launch_bounds__(kScanThreads)
-row_cdf_kernel(const double* __restrict__ rs, int T,
-               double* __restrict__ cdf, float* __restrict__ total) {
-  using BlockScan = cub::BlockScan<double, kScanThreads>;
-  __shared__ typename BlockScan::TempStorage scratch;
-  __shared__ double carry;
-  if (threadIdx.x == 0) carry = 0.0;
+// Block-wide scan of one f64 per thread: returns the inclusive sum and
+// sets the exclusive sum and the block's total. Every thread calls it.
+__device__ double block_scan(double x, double* warp_sums, double* exclusive,
+                             double* block_total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double y = __shfl_up_sync(kFullMask, x, o);
+    if (lane >= o) x += y;
+  }
+  double before = __shfl_up_sync(kFullMask, x, 1);
+  if (lane == 0) before = 0.0;
+  if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
-  constexpr int kTile = kScanThreads * kScanItems;
-  for (int base = 0; base < T; base += kTile) {
-    double items[kScanItems];
-    const int first = base + threadIdx.x * kScanItems;
+  if (warp == 0) {
+    double s = lane < kWarps ? warp_sums[lane] : 0.0;
 #pragma unroll
-    for (int i = 0; i < kScanItems; ++i)
-      items[i] = first + i < T ? rs[first + i] : 0.0;
-    double tile_total;
-    BlockScan(scratch).InclusiveSum(items, items, tile_total);
-    const double offset = carry;
-#pragma unroll
-    for (int i = 0; i < kScanItems; ++i)
-      if (first + i < T) cdf[first + i] = offset + items[i];
-    __syncthreads();  // every thread has read `carry`; scratch is free
-    if (threadIdx.x == 0) carry = offset + tile_total;
-    __syncthreads();
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const double y = __shfl_up_sync(kFullMask, s, o);
+      if (lane >= o) s += y;
+    }
+    if (lane < kWarps) warp_sums[lane] = s;
   }
-  if (threadIdx.x == 0) *total = static_cast<float>(cdf[T - 1]);
+  __syncthreads();
+  if (warp > 0) {
+    x += warp_sums[warp - 1];
+    before += warp_sums[warp - 1];
+  }
+  *exclusive = before;
+  *block_total = warp_sums[kWarps - 1];
+  __syncthreads();  // warp_sums is free for the next call
+  return x;
 }
 
-__global__ void draw_kernel(const float* __restrict__ w,
-                            const double* __restrict__ rs,
-                            const double* __restrict__ cdf,
-                            const float* __restrict__ u, int T, int B, int S,
-                            int32_t* __restrict__ t_out,
-                            int32_t* __restrict__ b_out,
-                            float* __restrict__ mass_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S) return;
-  const double target = static_cast<double>(u[i]) * cdf[T - 1] * (1.0 - 1e-5);
-  // Row: first t with cdf[t] >= target (lower bound).
-  int lo = 0, hi = T;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (cdf[mid] < target) lo = mid + 1; else hi = mid;
-  }
-  int t = lo < T ? lo : T - 1;
-  double prev = lo > 0 ? cdf[lo - 1] : 0.0;
-  if (rs[t] == 0.0) {
-    int f = t;
-    while (f < T && rs[f] == 0.0) ++f;
-    if (f == T) {
-      f = t;
-      while (f > 0 && rs[f] == 0.0) --f;
+// Lanes [j, j + kGroup) of a row into m, zeros past B: four float4 or
+// sixteen scalar loads, all issued before any is used.
+__device__ __forceinline__ void load_lanes(const float* __restrict__ row,
+                                           int j, int B, bool vec,
+                                           float (&m)[kGroup]) {
+  if (vec) {
+    const float4* r4 = reinterpret_cast<const float4*>(row + j);
+#pragma unroll
+    for (int q = 0; q < kGroup / 4; ++q) {
+      const float4 v = j + 4 * q < B ? __ldg(r4 + q)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      m[4 * q] = v.x;
+      m[4 * q + 1] = v.y;
+      m[4 * q + 2] = v.z;
+      m[4 * q + 3] = v.w;
     }
-    if (f != t) {
-      t = f;
-      prev = t > 0 ? cdf[t - 1] : 0.0;
-    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) m[k] = j + k < B ? __ldg(row + j + k) : 0.f;
   }
-  // Lane: first lane with mass whose in-order cumulative mass reaches the
-  // residual; the last lane with mass when none does.
-  const float* row = w + static_cast<size_t>(t) * B;
-  const double residual = fmin(target - prev, rs[t] * (1.0 - 1e-6));
+}
+
+// The row's lanes summed in lane order (the zeros past B add nothing).
+__device__ __forceinline__ double row_sum(const float* __restrict__ row,
+                                          int B, bool vec) {
+  double s = 0.0;
+  for (int j = 0; j < B; j += kGroup) {
+    float m[kGroup];
+    load_lanes(row, j, B, vec, m);
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) s += m[k];
+  }
+  return s;
+}
+
+// The first lane with mass whose in-order cumulative mass reaches
+// `residual`; the last lane with mass when none does (B - 1 when the row
+// has none). `m` holds the row's first kGroup lanes, already loaded; the
+// selected lane's mass goes to *mass.
+__device__ __forceinline__ int pick_lane(const float* __restrict__ row,
+                                         int B, bool vec, double residual,
+                                         float (&m)[kGroup], float* mass) {
   double cum = 0.0;
-  int b = -1, last = B - 1;
-  for (int j = 0; j < B; ++j) {
-    const float m = row[j];
-    cum += m;
-    if (m > 0.f) {
-      last = j;
-      if (cum >= residual) { b = j; break; }
+  int last = B - 1;
+  float last_mass = 0.f;
+  for (int j = 0; j < B; j += kGroup) {
+    if (j > 0) load_lanes(row, j, B, vec, m);
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      cum += m[k];
+      if (m[k] > 0.f) {
+        last = j + k;
+        last_mass = m[k];
+        if (cum >= residual) {
+          *mass = m[k];
+          return j + k;
+        }
+      }
     }
   }
-  if (b < 0) b = last;
-  t_out[i] = t;
-  b_out[i] = b;
-  mass_out[i] = row[b];
+  *mass = last_mass;
+  return last;
+}
+
+// Row CDF before row r (r in [0, T]): offset[c] at the start of chunk c,
+// else offset[c] + local[r - 1].
+__device__ double cdf_before(const double* offset, const double* local, int r,
+                             int R) {
+  const int c = r / R;
+  return r == c * R ? offset[c] : offset[c] + __ldcg(local + r - 1);
+}
+
+// Level 2 of the search: the first row of chunk c whose offset[c] +
+// local[t] reaches `target`, in rounds of kFan independent loads. Each
+// round cuts [a, b) into kFan parts and keeps the first part whose last
+// entry reaches the target; the last round reads every entry left.
+// Returns that row (the chunk's end when no row reaches the target, which
+// only rounding can cause) and sets *prev to offset[c] + local[row - 1]
+// (offset[c] for the chunk's first row).
+__device__ __forceinline__ int search_chunk(const double* local,
+                                            const double* offset, int c,
+                                            int R, int T, double target,
+                                            double* prev) {
+  const double base = offset[c];
+  int a = c * R;
+  int b = T - a < R ? T : a + R;
+  double before = base;  // the row CDF before row a
+  while (b - a > kFan) {
+    const int part = (b - a + kFan - 1) / kFan;
+    double v[kFan];
+#pragma unroll
+    for (int k = 0; k < kFan; ++k)
+      v[k] = base + __ldcg(local + min(a + (k + 1) * part, b) - 1);
+    int keep = 0;
+#pragma unroll
+    for (int k = 0; k < kFan; ++k) {
+      if (v[k] < target) {
+        keep = k + 1;
+        before = v[k];
+      }
+    }
+    const int na = min(a + keep * part, b);
+    b = min(a + (keep + 1) * part, b);
+    a = na;
+  }
+  double v[kFan];
+#pragma unroll
+  for (int k = 0; k < kFan; ++k)
+    v[k] = a + k < b ? base + __ldcg(local + a + k) : target;
+  int row = a;
+#pragma unroll
+  for (int k = 0; k < kFan; ++k) {
+    if (v[k] < target) {
+      row = a + k + 1;
+      before = v[k];
+    }
+  }
+  *prev = before;
+  return row;
+}
+
+// Every block's role comes from a ticket it takes when it starts, not from
+// blockIdx: the first G tickets scan chunks, the next P draw samples. A
+// draw block waits for the chunk blocks, and it holds a ticket that was
+// handed out after all of theirs, so every block it waits for is already
+// running and waits for nothing itself. The wait cannot deadlock, however
+// the card schedules blocks, and needs no cooperative launch.
+enum SyncWord { kStart, kDone, kDrawn };  // _SYNC_WORDS in ops/sampler.py
+
+// A draw block that has waited this long traps (an error the wrapper's
+// caller sees) rather than hang the card.
+constexpr unsigned long long kMaxWaitNs = 10000000000ull;
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+struct Scratch {
+  double* rs;           // [T] row sums
+  double* local;        // [T] chunk-local inclusive row CDF
+  double* chunk_total;  // [G]
+};
+
+// Phase 1 for chunk c, then the hand-off. Scratch is written here and read
+// by the draw blocks of this launch, which read it with __ldcg (from L2,
+// never a stale L1 line).
+__device__ void scan_chunk(Shared& sh, const float* __restrict__ w, int c,
+                           int T, int B, int R, bool vec, const Scratch& sc,
+                           unsigned int* sync) {
+  // Rows [r0, r1), one row per thread per tile of kThreads rows; `carry`
+  // is the chunk's sum before the tile.
+  const long long r0 = static_cast<long long>(c) * R;
+  const long long r1 = r0 + R < T ? r0 + R : T;
+  double carry = 0.0;
+  for (long long base = r0; base < r1; base += kThreads) {
+    const long long t = base + threadIdx.x;
+    const bool mine = t < r1;
+    const double s = mine ? row_sum(w + t * B, B, vec) : 0.0;
+    double before, tile;
+    const double incl = carry + block_scan(s, sh.warp, &before, &tile);
+    if (mine) {
+      sc.rs[t] = s;
+      sc.local[t] = incl;
+      if (t == r1 - 1) sc.chunk_total[c] = incl;
+    }
+    carry += tile;
+  }
+  // Hand-off: publish the chunk, then count it done.
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(sync + kDone, 1u);
+  }
+}
+
+// Phase 2 for draw block d: samples [d * per, (d + 1) * per), once every
+// chunk is done.
+__device__ void draw_samples(Shared& sh, const float* __restrict__ w,
+                             const float* __restrict__ u, int d, int T,
+                             int B, int S, int R, int G, int P, bool vec,
+                             const Scratch& sc, unsigned int* sync,
+                             int32_t* __restrict__ t_out,
+                             int32_t* __restrict__ b_out,
+                             float* __restrict__ mass_out,
+                             float* __restrict__ total_out) {
+  const int per = (S + P - 1) / P;
+  const int i0 = d * per;
+  const int i1 = S - i0 < per ? S : i0 + per;
+  // The first uniform is in flight while the block waits.
+  float u_next = i0 + static_cast<int>(threadIdx.x) < i1
+                     ? __ldg(u + i0 + threadIdx.x) : 0.f;
+  if (threadIdx.x == 0) {
+    const unsigned long long start = now_ns();
+    while (*reinterpret_cast<volatile unsigned*>(sync + kDone) <
+           static_cast<unsigned>(G)) {
+      __nanosleep(32);
+      if (now_ns() - start > kMaxWaitNs) __trap();
+    }
+    __threadfence();
+    // Every draw block has seen the count once the last of them counts
+    // itself here, so the count goes back to zero for the next launch.
+    const unsigned last = static_cast<unsigned>(P - 1);
+    if (atomicInc(sync + kDrawn, last) == last) atomicExch(sync + kDone, 0u);
+  }
+  __syncthreads();
+
+  // Chunk offsets, in every draw block: each thread owns `seg` consecutive
+  // chunks; a block scan of the segment sums gives each segment's start.
+  const int seg = (G + kThreads - 1) / kThreads;
+  const int c0 = threadIdx.x * seg;
+  double seg_sum = 0.0;
+  for (int k = 0; k < seg; ++k) {
+    const int c = c0 + k;
+    if (c < G) {
+      const double v = __ldcg(sc.chunk_total + c);
+      sh.offset[c] = v;
+      seg_sum += v;
+    }
+  }
+  double running, unused;
+  block_scan(seg_sum, sh.warp, &running, &unused);
+  for (int k = 0; k < seg; ++k) {
+    const int c = c0 + k;
+    if (c < G) {
+      const double v = sh.offset[c];
+      sh.offset[c] = running;
+      running += v;
+      if (c == G - 1) {
+        sh.offset[G] = running;
+        if (d == 0) *total_out = static_cast<float>(running);
+      }
+    }
+  }
+  __syncthreads();
+  const double total = sh.offset[G];
+
+  for (int i = i0 + threadIdx.x; i < i1; i += kThreads) {
+    const float ui = u_next;
+    if (i + kThreads < i1) u_next = __ldg(u + i + kThreads);
+    const double target = static_cast<double>(ui) * total * (1.0 - 1e-5);
+    // Row: the lower bound on the row CDF, in two levels. The chunk is the
+    // first whose end offset[c + 1] reaches the target (shared memory);
+    // the row, the first of that chunk whose offset[c] + local[t] does.
+    int lo = 0, hi = G;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (sh.offset[mid + 1] < target) lo = mid + 1; else hi = mid;
+    }
+    double prev = 0.0;
+    const int count = lo < G ? search_chunk(sc.local, sh.offset, lo, R, T,
+                                            target, &prev)
+                             : T;
+    if (count % R == 0) {
+      prev = sh.offset[count / R];  // a chunk's first row, or T = G * R
+    } else if (lo == G) {
+      prev = cdf_before(sh.offset, sc.local, T, R);
+    }
+    int t = count < T ? count : T - 1;
+    const float* row = w + static_cast<size_t>(t) * B;
+    float m[kGroup];
+    load_lanes(row, 0, B, vec, m);  // in flight with the row's mass
+    double row_mass = __ldcg(sc.rs + t);
+    if (row_mass == 0.0) {
+      int f = t;
+      while (f < T && __ldcg(sc.rs + f) == 0.0) ++f;
+      if (f == T) {
+        f = t;
+        while (f > 0 && __ldcg(sc.rs + f) == 0.0) --f;
+      }
+      if (f != t) {
+        t = f;
+        prev = cdf_before(sh.offset, sc.local, t, R);
+        row = w + static_cast<size_t>(t) * B;
+        load_lanes(row, 0, B, vec, m);
+        row_mass = __ldcg(sc.rs + t);
+      }
+    }
+    const double residual = fmin(target - prev, row_mass * (1.0 - 1e-6));
+    float mass;
+    const int b = pick_lane(row, B, vec, residual, m, &mass);
+    t_out[i] = t;
+    b_out[i] = b;
+    mass_out[i] = mass;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+sample_kernel(const float* __restrict__ w, const float* __restrict__ u,
+              int T, int B, int S, int R, int G, int P, Scratch sc,
+              unsigned int* sync, int32_t* __restrict__ t_out,
+              int32_t* __restrict__ b_out, float* __restrict__ mass_out,
+              float* __restrict__ total_out) {
+  __shared__ Shared sh;
+  const bool vec = (B & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  if (threadIdx.x == 0)
+    sh.ticket = atomicInc(sync + kStart, static_cast<unsigned>(G + P - 1));
+  __syncthreads();
+  const int ticket = static_cast<int>(sh.ticket);
+  if (ticket < G) {
+    scan_chunk(sh, w, ticket, T, B, R, vec, sc, sync);
+  } else {
+    draw_samples(sh, w, u, ticket - G, T, B, S, R, G, P, vec, sc, sync,
+                 t_out, b_out, mass_out, total_out);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches (a), (b), (c) on `stream`; returns the first nonzero
-// cudaGetLastError() code, or 0. `rs` [T] and `cdf` [T] (f64) are scratch
-// the caller allocates; nothing here allocates or synchronises.
+// Launches the kernel on `stream`: G chunk blocks of R rows and P draw
+// blocks (the caller's launch_geometry). Returns the cudaGetLastError()
+// code, or cudaErrorInvalidValue for sizes the kernel does not take.
+// `scratch` holds 2 * T + G f64 (row sums, local CDF, chunk totals);
+// `sync` is three zeroed u32 words that the kernel leaves at zero. One `sync` (and one scratch) serves one stream at a time.
+// Nothing here allocates or synchronises.
 int dqn_stratified_sample(const float* w, const float* u, int T, int B,
-                          int S, double* rs, double* cdf, float* total,
-                          int32_t* t_idx, int32_t* b_idx, float* mass,
-                          void* stream) {
-  if (T <= 0 || B <= 0 || S <= 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  row_sums_kernel<<<(T + kRowThreads - 1) / kRowThreads, kRowThreads, 0,
-                    s>>>(w, T, B, rs);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  row_cdf_kernel<<<1, kScanThreads, 0, s>>>(rs, T, cdf, total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  draw_kernel<<<(S + kDrawThreads - 1) / kDrawThreads, kDrawThreads, 0, s>>>(
-      w, rs, cdf, u, T, B, S, t_idx, b_idx, mass);
+                          int S, int R, int G, int P, double* scratch,
+                          unsigned int* sync, int32_t* t_idx, int32_t* b_idx,
+                          float* mass, float* total, void* stream) {
+  if (T <= 0 || B <= 0 || S <= 0 || R <= 0 || R > (1 << 24) ||
+      R % kThreads != 0 || T > 0x7fffffff - 2 * R || G <= 0 ||
+      G > kMaxChunks || (static_cast<long long>(T) + R - 1) / R != G ||
+      P <= 0 || P > S || P > (1 << 30))
+    return cudaErrorInvalidValue;
+  const Scratch sc{scratch, scratch + T, scratch + 2LL * T};
+  sample_kernel<<<G + P, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, u, T, B, S, R, G, P, sc, sync, t_idx, b_idx, mass, total);
   return cudaGetLastError();
+}
+
+// The kernel's static shared memory in bytes, or minus a CUDA error code.
+int dqn_stratified_sample_static_smem() {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, sample_kernel);
+  return err == cudaSuccess ? static_cast<int>(attr.sharedSizeBytes)
+                            : -static_cast<int>(err);
 }
 
 const char* dqn_cuda_error_string(int code) {

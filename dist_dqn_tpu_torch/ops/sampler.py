@@ -12,7 +12,9 @@ Counterpart of ``dist_dqn_tpu/ops/pallas_sampler.py``:
     kernel ``_sample_kernel`` / ``pallas_stratified_sample``. On a CUDA
     tensor it launches the kernel or raises; on a CPU tensor, and only
     there, it runs :func:`plain_stratified_sample`, the same four phases
-    in torch ops. ``kernel_stratified_sample.launches`` counts launches.
+    in torch ops. ``kernel_stratified_sample.launches`` counts launches,
+    and :func:`launch_geometry` gives the kernel's grid (one launch: G
+    blocks that each scan a chunk of R rows, and P blocks that draw).
   * :func:`importance_weights` (``:250``).
 
 The kernel is compiled with ``nvcc`` into ``build/dist_dqn_tpu_torch/`` at
@@ -27,7 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,6 +37,13 @@ _SRC = Path(__file__).resolve().parents[1] / "csrc" / "stratified_sample.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dist_dqn_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# Mirrors kThreads and kMaxChunks in csrc/stratified_sample.cu.
+SAMPLER_THREADS = 256
+SAMPLER_MAX_CHUNKS = 2048
+# Samples per draw block: few enough that a block's scattered loads wait
+# on latency, not on its SM's load unit.
+SAMPLER_DRAW_SAMPLES = 32
+_SYNC_WORDS = 3           # kStart, kDone, kDrawn
 
 Samples = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -141,8 +150,11 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_library()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.dqn_stratified_sample.argtypes = [
-                ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+                ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                ptr, ptr, ptr]
             lib.dqn_stratified_sample.restype = i32
+            lib.dqn_stratified_sample_static_smem.argtypes = []
+            lib.dqn_stratified_sample_static_smem.restype = i32
             lib.dqn_cuda_error_string.argtypes = [i32]
             lib.dqn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -163,47 +175,103 @@ def _check_inputs(w: torch.Tensor, u: torch.Tensor) -> None:
         raise ValueError("dimension too large for the kernel's int32 sizes")
 
 
+class LaunchGeometry(NamedTuple):
+    """How the kernel cuts a draw of S samples from a [T, B] plane: one
+    launch of ``chunks`` (G) blocks that each scan ``rows_per_chunk`` (R)
+    consecutive rows, with G·R >= T > (G−1)·R, and ``draw_blocks`` (P)
+    blocks that draw the samples, all of ``threads`` threads."""
+    rows_per_chunk: int
+    chunks: int
+    draw_blocks: int
+    threads: int
+    scratch_f64: int          # row sums [T], local CDF [T], totals [G]
+    static_smem_bytes: int    # the kernel's `Shared` struct
+
+
+def launch_geometry(T: int, S: int = 1) -> LaunchGeometry:
+    """The kernel's grid for ``T`` rows and ``S`` samples: chunks of one
+    tile of ``SAMPLER_THREADS`` rows each (G = 245 at the apex preset's
+    T=62,500, so every SM scans one), grown by whole tiles only where T
+    needs more than ``SAMPLER_MAX_CHUNKS`` chunks, which is as many chunk
+    offsets as a block's shared memory holds; and one draw block per
+    ``SAMPLER_DRAW_SAMPLES`` samples."""
+    tiles = -(-T // SAMPLER_THREADS)
+    rows = SAMPLER_THREADS * -(-tiles // SAMPLER_MAX_CHUNKS)
+    chunks = -(-T // rows)
+    draws = -(-S // SAMPLER_DRAW_SAMPLES)
+    warps = SAMPLER_THREADS // 32
+    # double offset[max_chunks + 1]; double warp[warps]; u32 ticket (padded).
+    smem = 8 * (SAMPLER_MAX_CHUNKS + 1 + warps + 1)
+    return LaunchGeometry(rows, chunks, draws, SAMPLER_THREADS,
+                          2 * T + chunks, smem)
+
+
+# Per card: the kernel's sync words (three u32 it leaves at zero)
+# and its scratch, allocated once and grown as T grows. One pair serves
+# one stream at a time, which is how the port draws.
+_workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, scratch_f64: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    ws = _workspaces.get(device.index)
+    if ws is None or ws[1].numel() < scratch_f64:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the sampler kernel's workspace is allocated outside CUDA "
+                "graph capture: make one eager call at this T (or larger) "
+                "before capturing")
+        sync = (ws[0] if ws is not None else
+                torch.zeros(_SYNC_WORDS, dtype=torch.int32, device=device))
+        scratch = torch.empty(scratch_f64, dtype=torch.float64, device=device)
+        ws = _workspaces[device.index] = (sync, scratch)
+    return ws
+
+
 def kernel_stratified_sample(w: torch.Tensor, u: torch.Tensor) -> Samples:
     """Draw ``u.shape[0]`` samples ~ ``w`` (a [T, B] non-negative f32 mass
     plane) at stratified uniforms ``u`` [S] in [0, 1).
 
     Returns (t_idx [S] int32, b_idx [S] int32, mass_sel [S] f32,
-    total [] f32). A CUDA tensor launches the Hopper kernel on the current
-    stream (no synchronisation) and raises if the launch fails; a CPU
-    tensor runs :func:`plain_stratified_sample`.
+    total [] f32), views of one fresh buffer. A CUDA tensor launches the
+    Hopper kernel on the current stream (no synchronisation) and raises if
+    the launch fails; a CPU tensor runs :func:`plain_stratified_sample`.
     """
     _check_inputs(w, u)
-    if w.device.type == "cpu":
+    device = w.device
+    if device.type == "cpu":
         return plain_stratified_sample(w, u)
-    if w.device.type != "cuda":
-        raise ValueError(f"unsupported device {w.device}")
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
     if not (w.is_contiguous() and u.is_contiguous()):
         raise ValueError("the kernel takes contiguous w and u")
+    if device.index != torch.cuda.current_device():
+        # The kernel launches on the current card.
+        with torch.cuda.device(device):
+            return kernel_stratified_sample(w, u)
     lib = _load()
     T, B = w.shape
     S = u.shape[0]
-    f32 = dict(dtype=torch.float32, device=w.device)
-    i32 = dict(dtype=torch.int32, device=w.device)
-    # Scratch of (a) and (b). Dropping it on return while the launches may
-    # still run is safe: the caching allocator hands the memory only to
-    # work queued later on this same stream.
-    rs = torch.empty(T, dtype=torch.float64, device=w.device)
-    cdf = torch.empty(T, dtype=torch.float64, device=w.device)
-    total = torch.empty((), **f32)
-    t_idx = torch.empty(S, **i32)
-    b_idx = torch.empty(S, **i32)
-    mass = torch.empty(S, **f32)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.dqn_stratified_sample(
-            w.data_ptr(), u.data_ptr(), T, B, S, rs.data_ptr(),
-            cdf.data_ptr(), total.data_ptr(), t_idx.data_ptr(),
-            b_idx.data_ptr(), mass.data_ptr(), stream)
+    geo = launch_geometry(T, S)
+    sync, scratch = _workspace(device, geo.scratch_f64)
+    # t_idx [S] | b_idx [S] | mass [S] | total, 4 bytes each.
+    out = torch.empty(3 * S + 1, dtype=torch.int32, device=device)
+    base = out.data_ptr()
+    # The current stream's handle: torch.cuda.current_stream() would build
+    # a Stream object on every call, which costs about as much host time
+    # as the launch itself.
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    err = lib.dqn_stratified_sample(
+        w.data_ptr(), u.data_ptr(), T, B, S, geo.rows_per_chunk, geo.chunks,
+        geo.draw_blocks, scratch.data_ptr(), sync.data_ptr(), base,
+        base + 4 * S, base + 8 * S, base + 12 * S, stream)
     if err != 0:
         raise RuntimeError("stratified sample kernel launch failed: "
                            + lib.dqn_cuda_error_string(err).decode())
     kernel_stratified_sample.launches += 1
-    return t_idx, b_idx, mass, total
+    t_idx, b_idx, rest = out.split([S, S, S + 1])
+    values = rest.view(torch.float32)
+    return t_idx, b_idx, values[:S], values[S]
 
 
 kernel_stratified_sample.launches = 0
