@@ -9,23 +9,31 @@ them or outside a checkout of the repository. Phases, each fatal:
 1. Build every kernel of the port from ``dist_dqn_tpu_torch/csrc/`` (one
    nvcc per source, all started together).
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and time both beside one PyTorch
-   library call computing the same function and the card's bound. Times
+   shapes the main paths give it (the sampler: the apex PER plane, a ragged
+   mostly-zero plane, and R2D2's sequence plane with mass in every 40th
+   row), and time both beside one PyTorch library call computing the same
+   function and the card's bound. Times
    are device times (CUDA events around replays of a CUDA graph of 20
    calls); the ``*eager_ms`` keys time the same calls launched from
    Python one by one, which is what the main path pays. The kernel's
    outputs from CUDA graph replays must equal an eager call's, and
    ``device_launches_per_call`` counts the kernels the card runs per
    call (torch.profiler).
-3. Drive the main path: ``dist_dqn_tpu_torch.train.train`` on the apex
-   preset at full width (1M-transition PER ring, batch 512, Nature CNN,
-   bf16) past ``min_fill`` for a few hundred grad steps and an eval, with
-   the kernel launch counters zeroed just before and read just after.
-4. Check the outputs: finite loss and priorities, Q-values of the expected
+3. Drive the main paths through ``dist_dqn_tpu_torch.train.train``, each
+   at full width past ``min_fill`` for a few hundred grad steps and an
+   eval, with the kernel launch counters zeroed just before and read just
+   after each:
+   * apex: 1M-transition PER ring, batch 512, Nature CNN, bf16;
+   * r2d2 with ``replay.pallas_sampler=True``: the recurrent Nature-CNN +
+     LSTM-512 net (bf16), 6,250 x 16 sequence ring, 64 sequences of 125
+     steps per grad step, one sampler launch per grad step.
+4. Check each path's outputs: finite loss and priorities (for r2d2, live
+   exactly where the loop's host predicate says), Q-values of the expected
    shape that agree with a float32 reference forward of the same weights.
 
-Then it prints the ``kernels`` JSON line, the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``.
+It prints one ``main_path`` line per path, then the ``kernels`` JSON line,
+the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 
 Reference numerics: float32 matmuls and convolutions run without TF32
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -45,10 +53,11 @@ from concurrent.futures import ThreadPoolExecutor
 # float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Main path: apex fills its ring at 50,000 frames (min_fill); 14,000 more
-# are about 875 grad steps at 16 frames per step.
-MAIN_PATH_ENV_STEPS = 64_000
-CHUNK_ITERS = 500
+# Main paths, as (total env frames, iterations per chunk). apex fills its
+# ring at 50,000 frames (min_fill); 14,000 more are about 875 grad steps at
+# 16 frames per step. r2d2 fills at 2,500 frames (157 iterations of 16
+# envs); 8,000 frames are 500 iterations, 344 of them with a grad step.
+MAIN_PATHS = {"apex": (64_000, 500), "r2d2": (8_000, 100)}
 TIMING_ITERS = 200
 
 
@@ -142,28 +151,79 @@ def _graph_replay_matches(fn, calls: int = 20, replays: int = 2) -> bool:
     return ok and same(fn())
 
 
-def _mass(rng, T, B, zero_frac):
+def _mass(rng, T, B, zero_frac, row_stride=1):
+    """A [T, B] plane of masses in [0.1, 2): a ``zero_frac`` share of its
+    cells zero, and only every ``row_stride``-th row with mass at all."""
     import numpy as np
     w = rng.uniform(0.1, 2.0, (T, B)).astype(np.float32)
     w[rng.uniform(size=(T, B)) < zero_frac] = 0.0
+    w[np.arange(T) % row_stride != 0] = 0.0
     return w
 
 
+# name: (T, B, S, zero share, row stride). The apex PER plane; a ragged,
+# mostly zero one; and R2D2's sequence plane, where window starts are
+# seeded every sequence_stride=40 writes, so only every 40th row has mass.
+SAMPLER_CASES = {"apex": (62500, 16, 512, 0.3, 1),
+                 "ragged": (700, 8, 128, 0.9, 1),
+                 "r2d2": (6250, 16, 64, 0.0, 40)}
+TIMED_CASES = ("apex", "r2d2")
+
+
+def _time_sampler(sampler, w, u, iters: int) -> dict:
+    """Kernel, plain version and library call at one shape: device and
+    eager times, the card's bound, graph-replay equality and device
+    kernels per call. Fails if graph replays differ from an eager call."""
+    import torch
+
+    T, B = w.shape
+    S = u.shape[0]
+
+    def kernel():
+        return sampler.kernel_stratified_sample(w, u)
+
+    replay_ok = _graph_replay_matches(kernel)
+    launches_per_call = _device_launches_per_call(kernel)
+    if not replay_ok:
+        _fail(f"sampler kernel outputs differ between eager calls and CUDA "
+              f"graph replays (T={T})")
+    flat = w.reshape(-1)
+
+    def library():
+        cdf = torch.cumsum(flat, dim=0)
+        return torch.searchsorted(cdf, u * cdf[-1])
+
+    fns = {"": kernel,
+           "plain_": lambda: sampler.plain_stratified_sample(w, u),
+           "library_": library}
+    device = {f"{k}ms": _device_ms(fn) for k, fn in fns.items()}
+    eager = {f"{k}eager_ms": _eager_ms(fn, iters) for k, fn in fns.items()}
+    # Least work: read the plane and u once, write the three [S] outputs
+    # and the total once; add every cell once, scan the T row sums, and per
+    # sample search log2(T) rows and walk B lanes.
+    bytes_moved = T * B * 4 + S * 4 + S * 12 + 4
+    ops = T * B + T + S * (math.ceil(math.log2(T)) + B)
+    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / F32_OPS_PER_S * 1e3
+    return {**device, "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops
+            else "operations", **eager, "graph_replay_equal": replay_ok,
+            "device_launches_per_call": launches_per_call}
+
+
 def check_sampler(sampler, iters: int) -> dict:
-    """Kernel vs plain version at the apex shape (T=62500, B=16, S=512, 30%
-    zero mass) and a ragged 90%-zero case (T=700, B=8, S=128). Bars: >= 98%
+    """Kernel vs plain version at every case of SAMPLER_CASES. Bars: >= 98%
     (t, b) agreement, mass_sel == w[t, b] to rtol 1e-6, no zero-mass pick,
-    t < T, total to rtol 1e-5. Times the apex case."""
+    t < T, total to rtol 1e-5. Times the TIMED_CASES; returns the largest
+    error and each timed case's numbers."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    report = {}
-    max_err = 0.0
-    for name, (T, B, S, zero) in (("apex", (62500, 16, 512, 0.3)),
-                                  ("ragged", (700, 8, 128, 0.9))):
-        w_np = _mass(rng, T, B, zero)
+    report = {"max_abs_err": 0.0}
+    for name, (T, B, S, zero, row_stride) in SAMPLER_CASES.items():
+        w_np = _mass(rng, T, B, zero, row_stride)
         u_np = ((np.arange(S) + rng.uniform(size=S)) / S).astype(np.float32)
         w = torch.from_numpy(w_np).to(dev)
         u = torch.from_numpy(u_np).to(dev)
@@ -189,65 +249,33 @@ def check_sampler(sampler, iters: int) -> dict:
         }
         err = max(abs(totk - totp),
                   float(np.abs(pk - pp)[agree_mask].max(initial=0.0)))
-        max_err = max(max_err, err)
-        report[name] = {"T": T, "B": B, "S": S, "agreement": agree,
-                        "max_abs_err": err, "checks": checks}
-        print(json.dumps({"sampler_check": name, **report[name]}),
-              flush=True)
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+        print(json.dumps({"sampler_check": name, "T": T, "B": B, "S": S,
+                          "rows_with_mass": int((w_np > 0).any(1).sum()),
+                          "agreement": agree, "max_abs_err": err,
+                          "checks": checks}), flush=True)
         if not all(checks.values()):
             _fail(f"sampler kernel disagrees with its plain version "
                   f"({name}): {checks}")
-        if name == "apex":
-            apex = (w, u, T, B, S)
-
-    w, u, T, B, S = apex
-
-    def kernel():
-        return sampler.kernel_stratified_sample(w, u)
-
-    replay_ok = _graph_replay_matches(kernel)
-    launches_per_call = _device_launches_per_call(kernel)
-    print(json.dumps({"sampler_graph_replay_equal": replay_ok,
-                      "device_launches_per_call": launches_per_call}),
-          flush=True)
-    if not replay_ok:
-        _fail("sampler kernel outputs differ between eager calls and CUDA "
-              "graph replays")
-    flat = w.reshape(-1)
-
-    def library():
-        cdf = torch.cumsum(flat, dim=0)
-        return torch.searchsorted(cdf, u * cdf[-1])
-
-    fns = {"": kernel,
-           "plain_": lambda: sampler.plain_stratified_sample(w, u),
-           "library_": library}
-    device = {f"{k}ms": _device_ms(fn) for k, fn in fns.items()}
-    eager = {f"{k}eager_ms": _eager_ms(fn, iters) for k, fn in fns.items()}
-    # Least work: read the plane and u once, write the three [S] outputs
-    # and the total once; add every cell once, scan the T row sums, and per
-    # sample search log2(T) rows and walk B lanes.
-    bytes_moved = T * B * 4 + S * 4 + S * 12 + 4
-    ops = T * B + T + S * (math.ceil(math.log2(T)) + B)
-    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops = ops / F32_OPS_PER_S * 1e3
-    timing = {**device, "bound_ms": max(bound_bytes, bound_ops),
-              "bound_by": "bytes" if bound_bytes >= bound_ops
-              else "operations"}
-    print(json.dumps({"sampler_timing": "apex", "T": T, "B": B, "S": S,
-                      **timing, **eager}), flush=True)
-    return {"max_abs_err": max_err, **timing, **eager,
-            "device_launches_per_call": launches_per_call}
+        if name in TIMED_CASES:
+            timing = _time_sampler(sampler, w, u, iters)
+            print(json.dumps({"sampler_timing": name, "T": T, "B": B,
+                              "S": S, **timing}), flush=True)
+            report[name] = {"T": T, "B": B, "S": S, **timing}
+    return report
 
 
-def drive_main_path(total_env_steps: int, chunk_iters: int):
-    """The apex preset through the port's train() on the card."""
+def drive_main_path(name: str, total_env_steps: int, chunk_iters: int):
+    """One preset through the port's train() on the card: apex as it is,
+    r2d2 with the sampler kernel's route (``replay.pallas_sampler``)."""
     import torch
 
-    from dist_dqn_tpu_torch.config import CONFIGS
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
     from dist_dqn_tpu_torch.train import train
 
-    cfg = CONFIGS["apex"]
+    cfg = CONFIGS[name]
+    if name == "r2d2":
+        cfg = apply_overrides(cfg, ["replay.pallas_sampler=true"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     carry, history = train(cfg, total_env_steps=total_env_steps,
@@ -259,7 +287,30 @@ def drive_main_path(total_env_steps: int, chunk_iters: int):
     return cfg, carry, history, wall
 
 
-def check_outputs(cfg, carry, history, launches: int) -> dict:
+def _check_live_starts(cfg, replay) -> int:
+    """R2D2's host predicate against the priority plane: live rows (every
+    lane > 0) exactly at the slots of ``live_start_writes``. Returns how
+    many there are."""
+    import torch
+
+    from dist_dqn_tpu_torch.replay.sequence_device import live_start_writes
+
+    num_slots = replay.priorities.shape[0]
+    rcfg = cfg.replay
+    seq_len = rcfg.burn_in + rcfg.unroll_length + cfg.learner.n_step
+    stride = rcfg.sequence_stride or rcfg.unroll_length
+    want = sorted(s % num_slots for s in live_start_writes(
+        replay.writes, num_slots, seq_len, stride))
+    live = replay.priorities > 0
+    rows = live.any(dim=1)
+    got = rows.nonzero()[:, 0].tolist()
+    if got != want or not bool(live[rows].all()):
+        _fail(f"live priority rows {got} differ from the host predicate's "
+              f"{want}")
+    return len(got)
+
+
+def check_outputs(name: str, cfg, carry, history, launches: int) -> dict:
     """Grad steps taken through the kernel, finite loss and priorities,
     and Q-values of the trained net that agree with a float32 reference
     forward of the same weights on a small input."""
@@ -272,37 +323,45 @@ def check_outputs(cfg, carry, history, launches: int) -> dict:
     grad_steps = int(sum(r["grad_steps_in_chunk"] for r in history))
     losses = [r["loss"] for r in history if r["grad_steps_in_chunk"]]
     if grad_steps <= 0:
-        _fail("the main path took no grad steps")
+        _fail(f"{name}: the main path took no grad steps")
     if not all(math.isfinite(x) for x in losses):
-        _fail(f"non-finite loss: {losses}")
-    if launches < grad_steps:
-        _fail(f"sampler kernel launched {launches} times for {grad_steps} "
-              "grad steps")
+        _fail(f"{name}: non-finite loss: {losses}")
+    recurrent = bool(cfg.network.lstm_size)
+    # apex draws once per grad step; r2d2 too, and never otherwise.
+    if launches < grad_steps or (recurrent and launches != grad_steps):
+        _fail(f"{name}: sampler kernel launched {launches} times for "
+              f"{grad_steps} grad steps")
     if not any("eval_return" in r for r in history):
-        _fail("no eval ran")
+        _fail(f"{name}: no eval ran")
     pr = carry.replay.priorities
     if not bool(torch.isfinite(pr).all()) or bool((pr < 0).any()):
-        _fail("non-finite or negative priorities")
+        _fail(f"{name}: non-finite or negative priorities")
+    out = {"grad_steps": grad_steps, "final_loss": losses[-1]}
+    if recurrent:
+        out["live_starts"] = _check_live_starts(cfg, carry.replay)
     net = carry.learner.net
     obs = carry.obs[:8]
     ref = build_network(dataclasses.replace(cfg.network,
-                                            compute_dtype="float32"),
+                                            compute_dtype="float32",
+                                            lstm_dtype="float32"),
                         net.num_actions, tuple(obs.shape[1:]),
                         device=obs.device)
     ref.load_state_dict(net.state_dict())
     with torch.no_grad():
-        q = net(obs)
-        q32 = ref(obs)
+        if recurrent:
+            state = tuple(x[:8] for x in carry.actor_carry)
+            q, q32 = net(state, obs)[1], ref(state, obs)[1]
+        else:
+            q, q32 = net(obs), ref(obs)
     if tuple(q.shape) != (8, 6) or not bool(torch.isfinite(q).all()):
-        _fail(f"Q-values of shape {tuple(q.shape)} or non-finite")
-    # bf16 keeps 8 significant bits through five layers.
+        _fail(f"{name}: Q-values of shape {tuple(q.shape)} or non-finite")
+    # bf16 keeps 8 significant bits through five layers (and the cell).
     scale = float(q32.abs().max().clamp(min=1e-3))
     q_err = float((q - q32).abs().max())
     if q_err > 0.05 * scale:
-        _fail(f"bf16 Q-values off the f32 reference by {q_err} "
+        _fail(f"{name}: bf16 Q-values off the f32 reference by {q_err} "
               f"(scale {scale})")
-    return {"grad_steps": grad_steps, "final_loss": losses[-1],
-            "q_bf16_vs_f32_max_abs": q_err, "q_scale": scale}
+    return {**out, "q_bf16_vs_f32_max_abs": q_err, "q_scale": scale}
 
 
 def main() -> int:
@@ -326,38 +385,51 @@ def main() -> int:
 
     sampler_report = check_sampler(sampler, TIMING_ITERS)
 
-    sampler.kernel_stratified_sample.launches = 0
-    cfg, carry, history, wall = drive_main_path(MAIN_PATH_ENV_STEPS,
-                                                CHUNK_ITERS)
-    launches = sampler.kernel_stratified_sample.launches
-    outputs = check_outputs(cfg, carry, history, launches)
-    steady = history[1:]
-    print(json.dumps({
-        "main_path": "apex", "device": torch.cuda.get_device_name(0),
-        "wall_s": wall, "env_frames": history[-1]["env_frames"],
-        "env_steps_per_sec_last": history[-1]["env_steps_per_sec"],
-        "grad_steps_per_sec_last": history[-1]["grad_steps_per_sec"],
-        "env_steps_per_sec_chunks": [r["env_steps_per_sec"] for r in steady],
-        "grad_steps_per_sec_chunks": [r["grad_steps_per_sec"]
-                                      for r in steady],
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "sampler_launches": launches, **outputs}), flush=True)
+    launches = {}
+    for name, (total_env_steps, chunk_iters) in MAIN_PATHS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sampler.kernel_stratified_sample.launches = 0
+        cfg, carry, history, wall = drive_main_path(name, total_env_steps,
+                                                    chunk_iters)
+        launches[name] = sampler.kernel_stratified_sample.launches
+        outputs = check_outputs(name, cfg, carry, history, launches[name])
+        steady = history[1:]
+        print(json.dumps({
+            "main_path": name, "device": torch.cuda.get_device_name(0),
+            "wall_s": wall, "env_frames": history[-1]["env_frames"],
+            "env_steps_per_sec_last": history[-1]["env_steps_per_sec"],
+            "grad_steps_per_sec_last": history[-1]["grad_steps_per_sec"],
+            "env_steps_per_sec_chunks": [r["env_steps_per_sec"]
+                                         for r in steady],
+            "grad_steps_per_sec_chunks": [r["grad_steps_per_sec"]
+                                          for r in steady],
+            "grad_steps_in_chunks": [r["grad_steps_in_chunk"]
+                                     for r in history],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sampler_launches": launches[name], **outputs}), flush=True)
+        del carry, history
 
+    apex = sampler_report["apex"]
     kernels = [{
         "name": "stratified_sample",
         "route": "cuda",
         "source": "dist_dqn_tpu_torch/csrc/stratified_sample.cu",
         "replaces": "dist_dqn_tpu/ops/pallas_sampler.py:70",
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": sampler_report["max_abs_err"],
-        "ms": sampler_report["ms"],
-        "plain_ms": sampler_report["plain_ms"],
-        "bound_ms": sampler_report["bound_ms"],
-        "bound_by": sampler_report["bound_by"],
-        "library_ms": sampler_report["library_ms"],
-        "eager_ms": sampler_report["eager_ms"],
-        "device_launches_per_call":
-            sampler_report["device_launches_per_call"],
+        "ms": apex["ms"],
+        "plain_ms": apex["plain_ms"],
+        "bound_ms": apex["bound_ms"],
+        "bound_by": apex["bound_by"],
+        "library_ms": apex["library_ms"],
+        "eager_ms": apex["eager_ms"],
+        "device_launches_per_call": apex["device_launches_per_call"],
+        # The same numbers at R2D2's sequence plane.
+        "r2d2_shape": {k: sampler_report["r2d2"][k] for k in (
+            "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "eager_ms", "device_launches_per_call")},
         "pass": True,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

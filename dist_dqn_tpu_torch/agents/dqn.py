@@ -1,11 +1,12 @@
 """The DQN learner and actor of the port (twin of dist_dqn_tpu/agents/dqn.py).
 
 Scalar-head branch only (``dqn.py:280-317``): double or max bootstrap,
-Huber TD loss weighted by PER importance weights, |TD| priorities; a
-hand-written clip-by-global-norm + Adam with optax's arithmetic
-(:class:`ClipAdam`); hard or Polyak target sync (``dqn.py:340-350``).
-Distributional, noisy, IQN, Munchausen and value-rescaled targets come
-with later slices and are refused by :func:`make_learner`.
+optionally value-rescaled (R2D2's h / h^-1), Huber TD loss weighted by PER
+importance weights, |TD| priorities; a hand-written clip-by-global-norm +
+Adam with optax's arithmetic (:class:`ClipAdam`); hard or Polyak target
+sync (``dqn.py:340-350``, :func:`sync_target`, shared with the R2D2
+learner). Distributional, noisy, IQN and Munchausen targets come with
+later slices and are refused by :func:`make_learner`.
 
 Parameters live in ``nn.Module``s and are updated in place; the step
 counters are host ints (they advance by one per step whatever the data,
@@ -142,6 +143,30 @@ class LearnerState:
     steps: int = 0          # completed gradient steps
 
 
+def init_learner_state(net: nn.Module, tx: ClipAdam) -> LearnerState:
+    """Wrap a built network into a :class:`LearnerState`: a distinct
+    target copy and zeroed optimizer moments."""
+    target = copy.deepcopy(net)
+    target.requires_grad_(False)
+    return LearnerState(net=net, target_net=target,
+                        opt_state=tx.init(list(net.parameters())))
+
+
+@torch.no_grad()
+def sync_target(cfg: LearnerConfig, state: LearnerState) -> None:
+    """After ``state.steps`` grad steps: a soft Polyak step toward the
+    online params every step (``target_tau > 0``), else a hard copy every
+    ``target_update_period`` steps."""
+    targets = state.target_net.parameters()
+    params = state.net.parameters()
+    if cfg.target_tau > 0.0:
+        for t, p in zip(targets, params):
+            t.copy_(t + cfg.target_tau * (p - t))
+    elif state.steps % cfg.target_update_period == 0:
+        for t, p in zip(targets, params):
+            t.copy_(p)
+
+
 def make_learner(cfg: LearnerConfig, tx: Optional[ClipAdam] = None):
     """Build (init, train_step) for a feed-forward scalar-head Q-network.
 
@@ -151,22 +176,15 @@ def make_learner(cfg: LearnerConfig, tx: Optional[ClipAdam] = None):
     device tensors ``loss``, ``raw_loss``, ``priorities`` [S] (|TD|),
     ``grad_norm`` and ``mean_q_target_gap``.
     """
-    later = [name for name, on in (("munchausen", cfg.munchausen),
-                                   ("value_rescale", cfg.value_rescale))
-             if on]
-    if later:
+    if cfg.munchausen:
         raise NotImplementedError(
-            f"learner.{', '.join(later)} is not ported yet: Munchausen "
-            "comes with the distributional-heads slice and value "
-            "rescaling with the R2D2 slice (ROADMAP.md)")
+            "learner.munchausen is not ported yet: it comes with the "
+            "distributional-heads slice (ROADMAP.md)")
     if tx is None:
         tx = make_optimizer(cfg)
 
     def init(net: nn.Module) -> LearnerState:
-        target = copy.deepcopy(net)
-        target.requires_grad_(False)
-        return LearnerState(net=net, target_net=target,
-                            opt_state=tx.init(list(net.parameters())))
+        return init_learner_state(net, tx)
 
     def train_step(state: LearnerState, batch: Transition,
                    weights: Optional[torch.Tensor] = None
@@ -182,7 +200,11 @@ def make_learner(cfg: LearnerConfig, tx: Optional[ClipAdam] = None):
                                                  q_next_target)
             else:
                 boot = q_next_target.max(dim=-1).values
+            if cfg.value_rescale:
+                boot = losses.inv_value_rescale(boot)
             target = batch.reward + batch.discount * boot
+            if cfg.value_rescale:
+                target = losses.value_rescale(target)
         q = net(batch.obs)
         qa = q.gather(-1, batch.action.long()[:, None])[:, 0]
         td = qa - target
@@ -191,16 +213,7 @@ def make_learner(cfg: LearnerConfig, tx: Optional[ClipAdam] = None):
         grads = torch.autograd.grad(loss, params)
         grad_norm = tx.step(params, list(grads), state.opt_state)
         state.steps += 1
-
-        with torch.no_grad():
-            targets = list(target_net.parameters())
-            if cfg.target_tau > 0.0:
-                # Soft Polyak sync every step.
-                for t, p in zip(targets, params):
-                    t.copy_(t + cfg.target_tau * (p - t))
-            elif state.steps % cfg.target_update_period == 0:
-                for t, p in zip(targets, params):
-                    t.copy_(p)
+        sync_target(cfg, state)
         priorities = td.detach().abs()
         metrics = {
             "loss": loss.detach(),

@@ -275,8 +275,10 @@ R2D2 = ExperimentConfig(
     network=NetworkConfig(torso="nature", hidden=512, dueling=True,
                           lstm_size=512, compute_dtype="bfloat16",
                           # Throughput knobs of the JAX package's
-                          # recurrent learner (models/recurrent.py); the
-                          # port has no R2D2 path yet.
+                          # recurrent learner (models/recurrent.py). The
+                          # port honours remat_torso and lstm_dtype;
+                          # lstm_unroll is scan scheduling there and
+                          # changes nothing here.
                           remat_torso=False,
                           lstm_dtype="bfloat16", lstm_unroll=8),
     replay=ReplayConfig(capacity=100_000, prioritized=True,

@@ -1,14 +1,16 @@
-"""Scaffolding of the fused training loop (twin of dist_dqn_tpu/loop_common.py).
+"""Scaffolding of the fused training loops (twin of
+dist_dqn_tpu/loop_common.py).
 
 Config resolution (train batch, replay ratio, shard sizes, flat ring
-storage), the epsilon / beta schedules, the per-step episode trackers and
-the sampler routing. The schedules are host functions of the host-int
-iteration counter, computed in float32 as optax's ``linear_schedule``
-computes them, so the loop never reads the device to know them.
+storage), the loops' generators, the epsilon / beta schedules, the
+per-step episode trackers, the chunk metrics and the sampler routing. The
+schedules are host functions of the host-int iteration counter, computed
+in float32 as optax's ``linear_schedule`` computes them, so the loop never
+reads the device to know them.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +90,15 @@ def flat_obs_codecs(flat_storage: bool, obs_shape):
             (lambda x: x.reshape(x.shape[:-1] + obs_shape)))
 
 
+def generators(seed: int, device: torch.device, n: int
+               ) -> List[torch.Generator]:
+    """``n`` device generators with independent seeds spawned from
+    ``seed``."""
+    seeds = np.random.SeedSequence(seed).generate_state(n, dtype=np.uint64)
+    return [torch.Generator(device=device).manual_seed(int(s))
+            for s in seeds]
+
+
 def _linear_schedule(init: float, end: float, steps: int
                      ) -> Callable[[int], float]:
     """optax.linear_schedule(init, end, steps)(count) in float32."""
@@ -133,6 +144,20 @@ def episode_stats_update(ep_return: torch.Tensor,
     completed_count = completed_count + done.float().sum()
     ep_return = torch.where(done, zero, ep_return)
     return ep_return, completed_return, completed_count
+
+
+def chunk_metrics(carry, B: int) -> Dict[str, object]:
+    """A chunk's metrics from a loop carry: device tensors the caller reads
+    once per chunk, and host ints ``env_frames`` and
+    ``grad_steps_in_chunk``."""
+    return {
+        "env_frames": carry.iteration * B,
+        "episode_return": carry.completed_return
+        / carry.completed_count.clamp(min=1.0),
+        "episodes": carry.completed_count,
+        "loss": carry.loss_sum / max(carry.train_count, 1),
+        "grad_steps_in_chunk": carry.train_count,
+    }
 
 
 def kernel_routing(enabled: bool, device: torch.device) -> bool:

@@ -12,8 +12,9 @@ Twin of ``dist_dqn_tpu/models/qnets.py:75-195`` + ``build_network``
     bias to bf16 and the head output back to f32, as flax does with f32
     params and ``dtype=bfloat16``.
 
-Noisy, distributional (C51/QR), IQN and recurrent heads are later slices
-of the port; :func:`build_network` refuses them by name.
+Noisy, distributional (C51/QR) and IQN heads are later slices of the
+port; :func:`build_network` refuses them by name. The recurrent R2D2
+network is in ``models/recurrent.py``.
 """
 from __future__ import annotations
 
@@ -123,6 +124,23 @@ def _conv_out(size: int, layers) -> int:
     return size
 
 
+def make_torso(torso: str, observation_shape: Tuple[int, ...],
+               mlp_features: Tuple[int, ...], dtype: torch.dtype,
+               generator: Optional[torch.Generator]
+               ) -> Tuple[nn.Module, int]:
+    """The named torso for ``observation_shape`` and its output width."""
+    if torso in CNN_TORSO_LAYERS:
+        layers = CNN_TORSO_LAYERS[torso]
+        h, w, c = observation_shape
+        width = _conv_out(h, layers) * _conv_out(w, layers) * layers[-1][0]
+        return CNNTorso(c, layers, dtype=dtype, generator=generator), width
+    if torso == "mlp":
+        body = MLPTorso(math.prod(observation_shape), mlp_features,
+                        dtype=dtype, generator=generator)
+        return body, body.out_features
+    raise ValueError(f"unknown torso {torso!r}")
+
+
 class QNetwork(nn.Module):
     """Configurable feed-forward Q-network with a scalar head: [B, A]
     Q-values, optionally through dueling value/advantage streams."""
@@ -136,19 +154,8 @@ class QNetwork(nn.Module):
         super().__init__()
         self.num_actions = num_actions
         self.compute_dtype = compute_dtype
-        if torso in CNN_TORSO_LAYERS:
-            layers = CNN_TORSO_LAYERS[torso]
-            h, w, c = observation_shape
-            self.torso = CNNTorso(c, layers, dtype=compute_dtype,
-                                  generator=generator)
-            width = (_conv_out(h, layers) * _conv_out(w, layers)
-                     * layers[-1][0])
-        elif torso == "mlp":
-            self.torso = MLPTorso(math.prod(observation_shape), mlp_features,
-                                  dtype=compute_dtype, generator=generator)
-            width = self.torso.out_features
-        else:
-            raise ValueError(f"unknown torso {torso!r}")
+        self.torso, width = make_torso(torso, observation_shape, mlp_features,
+                                       compute_dtype, generator)
         self.hidden = _dense(width, hidden, generator) if hidden else None
         width = hidden or width
         self.advantage = _dense(width, num_actions, generator)
@@ -174,9 +181,10 @@ class QNetwork(nn.Module):
 
 def build_network(cfg: NetworkConfig, num_actions: int,
                   observation_shape: Tuple[int, ...], device=None,
-                  seed: int = 0) -> QNetwork:
+                  seed: int = 0) -> nn.Module:
     """Build the Q-network for a config on ``device`` (default: the card),
-    with weights drawn from ``seed``."""
+    with weights drawn from ``seed``: recurrent (models/recurrent.py) when
+    ``cfg.lstm_size > 0``."""
     later = [name for name, on in (
         ("noisy", cfg.noisy), ("num_atoms>1", cfg.num_atoms > 1),
         ("iqn", cfg.iqn)) if on]
@@ -184,13 +192,20 @@ def build_network(cfg: NetworkConfig, num_actions: int,
         raise NotImplementedError(
             f"network {', '.join(later)} heads are not ported yet: they "
             "come with the distributional-heads slice (ROADMAP.md)")
-    if cfg.lstm_size:
-        raise NotImplementedError(
-            "the recurrent (lstm_size>0) network is not ported yet: it "
-            "comes with the R2D2 slice (ROADMAP.md)")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
         torch.float32
     gen = torch.Generator().manual_seed(seed)
+    if cfg.lstm_size:
+        from dist_dqn_tpu_torch.models.recurrent import RecurrentQNetwork
+        net = RecurrentQNetwork(
+            num_actions, tuple(observation_shape), torso=cfg.torso,
+            mlp_features=cfg.mlp_features, hidden=cfg.hidden,
+            lstm_size=cfg.lstm_size, dueling=cfg.dueling,
+            compute_dtype=dtype, remat_torso=cfg.remat_torso,
+            lstm_dtype=(torch.bfloat16 if cfg.lstm_dtype == "bfloat16"
+                        else torch.float32),
+            lstm_unroll=cfg.lstm_unroll, generator=gen)
+        return net.to(resolve_device(device))
     net = QNetwork(num_actions, tuple(observation_shape), torso=cfg.torso,
                    mlp_features=cfg.mlp_features, hidden=cfg.hidden,
                    dueling=cfg.dueling, compute_dtype=dtype, generator=gen)

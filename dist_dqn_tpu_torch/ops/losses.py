@@ -1,4 +1,5 @@
-"""TD-loss pieces of the scalar head (twin of dist_dqn_tpu/ops/losses.py:16-62).
+"""TD-loss pieces of the scalar head (twin of dist_dqn_tpu/ops/losses.py:16-62)
+and R2D2's value rescaling (``:115-122``).
 
 The distributional losses (C51 projection, quantile, IQN, Munchausen)
 come with the distributional-heads slice of the port.
@@ -23,3 +24,14 @@ def double_q_bootstrap(q_next_online: torch.Tensor,
     ``torch.argmax`` returns the first maximal index, as ``jnp.argmax``."""
     a_star = q_next_online.argmax(dim=-1, keepdim=True)
     return q_next_target.gather(-1, a_star)[..., 0]
+
+
+def value_rescale(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """R2D2's h(x) = sign(x) (sqrt(|x| + 1) - 1) + eps x."""
+    return torch.sign(x) * (torch.sqrt(x.abs() + 1.0) - 1.0) + eps * x
+
+
+def inv_value_rescale(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Exact inverse of :func:`value_rescale` (closed form)."""
+    inner = torch.sqrt(1.0 + 4.0 * eps * (x.abs() + 1.0 + eps))
+    return torch.sign(x) * (torch.square((inner - 1.0) / (2.0 * eps)) - 1.0)

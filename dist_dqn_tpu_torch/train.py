@@ -1,20 +1,23 @@
 """Training entrypoint of the port: ``python -m dist_dqn_tpu_torch.train
---config apex``.
+--config apex`` (or ``--config r2d2``).
 
 The fused single-device branch of ``dist_dqn_tpu/train.py``: picks a
 preset, builds the env / network / learner on the card, runs the fused
-loop (train_loop.py) chunk by chunk with periodic greedy evaluation, and
+loop chunk by chunk with periodic greedy evaluation (train_loop.py, or
+r2d2_loop.py for a recurrent network, ``network.lstm_size > 0``), and
 prints one JSON row per chunk with the same keys as the JAX package
 (``env_frames``, ``episode_return``, ``episodes``, ``loss``,
 ``env_steps_per_sec``, ``grad_steps_in_chunk``, ``grad_steps_per_sec``,
-and ``eval_return`` on the eval cadence). ``--profile-dir`` traces the
-second chunk with ``torch.profiler``, as the JAX CLI's flag does with
-``jax.profiler``.
+and ``eval_return`` on the eval cadence). ``--profile-dir`` traces one
+chunk (the second, or ``--profile-chunk``) with ``torch.profiler``, as the
+JAX CLI's flag does with ``jax.profiler``.
 
 Runs on ``cuda`` unless ``--device cpu`` / ``device="cpu"`` is given.
 Checkpointing, meshes, populations, frame dedup, the bf16 actor split,
 replay ratios above 1 and the other runtimes are not ported yet; asking
-for any of them raises instead of being ignored.
+for any of them raises instead of being ignored. That holds for recurrent
+configs too, where the JAX CLI warns and ignores the replay ratio, the
+bf16 actor and populations.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from dist_dqn_tpu_torch.config import CONFIGS, ExperimentConfig, \
     apply_overrides
 from dist_dqn_tpu_torch.envs import make_env
 from dist_dqn_tpu_torch.models import build_network
+from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_evaluator, make_r2d2_train
 from dist_dqn_tpu_torch.train_loop import make_evaluator, make_fused_train
 from dist_dqn_tpu_torch.utils.device import resolve_device
 
@@ -45,19 +49,23 @@ def check_ported(cfg: ExperimentConfig) -> None:
         refused.append("replay.frame_dedup")
     if cfg.network.actor_dtype not in ("", "float32"):
         refused.append(f"network.actor_dtype={cfg.network.actor_dtype}")
-    if cfg.replay.burn_in or cfg.replay.unroll_length:
-        refused.append("sequence replay (burn_in/unroll_length)")
     if refused:
         raise NotImplementedError(
             f"not ported yet: {', '.join(refused)} (ROADMAP.md lists the "
             "slices that bring them)")
 
 
+def _device_spans(prof):
+    """(start, end) of every device event (kernel, copy, memset) the
+    profiler saw, sorted by start."""
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 def _busy_seconds(prof) -> float:
     """Seconds in which at least one kernel the profiler saw was running
     (the union of the kernels' intervals); 0.0 when it saw none."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = _device_spans(prof)
     busy_us, reach = 0.0, float("-inf")
     for start, end in spans:      # sorted by start: count only new time
         busy_us += max(0.0, end - max(start, reach))
@@ -68,28 +76,31 @@ def _busy_seconds(prof) -> float:
 def _write_profile(prof, profile_dir: str, wall_s: float, on_card: bool
                    ) -> dict:
     """Chrome trace + per-op table of one profiled chunk, and its summary
-    row: the chunk's wall time and, on the card, the device busy share."""
+    row: the chunk's wall time and, on the card, the device busy share and
+    the number of device events (kernels, copies, memsets)."""
     os.makedirs(profile_dir, exist_ok=True)
     trace = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(trace)
     sort_by = "self_device_time_total" if on_card else "self_cpu_time_total"
     with open(os.path.join(profile_dir, "ops.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by=sort_by, row_limit=40))
+        f.write(prof.key_averages().table(sort_by=sort_by, row_limit=-1))
     row = {"profile_trace": trace, "profile_wall_s": wall_s}
     if on_card:
         busy = _busy_seconds(prof)
-        row.update(device_busy_s=busy, device_busy_share=busy / wall_s)
+        row.update(device_busy_s=busy, device_busy_share=busy / wall_s,
+                   device_events=len(_device_spans(prof)))
     return row
 
 
 def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
           chunk_iters: int = 2000, log_fn=print, device=None, stop_fn=None,
-          profile_dir: str = None):
+          profile_dir: str = None, profile_chunk: int = None):
     """Run training on ``device`` (default: the card); returns
     (final_carry, history list of metric rows).
 
     ``stop_fn(row)`` may end the run early at a chunk boundary.
-    ``profile_dir`` traces one chunk: the second, or the only one.
+    ``profile_dir`` traces one chunk: ``profile_chunk`` (0-based), by
+    default the second, or the only one.
     """
     dev = resolve_device(device)
     check_ported(cfg)
@@ -98,8 +109,13 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     env = make_env(cfg.env_name, device=dev)
     net = build_network(cfg.network, env.num_actions, env.observation_shape,
                         device=dev, seed=seed)
-    init, run_chunk = make_fused_train(cfg, env, net, device=dev)
-    evaluate = make_evaluator(cfg, env, num_episodes=cfg.eval_episodes)
+    if cfg.network.lstm_size:
+        init, run_chunk = make_r2d2_train(cfg, env, net, device=dev)
+        evaluate = make_r2d2_evaluator(cfg, env,
+                                       num_episodes=cfg.eval_episodes)
+    else:
+        init, run_chunk = make_fused_train(cfg, env, net, device=dev)
+        evaluate = make_evaluator(cfg, env, num_episodes=cfg.eval_episodes)
     eval_gen = torch.Generator(device=dev).manual_seed(seed + 1)
     carry = init(seed)
 
@@ -110,7 +126,8 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     next_eval = frames if cfg.eval_every_steps else float("inf")
     # Trace the second chunk (the first pays one-time set-up), unless the
     # whole run is one chunk.
-    profile_chunk = 1 if total > chunk_iters * B else 0
+    if profile_chunk is None:
+        profile_chunk = 1 if total > chunk_iters * B else 0
     on_card = dev.type == "cuda"
     chunk_index = 0
     while frames < total:
@@ -193,7 +210,10 @@ def main(argv=None):
                         help="default: cuda, which must be present")
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler trace (trace.json) and "
-                             "per-op table (ops.txt) of the second chunk")
+                             "per-op table (ops.txt) of one chunk")
+    parser.add_argument("--profile-chunk", type=int, default=None,
+                        help="0-based index of the traced chunk (default: "
+                             "the second, or the only one)")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
     parser.add_argument("--checkpoint-dir", default=None)
@@ -216,7 +236,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, eval_every_steps=args.eval_every_steps)
     train(cfg, total_env_steps=args.total_env_steps, seed=args.seed,
           chunk_iters=args.chunk_iters, device=args.device,
-          profile_dir=args.profile_dir)
+          profile_dir=args.profile_dir, profile_chunk=args.profile_chunk)
 
 
 if __name__ == "__main__":

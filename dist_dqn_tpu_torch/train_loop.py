@@ -17,7 +17,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from dist_dqn_tpu_torch import loop_common
@@ -46,14 +45,6 @@ class TrainCarry:
     completed_count: torch.Tensor
     loss_sum: torch.Tensor
     train_count: int             # grad steps in the current chunk
-
-
-def _generators(seed: int, device: torch.device, n: int):
-    """``n`` device generators with independent seeds spawned from
-    ``seed``."""
-    seeds = np.random.SeedSequence(seed).generate_state(n, dtype=np.uint64)
-    return [torch.Generator(device=device).manual_seed(int(s))
-            for s in seeds]
 
 
 def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
@@ -102,7 +93,7 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
                 and iteration % cfg.train_every == 0)
 
     def init(seed: int) -> TrainCarry:
-        gen_env, gen_act, gen_sample = _generators(seed, dev, 3)
+        gen_env, gen_act, gen_sample = loop_common.generators(seed, dev, 3)
         env_state, obs = env.v_reset(B, gen_env)
         example = flatten(obs)[0]
         if prioritized:
@@ -177,15 +168,7 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
         carry.train_count = 0
         for _ in range(num_iters):
             one_iteration(carry)
-        metrics = {
-            "env_frames": carry.iteration * B,
-            "episode_return": carry.completed_return
-            / carry.completed_count.clamp(min=1.0),
-            "episodes": carry.completed_count,
-            "loss": carry.loss_sum / max(carry.train_count, 1),
-            "grad_steps_in_chunk": carry.train_count,
-        }
-        return carry, metrics
+        return carry, loop_common.chunk_metrics(carry, B)
 
     return init, run_chunk
 

@@ -181,6 +181,46 @@ def test_sampler_kernel_picks_exact_cells_between_zero_rows(cuda):
     assert float(tot) == 3.5
 
 
+def _sequence_plane(rng, live_rows, T=6250, B=16, stride=40):
+    """R2D2's [T, B] sequence plane: window starts are seeded every
+    ``stride`` writes, so mass sits only in every 40th row of the live
+    rows, in all lanes of those rows."""
+    w = np.zeros((T, B), np.float32)
+    rows = np.arange(T)
+    live = np.isin(rows, live_rows) & (rows % stride == 0)
+    w[live] = rng.uniform(0.1, 2.0, (int(live.sum()), B))
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [
+    "full",        # a wrapped ring: every 40th row of all 6,250
+    "filling",     # before the ring wraps: rows past 1,200 (chunks 5-24)
+                   # hold no mass at all
+    "band",        # a band in the middle: whole empty chunks on both sides
+])
+def test_sampler_kernel_on_the_r2d2_sequence_plane(cuda, live):
+    """The r2d2 preset's draw (T=6,250, B=16, S=64: 25 chunk blocks and 2
+    draw blocks): the kernel picks exactly the plain version's cells, all
+    on live rows, across zero rows and whole zero chunks."""
+    T, S = 6250, 64
+    geo = tps.launch_geometry(T, S)
+    assert (geo.chunks, geo.draw_blocks) == (25, 2)
+    live_rows = {"full": np.arange(T), "filling": np.arange(1200),
+                 "band": np.arange(2000, 3300)}[live]
+    rng = np.random.default_rng(10)
+    w_np = _sequence_plane(rng, live_rows)
+    u_np = ((np.arange(S) + rng.uniform(size=S)) / S).astype(np.float32)
+    w = torch.from_numpy(w_np).to(cuda)
+    u = torch.from_numpy(u_np).to(cuda)
+    got = tps.kernel_stratified_sample(w, u)
+    _assert_same_draw(got, tps.plain_stratified_sample(w, u))
+    t, b, p, _ = (x.cpu().numpy() for x in got)
+    assert (t % 40 == 0).all() and np.isin(t, live_rows).all()
+    np.testing.assert_array_equal(p, w_np[t, b])
+    assert (p > 0).all()
+
+
 @pytest.mark.cuda
 def test_sampler_kernel_refuses_bad_inputs(cuda):
     w = torch.ones((8, 4), device=cuda)

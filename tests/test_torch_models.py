@@ -69,8 +69,7 @@ def test_qnetwork_forward_bf16():
 
 
 def test_build_network_refuses_later_heads():
-    for field, value in (("noisy", True), ("num_atoms", 51), ("iqn", True),
-                         ("lstm_size", 64)):
+    for field, value in (("noisy", True), ("num_atoms", 51), ("iqn", True)):
         cfg = dataclasses.replace(tconfig.NetworkConfig(), **{field: value})
         with pytest.raises(NotImplementedError):
             torch_build(cfg, 6, (84, 84, 4), device="cpu")
