@@ -10,30 +10,47 @@ them or outside a checkout of the repository. Phases, each fatal:
    nvcc per source, all started together).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (the sampler: the apex PER plane, a ragged
-   mostly-zero plane, and R2D2's sequence plane with mass in every 40th
-   row), and time both beside one PyTorch library call computing the same
-   function and the card's bound. Times
+   mostly-zero plane, R2D2's sequence plane with mass in every 40th row,
+   and the PixelCatch bar's small plane), and time both beside one PyTorch
+   library call computing the same function and the card's bound. Times
    are device times (CUDA events around replays of a CUDA graph of 20
    calls); the ``*eager_ms`` keys time the same calls launched from
    Python one by one, which is what the main path pays. The kernel's
    outputs from CUDA graph replays must equal an eager call's, and
    ``device_launches_per_call`` counts the kernels the card runs per
    call (torch.profiler).
-3. Drive the main paths through ``dist_dqn_tpu_torch.train.train``, each
+3. Frame dedup on the card: PixelBreakout (64 lanes, random actions,
+   episodes cut at 50 steps so resets fall inside stack contexts) fills a
+   stacked and a dedup ring side by side, 160 slots wrapped 2.5 times; the
+   dedup rebuild must equal the stacked gather bit for bit, for every
+   transition start (obs and next_obs, merged rows) and for 64 windows of
+   R2D2's 125 steps.
+4. Drive the main paths through ``dist_dqn_tpu_torch.train.train``, each
    at full width past ``min_fill`` for a few hundred grad steps and an
    eval, with the kernel launch counters zeroed just before and read just
    after each:
    * apex: 1M-transition PER ring, batch 512, Nature CNN, bf16;
    * r2d2 with ``replay.pallas_sampler=True``: the recurrent Nature-CNN +
      LSTM-512 net (bf16), 6,250 x 16 sequence ring, 64 sequences of 125
-     steps per grad step, one sampler launch per grad step.
-4. Check each path's outputs: finite loss and priorities (for r2d2, live
-   exactly where the loop's host predicate says), Q-values of the expected
-   shape that agree with a float32 reference forward of the same weights.
+     steps per grad step, one sampler launch per grad step;
+   * atari_breakout: the atari preset on PixelBreakout with a frame-dedup
+     ring (200k transitions), the bf16 actor and replay ratio 2;
+   * apex_dedup: apex with a frame-dedup ring (1M transitions, at most 12
+     GB of device memory) and replay ratio 2: two sampler launches per
+     train event, one last-wins priority flush after them.
+5. The learning bars (``dist_dqn_tpu_torch/learning_bars.py``): CartPole
+   to a greedy eval return of 475 within 360,000 frames, and PixelCatch
+   (PER through the sampler kernel, dedup ring) from a random start to an
+   episode return of +0.5 within 96,000 frames.
+6. Check each path's outputs: finite loss and priorities (for r2d2, live
+   exactly where the loop's host predicate says), one sampler launch per
+   grad step on the paths that draw through it, f32 learner masters,
+   Q-values of the expected shape that agree with a float32 reference
+   forward of the same weights.
 
-It prints one ``main_path`` line per path, then the ``kernels`` JSON line,
-the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``.
+It prints one ``main_path`` line per path (the learning bars with their
+frames to the bar), then the ``kernels`` JSON line, the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Reference numerics: float32 matmuls and convolutions run without TF32
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -53,11 +70,28 @@ from concurrent.futures import ThreadPoolExecutor
 # float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# Main paths, as (total env frames, iterations per chunk). apex fills its
-# ring at 50,000 frames (min_fill); 14,000 more are about 875 grad steps at
-# 16 frames per step. r2d2 fills at 2,500 frames (157 iterations of 16
-# envs); 8,000 frames are 500 iterations, 344 of them with a grad step.
-MAIN_PATHS = {"apex": (64_000, 500), "r2d2": (8_000, 100)}
+# Main paths: name -> (preset, --set overrides, total env frames,
+# iterations per chunk). apex fills its ring at 50,000 frames (min_fill);
+# 6,000 more are 376 grad steps at 16 frames per step. r2d2 fills
+# at 2,500 frames (157 iterations of 16 envs); 8,000 frames are 500
+# iterations, 344 of them with a grad step. atari_breakout fills at 20,000
+# frames (iteration 312 of 64 envs) and trains every 4th iteration, two
+# grad steps at a time: 204 events, 408 grad steps in 72,000 frames.
+# apex_dedup trains from iteration 3,124 to 3,624, 501 events of two grad
+# steps. Both eval once, after their first chunk.
+MAIN_PATHS = {
+    "apex": ("apex", [], 56_000, 250),
+    "r2d2": ("r2d2", ["replay.pallas_sampler=true"], 8_000, 100),
+    "atari_breakout": ("atari", ["env_name=pixel_breakout",
+                                 "replay.frame_dedup=true",
+                                 "network.actor_dtype=bfloat16",
+                                 "replay.updates_per_chunk=2",
+                                 "eval_every_steps=72000"], 72_000, 125),
+    "apex_dedup": ("apex", ["replay.frame_dedup=true",
+                            "replay.updates_per_chunk=2",
+                            "eval_every_steps=58000"], 58_000, 125),
+}
+APEX_DEDUP_MAX_GB = 12.0
 TIMING_ITERS = 200
 
 
@@ -162,12 +196,14 @@ def _mass(rng, T, B, zero_frac, row_stride=1):
 
 
 # name: (T, B, S, zero share, row stride). The apex PER plane; a ragged,
-# mostly zero one; and R2D2's sequence plane, where window starts are
-# seeded every sequence_stride=40 writes, so only every 40th row has mass.
+# mostly zero one; R2D2's sequence plane, where window starts are seeded
+# every sequence_stride=40 writes, so only every 40th row has mass; and the
+# PixelCatch learning bar's 16,384-transition plane of 32 lanes.
 SAMPLER_CASES = {"apex": (62500, 16, 512, 0.3, 1),
                  "ragged": (700, 8, 128, 0.9, 1),
-                 "r2d2": (6250, 16, 64, 0.0, 40)}
-TIMED_CASES = ("apex", "r2d2")
+                 "r2d2": (6250, 16, 64, 0.0, 40),
+                 "catch": (512, 32, 32, 0.0, 1)}
+TIMED_CASES = ("apex", "r2d2", "catch")
 
 
 def _time_sampler(sampler, w, u, iters: int) -> dict:
@@ -265,26 +301,127 @@ def check_sampler(sampler, iters: int) -> dict:
     return report
 
 
-def drive_main_path(name: str, total_env_steps: int, chunk_iters: int):
-    """One preset through the port's train() on the card: apex as it is,
-    r2d2 with the sampler kernel's route (``replay.pallas_sampler``)."""
+def check_dedup_gather(lanes: int = 64, slots: int = 160, steps: int = 400,
+                       seq_len: int = 125, n_step: int = 3,
+                       windows: int = 64) -> dict:
+    """PixelBreakout on the card into a stacked and a dedup sequence ring
+    (merged rows) side by side; the dedup rebuild must equal the stacked
+    gather bit for bit: every transition start of every lane through
+    ``gather_transitions``, and ``windows`` random R2D2 windows through
+    ``_rebuild_seq_stacks``."""
     import torch
 
-    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.replay import device as ring
+    from dist_dqn_tpu_torch.replay import sequence_device as sring
+
+    dev = torch.device("cuda")
+    stack = 4
+    frame = (84, 84, 1)
+    env = make_env("pixel_breakout", device=dev, max_steps=50)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, obs = env.v_reset(lanes, gen)
+    rings = {name: sring.sequence_ring_init(slots, lanes, ex.reshape(-1), 1,
+                                            merge_obs_rows=True)
+             for name, ex in (("full", obs[0]), ("dedup", obs[0, ..., -1:]))}
+    carry = (torch.zeros((lanes, 1), device=dev),) * 2
+    for _ in range(steps):
+        actions = torch.randint(0, env.num_actions, (lanes,), generator=gen,
+                                device=dev)
+        state, out = env.v_step(state, actions, gen)
+        for name, o in (("full", obs), ("dedup", obs[..., -1:])):
+            sring.sequence_ring_add(rings[name], o.reshape(lanes, -1),
+                                    actions, out.reward, out.terminated,
+                                    out.truncated, carry, seq_len, 1,
+                                    merge_obs_rows=True)
+        obs = out.obs
+    full, dd = rings["full"].ring, rings["dedup"].ring
+    oldest = (dd.pos - dd.size) % slots
+    lane = torch.arange(lanes, device=dev)
+
+    def starts(last_offset):
+        offs = torch.arange(stack - 1, last_offset, device=dev)
+        t = ((oldest + offs) % slots).repeat_interleave(lanes)
+        return t, lane.repeat(offs.shape[0])
+
+    t_idx, b_idx = starts(dd.size - n_step)
+    got = ring.gather_transitions(dd, t_idx, b_idx, n_step, 0.99,
+                                  merge_obs_rows=True, frame_stack=stack,
+                                  frame_shape=frame)
+    want = ring.gather_transitions(full, t_idx, b_idx, n_step, 0.99,
+                                   merge_obs_rows=True)
+    done = full.terminated | full.truncated
+    in_context = torch.zeros_like(t_idx, dtype=torch.bool)
+    for j in range(1, stack):
+        in_context |= done[(t_idx - j) % slots, b_idx]
+    checks = {f: torch.equal(getattr(got, f),
+                             getattr(want, f).reshape(getattr(got, f).shape))
+              for f in ("obs", "next_obs", "reward", "discount")}
+    # R2D2 windows: random starts whose context and window are stored.
+    t_all, b_all = starts(dd.size - seq_len + 1)
+    pick = torch.randperm(t_all.shape[0], generator=gen, device=dev)[:windows]
+    t_w, b_w = t_all[pick], b_all[pick]
+    got_w = sring._rebuild_seq_stacks(dd, t_w, b_w, seq_len, stack, True,
+                                      frame)
+    tt = (t_w[None, :] + torch.arange(seq_len, device=dev)[:, None]) % slots
+    want_w = full.obs[tt * lanes + b_w[None, :]].reshape(got_w.shape)
+    checks["sequence_obs"] = torch.equal(got_w, want_w)
+    report = {"lanes": lanes, "slots": slots, "steps": steps,
+              "transitions": int(t_idx.shape[0]),
+              "starts_with_reset_in_context": int(in_context.sum()),
+              "windows": int(t_w.shape[0]), "seq_len": seq_len,
+              "checks": checks}
+    print(json.dumps({"dedup_gather": report}), flush=True)
+    if not all(checks.values()) or not report["starts_with_reset_in_context"]:
+        _fail(f"dedup rebuild differs from the stacked gather, or no reset "
+              f"fell inside a stack context: {report}")
+    return report
+
+
+class _FlushWatch:
+    """Counts the batched priority flushes of a run and keeps, on the
+    device, whether each one changed the plane (read once, at the end)."""
+
+    def __init__(self):
+        from dist_dqn_tpu_torch.replay import prioritized_device as pring
+        self.module = pring
+        self.real = pring.prioritized_ring_update_batched
+        self.changed = []
+
+    def __enter__(self):
+        def watched(state, t_idx, b_idx, prios, eps=1e-6):
+            before = state.priorities.clone()
+            out = self.real(state, t_idx, b_idx, prios, eps=eps)
+            self.changed.append((state.priorities != before).any())
+            return out
+
+        self.module.prioritized_ring_update_batched = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.module.prioritized_ring_update_batched = self.real
+
+    def all_changed(self) -> bool:
+        import torch
+        return bool(torch.stack(self.changed).all()) if self.changed else False
+
+
+def drive_main_path(cfg, total_env_steps: int, chunk_iters: int,
+                    stop_fn=None):
+    """One config through the port's train() on the card."""
+    import torch
+
     from dist_dqn_tpu_torch.train import train
 
-    cfg = CONFIGS[name]
-    if name == "r2d2":
-        cfg = apply_overrides(cfg, ["replay.pallas_sampler=true"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     carry, history = train(cfg, total_env_steps=total_env_steps,
                            chunk_iters=chunk_iters,
                            log_fn=lambda line: print(line, flush=True),
-                           device="cuda")
+                           device="cuda", stop_fn=stop_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return cfg, carry, history, wall
+    return carry, history, wall
 
 
 def _check_live_starts(cfg, replay) -> int:
@@ -311,9 +448,10 @@ def _check_live_starts(cfg, replay) -> int:
 
 
 def check_outputs(name: str, cfg, carry, history, launches: int) -> dict:
-    """Grad steps taken through the kernel, finite loss and priorities,
-    and Q-values of the trained net that agree with a float32 reference
-    forward of the same weights on a small input."""
+    """Grad steps taken (through the kernel where the path draws through
+    it), finite loss and priorities, f32 learner masters, and Q-values of
+    the trained net that agree with a float32 reference forward of the same
+    weights on a small input."""
     import dataclasses
 
     import torch
@@ -327,19 +465,24 @@ def check_outputs(name: str, cfg, carry, history, launches: int) -> dict:
     if not all(math.isfinite(x) for x in losses):
         _fail(f"{name}: non-finite loss: {losses}")
     recurrent = bool(cfg.network.lstm_size)
-    # apex draws once per grad step; r2d2 too, and never otherwise.
-    if launches < grad_steps or (recurrent and launches != grad_steps):
+    # A path that draws through the kernel draws once per grad step, and
+    # never otherwise; a uniform path never launches it.
+    draws = cfg.replay.prioritized and cfg.replay.pallas_sampler
+    if launches != (grad_steps if draws else 0):
         _fail(f"{name}: sampler kernel launched {launches} times for "
               f"{grad_steps} grad steps")
-    if not any("eval_return" in r for r in history):
+    if cfg.eval_every_steps and not any("eval_return" in r for r in history):
         _fail(f"{name}: no eval ran")
-    pr = carry.replay.priorities
-    if not bool(torch.isfinite(pr).all()) or bool((pr < 0).any()):
-        _fail(f"{name}: non-finite or negative priorities")
+    if cfg.replay.prioritized:
+        pr = carry.replay.priorities
+        if not bool(torch.isfinite(pr).all()) or bool((pr < 0).any()):
+            _fail(f"{name}: non-finite or negative priorities")
+    net = carry.learner.net
+    if any(p.dtype != torch.float32 for p in net.parameters()):
+        _fail(f"{name}: the learner's master params are not all float32")
     out = {"grad_steps": grad_steps, "final_loss": losses[-1]}
     if recurrent:
         out["live_starts"] = _check_live_starts(cfg, carry.replay)
-    net = carry.learner.net
     obs = carry.obs[:8]
     ref = build_network(dataclasses.replace(cfg.network,
                                             compute_dtype="float32",
@@ -353,63 +496,153 @@ def check_outputs(name: str, cfg, carry, history, launches: int) -> dict:
             q, q32 = net(state, obs)[1], ref(state, obs)[1]
         else:
             q, q32 = net(obs), ref(obs)
-    if tuple(q.shape) != (8, 6) or not bool(torch.isfinite(q).all()):
-        _fail(f"{name}: Q-values of shape {tuple(q.shape)} or non-finite")
+    shape = (obs.shape[0], net.num_actions)
+    if tuple(q.shape) != shape or not bool(torch.isfinite(q).all()):
+        _fail(f"{name}: Q-values of shape {tuple(q.shape)} (want {shape}) "
+              "or non-finite")
     # bf16 keeps 8 significant bits through five layers (and the cell).
     scale = float(q32.abs().max().clamp(min=1e-3))
     q_err = float((q - q32).abs().max())
     if q_err > 0.05 * scale:
         _fail(f"{name}: bf16 Q-values off the f32 reference by {q_err} "
               f"(scale {scale})")
-    return {**out, "q_bf16_vs_f32_max_abs": q_err, "q_scale": scale}
+    return {**out, "q_vs_f32_max_abs": q_err, "q_scale": scale}
 
 
-def main() -> int:
+def _main_path_row(name, history, wall, launches, outputs) -> dict:
     import torch
+    steady = history[1:]
+    return {
+        "main_path": name, "device": torch.cuda.get_device_name(0),
+        "wall_s": wall, "env_frames": history[-1]["env_frames"],
+        "env_steps_per_sec_last": history[-1]["env_steps_per_sec"],
+        "grad_steps_per_sec_last": history[-1]["grad_steps_per_sec"],
+        "env_steps_per_sec_chunks": [r["env_steps_per_sec"]
+                                     for r in steady],
+        "grad_steps_per_sec_chunks": [r["grad_steps_per_sec"]
+                                      for r in steady],
+        "grad_steps_in_chunks": [r["grad_steps_in_chunk"] for r in history],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "sampler_launches": launches, **outputs}
+
+
+def run_learning_bar(name: str, sampler) -> int:
+    """Train one learning bar's config to its bar (or its frame cap) with
+    the launch counter zeroed just before; fails if the bar is missed.
+    Returns the sampler launches of the run."""
+    import torch
+
+    from dist_dqn_tpu_torch import learning_bars as bars
+
+    if name == "cartpole":
+        cfg, cap, chunk_iters = bars.cartpole_bar_config()
+        bar, key = bars.CARTPOLE_BAR, "eval_return"
+    else:
+        cfg, cap, chunk_iters = bars.catch_bar_config(prioritized=True)
+        bar, key = bars.CATCH_BAR, "episode_return"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sampler.kernel_stratified_sample.launches = 0
+    carry, history, wall = drive_main_path(
+        cfg, cap, chunk_iters, stop_fn=lambda row: row.get(key, -1e9) >= bar)
+    launches = sampler.kernel_stratified_sample.launches
+    outputs = check_outputs(name, cfg, carry, history, launches)
+    reached = [r["env_frames"] for r in history if r.get(key, -1e9) >= bar]
+    first = history[0]["episode_return"]
+    print(json.dumps({**_main_path_row(name, history, wall, launches,
+                                       outputs),
+                      "learning_bar": key, "bar": bar, "frame_cap": cap,
+                      "frames_to_bar": reached[0] if reached else None,
+                      "first_chunk_return": first,
+                      "evals": [r["eval_return"] for r in history
+                                if "eval_return" in r]}), flush=True)
+    if not reached:
+        _fail(f"{name}: {key} never reached {bar} within {cap} frames")
+    if name != "cartpole" and not first < bars.CATCH_RANDOM_CEILING:
+        _fail(f"{name}: the first chunk's return {first} is not a random "
+              f"policy's (< {bars.CATCH_RANDOM_CEILING})")
+    return launches
+
+
+PHASES = ("sampler", "dedup_gather", *MAIN_PATHS, "cartpole", "catch")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", default=",".join(PHASES),
+                        help="comma-separated phases to run, of "
+                             f"{', '.join(PHASES)}; a partial run prints "
+                             "no result line (default: all)")
+    args = parser.parse_args(argv)
+    phases = [p for p in args.only.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
     from dist_dqn_tpu_torch.ops import sampler
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     build_fns = {"stratified_sample": sampler.build_library}
     with ThreadPoolExecutor(len(build_fns)) as pool:
         futures = {n: pool.submit(b) for n, b in build_fns.items()}
         built = {n: str(f.result()) for n, f in futures.items()}
     print(json.dumps({"built": built,
-                      "build_s": time.perf_counter() - t0}), flush=True)
+                      "build_s": time.perf_counter() - t_start}), flush=True)
 
-    sampler_report = check_sampler(sampler, TIMING_ITERS)
+    sampler_report = (check_sampler(sampler, TIMING_ITERS)
+                      if "sampler" in phases else None)
+    if "dedup_gather" in phases:
+        check_dedup_gather()
 
     launches = {}
-    for name, (total_env_steps, chunk_iters) in MAIN_PATHS.items():
+    for name, (preset, overrides, total_env_steps, chunk_iters) in \
+            MAIN_PATHS.items():
+        if name not in phases:
+            continue
+        cfg = apply_overrides(CONFIGS[preset], overrides)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         sampler.kernel_stratified_sample.launches = 0
-        cfg, carry, history, wall = drive_main_path(name, total_env_steps,
-                                                    chunk_iters)
+        with _FlushWatch() as flushes:
+            carry, history, wall = drive_main_path(cfg, total_env_steps,
+                                                   chunk_iters)
         launches[name] = sampler.kernel_stratified_sample.launches
         outputs = check_outputs(name, cfg, carry, history, launches[name])
-        steady = history[1:]
-        print(json.dumps({
-            "main_path": name, "device": torch.cuda.get_device_name(0),
-            "wall_s": wall, "env_frames": history[-1]["env_frames"],
-            "env_steps_per_sec_last": history[-1]["env_steps_per_sec"],
-            "grad_steps_per_sec_last": history[-1]["grad_steps_per_sec"],
-            "env_steps_per_sec_chunks": [r["env_steps_per_sec"]
-                                         for r in steady],
-            "grad_steps_per_sec_chunks": [r["grad_steps_per_sec"]
-                                          for r in steady],
-            "grad_steps_in_chunks": [r["grad_steps_in_chunk"]
-                                     for r in history],
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "sampler_launches": launches[name], **outputs}), flush=True)
+        if cfg.replay.prioritized and cfg.replay.updates_per_chunk > 1:
+            # One last-wins flush per train event, each landing new values.
+            outputs["priority_flushes"] = len(flushes.changed)
+            outputs["every_flush_changed_the_plane"] = flushes.all_changed()
+            if (len(flushes.changed) * cfg.replay.updates_per_chunk
+                    != outputs["grad_steps"]
+                    or not outputs["every_flush_changed_the_plane"]):
+                _fail(f"{name}: {len(flushes.changed)} priority flushes for "
+                      f"{outputs['grad_steps']} grad steps, or a flush "
+                      "left the plane as it was")
+        row = _main_path_row(name, history, wall, launches[name], outputs)
+        print(json.dumps(row), flush=True)
+        if name == "apex_dedup" and row["peak_mem_gb"] > APEX_DEDUP_MAX_GB:
+            _fail(f"{name}: peak device memory {row['peak_mem_gb']} GB > "
+                  f"{APEX_DEDUP_MAX_GB} GB")
         del carry, history
 
+    for name in ("cartpole", "catch"):
+        if name in phases:
+            launches[name] = run_learning_bar(name, sampler)
+
+    print(json.dumps({"phases": phases,
+                      "wall_s": time.perf_counter() - t_start}), flush=True)
+    if sampler_report is None:
+        return 0
     apex = sampler_report["apex"]
     kernels = [{
         "name": "stratified_sample",
@@ -426,10 +659,12 @@ def main() -> int:
         "library_ms": apex["library_ms"],
         "eager_ms": apex["eager_ms"],
         "device_launches_per_call": apex["device_launches_per_call"],
-        # The same numbers at R2D2's sequence plane.
-        "r2d2_shape": {k: sampler_report["r2d2"][k] for k in (
+        # The same numbers at R2D2's sequence plane and the PixelCatch
+        # bar's plane.
+        **{f"{case}_shape": {k: sampler_report[case][k] for k in (
             "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "eager_ms", "device_launches_per_call")},
+            "library_ms", "eager_ms", "device_launches_per_call")}
+           for case in ("r2d2", "catch")},
         "pass": True,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -439,6 +674,8 @@ def main() -> int:
         timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
+    if set(phases) != set(PHASES):
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -91,8 +91,8 @@ class ReplayConfig:
     # rebuild stacks at sample time from frame_stack consecutive slots
     # (exact, including reset-boundary re-tiling — replay/device.py
     # stack_rebuild_indices). A 4x saving of ring memory on Atari
-    # stacks. Not ported yet: the port refuses it. Requires the
-    # env to declare the rolling-stack contract (JaxEnv.frame_stack > 0)
+    # stacks. Requires the
+    # env to declare the rolling-stack contract (TorchEnv.frame_stack > 0)
     # and store_final_obs off. Covers BOTH fused loops: the feedforward
     # ring (replay/device.py) and the R2D2 sequence ring
     # (replay/sequence_device.py _rebuild_seq_stacks).

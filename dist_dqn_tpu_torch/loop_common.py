@@ -2,18 +2,21 @@
 dist_dqn_tpu/loop_common.py).
 
 Config resolution (train batch, replay ratio, shard sizes, flat ring
-storage), the loops' generators, the epsilon / beta schedules, the
-per-step episode trackers, the chunk metrics and the sampler routing. The
+storage, frame dedup), the bf16 actor snapshot, the loops' generators, the
+epsilon / beta schedules, the per-step episode trackers, the chunk metrics
+and the sampler routing. The
 schedules are host functions of the host-int iteration counter, computed
 in float32 as optax's ``linear_schedule`` computes them, so the loop never
 reads the device to know them.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+import copy
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from dist_dqn_tpu_torch.config import ExperimentConfig
 
@@ -34,17 +37,49 @@ def resolve_train_batch(cfg: ExperimentConfig) -> int:
 
 
 def resolve_replay_ratio(cfg: ExperimentConfig) -> int:
-    """Validated replay ratio (``replay.updates_per_chunk``). Only 1 is
-    ported: ratios above 1 need the batched last-write-wins priority
-    write-back, which comes with the replay-ratio slice."""
+    """Validated replay ratio (``replay.updates_per_chunk``): grad sub-steps
+    per train event, >= 1."""
     r = cfg.replay.updates_per_chunk
     if r < 1:
         raise ValueError(f"replay.updates_per_chunk must be >= 1, got {r}")
-    if r > 1:
-        raise NotImplementedError(
-            f"replay.updates_per_chunk={r}: replay ratios above 1 are not "
-            "ported yet (ROADMAP.md)")
     return r
+
+
+def make_actor_param_cast(actor_dtype: str
+                          ) -> Callable[[nn.Module], nn.Module]:
+    """``snapshot(net)``, the net the actor reads for a chunk (the
+    actor/learner dtype split).
+
+    ``"float32"`` (the default) gives the identity: acting reads the live
+    learner net. ``"bfloat16"`` gives a copy of ``net`` whose floating
+    parameters are
+    rounded to bf16; the loops take it once per chunk and act on it for
+    the whole chunk, while the learner's f32 masters stay untouched. The
+    copy is made on the first call and refreshed in place on later ones.
+    Its layers compute in the net's own ``compute_dtype``, as flax promotes
+    bf16 params against an f32 layer: the weights are rounded, the math of
+    an f32 net stays f32.
+    """
+    if actor_dtype in ("", "float32"):
+        return lambda net: net
+    if actor_dtype != "bfloat16":
+        raise ValueError(
+            f"network.actor_dtype must be 'float32' or 'bfloat16', got "
+            f"{actor_dtype!r}")
+    held: Dict[str, Optional[nn.Module]] = {"copy": None, "source": None}
+
+    @torch.no_grad()
+    def snapshot(net: nn.Module) -> nn.Module:
+        if held["source"] is not net:
+            held["copy"] = copy.deepcopy(net).requires_grad_(False).to(
+                torch.bfloat16)
+            held["source"] = net
+        else:
+            for dst, src in zip(held["copy"].parameters(), net.parameters()):
+                dst.copy_(src)
+        return held["copy"]
+
+    return snapshot
 
 
 def shard_sizes(cfg: ExperimentConfig, num_shards: int = 1
@@ -64,12 +99,17 @@ FLAT_AUTO_BYTES = 2 << 30
 
 def resolve_flat_storage(rcfg, obs_shape, obs_dtype: torch.dtype,
                          num_slots: int, B: int,
-                         store_final: bool = False) -> bool:
+                         store_final: bool = False,
+                         prefer_flat: bool = False) -> bool:
     """Merged-row ("flat") obs storage for a device ring: the JAX package's
     rule, kept so both packages lay a config's ring out alike. Auto
     (``replay.flat_storage=None``): flat for multi-dim obs whose ring
-    exceeds FLAT_AUTO_BYTES logical bytes."""
+    exceeds FLAT_AUTO_BYTES logical bytes, and always with ``prefer_flat``
+    (frame-dedup rings, whose stored [H, W, 1] frames the JAX package
+    never tiles)."""
     if rcfg.flat_storage is None:
+        if prefer_flat and len(obs_shape) >= 2:
+            return True
         obs_bytes = num_slots * B * torch.empty((), dtype=obs_dtype
                                                 ).element_size()
         for d in obs_shape:
@@ -88,6 +128,36 @@ def flat_obs_codecs(flat_storage: bool, obs_shape):
         return (lambda x: x), (lambda x: x)
     return ((lambda x: x.reshape(x.shape[0], -1)),
             (lambda x: x.reshape(x.shape[:-1] + obs_shape)))
+
+
+def resolve_frame_dedup(rcfg, env, obs_shape, store_final: bool = False):
+    """Validate and resolve ``replay.frame_dedup`` for a fused loop.
+
+    Returns (stack, stored_shape, frame_shape, slice_newest): the env's
+    declared rolling-stack depth (0 = dedup off), the per-step obs shape as
+    the ring stores it (one frame under dedup), the frame shape a
+    merged-row gather reshapes to (None when off), and the insert-side
+    slicer of [B, ...] obs."""
+    obs_shape = tuple(obs_shape)
+    declared = getattr(env, "frame_stack", 0)
+    stack = declared if rcfg.frame_dedup else 0
+    if rcfg.frame_dedup:
+        if declared < 2:
+            raise ValueError(
+                "replay.frame_dedup=True but this env does not declare a "
+                f"rolling frame stack (frame_stack is {declared}); dedup "
+                "storage cannot rebuild its observations")
+        if stack != obs_shape[-1]:
+            raise ValueError(f"env.frame_stack={stack} does not match the "
+                             f"obs last axis {obs_shape[-1]}")
+        if store_final:
+            raise ValueError(
+                "replay.frame_dedup needs store_final_obs off (the final-obs "
+                "buffer is not a rolling frame stream)")
+    if not stack:
+        return 0, obs_shape, None, (lambda obs: obs)
+    stored_shape = obs_shape[:-1] + (1,)
+    return stack, stored_shape, stored_shape, (lambda obs: obs[..., -1:])
 
 
 def generators(seed: int, device: torch.device, n: int

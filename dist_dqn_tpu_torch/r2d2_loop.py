@@ -9,7 +9,9 @@ it is threaded through the loop, stored with each step *before* the step
 (so learner burn-in starts from the exact acting state) and zeroed for
 envs whose episode just ended. Whether a grad step may run is decided from
 host ints only (replay/sequence_device.py ``live_start_writes``), so no
-iteration waits on the device.
+iteration waits on the device. ``replay.frame_dedup`` stores single frames
+and the sampler rebuilds the windows' stacks. Replay ratios above 1 and the
+bf16 actor are refused: the JAX loop has neither for recurrent configs.
 """
 from __future__ import annotations
 
@@ -59,15 +61,16 @@ def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
     ``train_loop.make_fused_train``, for a ``RecurrentQNetwork``."""
     dev = resolve_device(device)
     rcfg = cfg.replay
-    if rcfg.frame_dedup:
-        raise NotImplementedError(
-            "replay.frame_dedup is not ported yet: it comes with the "
-            "frame-dedup ring slice (ROADMAP.md)")
     if rcfg.updates_per_chunk != 1:
         raise ValueError(
             "replay.updates_per_chunk (the replay-ratio scan) is not "
             "supported by the recurrent R2D2 loop; leave it at 1 or use a "
             "feed-forward config")
+    if cfg.network.actor_dtype not in ("", "float32"):
+        raise ValueError(
+            f"network.actor_dtype={cfg.network.actor_dtype} (the bf16 actor "
+            "split) is not supported by the recurrent R2D2 loop; leave it at "
+            "float32 or use a feed-forward config")
     seq_len = rcfg.burn_in + rcfg.unroll_length + cfg.learner.n_step
     stride = rcfg.sequence_stride or rcfg.unroll_length
     init_learner, train_step = make_r2d2_learner(cfg.learner, rcfg)
@@ -83,23 +86,34 @@ def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
             f"seq_len+stride={seq_len + stride}; raise replay.capacity")
     epsilon, beta_at = loop_common.make_schedules(cfg, B)
     use_kernel = loop_common.kernel_routing(rcfg.pallas_sampler, dev)
-    obs_shape = tuple(env.observation_shape)
+    stack, stored_shape, frame_shape, slice_newest = \
+        loop_common.resolve_frame_dedup(rcfg, env, env.observation_shape)
+    # Context slots for the oldest start's rebuild, and headroom so a
+    # seeded start is never only inside the masked oldest region between
+    # two stride seeds.
+    num_slots = max(num_slots, seq_len + stride + max(stack - 1, 0))
     flat_storage = loop_common.resolve_flat_storage(
-        rcfg, obs_shape, env.observation_dtype, num_slots, B)
-    flatten, unflatten = loop_common.flat_obs_codecs(flat_storage, obs_shape)
+        rcfg, stored_shape, env.observation_dtype, num_slots, B,
+        prefer_flat=bool(stack))
+    flatten, unflatten = loop_common.flat_obs_codecs(flat_storage,
+                                                     stored_shape)
+    # Dedup sampling returns rebuilt, unflattened stacks.
+    decode = (lambda x: x) if stack else unflatten
 
     def can_train(replay: sring.SequenceRingState, iteration: int) -> bool:
-        # Host ints only: the live starts are a function of `writes`.
+        # Host ints only: the drawable starts are a function of `writes`.
         return (replay.ring.size * B >= min_fill
                 and sring.sequence_ring_can_sample(replay, seq_len)
-                and len(sring.live_start_writes(replay.writes, num_slots,
-                                                seq_len, stride)) > 0
+                and len(sring.live_start_writes(
+                    replay.writes, num_slots, seq_len, stride,
+                    frame_stack=stack)) > 0
                 and iteration % cfg.train_every == 0)
 
     def init(seed: int) -> R2D2Carry:
         gen_env, gen_act, gen_sample = loop_common.generators(seed, dev, 3)
         env_state, obs = env.v_reset(B, gen_env)
-        replay = sring.sequence_ring_init(num_slots, B, flatten(obs)[0],
+        replay = sring.sequence_ring_init(num_slots, B,
+                                          flatten(slice_newest(obs))[0],
                                           net.lstm_size,
                                           merge_obs_rows=flat_storage)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -118,8 +132,9 @@ def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
             s = sring.sequence_ring_sample(
                 c.replay, c.gen_sample, batch_size, seq_len,
                 rcfg.priority_exponent, beta, use_kernel=use_kernel,
-                merge_obs_rows=flat_storage)
-            s = s._replace(obs=unflatten(s.obs))
+                merge_obs_rows=flat_storage, frame_stack=stack,
+                frame_shape=frame_shape)
+            s = s._replace(obs=decode(s.obs))
             _, metrics = train_step(c.learner, s)
             sring.sequence_ring_update(c.replay, s.t_idx, s.b_idx,
                                        metrics["priorities"],
@@ -132,10 +147,10 @@ def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
                                        c.gen_act, epsilon(c.iteration))
         c.env_state, out = env.v_step(c.env_state, actions, c.gen_env)
         # Store the *pre-step* carry: the state the actor held entering obs.
-        sring.sequence_ring_add(c.replay, flatten(c.obs), actions,
-                                out.reward, out.terminated, out.truncated,
-                                c.actor_carry, seq_len, stride,
-                                merge_obs_rows=flat_storage)
+        sring.sequence_ring_add(c.replay, flatten(slice_newest(c.obs)),
+                                actions, out.reward, out.terminated,
+                                out.truncated, c.actor_carry, seq_len,
+                                stride, merge_obs_rows=flat_storage)
         # The next act (and the carry stored with it) starts a fresh
         # episode in envs that just finished one.
         done = out.terminated | out.truncated

@@ -13,13 +13,15 @@ fit beside it. ``pos`` and ``size`` are host ints — they advance by one
 per add whatever the data, so the loop decides when it may sample without
 reading anything back from the device.
 
-Frame-dedup storage (``frame_stack``) is not ported yet: the callers
-refuse it.
+Frame-dedup storage (``frame_stack`` > 0): the ring stores only each
+step's newest frame and the gathers rebuild the stacks exactly, reset
+re-tiling included (:func:`stack_rebuild_indices`) — a 4x saving of ring
+memory on Atari stacks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -92,9 +94,12 @@ def time_ring_add(state: TimeRingState, obs: torch.Tensor,
     return state
 
 
-def time_ring_can_sample(state: TimeRingState, n_step: int) -> bool:
-    """True once windows of length ``n_step`` (plus bootstrap slot) exist."""
-    return state.size > n_step
+def time_ring_can_sample(state: TimeRingState, n_step: int,
+                         frame_stack: int = 0) -> bool:
+    """True once windows of length ``n_step`` (plus bootstrap slot) exist;
+    a frame-dedup ring also needs ``frame_stack - 1`` prior slots stored to
+    rebuild a start's stack."""
+    return state.size > n_step + max(frame_stack - 1, 0)
 
 
 def _gather_window(field: torch.Tensor, t_idx: torch.Tensor,
@@ -155,11 +160,94 @@ def contextful_start_mask(state: TimeRingState, frame_stack: int = 0
     return (offset >= extra) & (offset < state.size)
 
 
+def last_write_wins_scatter(plane: torch.Tensor, flat_idx: torch.Tensor,
+                            values: torch.Tensor) -> torch.Tensor:
+    """Scatter ``values`` into the flat ``plane`` with deterministic
+    chronological last-write-wins on duplicate indices; returns the new
+    plane.
+
+    A CUDA ``index_put_`` leaves the order among duplicate indices
+    undefined, so a plain scatter cannot promise which of N replay-ratio
+    sub-steps' values a twice-drawn slot keeps. As in the JAX package, a
+    scatter-max over write positions elects each slot's last writer, and
+    every other writer is routed to a spare slot past the end, which is
+    dropped — no mask, no read back to the host.
+
+    Args: plane [N]; flat_idx [M] write positions in chronological order;
+    values [M].
+    """
+    n = plane.shape[0]
+    flat_idx = flat_idx.long()
+    order = torch.arange(1, flat_idx.shape[0] + 1, device=plane.device)
+    # Last writer per slot: the largest write position landing on it.
+    winner = torch.zeros(n, dtype=torch.int64, device=plane.device)
+    winner.scatter_reduce_(0, flat_idx, order, "amax")
+    keep = winner[flat_idx] == order
+    safe_idx = torch.where(keep, flat_idx, torch.full_like(flat_idx, n))
+    out = torch.cat([plane, plane.new_zeros(1)])
+    out[safe_idx] = values.to(plane.dtype)
+    return out[:n]
+
+
+def stack_rebuild_indices(done_at: Callable[[torch.Tensor], torch.Tensor],
+                          t_idx: torch.Tensor, frame_stack: int,
+                          num_slots: int
+                          ) -> List[Tuple[int, torch.Tensor]]:
+    """Per-channel ring slots that rebuild a frame stack stored deduped.
+
+    The rolling-stack contract (envs/base.py ``frame_stack``): within an
+    episode, channel ``d`` of ``obs_t`` (d=0 newest) is the single frame of
+    step ``t-d``; a reset at boundary ``done[t-1-j]`` re-tiled the stack,
+    so frames older than the episode start are its first frame repeated.
+    Hence channel ``d`` comes from slot ``t - min(d, age_t)``, where
+    ``age_t`` is j-1 for the nearest j in [1, S-1] with ``done[t-j]``
+    (S-1 when there is none).
+
+    ``done_at(slots) -> [len(t_idx)] bool`` is the done-flag lookup.
+    Returns slots per lookback, newest first: [(d, [S] slots), ...].
+    """
+    S = frame_stack
+    age = torch.full_like(t_idx, S - 1)
+    for j in range(S - 1, 0, -1):  # descending: the nearest done wins
+        age = torch.where(done_at((t_idx - j) % num_slots),
+                          torch.full_like(t_idx, j - 1), age)
+    return [(d, (t_idx - age.clamp(max=d)) % num_slots) for d in range(S)]
+
+
+def _take_stacks(obs: torch.Tensor, slots: torch.Tensor, b_idx: torch.Tensor,
+                 num_envs: int, merge_obs_rows: bool, frame_shape
+                 ) -> torch.Tensor:
+    """Single stored frames at ``slots`` [..., F] (oldest channel first)
+    of envs ``b_idx`` [...] -> stacks [..., H, W, F]."""
+    b = b_idx[..., None]
+    if merge_obs_rows:
+        frames = obs[slots * num_envs + b]                  # [..., F, prod]
+        frames = frames.reshape(frames.shape[:-1] + tuple(frame_shape))
+    else:
+        frames = obs[slots, b]                              # [..., F, H, W, 1]
+    return frames[..., 0].movedim(slots.dim() - 1, -1)
+
+
 def gather_transitions(state: TimeRingState, t_idx: torch.Tensor,
                        b_idx: torch.Tensor, n_step: int, gamma: float,
-                       merge_obs_rows: bool = False) -> Transition:
+                       merge_obs_rows: bool = False, frame_stack: int = 0,
+                       frame_shape=None) -> Transition:
     """Window-gather + n-step fold for explicit (t_idx, b_idx) pairs,
-    shared by the uniform and prioritized samplers."""
+    shared by the uniform and prioritized samplers.
+
+    ``frame_stack=S > 0``: the ring stores each step's newest frame only
+    (obs leaves [..., H, W, 1], or flat rows of that frame) and the gather
+    rebuilds the [N, H, W, S] stacks, channels oldest first, exactly as
+    stacked storage would hold them. ``frame_shape`` (e.g. (84, 84, 1))
+    reshapes merged rows; rebuilt stacks come back unflattened either way.
+    """
+    if frame_stack and state.final_obs is not None:
+        raise ValueError(
+            "frame_stack rebuild is undefined for rings with final_obs (the "
+            "final-obs buffer is not a rolling frame stream): build the ring "
+            "with store_final_obs=False for frame dedup")
+    if frame_stack and merge_obs_rows and frame_shape is None:
+        raise ValueError("a merged-row dedup gather needs frame_shape")
     num_slots, num_envs = state.action.shape
     t_idx = t_idx.long()
     b_idx = b_idx.long()
@@ -172,6 +260,14 @@ def gather_transitions(state: TimeRingState, t_idx: torch.Tensor,
                                               gamma)
 
     def take(x, t):
+        if frame_stack:
+            slots = stack_rebuild_indices(
+                lambda tt: state.terminated[tt, b_idx]
+                | state.truncated[tt, b_idx], t, frame_stack, num_slots)
+            oldest_first = torch.stack([s for _, s in reversed(slots)],
+                                       dim=-1)
+            return _take_stacks(x, oldest_first, b_idx, num_envs,
+                                merge_obs_rows, frame_shape)
         if merge_obs_rows:
             return x[t * num_envs + b_idx]
         return x[t, b_idx]
@@ -194,17 +290,22 @@ def gather_transitions(state: TimeRingState, t_idx: torch.Tensor,
 
 def time_ring_sample(state: TimeRingState, generator: torch.Generator,
                      batch_size: int, n_step: int, gamma: float,
-                     merge_obs_rows: bool = False) -> Transition:
+                     merge_obs_rows: bool = False, frame_stack: int = 0,
+                     frame_shape=None) -> Transition:
     """Uniformly sample ``batch_size`` n-step transitions from the oldest
     ``size - n_step`` slots, so every bootstrap slot is a stored, in-order
-    step of the same env."""
+    step of the same env. Frame-dedup rings also skip the oldest
+    ``frame_stack - 1`` starts, whose rebuild context is not stored."""
     num_slots, num_envs = state.action.shape
     dev = state.action.device
-    num_valid = max(state.size - n_step, 1)
+    extra = max(frame_stack - 1, 0)
+    num_valid = max(state.size - n_step - extra, 1)
     u = torch.randint(0, num_valid, (batch_size,), generator=generator,
                       device=dev)
-    t_idx = (state.pos - state.size + u) % num_slots
+    t_idx = (state.pos - state.size + extra + u) % num_slots
     b_idx = torch.randint(0, num_envs, (batch_size,), generator=generator,
                           device=dev)
     return gather_transitions(state, t_idx, b_idx, n_step, gamma,
-                              merge_obs_rows=merge_obs_rows)
+                              merge_obs_rows=merge_obs_rows,
+                              frame_stack=frame_stack,
+                              frame_shape=frame_shape)

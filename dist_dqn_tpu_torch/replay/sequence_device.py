@@ -16,8 +16,9 @@ wrapper when ``use_kernel`` is set.
 Like the ring, the state is updated in place, and ``writes`` is a host int:
 it advances by one per add whatever the data, so which starts are live is a
 function of host ints (:func:`live_start_writes`) and the loop decides when
-it may sample without reading the device. Frame-dedup storage is not
-ported: the loop refuses it.
+it may sample without reading the device. With frame-dedup storage the
+ring holds single frames and the sampler rebuilds every window position's
+stack (:func:`_rebuild_seq_stacks`).
 """
 from __future__ import annotations
 
@@ -98,14 +99,16 @@ def sequence_ring_can_sample(state: SequenceRingState, seq_len: int) -> bool:
 
 
 def live_start_writes(writes: int, num_slots: int, seq_len: int,
-                      stride: int) -> range:
+                      stride: int, frame_stack: int = 0) -> range:
     """Write indices of the live window starts after ``writes`` adds: the
     stride-aligned starts whose window is complete (``s + seq_len <=
     writes``) and whose slot has not been overwritten (``s >= writes -
     num_slots``). Their slots (``s % num_slots``) are exactly the rows where
     ``priorities > 0``: a write-back stores ``|td| + eps > 0`` and only where
-    the row is live, so it never changes the set."""
-    lo = max(writes - num_slots, 0)
+    the row is live, so it never changes the set. With ``frame_stack`` the
+    oldest ``frame_stack - 1`` stored slots are left out too: the sampler
+    masks those starts (ring.contextful_start_mask)."""
+    lo = max(writes - num_slots, 0) + max(frame_stack - 1, 0)
     hi = writes - seq_len
     first = -(-lo // stride) * stride
     return range(first, hi + 1, stride) if hi >= first else range(0)
@@ -117,23 +120,68 @@ def _gather_seq(field: torch.Tensor, tt: torch.Tensor,
     return field[tt, b_idx[None, :]]
 
 
+def _rebuild_seq_stacks(r: ring.TimeRingState, t_idx: torch.Tensor,
+                        b_idx: torch.Tensor, seq_len: int, frame_stack: int,
+                        merge_obs_rows: bool, frame_shape) -> torch.Tensor:
+    """[L, S_, H, W, frame_stack] stacks for every window position, from a
+    dedup ring (single stored frames, replay/device.py).
+
+    The done flags of ``seq_len + frame_stack - 1`` slots (offsets
+    -(S-1)..L-1) give every position's ``age`` with the nearest-done rule
+    of ``device.stack_rebuild_indices``; each channel ``d`` of position
+    ``i`` is then the frame at slot ``t + i - min(d, age)``, gathered in
+    one indexing pass. Callers mask out starts whose context predates the
+    ring (sequence_ring_sample).
+    """
+    num_slots, num_envs = r.action.shape
+    S, L = frame_stack, seq_len
+    t, b = t_idx.long(), b_idx.long()
+    ext_offs = torch.arange(-(S - 1), L, device=t.device)
+    tt = (t[None, :] + ext_offs[:, None]) % num_slots          # [L+S-1, S_]
+    done_ext = r.terminated[tt, b[None, :]] | r.truncated[tt, b[None, :]]
+    # age[i]: distance-1 to the nearest done among positions i-1..i-(S-1)
+    # (window position i lives at ext index i + S - 1).
+    age = torch.full((L, t.shape[0]), S - 1, dtype=torch.int64,
+                     device=t.device)
+    for j in range(S - 1, 0, -1):   # descending: the nearest done wins
+        age = torch.where(done_ext[S - 1 - j:S - 1 - j + L],
+                          torch.full_like(age, j - 1), age)
+    pos = torch.arange(L, device=t.device)[:, None, None]           # [L,1,1]
+    lookback = torch.arange(S - 1, -1, -1, device=t.device)         # oldest first
+    back = torch.minimum(lookback[None, None, :], age[..., None])   # [L,S_,S]
+    slots = (t[None, :, None] + pos - back) % num_slots
+    return ring._take_stacks(r.obs, slots, b, num_envs, merge_obs_rows,
+                             frame_shape)
+
+
 def sequence_ring_sample(state: SequenceRingState,
                          generator: Optional[torch.Generator],
                          batch_size: int, seq_len: int, alpha: float,
                          beta: float, use_kernel: bool = False,
                          merge_obs_rows: bool = False,
-                         u: Optional[torch.Tensor] = None) -> SequenceSample:
+                         u: Optional[torch.Tensor] = None,
+                         frame_stack: int = 0,
+                         frame_shape=None) -> SequenceSample:
     """Stratified inverse-CDF sample of ``batch_size`` windows of
     ``seq_len`` steps, time-major.
 
     ``use_kernel`` draws through ops/sampler.py's kernel wrapper (the CUDA
     kernel on the card, its plain version on the CPU); otherwise the
     cumsum+searchsorted twin. ``u`` [S] injects the stratified uniforms
-    instead of drawing them from ``generator``.
+    instead of drawing them from ``generator``. ``frame_stack`` > 0: the
+    ring stores single frames (dedup), the returned obs are rebuilt
+    [L, S_, H, W, frame_stack] stacks, and starts whose rebuild context
+    predates the stored region (the oldest frame_stack - 1 slots) are
+    masked out of the draw.
     """
     num_slots, num_envs = state.priorities.shape
     pr = state.priorities
-    w = torch.where(pr > 0.0, pr ** alpha, torch.zeros((), device=pr.device))
+    zero = torch.zeros((), device=pr.device)
+    w = torch.where(pr > 0.0, pr ** alpha, zero)
+    if frame_stack:
+        w = torch.where(
+            ring.contextful_start_mask(state.ring, frame_stack)[:, None],
+            w, zero)
     if u is None:
         t_idx, b_idx, mass_sel, total = stratified_sample(
             w, generator, batch_size, use_kernel=use_kernel)
@@ -147,7 +195,10 @@ def sequence_ring_sample(state: SequenceRingState,
     t, b = t_idx.long(), b_idx.long()
     offs = torch.arange(seq_len, device=t.device)
     tt = (t[None, :] + offs[:, None]) % num_slots           # [L, S]
-    if merge_obs_rows:
+    if frame_stack:
+        obs = _rebuild_seq_stacks(r, t, b, seq_len, frame_stack,
+                                  merge_obs_rows, frame_shape)
+    elif merge_obs_rows:
         obs = r.obs[tt * num_envs + b[None, :]]             # slot t, env b
     else:
         obs = _gather_seq(r.obs, tt, b)

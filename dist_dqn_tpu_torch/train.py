@@ -13,11 +13,12 @@ chunk (the second, or ``--profile-chunk``) with ``torch.profiler``, as the
 JAX CLI's flag does with ``jax.profiler``.
 
 Runs on ``cuda`` unless ``--device cpu`` / ``device="cpu"`` is given.
-Checkpointing, meshes, populations, frame dedup, the bf16 actor split,
-replay ratios above 1 and the other runtimes are not ported yet; asking
-for any of them raises instead of being ignored. That holds for recurrent
-configs too, where the JAX CLI warns and ignores the replay ratio, the
-bf16 actor and populations.
+``--replay-ratio N`` and ``--actor-dtype`` set ``replay.updates_per_chunk``
+and ``network.actor_dtype`` as the JAX CLI does; ``replay.frame_dedup``
+rides ``--set``. Checkpointing, meshes, populations, telemetry and the
+other runtimes are not ported yet; asking for any of them raises instead
+of being ignored. Recurrent configs refuse the replay ratio and the bf16
+actor (and populations), where the JAX CLI warns and ignores them.
 """
 from __future__ import annotations
 
@@ -45,10 +46,11 @@ def check_ported(cfg: ExperimentConfig) -> None:
     refused = []
     if cfg.population.size > 1 or cfg.population.spec_json:
         refused.append("population")
-    if cfg.replay.frame_dedup:
-        refused.append("replay.frame_dedup")
-    if cfg.network.actor_dtype not in ("", "float32"):
-        refused.append(f"network.actor_dtype={cfg.network.actor_dtype}")
+    if cfg.network.lstm_size and cfg.network.actor_dtype not in ("",
+                                                                 "float32"):
+        # Neither package's recurrent loop has the bf16 actor split.
+        refused.append(f"network.actor_dtype={cfg.network.actor_dtype} "
+                       "for a recurrent config")
     if refused:
         raise NotImplementedError(
             f"not ported yet: {', '.join(refused)} (ROADMAP.md lists the "
@@ -174,8 +176,11 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     return carry, history
 
 
-def _refuse_unported(args) -> None:
-    """Flags of the JAX CLI this port does not implement yet."""
+def _refuse_unported(args, cfg: ExperimentConfig) -> None:
+    """Flags of the JAX CLI this port does not implement yet, and the two
+    learner-utilization flags on recurrent configs (where the JAX CLI warns
+    and ignores them)."""
+    recurrent = bool(cfg.network.lstm_size)
     refused = [flag for flag, given in (
         ("--checkpoint-dir", args.checkpoint_dir is not None),
         ("--checkpoint-replay", args.checkpoint_replay),
@@ -184,14 +189,17 @@ def _refuse_unported(args) -> None:
         ("--population", args.population not in (None, 1)),
         ("--population-spec", args.population_spec is not None),
         ("--runtime", args.runtime != "fused"),
-        ("--replay-ratio", args.replay_ratio not in (None, 1)),
-        ("--actor-dtype", args.actor_dtype not in (None, "float32")),
+        ("--replay-ratio for a recurrent config",
+         recurrent and args.replay_ratio not in (None, 1)),
+        ("--actor-dtype for a recurrent config",
+         recurrent and args.actor_dtype not in (None, "float32")),
         ("--telemetry-port", args.telemetry_port is not None),
     ) if given]
     if refused:
         raise SystemExit(
             f"not ported yet: {', '.join(refused)} — the PyTorch port runs "
-            "the fused single-device runtime only (ROADMAP.md)")
+            "the fused single-device runtime only, and its recurrent loop "
+            "has no replay-ratio scan or bf16 actor split (ROADMAP.md)")
 
 
 def main(argv=None):
@@ -214,6 +222,13 @@ def main(argv=None):
     parser.add_argument("--profile-chunk", type=int, default=None,
                         help="0-based index of the traced chunk (default: "
                              "the second, or the only one)")
+    parser.add_argument("--replay-ratio", type=int, default=None,
+                        help="grad steps per train event "
+                             "(replay.updates_per_chunk)")
+    parser.add_argument("--actor-dtype", default=None,
+                        choices=("float32", "bfloat16"),
+                        help="act on a bf16 snapshot of the online net, "
+                             "taken once per chunk (network.actor_dtype)")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
     parser.add_argument("--checkpoint-dir", default=None)
@@ -224,16 +239,19 @@ def main(argv=None):
     parser.add_argument("--population-spec", default=None)
     parser.add_argument("--runtime", default="fused",
                         choices=("fused", "apex", "host-replay"))
-    parser.add_argument("--replay-ratio", type=int, default=None)
-    parser.add_argument("--actor-dtype", default=None,
-                        choices=("float32", "bfloat16"))
     parser.add_argument("--telemetry-port", type=int, default=None)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
 
     cfg = apply_overrides(CONFIGS[args.config], args.overrides)
+    _refuse_unported(args, cfg)
     if args.eval_every_steps is not None:
         cfg = dataclasses.replace(cfg, eval_every_steps=args.eval_every_steps)
+    if args.replay_ratio is not None:
+        cfg = dataclasses.replace(cfg, replay=dataclasses.replace(
+            cfg.replay, updates_per_chunk=args.replay_ratio))
+    if args.actor_dtype is not None:
+        cfg = dataclasses.replace(cfg, network=dataclasses.replace(
+            cfg.network, actor_dtype=args.actor_dtype))
     train(cfg, total_env_steps=args.total_env_steps, seed=args.seed,
           chunk_iters=args.chunk_iters, device=args.device,
           profile_dir=args.profile_dir, profile_chunk=args.profile_chunk)

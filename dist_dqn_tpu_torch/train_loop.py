@@ -2,9 +2,16 @@
 
 Every iteration acts epsilon-greedily, steps the batched on-device env,
 appends the time slice to the device ring and — once the ring is filled —
-samples a batch (PER through the sampler kernel with
-``replay.pallas_sampler``), takes a grad step and writes the priorities
-back. The JAX package compiles this into one ``lax.scan``; here the scan
+runs a train event: ``updates_per_train × replay.updates_per_chunk`` grad
+steps, each on its own batch (PER through the sampler kernel with
+``replay.pallas_sampler``), with the priorities written back after each
+step, or, under PER with a replay ratio above 1, flushed once after the
+last one with chronological last-write-wins. Options of the JAX loop that
+ride along: frame-dedup rings (``replay.frame_dedup``: the ring stores
+each step's newest frame and the gathers rebuild the stacks), and the
+bf16 actor (``network.actor_dtype``: acting reads a bf16 snapshot of the
+online net taken at chunk entry). The JAX package compiles this into one
+``lax.scan``; here the scan
 and the train ``lax.cond`` are Python loops and branches over host-int
 counters. Everything per-iteration stays on the device: the chunk
 accumulators are device tensors the caller reads once per chunk, and the
@@ -55,14 +62,17 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     and the chunk's metrics as device tensors (``env_frames`` and
     ``grad_steps_in_chunk`` are host ints)."""
     dev = resolve_device(device)
-    if cfg.replay.frame_dedup:
-        raise NotImplementedError(
-            "replay.frame_dedup is not ported yet: it comes with the "
-            "frame-dedup ring slice (ROADMAP.md)")
     prioritized = cfg.replay.prioritized
     init_learner, train_step = make_learner(cfg.learner)
     act = make_actor_step(env.num_actions)
-    updates = cfg.updates_per_train * loop_common.resolve_replay_ratio(cfg)
+    replay_ratio = loop_common.resolve_replay_ratio(cfg)
+    updates = cfg.updates_per_train * replay_ratio
+    # Under PER with a ratio above 1 the sub-steps draw from the event-entry
+    # plane and their write-backs land in one last-wins flush; ratio 1 keeps
+    # the write-back after every step.
+    defer_writeback = prioritized and replay_ratio > 1
+    actor_snapshot = loop_common.make_actor_param_cast(
+        cfg.network.actor_dtype)
     B, batch_size = loop_common.shard_sizes(cfg)
     min_fill = max(cfg.replay.min_fill, 1)
     num_slots = max(cfg.replay.capacity // B, cfg.learner.n_step + 2)
@@ -77,11 +87,20 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     epsilon, beta_at = loop_common.make_schedules(cfg, B)
     use_kernel = loop_common.kernel_routing(
         prioritized and cfg.replay.pallas_sampler, dev)
-    obs_shape = tuple(env.observation_shape)
+    stack, stored_shape, frame_shape, slice_newest = \
+        loop_common.resolve_frame_dedup(cfg.replay, env,
+                                        env.observation_shape,
+                                        store_final=store_final)
+    # A dedup start needs stack - 1 context slots beyond the n-step window;
+    # a smaller ring could never be sampled.
+    num_slots = max(num_slots, n_step + max(stack - 1, 0) + 2)
     flat_storage = loop_common.resolve_flat_storage(
-        cfg.replay, obs_shape, env.observation_dtype, num_slots, B,
-        store_final=store_final)
-    flatten, unflatten = loop_common.flat_obs_codecs(flat_storage, obs_shape)
+        cfg.replay, stored_shape, env.observation_dtype, num_slots, B,
+        store_final=store_final, prefer_flat=bool(stack))
+    flatten, unflatten = loop_common.flat_obs_codecs(flat_storage,
+                                                     stored_shape)
+    # Dedup gathers return rebuilt, unflattened stacks.
+    decode = (lambda x: x) if stack else unflatten
 
     def ring_of(replay) -> ring.TimeRingState:
         return replay.ring if prioritized else replay
@@ -89,13 +108,13 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     def can_train(replay, iteration: int) -> bool:
         r = ring_of(replay)
         return (r.size * B >= min_fill
-                and ring.time_ring_can_sample(r, n_step)
+                and ring.time_ring_can_sample(r, n_step, frame_stack=stack)
                 and iteration % cfg.train_every == 0)
 
     def init(seed: int) -> TrainCarry:
         gen_env, gen_act, gen_sample = loop_common.generators(seed, dev, 3)
         env_state, obs = env.v_reset(B, gen_env)
-        example = flatten(obs)[0]
+        example = flatten(slice_newest(obs))[0]
         if prioritized:
             replay = pring.prioritized_ring_init(
                 num_slots, B, example, store_final_obs=store_final,
@@ -116,35 +135,45 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     def train_event(c: TrainCarry, beta: float) -> torch.Tensor:
         """``updates`` grad steps; returns their summed loss (device)."""
         loss = torch.zeros((), dtype=torch.float32, device=dev)
+        deferred = []           # (t_idx, b_idx, |td|) of each sub-step
         for _ in range(updates):
             if prioritized:
                 s = pring.prioritized_ring_sample(
                     c.replay, c.gen_sample, batch_size, n_step, gamma,
                     cfg.replay.priority_exponent, beta,
-                    use_kernel=use_kernel, merge_obs_rows=flat_storage)
-                batch = s.batch._replace(obs=unflatten(s.batch.obs),
-                                         next_obs=unflatten(s.batch.next_obs))
+                    use_kernel=use_kernel, merge_obs_rows=flat_storage,
+                    frame_stack=stack, frame_shape=frame_shape)
+                batch = s.batch._replace(obs=decode(s.batch.obs),
+                                         next_obs=decode(s.batch.next_obs))
                 _, metrics = train_step(c.learner, batch, s.weights)
-                pring.prioritized_ring_update(
-                    c.replay, s.t_idx, s.b_idx, metrics["priorities"],
-                    eps=cfg.replay.priority_eps)
+                if defer_writeback:
+                    deferred.append((s.t_idx, s.b_idx, metrics["priorities"]))
+                else:
+                    pring.prioritized_ring_update(
+                        c.replay, s.t_idx, s.b_idx, metrics["priorities"],
+                        eps=cfg.replay.priority_eps)
             else:
                 batch = ring.time_ring_sample(
                     c.replay, c.gen_sample, batch_size, n_step, gamma,
-                    merge_obs_rows=flat_storage)
-                batch = batch._replace(obs=unflatten(batch.obs),
-                                       next_obs=unflatten(batch.next_obs))
+                    merge_obs_rows=flat_storage, frame_stack=stack,
+                    frame_shape=frame_shape)
+                batch = batch._replace(obs=decode(batch.obs),
+                                       next_obs=decode(batch.next_obs))
                 _, metrics = train_step(c.learner, batch)
             loss = loss + metrics["loss"]
+        if deferred:
+            t_i, b_i, prios = (torch.stack(x) for x in zip(*deferred))
+            pring.prioritized_ring_update_batched(
+                c.replay, t_i, b_i, prios, eps=cfg.replay.priority_eps)
         return loss
 
-    def one_iteration(c: TrainCarry) -> None:
-        actions = act(c.learner.net, c.obs, c.gen_act, epsilon(c.iteration))
+    def one_iteration(c: TrainCarry, actor_net) -> None:
+        actions = act(actor_net, c.obs, c.gen_act, epsilon(c.iteration))
         c.env_state, out = env.v_step(c.env_state, actions, c.gen_env)
         add = pring.prioritized_ring_add if prioritized else \
             ring.time_ring_add
-        add(c.replay, flatten(c.obs), actions, out.reward, out.terminated,
-            out.truncated,
+        add(c.replay, flatten(slice_newest(c.obs)), actions, out.reward,
+            out.terminated, out.truncated,
             final_obs=flatten(out.next_obs) if store_final else None,
             merge_obs_rows=flat_storage)
         if can_train(c.replay, c.iteration):
@@ -166,8 +195,11 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
         carry.completed_count = torch.zeros_like(carry.completed_count)
         carry.loss_sum = torch.zeros_like(carry.loss_sum)
         carry.train_count = 0
+        # The bf16 actor reads one snapshot of the chunk-entry net; else the
+        # live learner net.
+        actor_net = actor_snapshot(carry.learner.net)
         for _ in range(num_iters):
-            one_iteration(carry)
+            one_iteration(carry, actor_net)
         return carry, loop_common.chunk_metrics(carry, B)
 
     return init, run_chunk

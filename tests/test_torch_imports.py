@@ -17,6 +17,9 @@ r2d2 = {"dist_dqn_tpu_torch." + m for m in (
     "models.recurrent", "replay.sequence_device", "agents.r2d2",
     "r2d2_loop")}
 assert r2d2 <= set(names), sorted(r2d2 - set(names))
+slice4 = {"dist_dqn_tpu_torch.envs." + m for m in ("pixel_breakout",
+                                                    "pixel_catch")}
+assert slice4 <= set(names), sorted(slice4 - set(names))
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -32,4 +35,4 @@ def test_port_imports_no_jax_and_no_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 19 and bad.strip() == "[]"
+    assert int(count) >= 21 and bad.strip() == "[]"

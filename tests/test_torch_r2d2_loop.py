@@ -78,6 +78,45 @@ def test_r2d2_loop_takes_grad_steps_on_cpu(monkeypatch, overrides):
     assert tuple(carry.actor_carry[0].shape) == (4, 8)
 
 
+def test_r2d2_loop_refuses_ratio_and_bf16_actor_when_called_directly():
+    """The loop itself refuses what train() refuses for recurrent
+    configs, for callers that build it directly."""
+    env = make_env("cartpole", device="cpu")
+    for extra in ("replay.updates_per_chunk=2",
+                  "network.actor_dtype=bfloat16"):
+        cfg = _tiny(extra)
+        net = build_network(cfg.network, env.num_actions,
+                            env.observation_shape, device="cpu")
+        with pytest.raises(ValueError, match="recurrent R2D2 loop"):
+            make_r2d2_train(cfg, env, net, device="cpu")
+
+
+@pytest.mark.parametrize("pallas_sampler", [True, False])
+def test_r2d2_dedup_loop_trains_on_cpu(pallas_sampler):
+    """The dedup R2D2 loop on PixelCatch at tiny widths: the ring stores
+    one frame per step, windows are rebuilt stacks, and the host predicate
+    counts exactly the drawable starts."""
+    cfg = _tiny("env_name=pixel_catch", "network.torso=small",
+                "network.hidden=16", "replay.frame_dedup=true",
+                "learner.batch_size=4", "train_every=2",
+                f"replay.pallas_sampler={str(pallas_sampler).lower()}")
+    env = make_env(cfg.env_name, device="cpu")
+    net = build_network(cfg.network, env.num_actions, env.observation_shape,
+                        device="cpu")
+    init, run_chunk = make_r2d2_train(cfg, env, net, device="cpu")
+    carry, metrics = run_chunk(init(0), 40)
+    assert metrics["grad_steps_in_chunk"] > 0
+    assert np.isfinite(float(metrics["loss"]))
+    replay = carry.replay
+    assert tuple(replay.ring.obs.shape) == (128 * 4, 84 * 84)
+    live = tsring.live_start_writes(replay.writes, 128, 8, 2, frame_stack=4)
+    from dist_dqn_tpu_torch.replay.device import contextful_start_mask
+    drawable = (replay.priorities > 0) & contextful_start_mask(
+        replay.ring, 4)[:, None]
+    assert sorted(s % 128 for s in live) == \
+        drawable.any(dim=1).nonzero()[:, 0].tolist()
+
+
 def test_r2d2_cli_rows_on_cpu(capsys):
     """``python -m dist_dqn_tpu_torch.train --config r2d2`` on the CPU
     prints the JAX CLI's row keys, with eval_return on the eval cadence."""
@@ -118,12 +157,14 @@ def test_r2d2_cli_profiles_a_chosen_training_chunk(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("assignments,error", [
-    (["replay.frame_dedup=true"], NotImplementedError),
+    (["network.noisy=true"], NotImplementedError),
     (["population.size=2"], NotImplementedError),
     (["network.actor_dtype=bfloat16"], NotImplementedError),
     (["replay.updates_per_chunk=2"], ValueError),
     # 10 slots < seq_len 8 + stride 4: the ring could hold no live start.
     (["replay.capacity=40", "replay.sequence_stride=4"], ValueError),
+    # CartPole has no rolling frame stack to deduplicate.
+    (["replay.frame_dedup=true"], ValueError),
 ])
 def test_r2d2_train_refuses(assignments, error):
     from dist_dqn_tpu_torch.train import train

@@ -100,8 +100,33 @@ def test_ring_layout_and_batch_resolution_match(name):
 
 
 def test_replay_ratio_above_one_is_refused():
-    cfg = tconfig.CONFIGS["apex"]
-    assert tlc.resolve_replay_ratio(cfg) == 1
-    with pytest.raises(NotImplementedError):
-        tlc.resolve_replay_ratio(dataclasses.replace(
-            cfg, replay=dataclasses.replace(cfg.replay, updates_per_chunk=2)))
+    """Where the JAX package has no replay-ratio scan, the recurrent loop,
+    a ratio above one is refused; elsewhere the ratio resolves as JAX's
+    does, and one below 1 is refused everywhere."""
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.models import build_network
+    from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_train
+
+    for ratio in (1, 2, 4):
+        jcfg, tcfg = _both("apex")
+        jcfg, tcfg = (dataclasses.replace(c, replay=dataclasses.replace(
+            c.replay, updates_per_chunk=ratio)) for c in (jcfg, tcfg))
+        assert tlc.resolve_replay_ratio(tcfg) == \
+            jlc.resolve_replay_ratio(jcfg) == ratio
+    for zero in _both("apex"):
+        zero = dataclasses.replace(zero, replay=dataclasses.replace(
+            zero.replay, updates_per_chunk=0))
+        with pytest.raises(ValueError):
+            (tlc if isinstance(zero, tconfig.ExperimentConfig)
+             else jlc).resolve_replay_ratio(zero)
+    cfg = tconfig.apply_overrides(tconfig.CONFIGS["r2d2"], [
+        "env_name=cartpole", "network.torso=mlp", "network.mlp_features=(8,)",
+        "network.hidden=0", "network.lstm_size=4", "replay.capacity=256",
+        "replay.burn_in=1", "replay.unroll_length=2",
+        "replay.sequence_stride=1", "learner.n_step=1",
+        "actor.num_envs=2", "replay.updates_per_chunk=2"])
+    env = make_env("cartpole", device="cpu")
+    net = build_network(cfg.network, env.num_actions, env.observation_shape,
+                        device="cpu")
+    with pytest.raises(ValueError, match="replay.updates_per_chunk"):
+        make_r2d2_train(cfg, env, net, device="cpu")

@@ -278,8 +278,8 @@ def test_device_busy_is_the_union_of_kernel_intervals():
 
 @pytest.mark.parametrize("flag", [
     ["--checkpoint-dir", "ckpt"], ["--mesh-devices", "2"],
-    ["--population", "2"], ["--runtime", "apex"], ["--replay-ratio", "2"],
-    ["--actor-dtype", "bfloat16"]])
+    ["--population", "2"], ["--runtime", "apex"],
+    ["--telemetry-port", "9100"], ["--save-every-frames", "1000"]])
 def test_train_cli_refuses_unported_flags(flag):
     from dist_dqn_tpu_torch.train import main
 
@@ -288,15 +288,135 @@ def test_train_cli_refuses_unported_flags(flag):
 
 
 @pytest.mark.parametrize("assignment", [
-    "replay.frame_dedup=true", "population.size=2",
-    "network.actor_dtype=bfloat16", "replay.updates_per_chunk=2",
-    "learner.munchausen=true"])
+    "network.noisy=true", "population.size=2", "network.num_atoms=51",
+    "network.iqn=true", "learner.munchausen=true"])
 def test_train_refuses_unported_config(assignment):
     from dist_dqn_tpu_torch.train import train
 
     cfg = tconfig.apply_overrides(_tiny_cartpole(), [assignment])
     with pytest.raises(NotImplementedError):
         train(cfg, device="cpu", log_fn=lambda line: None)
+
+
+_TINY_CLI = ["--device", "cpu", "--total-env-steps", "320",
+             "--chunk-iters", "40", "--eval-every-steps", "0",
+             "--set", "network.mlp_features=(16,)",
+             "--set", "replay.min_fill=32", "--set", "learner.batch_size=16",
+             "--set", "actor.num_envs=4"]
+
+
+@pytest.mark.parametrize("per", [False, True], ids=["uniform", "per"])
+def test_train_cli_replay_ratio_doubles_grad_steps(capsys, per):
+    """``--replay-ratio 2`` runs on the CPU: every chunk reports twice the
+    grad steps of ratio 1, which trains once per iteration past min_fill."""
+    from dist_dqn_tpu_torch.train import main
+
+    argv = ["--config", "cartpole", *_TINY_CLI,
+            "--set", f"replay.prioritized={str(per).lower()}"]
+    main(argv)
+    base = [json.loads(line)["grad_steps_in_chunk"]
+            for line in capsys.readouterr().out.splitlines()]
+    main(argv + ["--replay-ratio", "2"])
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["grad_steps_in_chunk"] for r in rows] == [2 * g for g in base]
+    assert base[-1] == 40 and all(np.isfinite(r["loss"]) for r in rows)
+
+
+def test_train_cli_actor_dtype_bfloat16_runs(capsys):
+    from dist_dqn_tpu_torch.train import main
+
+    main(["--config", "cartpole", *_TINY_CLI, "--actor-dtype", "bfloat16"])
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["env_frames"] for r in rows] == [160, 320]
+    assert rows[-1]["grad_steps_in_chunk"] == 40
+
+
+def test_frame_dedup_needs_a_rolling_frame_stack():
+    """CartPole declares no frame stack: dedup raises as in the JAX loop;
+    so does dedup with a final-obs buffer."""
+    from dist_dqn_tpu_torch.train import train
+
+    cfg = tconfig.apply_overrides(_tiny_cartpole(),
+                                  ["replay.frame_dedup=true"])
+    with pytest.raises(ValueError, match="rolling frame stack"):
+        train(cfg, device="cpu", log_fn=lambda line: None)
+    cfg = tconfig.apply_overrides(
+        _tiny_cartpole(), ["replay.frame_dedup=true", "env_name=pixel_catch",
+                           "network.torso=small",
+                           "replay.store_final_obs=true"])
+    with pytest.raises(ValueError, match="store_final_obs"):
+        train(cfg, device="cpu", log_fn=lambda line: None)
+
+
+_TINY_PIXEL = ["network.torso=small", "network.hidden=32",
+               "network.compute_dtype=float32", "replay.capacity=512",
+               "replay.min_fill=64", "learner.batch_size=8",
+               "actor.num_envs=8", "train_every=2"]
+
+
+@pytest.mark.parametrize("preset", ["atari", "apex"])
+def test_train_cli_breakout_dedup_ratio_bf16_actor_on_cpu(capsys, preset):
+    """The CLI with PixelBreakout, a dedup ring, ``--replay-ratio 2`` and
+    ``--actor-dtype bfloat16`` at tiny widths: no refusal, two grad steps
+    per train event. (No eval: a greedy Breakout episode runs its full
+    2,000 steps; the CartPole CLI tests cover the eval cadence.)"""
+    from dist_dqn_tpu_torch.train import main
+
+    argv = ["--config", preset, "--device", "cpu", "--total-env-steps",
+            "480", "--chunk-iters", "30", "--eval-every-steps", "0",
+            "--set", "env_name=pixel_breakout",
+            "--set", "replay.frame_dedup=true", "--replay-ratio", "2",
+            "--actor-dtype", "bfloat16"]
+    for assignment in _TINY_PIXEL:
+        argv += ["--set", assignment]
+    main(argv)
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [r["env_frames"] for r in rows] == [240, 480]
+    # Iterations 8..28 even train in the first chunk, all 15 in the second.
+    assert [r["grad_steps_in_chunk"] for r in rows] == [22, 30]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+
+
+@pytest.mark.parametrize("preset,extra", [
+    ("atari", ["env_name=pixel_breakout"]),
+    ("apex", ["env_name=pixel_breakout"]),
+    ("atari", ["env_name=pixel_catch", "replay.prioritized=true",
+               "replay.pallas_sampler=true"]),
+], ids=["atari-breakout", "apex-breakout", "catch-per"])
+def test_dedup_fused_loop_runs_on_cpu(monkeypatch, preset, extra):
+    """The dedup fused loop at tiny widths, ratio 2 and the bf16 actor:
+    the ring stores one frame per step (merged rows), the learner trains on
+    rebuilt stacks, and PER draws once per grad step."""
+    calls = []
+    plain = tps.plain_stratified_sample
+
+    def spy(w, u):
+        calls.append(tuple(w.shape))
+        return plain(w, u)
+
+    from dist_dqn_tpu_torch.train_loop import make_fused_train
+
+    monkeypatch.setattr(tps, "plain_stratified_sample", spy)
+    cfg = tconfig.apply_overrides(
+        tconfig.CONFIGS[preset],
+        _TINY_PIXEL + extra + ["replay.frame_dedup=true",
+                               "replay.updates_per_chunk=2",
+                               "network.actor_dtype=bfloat16"])
+    env = make_env(cfg.env_name, device="cpu")
+    net = torch_build(cfg.network, env.num_actions, env.observation_shape,
+                      device="cpu")
+    init, run_chunk = make_fused_train(cfg, env, net, device="cpu")
+    carry, metrics = run_chunk(init(0), 30)
+    grad_steps = metrics["grad_steps_in_chunk"]
+    # Trains every other iteration once 64 transitions and the n-step and
+    # stack context (3 + 3 slots) are stored: iterations 8..29 even.
+    assert grad_steps == 2 * len(range(8, 30, 2))
+    assert np.isfinite(float(metrics["loss"]))
+    replay = carry.replay.ring if cfg.replay.prioritized else carry.replay
+    assert tuple(replay.obs.shape) == (64 * 8, 84 * 84)
+    assert len(calls) == (grad_steps if cfg.replay.pallas_sampler else 0)
+    if cfg.replay.prioritized:
+        assert bool(torch.isfinite(carry.replay.priorities).all())
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

@@ -13,7 +13,17 @@ import numpy as np
 import torch
 
 from dist_dqn_tpu_torch.envs.cartpole import CartPoleDraws
+from dist_dqn_tpu_torch.envs.pixel_breakout import BreakoutDraws
+from dist_dqn_tpu_torch.envs.pixel_catch import CatchDraws
 from dist_dqn_tpu_torch.envs.pixel_pong import PongDraws
+
+
+# The port's CPU tests run many small torch ops. With torch's default of
+# one intra-op thread per core, test workers that share the cores spin
+# against each other: on an 8-core host with the other cores busy, a
+# Breakout CLI test ran 12 times slower on eight threads than on one. Every
+# test worker imports this module while it collects the port's tests.
+torch.set_num_threads(1)
 
 
 def _t(x) -> torch.Tensor:
@@ -70,9 +80,50 @@ def cartpole_step_draws(jax_state) -> CartPoleDraws:
         jax_state.rng)))
 
 
+def breakout_reset_draws(rng, num_envs: int) -> BreakoutDraws:
+    # PixelBreakout.reset draws nothing: the ball waits for FIRE.
+    return BreakoutDraws(serve_vx=torch.zeros(num_envs))
+
+
+def _breakout_step_key(key):
+    # PixelBreakout.env_step: rng, k_serve = split(state.rng); the serve's
+    # vx ~ U(-1.2, 1.2). The auto-reset that follows draws nothing.
+    _, k_serve = jax.random.split(key)
+    return jax.random.uniform(k_serve, (), jnp.float32, -1.2, 1.2)
+
+
+def breakout_step_draws(jax_state) -> BreakoutDraws:
+    return BreakoutDraws(serve_vx=_t(jax.vmap(_breakout_step_key)(
+        jax_state.rng)))
+
+
+def _catch_reset_key(key):
+    # PixelCatch.reset: rng, k_ball, k_pad = split(rng, 3)
+    _, k_ball, k_pad = jax.random.split(key, 3)
+    return (jax.random.uniform(k_ball, (), jnp.float32, 4.0, 79.0),
+            jax.random.uniform(k_pad, (), jnp.float32, 5.0, 78.0))
+
+
+def catch_reset_draws(rng, num_envs: int) -> CatchDraws:
+    ball_x, pad_x = jax.vmap(_catch_reset_key)(
+        jax.random.split(rng, num_envs))
+    return CatchDraws(reset_ball_x=_t(ball_x), reset_pad_x=_t(pad_x))
+
+
+def catch_step_draws(jax_state) -> CatchDraws:
+    # PixelCatch.env_step leaves state.rng as it is; JaxEnv.step resets
+    # from that very key.
+    ball_x, pad_x = jax.vmap(_catch_reset_key)(jax_state.rng)
+    return CatchDraws(reset_ball_x=_t(ball_x), reset_pad_x=_t(pad_x))
+
+
 RESET_DRAWS = {"pixel_pong": pong_reset_draws,
-               "cartpole": cartpole_reset_draws}
-STEP_DRAWS = {"pixel_pong": pong_step_draws, "cartpole": cartpole_step_draws}
+               "cartpole": cartpole_reset_draws,
+               "pixel_breakout": breakout_reset_draws,
+               "pixel_catch": catch_reset_draws}
+STEP_DRAWS = {"pixel_pong": pong_step_draws, "cartpole": cartpole_step_draws,
+              "pixel_breakout": breakout_step_draws,
+              "pixel_catch": catch_step_draws}
 
 
 def to_numpy_tree(tree):
