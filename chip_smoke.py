@@ -37,16 +37,25 @@ them or outside a checkout of the repository. Phases, each fatal:
      ring (200k transitions), the bf16 actor and replay ratio 2;
    * apex_dedup: apex with a frame-dedup ring (1M transitions, at most 12
      GB of device memory) and replay ratio 2: two sampler launches per
-     train event, one last-wins priority flush after them.
+     train event, one last-wins priority flush after them;
+   * rainbow, qrdqn, iqn and mdqn, each preset as it stands (rainbow on
+     PixelReacher: dueling, noisy, 51-atom C51; qrdqn 200 quantiles; iqn
+     64/64/32 taus; mdqn the Munchausen soft bootstrap at n-step 1):
+     200,000-transition PER rings drawn through the cumsum twin, so no
+     sampler launch, batch 256, a grad step every 4th iteration of 64
+     envs, about 110 grad steps past the fill at 20,000 frames.
 5. The learning bars (``dist_dqn_tpu_torch/learning_bars.py``): CartPole
-   to a greedy eval return of 475 within 360,000 frames, and PixelCatch
+   to a greedy eval return of 475 within 360,000 frames, PixelCatch
    (PER through the sampler kernel, dedup ring) from a random start to an
-   episode return of +0.5 within 96,000 frames.
+   episode return of +0.5 within 96,000 frames, the rainbow preset on
+   CartPole to 475 within 300,000, and qrdqn, iqn and mdqn on the scaled
+   CartPole to 150 within 160,000; each stops at its bar.
 6. Check each path's outputs: finite loss and priorities (for r2d2, live
    exactly where the loop's host predicate says), one sampler launch per
-   grad step on the paths that draw through it, f32 learner masters,
-   Q-values of the expected shape that agree with a float32 reference
-   forward of the same weights.
+   grad step on the paths that draw through it and none on the others,
+   f32 learner masters, and head outputs and Q-values (``q_values``: the
+   C51 expectation, the quantile mean) of the expected shape that agree
+   with a float32 reference forward of the same weights, noise off.
 
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
@@ -73,15 +82,18 @@ F32_OPS_PER_S = 67e12
 # Main paths: name -> (preset, --set overrides, total env frames,
 # iterations per chunk). apex fills its ring at 50,000 frames (min_fill);
 # 6,000 more are 376 grad steps at 16 frames per step. r2d2 fills
-# at 2,500 frames (157 iterations of 16 envs); 8,000 frames are 500
-# iterations, 344 of them with a grad step. atari_breakout fills at 20,000
+# at 2,500 frames (157 iterations of 16 envs); 4,800 frames are 300
+# iterations, 144 of them with a grad step. atari_breakout fills at 20,000
 # frames (iteration 312 of 64 envs) and trains every 4th iteration, two
 # grad steps at a time: 204 events, 408 grad steps in 72,000 frames.
 # apex_dedup trains from iteration 3,124 to 3,624, 501 events of two grad
-# steps. Both eval once, after their first chunk.
+# steps. Both eval once, after their first chunk. rainbow, qrdqn, iqn and
+# mdqn fill at 20,000 frames (iteration 312 of 64 envs) and train every
+# 4th iteration: 110 grad steps in 48,000 frames; they eval after their
+# first chunk and their last.
 MAIN_PATHS = {
     "apex": ("apex", [], 56_000, 250),
-    "r2d2": ("r2d2", ["replay.pallas_sampler=true"], 8_000, 100),
+    "r2d2": ("r2d2", ["replay.pallas_sampler=true"], 4_800, 100),
     "atari_breakout": ("atari", ["env_name=pixel_breakout",
                                  "replay.frame_dedup=true",
                                  "network.actor_dtype=bfloat16",
@@ -90,6 +102,8 @@ MAIN_PATHS = {
     "apex_dedup": ("apex", ["replay.frame_dedup=true",
                             "replay.updates_per_chunk=2",
                             "eval_every_steps=58000"], 58_000, 125),
+    **{preset: (preset, ["eval_every_steps=40000"], 48_000, 125)
+       for preset in ("rainbow", "qrdqn", "iqn", "mdqn")},
 }
 APEX_DEDUP_MAX_GB = 12.0
 TIMING_ITERS = 200
@@ -494,19 +508,31 @@ def check_outputs(name: str, cfg, carry, history, launches: int) -> dict:
         if recurrent:
             state = tuple(x[:8] for x in carry.actor_carry)
             q, q32 = net(state, obs)[1], ref(state, obs)[1]
+            raw, raw32 = q, q32
         else:
-            q, q32 = net(obs), ref(obs)
+            # The head's own output (C51 logits, quantiles; IQN at its
+            # acting fractions) and its Q-values, with the noise off.
+            raw, raw32 = net(obs), ref(obs)
+            q, q32 = net.q_values(obs), ref.q_values(obs)
     shape = (obs.shape[0], net.num_actions)
     if tuple(q.shape) != shape or not bool(torch.isfinite(q).all()):
         _fail(f"{name}: Q-values of shape {tuple(q.shape)} (want {shape}) "
               "or non-finite")
     # bf16 keeps 8 significant bits through five layers (and the cell).
-    scale = float(q32.abs().max().clamp(min=1e-3))
+    scale = float(raw32.abs().max().clamp(min=1e-3))
+    raw_err = float((raw - raw32).abs().max())
     q_err = float((q - q32).abs().max())
-    if q_err > 0.05 * scale:
-        _fail(f"{name}: bf16 Q-values off the f32 reference by {q_err} "
-              f"(scale {scale})")
-    return {**out, "q_vs_f32_max_abs": q_err, "q_scale": scale}
+    # A C51 expectation moves by at most 2 max|atom| times the logits'
+    # largest error; a quantile mean or a scalar head by that error.
+    c51 = getattr(net, "num_atoms", 1) > 1 and not net.quantile
+    q_bound = 0.05 * scale * (2 * max(abs(net.v_min), abs(net.v_max))
+                              if c51 else 1.0)
+    if raw_err > 0.05 * scale or q_err > q_bound:
+        _fail(f"{name}: bf16 head output off the f32 reference by "
+              f"{raw_err} (scale {scale}), or Q-values by {q_err} (bound "
+              f"{q_bound})")
+    return {**out, "q_vs_f32_max_abs": q_err, "q_bound": q_bound,
+            "head_vs_f32_max_abs": raw_err, "q_scale": scale}
 
 
 def _main_path_row(name, history, wall, launches, outputs) -> dict:
@@ -534,12 +560,8 @@ def run_learning_bar(name: str, sampler) -> int:
 
     from dist_dqn_tpu_torch import learning_bars as bars
 
-    if name == "cartpole":
-        cfg, cap, chunk_iters = bars.cartpole_bar_config()
-        bar, key = bars.CARTPOLE_BAR, "eval_return"
-    else:
-        cfg, cap, chunk_iters = bars.catch_bar_config(prioritized=True)
-        bar, key = bars.CATCH_BAR, "episode_return"
+    config_fn, bar, key = bars.BARS[name]
+    cfg, cap, chunk_iters = config_fn()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sampler.kernel_stratified_sample.launches = 0
@@ -558,13 +580,15 @@ def run_learning_bar(name: str, sampler) -> int:
                                 if "eval_return" in r]}), flush=True)
     if not reached:
         _fail(f"{name}: {key} never reached {bar} within {cap} frames")
-    if name != "cartpole" and not first < bars.CATCH_RANDOM_CEILING:
+    if name == "catch" and not first < bars.CATCH_RANDOM_CEILING:
         _fail(f"{name}: the first chunk's return {first} is not a random "
               f"policy's (< {bars.CATCH_RANDOM_CEILING})")
     return launches
 
 
-PHASES = ("sampler", "dedup_gather", *MAIN_PATHS, "cartpole", "catch")
+BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
+              "iqn_cartpole", "mdqn_cartpole")
+PHASES = ("sampler", "dedup_gather", *MAIN_PATHS, *BAR_PHASES)
 
 
 def main(argv=None) -> int:
@@ -635,7 +659,7 @@ def main(argv=None) -> int:
                   f"{APEX_DEDUP_MAX_GB} GB")
         del carry, history
 
-    for name in ("cartpole", "catch"):
+    for name in BAR_PHASES:
         if name in phases:
             launches[name] = run_learning_bar(name, sampler)
 

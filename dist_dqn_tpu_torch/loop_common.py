@@ -58,7 +58,10 @@ def make_actor_param_cast(actor_dtype: str
     copy is made on the first call and refreshed in place on later ones.
     Its layers compute in the net's own ``compute_dtype``, as flax promotes
     bf16 params against an f32 layer: the weights are rounded, the math of
-    an f32 net stays f32.
+    an f32 net stays f32. Every floating tensor of the copy is cast, so the
+    nets hold no float buffers: the C51 support and IQN's frequencies are
+    made in float32 at use, and a noisy layer forms its weight in float32
+    from the rounded mu and sigma, as the JAX layer does from cast params.
     """
     if actor_dtype in ("", "float32"):
         return lambda net: net

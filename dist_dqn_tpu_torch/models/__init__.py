@@ -1,4 +1,6 @@
-from dist_dqn_tpu_torch.models.qnets import (CNNTorso, MLPTorso, NatureCNN,
+from dist_dqn_tpu_torch.models.qnets import (CNNTorso, ImplicitQuantileNetwork,
+                                             MLPTorso, NatureCNN, NoisyDense,
                                              QNetwork, build_network)
 
-__all__ = ["CNNTorso", "MLPTorso", "NatureCNN", "QNetwork", "build_network"]
+__all__ = ["CNNTorso", "ImplicitQuantileNetwork", "MLPTorso", "NatureCNN",
+           "NoisyDense", "QNetwork", "build_network"]

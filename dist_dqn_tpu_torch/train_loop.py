@@ -43,7 +43,7 @@ class TrainCarry:
     replay: object               # TimeRingState or PrioritizedRingState
     learner: LearnerState
     gen_env: torch.Generator     # env draws (serves, resets)
-    gen_act: torch.Generator     # exploration draws
+    gen_act: torch.Generator     # exploration (and actor noise) draws
     gen_sample: torch.Generator  # replay draws
     iteration: int               # env vector steps taken
     # Per-env episode trackers and chunk-level accumulators (device).
@@ -63,7 +63,7 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     ``grad_steps_in_chunk`` are host ints)."""
     dev = resolve_device(device)
     prioritized = cfg.replay.prioritized
-    init_learner, train_step = make_learner(cfg.learner)
+    init_learner, train_step = make_learner(cfg.learner, net)
     act = make_actor_step(env.num_actions)
     replay_ratio = loop_common.resolve_replay_ratio(cfg)
     updates = cfg.updates_per_train * replay_ratio
@@ -112,7 +112,8 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
                 and iteration % cfg.train_every == 0)
 
     def init(seed: int) -> TrainCarry:
-        gen_env, gen_act, gen_sample = loop_common.generators(seed, dev, 3)
+        gen_env, gen_act, gen_sample, gen_learn = loop_common.generators(
+            seed, dev, 4)
         env_state, obs = env.v_reset(B, gen_env)
         example = flatten(slice_newest(obs))[0]
         if prioritized:
@@ -126,8 +127,8 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         return TrainCarry(
             env_state=env_state, obs=obs, replay=replay,
-            learner=init_learner(net), gen_env=gen_env, gen_act=gen_act,
-            gen_sample=gen_sample, iteration=0,
+            learner=init_learner(net, gen_learn), gen_env=gen_env,
+            gen_act=gen_act, gen_sample=gen_sample, iteration=0,
             ep_return=torch.zeros((B,), dtype=torch.float32, device=dev),
             completed_return=zero.clone(), completed_count=zero.clone(),
             loss_sum=zero.clone(), train_count=0)
@@ -209,6 +210,8 @@ def make_evaluator(cfg: ExperimentConfig, env: TorchEnv,
                    num_episodes: int = 10, epsilon: float = 0.001):
     """Greedy-policy evaluation: one episode per env lane.
 
+    A noisy net acts with noise drawn from the generator, as the JAX
+    evaluator does (``train_loop.py:352``).
     ``evaluate(net, generator)`` runs ``env.max_steps`` steps under a mask
     that freezes each lane at its first episode end and returns the mean
     undiscounted return as a device scalar.

@@ -10,7 +10,12 @@ crosses the boundary; this module imports no JAX.
   * Dense kernels [in, out] -> [out, in];
   * ``CNNTorso_0/Conv_i`` -> ``torso.convs.i``, ``MLPTorso_0/Dense_i`` ->
     ``torso.layers.i``, top-level ``Dense_0`` -> ``hidden``, and the
-    ``advantage`` / ``value`` heads keep their names;
+    ``advantage`` / ``value`` heads and IQN's ``tau_embed`` keep their
+    names;
+  * NoisyNet heads (``NoisyDense``): ``mu_w`` / ``sigma_w`` [in, out] ->
+    [out, in], ``mu_b`` / ``sigma_b`` as they are. A C51 / QR head's
+    ``A * M`` outputs keep their order: flax reshapes them ``(-1, A, M)``
+    row-major (output a * M + m), and so does the port;
   * the recurrent tree (``RecurrentQNetwork``): ``torso/CNNTorso_0`` or
     ``torso/MLPTorso_0`` -> ``torso.body``, ``torso/embed`` ->
     ``torso.embed``, and ``core/lstm``'s eight kernels (``ii`` .. ``io``
@@ -31,6 +36,12 @@ def _tensor(x) -> torch.Tensor:
 
 
 def _dense(prefix: str, leaf: Mapping, out: Dict[str, torch.Tensor]):
+    if "mu_w" in leaf:                          # NoisyDense
+        for name in ("mu_w", "sigma_w"):
+            out[f"{prefix}.{name}"] = _tensor(np.asarray(leaf[name]).T)
+        for name in ("mu_b", "sigma_b"):
+            out[f"{prefix}.{name}"] = _tensor(leaf[name])
+        return
     out[f"{prefix}.weight"] = _tensor(np.asarray(leaf["kernel"]).T)
     out[f"{prefix}.bias"] = _tensor(leaf["bias"])
 
@@ -83,7 +94,7 @@ def from_flax(params: Mapping, net: torch.nn.Module
             _torso("torso", name, leaf, out)
         elif name == "Dense_0":
             _dense("hidden", leaf, out)
-        elif name in ("advantage", "value"):
+        elif name in ("advantage", "value", "tau_embed"):
             _dense(name, leaf, out)
         elif name == "torso":                   # RecurrentQNetwork's embed
             for sub, sub_leaf in leaf.items():

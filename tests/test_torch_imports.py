@@ -20,6 +20,13 @@ assert r2d2 <= set(names), sorted(r2d2 - set(names))
 slice4 = {"dist_dqn_tpu_torch.envs." + m for m in ("pixel_breakout",
                                                     "pixel_catch")}
 assert slice4 <= set(names), sorted(slice4 - set(names))
+slice5 = {"dist_dqn_tpu_torch.envs.pixel_reacher",
+          "dist_dqn_tpu_torch.learning_bars"}
+assert slice5 <= set(names), sorted(slice5 - set(names))
+from dist_dqn_tpu_torch.models import ImplicitQuantileNetwork, NoisyDense
+from dist_dqn_tpu_torch.ops.losses import (categorical_projection,
+                                           iqn_quantile_huber_td,
+                                           munchausen_bonus)
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -35,4 +42,4 @@ def test_port_imports_no_jax_and_no_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 21 and bad.strip() == "[]"
+    assert int(count) >= 22 and bad.strip() == "[]"

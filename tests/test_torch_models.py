@@ -69,9 +69,17 @@ def test_qnetwork_forward_bf16():
 
 
 def test_build_network_refuses_later_heads():
-    for field, value in (("noisy", True), ("num_atoms", 51), ("iqn", True)):
-        cfg = dataclasses.replace(tconfig.NetworkConfig(), **{field: value})
-        with pytest.raises(NotImplementedError):
+    """The noisy, C51/QR and IQN heads are built; the head combinations the
+    JAX package rejects raise its ValueError (tests/test_torch_heads.py
+    compares the messages)."""
+    for fields in (dict(noisy=True), dict(num_atoms=51), dict(iqn=True)):
+        cfg = dataclasses.replace(tconfig.NetworkConfig(), **fields)
+        torch_build(cfg, 6, (84, 84, 4), device="cpu")
+    for fields in (dict(iqn=True, noisy=True), dict(iqn=True, num_atoms=51),
+                   dict(lstm_size=16, noisy=True),
+                   dict(lstm_size=16, num_atoms=51)):
+        cfg = dataclasses.replace(tconfig.NetworkConfig(), **fields)
+        with pytest.raises(ValueError):
             torch_build(cfg, 6, (84, 84, 4), device="cpu")
 
 

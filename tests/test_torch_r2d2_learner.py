@@ -212,7 +212,7 @@ def test_feed_forward_value_rescale_step_matches_jax(double_dqn):
                        2, (4,), device="cpu")
     tnet.load_state_dict(from_flax(to_numpy_tree(jl.params), tnet))
     t_init, t_step = torch_make_learner(
-        tconfig.LearnerConfig(**dataclasses.asdict(lcfg)))
+        tconfig.LearnerConfig(**dataclasses.asdict(lcfg)), tnet)
     tl, tm = t_step(t_init(tnet), Transition(
         obs=torch.from_numpy(obs), action=torch.from_numpy(action).long(),
         reward=torch.from_numpy(reward),

@@ -143,7 +143,7 @@ def test_one_per_train_step_matches(env_name, max_grad_norm, use_kernel,
                        device="cpu")
     tnet.load_state_dict(from_flax(to_numpy_tree(jl.params), tnet))
     t_init, t_step = torch_make_learner(
-        tconfig.LearnerConfig(**dataclasses.asdict(learner)))
+        tconfig.LearnerConfig(**dataclasses.asdict(learner)), tnet)
     tl = t_init(tnet)
     jl2, jm = jax.jit(j_step)(jl, js.batch, js.weights)
     tl, tm = t_step(tl, ts.batch, ts.weights)
@@ -287,15 +287,35 @@ def test_train_cli_refuses_unported_flags(flag):
         main(["--config", "apex", "--device", "cpu", *flag])
 
 
-@pytest.mark.parametrize("assignment", [
-    "network.noisy=true", "population.size=2", "network.num_atoms=51",
-    "network.iqn=true", "learner.munchausen=true"])
+_CONFIG_CASES = {
+    # The heads of the distributional slice train, with eval (the noisy
+    # evaluator acts with noise).
+    "network.noisy=true": None,
+    "population.size=2": NotImplementedError,
+    "network.num_atoms=51": None,
+    "network.iqn=true": None,
+    # The JAX learner's ValueError: Munchausen needs n_step 1 (cartpole
+    # has 3).
+    "learner.munchausen=true": ValueError,
+}
+
+
+@pytest.mark.parametrize("assignment", list(_CONFIG_CASES))
 def test_train_refuses_unported_config(assignment):
     from dist_dqn_tpu_torch.train import train
 
     cfg = tconfig.apply_overrides(_tiny_cartpole(), [assignment])
-    with pytest.raises(NotImplementedError):
-        train(cfg, device="cpu", log_fn=lambda line: None)
+    error = _CONFIG_CASES[assignment]
+    if error is not None:
+        with pytest.raises(error):
+            train(cfg, device="cpu", log_fn=lambda line: None)
+        return
+    _, history = train(cfg, chunk_iters=50, device="cpu",
+                       log_fn=lambda line: None)
+    assert [r["env_frames"] for r in history] == [200, 400]
+    assert history[-1]["grad_steps_in_chunk"] == 50
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["eval_return"])
+               for r in history)
 
 
 _TINY_CLI = ["--device", "cpu", "--total-env-steps", "320",

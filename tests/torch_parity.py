@@ -16,6 +16,7 @@ from dist_dqn_tpu_torch.envs.cartpole import CartPoleDraws
 from dist_dqn_tpu_torch.envs.pixel_breakout import BreakoutDraws
 from dist_dqn_tpu_torch.envs.pixel_catch import CatchDraws
 from dist_dqn_tpu_torch.envs.pixel_pong import PongDraws
+from dist_dqn_tpu_torch.envs.pixel_reacher import ReacherDraws
 
 
 # The port's CPU tests run many small torch ops. With torch's default of
@@ -117,14 +118,73 @@ def catch_step_draws(jax_state) -> CatchDraws:
     return CatchDraws(reset_ball_x=_t(ball_x), reset_pad_x=_t(pad_x))
 
 
+def _reacher_reset_key(key):
+    # PixelReacher.reset: rng, k_theta, k_target = split(rng, 3); theta ~
+    # U(-pi, pi)^2; _sample_target: k_r, k_a = split(k_target), dist ~
+    # U(8, 29), angle ~ U(0, 2 pi).
+    _, k_theta, k_target = jax.random.split(key, 3)
+    theta = jax.random.uniform(k_theta, (2,), jnp.float32, -jnp.pi, jnp.pi)
+    k_r, k_a = jax.random.split(k_target)
+    dist = jax.random.uniform(k_r, (), jnp.float32, 8.0, 29.0)
+    ang = jax.random.uniform(k_a, (), jnp.float32, 0.0, 2.0 * jnp.pi)
+    return theta, dist, ang
+
+
+def reacher_reset_draws(rng, num_envs: int) -> ReacherDraws:
+    theta, dist, ang = jax.vmap(_reacher_reset_key)(
+        jax.random.split(rng, num_envs))
+    return ReacherDraws(reset_theta=_t(theta), reset_target_dist=_t(dist),
+                        reset_target_ang=_t(ang))
+
+
+def reacher_step_draws(jax_state) -> ReacherDraws:
+    # PixelReacher.env_step leaves state.rng as it is; JaxEnv.step resets
+    # from that very key.
+    theta, dist, ang = jax.vmap(_reacher_reset_key)(jax_state.rng)
+    return ReacherDraws(reset_theta=_t(theta), reset_target_dist=_t(dist),
+                        reset_target_ang=_t(ang))
+
+
 RESET_DRAWS = {"pixel_pong": pong_reset_draws,
                "cartpole": cartpole_reset_draws,
                "pixel_breakout": breakout_reset_draws,
-               "pixel_catch": catch_reset_draws}
+               "pixel_catch": catch_reset_draws,
+               "dmc_pixels": reacher_reset_draws}
 STEP_DRAWS = {"pixel_pong": pong_step_draws, "cartpole": cartpole_step_draws,
               "pixel_breakout": breakout_step_draws,
-              "pixel_catch": catch_step_draws}
+              "pixel_catch": catch_step_draws,
+              "dmc_pixels": reacher_step_draws}
 
 
 def to_numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+class NormalRecorder:
+    """Records, in call order, every array ``jax.random.normal`` returns
+    while installed (``monkeypatch.setattr(jax.random, "normal", rec)``):
+    the JAX NoisyDense layers draw their factorised noise through it, from
+    keys flax derives from the module path, which the port cannot replay.
+    Run the JAX code un-jitted so the draws are concrete."""
+
+    def __init__(self):
+        self.real = jax.random.normal
+        self.draws = []
+
+    def __call__(self, *args, **kwargs):
+        out = self.real(*args, **kwargs)
+        self.draws.append(np.asarray(out))
+        return out
+
+    def layer_noise(self, names, forwards=1):
+        """The recorded draws as the port's per-forward noise mappings:
+        each noisy layer of ``names`` (in call order) drew (eps_in,
+        eps_out); ``forwards`` forwards ran one after the other."""
+        per = 2 * len(names)
+        assert len(self.draws) == per * forwards, len(self.draws)
+        out = []
+        for f in range(forwards):
+            d = self.draws[f * per:(f + 1) * per]
+            out.append({name: (_t(d[2 * i]), _t(d[2 * i + 1]))
+                        for i, name in enumerate(names)})
+        return out
