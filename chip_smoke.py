@@ -56,6 +56,26 @@ them or outside a checkout of the repository. Phases, each fatal:
    f32 learner masters, and head outputs and Q-values (``q_values``: the
    C51 expectation, the quantile mean) of the expected shape that agree
    with a float32 reference forward of the same weights, noise off.
+7. Checkpoints, each right after the path it reuses (selecting one with
+   ``--only`` runs its path too):
+   * checkpoint_apex: the apex path saves its learner every 28,000 frames
+     into a checkpoint dir; the same call relaunched to 112,000 frames
+     must resume at 56,000, refill the ring and take as many grad steps
+     as the first leg, one sampler launch each, its learner's ``steps``
+     continuing from the saved count; then ``evaluate_checkpoint`` (with
+     ``export_params``, read back bit-equal) and
+     ``evaluate_checkpoint_curve`` over the retained steps play finite
+     returns;
+   * resume_r2d2: r2d2 as its path runs it (without its evaluation),
+     stopped at 3,200 frames with ``checkpoint_replay`` (the whole carry,
+     about 3.3 GB on disk) and resumed to 4,800 frames, must equal the
+     uninterrupted path bit for bit: learner, optimizer, ring,
+     priorities, env state, actor carry and every generator;
+   * evaluate_iqn_risk: the iqn path saves its learner at its end, and
+     ``evaluate_checkpoint`` plays it at ``risk_cvar_eta`` 1.0 and 0.25
+     (finite returns).
+   Their save and restore seconds and bytes are printed; the checkpoint
+   dirs live in one temporary directory, removed at the end.
 
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
@@ -72,6 +92,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -87,12 +108,13 @@ F32_OPS_PER_S = 67e12
 # frames (iteration 312 of 64 envs) and trains every 4th iteration, two
 # grad steps at a time: 204 events, 408 grad steps in 72,000 frames.
 # apex_dedup trains from iteration 3,124 to 3,624, 501 events of two grad
-# steps. Both eval once, after their first chunk. rainbow, qrdqn, iqn and
-# mdqn fill at 20,000 frames (iteration 312 of 64 envs) and train every
-# 4th iteration: 110 grad steps in 48,000 frames; they eval after their
-# first chunk and their last.
+# steps. rainbow, qrdqn, iqn and mdqn fill at 20,000 frames (iteration 312
+# of 64 envs) and train every 4th iteration: 110 grad steps in 48,000
+# frames. Each path evals once, after its first chunk (r2d2 as its preset
+# sets it): a greedy evaluation plays 2,000 steps whatever the episodes
+# do, and was the largest share of these paths' time.
 MAIN_PATHS = {
-    "apex": ("apex", [], 56_000, 250),
+    "apex": ("apex", ["eval_every_steps=56000"], 56_000, 250),
     "r2d2": ("r2d2", ["replay.pallas_sampler=true"], 4_800, 100),
     "atari_breakout": ("atari", ["env_name=pixel_breakout",
                                  "replay.frame_dedup=true",
@@ -102,10 +124,22 @@ MAIN_PATHS = {
     "apex_dedup": ("apex", ["replay.frame_dedup=true",
                             "replay.updates_per_chunk=2",
                             "eval_every_steps=58000"], 58_000, 125),
-    **{preset: (preset, ["eval_every_steps=40000"], 48_000, 125)
+    **{preset: (preset, ["eval_every_steps=48000"], 48_000, 125)
        for preset in ("rainbow", "qrdqn", "iqn", "mdqn")},
 }
 APEX_DEDUP_MAX_GB = 12.0
+# Where the paths train and evaluate: the card.
+DEVICE = "cuda"
+# The checkpoint phases and the main path each one reuses. checkpoint_apex
+# relaunches apex (saved every 28,000 frames) from 56,000 to 112,000
+# frames; resume_r2d2 stops r2d2 at 3,200 frames, after two of its chunks
+# of 1,600 frames.
+FOLLOW_UPS = {"apex": "checkpoint_apex", "r2d2": "resume_r2d2",
+              "iqn": "evaluate_iqn_risk"}
+APEX_SAVE_EVERY = 28_000
+APEX_RESUMED_TOTAL = 112_000
+R2D2_STOP = 3_200
+RISK_ETAS = (1.0, 0.25)
 TIMING_ITERS = 200
 
 
@@ -421,18 +455,25 @@ class _FlushWatch:
 
 
 def drive_main_path(cfg, total_env_steps: int, chunk_iters: int,
-                    stop_fn=None):
-    """One config through the port's train() on the card."""
+                    stop_fn=None, logged=None, **checkpoint):
+    """One config through the port's train() on the card. ``checkpoint``
+    passes train()'s checkpoint options; ``logged`` collects the rows it
+    logs besides the metric rows (resume and checkpoint rows)."""
     import torch
 
     from dist_dqn_tpu_torch.train import train
 
+    def log(line):
+        print(line, flush=True)
+        row = json.loads(line)
+        if logged is not None and "env_frames" not in row:
+            logged.append(row)
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     carry, history = train(cfg, total_env_steps=total_env_steps,
-                           chunk_iters=chunk_iters,
-                           log_fn=lambda line: print(line, flush=True),
-                           device="cuda", stop_fn=stop_fn)
+                           chunk_iters=chunk_iters, log_fn=log,
+                           device=DEVICE, stop_fn=stop_fn, **checkpoint)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return carry, history, wall
@@ -586,9 +627,248 @@ def run_learning_bar(name: str, sampler) -> int:
     return launches
 
 
+def _checkpoint_rows(logged) -> dict:
+    """Save and restore seconds and bytes from train()'s checkpoint rows."""
+    saves = [r for r in logged if "checkpoint_save_s" in r]
+    restores = [r for r in logged if "checkpoint_restore_s" in r]
+    return {"saved_at_frames": [r["checkpoint_save_at_frames"]
+                                for r in saves],
+            "save_s": [r["checkpoint_save_s"] for r in saves],
+            "restore_s": [r["checkpoint_restore_s"] for r in restores],
+            "checkpoint_bytes": sorted({r["checkpoint_bytes"]
+                                        for r in saves + restores})}
+
+
+def _tree_diff(a, b, path="carry") -> list:
+    """Paths at which two state trees differ (tensors bit for bit)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b.to(a.device)))
+        return [] if same else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [path]
+        return [p for k in a for p in _tree_diff(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, list):
+        if not isinstance(b, list) or len(a) != len(b):
+            return [path]
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in _tree_diff(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def check_checkpoint_apex(cfg, chunk_iters: int, directory: str,
+                          first_leg: dict, sampler) -> int:
+    """Relaunch the apex path, which saved into ``directory``, to
+    APEX_RESUMED_TOTAL frames; then evaluate what it saved. Returns the
+    sampler launches of the relaunch."""
+    import torch
+
+    from dist_dqn_tpu_torch.evaluate import (_build_eval,
+                                             evaluate_checkpoint,
+                                             evaluate_checkpoint_curve)
+    from dist_dqn_tpu_torch.utils.checkpoint import (TrainCheckpointer,
+                                                     list_checkpoint_steps,
+                                                     restore_pytree)
+
+    name = "checkpoint_apex"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logged = []
+    sampler.kernel_stratified_sample.launches = 0
+    carry, history, wall = drive_main_path(
+        cfg, APEX_RESUMED_TOTAL, chunk_iters, logged=logged,
+        checkpoint_dir=directory, save_every_frames=APEX_SAVE_EVERY)
+    launches = sampler.kernel_stratified_sample.launches
+    resumed = [r for r in logged if "resumed_at_frames" in r]
+    want = [{"resumed_at_frames": first_leg["frames"], "with_replay": False}]
+    if resumed != want or history[0]["env_frames"] <= first_leg["frames"]:
+        _fail(f"{name}: resumed {resumed} (want {want}), first row at "
+              f"{history[0]['env_frames']}")
+    outputs = check_outputs(name, cfg, carry, history, launches)
+    if (outputs["grad_steps"] != first_leg["steps"]
+            or carry.learner.steps != first_leg["steps"] * 2):
+        _fail(f"{name}: {outputs['grad_steps']} grad steps after the "
+              f"resume (first leg {first_leg['steps']}), learner steps "
+              f"{carry.learner.steps}")
+    row = _main_path_row(name, history, wall, launches, outputs)
+    del carry, history
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    export = os.path.join(directory, "exported_params.pt")
+    single = evaluate_checkpoint(cfg, directory,
+                                 episodes=cfg.eval_episodes, device=DEVICE,
+                                 export_params=export)
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    curve = evaluate_checkpoint_curve(cfg, directory,
+                                      episodes=cfg.eval_episodes,
+                                      device=DEVICE)
+    curve_s = time.perf_counter() - t0
+    net, _, _ = _build_eval(cfg, 1, 0.0, 1, DEVICE)
+    exported = [x.clone() for x in restore_pytree(export, net).state_dict()
+                .values()]
+    _, direct = TrainCheckpointer(directory).restore_params(net)
+    export_equal = all(torch.equal(a, b) for a, b in
+                       zip(exported, direct.state_dict().values()))
+    steps = list(list_checkpoint_steps(directory))
+    returns = [single["eval_return"]] + [r["eval_return"] for r in curve]
+    report = {
+        **row, "resumed_at_frames": first_leg["frames"],
+        "first_leg": first_leg,
+        **_checkpoint_rows(logged),
+        "retained_steps": steps, "evaluate_frames": single["frames"],
+        "evaluate_return": single["eval_return"], "evaluate_s": single_s,
+        "curve": [[r["frames"], r["eval_return"]] for r in curve],
+        "curve_s": curve_s, "export_params_equal": export_equal}
+    print(json.dumps(report), flush=True)
+    if (not all(math.isfinite(x) for x in returns)
+            or [r["frames"] for r in curve] != steps
+            or single["frames"] != APEX_RESUMED_TOTAL or not export_equal):
+        _fail(f"{name}: evaluate returned {returns} at {steps}, or the "
+              "exported params differ from the checkpoint's")
+    return launches
+
+
+def check_resume_r2d2(cfg, chunk_iters: int, total: int, directory: str,
+                      reference, sampler) -> int:
+    """The r2d2 path stopped after R2D2_STOP frames with the whole carry
+    saved, then resumed to ``total``: the carry must equal ``reference``
+    (the uninterrupted path's) bit for bit. Returns the sampler launches
+    of both legs."""
+    import dataclasses
+
+    import torch
+
+    from dist_dqn_tpu_torch.utils.checkpoint import state_tree
+
+    name = "resume_r2d2"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logged = []
+    ckpt = dict(checkpoint_dir=directory, checkpoint_replay=True,
+                save_every_frames=R2D2_STOP, logged=logged)
+    # Evaluation reads the carry and changes none of it, so the legs skip
+    # it. The stopped leg runs as one chunk, so it saves once, at its end:
+    # chunk boundaries only reset the chunk's metric accumulators, which
+    # the resumed leg's one chunk resets again.
+    cfg = dataclasses.replace(cfg, eval_every_steps=0)
+    sampler.kernel_stratified_sample.launches = 0
+    _, first, wall_a = drive_main_path(
+        cfg, R2D2_STOP, R2D2_STOP // cfg.actor.num_envs, **ckpt)
+    carry, second, wall_b = drive_main_path(cfg, total, chunk_iters, **ckpt)
+    launches = sampler.kernel_stratified_sample.launches
+    history = first + second
+    grad_steps = int(sum(r["grad_steps_in_chunk"] for r in history))
+    diff = _tree_diff(state_tree(reference), state_tree(carry))
+    resumed = [r for r in logged if "resumed_at_frames" in r]
+    report = {**_main_path_row(name, history, wall_a + wall_b, launches,
+                               {"grad_steps": grad_steps}),
+              "resumed": resumed, **_checkpoint_rows(logged),
+              "bit_equal_to_uninterrupted": not diff,
+              "differing_leaves": diff[:8],
+              "learner_steps": carry.learner.steps}
+    print(json.dumps(report), flush=True)
+    if resumed != [{"resumed_at_frames": R2D2_STOP, "with_replay": True}]:
+        _fail(f"{name}: resumed {resumed}")
+    if launches != grad_steps or grad_steps != reference.learner.steps:
+        _fail(f"{name}: {launches} sampler launches, {grad_steps} grad "
+              f"steps, the uninterrupted path {reference.learner.steps}")
+    if diff:
+        _fail(f"{name}: the resumed carry differs from the uninterrupted "
+              f"path at {len(diff)} leaves: {diff[:8]}")
+    return launches
+
+
+def check_evaluate_iqn_risk(cfg, directory: str) -> None:
+    """Play the iqn path's saved learner at each of RISK_ETAS."""
+    from dist_dqn_tpu_torch.evaluate import _apply_risk_eta, \
+        evaluate_checkpoint
+
+    out = {}
+    for eta in RISK_ETAS:
+        t0 = time.perf_counter()
+        row = evaluate_checkpoint(_apply_risk_eta(cfg, eta), directory,
+                                  episodes=cfg.eval_episodes, device=DEVICE)
+        out[str(eta)] = {"eval_return": row["eval_return"],
+                         "frames": row["frames"],
+                         "seconds": time.perf_counter() - t0}
+    print(json.dumps({"evaluate_iqn_risk": out}), flush=True)
+    if not all(math.isfinite(v["eval_return"]) for v in out.values()):
+        _fail(f"evaluate_iqn_risk: non-finite returns {out}")
+
+
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
-PHASES = ("sampler", "dedup_gather", *MAIN_PATHS, *BAR_PHASES)
+PHASES = ("sampler", "dedup_gather", *MAIN_PATHS, *FOLLOW_UPS.values(),
+          *BAR_PHASES)
+
+
+def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
+    """Drive each selected main path (and each one a selected checkpoint
+    phase reuses), then its checkpoint phase; records the sampler launches
+    of each in ``launches``."""
+    import torch
+
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    for name, (preset, overrides, total_env_steps, chunk_iters) in \
+            MAIN_PATHS.items():
+        follow = FOLLOW_UPS.get(name)
+        follow = follow if follow in phases else None
+        if name not in phases and follow is None:
+            continue
+        cfg = apply_overrides(CONFIGS[preset], overrides)
+        checkpoint = {}
+        directory = os.path.join(tmp, name)
+        if follow == "checkpoint_apex":
+            checkpoint = dict(checkpoint_dir=directory,
+                              save_every_frames=APEX_SAVE_EVERY)
+        elif follow == "evaluate_iqn_risk":
+            checkpoint = dict(checkpoint_dir=directory)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        logged = []
+        sampler.kernel_stratified_sample.launches = 0
+        with _FlushWatch() as flushes:
+            carry, history, wall = drive_main_path(
+                cfg, total_env_steps, chunk_iters, logged=logged,
+                **checkpoint)
+        launches[name] = sampler.kernel_stratified_sample.launches
+        outputs = check_outputs(name, cfg, carry, history, launches[name])
+        if cfg.replay.prioritized and cfg.replay.updates_per_chunk > 1:
+            # One last-wins flush per train event, each landing new values.
+            outputs["priority_flushes"] = len(flushes.changed)
+            outputs["every_flush_changed_the_plane"] = flushes.all_changed()
+            if (len(flushes.changed) * cfg.replay.updates_per_chunk
+                    != outputs["grad_steps"]
+                    or not outputs["every_flush_changed_the_plane"]):
+                _fail(f"{name}: {len(flushes.changed)} priority flushes for "
+                      f"{outputs['grad_steps']} grad steps, or a flush "
+                      "left the plane as it was")
+        row = _main_path_row(name, history, wall, launches[name], outputs)
+        if checkpoint:
+            row.update(_checkpoint_rows(logged))
+        print(json.dumps(row), flush=True)
+        if name == "apex_dedup" and row["peak_mem_gb"] > APEX_DEDUP_MAX_GB:
+            _fail(f"{name}: peak device memory {row['peak_mem_gb']} GB > "
+                  f"{APEX_DEDUP_MAX_GB} GB")
+        reference = carry if follow == "resume_r2d2" else None
+        first_leg = {"frames": history[-1]["env_frames"],
+                     "steps": carry.learner.steps}
+        del carry, history
+        if follow == "checkpoint_apex":
+            launches[follow] = check_checkpoint_apex(
+                cfg, chunk_iters, directory, first_leg, sampler)
+        elif follow == "resume_r2d2":
+            launches[follow] = check_resume_r2d2(
+                cfg, chunk_iters, total_env_steps, directory, reference,
+                sampler)
+            del reference
+        elif follow == "evaluate_iqn_risk":
+            check_evaluate_iqn_risk(cfg, directory)
 
 
 def main(argv=None) -> int:
@@ -609,7 +889,6 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
     from dist_dqn_tpu_torch.ops import sampler
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -629,35 +908,8 @@ def main(argv=None) -> int:
         check_dedup_gather()
 
     launches = {}
-    for name, (preset, overrides, total_env_steps, chunk_iters) in \
-            MAIN_PATHS.items():
-        if name not in phases:
-            continue
-        cfg = apply_overrides(CONFIGS[preset], overrides)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        sampler.kernel_stratified_sample.launches = 0
-        with _FlushWatch() as flushes:
-            carry, history, wall = drive_main_path(cfg, total_env_steps,
-                                                   chunk_iters)
-        launches[name] = sampler.kernel_stratified_sample.launches
-        outputs = check_outputs(name, cfg, carry, history, launches[name])
-        if cfg.replay.prioritized and cfg.replay.updates_per_chunk > 1:
-            # One last-wins flush per train event, each landing new values.
-            outputs["priority_flushes"] = len(flushes.changed)
-            outputs["every_flush_changed_the_plane"] = flushes.all_changed()
-            if (len(flushes.changed) * cfg.replay.updates_per_chunk
-                    != outputs["grad_steps"]
-                    or not outputs["every_flush_changed_the_plane"]):
-                _fail(f"{name}: {len(flushes.changed)} priority flushes for "
-                      f"{outputs['grad_steps']} grad steps, or a flush "
-                      "left the plane as it was")
-        row = _main_path_row(name, history, wall, launches[name], outputs)
-        print(json.dumps(row), flush=True)
-        if name == "apex_dedup" and row["peak_mem_gb"] > APEX_DEDUP_MAX_GB:
-            _fail(f"{name}: peak device memory {row['peak_mem_gb']} GB > "
-                  f"{APEX_DEDUP_MAX_GB} GB")
-        del carry, history
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        run_main_paths(phases, sampler, launches, tmp)
 
     for name in BAR_PHASES:
         if name in phases:

@@ -10,8 +10,10 @@ it is threaded through the loop, stored with each step *before* the step
 envs whose episode just ended. Whether a grad step may run is decided from
 host ints only (replay/sequence_device.py ``live_start_writes``), so no
 iteration waits on the device. ``replay.frame_dedup`` stores single frames
-and the sampler rebuilds the windows' stacks. Replay ratios above 1 and the
-bf16 actor are refused: the JAX loop has neither for recurrent configs.
+and the sampler rebuilds the windows' stacks. A replay ratio above 1 raises,
+as in the JAX loop; the actor acts on the learner's float32 net, and
+``network.actor_dtype`` is not read, as the JAX recurrent loop does not
+read it.
 """
 from __future__ import annotations
 
@@ -66,11 +68,6 @@ def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
             "replay.updates_per_chunk (the replay-ratio scan) is not "
             "supported by the recurrent R2D2 loop; leave it at 1 or use a "
             "feed-forward config")
-    if cfg.network.actor_dtype not in ("", "float32"):
-        raise ValueError(
-            f"network.actor_dtype={cfg.network.actor_dtype} (the bf16 actor "
-            "split) is not supported by the recurrent R2D2 loop; leave it at "
-            "float32 or use a feed-forward config")
     seq_len = rcfg.burn_in + rcfg.unroll_length + cfg.learner.n_step
     stride = rcfg.sequence_stride or rcfg.unroll_length
     init_learner, train_step = make_r2d2_learner(cfg.learner, rcfg)

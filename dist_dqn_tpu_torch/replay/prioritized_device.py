@@ -5,8 +5,10 @@ a stratified inverse-CDF draw over the masked ``p ** alpha`` plane
 (ops/sampler.py); with ``use_kernel`` the draw runs the hand-written CUDA
 kernel on the card. Priorities are stored raw (|TD| + eps); alpha is
 applied at sample time. Like the ring, the state is updated in place.
-The replay-ratio engine flushes its sub-steps' write-backs at once, with
-chronological last-write-wins (:func:`prioritized_ring_update_batched`).
+Every write-back is chronological last-write-wins where a slot appears
+twice, so a seed's run repeats on the card; the replay-ratio engine
+flushes its sub-steps' write-backs at once
+(:func:`prioritized_ring_update_batched`).
 """
 from __future__ import annotations
 
@@ -119,18 +121,34 @@ def prioritized_ring_sample(state: PrioritizedRingState,
                              b_idx=b_idx)
 
 
+def _write_priorities(state: PrioritizedRingState, t_idx: torch.Tensor,
+                      b_idx: torch.Tensor, new_priorities: torch.Tensor,
+                      eps: float) -> PrioritizedRingState:
+    """|p| + eps into the plane at (t_idx, b_idx), chronological
+    last-write-wins where a slot appears more than once
+    (ring.last_write_wins_scatter); the running max follows."""
+    T, B = state.priorities.shape
+    p = new_priorities.reshape(-1).abs() + eps
+    flat_idx = t_idx.reshape(-1).long() * B + b_idx.reshape(-1).long()
+    state.priorities.copy_(ring.last_write_wins_scatter(
+        state.priorities.reshape(-1), flat_idx, p).view(T, B))
+    state.max_priority = torch.maximum(state.max_priority, p.max())
+    return state
+
+
 def prioritized_ring_update(state: PrioritizedRingState,
                             t_idx: torch.Tensor, b_idx: torch.Tensor,
                             new_priorities: torch.Tensor,
                             eps: float = 1e-6) -> PrioritizedRingState:
-    """Write back learner TD magnitudes for the sampled transitions."""
-    p = new_priorities.abs() + eps
-    # A (t, b) drawn twice in one batch is the same transition under the
-    # same params, so both writes carry the same value: index_put_'s
-    # unspecified order among duplicate indices cannot change the result.
-    state.priorities.index_put_((t_idx.long(), b_idx.long()), p)
-    state.max_priority = torch.maximum(state.max_priority, p.max())
-    return state
+    """Write back learner TD magnitudes for the sampled transitions.
+
+    A (t, b) drawn twice in one batch keeps the later draw's value. The
+    two can differ (IQN draws fresh taus per example, so one transition
+    gets two losses), and a CUDA ``index_put_`` leaves the order among
+    duplicate indices undefined, which made a seed's IQN run differ
+    between two runs on the card; the election makes it deterministic.
+    """
+    return _write_priorities(state, t_idx, b_idx, new_priorities, eps)
 
 
 def prioritized_ring_update_batched(state: PrioritizedRingState,
@@ -144,10 +162,4 @@ def prioritized_ring_update_batched(state: PrioritizedRingState,
     the last one's |TD| + eps, deterministically
     (ring.last_write_wins_scatter).
     """
-    T, B = state.priorities.shape
-    p = new_priorities.reshape(-1).abs() + eps
-    flat_idx = t_idx.reshape(-1).long() * B + b_idx.reshape(-1).long()
-    state.priorities.copy_(ring.last_write_wins_scatter(
-        state.priorities.reshape(-1), flat_idx, p).view(T, B))
-    state.max_priority = torch.maximum(state.max_priority, p.max())
-    return state
+    return _write_priorities(state, t_idx, b_idx, new_priorities, eps)

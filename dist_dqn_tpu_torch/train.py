@@ -14,11 +14,19 @@ JAX CLI's flag does with ``jax.profiler``.
 
 Runs on ``cuda`` unless ``--device cpu`` / ``device="cpu"`` is given.
 ``--replay-ratio N`` and ``--actor-dtype`` set ``replay.updates_per_chunk``
-and ``network.actor_dtype`` as the JAX CLI does; ``replay.frame_dedup``
-rides ``--set``. Checkpointing, meshes, populations, telemetry and the
-other runtimes are not ported yet; asking for any of them raises instead
-of being ignored. Recurrent configs refuse the replay ratio and the bf16
-actor (and populations), where the JAX CLI warns and ignores them.
+and ``network.actor_dtype`` as the JAX CLI does; on a recurrent config
+they print the JAX CLI's warning and are ignored, as there. (The
+recurrent loop reads no ``network.actor_dtype``; a ``--set`` of it trains
+in float32.) ``replay.frame_dedup`` rides ``--set``.
+
+``--checkpoint-dir D`` saves the learner every ``--save-every-frames``
+(default: the eval period, else 100,000) and at the end, and resumes from
+the newest step in ``D`` when relaunched, continuing toward the same
+total; ``--checkpoint-replay`` saves and resumes the whole fused carry
+instead, bit-equal to a run that never stopped (utils/checkpoint.py).
+``--stop-at-return R`` ends the run once ``eval_return`` reaches R.
+Meshes, populations, telemetry and the other runtimes are not ported
+yet; asking for any of them raises instead of being ignored.
 """
 from __future__ import annotations
 
@@ -37,6 +45,8 @@ from dist_dqn_tpu_torch.envs import make_env
 from dist_dqn_tpu_torch.models import build_network
 from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_evaluator, make_r2d2_train
 from dist_dqn_tpu_torch.train_loop import make_evaluator, make_fused_train
+from dist_dqn_tpu_torch.utils.checkpoint import (TrainCheckpointer,
+                                                record_checkpoint_kind)
 from dist_dqn_tpu_torch.utils.device import resolve_device
 
 
@@ -46,11 +56,6 @@ def check_ported(cfg: ExperimentConfig) -> None:
     refused = []
     if cfg.population.size > 1 or cfg.population.spec_json:
         refused.append("population")
-    if cfg.network.lstm_size and cfg.network.actor_dtype not in ("",
-                                                                 "float32"):
-        # Neither package's recurrent loop has the bf16 actor split.
-        refused.append(f"network.actor_dtype={cfg.network.actor_dtype} "
-                       "for a recurrent config")
     if refused:
         raise NotImplementedError(
             f"not ported yet: {', '.join(refused)} (ROADMAP.md lists the "
@@ -96,13 +101,19 @@ def _write_profile(prof, profile_dir: str, wall_s: float, on_card: bool
 
 def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
           chunk_iters: int = 2000, log_fn=print, device=None, stop_fn=None,
-          profile_dir: str = None, profile_chunk: int = None):
+          profile_dir: str = None, profile_chunk: int = None,
+          checkpoint_dir: str = None, save_every_frames: int = 0,
+          checkpoint_replay: bool = False):
     """Run training on ``device`` (default: the card); returns
     (final_carry, history list of metric rows).
 
     ``stop_fn(row)`` may end the run early at a chunk boundary.
     ``profile_dir`` traces one chunk: ``profile_chunk`` (0-based), by
-    default the second, or the only one.
+    default the second, or the only one. ``checkpoint_dir`` saves the
+    learner (with ``checkpoint_replay``, the whole carry) every
+    ``save_every_frames`` and at the end, and resumes from its newest
+    step: toward the same total, so relaunching a finished run trains
+    nothing.
     """
     dev = resolve_device(device)
     check_ported(cfg)
@@ -121,15 +132,48 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     eval_gen = torch.Generator(device=dev).manual_seed(seed + 1)
     carry = init(seed)
 
+    ckpt = None
+    frames = 0            # the loop's frame cursor
+    frame_offset = 0      # added to the carry's own frame count
+    if checkpoint_dir:
+        # The cadence never bottoms out at 0 (--eval-every-steps 0 zeroes
+        # the eval period): that would save on every chunk.
+        ckpt = TrainCheckpointer(
+            checkpoint_dir,
+            save_every_frames=save_every_frames or cfg.eval_every_steps
+            or 100_000)
+        # Raises with the actual cause if the directory holds the other
+        # kind.
+        record_checkpoint_kind(checkpoint_dir,
+                               "carry" if checkpoint_replay else "learner")
+        restored = ckpt.restore_latest(
+            carry if checkpoint_replay else carry.learner)
+        if restored is not None:
+            frames, tree = restored
+            log_fn(json.dumps({"resumed_at_frames": frames,
+                               "with_replay": checkpoint_replay}))
+            log_fn(json.dumps(_checkpoint_row("restore", ckpt.last_restore)))
+            if checkpoint_replay:
+                # The carry's own iteration counter came back with it, so
+                # env_frames already continues from the checkpoint.
+                carry = tree
+            else:
+                # A fresh carry around the restored learner: the ring
+                # refills, the exploration schedule starts over.
+                carry.learner = tree
+                frame_offset = frames
+
+    def save_tree():
+        return carry if checkpoint_replay else carry.learner
+
     B = cfg.actor.num_envs
     history = []
-    frames = 0
     # 0 disables eval entirely; otherwise the first chunk gets a baseline.
     next_eval = frames if cfg.eval_every_steps else float("inf")
     # Trace the second chunk (the first pays one-time set-up), unless the
     # whole run is one chunk.
     if profile_chunk is None:
-        profile_chunk = 1 if total > chunk_iters * B else 0
+        profile_chunk = 1 if total > frames + chunk_iters * B else 0
     on_card = dev.type == "cuda"
     chunk_index = 0
     while frames < total:
@@ -152,7 +196,7 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
             log_fn(json.dumps(_write_profile(prof, profile_dir, dt,
                                              on_card)))
         chunk_index += 1
-        frames = metrics["env_frames"]
+        frames = frame_offset + metrics["env_frames"]
         grad_steps = float(metrics["grad_steps_in_chunk"])
         row = {
             "env_frames": frames,
@@ -171,35 +215,36 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
         history.append(row)
         log_fn(json.dumps({k: round(v, 3) if isinstance(v, float) else v
                            for k, v in row.items()}))
+        if ckpt is not None and ckpt.maybe_save(frames, save_tree()):
+            log_fn(json.dumps(_checkpoint_row("save", ckpt.last_save)))
         if stop_fn is not None and stop_fn(row):
             break
+    if ckpt is not None and ckpt.save(frames, save_tree()):
+        log_fn(json.dumps(_checkpoint_row("save", ckpt.last_save)))
     return carry, history
 
 
-def _refuse_unported(args, cfg: ExperimentConfig) -> None:
-    """Flags of the JAX CLI this port does not implement yet, and the two
-    learner-utilization flags on recurrent configs (where the JAX CLI warns
-    and ignores them)."""
-    recurrent = bool(cfg.network.lstm_size)
+def _checkpoint_row(what: str, record: dict) -> dict:
+    """The log row of one checkpoint save or restore: its step, seconds
+    and file bytes."""
+    return {f"checkpoint_{what}_at_frames": record["step"],
+            f"checkpoint_{what}_s": record["seconds"],
+            "checkpoint_bytes": record["bytes"]}
+
+
+def _refuse_unported(args) -> None:
+    """Flags of the JAX CLI this port does not implement yet."""
     refused = [flag for flag, given in (
-        ("--checkpoint-dir", args.checkpoint_dir is not None),
-        ("--checkpoint-replay", args.checkpoint_replay),
-        ("--save-every-frames", bool(args.save_every_frames)),
         ("--mesh-devices", args.mesh_devices != 1),
         ("--population", args.population not in (None, 1)),
         ("--population-spec", args.population_spec is not None),
         ("--runtime", args.runtime != "fused"),
-        ("--replay-ratio for a recurrent config",
-         recurrent and args.replay_ratio not in (None, 1)),
-        ("--actor-dtype for a recurrent config",
-         recurrent and args.actor_dtype not in (None, "float32")),
         ("--telemetry-port", args.telemetry_port is not None),
     ) if given]
     if refused:
         raise SystemExit(
             f"not ported yet: {', '.join(refused)} — the PyTorch port runs "
-            "the fused single-device runtime only, and its recurrent loop "
-            "has no replay-ratio scan or bf16 actor split (ROADMAP.md)")
+            "the fused single-device runtime only (ROADMAP.md)")
 
 
 def main(argv=None):
@@ -229,11 +274,21 @@ def main(argv=None):
                         choices=("float32", "bfloat16"),
                         help="act on a bf16 snapshot of the online net, "
                              "taken once per chunk (network.actor_dtype)")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="save checkpoints here and resume from the "
+                             "newest one when relaunched")
+    parser.add_argument("--save-every-frames", type=int, default=0,
+                        help="checkpoint period in env frames (default: "
+                             "eval_every_steps, else 100,000)")
+    parser.add_argument("--checkpoint-replay", action="store_true",
+                        help="checkpoint the whole fused carry (ring, env "
+                             "states, generators): the resumed run is "
+                             "bit-equal to an uninterrupted one")
+    parser.add_argument("--stop-at-return", type=float, default=None,
+                        help="stop early once eval_return reaches this "
+                             "value (e.g. 475 = CartPole solved)")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
-    parser.add_argument("--checkpoint-dir", default=None)
-    parser.add_argument("--checkpoint-replay", action="store_true")
-    parser.add_argument("--save-every-frames", type=int, default=0)
     parser.add_argument("--mesh-devices", type=int, default=1)
     parser.add_argument("--population", type=int, default=None)
     parser.add_argument("--population-spec", default=None)
@@ -243,18 +298,38 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = apply_overrides(CONFIGS[args.config], args.overrides)
-    _refuse_unported(args, cfg)
+    _refuse_unported(args)
     if args.eval_every_steps is not None:
         cfg = dataclasses.replace(cfg, eval_every_steps=args.eval_every_steps)
+    # The learner-utilization knobs, with the JAX CLI's ignored-flag
+    # warnings on a recurrent config.
+    recurrent = bool(cfg.network.lstm_size)
     if args.replay_ratio is not None:
-        cfg = dataclasses.replace(cfg, replay=dataclasses.replace(
-            cfg.replay, updates_per_chunk=args.replay_ratio))
+        if recurrent:
+            print("# --replay-ratio is not supported by the recurrent "
+                  "(R2D2) fused loop yet (its sequence learner has no "
+                  "scan-ratio path); ignored")
+        else:
+            cfg = dataclasses.replace(cfg, replay=dataclasses.replace(
+                cfg.replay, updates_per_chunk=args.replay_ratio))
     if args.actor_dtype is not None:
-        cfg = dataclasses.replace(cfg, network=dataclasses.replace(
-            cfg.network, actor_dtype=args.actor_dtype))
+        if recurrent:
+            print("# --actor-dtype is not supported by the recurrent "
+                  "(R2D2) fused loop yet; ignored")
+        else:
+            cfg = dataclasses.replace(cfg, network=dataclasses.replace(
+                cfg.network, actor_dtype=args.actor_dtype))
+    stop_fn = None
+    if args.stop_at_return is not None:
+        target = args.stop_at_return
+        stop_fn = lambda row: row.get("eval_return",  # noqa: E731
+                                      -float("inf")) >= target
     train(cfg, total_env_steps=args.total_env_steps, seed=args.seed,
-          chunk_iters=args.chunk_iters, device=args.device,
-          profile_dir=args.profile_dir, profile_chunk=args.profile_chunk)
+          chunk_iters=args.chunk_iters, device=args.device, stop_fn=stop_fn,
+          profile_dir=args.profile_dir, profile_chunk=args.profile_chunk,
+          checkpoint_dir=args.checkpoint_dir,
+          save_every_frames=args.save_every_frames,
+          checkpoint_replay=args.checkpoint_replay)
 
 
 if __name__ == "__main__":

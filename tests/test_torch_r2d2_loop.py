@@ -1,7 +1,8 @@
 """The port's R2D2 fused loop (r2d2_loop.py) and its CLI branch on the CPU,
 at tiny widths: grad steps through both draw routes, the host-int
-``can_train`` against the priority plane, the JAX CLI's row keys, and the
-options the port still refuses for recurrent configs."""
+``can_train`` against the priority plane, the JAX CLI's row keys, the
+options the port refuses for recurrent configs, and the two it warns about
+and ignores, as the JAX CLI does."""
 import dataclasses
 import json
 
@@ -78,17 +79,45 @@ def test_r2d2_loop_takes_grad_steps_on_cpu(monkeypatch, overrides):
     assert tuple(carry.actor_carry[0].shape) == (4, 8)
 
 
-def test_r2d2_loop_refuses_ratio_and_bf16_actor_when_called_directly():
-    """The loop itself refuses what train() refuses for recurrent
-    configs, for callers that build it directly."""
+def test_r2d2_loop_refuses_ratio_and_bf16_actor_when_called_directly(
+        monkeypatch):
+    """The loop itself, for callers that build it directly: a replay ratio
+    above 1 raises, as the JAX loop's does; ``network.actor_dtype`` is not
+    read (the JAX recurrent loop has no bf16 actor split), so a bfloat16
+    setting builds and acts on the learner's float32 net."""
     env = make_env("cartpole", device="cpu")
-    for extra in ("replay.updates_per_chunk=2",
-                  "network.actor_dtype=bfloat16"):
-        cfg = _tiny(extra)
-        net = build_network(cfg.network, env.num_actions,
-                            env.observation_shape, device="cpu")
-        with pytest.raises(ValueError, match="recurrent R2D2 loop"):
-            make_r2d2_train(cfg, env, net, device="cpu")
+    cfg = _tiny("replay.updates_per_chunk=2")
+    net = build_network(cfg.network, env.num_actions, env.observation_shape,
+                        device="cpu")
+    with pytest.raises(ValueError, match="recurrent R2D2 loop"):
+        make_r2d2_train(cfg, env, net, device="cpu")
+    acted = _spy_actor_dtypes(monkeypatch)
+    cfg = _tiny("network.actor_dtype=bfloat16")
+    net = build_network(cfg.network, env.num_actions, env.observation_shape,
+                        device="cpu")
+    init, run_chunk = make_r2d2_train(cfg, env, net, device="cpu")
+    _, metrics = run_chunk(init(0), 20)
+    assert metrics["grad_steps_in_chunk"] == 20 - (64 // 4 - 1)
+    assert acted and set(acted) == {torch.float32}
+
+
+def _spy_actor_dtypes(monkeypatch):
+    """Record the parameter dtype of the net every recurrent act reads."""
+    from dist_dqn_tpu_torch import r2d2_loop
+
+    dtypes = []
+    real = r2d2_loop.make_recurrent_actor_step
+
+    def make(num_actions):
+        act = real(num_actions)
+
+        def spy(net, *args):
+            dtypes.append(next(net.parameters()).dtype)
+            return act(net, *args)
+        return spy
+
+    monkeypatch.setattr(r2d2_loop, "make_recurrent_actor_step", make)
+    return dtypes
 
 
 @pytest.mark.parametrize("pallas_sampler", [True, False])
@@ -160,29 +189,66 @@ def test_r2d2_cli_profiles_a_chosen_training_chunk(capsys, tmp_path):
     # The JAX package's ValueError: no noisy heads on the recurrent net.
     (["network.noisy=true"], ValueError),
     (["population.size=2"], NotImplementedError),
-    (["network.actor_dtype=bfloat16"], NotImplementedError),
+    # Not read by the recurrent loop, as in the JAX package: trains in f32.
+    (["network.actor_dtype=bfloat16"], None),
     (["replay.updates_per_chunk=2"], ValueError),
     # 10 slots < seq_len 8 + stride 4: the ring could hold no live start.
     (["replay.capacity=40", "replay.sequence_stride=4"], ValueError),
     # CartPole has no rolling frame stack to deduplicate.
     (["replay.frame_dedup=true"], ValueError),
 ])
-def test_r2d2_train_refuses(assignments, error):
+def test_r2d2_train_refuses(monkeypatch, assignments, error):
     from dist_dqn_tpu_torch.train import train
 
+    if error is None:
+        acted = _spy_actor_dtypes(monkeypatch)
+        _, history = train(_tiny(*assignments), total_env_steps=80,
+                           chunk_iters=20, device="cpu",
+                           log_fn=lambda line: None)
+        assert history[-1]["grad_steps_in_chunk"] == 20 - (64 // 4 - 1)
+        assert acted and set(acted) == {torch.float32}
+        return
     with pytest.raises(error):
         train(_tiny(*assignments), total_env_steps=40, device="cpu",
               log_fn=lambda line: None)
 
 
+# The JAX CLI's lines for the two learner-utilization flags on a recurrent
+# config (dist_dqn_tpu/train.py:1093-1095, :1105-1106).
+_IGNORED = {
+    "--replay-ratio": "# --replay-ratio is not supported by the recurrent "
+                      "(R2D2) fused loop yet (its sequence learner has no "
+                      "scan-ratio path); ignored",
+    "--actor-dtype": "# --actor-dtype is not supported by the recurrent "
+                     "(R2D2) fused loop yet; ignored",
+}
+
+
 @pytest.mark.parametrize("flag", [["--replay-ratio", "2"],
                                   ["--actor-dtype", "bfloat16"],
                                   ["--population", "2"]])
-def test_r2d2_cli_refuses(flag):
+def test_r2d2_cli_refuses(monkeypatch, capsys, flag):
+    """``--population`` is refused; ``--replay-ratio`` and
+    ``--actor-dtype`` print the JAX CLI's warning, are ignored, and the
+    run trains with one grad step per train event and a float32 actor."""
     from dist_dqn_tpu_torch.train import main
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["--config", "r2d2", "--device", "cpu", *flag])
+    if flag[0] not in _IGNORED:
+        with pytest.raises(SystemExit, match="not ported yet"):
+            main(["--config", "r2d2", "--device", "cpu", *flag])
+        return
+    acted = _spy_actor_dtypes(monkeypatch)
+    argv = ["--config", "r2d2", "--device", "cpu", "--total-env-steps", "80",
+            "--chunk-iters", "20", "--eval-every-steps", "0", *flag]
+    for assignment in TINY:
+        argv += ["--set", assignment]
+    main(argv)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == _IGNORED[flag[0]]
+    rows = [json.loads(line) for line in lines[1:]]
+    assert [r["env_frames"] for r in rows] == [80]
+    assert rows[0]["grad_steps_in_chunk"] == 20 - (64 // 4 - 1)
+    assert acted and set(acted) == {torch.float32}
 
 
 def test_r2d2_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):

@@ -137,3 +137,29 @@ def test_prioritized_ring_masks_and_writes_exact(steps):
         np.testing.assert_array_equal(
             tpring._valid_start_mask(ts.ring, n_step).numpy(),
             np.asarray(jpring._valid_start_mask(js.ring, n_step)))
+
+
+def test_per_write_back_keeps_the_last_of_duplicate_draws():
+    """A slot drawn twice in one batch with two different priorities (IQN
+    draws taus per example) keeps the later one, as the JAX package's
+    scatter does here: on the card an ``index_put_`` left it to the order
+    of the writes, and a seed's IQN run differed between two runs."""
+    example = np.zeros(OBS, np.uint8)
+    js = jpring.prioritized_ring_init(T, B, jnp.asarray(example))
+    ts = tpring.prioritized_ring_init(T, B, torch.from_numpy(example))
+    t_idx = np.array([3, 1, 3, 0, 3, 1], np.int32)
+    b_idx = np.array([2, 0, 2, 1, 2, 0], np.int32)
+    prio = np.array([5.0, 1.0, 7.0, 2.0, 0.5, 3.0], np.float32)
+    js = jpring.prioritized_ring_update(js, jnp.asarray(t_idx),
+                                        jnp.asarray(b_idx),
+                                        jnp.asarray(prio))
+    tpring.prioritized_ring_update(ts, torch.from_numpy(t_idx),
+                                   torch.from_numpy(b_idx),
+                                   torch.from_numpy(prio))
+    np.testing.assert_array_equal(ts.priorities.numpy(),
+                                  np.asarray(js.priorities))
+    eps = np.float32(1e-6)
+    assert float(ts.priorities[3, 2]) == np.float32(0.5) + eps
+    assert float(ts.priorities[1, 0]) == np.float32(3.0) + eps
+    assert float(ts.max_priority) == float(js.max_priority) == \
+        np.float32(7.0) + eps

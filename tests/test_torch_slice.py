@@ -277,9 +277,11 @@ def test_device_busy_is_the_union_of_kernel_intervals():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--checkpoint-dir", "ckpt"], ["--mesh-devices", "2"],
+    # Flags still refused (the checkpoint flags are ported and tested in
+    # tests/test_torch_resume.py).
+    ["--runtime", "host-replay"], ["--mesh-devices", "2"],
     ["--population", "2"], ["--runtime", "apex"],
-    ["--telemetry-port", "9100"], ["--save-every-frames", "1000"]])
+    ["--telemetry-port", "9100"], ["--population-spec", "{}"]])
 def test_train_cli_refuses_unported_flags(flag):
     from dist_dqn_tpu_torch.train import main
 

@@ -156,6 +156,24 @@ STEP_DRAWS = {"pixel_pong": pong_step_draws, "cartpole": cartpole_step_draws,
               "dmc_pixels": reacher_step_draws}
 
 
+def assert_trees_equal(a, b, path="state"):
+    """Every tensor of two state trees equal bit for bit, every host value
+    equal."""
+    if isinstance(a, torch.Tensor):
+        assert isinstance(b, torch.Tensor) and a.dtype == b.dtype, path
+        assert torch.equal(a, b), path
+    elif isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            assert_trees_equal(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_trees_equal(x, y, f"{path}[{i}]")
+    else:
+        assert a == b, path
+
+
 def to_numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
