@@ -11,7 +11,9 @@ them or outside a checkout of the repository. Phases, each fatal:
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (the sampler: the apex PER plane, a ragged
    mostly-zero plane, R2D2's sequence plane with mass in every 40th row,
-   and the PixelCatch bar's small plane), and time both beside one PyTorch
+   and the PixelCatch bar's small plane; and the population's four apex
+   planes ``[4, 62500, 16]`` in one member-axis launch, which must equal
+   four 2-D launches bit for bit), and time both beside one PyTorch
    library call computing the same function and the card's bound. Times
    are device times (CUDA events around replays of a CUDA graph of 20
    calls); the ``*eager_ms`` keys time the same calls launched from
@@ -26,9 +28,11 @@ them or outside a checkout of the repository. Phases, each fatal:
    transition start (obs and next_obs, merged rows) and for 64 windows of
    R2D2's 125 steps.
 4. Drive the main paths through ``dist_dqn_tpu_torch.train.train``, each
-   at full width past ``min_fill`` for a few hundred grad steps and an
-   eval, with the kernel launch counters zeroed just before and read just
-   after each:
+   at full width past ``min_fill`` for a few hundred grad steps (only r2d2
+   evaluates inside its run; atari_breakout, rainbow and qrdqn evaluate
+   once after it, and the later phases drive the evaluator), with
+   the kernel launch counters zeroed just before and read just after
+   each:
    * apex: 1M-transition PER ring, batch 512, Nature CNN, bf16;
    * r2d2 with ``replay.pallas_sampler=True``: the recurrent Nature-CNN +
      LSTM-512 net (bf16), 6,250 x 16 sequence ring, 64 sequences of 125
@@ -43,7 +47,14 @@ them or outside a checkout of the repository. Phases, each fatal:
      64/64/32 taus; mdqn the Munchausen soft bootstrap at n-step 1):
      200,000-transition PER rings drawn through the cumsum twin, so no
      sampler launch, batch 256, a grad step every 4th iteration of 64
-     envs, about 110 grad steps past the fill at 20,000 frames.
+     envs, about 110 grad steps past the fill at 20,000 frames;
+   * population_apex_dedup, after apex_dedup: ``--population 4`` with a
+     spec of four epsilons, learning rates and gammas, 56,000 frames per
+     member (752 grad steps each, one sampler launch per grad step for
+     all four), peak memory at most four times apex_dedup's bar, and
+     fewer than twice apex_dedup's device kernels per training iteration
+     (each path's carry runs 10 more training iterations under
+     torch.profiler after its run); then one evaluation of every member.
 5. The learning bars (``dist_dqn_tpu_torch/learning_bars.py``): CartPole
    to a greedy eval return of 475 within 360,000 frames, PixelCatch
    (PER through the sampler kernel, dedup ring) from a random start to an
@@ -73,9 +84,21 @@ them or outside a checkout of the repository. Phases, each fatal:
      priorities, env state, actor carry and every generator;
    * evaluate_iqn_risk: the iqn path saves its learner at its end, and
      ``evaluate_checkpoint`` plays it at ``risk_cvar_eta`` 1.0 and 0.25
-     (finite returns).
+     (finite returns);
+   * population_checkpoint: the population path's directory holds the
+     ``POPULATION`` marker 4, ``evaluate_checkpoint(member=2)`` plays a
+     finite return, a relaunch at M = 4 logs ``resumed_at_frames`` with
+     ``population: 4`` and trains nothing more, and one at M = 3 is
+     refused with the width's text.
    Their save and restore seconds and bytes are printed; the checkpoint
    dirs live in one temporary directory, removed at the end.
+8. population_learner_lockstep: the cartpole learner at its preset width
+   as a population of two (own learning rates) and as two solo learners,
+   on the same batches for 100 grad steps: params within rtol 1e-5, atol
+   1e-6. Then a 4,000-frame two-member fused run beside the two solo runs
+   of the same seeds, one iteration at a time; the first iteration at
+   which a member's actions or replay draws differ from its solo twin's
+   is reported, not held to a bar.
 
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
@@ -107,35 +130,67 @@ F32_OPS_PER_S = 67e12
 # iterations, 144 of them with a grad step. atari_breakout fills at 20,000
 # frames (iteration 312 of 64 envs) and trains every 4th iteration, two
 # grad steps at a time: 204 events, 408 grad steps in 72,000 frames.
-# apex_dedup trains from iteration 3,124 to 3,624, 501 events of two grad
-# steps. rainbow, qrdqn, iqn and mdqn fill at 20,000 frames (iteration 312
-# of 64 envs) and train every 4th iteration: 110 grad steps in 48,000
-# frames. Each path evals once, after its first chunk (r2d2 as its preset
-# sets it): a greedy evaluation plays 2,000 steps whatever the episodes
-# do, and was the largest share of these paths' time.
+# apex_dedup trains from iteration 3,124 to 3,499, 376 events of two grad
+# steps (as many per member as its population). rainbow, qrdqn, iqn and
+# mdqn fill at 20,000 frames (iteration 312 of 64 envs) and train every 4th
+# iteration: 110 grad steps in 48,000 frames. Only r2d2 evaluates inside
+# its run (as its preset sets it): a greedy PixelPong evaluation plays
+# 2,000 steps whatever the episodes do, 8-18 s. The END_EVAL_PATHS
+# evaluate once after their run, and the evaluator is driven on the card
+# by checkpoint_apex, evaluate_iqn_risk, the population phases and every
+# learning bar as well.
 MAIN_PATHS = {
-    "apex": ("apex", ["eval_every_steps=56000"], 56_000, 250),
+    "apex": ("apex", ["eval_every_steps=0"], 56_000, 250),
     "r2d2": ("r2d2", ["replay.pallas_sampler=true"], 4_800, 100),
     "atari_breakout": ("atari", ["env_name=pixel_breakout",
                                  "replay.frame_dedup=true",
                                  "network.actor_dtype=bfloat16",
                                  "replay.updates_per_chunk=2",
-                                 "eval_every_steps=72000"], 72_000, 125),
+                                 "eval_every_steps=0"], 72_000, 125),
     "apex_dedup": ("apex", ["replay.frame_dedup=true",
                             "replay.updates_per_chunk=2",
-                            "eval_every_steps=58000"], 58_000, 125),
-    **{preset: (preset, ["eval_every_steps=48000"], 48_000, 125)
+                            "eval_every_steps=0"], 56_000, 125),
+    **{preset: (preset, ["eval_every_steps=0"], 48_000, 125)
        for preset in ("rainbow", "qrdqn", "iqn", "mdqn")},
 }
 APEX_DEDUP_MAX_GB = 12.0
+# The paths evaluated once after their run: those whose evaluator no other
+# phase drives at full width (the bf16 actor on PixelBreakout, noisy C51
+# on PixelReacher, the QR head).
+END_EVAL_PATHS = ("atari_breakout", "rainbow", "qrdqn")
 # Where the paths train and evaluate: the card.
 DEVICE = "cuda"
+# The population path: apex_dedup's preset with four members, each trained
+# as a solo apex_dedup run of its own epsilon, lr and gamma. 56,000 frames
+# per member: the fill at 50,000, then 376 train events of two grad steps.
+POPULATION_SIZE = 4
+POPULATION_SPEC = json.dumps({"epsilon": [0.01, 0.05, 0.1, 0.02],
+                              "lr": [1e-4, 5e-5, 2e-4, 1e-4],
+                              "gamma": [0.99, 0.99, 0.98, 0.995]})
+POPULATION_FRAMES = 56_000
+POPULATION_CHUNK = 125
+POPULATION_GRAD_STEPS = 752
+POPULATION_MAX_GB = POPULATION_SIZE * APEX_DEDUP_MAX_GB
+# After apex_dedup's and the population's runs, PROFILED_ITERS more
+# training iterations of each are traced with torch.profiler (no trace is
+# written: exporting a whole chunk's took about 100 s in PR 7's first
+# call). The population must launch fewer than
+# POPULATION_MAX_LAUNCH_RATIO times the solo path's device kernels per
+# iteration (a loop over members would launch 4x).
+PROFILED_ITERS = 10
+POPULATION_MAX_LAUNCH_RATIO = 2.0
+# population_learner_lockstep: the cartpole learner at its preset width, two
+# members, on the same batches as two solo learners.
+LOCKSTEP_STEPS = 100
+LOCKSTEP_FRAMES = 4_000
 # The checkpoint phases and the main path each one reuses. checkpoint_apex
 # relaunches apex (saved every 28,000 frames) from 56,000 to 112,000
 # frames; resume_r2d2 stops r2d2 at 3,200 frames, after two of its chunks
 # of 1,600 frames.
-FOLLOW_UPS = {"apex": "checkpoint_apex", "r2d2": "resume_r2d2",
-              "iqn": "evaluate_iqn_risk"}
+FOLLOW_UPS = {"apex": ("checkpoint_apex",), "r2d2": ("resume_r2d2",),
+              "iqn": ("evaluate_iqn_risk",),
+              "apex_dedup": ("population_apex_dedup",
+                             "population_checkpoint")}
 APEX_SAVE_EVERY = 28_000
 APEX_RESUMED_TOTAL = 112_000
 R2D2_STOP = 3_200
@@ -193,18 +248,28 @@ def _device_ms(fn, calls_per_graph: int = 20, replays: int = 10) -> float:
 def _device_launches_per_call(fn, calls: int = 10) -> float:
     """Kernels (and copies or memsets) the card runs per call of ``fn``,
     from torch.profiler's device events over ``calls`` calls."""
+    return _profile_device(fn, calls)["events"] / calls
+
+
+def _profile_device(fn, calls: int) -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler: the device events
+    (kernels, copies, memsets), the seconds in which one ran, and the
+    wall time."""
     import torch
-    from torch.autograd import DeviceType
+
+    from dist_dqn_tpu_torch.train import _busy_seconds, _device_spans
     fn()
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(events) / calls
+        wall = time.perf_counter() - t0
+    return {"events": len(_device_spans(prof)), "busy_s": _busy_seconds(prof),
+            "wall_s": wall}
 
 
 def _graph_replay_matches(fn, calls: int = 20, replays: int = 2) -> bool:
@@ -257,36 +322,43 @@ TIMED_CASES = ("apex", "r2d2", "catch")
 def _time_sampler(sampler, w, u, iters: int) -> dict:
     """Kernel, plain version and library call at one shape: device and
     eager times, the card's bound, graph-replay equality and device
-    kernels per call. Fails if graph replays differ from an eager call."""
+    kernels per call. Fails if graph replays differ from an eager call.
+    With a member axis (w [M, T, B], u [M, S]) the library call is the
+    stacked cumsum with searchsorted, and ``one_launch_per_member_ms``
+    times M 2-D launches, one per plane."""
     import torch
 
-    T, B = w.shape
-    S = u.shape[0]
+    M, T, B = w.shape if w.dim() == 3 else (1, *w.shape)
+    S = u.shape[-1]
 
     def kernel():
         return sampler.kernel_stratified_sample(w, u)
 
-    replay_ok = _graph_replay_matches(kernel)
     launches_per_call = _device_launches_per_call(kernel)
+    replay_ok = _graph_replay_matches(kernel)
     if not replay_ok:
         _fail(f"sampler kernel outputs differ between eager calls and CUDA "
-              f"graph replays (T={T})")
-    flat = w.reshape(-1)
+              f"graph replays (M={M}, T={T})")
+    flat = w.reshape(M, -1)
+    u2 = u.reshape(M, S)
 
     def library():
-        cdf = torch.cumsum(flat, dim=0)
-        return torch.searchsorted(cdf, u * cdf[-1])
+        cdf = torch.cumsum(flat, dim=1)
+        return torch.searchsorted(cdf, u2 * cdf[:, -1:])
 
     fns = {"": kernel,
            "plain_": lambda: sampler.plain_stratified_sample(w, u),
            "library_": library}
+    if w.dim() == 3:
+        fns["one_launch_per_member_"] = lambda: [
+            sampler.kernel_stratified_sample(w[m], u[m]) for m in range(M)]
     device = {f"{k}ms": _device_ms(fn) for k, fn in fns.items()}
     eager = {f"{k}eager_ms": _eager_ms(fn, iters) for k, fn in fns.items()}
-    # Least work: read the plane and u once, write the three [S] outputs
-    # and the total once; add every cell once, scan the T row sums, and per
-    # sample search log2(T) rows and walk B lanes.
-    bytes_moved = T * B * 4 + S * 4 + S * 12 + 4
-    ops = T * B + T + S * (math.ceil(math.log2(T)) + B)
+    # Least work: read the planes and u once, write the three [S] outputs
+    # and the total of each member once; add every cell once, scan the T
+    # row sums, and per sample search log2(T) rows and walk B lanes.
+    bytes_moved = M * (T * B * 4 + S * 4 + S * 12 + 4)
+    ops = M * (T * B + T + S * (math.ceil(math.log2(T)) + B))
     bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / F32_OPS_PER_S * 1e3
     return {**device, "bound_ms": max(bound_bytes, bound_ops),
@@ -346,7 +418,64 @@ def check_sampler(sampler, iters: int) -> dict:
             print(json.dumps({"sampler_timing": name, "T": T, "B": B,
                               "S": S, **timing}), flush=True)
             report[name] = {"T": T, "B": B, "S": S, **timing}
+    report["population"] = check_sampler_members(sampler, rng, iters)
+    report["max_abs_err"] = max(report["max_abs_err"],
+                                report["population"]["max_abs_err"])
     return report
+
+
+# The population_apex_dedup plane: M members' [T, B] planes, S per member.
+POPULATION_PLANE = (4, 62500, 16, 512, 0.3)
+
+
+def check_sampler_members(sampler, rng, iters: int) -> dict:
+    """The member-axis launch at POPULATION_PLANE: each member's draw bit
+    for bit that of a 2-D launch on its plane alone, and against the plain
+    member-axis version under the 2-D bars; then timed."""
+    import numpy as np
+    import torch
+
+    M, T, B, S, zero = POPULATION_PLANE
+    dev = torch.device("cuda")
+    w_np = np.stack([_mass(rng, T, B, zero) for _ in range(M)])
+    u_np = ((np.arange(S) + rng.uniform(size=(M, S))) / S).astype(np.float32)
+    w = torch.from_numpy(w_np).to(dev)
+    u = torch.from_numpy(u_np).to(dev)
+    got = sampler.kernel_stratified_sample(w, u)
+    solo = [sampler.kernel_stratified_sample(w[m], u[m]) for m in range(M)]
+    plain = sampler.plain_stratified_sample(w, u)
+    torch.cuda.synchronize()
+    tk, bk, pk, totk = (x.cpu().numpy() for x in got)
+    tp, bp, pp, totp = (x.cpu().numpy() for x in plain)
+    agree_mask = (tk == tp) & (bk == bp)
+    members = np.arange(M)[:, None]
+    checks = {
+        "bit_equal_to_2d_launches": all(
+            torch.equal(g[m], x) for m in range(M)
+            for g, x in zip(got, solo[m])),
+        "agreement>=0.98": bool((agree_mask.mean(axis=1) >= 0.98).all()),
+        "mass_sel==w[m,t,b]": bool(np.allclose(pk, w_np[members, tk, bk],
+                                               rtol=1e-6, atol=0.0)),
+        "no_zero_mass_pick": bool((pk > 0).all()),
+        "t<T": bool((tk < T).all() and (tk >= 0).all()),
+        "b<B": bool((bk < B).all() and (bk >= 0).all()),
+        "total_vs_plain": bool(np.allclose(totk, totp, rtol=1e-5, atol=0)),
+        "total_vs_float64": bool(np.allclose(
+            totk, w_np.astype(np.float64).sum(axis=(1, 2)), rtol=1e-5,
+            atol=0)),
+    }
+    err = max(float(np.abs(totk - totp).max()),
+              float(np.abs(pk - pp)[agree_mask].max(initial=0.0)))
+    print(json.dumps({"sampler_check": "population", "M": M, "T": T, "B": B,
+                      "S": S, "agreement": float(agree_mask.mean()),
+                      "max_abs_err": err, "checks": checks}), flush=True)
+    if not all(checks.values()):
+        _fail(f"member-axis sampler launch disagrees with its 2-D launches "
+              f"or its plain version: {checks}")
+    timing = _time_sampler(sampler, w, u, iters)
+    print(json.dumps({"sampler_timing": "population", "M": M, "T": T,
+                      "B": B, "S": S, **timing}), flush=True)
+    return {"M": M, "T": T, "B": B, "S": S, "max_abs_err": err, **timing}
 
 
 def check_dedup_gather(lanes: int = 64, slots: int = 160, steps: int = 400,
@@ -457,8 +586,9 @@ class _FlushWatch:
 def drive_main_path(cfg, total_env_steps: int, chunk_iters: int,
                     stop_fn=None, logged=None, **checkpoint):
     """One config through the port's train() on the card. ``checkpoint``
-    passes train()'s checkpoint options; ``logged`` collects the rows it
-    logs besides the metric rows (resume and checkpoint rows)."""
+    passes train()'s checkpoint and profile options; ``logged`` collects
+    the rows it logs besides the metric rows (resume, checkpoint and
+    profile rows)."""
     import torch
 
     from dist_dqn_tpu_torch.train import train
@@ -574,6 +704,28 @@ def check_outputs(name: str, cfg, carry, history, launches: int) -> dict:
               f"{q_bound})")
     return {**out, "q_vs_f32_max_abs": q_err, "q_bound": q_bound,
             "head_vs_f32_max_abs": raw_err, "q_scale": scale}
+
+
+def evaluate_at_end(cfg, net):
+    """One greedy evaluation of a finished path's net, as train() runs
+    one on its eval cadence: the run's evaluator, from its evaluation
+    generator (seed + 1; each member's for a population). Returns (the
+    mean return, or the members' list of them, seconds)."""
+    import torch
+
+    from dist_dqn_tpu_torch import population as pop
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.train_loop import make_evaluator
+
+    env = make_env(cfg.env_name, device=DEVICE)
+    evaluate = make_evaluator(cfg, env, num_episodes=cfg.eval_episodes)
+    M = cfg.population.size
+    seeds = pop.member_seeds(cfg.seed, M) if M > 1 else [cfg.seed]
+    gens = [torch.Generator(device=DEVICE).manual_seed(s + 1)
+            for s in seeds]
+    t0 = time.perf_counter()
+    returns = evaluate(net, gens if M > 1 else gens[0]).tolist()
+    return returns, time.perf_counter() - t0
 
 
 def _main_path_row(name, history, wall, launches, outputs) -> dict:
@@ -802,31 +954,31 @@ def check_evaluate_iqn_risk(cfg, directory: str) -> None:
 
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
-PHASES = ("sampler", "dedup_gather", *MAIN_PATHS, *FOLLOW_UPS.values(),
-          *BAR_PHASES)
+PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
+          *(f for follows in FOLLOW_UPS.values() for f in follows),
+          "population_learner_lockstep", *BAR_PHASES)
 
 
 def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
-    """Drive each selected main path (and each one a selected checkpoint
-    phase reuses), then its checkpoint phase; records the sampler launches
-    of each in ``launches``."""
+    """Drive each selected main path (and each one a selected follow-up
+    phase reuses), then its follow-ups; records the sampler launches of
+    each in ``launches``."""
     import torch
 
     from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
 
     for name, (preset, overrides, total_env_steps, chunk_iters) in \
             MAIN_PATHS.items():
-        follow = FOLLOW_UPS.get(name)
-        follow = follow if follow in phases else None
-        if name not in phases and follow is None:
+        follows = [f for f in FOLLOW_UPS.get(name, ()) if f in phases]
+        if name not in phases and not follows:
             continue
         cfg = apply_overrides(CONFIGS[preset], overrides)
         checkpoint = {}
         directory = os.path.join(tmp, name)
-        if follow == "checkpoint_apex":
+        if "checkpoint_apex" in follows:
             checkpoint = dict(checkpoint_dir=directory,
                               save_every_frames=APEX_SAVE_EVERY)
-        elif follow == "evaluate_iqn_risk":
+        elif "evaluate_iqn_risk" in follows:
             checkpoint = dict(checkpoint_dir=directory)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -848,27 +1000,380 @@ def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
                 _fail(f"{name}: {len(flushes.changed)} priority flushes for "
                       f"{outputs['grad_steps']} grad steps, or a flush "
                       "left the plane as it was")
+        if name in END_EVAL_PATHS:
+            ret, outputs["eval_s"] = evaluate_at_end(cfg, carry.learner.net)
+            outputs["eval_return_at_end"] = ret
+            if not math.isfinite(ret):
+                _fail(f"{name}: non-finite evaluation return {ret}")
         row = _main_path_row(name, history, wall, launches[name], outputs)
-        if checkpoint:
+        if "checkpoint_dir" in checkpoint:
             row.update(_checkpoint_rows(logged))
+        if any(f.startswith("population") for f in follows):
+            # The population path's yardstick.
+            row.update(_profile_training(cfg, carry))
         print(json.dumps(row), flush=True)
         if name == "apex_dedup" and row["peak_mem_gb"] > APEX_DEDUP_MAX_GB:
             _fail(f"{name}: peak device memory {row['peak_mem_gb']} GB > "
                   f"{APEX_DEDUP_MAX_GB} GB")
-        reference = carry if follow == "resume_r2d2" else None
+        reference = carry if "resume_r2d2" in follows else None
         first_leg = {"frames": history[-1]["env_frames"],
                      "steps": carry.learner.steps}
         del carry, history
-        if follow == "checkpoint_apex":
-            launches[follow] = check_checkpoint_apex(
+        if "checkpoint_apex" in follows:
+            launches["checkpoint_apex"] = check_checkpoint_apex(
                 cfg, chunk_iters, directory, first_leg, sampler)
-        elif follow == "resume_r2d2":
-            launches[follow] = check_resume_r2d2(
+        elif "resume_r2d2" in follows:
+            launches["resume_r2d2"] = check_resume_r2d2(
                 cfg, chunk_iters, total_env_steps, directory, reference,
                 sampler)
             del reference
-        elif follow == "evaluate_iqn_risk":
+        elif "evaluate_iqn_risk" in follows:
             check_evaluate_iqn_risk(cfg, directory)
+        if any(f.startswith("population") for f in follows):
+            directory = os.path.join(tmp, "population_apex_dedup")
+            launches["population_apex_dedup"] = check_population_apex_dedup(
+                cfg, directory, row, sampler)
+            if "population_checkpoint" in follows:
+                launches["population_checkpoint"] = \
+                    check_population_checkpoint(cfg, directory, sampler)
+
+
+def _profile_training(cfg, carry) -> dict:
+    """PROFILED_ITERS more training iterations of a finished path's carry
+    (the loop the path ran, rebuilt around its net), under torch.profiler:
+    device events (kernels, copies, memsets) per iteration and the
+    device's busy share. The iterations advance the carry."""
+    from dist_dqn_tpu_torch import population as pop
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.train_loop import make_fused_train
+
+    env = make_env(cfg.env_name, device=DEVICE)
+    make = (pop.make_population_train if cfg.population.size > 1
+            else make_fused_train)
+    _, run_chunk = make(cfg, env, carry.learner.net, device=DEVICE)
+    held = {"carry": carry}
+
+    def one_iteration():
+        held["carry"], _ = run_chunk(held["carry"], 1)
+
+    prof = _profile_device(one_iteration, PROFILED_ITERS)
+    return {"profiled_iterations": PROFILED_ITERS,
+            "profiled_wall_s": prof["wall_s"],
+            "device_busy_share": prof["busy_s"] / prof["wall_s"],
+            "device_events_per_iteration": prof["events"] / PROFILED_ITERS}
+
+
+def population_config(base, size: int = POPULATION_SIZE,
+                      spec: str = POPULATION_SPEC):
+    """apex_dedup's config as a population of ``size`` (``--population``,
+    ``--population-spec``), with no evaluation inside the run."""
+    import dataclasses
+
+    from dist_dqn_tpu_torch.config import PopulationConfig
+    return dataclasses.replace(base, eval_every_steps=0,
+                               population=PopulationConfig(size=size,
+                                                           spec_json=spec))
+
+
+def check_population_apex_dedup(base, directory: str, solo: dict,
+                                sampler) -> int:
+    """The population main path: four apex_dedup members through train()
+    (learner-kind saves into ``directory``), PROFILED_ITERS more training
+    iterations traced, then one evaluation of every member. Fails on a non-finite member
+    loss or return, sampler launches other than the grad steps per member,
+    a peak over POPULATION_MAX_GB, or device kernels per iteration at or
+    above POPULATION_MAX_LAUNCH_RATIO times the solo path's (``solo``,
+    apex_dedup's row of this call). Returns the sampler launches."""
+    import torch
+
+    from dist_dqn_tpu_torch import population as pop
+    from dist_dqn_tpu_torch.envs import make_env
+
+    name = "population_apex_dedup"
+    cfg = population_config(base)
+    M = cfg.population.size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    logged = []
+    sampler.kernel_stratified_sample.launches = 0
+    carry, history, wall = drive_main_path(
+        cfg, POPULATION_FRAMES, POPULATION_CHUNK, logged=logged,
+        checkpoint_dir=directory)
+    launches = sampler.kernel_stratified_sample.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profile = _profile_training(cfg, carry)
+    returns, eval_s = evaluate_at_end(cfg, carry.learner.net)
+    env = make_env(cfg.env_name, device=DEVICE)
+    grad_steps = int(sum(r["grad_steps_in_chunk"] for r in history))
+    losses = [r["loss_members"] for r in history if r["grad_steps_in_chunk"]]
+    pr = carry.replay.priorities
+    net = carry.learner.net
+    member0 = _solo_net(cfg, env)
+    member0.load_state_dict(pop.extract_member(net.state_dict(), 0))
+    obs = carry.obs[0, :8]
+    with torch.no_grad():
+        q = member0.q_values(obs)
+    steady = history[1:]
+    row = {
+        "main_path": name, "device": torch.cuda.get_device_name(0),
+        "population": M, "wall_s": wall,
+        "env_frames_per_member": history[-1]["env_frames"],
+        "grad_steps_per_member": grad_steps,
+        "sampler_launches": launches,
+        "peak_mem_gb": peak, "peak_mem_limit_gb": POPULATION_MAX_GB,
+        "loss_members_last": losses[-1] if losses else None,
+        "eval_return_members": returns, "eval_s": eval_s,
+        "env_steps_per_sec_chunks": [r["env_steps_per_sec"] for r in steady],
+        "grad_steps_per_sec_chunks": [r["grad_steps_per_sec"]
+                                      for r in steady],
+        "grad_steps_per_sec_member_chunks": [
+            r["grad_steps_per_sec_member"] for r in steady],
+        "env_steps_per_sec_last": history[-1]["env_steps_per_sec"],
+        "env_steps_per_sec_member_last":
+            history[-1]["env_steps_per_sec"] / M,
+        "grad_steps_per_sec_last": history[-1]["grad_steps_per_sec"],
+        "grad_steps_per_sec_member_last":
+            history[-1]["grad_steps_per_sec_member"],
+        **profile,
+        **_checkpoint_rows(logged),
+        "solo_apex_dedup": {k: solo[k] for k in (
+            "env_steps_per_sec_last", "grad_steps_per_sec_last",
+            "env_steps_per_sec_chunks", "grad_steps_per_sec_chunks",
+            "device_events_per_iteration", "device_busy_share",
+            "profiled_wall_s", "peak_mem_gb", "wall_s")},
+    }
+    row["device_events_per_iteration_vs_solo"] = (
+        row["device_events_per_iteration"]
+        / solo["device_events_per_iteration"])
+    print(json.dumps(row), flush=True)
+    if (not losses or not all(math.isfinite(x) for m in losses for x in m)
+            or not all(math.isfinite(x) for x in returns)
+            or len(returns) != M):
+        _fail(f"{name}: non-finite member losses or returns: {losses[-1:]} "
+              f"{returns}")
+    if not bool(torch.isfinite(pr).all()) or bool((pr < 0).any()):
+        _fail(f"{name}: non-finite or negative priorities")
+    if any(p.dtype != torch.float32 for p in net.parameters()):
+        _fail(f"{name}: the learner's master params are not all float32")
+    if tuple(q.shape) != (obs.shape[0], env.num_actions) or \
+            not bool(torch.isfinite(q).all()):
+        _fail(f"{name}: member 0's Q-values of shape {tuple(q.shape)} or "
+              "non-finite")
+    if grad_steps != POPULATION_GRAD_STEPS or launches != grad_steps:
+        _fail(f"{name}: {launches} sampler launches for {grad_steps} grad "
+              f"steps per member (want {POPULATION_GRAD_STEPS} of each)")
+    if peak > POPULATION_MAX_GB:
+        _fail(f"{name}: peak device memory {peak} GB > {POPULATION_MAX_GB}")
+    if row["device_events_per_iteration_vs_solo"] >= \
+            POPULATION_MAX_LAUNCH_RATIO:
+        _fail(f"{name}: {row['device_events_per_iteration']} device kernels "
+              f"per iteration, {row['device_events_per_iteration_vs_solo']}x "
+              "the solo path's")
+    return launches
+
+
+def _solo_net(cfg, env):
+    from dist_dqn_tpu_torch.models import build_network
+    return build_network(cfg.network, env.num_actions, env.observation_shape,
+                         device=DEVICE)
+
+
+def check_population_checkpoint(base, directory: str, sampler) -> int:
+    """The population path's directory: its POPULATION marker reads 4,
+    ``evaluate_checkpoint(member=2)`` plays a finite return, a relaunch at
+    M = 4 resumes (and, finished, trains nothing) and a relaunch at M = 3
+    is refused with the width's text. Returns the sampler launches."""
+    import torch
+
+    from dist_dqn_tpu_torch import population as pop
+    from dist_dqn_tpu_torch.evaluate import evaluate_checkpoint
+    from dist_dqn_tpu_torch.utils.checkpoint import read_population_size
+
+    name = "population_checkpoint"
+    cfg = population_config(base)
+    torch.cuda.empty_cache()
+    marker = read_population_size(directory)
+    t0 = time.perf_counter()
+    member = evaluate_checkpoint(
+        pop.member_config(cfg, pop.resolve_spec(cfg), 2), directory,
+        episodes=cfg.eval_episodes, device=DEVICE, member=2)
+    evaluate_s = time.perf_counter() - t0
+    logged = []
+    sampler.kernel_stratified_sample.launches = 0
+    carry, history, relaunch_s = drive_main_path(
+        cfg, POPULATION_FRAMES, POPULATION_CHUNK, logged=logged,
+        checkpoint_dir=directory)
+    launches = sampler.kernel_stratified_sample.launches
+    del carry
+    torch.cuda.empty_cache()
+    resumed = [r for r in logged if "resumed_at_frames" in r]
+    want = [{"resumed_at_frames": POPULATION_FRAMES, "with_replay": False,
+             "population": POPULATION_SIZE}]
+    refusal = None
+    try:
+        drive_main_path(population_config(base, size=3, spec=""),
+                        POPULATION_FRAMES, POPULATION_CHUNK,
+                        checkpoint_dir=directory)
+    except ValueError as e:
+        refusal = str(e)
+    want_refusal = (
+        f"checkpoint directory {directory!r} holds a population-"
+        f"{POPULATION_SIZE} stacked tree but this run trains --population 3"
+        " — the member axis is part of the checkpoint structure. Resume "
+        "with the same --population, use a fresh --checkpoint-dir, or "
+        "extract single members with restore_params(member=k) / "
+        "evaluate.py --member.")
+    report = {"population_checkpoint": {
+        "marker": marker, "evaluate_member": member["member"],
+        "evaluate_return": member["eval_return"],
+        "evaluate_frames": member["frames"], "evaluate_s": evaluate_s,
+        "resumed": resumed, "relaunch_rows": len(history),
+        "relaunch_s": relaunch_s, **_checkpoint_rows(logged),
+        "refused_m3": refusal}}
+    print(json.dumps(report), flush=True)
+    if marker != POPULATION_SIZE or member["member"] != 2 or \
+            not math.isfinite(member["eval_return"]):
+        _fail(f"{name}: marker {marker}, member evaluation {member}")
+    if resumed != want or history or launches:
+        _fail(f"{name}: relaunch at M={POPULATION_SIZE} logged {resumed} "
+              f"(want {want}) and trained {len(history)} chunks")
+    if refusal != want_refusal:
+        _fail(f"{name}: the M=3 relaunch was refused with {refusal!r}")
+    return launches
+
+
+def check_population_learner_lockstep(sampler) -> int:
+    """Member independence on the card. The cartpole learner at its preset
+    width, two members (per-member lr): the stacked learner and two solo
+    learners on the same batches for LOCKSTEP_STEPS grad steps, params
+    within rtol 1e-5, atol 1e-6 (fatal). Then a LOCKSTEP_FRAMES-frame M = 2
+    fused run beside the two solo runs of the same seeds, one iteration at
+    a time: the first iteration at which a member's actions or replay draws
+    differ from its solo twin's is reported (or "none"), not held to a
+    bar. The cartpole preset draws uniformly, so the phase must launch
+    the sampler kernel no time; returns its launches."""
+    import dataclasses
+
+    import torch
+
+    from dist_dqn_tpu_torch import population as pop
+    from dist_dqn_tpu_torch.agents import dqn
+    from dist_dqn_tpu_torch.config import CONFIGS, PopulationConfig
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.models import build_network, stack_networks
+    from dist_dqn_tpu_torch.replay import device as ring
+    from dist_dqn_tpu_torch.train_loop import make_fused_train
+    from dist_dqn_tpu_torch.types import Transition
+
+    name = "population_learner_lockstep"
+    spec = json.dumps({"epsilon": [0.05, 0.2], "lr": [1e-3, 5e-4],
+                       "gamma": [0.99, 0.97]})
+    cfg = dataclasses.replace(CONFIGS["cartpole"], eval_every_steps=0,
+                              population=PopulationConfig(2, spec))
+    resolved = pop.resolve_spec(cfg)
+    members = [pop.member_config(cfg, resolved, k) for k in range(2)]
+    seeds = pop.member_seeds(cfg.seed, 2)
+    env = make_env(cfg.env_name, device=DEVICE)
+    nets = [build_network(cfg.network, env.num_actions,
+                          env.observation_shape, device=DEVICE, seed=s)
+            for s in seeds]
+    stacked = stack_networks(nets)
+    init, step = dqn.make_learner(
+        cfg.learner, stacked, dqn.make_population_optimizer(cfg.learner, 2))
+    state = dqn.set_member_lr(init(stacked, [torch.Generator(DEVICE)
+                                             for _ in range(2)]),
+                              pop.member_hp(cfg, resolved).lr)
+    solos = []
+    for k in range(2):
+        s_init, s_step = dqn.make_learner(members[k].learner, nets[k])
+        solos.append((s_init(nets[k]), s_step))
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    S = cfg.learner.batch_size
+
+    def draw(*shape, dtype=torch.float32):
+        return torch.rand(shape, generator=gen, device=DEVICE, dtype=dtype)
+
+    sampler.kernel_stratified_sample.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(LOCKSTEP_STEPS):
+        batch = Transition(
+            obs=draw(2, S, 4) * 2 - 1,
+            action=torch.randint(0, env.num_actions, (2, S), generator=gen,
+                                 device=DEVICE),
+            reward=draw(2, S), discount=(draw(2, S) < 0.9).float() * 0.97,
+            next_obs=draw(2, S, 4) * 2 - 1)
+        weights = draw(2, S) * 0.8 + 0.2
+        step(state, batch, weights)
+        for k, (s_state, s_step) in enumerate(solos):
+            s_step(s_state, Transition(*(x[k] for x in batch)), weights[k])
+    torch.cuda.synchronize()
+    lockstep_s = time.perf_counter() - t0
+    worst, ok = 0.0, True
+    for k, (s_state, _) in enumerate(solos):
+        for (pname, p), (_, q) in zip(state.net.named_parameters(),
+                                      s_state.net.named_parameters()):
+            err = float((p[k] - q).detach().abs().max())
+            worst = max(worst, err)
+            ok = ok and bool(torch.allclose(p[k], q, rtol=1e-5, atol=1e-6))
+
+    # The fused loop, one iteration at a time.
+    spy = []
+    real_gather = ring.gather_transitions
+
+    def gather(state_, t_idx, b_idx, *args, **kwargs):
+        spy.append((t_idx, b_idx))
+        return real_gather(state_, t_idx, b_idx, *args, **kwargs)
+
+    ring.gather_transitions = gather
+    try:
+        t0 = time.perf_counter()
+        pop_net = stack_networks([build_network(
+            cfg.network, env.num_actions, env.observation_shape,
+            device=DEVICE, seed=s) for s in seeds])
+        p_init, p_run = pop.make_population_train(cfg, env, pop_net,
+                                                  device=DEVICE)
+        runs = [make_fused_train(members[k], env, build_network(
+            cfg.network, env.num_actions, env.observation_shape,
+            device=DEVICE, seed=seeds[k]), device=DEVICE) for k in range(2)]
+        p_carry = p_init(seeds)
+        carries = [runs[k][0](seeds[k]) for k in range(2)]
+        first = [None, None]
+        iters = LOCKSTEP_FRAMES // cfg.actor.num_envs
+        for it in range(iters):
+            spy.clear()
+            p_carry, _ = p_run(p_carry, 1)
+            pop_draws = list(spy)
+            slot = (p_carry.replay.pos - 1) % p_carry.replay.action.shape[1]
+            for k in range(2):
+                spy.clear()
+                carries[k], _ = runs[k][1](carries[k], 1)
+                same = torch.equal(p_carry.replay.action[k, slot],
+                                   carries[k].replay.action[slot])
+                same = same and len(spy) == len(pop_draws) and all(
+                    torch.equal(tp[k], ts) and torch.equal(bp[k], bs)
+                    for (tp, bp), (ts, bs) in zip(pop_draws, spy))
+                if first[k] is None and not same:
+                    first[k] = it
+        fused_s = time.perf_counter() - t0
+        grad_steps = p_carry.learner.steps
+    finally:
+        ring.gather_transitions = real_gather
+    launches = sampler.kernel_stratified_sample.launches
+    report = {name: {
+        "learner_steps": LOCKSTEP_STEPS, "params_max_abs_err": worst,
+        "within_rtol_1e-5_atol_1e-6": ok, "learner_s": lockstep_s,
+        "fused_iterations": iters, "fused_grad_steps": grad_steps,
+        "first_divergent_iteration": [f if f is not None else "none"
+                                      for f in first],
+        "fused_s": fused_s, "sampler_launches": launches}}
+    print(json.dumps(report), flush=True)
+    if not ok:
+        _fail(f"{name}: the stacked learner's params left the solo "
+              f"learners' by {worst} (rtol 1e-5, atol 1e-6)")
+    if launches:
+        _fail(f"{name}: the uniform cartpole runs launched the sampler "
+              f"kernel {launches} times")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -910,6 +1415,9 @@ def main(argv=None) -> int:
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         run_main_paths(phases, sampler, launches, tmp)
+    if "population_learner_lockstep" in phases:
+        launches["population_learner_lockstep"] = \
+            check_population_learner_lockstep(sampler)
 
     for name in BAR_PHASES:
         if name in phases:
@@ -935,12 +1443,17 @@ def main(argv=None) -> int:
         "library_ms": apex["library_ms"],
         "eager_ms": apex["eager_ms"],
         "device_launches_per_call": apex["device_launches_per_call"],
-        # The same numbers at R2D2's sequence plane and the PixelCatch
-        # bar's plane.
+        # The same numbers at R2D2's sequence plane, the PixelCatch bar's
+        # plane and the population's [M, T, B] planes (one member-axis
+        # launch, beside one 2-D launch per member).
         **{f"{case}_shape": {k: sampler_report[case][k] for k in (
             "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "eager_ms", "device_launches_per_call")}
            for case in ("r2d2", "catch")},
+        "population_shape": {k: sampler_report["population"][k] for k in (
+            "M", "T", "B", "S", "ms", "one_launch_per_member_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
+            "one_launch_per_member_eager_ms", "device_launches_per_call")},
         "pass": True,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

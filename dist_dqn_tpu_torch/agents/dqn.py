@@ -16,6 +16,16 @@ shared with the R2D2 learner).
 Parameters live in ``nn.Module``s and are updated in place; the step
 counters are host ints (they advance by one per step whatever the data,
 so the target-sync decision and the lr schedule need no device read).
+
+A population's learner (``net`` a stacked module, models/qnets.py
+``stack_networks``) takes one step for all M members: the loss runs under
+``torch.func.vmap`` over the members' parameters and batches, the
+gradients of the summed member losses flow back through ordinary autograd
+(member m's parameters receive member m's gradient only), and one
+:class:`ClipAdam` update clips each member by its own global norm and
+steps it at its own rate (``make_population_optimizer``). The noise and
+taus each member draws come from its own generator, in the order and
+shapes of a solo step.
 """
 from __future__ import annotations
 
@@ -29,6 +39,8 @@ import torch
 import torch.nn as nn
 
 from dist_dqn_tpu_torch.config import LearnerConfig
+from dist_dqn_tpu_torch.models.qnets import (MemberView, draw_noise,
+                                             member_forward, members_of)
 from dist_dqn_tpu_torch.ops import losses
 from dist_dqn_tpu_torch.types import Transition
 
@@ -80,6 +92,14 @@ class AdamState:
     count: int                  # updates applied so far
     mu: List[torch.Tensor]      # first moments, one per parameter
     nu: List[torch.Tensor]      # second moments
+    # A population's per-member learning rates [M] (set_member_lr); None
+    # steps at the config's schedule.
+    lr: Optional[torch.Tensor] = None
+
+
+def _per_member(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """An [M] tensor viewed to broadcast over an [M, ...] parameter."""
+    return x.view((-1,) + (1,) * (like.dim() - 1))
 
 
 class ClipAdam:
@@ -91,14 +111,20 @@ class ClipAdam:
       ``torch.where`` so no norm is read back;
     * adam: ``p -= lr(count) * m_hat / (sqrt(v_hat) + eps)`` — optax's eps
       placement, bias corrections ``1 - b**(count + 1)`` in float32.
+
+    With ``members`` = M the parameters are a population's stacked [M, ...]
+    tensors: each member is clipped by the global norm of its own
+    gradients (a norm over the whole stack would couple the members), and
+    steps at its own rate where the state holds one (``AdamState.lr``).
     """
 
     def __init__(self, cfg: LearnerConfig, b1: float = 0.9,
-                 b2: float = 0.999):
+                 b2: float = 0.999, members: int = 0):
         self.max_norm = cfg.max_grad_norm
         self.eps = cfg.adam_eps
         self.b1, self.b2 = b1, b2
         self.lr = make_lr_schedule(cfg)
+        self.members = members
 
     def init(self, params: List[torch.Tensor]) -> AdamState:
         return AdamState(count=0,
@@ -109,31 +135,59 @@ class ClipAdam:
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor],
              state: AdamState) -> torch.Tensor:
         """Update ``params`` and ``state`` in place; returns the global norm
-        of the unclipped gradients."""
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        of the unclipped gradients ([M] norms for a population)."""
+        # A solo net's norm is the one-member case of the members' norms.
+        M = self.members or 1
+        g_norm = torch.sqrt(sum((g * g).reshape(M, -1).sum(dim=1)
+                                for g in grads))
         if self.max_norm:
             keep = g_norm < self.max_norm
-            grads = [torch.where(keep, g, (g / g_norm) * self.max_norm)
-                     for g in grads]
+            grads = [torch.where(_per_member(keep, g), g,
+                                 (g / _per_member(g_norm, g))
+                                 * self.max_norm) for g in grads]
         b1, b2 = self.b1, self.b2
         count = state.count + 1
         f32 = np.float32
         bc1 = float(f32(1) - f32(b1) ** f32(count))
         bc2 = float(f32(1) - f32(b2) ** f32(count))
-        step = -self.lr(state.count)
+        step = -self.lr(state.count) if state.lr is None else -state.lr
         for p, g, m, v in zip(params, grads, state.mu, state.nu):
             m.copy_((1 - b1) * g + b1 * m)
             v.copy_((1 - b2) * (g * g) + b2 * v)
             update = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            p.add_(step * update)
+            p.add_((step if state.lr is None else _per_member(step, p))
+                   * update)
         state.count = count
-        return g_norm
+        return g_norm if self.members else g_norm[0]
 
 
-def make_optimizer(cfg: LearnerConfig) -> ClipAdam:
+def make_optimizer(cfg: LearnerConfig, members: int = 0) -> ClipAdam:
     """The learner's optimizer: clip-by-global-norm (when max_grad_norm is
-    set) + Adam with the configured lr schedule."""
-    return ClipAdam(cfg)
+    set) + Adam with the configured lr schedule; per member for a
+    population of ``members``."""
+    return ClipAdam(cfg, members=members)
+
+
+def make_population_optimizer(cfg: LearnerConfig, members: int) -> ClipAdam:
+    """The optimizer of a population whose members have their own learning
+    rates (twin of the JAX ``make_population_optimizer``): the rates ride
+    the optimizer state (:func:`set_member_lr`), so they compose with the
+    constant schedule only."""
+    if cfg.lr_schedule != "constant":
+        raise ValueError(
+            f"population per-member learning rates require "
+            f"lr_schedule='constant', got {cfg.lr_schedule!r} (the "
+            "anneal horizon is a trace-time constant, not a stackable "
+            "member axis)")
+    return ClipAdam(cfg, members=members)
+
+
+def set_member_lr(state: "LearnerState", lr: torch.Tensor) -> "LearnerState":
+    """Write the members' learning rates ([M] float32) into a population
+    learner's optimizer state; every later step reads them there."""
+    device = state.opt_state.mu[0].device
+    state.opt_state.lr = lr.to(device=device, dtype=torch.float32)
+    return state
 
 
 # --------------------------------------------------------------------------
@@ -146,7 +200,8 @@ class LearnerState:
     target_net: nn.Module   # target Q-network (the target params)
     opt_state: AdamState
     steps: int = 0          # completed gradient steps
-    # NoisyNet noise and IQN tau draws of the train step (dqn.py:36).
+    # NoisyNet noise and IQN tau draws of the train step (dqn.py:36); a
+    # population's learner holds a list of M member generators.
     generator: Optional[torch.Generator] = None
 
 
@@ -158,6 +213,9 @@ def init_learner_state(net: nn.Module, tx: ClipAdam,
     (default: seed 0 on the net's device)."""
     target = copy.deepcopy(net)
     target.requires_grad_(False)
+    if generator is None and members_of(net):
+        raise ValueError("a population's learner needs its M member "
+                         "generators")
     if generator is None:
         device = next(net.parameters()).device
         generator = torch.Generator(device=device).manual_seed(0)
@@ -237,8 +295,9 @@ def make_learner(cfg: LearnerConfig, net: nn.Module,
     (``dqn.py:197``), the online and target taus for IQN.
     """
     check_munchausen(cfg, net)
+    members = members_of(net)
     if tx is None:
-        tx = make_optimizer(cfg)
+        tx = make_optimizer(cfg, members)
 
     kind = head_kind(net)
     # What each forward draws from: nothing for a deterministic head.
@@ -329,6 +388,22 @@ def make_learner(cfg: LearnerConfig, net: nn.Module,
     loss_fn = {"scalar": scalar_loss, "c51": c51_loss, "qr": qr_loss,
                "iqn": iqn_loss}[kind]
 
+    # The forwards of one step that draw, in the order a solo step given
+    # the generator draws them (the loss branches above).
+    noisy_forwards = ("target",) + (
+        ("next",) if cfg.munchausen or cfg.double_dqn else ()) + ("online",)
+
+    def draw_step(generator: torch.Generator, batch_size: int) -> Draws:
+        """A solo step's draws, taken up front: IQN's target then online
+        taus, or each noisy forward's layer noise."""
+        if kind == "iqn":
+            dev = next(net.parameters()).device
+            return {name: torch.rand(batch_size, num, generator=generator,
+                                     device=dev)
+                    for name, num in (("target", net.num_tau_target),
+                                      ("online", net.num_tau))}
+        return {name: draw_noise(net, generator) for name in noisy_forwards}
+
     def train_step(state: LearnerState, batch: Transition,
                    weights: Optional[torch.Tensor] = None,
                    draws: Optional[Draws] = None
@@ -357,7 +432,66 @@ def make_learner(cfg: LearnerConfig, net: nn.Module,
         }
         return state, metrics
 
-    return init, train_step
+    def member_step(state: LearnerState, batch: Transition,
+                    weights: Optional[torch.Tensor] = None,
+                    draws: Optional[Draws] = None
+                    ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
+        """One step of every member: ``batch`` leaves and ``weights`` are
+        [M, S, ...]; ``draws`` (optional) hold each forward's draws with
+        a leading member axis. Metrics are [M] (priorities [M, S])."""
+        if weights is None:
+            weights = torch.ones_like(batch.reward)
+        if random and draws is None:
+            S = batch.reward.shape[1]
+            draws = _stack_trees([draw_step(g, S) for g in state.generator])
+        params = dict(state.net.named_parameters())
+        target_params = dict(state.target_net.named_parameters())
+
+        def member_loss(p, tp, batch, weights, draws):
+            views = _Views(MemberView(state.net, p),
+                           MemberView(state.target_net, tp))
+            per_example, priorities = loss_fn(
+                views, batch, lambda name: draws[name] if random else None)
+            return (torch.mean(weights * per_example),
+                    per_example.detach().mean(), priorities)
+
+        loss, raw_loss, priorities = torch.func.vmap(
+            member_loss, in_dims=(0, 0, 0, 0, 0 if random else None))(
+                params, target_params, batch, weights, draws)
+        grads = torch.autograd.grad(loss.sum(), list(params.values()))
+        grad_norm = tx.step(list(params.values()), list(grads),
+                            state.opt_state)
+        state.steps += 1
+        sync_target(cfg, state)
+        metrics = {
+            "loss": loss.detach(),
+            "raw_loss": raw_loss,
+            "priorities": priorities,
+            "grad_norm": grad_norm,
+            "mean_q_target_gap": priorities.mean(dim=1),
+        }
+        return state, metrics
+
+    return init, (member_step if members else train_step)
+
+
+@dataclasses.dataclass
+class _Views:
+    """The (net, target_net) pair the loss branches read, as member
+    views inside the population's vmap."""
+    net: MemberView
+    target_net: MemberView
+
+
+def _stack_trees(trees):
+    """Stack a list of same-shaped trees (dicts, tuples, tensors) leaf by
+    leaf on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return type(first)(_stack_trees(list(x)) for x in zip(*trees))
 
 
 # --------------------------------------------------------------------------
@@ -377,6 +511,8 @@ def make_actor_step(num_actions: int) -> Callable:
     def act(net: nn.Module, obs: torch.Tensor,
             generator: Optional[torch.Generator], epsilon: float
             ) -> torch.Tensor:
+        if members_of(net):
+            return act_members(net, obs, generator, epsilon)
         noise = generator if getattr(net, "noisy", False) else None
         q = net.q_values(obs, noise)
         greedy = q.argmax(dim=-1)
@@ -385,5 +521,26 @@ def make_actor_step(num_actions: int) -> Callable:
         explore = torch.rand(greedy.shape, generator=generator,
                              device=obs.device) < epsilon
         return torch.where(explore, random_a, greedy)
+
+    def act_members(net, obs, generators, epsilon):
+        """A population's step: obs [M, B, ...], one generator per member
+        (its draws in a solo act's order: noise, actions, coins), epsilon
+        an [M] tensor or a number; actions [M, B]."""
+        B, dev = obs.shape[1], obs.device
+        noisy = getattr(net, "noisy", False)
+        noise, random_a, coins = [], [], []
+        for g in generators:
+            if noisy:
+                noise.append(draw_noise(net, g))
+            random_a.append(torch.randint(0, num_actions, (B,), generator=g,
+                                          device=dev))
+            coins.append(torch.rand((B,), generator=g, device=dev))
+        q = member_forward(net, "q_values", obs,
+                           _stack_trees(noise) if noisy else None)
+        greedy = q.argmax(dim=-1)
+        if isinstance(epsilon, torch.Tensor):
+            epsilon = epsilon[:, None]
+        explore = torch.stack(coins) < epsilon
+        return torch.where(explore, torch.stack(random_a), greedy)
 
     return act

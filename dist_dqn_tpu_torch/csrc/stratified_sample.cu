@@ -5,7 +5,10 @@
 // contract: given a non-negative mass plane w [T, B] (f32, row-major) and
 // S stratified uniforms u [S] in [0, 1), return for each sample the ring
 // row t_idx, the env lane b_idx, the selected mass w[t, b] and the total
-// mass. Targets are u * total * (1 - 1e-5); the row is the first one whose
+// mass. A population draws M planes at once, w [M, T, B] and u [M, S], the
+// counterpart of the JAX package's vmapped `pallas_call` (a member axis on
+// its grid): one launch, each member's draw computed exactly as a launch on
+// its plane alone would compute it. Targets are u * total * (1 - 1e-5); the row is the first one whose
 // cumulative mass reaches the target (= the TPU kernel's count of row-CDF
 // entries below it); the lane is the first one whose in-row cumulative
 // mass reaches the residual, clamped to row_total * (1 - 1e-6). t_idx is
@@ -46,6 +49,11 @@
 //     resets it), so a CUDA graph captures the launch and replays it. One
 //     set of sync words and one scratch buffer serve one stream at a time,
 //     which is how the port draws.
+//   * The member axis: M * (G + P) blocks. Member m's chunk blocks hold
+//     tickets m * G + c, its draw blocks tickets M * G + m * P + d, so every
+//     chunk ticket is handed out before any draw ticket; member m has its
+//     own done and drawn counts and its own scratch, so a draw block waits
+//     only for its own member's chunks and reads only their sums.
 //
 // Precision: the sums and the CDF are accumulated in f64, where the TPU
 // kernel uses f32. At the apex shape (1M cells, total ~7e5) an f32 CDF is
@@ -250,12 +258,23 @@ __device__ __forceinline__ int search_chunk(const double* local,
 }
 
 // Every block's role comes from a ticket it takes when it starts, not from
-// blockIdx: the first G tickets scan chunks, the next P draw samples. A
-// draw block waits for the chunk blocks, and it holds a ticket that was
-// handed out after all of theirs, so every block it waits for is already
-// running and waits for nothing itself. The wait cannot deadlock, however
-// the card schedules blocks, and needs no cooperative launch.
-enum SyncWord { kStart, kDone, kDrawn };  // _SYNC_WORDS in ops/sampler.py
+// blockIdx: the first M * G tickets scan chunks (member m's chunk c at
+// m * G + c), the next M * P draw samples (member m's draw block d at
+// M * G + m * P + d). A draw block waits for its member's chunk blocks,
+// and it holds a ticket that was handed out after all of theirs, so every
+// block it waits for is already running and waits for nothing itself. The
+// wait cannot deadlock, however the card schedules blocks, and needs no
+// cooperative launch. Sync words (_sync_words in ops/sampler.py): the
+// ticket counter, then M done counts, then M drawn counts.
+constexpr int kStart = 0;
+__device__ __forceinline__ unsigned int* done_count(unsigned int* sync,
+                                                    int m) {
+  return sync + 1 + m;
+}
+__device__ __forceinline__ unsigned int* drawn_count(unsigned int* sync,
+                                                     int M, int m) {
+  return sync + 1 + M + m;
+}
 
 // A draw block that has waited this long traps (an error the wrapper's
 // caller sees) rather than hang the card.
@@ -278,7 +297,7 @@ struct Scratch {
 // never a stale L1 line).
 __device__ void scan_chunk(Shared& sh, const float* __restrict__ w, int c,
                            int T, int B, int R, bool vec, const Scratch& sc,
-                           unsigned int* sync) {
+                           unsigned int* done) {
   // Rows [r0, r1), one row per thread per tile of kThreads rows; `carry`
   // is the chunk's sum before the tile.
   const long long r0 = static_cast<long long>(c) * R;
@@ -301,7 +320,7 @@ __device__ void scan_chunk(Shared& sh, const float* __restrict__ w, int c,
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
-    atomicAdd(sync + kDone, 1u);
+    atomicAdd(done, 1u);
   }
 }
 
@@ -310,7 +329,8 @@ __device__ void scan_chunk(Shared& sh, const float* __restrict__ w, int c,
 __device__ void draw_samples(Shared& sh, const float* __restrict__ w,
                              const float* __restrict__ u, int d, int T,
                              int B, int S, int R, int G, int P, bool vec,
-                             const Scratch& sc, unsigned int* sync,
+                             const Scratch& sc, unsigned int* done,
+                             unsigned int* drawn,
                              int32_t* __restrict__ t_out,
                              int32_t* __restrict__ b_out,
                              float* __restrict__ mass_out,
@@ -323,16 +343,17 @@ __device__ void draw_samples(Shared& sh, const float* __restrict__ w,
                      ? __ldg(u + i0 + threadIdx.x) : 0.f;
   if (threadIdx.x == 0) {
     const unsigned long long start = now_ns();
-    while (*reinterpret_cast<volatile unsigned*>(sync + kDone) <
+    while (*reinterpret_cast<volatile unsigned*>(done) <
            static_cast<unsigned>(G)) {
       __nanosleep(32);
       if (now_ns() - start > kMaxWaitNs) __trap();
     }
     __threadfence();
-    // Every draw block has seen the count once the last of them counts
-    // itself here, so the count goes back to zero for the next launch.
+    // Every draw block of the member has seen the count once the last of
+    // them counts itself here, so the count goes back to zero for the next
+    // launch.
     const unsigned last = static_cast<unsigned>(P - 1);
-    if (atomicInc(sync + kDrawn, last) == last) atomicExch(sync + kDone, 0u);
+    if (atomicInc(drawn, last) == last) atomicExch(done, 0u);
   }
   __syncthreads();
 
@@ -418,21 +439,30 @@ __device__ void draw_samples(Shared& sh, const float* __restrict__ w,
 
 __global__ void __launch_bounds__(kThreads)
 sample_kernel(const float* __restrict__ w, const float* __restrict__ u,
-              int T, int B, int S, int R, int G, int P, Scratch sc,
-              unsigned int* sync, int32_t* __restrict__ t_out,
+              int M, int T, int B, int S, int R, int G, int P,
+              double* scratch, unsigned int* sync, int32_t* __restrict__ t_out,
               int32_t* __restrict__ b_out, float* __restrict__ mass_out,
               float* __restrict__ total_out) {
   __shared__ Shared sh;
-  const bool vec = (B & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   if (threadIdx.x == 0)
-    sh.ticket = atomicInc(sync + kStart, static_cast<unsigned>(G + P - 1));
+    sh.ticket = atomicInc(sync + kStart,
+                          static_cast<unsigned>(M * (G + P) - 1));
   __syncthreads();
   const int ticket = static_cast<int>(sh.ticket);
-  if (ticket < G) {
-    scan_chunk(sh, w, ticket, T, B, R, vec, sc, sync);
+  const bool chunk = ticket < M * G;
+  const int m = chunk ? ticket / G : (ticket - M * G) / P;
+  // Member m's plane, uniforms, scratch and outputs.
+  const float* wm = w + static_cast<size_t>(m) * T * B;
+  const bool vec = (B & 3) == 0 && (reinterpret_cast<uintptr_t>(wm) & 15) == 0;
+  double* base = scratch + static_cast<size_t>(m) * (2LL * T + G);
+  const Scratch sc{base, base + T, base + 2LL * T};
+  if (chunk) {
+    scan_chunk(sh, wm, ticket - m * G, T, B, R, vec, sc, done_count(sync, m));
   } else {
-    draw_samples(sh, w, u, ticket - G, T, B, S, R, G, P, vec, sc, sync,
-                 t_out, b_out, mass_out, total_out);
+    const size_t o = static_cast<size_t>(m) * S;
+    draw_samples(sh, wm, u + o, ticket - M * G - m * P, T, B, S, R, G, P, vec,
+                 sc, done_count(sync, m), drawn_count(sync, M, m), t_out + o,
+                 b_out + o, mass_out + o, total_out + m);
   }
 }
 
@@ -440,24 +470,28 @@ sample_kernel(const float* __restrict__ w, const float* __restrict__ u,
 
 extern "C" {
 
-// Launches the kernel on `stream`: G chunk blocks of R rows and P draw
-// blocks (the caller's launch_geometry). Returns the cudaGetLastError()
-// code, or cudaErrorInvalidValue for sizes the kernel does not take.
-// `scratch` holds 2 * T + G f64 (row sums, local CDF, chunk totals);
-// `sync` is three zeroed u32 words that the kernel leaves at zero. One `sync` (and one scratch) serves one stream at a time.
-// Nothing here allocates or synchronises.
-int dqn_stratified_sample(const float* w, const float* u, int T, int B,
+// Launches the kernel on `stream` for M planes w [M, T, B] and uniforms
+// u [M, S]: per member, G chunk blocks of R rows and P draw blocks (the
+// caller's launch_geometry); outputs t_idx, b_idx and mass [M, S] and total
+// [M]. Returns the cudaGetLastError() code, or cudaErrorInvalidValue for
+// sizes the kernel does not take. `scratch` holds M * (2 * T + G) f64 (per
+// member: row sums, local CDF, chunk totals); `sync` is 1 + 2 * M zeroed
+// u32 words that the kernel leaves at zero. One `sync` (and one scratch)
+// serves one stream at a time. Nothing here allocates or synchronises.
+int dqn_stratified_sample(const float* w, const float* u, int M, int T, int B,
                           int S, int R, int G, int P, double* scratch,
                           unsigned int* sync, int32_t* t_idx, int32_t* b_idx,
                           float* mass, float* total, void* stream) {
-  if (T <= 0 || B <= 0 || S <= 0 || R <= 0 || R > (1 << 24) ||
+  if (M <= 0 || T <= 0 || B <= 0 || S <= 0 || R <= 0 || R > (1 << 24) ||
       R % kThreads != 0 || T > 0x7fffffff - 2 * R || G <= 0 ||
       G > kMaxChunks || (static_cast<long long>(T) + R - 1) / R != G ||
-      P <= 0 || P > S || P > (1 << 30))
+      P <= 0 || P > S || P > (1 << 30) ||
+      static_cast<long long>(M) * (G + P) > 0x7fffffff ||
+      static_cast<long long>(M) * S > 0x7fffffff)
     return cudaErrorInvalidValue;
-  const Scratch sc{scratch, scratch + T, scratch + 2LL * T};
-  sample_kernel<<<G + P, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      w, u, T, B, S, R, G, P, sc, sync, t_idx, b_idx, mass, total);
+  sample_kernel<<<M * (G + P), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      w, u, M, T, B, S, R, G, P, scratch, sync, t_idx, b_idx, mass, total);
   return cudaGetLastError();
 }
 

@@ -11,6 +11,12 @@ consume is drawn up front by :meth:`TorchEnv.draw` from a
 quantity. A test hands ``reset``/``v_step`` the same numbers the JAX env
 draws, which is how both packages step in lockstep although their
 generators differ.
+
+A population steps M members' lanes at once (:meth:`TorchEnv.v_reset_members`
+/ :meth:`TorchEnv.v_step_members`): leaves are ``[M, B, ...]``, each member
+draws its solo ``[B]``-wide numbers from its own generator, and one step
+runs on the ``M * B`` lanes (every env's step is lane by lane, so a member's
+lanes step exactly as a solo run's).
 """
 from __future__ import annotations
 
@@ -19,6 +25,20 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from dist_dqn_tpu_torch.types import StepOut
+
+
+def flat_lanes(tree):
+    """[M, B, ...] leaves of a NamedTuple (or a tensor) -> [M * B, ...]."""
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((-1,) + tuple(tree.shape[2:]))
+    return type(tree)(*(flat_lanes(x) for x in tree))
+
+
+def member_lanes(tree, members: int):
+    """[M * B, ...] leaves of a NamedTuple (or a tensor) -> [M, B, ...]."""
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((members, -1) + tuple(tree.shape[1:]))
+    return type(tree)(*(member_lanes(x, members) for x in tree))
 
 
 def _select(done: torch.Tensor, a: torch.Tensor, b: torch.Tensor
@@ -83,3 +103,28 @@ class TorchEnv:
         return state_out, StepOut(obs=obs_out, next_obs=next_obs,
                                   reward=reward, terminated=terminated,
                                   truncated=truncated)
+
+    # -- a population's members ----------------------------------------------
+    def member_draws(self, num_envs: int, generators) -> NamedTuple:
+        """Each member's solo draw of ``num_envs`` lanes from its own
+        generator, concatenated member-major ([M * B, ...] fields)."""
+        draws = [self.draw(num_envs, g) for g in generators]
+        return type(draws[0])(*(torch.cat(f) for f in zip(*draws)))
+
+    def v_reset_members(self, num_envs: int, generators):
+        """Reset ``num_envs`` lanes of each member (one generator each);
+        state and obs leaves are [M, B, ...]."""
+        state, obs = self.reset(self.member_draws(num_envs, generators))
+        M = len(generators)
+        return member_lanes(state, M), member_lanes(obs, M)
+
+    def v_step_members(self, state: NamedTuple, action: torch.Tensor,
+                       generators) -> Tuple[NamedTuple, StepOut]:
+        """:meth:`v_step` of every member's lanes at once: ``state`` and
+        ``action`` leaves [M, B, ...], member m's draws from
+        ``generators[m]``."""
+        M, B = action.shape
+        new_state, out = self.v_step(
+            flat_lanes(state), action.reshape(-1),
+            draws=self.member_draws(B, generators))
+        return member_lanes(new_state, M), member_lanes(out, M)

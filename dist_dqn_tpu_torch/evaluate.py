@@ -6,10 +6,11 @@ The deploy-side half of the checkpoint story: load the newest learner
 checkpoint a training run saved with ``--checkpoint-dir`` (either kind)
 and run greedy episodes on the config's env, with no training machinery
 in the loop. Prints one JSON line with the mean undiscounted return (one
-per retained step with ``--all-steps``). Runs on ``cuda`` unless
-``--device cpu`` is given. Host envs (``--host-env``), population members
-(``--member``) and the telemetry surface are not ported yet; asking for
-them raises with the reason.
+per retained step with ``--all-steps``). ``--member K`` plays member K of
+a population run's stacked checkpoint (and is required there). Runs on
+``cuda`` unless ``--device cpu`` is given. Host envs (``--host-env``) and
+the telemetry surface are not ported yet; asking for them raises with the
+reason.
 """
 from __future__ import annotations
 
@@ -39,18 +40,21 @@ def _ckpt_prefix(checkpoint_dir: str):
             else ())
 
 
-def _restore_latest(checkpoint_dir: str, example_params, step=None):
+def _restore_latest(checkpoint_dir: str, example_params, step=None,
+                    member=None):
     """(frames, net) from the newest checkpoint (or a retained ``step``),
-    params only (``TrainCheckpointer.restore_params``): the training run's
-    optimizer never constrains an eval, and a carry-kind directory needs
-    no ring-sized template. Never creates the directory."""
+    params only (``TrainCheckpointer.restore_params``; member ``member``
+    of a population's): the training run's optimizer never constrains an
+    eval, and a carry-kind directory needs no ring-sized template. Never
+    creates the directory."""
     if not os.path.isdir(checkpoint_dir):
         raise CheckpointMissingError(
             f"no checkpoint found under {checkpoint_dir!r}")
     ckpt = TrainCheckpointer(checkpoint_dir)
     try:
         restored = ckpt.restore_params(example_params, step=step,
-                                       prefix=_ckpt_prefix(checkpoint_dir))
+                                       prefix=_ckpt_prefix(checkpoint_dir),
+                                       member=member)
     except FileNotFoundError as e:
         # Skippable only when the requested step is gone from the retained
         # set (live retention); anything else propagates.
@@ -97,9 +101,10 @@ def _play(evaluator, net, generator: torch.Generator, seed: int) -> float:
 def evaluate_checkpoint(cfg: ExperimentConfig, checkpoint_dir: str,
                         episodes: int = 10, seed: int = 0,
                         epsilon: float = 0.001, step: int = None,
-                        export_params: str = None, device=None) -> dict:
-    """Restore the newest checkpoint (or retained ``step``) and play
-    greedy episodes.
+                        export_params: str = None, device=None,
+                        member: int = None) -> dict:
+    """Restore the newest checkpoint (or retained ``step``; member
+    ``member`` of a population's) and play greedy episodes.
 
     ``export_params`` also writes the restored policy parameters as a
     standalone file (utils/checkpoint.py ``save_pytree``): the deploy
@@ -110,9 +115,12 @@ def evaluate_checkpoint(cfg: ExperimentConfig, checkpoint_dir: str,
     Raises FileNotFoundError if the directory holds no checkpoint.
     """
     net, evaluator, gen = _build_eval(cfg, episodes, epsilon, seed, device)
-    frames, net = _restore_latest(checkpoint_dir, net, step=step)
+    frames, net = _restore_latest(checkpoint_dir, net, step=step,
+                                  member=member)
     out = {"eval_return": _play(evaluator, net, gen, seed), "frames": frames,
            "episodes": episodes, "config": cfg.name}
+    if member is not None:
+        out["member"] = member
     if export_params:
         save_pytree(os.path.abspath(export_params), net)
         out["exported_params"] = os.path.abspath(export_params)
@@ -129,7 +137,7 @@ def _skip_row(step: int) -> dict:
 def evaluate_checkpoint_curve(cfg: ExperimentConfig, checkpoint_dir: str,
                               episodes: int = 10, seed: int = 0,
                               epsilon: float = 0.001, log_fn=None,
-                              device=None) -> list:
+                              device=None, member: int = None) -> list:
     """Evaluate every retained checkpoint step, oldest first: the learning
     curve of a run directory. One env/net build serves all steps, each
     played from the same draws. Steps deleted mid-walk by a live run's
@@ -149,7 +157,8 @@ def evaluate_checkpoint_curve(cfg: ExperimentConfig, checkpoint_dir: str,
     rows = []
     for step in steps:
         try:
-            frames, net = ckpt.restore_params(net, step=step, prefix=prefix)
+            frames, net = ckpt.restore_params(net, step=step, prefix=prefix,
+                                              member=member)
         except FileNotFoundError:
             # Only the restore is guarded, so an unrelated
             # FileNotFoundError cannot be mislabeled.
@@ -158,6 +167,8 @@ def evaluate_checkpoint_curve(cfg: ExperimentConfig, checkpoint_dir: str,
             continue
         row = {"eval_return": _play(evaluator, net, gen, seed),
                "frames": frames, "episodes": episodes, "config": cfg.name}
+        if member is not None:
+            row["member"] = member
         rows.append(row)
         if log_fn:
             log_fn(row)
@@ -181,8 +192,6 @@ def _refuse_unported(args) -> None:
     the ROADMAP.md item that brings them."""
     refused = [reason for reason, given in (
         ("--host-env (host envs, ROADMAP.md A8)", args.host_env is not None),
-        ("--member (population checkpoints, ROADMAP.md A5)",
-         args.member is not None),
         ("--telemetry-port/--telemetry-host/--telemetry-snapshot/"
          "--fleet-dir (telemetry, ROADMAP.md A10)",
          any(x is not None for x in (args.telemetry_port,
@@ -218,6 +227,11 @@ def main(argv=None):
                         help="also write the restored policy parameters "
                              "as a standalone file at PATH (newest or "
                              "single step)")
+    parser.add_argument("--member", type=int, default=None, metavar="K",
+                        help="population checkpoints (--population runs): "
+                             "evaluate member K of the [M]-stacked tree "
+                             "(0-based); required for population "
+                             "directories and refused on solo ones")
     parser.add_argument("--wait-for-checkpoint", type=float, default=0.0,
                         metavar="SECONDS",
                         help="retry a missing checkpoint for up to this "
@@ -225,7 +239,6 @@ def main(argv=None):
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
     parser.add_argument("--host-env", default=None)
-    parser.add_argument("--member", type=int, default=None)
     parser.add_argument("--telemetry-port", type=int, default=None)
     parser.add_argument("--telemetry-host", default=None)
     parser.add_argument("--telemetry-snapshot", default=None)
@@ -257,12 +270,13 @@ def main(argv=None):
         if args.all_steps:
             evaluate_checkpoint_curve(
                 cfg, args.checkpoint_dir, episodes=args.episodes,
-                seed=args.seed, log_fn=tag_and_print, device=args.device)
+                seed=args.seed, log_fn=tag_and_print, device=args.device,
+                member=args.member)
         else:
             tag_and_print(evaluate_checkpoint(
                 cfg, args.checkpoint_dir, episodes=args.episodes,
                 seed=args.seed, export_params=args.export_params,
-                device=args.device))
+                device=args.device, member=args.member))
 
     wait_for_checkpoint(dispatch, args.wait_for_checkpoint)
 

@@ -3,8 +3,8 @@ dist_dqn_tpu/loop_common.py).
 
 Config resolution (train batch, replay ratio, shard sizes, flat ring
 storage, frame dedup), the bf16 actor snapshot, the loops' generators, the
-epsilon / beta schedules, the per-step episode trackers, the chunk metrics
-and the sampler routing. The
+epsilon / beta schedules (and a population's per-member epsilon), the
+per-step episode trackers, the chunk metrics and the sampler routing. The
 schedules are host functions of the host-int iteration counter, computed
 in float32 as optax's ``linear_schedule`` computes them, so the loop never
 reads the device to know them.
@@ -204,25 +204,47 @@ def make_schedules(cfg: ExperimentConfig, B: int, num_shards: int = 1
     return epsilon, beta_at
 
 
+def make_member_epsilon(cfg: ExperimentConfig, B: int, num_shards: int = 1
+                        ) -> Callable:
+    """A population's exploration decay: ``eps_at(iteration, delta, end)``
+    with member vectors ``delta`` (epsilon_start - epsilon_end, folded on
+    the host in float64 and cast to float32: population.member_hp) and
+    ``end`` (float32 tensors or numpy arrays, [M]).
+
+    The arithmetic of :func:`make_schedules`' epsilon with the constants
+    as member lanes: the float32 ``1 - count / steps`` on the host, then
+    ``delta * frac + end`` elementwise in float32, so member k's epsilon is
+    bit for bit a solo run's with member k's epsilon_end."""
+    steps = max(cfg.actor.epsilon_decay_steps // (B * num_shards), 1)
+    f32 = np.float32
+
+    def eps_at(iteration: int, delta, end):
+        frac = f32(1) - f32(min(max(iteration, 0), steps)) / f32(steps)
+        return delta * float(frac) + end
+
+    return eps_at
+
+
 def episode_stats_update(ep_return: torch.Tensor,
                          completed_return: torch.Tensor,
                          completed_count: torch.Tensor,
                          reward: torch.Tensor, done: torch.Tensor):
     """Fold one step's rewards/dones into the per-env episode trackers, on
-    the device. Returns (ep_return, completed_return, completed_count)."""
+    the device. Returns (ep_return, completed_return, completed_count); a
+    population's [M, B] trackers fold into [M] sums."""
     ep_return = ep_return + reward
     zero = torch.zeros_like(ep_return)
     completed_return = completed_return + torch.where(done, ep_return,
-                                                      zero).sum()
-    completed_count = completed_count + done.float().sum()
+                                                      zero).sum(dim=-1)
+    completed_count = completed_count + done.float().sum(dim=-1)
     ep_return = torch.where(done, zero, ep_return)
     return ep_return, completed_return, completed_count
 
 
 def chunk_metrics(carry, B: int) -> Dict[str, object]:
     """A chunk's metrics from a loop carry: device tensors the caller reads
-    once per chunk, and host ints ``env_frames`` and
-    ``grad_steps_in_chunk``."""
+    once per chunk ([M] for a population, per member), and host ints
+    ``env_frames`` and ``grad_steps_in_chunk`` (per member)."""
     return {
         "env_frames": carry.iteration * B,
         "episode_return": carry.completed_return

@@ -23,12 +23,21 @@ explicit ``[B, num]`` tensor. The C51 support and IQN's cosine
 frequencies are computed in float32 at use, never held as buffers, so a
 bf16 copy of the net (the bf16 actor) still uses float32 ones.
 
+A population's M nets of one architecture train as one module
+(:func:`stack_networks`): a copy of the solo module whose every parameter
+holds the M members' values on a leading axis, under the solo names.
+:func:`member_forward` runs a method of all M members at once through
+``torch.func.vmap`` of ``functional_call``, which lowers the per-member
+layers to batched matmuls and grouped convolutions; gradients flow to the
+stacked parameters through ordinary autograd.
+
 The recurrent R2D2 network is in ``models/recurrent.py``.
 """
 from __future__ import annotations
 
+import copy
 import math
-from typing import Mapping, Optional, Sequence, Tuple, Union
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -436,3 +445,107 @@ def build_network(cfg: NetworkConfig, num_actions: int,
                    v_max=cfg.v_max, quantile=cfg.quantile,
                    compute_dtype=dtype, generator=gen)
     return net.to(resolve_device(device))
+
+
+# --------------------------------------------------------------------------
+# A population's stacked nets.
+# --------------------------------------------------------------------------
+
+def stack_networks(nets: Sequence[nn.Module]) -> nn.Module:
+    """One module for M nets of one architecture: a copy of ``nets[0]``
+    whose parameters are ``torch.stack`` of the members' (leading axis M,
+    solo names), with ``members`` = M set on it. Call it through
+    :func:`member_forward`; a plain call raises on the shapes."""
+    stacked = copy.deepcopy(nets[0])
+    with torch.no_grad():
+        for name, _ in nets[0].named_parameters():
+            path, _, leaf = name.rpartition(".")
+            values = [n.get_parameter(name).detach() for n in nets]
+            setattr(stacked.get_submodule(path), leaf,
+                    nn.Parameter(torch.stack(values)))
+    stacked.members = len(nets)
+    return stacked
+
+
+def members_of(net: nn.Module) -> int:
+    """M of a stacked net (:func:`stack_networks`); 0 for a solo net."""
+    return getattr(net, "members", 0)
+
+
+class _Method(nn.Module):
+    """``forward(method, *args)`` calls ``net.method(*args)``, so
+    ``functional_call`` reaches every method of a net, not only forward."""
+
+    def __init__(self, net: nn.Module):
+        super().__init__()
+        self.net = net
+
+    def forward(self, method: str, *args):
+        return getattr(self.net, method)(*args)
+
+
+def call_with(net: nn.Module, params, method: str, *args):
+    """``net.method(*args)`` with the parameters ``params`` (a name ->
+    tensor dict) in place of the net's own, which may be stacked."""
+    return torch.func.functional_call(
+        _Method(net), {"net." + k: v for k, v in params.items()},
+        (method,) + args)
+
+
+class MemberView:
+    """Member-level stand-in for a stacked net inside ``torch.func.vmap``:
+    ``view(obs, noise)``, ``view.q_values(...)`` and
+    ``view.sample_quantiles(...)`` run the solo net's methods on the
+    member's slice of the parameters; any other attribute is the net's."""
+
+    def __init__(self, net: nn.Module, params):
+        self._net, self._params = net, params
+
+    def __call__(self, *args):
+        return call_with(self._net, self._params, "forward", *args)
+
+    def q_values(self, *args):
+        return call_with(self._net, self._params, "q_values", *args)
+
+    def sample_quantiles(self, *args):
+        return call_with(self._net, self._params, "sample_quantiles", *args)
+
+    def __getattr__(self, name):
+        return getattr(self._net, name)
+
+
+def _in_dims(args) -> Tuple:
+    return tuple(None if a is None or isinstance(a, (int, float, str))
+                 else 0 for a in args)
+
+
+def member_forward(net: nn.Module, method: str, *args):
+    """``net.method(*args)`` for every member of a stacked net at once:
+    tensor arguments carry the member axis first ([M, B, ...] obs; noise
+    mappings and taus [M, ...]), as does the result; None and numbers are
+    shared."""
+    params = dict(net.named_parameters())
+
+    def one(p, *a):
+        return call_with(net, p, method, *a)
+
+    return torch.func.vmap(one, in_dims=(0,) + _in_dims(args))(params,
+                                                                 *args)
+
+
+def noise_shapes(net: nn.Module) -> List[Tuple[str, int, int]]:
+    """(name, in, out) of each noisy layer of a (solo or stacked) net, in
+    the order one forward draws their noise."""
+    return [(name, layer.mu_w.shape[-1], layer.mu_w.shape[-2])
+            for name in ("advantage", "value")
+            for layer in [getattr(net, name, None)]
+            if isinstance(layer, NoisyDense)]
+
+
+def draw_noise(net: nn.Module, generator: torch.Generator):
+    """One forward's layer noise from ``generator``, as a solo forward
+    given the generator draws it (``NoisyDense.draw`` per layer)."""
+    dev = next(net.parameters()).device
+    return {name: (torch.randn(n_in, generator=generator, device=dev),
+                   torch.randn(n_out, generator=generator, device=dev))
+            for name, n_in, n_out in noise_shapes(net)}

@@ -14,7 +14,9 @@ Counterpart of ``dist_dqn_tpu/ops/pallas_sampler.py``:
     there, it runs :func:`plain_stratified_sample`, the same four phases
     in torch ops. ``kernel_stratified_sample.launches`` counts launches,
     and :func:`launch_geometry` gives the kernel's grid (one launch: G
-    blocks that each scan a chunk of R rows, and P blocks that draw).
+    blocks that each scan a chunk of R rows, and P blocks that draw, per
+    member). A population draws its M planes ``[M, T, B]`` in one launch,
+    the twin of the JAX package's vmapped ``pallas_call``.
   * :func:`importance_weights` (``:250``).
 
 The kernel is compiled with ``nvcc`` into ``build/dist_dqn_tpu_torch/`` at
@@ -43,7 +45,6 @@ SAMPLER_MAX_CHUNKS = 2048
 # Samples per draw block: few enough that a block's scattered loads wait
 # on latency, not on its SM's load unit.
 SAMPLER_DRAW_SAMPLES = 32
-_SYNC_WORDS = 3           # kStart, kDone, kDrawn
 
 Samples = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -58,42 +59,55 @@ def plain_stratified_sample(w: torch.Tensor, u: torch.Tensor) -> Samples:
 
     Args: ``w`` [T, B] f32 >= 0, ``u`` [S] f32 in [0, 1). Returns
     (t_idx [S] int32, b_idx [S] int32, mass_sel [S] f32, total [] f32).
+    With a member axis, ``w`` [M, T, B] and ``u`` [M, S] give [M, S]
+    outputs and total [M], member m's the draw from plane m alone.
     """
-    T, B = w.shape
+    if w.dim() == 2:
+        return tuple(x[0] for x in _plain_members(w[None], u[None]))
+    return _plain_members(w, u)
+
+
+def _plain_members(w: torch.Tensor, u: torch.Tensor) -> Samples:
+    """:func:`plain_stratified_sample` of [M, T, B] planes."""
+    M, T, B = w.shape
+    gather = torch.gather
     w64 = w.double()
     # Phase 1: row masses; the row CDF and the total.
-    rs = w64.sum(dim=1)
-    cdf = torch.cumsum(rs, dim=0)
-    total = cdf[-1]
+    rs = w64.sum(dim=2)                                   # [M, T]
+    cdf = torch.cumsum(rs, dim=1)
+    total = cdf[:, -1]
     # Phase 2: row = #(row CDF < target), and the CDF mass before it.
-    targets = u.double() * total * (1.0 - 1e-5)
+    targets = u.double() * total[:, None] * (1.0 - 1e-5)  # [M, S]
     count = torch.searchsorted(cdf, targets)
     zero = torch.zeros((), dtype=torch.float64, device=w.device)
-    prev = torch.where(count > 0, cdf[(count - 1).clamp(min=0)], zero)
+    prev = torch.where(count > 0, gather(cdf, 1, (count - 1).clamp(min=0)),
+                       zero)
     t = count.clamp(max=T - 1)
     # A pick on a zero-mass row (only through rounding of the CDF) moves to
     # the nearest row with mass after it, else before it — as the kernel.
     rows = torch.arange(T, device=w.device)
     has_mass = rs > 0
-    next_mass = torch.where(has_mass, rows, T).flip(0).cummin(0).values.flip(0)
-    prev_mass = torch.where(has_mass, rows, -1).cummax(0).values
-    moved = torch.where(next_mass[t] < T, next_mass[t], prev_mass[t])
-    fix = ~has_mass[t] & (moved >= 0)
+    next_mass = torch.where(has_mass, rows, T).flip(1).cummin(1).values.flip(1)
+    prev_mass = torch.where(has_mass, rows, -1).cummax(1).values
+    next_t = gather(next_mass, 1, t)
+    moved = torch.where(next_t < T, next_t, gather(prev_mass, 1, t))
+    fix = ~gather(has_mass, 1, t) & (moved >= 0)
     t = torch.where(fix, moved, t)
-    prev = torch.where(fix, torch.where(t > 0, cdf[(t - 1).clamp(min=0)],
-                                        zero), prev)
+    prev = torch.where(fix, torch.where(
+        t > 0, gather(cdf, 1, (t - 1).clamp(min=0)), zero), prev)
     # Phase 3: gather the selected rows.
-    sel = w[t]                                            # [S, B] f32
+    members = torch.arange(M, device=w.device)[:, None]
+    sel = w[members, t]                                   # [M, S, B] f32
     # Phase 4: lane = first lane with mass whose in-order cumulative mass
     # reaches the residual, clamped strictly inside the row's own mass.
-    row_cum = torch.cumsum(sel.double(), dim=1)
-    residual = torch.minimum(targets - prev, rs[t] * (1.0 - 1e-6))
-    hit = (row_cum >= residual[:, None]) & (sel > 0)
+    row_cum = torch.cumsum(sel.double(), dim=2)
+    residual = torch.minimum(targets - prev, gather(rs, 1, t) * (1.0 - 1e-6))
+    hit = (row_cum >= residual[..., None]) & (sel > 0)
     lanes = torch.arange(B, device=w.device)
-    last = torch.where(sel > 0, lanes, -1).amax(dim=1)
+    last = torch.where(sel > 0, lanes, -1).amax(dim=2)
     last = torch.where(last >= 0, last, B - 1)
-    b = torch.where(hit.any(dim=1), hit.int().argmax(dim=1), last)
-    mass = sel.gather(1, b[:, None])[:, 0]
+    b = torch.where(hit.any(dim=2), hit.int().argmax(dim=2), last)
+    mass = sel.gather(2, b[..., None])[..., 0]
     return t.int(), b.int(), mass, total.float()
 
 
@@ -150,8 +164,8 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_library()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.dqn_stratified_sample.argtypes = [
-                ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
-                ptr, ptr, ptr]
+                ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+                ptr, ptr, ptr, ptr]
             lib.dqn_stratified_sample.restype = i32
             lib.dqn_stratified_sample_static_smem.argtypes = []
             lib.dqn_stratified_sample_static_smem.restype = i32
@@ -162,39 +176,44 @@ def _load() -> ctypes.CDLL:
 
 
 def _check_inputs(w: torch.Tensor, u: torch.Tensor) -> None:
-    if w.dim() != 2 or u.dim() != 1:
-        raise ValueError(f"expected w [T, B] and u [S], got {tuple(w.shape)} "
-                         f"and {tuple(u.shape)}")
+    if not ((w.dim() == 2 and u.dim() == 1) or
+            (w.dim() == 3 and u.dim() == 2 and u.shape[0] == w.shape[0])):
+        raise ValueError(f"expected w [T, B] and u [S], or w [M, T, B] and "
+                         f"u [M, S], got {tuple(w.shape)} and "
+                         f"{tuple(u.shape)}")
     if w.dtype != torch.float32 or u.dtype != torch.float32:
         raise TypeError(f"expected float32 w and u, got {w.dtype}, {u.dtype}")
     if u.device != w.device:
         raise ValueError(f"w on {w.device} but u on {u.device}")
-    if min(w.shape) == 0 or u.shape[0] == 0:
+    if min(w.shape) == 0 or min(u.shape) == 0:
         raise ValueError("empty mass plane or sample batch")
-    if max(w.shape[0], w.shape[1], u.shape[0]) >= 2 ** 31:
+    if max(*w.shape, u.numel()) >= 2 ** 31:
         raise ValueError("dimension too large for the kernel's int32 sizes")
 
 
 class LaunchGeometry(NamedTuple):
-    """How the kernel cuts a draw of S samples from a [T, B] plane: one
-    launch of ``chunks`` (G) blocks that each scan ``rows_per_chunk`` (R)
+    """How the kernel cuts a draw of S samples from each of M [T, B]
+    planes: one launch of M·(G + P) blocks of ``threads`` threads, per
+    member ``chunks`` (G) blocks that each scan ``rows_per_chunk`` (R)
     consecutive rows, with G·R >= T > (G−1)·R, and ``draw_blocks`` (P)
-    blocks that draw the samples, all of ``threads`` threads."""
+    blocks that draw the samples."""
     rows_per_chunk: int
     chunks: int
     draw_blocks: int
     threads: int
-    scratch_f64: int          # row sums [T], local CDF [T], totals [G]
+    scratch_f64: int          # per member: row sums [T], local CDF [T],
+    #                           totals [G]
     static_smem_bytes: int    # the kernel's `Shared` struct
+    sync_words: int           # ticket counter, M done and M drawn counts
 
 
-def launch_geometry(T: int, S: int = 1) -> LaunchGeometry:
-    """The kernel's grid for ``T`` rows and ``S`` samples: chunks of one
-    tile of ``SAMPLER_THREADS`` rows each (G = 245 at the apex preset's
-    T=62,500, so every SM scans one), grown by whole tiles only where T
-    needs more than ``SAMPLER_MAX_CHUNKS`` chunks, which is as many chunk
-    offsets as a block's shared memory holds; and one draw block per
-    ``SAMPLER_DRAW_SAMPLES`` samples."""
+def launch_geometry(T: int, S: int = 1, members: int = 1) -> LaunchGeometry:
+    """The kernel's grid for ``T`` rows and ``S`` samples of each of
+    ``members`` planes: chunks of one tile of ``SAMPLER_THREADS`` rows each
+    (G = 245 at the apex preset's T=62,500, so every SM scans one), grown
+    by whole tiles only where T needs more than ``SAMPLER_MAX_CHUNKS``
+    chunks, which is as many chunk offsets as a block's shared memory
+    holds; and one draw block per ``SAMPLER_DRAW_SAMPLES`` samples."""
     tiles = -(-T // SAMPLER_THREADS)
     rows = SAMPLER_THREADS * -(-tiles // SAMPLER_MAX_CHUNKS)
     chunks = -(-T // rows)
@@ -203,39 +222,51 @@ def launch_geometry(T: int, S: int = 1) -> LaunchGeometry:
     # double offset[max_chunks + 1]; double warp[warps]; u32 ticket (padded).
     smem = 8 * (SAMPLER_MAX_CHUNKS + 1 + warps + 1)
     return LaunchGeometry(rows, chunks, draws, SAMPLER_THREADS,
-                          2 * T + chunks, smem)
+                          members * (2 * T + chunks), smem, 1 + 2 * members)
 
 
-# Per card: the kernel's sync words (three u32 it leaves at zero)
-# and its scratch, allocated once and grown as T grows. One pair serves
+# Per card: the kernel's sync words (u32 it leaves at zero: 1 + 2·M)
+# and its scratch, allocated once and grown as M·T grows. One pair serves
 # one stream at a time, which is how the port draws.
 _workspaces: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _workspace(device: torch.device, scratch_f64: int
+def _workspace(device: torch.device, geo: LaunchGeometry
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     ws = _workspaces.get(device.index)
-    if ws is None or ws[1].numel() < scratch_f64:
+    if (ws is None or ws[0].numel() < geo.sync_words
+            or ws[1].numel() < geo.scratch_f64):
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 "the sampler kernel's workspace is allocated outside CUDA "
-                "graph capture: make one eager call at this T (or larger) "
-                "before capturing")
-        sync = (ws[0] if ws is not None else
-                torch.zeros(_SYNC_WORDS, dtype=torch.int32, device=device))
-        scratch = torch.empty(scratch_f64, dtype=torch.float64, device=device)
+                "graph capture: make one eager call at this shape (or a "
+                "larger one) before capturing")
+        # Sync words only ever hold zero between launches, so fresh zeros
+        # take the place of the old ones.
+        sync = (ws[0] if ws is not None and ws[0].numel() >= geo.sync_words
+                else torch.zeros(geo.sync_words, dtype=torch.int32,
+                                 device=device))
+        scratch = (ws[1] if ws is not None
+                   and ws[1].numel() >= geo.scratch_f64 else
+                   torch.empty(geo.scratch_f64, dtype=torch.float64,
+                               device=device))
         ws = _workspaces[device.index] = (sync, scratch)
     return ws
 
 
 def kernel_stratified_sample(w: torch.Tensor, u: torch.Tensor) -> Samples:
-    """Draw ``u.shape[0]`` samples ~ ``w`` (a [T, B] non-negative f32 mass
+    """Draw ``u.shape[-1]`` samples ~ ``w`` (a [T, B] non-negative f32 mass
     plane) at stratified uniforms ``u`` [S] in [0, 1).
 
     Returns (t_idx [S] int32, b_idx [S] int32, mass_sel [S] f32,
-    total [] f32), views of one fresh buffer. A CUDA tensor launches the
-    Hopper kernel on the current stream (no synchronisation) and raises if
-    the launch fails; a CPU tensor runs :func:`plain_stratified_sample`.
+    total [] f32), views of one fresh buffer. With a member axis, ``w``
+    [M, T, B] and ``u`` [M, S], one launch draws every member's samples:
+    [M, S] outputs and total [M], member m's bit for bit those of a launch
+    on plane m alone (the 2-D call is the M = 1 launch). A CUDA tensor
+    launches the Hopper kernel on the current stream (no synchronisation)
+    and raises if the launch fails; a CPU tensor runs
+    :func:`plain_stratified_sample`. Either way ``launches`` counts one
+    per call, whatever M.
     """
     _check_inputs(w, u)
     device = w.device
@@ -250,28 +281,33 @@ def kernel_stratified_sample(w: torch.Tensor, u: torch.Tensor) -> Samples:
         with torch.cuda.device(device):
             return kernel_stratified_sample(w, u)
     lib = _load()
-    T, B = w.shape
-    S = u.shape[0]
-    geo = launch_geometry(T, S)
-    sync, scratch = _workspace(device, geo.scratch_f64)
-    # t_idx [S] | b_idx [S] | mass [S] | total, 4 bytes each.
-    out = torch.empty(3 * S + 1, dtype=torch.int32, device=device)
+    stacked = w.dim() == 3
+    M, T, B = w.shape if stacked else (1, *w.shape)
+    S = u.shape[-1]
+    geo = launch_geometry(T, S, M)
+    sync, scratch = _workspace(device, geo)
+    # t_idx [M, S] | b_idx [M, S] | mass [M, S] | total [M], 4 bytes each.
+    n = M * S
+    out = torch.empty(3 * n + M, dtype=torch.int32, device=device)
     base = out.data_ptr()
     # The current stream's handle: torch.cuda.current_stream() would build
     # a Stream object on every call, which costs about as much host time
     # as the launch itself.
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     err = lib.dqn_stratified_sample(
-        w.data_ptr(), u.data_ptr(), T, B, S, geo.rows_per_chunk, geo.chunks,
-        geo.draw_blocks, scratch.data_ptr(), sync.data_ptr(), base,
-        base + 4 * S, base + 8 * S, base + 12 * S, stream)
+        w.data_ptr(), u.data_ptr(), M, T, B, S, geo.rows_per_chunk,
+        geo.chunks, geo.draw_blocks, scratch.data_ptr(), sync.data_ptr(),
+        base, base + 4 * n, base + 8 * n, base + 12 * n, stream)
     if err != 0:
         raise RuntimeError("stratified sample kernel launch failed: "
                            + lib.dqn_cuda_error_string(err).decode())
     kernel_stratified_sample.launches += 1
-    t_idx, b_idx, rest = out.split([S, S, S + 1])
+    t_idx, b_idx, rest = out.split([n, n, n + M])
     values = rest.view(torch.float32)
-    return t_idx, b_idx, values[:S], values[S]
+    mass, total = values[:n], values[n:]
+    if not stacked:
+        return t_idx, b_idx, mass, total[0]
+    return (t_idx.view(M, S), b_idx.view(M, S), mass.view(M, S), total)
 
 
 kernel_stratified_sample.launches = 0
@@ -281,18 +317,24 @@ kernel_stratified_sample.launches = 0
 # The draw both replay samplers share.
 # --------------------------------------------------------------------------
 
-def stratified_uniforms(generator: Optional[torch.Generator],
-                        batch_size: int, device) -> torch.Tensor:
-    """One uniform per stratum: (i + U[0, 1)) / S for i < S."""
-    jitter = torch.rand(batch_size, generator=generator, device=device)
+def stratified_uniforms(generator, batch_size: int, device) -> torch.Tensor:
+    """One uniform per stratum: (i + U[0, 1)) / S for i < S. ``generator``
+    may be a list of M member generators: each draws its solo [S] jitter,
+    and the result is [M, S]."""
+    if isinstance(generator, (list, tuple)):
+        jitter = torch.stack([torch.rand(batch_size, generator=g,
+                                         device=device) for g in generator])
+    else:
+        jitter = torch.rand(batch_size, generator=generator, device=device)
     return (torch.arange(batch_size, dtype=torch.float32, device=device)
             + jitter) / batch_size
 
 
-def stratified_sample(w: torch.Tensor, generator: Optional[torch.Generator],
-                      batch_size: int, use_kernel: bool = False) -> Samples:
+def stratified_sample(w: torch.Tensor, generator, batch_size: int,
+                      use_kernel: bool = False) -> Samples:
     """Stratified inverse-CDF draw from a [T, B] mass plane. Returns
-    (t_idx [S], b_idx [S], mass_sel [S], total [])."""
+    (t_idx [S], b_idx [S], mass_sel [S], total []); from M planes [M, T, B]
+    with a list of M member generators, [M, S] outputs and total [M]."""
     u01 = stratified_uniforms(generator, batch_size, w.device)
     return stratified_sample_at(w, u01, use_kernel=use_kernel)
 
@@ -300,25 +342,34 @@ def stratified_sample(w: torch.Tensor, generator: Optional[torch.Generator],
 def stratified_sample_at(w: torch.Tensor, u: torch.Tensor,
                          use_kernel: bool = False) -> Samples:
     """Inverse-CDF draw from a [T, B] mass plane at EXPLICIT uniforms ``u``
-    [S] in [0, 1). ``use_kernel`` routes through
+    [S] in [0, 1) (or from [M, T, B] planes at [M, S] uniforms, each member
+    on its own plane). ``use_kernel`` routes through
     :func:`kernel_stratified_sample`; otherwise the flat cumsum +
     searchsorted twin of the JAX package's XLA path."""
     if use_kernel:
         return kernel_stratified_sample(w, u)
-    num_envs = w.shape[1]
-    flat = w.reshape(-1)
-    cdf = torch.cumsum(flat, dim=0)
-    total = cdf[-1]
-    idx = torch.searchsorted(cdf, u * total).clamp(0, flat.shape[0] - 1)
-    return ((idx // num_envs).int(), (idx % num_envs).int(), flat[idx],
-            total)
+    if w.dim() == 2:
+        return tuple(x[0] for x in stratified_sample_at(w[None], u[None]))
+    num_envs = w.shape[-1]
+    flat = w.reshape(w.shape[0], -1)
+    cdf = torch.cumsum(flat, dim=1)
+    total = cdf[:, -1]
+    idx = torch.searchsorted(cdf, u * total[:, None]).clamp(
+        0, flat.shape[1] - 1)
+    return ((idx // num_envs).int(), (idx % num_envs).int(),
+            flat.gather(1, idx), total)
 
 
 def importance_weights(mass_sel: torch.Tensor, total: torch.Tensor,
                        n_valid: torch.Tensor, beta: float) -> torch.Tensor:
     """(N * P(i))^-beta, batch-max normalized; zero-mass selections get
-    weight 0 instead of an enormous one that would crush the batch."""
-    p_sel = mass_sel.clamp(min=1e-12) / total.clamp(min=1e-12)
+    weight 0 instead of an enormous one that would crush the batch. With a
+    member axis (mass_sel [M, S], total [M]) each member's batch is
+    normalized by its own max."""
+    if mass_sel.dim() == 1:
+        return importance_weights(mass_sel[None], total[None], n_valid,
+                                  beta)[0]
+    p_sel = mass_sel.clamp(min=1e-12) / total[:, None].clamp(min=1e-12)
     weights = (n_valid.clamp(min=1.0) * p_sel) ** (-beta)
     weights = torch.where(mass_sel > 0.0, weights, torch.zeros_like(weights))
-    return weights / weights.max().clamp(min=1e-12)
+    return weights / weights.amax(dim=1, keepdim=True).clamp(min=1e-12)

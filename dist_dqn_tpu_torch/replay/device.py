@@ -17,6 +17,11 @@ Frame-dedup storage (``frame_stack`` > 0): the ring stores only each
 step's newest frame and the gathers rebuild the stacks exactly, reset
 re-tiling included (:func:`stack_rebuild_indices`) — a 4x saving of ring
 memory on Atari stacks.
+
+A population's ring (``members`` = M) holds M members' rings on a leading
+axis, ``[M, T, B, ...]`` (merged obs ``[M, T * B, ...]``): one add writes
+every member's slice at the shared ``pos``, and the gathers take [M, S]
+index planes, member m's row of indices reading member m's ring only.
 """
 from __future__ import annotations
 
@@ -41,24 +46,49 @@ class TimeRingState:
     pos: int = 0              # next slot to write
     size: int = 0             # slots filled (<= T)
 
+    @property
+    def members(self) -> int:
+        """M of a population's stacked ring; 0 for a solo ring."""
+        return self.action.shape[0] if self.action.dim() == 3 else 0
+
+
+def member_index(members: int, like: torch.Tensor) -> torch.Tensor:
+    """[M, 1, ...] member ids that broadcast against an index tensor
+    ``like`` of shape [M, ...]."""
+    return torch.arange(members, device=like.device).view(
+        (members,) + (1,) * (like.dim() - 1))
+
+
+def _at(field: torch.Tensor, members: int, t: torch.Tensor,
+        b: torch.Tensor) -> torch.Tensor:
+    """``field[t, b]`` of a solo [T, B, ...] field; of a stacked [M, T, B,
+    ...] one, ``field[m, t, b]`` with member m's indices in row m."""
+    if not members:
+        return field[t, b]
+    return field[member_index(members, t), t, b]
+
 
 def time_ring_init(num_slots: int, num_envs: int, obs_example: torch.Tensor,
                    store_final_obs: bool = False,
-                   merge_obs_rows: bool = False) -> TimeRingState:
+                   merge_obs_rows: bool = False,
+                   members: int = 0) -> TimeRingState:
     """Allocate a zeroed ring on ``obs_example``'s device; the example (one
     env's obs) fixes the per-env obs shape and dtype. ``merge_obs_rows``
     stores obs as ``[num_slots * num_envs, ...]``: slot ``t`` of env ``b``
-    at row ``t * num_envs + b``."""
+    at row ``t * num_envs + b``. ``members`` > 0 stacks that many rings on
+    a leading axis."""
     dev = obs_example.device
+    stack = (members,) if members else ()
 
     def zeros_obs():
         lead = ((num_slots * num_envs,) if merge_obs_rows
                 else (num_slots, num_envs))
-        return torch.zeros(lead + tuple(obs_example.shape),
+        return torch.zeros(stack + lead + tuple(obs_example.shape),
                            dtype=obs_example.dtype, device=dev)
 
     def zeros(dtype):
-        return torch.zeros((num_slots, num_envs), dtype=dtype, device=dev)
+        return torch.zeros(stack + (num_slots, num_envs), dtype=dtype,
+                           device=dev)
 
     return TimeRingState(
         obs=zeros_obs(), action=zeros(torch.int64),
@@ -72,21 +102,25 @@ def time_ring_add(state: TimeRingState, obs: torch.Tensor,
                   terminated: torch.Tensor, truncated: torch.Tensor,
                   final_obs: Optional[torch.Tensor] = None,
                   merge_obs_rows: bool = False) -> TimeRingState:
-    """Append one time slice (all envs) at ``pos`` in place; wraps around."""
-    num_slots, num_envs = state.action.shape
+    """Append one time slice (all envs) at ``pos`` in place; wraps around.
+    A stacked ring takes every member's slice at once ([M, B, ...]
+    inputs)."""
+    num_slots, num_envs = state.action.shape[-2:]
     p = state.pos
+    # A stacked ring's slot is the same in every member's ring.
+    lead = (slice(None),) if state.members else ()
 
     def write_obs(buf, x):
         if merge_obs_rows:
-            buf[p * num_envs:(p + 1) * num_envs] = x
+            buf[lead + (slice(p * num_envs, (p + 1) * num_envs),)] = x
         else:
-            buf[p] = x
+            buf[lead + (p,)] = x
 
     write_obs(state.obs, obs)
-    state.action[p] = action
-    state.reward[p] = reward
-    state.terminated[p] = terminated
-    state.truncated[p] = truncated
+    state.action[lead + (p,)] = action
+    state.reward[lead + (p,)] = reward
+    state.terminated[lead + (p,)] = terminated
+    state.truncated[lead + (p,)] = truncated
     if state.final_obs is not None:
         write_obs(state.final_obs, final_obs)
     state.pos = (p + 1) % num_slots
@@ -103,21 +137,24 @@ def time_ring_can_sample(state: TimeRingState, n_step: int,
 
 
 def _gather_window(field: torch.Tensor, t_idx: torch.Tensor,
-                   b_idx: torch.Tensor, n: int, num_slots: int
-                   ) -> torch.Tensor:
+                   b_idx: torch.Tensor, n: int, num_slots: int,
+                   members: int = 0) -> torch.Tensor:
     """[S, n] windows of ``field`` [T, B] starting at slot ``t_idx`` of env
-    ``b_idx``."""
+    ``b_idx`` ([M, S, n] from a stacked [M, T, B] field at [M, S]
+    indices)."""
     offs = torch.arange(n, device=t_idx.device)
-    tt = (t_idx.long()[:, None] + offs[None, :]) % num_slots
-    return field[tt, b_idx.long()[:, None]]
+    tt = (t_idx.long()[..., None] + offs) % num_slots
+    return _at(field, members, tt, b_idx.long()[..., None])
 
 
 def compute_n_step(reward_w: torch.Tensor, term_w: torch.Tensor,
-                   trunc_w: torch.Tensor, gamma: float
+                   trunc_w: torch.Tensor, gamma
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact n-step return over a window with episode-boundary masking.
 
-    Args: [S, n] windows of per-step reward / terminated / truncated.
+    Args: [S, n] windows of per-step reward / terminated / truncated, and
+    ``gamma``, a float; or a population's [M, S, n] windows and its [M]
+    gammas (a tensor), member m's windows folded with member m's gamma.
     Returns:
       returns:  [S] — sum_{k<=k*} gamma^k r_k, where k* is the first done in
                 the window (or n-1 if none).
@@ -126,23 +163,29 @@ def compute_n_step(reward_w: torch.Tensor, term_w: torch.Tensor,
                 i.e. the bootstrap observation lives at slot t + k* + 1.
     """
     n = reward_w.shape[-1]
+    if isinstance(gamma, torch.Tensor):
+        # [M] -> [M, 1], against the [M, S] leading dims.
+        gamma = gamma.view((-1,) + (1,) * (reward_w.dim() - 2))
+        gammas = gamma[..., None] ** torch.arange(
+            n, dtype=torch.float32, device=reward_w.device)
+    else:
+        gammas = gamma ** torch.arange(n, dtype=torch.float32,
+                                       device=reward_w.device)
     done_w = term_w | trunc_w
     # prefix[k] = prod_{j<k} (1 - done_j): 1 until just after first done.
     cont = 1.0 - done_w.float()
-    prefix = torch.cat([torch.ones_like(cont[:, :1]),
-                        torch.cumprod(cont[:, :-1], dim=-1)], dim=-1)
-    gammas = gamma ** torch.arange(n, dtype=torch.float32,
-                                   device=reward_w.device)
-    terms = prefix * gammas[None, :] * reward_w
+    prefix = torch.cat([torch.ones_like(cont[..., :1]),
+                        torch.cumprod(cont[..., :-1], dim=-1)], dim=-1)
+    terms = prefix * gammas * reward_w
     # Summed in window order, as XLA reduces the window axis.
-    returns = terms[:, 0]
+    returns = terms[..., 0]
     for k in range(1, n):
-        returns = returns + terms[:, k]
+        returns = returns + terms[..., k]
 
     any_done = done_w.any(dim=-1)
     first_done = done_w.int().argmax(dim=-1)
     kstar = torch.where(any_done, first_done, n - 1)
-    term_at_k = term_w.gather(-1, kstar[:, None])[:, 0]
+    term_at_k = term_w.gather(-1, kstar[..., None])[..., 0]
     discount = (gamma ** (kstar + 1).float()) * (1.0 - term_at_k.float())
     return returns, discount, kstar
 
@@ -152,7 +195,7 @@ def contextful_start_mask(state: TimeRingState, frame_stack: int = 0
     """[T] bool — stored slots, minus the oldest ``frame_stack - 1`` (whose
     frame-dedup rebuild context is not stored); all stored slots when
     ``frame_stack`` is 0/1."""
-    num_slots = state.action.shape[0]
+    num_slots = state.action.shape[-2]
     extra = max(frame_stack - 1, 0)
     t = torch.arange(num_slots, device=state.action.device)
     oldest = (state.pos - state.size) % num_slots
@@ -215,16 +258,18 @@ def stack_rebuild_indices(done_at: Callable[[torch.Tensor], torch.Tensor],
 
 
 def _take_stacks(obs: torch.Tensor, slots: torch.Tensor, b_idx: torch.Tensor,
-                 num_envs: int, merge_obs_rows: bool, frame_shape
-                 ) -> torch.Tensor:
+                 num_envs: int, merge_obs_rows: bool, frame_shape,
+                 members: int = 0) -> torch.Tensor:
     """Single stored frames at ``slots`` [..., F] (oldest channel first)
-    of envs ``b_idx`` [...] -> stacks [..., H, W, F]."""
+    of envs ``b_idx`` [...] -> stacks [..., H, W, F]; a stacked ring's
+    ``slots`` and ``b_idx`` lead with the member axis."""
     b = b_idx[..., None]
+    lead = (member_index(members, slots),) if members else ()
     if merge_obs_rows:
-        frames = obs[slots * num_envs + b]                  # [..., F, prod]
+        frames = obs[lead + (slots * num_envs + b,)]        # [..., F, prod]
         frames = frames.reshape(frames.shape[:-1] + tuple(frame_shape))
     else:
-        frames = obs[slots, b]                              # [..., F, H, W, 1]
+        frames = obs[lead + (slots, b)]                     # [..., F, H, W, 1]
     return frames[..., 0].movedim(slots.dim() - 1, -1)
 
 
@@ -240,6 +285,8 @@ def gather_transitions(state: TimeRingState, t_idx: torch.Tensor,
     rebuilds the [N, H, W, S] stacks, channels oldest first, exactly as
     stacked storage would hold them. ``frame_shape`` (e.g. (84, 84, 1))
     reshapes merged rows; rebuilt stacks come back unflattened either way.
+    A stacked ring takes [M, S] indices and ``gamma`` as an [M] tensor,
+    and gives [M, S, ...] leaves.
     """
     if frame_stack and state.final_obs is not None:
         raise ValueError(
@@ -248,32 +295,37 @@ def gather_transitions(state: TimeRingState, t_idx: torch.Tensor,
             "with store_final_obs=False for frame dedup")
     if frame_stack and merge_obs_rows and frame_shape is None:
         raise ValueError("a merged-row dedup gather needs frame_shape")
-    num_slots, num_envs = state.action.shape
+    num_slots, num_envs = state.action.shape[-2:]
+    members = state.members
     t_idx = t_idx.long()
     b_idx = b_idx.long()
-    reward_w = _gather_window(state.reward, t_idx, b_idx, n_step, num_slots)
+    reward_w = _gather_window(state.reward, t_idx, b_idx, n_step, num_slots,
+                              members)
     term_w = _gather_window(state.terminated, t_idx, b_idx, n_step,
-                            num_slots)
+                            num_slots, members)
     trunc_w = _gather_window(state.truncated, t_idx, b_idx, n_step,
-                             num_slots)
+                             num_slots, members)
     returns, discount, kstar = compute_n_step(reward_w, term_w, trunc_w,
                                               gamma)
 
     def take(x, t):
         if frame_stack:
             slots = stack_rebuild_indices(
-                lambda tt: state.terminated[tt, b_idx]
-                | state.truncated[tt, b_idx], t, frame_stack, num_slots)
+                lambda tt: _at(state.terminated, members, tt, b_idx)
+                | _at(state.truncated, members, tt, b_idx), t, frame_stack,
+                num_slots)
             oldest_first = torch.stack([s for _, s in reversed(slots)],
                                        dim=-1)
             return _take_stacks(x, oldest_first, b_idx, num_envs,
-                                merge_obs_rows, frame_shape)
+                                merge_obs_rows, frame_shape, members)
         if merge_obs_rows:
+            if members:
+                return x[member_index(members, t), t * num_envs + b_idx]
             return x[t * num_envs + b_idx]
-        return x[t, b_idx]
+        return _at(x, members, t, b_idx)
 
     obs = take(state.obs, t_idx)
-    action = state.action[t_idx, b_idx]
+    action = _at(state.action, members, t_idx, b_idx)
     if state.final_obs is not None:
         # Exact path: the stored pre-reset successor of step k*.
         next_obs = take(state.final_obs, (t_idx + kstar) % num_slots)
@@ -281,30 +333,38 @@ def gather_transitions(state: TimeRingState, t_idx: torch.Tensor,
         # The next slot's obs is post-reset at episode ends, so it is only a
         # valid bootstrap within an episode: zero the discount at truncation
         # (termination already zeroes it in compute_n_step).
-        trunc_at_k = trunc_w.gather(-1, kstar[:, None])[:, 0]
+        trunc_at_k = trunc_w.gather(-1, kstar[..., None])[..., 0]
         discount = discount * (1.0 - trunc_at_k.float())
         next_obs = take(state.obs, (t_idx + kstar + 1) % num_slots)
     return Transition(obs=obs, action=action, reward=returns,
                       discount=discount, next_obs=next_obs)
 
 
-def time_ring_sample(state: TimeRingState, generator: torch.Generator,
-                     batch_size: int, n_step: int, gamma: float,
-                     merge_obs_rows: bool = False, frame_stack: int = 0,
-                     frame_shape=None) -> Transition:
+def time_ring_sample(state: TimeRingState, generator, batch_size: int,
+                     n_step: int, gamma, merge_obs_rows: bool = False,
+                     frame_stack: int = 0, frame_shape=None) -> Transition:
     """Uniformly sample ``batch_size`` n-step transitions from the oldest
     ``size - n_step`` slots, so every bootstrap slot is a stored, in-order
     step of the same env. Frame-dedup rings also skip the oldest
-    ``frame_stack - 1`` starts, whose rebuild context is not stored."""
-    num_slots, num_envs = state.action.shape
+    ``frame_stack - 1`` starts, whose rebuild context is not stored. A
+    stacked ring takes a list of M member generators (each draws a solo
+    run's numbers) and [M] gammas, and gives [M, S, ...] leaves."""
+    num_slots, num_envs = state.action.shape[-2:]
     dev = state.action.device
     extra = max(frame_stack - 1, 0)
     num_valid = max(state.size - n_step - extra, 1)
-    u = torch.randint(0, num_valid, (batch_size,), generator=generator,
-                      device=dev)
+
+    def draw(gen):
+        return (torch.randint(0, num_valid, (batch_size,), generator=gen,
+                              device=dev),
+                torch.randint(0, num_envs, (batch_size,), generator=gen,
+                              device=dev))
+
+    if state.members:
+        u, b_idx = (torch.stack(x) for x in zip(*map(draw, generator)))
+    else:
+        u, b_idx = draw(generator)
     t_idx = (state.pos - state.size + extra + u) % num_slots
-    b_idx = torch.randint(0, num_envs, (batch_size,), generator=generator,
-                          device=dev)
     return gather_transitions(state, t_idx, b_idx, n_step, gamma,
                               merge_obs_rows=merge_obs_rows,
                               frame_stack=frame_stack,

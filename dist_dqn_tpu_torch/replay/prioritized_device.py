@@ -8,7 +8,10 @@ applied at sample time. Like the ring, the state is updated in place.
 Every write-back is chronological last-write-wins where a slot appears
 twice, so a seed's run repeats on the card; the replay-ratio engine
 flushes its sub-steps' write-backs at once
-(:func:`prioritized_ring_update_batched`).
+(:func:`prioritized_ring_update_batched`). A population's ring stacks M
+members' rings and planes (``members`` = M): one draw takes every
+member's samples from its own plane (one sampler launch), and one
+write-back lands every member's priorities in its own plane.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ class PrioritizedRingState:
     ring: ring.TimeRingState
     priorities: torch.Tensor    # [T, B] f32, raw |TD| (+eps), 0 = never written
     max_priority: torch.Tensor  # [] f32 running max — seed for new items
+    # (a population's: [M, T, B] and [M])
 
 
 class PrioritizedSample(NamedTuple):
@@ -41,16 +45,18 @@ class PrioritizedSample(NamedTuple):
 def prioritized_ring_init(num_slots: int, num_envs: int,
                           obs_example: torch.Tensor,
                           store_final_obs: bool = False,
-                          merge_obs_rows: bool = False
+                          merge_obs_rows: bool = False, members: int = 0
                           ) -> PrioritizedRingState:
     dev = obs_example.device
+    stack = (members,) if members else ()
     return PrioritizedRingState(
         ring=ring.time_ring_init(num_slots, num_envs, obs_example,
                                  store_final_obs=store_final_obs,
-                                 merge_obs_rows=merge_obs_rows),
-        priorities=torch.zeros((num_slots, num_envs), dtype=torch.float32,
-                               device=dev),
-        max_priority=torch.ones((), dtype=torch.float32, device=dev))
+                                 merge_obs_rows=merge_obs_rows,
+                                 members=members),
+        priorities=torch.zeros(stack + (num_slots, num_envs),
+                               dtype=torch.float32, device=dev),
+        max_priority=torch.ones(stack, dtype=torch.float32, device=dev))
 
 
 def prioritized_ring_add(state: PrioritizedRingState, obs: torch.Tensor,
@@ -65,7 +71,10 @@ def prioritized_ring_add(state: PrioritizedRingState, obs: torch.Tensor,
     ring.time_ring_add(state.ring, obs, action, reward, terminated,
                        truncated, final_obs=final_obs,
                        merge_obs_rows=merge_obs_rows)
-    state.priorities[p] = state.max_priority
+    if state.ring.members:
+        state.priorities[:, p] = state.max_priority[:, None]
+    else:
+        state.priorities[p] = state.max_priority
     return state
 
 
@@ -75,7 +84,7 @@ def _valid_start_mask(state: ring.TimeRingState, n_step: int,
     size - n_step slots, as the uniform sampler draws from); frame-dedup
     rings also exclude the oldest frame_stack - 1, whose stack-rebuild
     context is not stored (ring.contextful_start_mask)."""
-    num_slots = state.action.shape[0]
+    num_slots = state.action.shape[-2]
     t = torch.arange(num_slots, device=state.action.device)
     oldest = (state.pos - state.size) % num_slots
     offset = (t - oldest) % num_slots
@@ -83,9 +92,8 @@ def _valid_start_mask(state: ring.TimeRingState, n_step: int,
             & (offset < state.size - n_step))
 
 
-def prioritized_ring_sample(state: PrioritizedRingState,
-                            generator: Optional[torch.Generator],
-                            batch_size: int, n_step: int, gamma: float,
+def prioritized_ring_sample(state: PrioritizedRingState, generator,
+                            batch_size: int, n_step: int, gamma,
                             alpha: float, beta: float,
                             use_kernel: bool = False,
                             merge_obs_rows: bool = False,
@@ -99,12 +107,14 @@ def prioritized_ring_sample(state: PrioritizedRingState,
     cumsum+searchsorted twin. ``u`` [S] injects the stratified uniforms
     instead of drawing them from ``generator`` (the parity tests hand both
     packages the same ones). ``frame_stack`` / ``frame_shape``: a
-    frame-dedup ring (replay/device.py ``gather_transitions``).
+    frame-dedup ring (replay/device.py ``gather_transitions``). A stacked
+    ring takes a list of M member generators (or [M, S] uniforms) and [M]
+    gammas: one draw over the [M, T, B] planes, [M, S] outputs.
     """
-    num_envs = state.priorities.shape[1]
+    num_envs = state.priorities.shape[-1]
     mask = _valid_start_mask(state.ring, n_step, frame_stack)     # [T]
     w = torch.where(mask[:, None], state.priorities ** alpha,
-                    torch.zeros((), device=mask.device))          # [T, B]
+                    torch.zeros((), device=mask.device))  # [(M,) T, B]
     n_valid = mask.sum().float() * num_envs
     if u is None:
         t_idx, b_idx, mass_sel, total = stratified_sample(
@@ -126,13 +136,26 @@ def _write_priorities(state: PrioritizedRingState, t_idx: torch.Tensor,
                       eps: float) -> PrioritizedRingState:
     """|p| + eps into the plane at (t_idx, b_idx), chronological
     last-write-wins where a slot appears more than once
-    (ring.last_write_wins_scatter); the running max follows."""
-    T, B = state.priorities.shape
-    p = new_priorities.reshape(-1).abs() + eps
-    flat_idx = t_idx.reshape(-1).long() * B + b_idx.reshape(-1).long()
+    (ring.last_write_wins_scatter); the running max follows.
+
+    A stacked ring's indices are [..., M, S]: member m's writes land in
+    plane m only, since the flat position (m·T + t)·B + b holds m, and the
+    row-major order keeps each member's writes in chronological order."""
+    T, B = state.priorities.shape[-2:]
+    members = state.ring.members
+    p = new_priorities.abs() + eps
+    t, b = t_idx.long(), b_idx.long()
+    if members:
+        m = ring.member_index(members, t[0] if t.dim() == 3 else t)
+        flat_idx = ((m * T + t) * B + b).reshape(-1)
+        member_max = p.movedim(-2, 0).reshape(members, -1).amax(dim=1)
+    else:
+        flat_idx = t.reshape(-1) * B + b.reshape(-1)
+        member_max = p.max()
     state.priorities.copy_(ring.last_write_wins_scatter(
-        state.priorities.reshape(-1), flat_idx, p).view(T, B))
-    state.max_priority = torch.maximum(state.max_priority, p.max())
+        state.priorities.reshape(-1), flat_idx, p.reshape(-1)).view(
+            state.priorities.shape))
+    state.max_priority = torch.maximum(state.max_priority, member_max)
     return state
 
 

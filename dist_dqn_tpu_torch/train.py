@@ -25,8 +25,20 @@ the newest step in ``D`` when relaunched, continuing toward the same
 total; ``--checkpoint-replay`` saves and resumes the whole fused carry
 instead, bit-equal to a run that never stopped (utils/checkpoint.py).
 ``--stop-at-return R`` ends the run once ``eval_return`` reaches R.
-Meshes, populations, telemetry and the other runtimes are not ported
-yet; asking for any of them raises instead of being ignored.
+
+``--population M --population-spec JSON`` trains M policies as one
+program (population.py): each member with its own seed stream and its own
+``epsilon``/``lr``/``gamma`` from the spec. The frame cursor and
+``--total-env-steps`` count per member; ``env_steps_per_sec`` and
+``grad_steps_per_sec`` are the aggregate over the members, and the rows
+add ``population``, ``loss_members``, ``grad_steps_per_sec_member`` and
+``eval_return_members``. Checkpoints hold the stacked tree and a
+``POPULATION`` width marker. ``--population 1`` with a spec runs the plain
+program with member 0's overrides applied. On a recurrent config the flag
+prints the JAX CLI's warning and is ignored, as there.
+
+Meshes, telemetry and the other runtimes are not ported yet; asking for
+any of them raises instead of being ignored.
 """
 from __future__ import annotations
 
@@ -39,27 +51,17 @@ import time
 import torch
 from torch.autograd import DeviceType
 
+from dist_dqn_tpu_torch import population as pop
 from dist_dqn_tpu_torch.config import CONFIGS, ExperimentConfig, \
     apply_overrides
 from dist_dqn_tpu_torch.envs import make_env
-from dist_dqn_tpu_torch.models import build_network
+from dist_dqn_tpu_torch.models import build_network, stack_networks
 from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_evaluator, make_r2d2_train
 from dist_dqn_tpu_torch.train_loop import make_evaluator, make_fused_train
 from dist_dqn_tpu_torch.utils.checkpoint import (TrainCheckpointer,
-                                                record_checkpoint_kind)
+                                                record_checkpoint_kind,
+                                                record_population_size)
 from dist_dqn_tpu_torch.utils.device import resolve_device
-
-
-def check_ported(cfg: ExperimentConfig) -> None:
-    """Refuse config features the port does not implement yet (the
-    network, learner and env constructors refuse theirs)."""
-    refused = []
-    if cfg.population.size > 1 or cfg.population.spec_json:
-        refused.append("population")
-    if refused:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(refused)} (ROADMAP.md lists the "
-            "slices that bring them)")
 
 
 def _device_spans(prof):
@@ -113,12 +115,22 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     learner (with ``checkpoint_replay``, the whole carry) every
     ``save_every_frames`` and at the end, and resumes from its newest
     step: toward the same total, so relaunching a finished run trains
-    nothing.
+    nothing. ``population.size`` M > 1 trains M members as one program
+    (:func:`_train_population`); M = 1 with a spec applies member 0's
+    overrides to the plain program.
     """
     dev = resolve_device(device)
-    check_ported(cfg)
+    if cfg.population.size > 1:
+        return _train_population(
+            cfg, total_env_steps=total_env_steps, seed=seed,
+            chunk_iters=chunk_iters, log_fn=log_fn, device=dev,
+            stop_fn=stop_fn, profile_dir=profile_dir,
+            profile_chunk=profile_chunk, checkpoint_dir=checkpoint_dir,
+            save_every_frames=save_every_frames,
+            checkpoint_replay=checkpoint_replay)
+    if cfg.population.spec_json:
+        cfg = pop.member_config(cfg, pop.resolve_spec(cfg), 0)
     seed = cfg.seed if seed is None else seed
-    total = total_env_steps or cfg.total_env_steps
     env = make_env(cfg.env_name, device=dev)
     net = build_network(cfg.network, env.num_actions, env.observation_shape,
                         device=dev, seed=seed)
@@ -130,28 +142,93 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
         init, run_chunk = make_fused_train(cfg, env, net, device=dev)
         evaluate = make_evaluator(cfg, env, num_episodes=cfg.eval_episodes)
     eval_gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    carry = init(seed)
+    ckpt = _checkpointer(checkpoint_dir, save_every_frames, cfg,
+                         checkpoint_replay)
+    return _chunk_loop(cfg, init(seed), run_chunk, evaluate, eval_gen, ckpt,
+                       total_env_steps or cfg.total_env_steps, chunk_iters,
+                       log_fn, dev, stop_fn, profile_dir, profile_chunk,
+                       checkpoint_replay)
 
-    ckpt = None
-    frames = 0            # the loop's frame cursor
+
+def _train_population(cfg: ExperimentConfig, total_env_steps: int = 0,
+                      seed: int = None, chunk_iters: int = 2000,
+                      log_fn=print, device=None, stop_fn=None,
+                      profile_dir: str = None, profile_chunk: int = None,
+                      checkpoint_dir: str = None, save_every_frames: int = 0,
+                      checkpoint_replay: bool = False):
+    """The population twin of :func:`train` (dist_dqn_tpu/train.py:423-720,
+    without the telemetry registry): M members advance as one program.
+
+    Member k is the solo run of ``population.member_config(cfg, spec, k)``
+    seeded with ``population.member_seeds(seed, M)[k]``: its net's weights,
+    its loop's generators and its evaluation generator are those that run
+    builds. The frame cursor (and ``total_env_steps``) is per member; the
+    rate columns are the aggregate over the members. Checkpoints hold the
+    [M]-stacked tree plus a ``POPULATION`` width marker, and a resume at
+    another width is refused with the cause.
+    """
+    dev = resolve_device(device)
+    M = cfg.population.size
+    if cfg.network.lstm_size:
+        raise ValueError(
+            "--population is not supported by the recurrent (R2D2) fused "
+            "loop yet (its sequence learner has no member axis)")
+    pop.resolve_spec(cfg)
+    seed = cfg.seed if seed is None else seed
+    ckpt = _checkpointer(checkpoint_dir, save_every_frames, cfg,
+                         checkpoint_replay)
+    seeds = pop.member_seeds(seed, M)
+    env = make_env(cfg.env_name, device=dev)
+    net = stack_networks([build_network(cfg.network, env.num_actions,
+                                        env.observation_shape, device=dev,
+                                        seed=s) for s in seeds])
+    init, run_chunk = pop.make_population_train(cfg, env, net, device=dev)
+    evaluate = make_evaluator(cfg, env, num_episodes=cfg.eval_episodes)
+    eval_gens = [torch.Generator(device=dev).manual_seed(s + 1)
+                 for s in seeds]
+    return _chunk_loop(cfg, init(seeds), run_chunk, evaluate, eval_gens,
+                       ckpt, total_env_steps or cfg.total_env_steps,
+                       chunk_iters, log_fn, dev, stop_fn, profile_dir,
+                       profile_chunk, checkpoint_replay, members=M)
+
+
+def _checkpointer(checkpoint_dir, save_every_frames, cfg, checkpoint_replay):
+    """The run's checkpointer, or None; stamps the directory's kind (and a
+    population's width), raising with the cause where the directory holds
+    another."""
+    if not checkpoint_dir:
+        return None
+    # The cadence never bottoms out at 0 (--eval-every-steps 0 zeroes the
+    # eval period): that would save on every chunk.
+    ckpt = TrainCheckpointer(
+        checkpoint_dir,
+        save_every_frames=save_every_frames or cfg.eval_every_steps
+        or 100_000)
+    record_checkpoint_kind(checkpoint_dir,
+                           "carry" if checkpoint_replay else "learner")
+    if cfg.population.size > 1:
+        record_population_size(checkpoint_dir, cfg.population.size)
+    return ckpt
+
+
+def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
+                chunk_iters, log_fn, dev, stop_fn, profile_dir, profile_chunk,
+                checkpoint_replay, members: int = 0):
+    """Resume from ``ckpt``, then run chunks until the frame cursor reaches
+    ``total``, logging one row per chunk; returns (carry, history).
+    ``members`` > 0: a population's [M] metrics and rows."""
+    frames = 0            # the loop's frame cursor (per member)
     frame_offset = 0      # added to the carry's own frame count
-    if checkpoint_dir:
-        # The cadence never bottoms out at 0 (--eval-every-steps 0 zeroes
-        # the eval period): that would save on every chunk.
-        ckpt = TrainCheckpointer(
-            checkpoint_dir,
-            save_every_frames=save_every_frames or cfg.eval_every_steps
-            or 100_000)
-        # Raises with the actual cause if the directory holds the other
-        # kind.
-        record_checkpoint_kind(checkpoint_dir,
-                               "carry" if checkpoint_replay else "learner")
+    if ckpt is not None:
         restored = ckpt.restore_latest(
             carry if checkpoint_replay else carry.learner)
         if restored is not None:
             frames, tree = restored
-            log_fn(json.dumps({"resumed_at_frames": frames,
-                               "with_replay": checkpoint_replay}))
+            resumed = {"resumed_at_frames": frames,
+                       "with_replay": checkpoint_replay}
+            if members:
+                resumed["population"] = members
+            log_fn(json.dumps(resumed))
             log_fn(json.dumps(_checkpoint_row("restore", ckpt.last_restore)))
             if checkpoint_replay:
                 # The carry's own iteration counter came back with it, so
@@ -198,23 +275,30 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
         chunk_index += 1
         frames = frame_offset + metrics["env_frames"]
         grad_steps = float(metrics["grad_steps_in_chunk"])
-        row = {
-            "env_frames": frames,
-            "episode_return": ep_ret,
-            # Disambiguates episode_return's no-episodes sentinel (0.0 with
-            # episodes == 0) from a genuine 0.0 average return.
-            "episodes": episodes,
-            "loss": loss,
-            "env_steps_per_sec": chunk_iters * B / dt,
-            "grad_steps_in_chunk": grad_steps,
-            "grad_steps_per_sec": grad_steps / dt,
-        }
+        if members:
+            row = _population_row(members, frames, ep_ret, episodes, loss,
+                                  chunk_iters * B, grad_steps, dt)
+        else:
+            row = {
+                "env_frames": frames,
+                "episode_return": ep_ret,
+                # Disambiguates episode_return's no-episodes sentinel (0.0
+                # with episodes == 0) from a genuine 0.0 average return.
+                "episodes": episodes,
+                "loss": loss,
+                "env_steps_per_sec": chunk_iters * B / dt,
+                "grad_steps_in_chunk": grad_steps,
+                "grad_steps_per_sec": grad_steps / dt,
+            }
         if frames >= next_eval:
-            row["eval_return"] = float(evaluate(carry.learner.net, eval_gen))
+            returns = evaluate(carry.learner.net, eval_gen).tolist()
+            if members:
+                row["eval_return_members"] = returns
+                returns = sum(returns) / members
+            row["eval_return"] = returns
             next_eval = frames + cfg.eval_every_steps
         history.append(row)
-        log_fn(json.dumps({k: round(v, 3) if isinstance(v, float) else v
-                           for k, v in row.items()}))
+        log_fn(json.dumps({k: _rounded(v) for k, v in row.items()}))
         if ckpt is not None and ckpt.maybe_save(frames, save_tree()):
             log_fn(json.dumps(_checkpoint_row("save", ckpt.last_save)))
         if stop_fn is not None and stop_fn(row):
@@ -222,6 +306,34 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     if ckpt is not None and ckpt.save(frames, save_tree()):
         log_fn(json.dumps(_checkpoint_row("save", ckpt.last_save)))
     return carry, history
+
+
+def _population_row(members, frames, ep_ret, episodes, loss, frames_chunk,
+                    grad_steps, dt) -> dict:
+    """A population chunk's row (dist_dqn_tpu/train.py:661-674): per-member
+    lists beside their means; rates are the aggregate over the members."""
+    with_episodes = [r for r, n in zip(ep_ret, episodes) if n > 0]
+    return {
+        "env_frames": frames,
+        "population": members,
+        "episode_return": (sum(with_episodes) / len(with_episodes)
+                           if with_episodes else 0.0),
+        "episodes": sum(episodes),
+        "loss": sum(loss) / members,
+        "loss_members": loss,
+        "env_steps_per_sec": members * frames_chunk / dt,
+        "grad_steps_in_chunk": grad_steps,
+        "grad_steps_per_sec": members * grad_steps / dt,
+        "grad_steps_per_sec_member": grad_steps / dt,
+    }
+
+
+def _rounded(v):
+    if isinstance(v, float):
+        return round(v, 3)
+    if isinstance(v, list):
+        return [round(x, 3) if isinstance(x, float) else x for x in v]
+    return v
 
 
 def _checkpoint_row(what: str, record: dict) -> dict:
@@ -236,8 +348,6 @@ def _refuse_unported(args) -> None:
     """Flags of the JAX CLI this port does not implement yet."""
     refused = [flag for flag, given in (
         ("--mesh-devices", args.mesh_devices != 1),
-        ("--population", args.population not in (None, 1)),
-        ("--population-spec", args.population_spec is not None),
         ("--runtime", args.runtime != "fused"),
         ("--telemetry-port", args.telemetry_port is not None),
     ) if given]
@@ -287,11 +397,15 @@ def main(argv=None):
     parser.add_argument("--stop-at-return", type=float, default=None,
                         help="stop early once eval_return reaches this "
                              "value (e.g. 475 = CartPole solved)")
+    parser.add_argument("--population", type=int, default=None,
+                        help="train M policies as one program "
+                             "(population.size)")
+    parser.add_argument("--population-spec", default=None, metavar="JSON",
+                        help="per-member vectors: an object with any of "
+                             "epsilon, lr, gamma, each of length M")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
     parser.add_argument("--mesh-devices", type=int, default=1)
-    parser.add_argument("--population", type=int, default=None)
-    parser.add_argument("--population-spec", default=None)
     parser.add_argument("--runtime", default="fused",
                         choices=("fused", "apex", "host-replay"))
     parser.add_argument("--telemetry-port", type=int, default=None)
@@ -319,6 +433,28 @@ def main(argv=None):
         else:
             cfg = dataclasses.replace(cfg, network=dataclasses.replace(
                 cfg.network, actor_dtype=args.actor_dtype))
+    # The population plane, with the JAX CLI's checks
+    # (dist_dqn_tpu/train.py:1110-1146).
+    if args.population is not None or args.population_spec is not None:
+        if args.population is not None and args.population < 1:
+            parser.error(f"--population must be >= 1, got "
+                         f"{args.population}")
+        if recurrent:
+            print("# --population is not supported by the recurrent "
+                  "(R2D2) fused loop yet (its sequence learner has no "
+                  "member axis); ignored")
+        else:
+            cfg = dataclasses.replace(cfg, population=dataclasses.replace(
+                cfg.population,
+                size=(args.population if args.population is not None
+                      else cfg.population.size),
+                spec_json=(args.population_spec
+                           if args.population_spec is not None
+                           else cfg.population.spec_json)))
+            try:
+                pop.resolve_spec(cfg)
+            except ValueError as e:
+                parser.error(str(e))
     stop_fn = None
     if args.stop_at_return is not None:
         target = args.stop_at_return

@@ -18,6 +18,15 @@ accumulators are device tensors the caller reads once per chunk, and the
 only values the host decides on (ring position and size, iteration,
 grad-step count) advance deterministically, so no iteration waits on the
 device.
+
+With ``member_hp`` (the population plane, population.py) the same loop
+advances M members at once: the net is a stacked module, every carry leaf
+gains a leading member axis (env lanes and obs [M, B, ...], the ring
+[M, T, B, ...], the accumulators [M]), each member has its own four
+generators, epsilon decays per member (``loop_common.make_member_epsilon``)
+and each member's gamma folds its n-step returns. All members fill, train
+and evaluate on the same iterations, since those depend on host counters
+alone.
 """
 from __future__ import annotations
 
@@ -28,16 +37,35 @@ import torch
 
 from dist_dqn_tpu_torch import loop_common
 from dist_dqn_tpu_torch.agents.dqn import (LearnerState, make_actor_step,
-                                           make_learner)
+                                           make_learner,
+                                           make_population_optimizer,
+                                           set_member_lr)
 from dist_dqn_tpu_torch.config import ExperimentConfig
 from dist_dqn_tpu_torch.envs.base import TorchEnv
+from dist_dqn_tpu_torch.models.qnets import members_of
 from dist_dqn_tpu_torch.replay import device as ring
 from dist_dqn_tpu_torch.replay import prioritized_device as pring
 from dist_dqn_tpu_torch.utils.device import resolve_device
 
 
+class MemberHP(NamedTuple):
+    """Per-member hyperparameters of the population plane (twin of
+    dist_dqn_tpu/train_loop.py:35-50): [M] float32 tensors.
+    ``eps_delta`` is ``epsilon_start - epsilon_end`` folded on the host in
+    float64 then cast to float32 (population.member_hp); ``lr`` is None
+    when the members share the config's learning-rate schedule."""
+
+    eps_delta: torch.Tensor
+    eps_end: torch.Tensor
+    gamma: torch.Tensor
+    lr: Optional[torch.Tensor]
+
+
 @dataclasses.dataclass
 class TrainCarry:
+    """The fused loop's state. A population's has a leading member axis on
+    every tensor and a list of M generators where a solo run has one."""
+
     env_state: NamedTuple
     obs: torch.Tensor
     replay: object               # TimeRingState or PrioritizedRingState
@@ -55,15 +83,25 @@ class TrainCarry:
 
 
 def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
-                     device=None):
+                     device=None, member_hp: Optional[MemberHP] = None):
     """Returns (init, run_chunk): ``init(seed)`` builds the carry around
     ``net`` (the online Q-network, on ``device``); ``run_chunk(carry,
     num_iters)`` runs ``num_iters`` fused iterations and returns the carry
     and the chunk's metrics as device tensors (``env_frames`` and
-    ``grad_steps_in_chunk`` are host ints)."""
+    ``grad_steps_in_chunk`` are host ints).
+
+    With ``member_hp`` (a population of M), ``net`` is the members' stacked
+    net (models.stack_networks), ``init(seeds)`` takes the M members' seeds
+    and every tensor metric is [M]."""
     dev = resolve_device(device)
     prioritized = cfg.replay.prioritized
-    init_learner, train_step = make_learner(cfg.learner, net)
+    M = 0 if member_hp is None else int(member_hp.eps_end.shape[0])
+    if members_of(net) != M:
+        raise ValueError(f"the net stacks {members_of(net)} members, the "
+                         f"population has {M}")
+    tx = (make_population_optimizer(cfg.learner, M)
+          if M and member_hp.lr is not None else None)
+    init_learner, train_step = make_learner(cfg.learner, net, tx)
     act = make_actor_step(env.num_actions)
     replay_ratio = loop_common.resolve_replay_ratio(cfg)
     updates = cfg.updates_per_train * replay_ratio
@@ -77,7 +115,7 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     min_fill = max(cfg.replay.min_fill, 1)
     num_slots = max(cfg.replay.capacity // B, cfg.learner.n_step + 2)
     n_step = cfg.learner.n_step
-    gamma = cfg.learner.gamma
+    gamma = member_hp.gamma.to(dev) if M else cfg.learner.gamma
     # Exact truncation bootstrap for cheap (non-pixel) observations; pixel
     # rings skip final_obs to halve their memory (truncation treated as
     # terminal). cfg.replay.store_final_obs overrides the heuristic.
@@ -85,6 +123,13 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
                    if cfg.replay.store_final_obs is None
                    else cfg.replay.store_final_obs)
     epsilon, beta_at = loop_common.make_schedules(cfg, B)
+    if M:
+        # The members' epsilons, an [M] tensor on the device.
+        eps_at = loop_common.make_member_epsilon(cfg, B)
+        eps_lanes = (member_hp.eps_delta.to(dev), member_hp.eps_end.to(dev))
+
+        def epsilon(iteration: int) -> torch.Tensor:
+            return eps_at(iteration, *eps_lanes)
     use_kernel = loop_common.kernel_routing(
         prioritized and cfg.replay.pallas_sampler, dev)
     stack, stored_shape, frame_shape, slice_newest = \
@@ -99,6 +144,11 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
         store_final=store_final, prefer_flat=bool(stack))
     flatten, unflatten = loop_common.flat_obs_codecs(flat_storage,
                                                      stored_shape)
+    if M:
+        # Ring inserts take [M, B, ...] obs.
+        flatten_lanes = flatten
+        flatten = (lambda x: flatten_lanes(x.flatten(0, 1)).unflatten(
+            0, (M, B)))
     # Dedup gathers return rebuilt, unflattened stacks.
     decode = (lambda x: x) if stack else unflatten
 
@@ -111,25 +161,39 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
                 and ring.time_ring_can_sample(r, n_step, frame_stack=stack)
                 and iteration % cfg.train_every == 0)
 
-    def init(seed: int) -> TrainCarry:
-        gen_env, gen_act, gen_sample, gen_learn = loop_common.generators(
-            seed, dev, 4)
-        env_state, obs = env.v_reset(B, gen_env)
-        example = flatten(slice_newest(obs))[0]
+    def init(seed) -> TrainCarry:
+        if M:
+            # Member k's generators are those of a solo run seeded with
+            # seed[k].
+            gen_env, gen_act, gen_sample, gen_learn = (list(g) for g in zip(
+                *(loop_common.generators(s, dev, 4) for s in seed)))
+            env_state, obs = env.v_reset_members(B, gen_env)
+            example = flatten(slice_newest(obs))[0, 0]
+        else:
+            gen_env, gen_act, gen_sample, gen_learn = loop_common.generators(
+                seed, dev, 4)
+            env_state, obs = env.v_reset(B, gen_env)
+            example = flatten(slice_newest(obs))[0]
         if prioritized:
             replay = pring.prioritized_ring_init(
                 num_slots, B, example, store_final_obs=store_final,
-                merge_obs_rows=flat_storage)
+                merge_obs_rows=flat_storage, members=M)
         else:
             replay = ring.time_ring_init(num_slots, B, example,
                                          store_final_obs=store_final,
-                                         merge_obs_rows=flat_storage)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
+                                         merge_obs_rows=flat_storage,
+                                         members=M)
+        learner = init_learner(net, gen_learn)
+        if M and member_hp.lr is not None:
+            set_member_lr(learner, member_hp.lr)
+        lead = (M,) if M else ()
+        zero = torch.zeros(lead, dtype=torch.float32, device=dev)
         return TrainCarry(
             env_state=env_state, obs=obs, replay=replay,
-            learner=init_learner(net, gen_learn), gen_env=gen_env,
+            learner=learner, gen_env=gen_env,
             gen_act=gen_act, gen_sample=gen_sample, iteration=0,
-            ep_return=torch.zeros((B,), dtype=torch.float32, device=dev),
+            ep_return=torch.zeros(lead + (B,), dtype=torch.float32,
+                                  device=dev),
             completed_return=zero.clone(), completed_count=zero.clone(),
             loss_sum=zero.clone(), train_count=0)
 
@@ -170,7 +234,8 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
 
     def one_iteration(c: TrainCarry, actor_net) -> None:
         actions = act(actor_net, c.obs, c.gen_act, epsilon(c.iteration))
-        c.env_state, out = env.v_step(c.env_state, actions, c.gen_env)
+        step = env.v_step_members if M else env.v_step
+        c.env_state, out = step(c.env_state, actions, c.gen_env)
         add = pring.prioritized_ring_add if prioritized else \
             ring.time_ring_add
         add(c.replay, flatten(slice_newest(c.obs)), actions, out.reward,
@@ -214,22 +279,32 @@ def make_evaluator(cfg: ExperimentConfig, env: TorchEnv,
     evaluator does (``train_loop.py:352``).
     ``evaluate(net, generator)`` runs ``env.max_steps`` steps under a mask
     that freezes each lane at its first episode end and returns the mean
-    undiscounted return as a device scalar.
+    undiscounted return as a device scalar. A population's stacked net
+    plays every member's episodes at once, member m's draws from
+    ``generator[m]`` (the JAX package vmaps this evaluator over the
+    members' keys), and returns the [M] members' means.
     """
     act = make_actor_step(env.num_actions)
 
     def evaluate(net, generator: Optional[torch.Generator]) -> torch.Tensor:
-        env_state, obs = env.v_reset(num_episodes, generator)
-        ret = torch.zeros((num_episodes,), dtype=torch.float32,
+        members = members_of(net)
+        if members:
+            env_state, obs = env.v_reset_members(num_episodes, generator)
+            step = env.v_step_members
+        else:
+            env_state, obs = env.v_reset(num_episodes, generator)
+            step = env.v_step
+        lead = (members,) if members else ()
+        ret = torch.zeros(lead + (num_episodes,), dtype=torch.float32,
                           device=env.device)
         alive = torch.ones_like(ret)
         for _ in range(env.max_steps):
             a = act(net, obs, generator, epsilon)
-            env_state, out = env.v_step(env_state, a, generator)
+            env_state, out = step(env_state, a, generator)
             ret = ret + out.reward * alive
             done = out.terminated | out.truncated
             alive = ((alive > 0) & ~done).float()
             obs = out.obs
-        return ret.mean()
+        return ret.mean(dim=-1)
 
     return evaluate

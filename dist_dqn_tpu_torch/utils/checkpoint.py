@@ -22,6 +22,12 @@ they are; ``nn.Module`` s as their ``state_dict``; generators as their
 ``get_state()``; host ints as ints). :func:`load_state_tree` reads such
 a tree back into a live template of the same structure, the object
 ``init(seed)`` builds, checking every tensor's shape and dtype.
+
+A population run's steps hold the [M]-stacked tree, and its directory a
+``POPULATION`` width marker (:func:`record_population_size`): a resume at
+another width is refused with the cause, and ``restore_params(...,
+member=k)`` reads one member's params into a solo net (evaluate.py
+``--member``).
 """
 from __future__ import annotations
 
@@ -37,9 +43,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dist_dqn_tpu_torch.population import extract_member
+
 _STATE_FILE = "state.pt"
 _LATEST_FILE = "LATEST"
 _KIND_FILE = "CHECKPOINT_KIND"
+_POPULATION_FILE = "POPULATION"
 
 
 # --------------------------------------------------------------------------
@@ -88,14 +97,16 @@ def _check_tensor(path: str, template: torch.Tensor, saved) -> None:
             f"state holds {template.dtype} {tuple(template.shape)}")
 
 
-def check_state_dict(path: str, module: nn.Module, saved) -> None:
+def check_state_dict(path: str, module: nn.Module, saved,
+                     stack: Tuple[int, ...] = ()) -> None:
     """Raise :class:`CheckpointStructureError` unless ``saved`` has exactly
-    ``module``'s state-dict names, shapes and dtypes."""
+    ``module``'s state-dict names, shapes and dtypes (each shape behind
+    ``stack``, the member axis of a population's stacked params)."""
     if not isinstance(saved, dict):
         raise CheckpointStructureError(
             f"{path}: saved {type(saved).__name__}, the live state holds a "
             "module")
-    live = {k: (v.dtype, tuple(v.shape))
+    live = {k: (v.dtype, stack + tuple(v.shape))
             for k, v in module.state_dict().items()}
     disk = {k: (v.dtype, tuple(v.shape)) for k, v in saved.items()
             if isinstance(v, torch.Tensor)}
@@ -318,7 +329,8 @@ class TrainCheckpointer:
 
     def restore_params(self, example_params: nn.Module,
                        step: Optional[int] = None,
-                       prefix: Tuple[str, ...] = ()):
+                       prefix: Tuple[str, ...] = (),
+                       member: Optional[int] = None):
         """Restore only the policy parameters of a checkpoint into the
         live network ``example_params`` as (frames, net), or None.
 
@@ -329,11 +341,33 @@ class TrainCheckpointer:
         params are read). Names, shapes and dtypes are compared before
         anything is loaded; a drift in either direction raises the
         config-drift ``ValueError``. Read-only: never advances the save
-        schedule."""
+        schedule.
+
+        A population directory holds [M]-stacked params: ``member=k``
+        checks them against the solo ``example_params`` behind the member
+        axis and loads member k's slice. A member asked of a solo
+        directory, a member out of range and a member-less restore of a
+        stacked directory are refused with the JAX package's texts."""
         if step is None:
             step = self.latest_step()
         if step is None:
             return None
+        pop_size = read_population_size(self.directory)
+        if member is not None:
+            if pop_size is None:
+                raise ValueError(
+                    f"member={member} requested but {self.directory!r} "
+                    "is not a population checkpoint (no POPULATION "
+                    "width marker) — drop the member selector")
+            if not 0 <= member < pop_size:
+                raise ValueError(
+                    f"member={member} is out of range for a population-"
+                    f"{pop_size} checkpoint (members are 0-based)")
+        elif pop_size is not None:
+            raise ValueError(
+                f"{self.directory!r} holds a population-{pop_size} "
+                "[M]-stacked tree — pass member=k (evaluate.py "
+                "--member k) to extract one policy")
         tree, _ = self._read(step)
         sub = tree
         try:
@@ -344,13 +378,16 @@ class TrainCheckpointer:
                 f"checkpoint at step {step} has no "
                 f"{'/'.join(prefix + ('net',))} subtree — wrong checkpoint "
                 "kind or directory") from e
+        stack = (pop_size,) if member is not None else ()
         try:
-            check_state_dict("params", example_params, sub)
+            check_state_dict("params", example_params, sub, stack)
         except CheckpointStructureError as e:
             raise ValueError(
                 "checkpoint parameters do not match the current config's "
                 "network structure — it was saved with a different network "
                 f"architecture. {_DRIFT}\n{e}") from e
+        if member is not None:
+            sub = extract_member(sub, member)
         example_params.load_state_dict(sub)
         return int(step), example_params
 
@@ -476,6 +513,36 @@ def read_checkpoint_kind(directory: str):
             return fh.read().strip() or None
     except OSError:
         return None
+
+
+def record_population_size(directory: str, size: int) -> None:
+    """Stamp a population run's member-axis width M. The stacked tree's
+    leading [M] axis is checkpoint structure: resuming a population-M'
+    directory at another width would fail as an opaque shape mismatch, so
+    the width is pinned up front and a mismatch says the actual cause."""
+    existing = read_population_size(directory)
+    if existing is not None and existing != size:
+        raise ValueError(
+            f"checkpoint directory {directory!r} holds a population-"
+            f"{existing} stacked tree but this run trains --population "
+            f"{size} — the member axis is part of the checkpoint "
+            "structure. Resume with the same --population, use a fresh "
+            "--checkpoint-dir, or extract single members with "
+            "restore_params(member=k) / evaluate.py --member.")
+    if existing is None:
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, _POPULATION_FILE), "w") as fh:
+            fh.write(str(int(size)))
+
+
+def read_population_size(directory: str):
+    """The recorded member width M, or None (a solo directory)."""
+    try:
+        with open(os.path.join(directory, _POPULATION_FILE)) as fh:
+            text = fh.read().strip()
+    except OSError:
+        return None
+    return int(text) if text else None
 
 
 def list_checkpoint_steps(directory: str) -> Tuple[int, ...]:

@@ -11,10 +11,18 @@ plane after the write-back, and prints for each the first grad step at
 which the two runs differ, the evals, and how many duplicate draws wrote
 different values. Then runs the r2d2 path (``replay.pallas_sampler=true``,
 3,200 frames) twice and says whether params, priorities, ring and actor
-carry are bit-equal. Needs a CUDA card.
+carry are bit-equal. Then sums planes of 50,000, 200,000 and 1M floats
+with ``torch.cumsum`` (the PER cumsum twin's scan) five times each, and
+runs the qrdqn path (a 200k PER ring drawn through that twin, 48,000
+frames) twice. Needs a CUDA card.
+
+    python -m dist_dqn_tpu_torch.utils.determinism_probe --only cumsum
+
+runs the last two only.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -151,7 +159,55 @@ def r2d2_twice(frames: int = 3_200) -> dict:
     return out
 
 
+def cumsum_twice(sizes=(50_000, 200_000, 1_000_000), repeats: int = 5
+                 ) -> dict:
+    """``torch.cumsum`` of one plane ``repeats`` times: whether every sum
+    equals the first, the largest difference from it, and whether the
+    plane lifted to [1, N] (the solo draw's route since the member axis)
+    sums as the 1-D plane does."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for n in sizes:
+        x = torch.rand(n, generator=gen, device="cuda")
+        x = x * (torch.rand(n, generator=gen, device="cuda") > 0.3)
+        first = torch.cumsum(x, dim=0)
+        again = [torch.cumsum(x, dim=0) for _ in range(repeats - 1)]
+        lifted = torch.cumsum(x[None], dim=1)[0]
+        out[str(n)] = {
+            "repeatable": all(torch.equal(first, y) for y in again),
+            "max_abs_diff": max(float((first - y).abs().max())
+                                for y in again),
+            "lifted_equals_1d": torch.equal(first, lifted)}
+    print(json.dumps({"cumsum_twice": out}), flush=True)
+    return out
+
+
+def cumsum_path_twice(frames: int = 48_000) -> dict:
+    """The qrdqn preset's path twice: its PER draw goes through the cumsum
+    twin over a 200k ring."""
+    cfg = CONFIGS["qrdqn"]
+    runs = []
+    for _ in range(2):
+        carry, history = train(cfg, total_env_steps=frames, chunk_iters=125,
+                               log_fn=lambda line: None, device="cuda")
+        torch.cuda.synchronize()
+        runs.append((carry, history))
+    (ca, ha), (cb, hb) = runs
+    out = {"chunk_loss_a": [r["loss"] for r in ha],
+           "chunk_loss_b": [r["loss"] for r in hb],
+           "params_equal": all(torch.equal(x, y) for x, y in zip(
+               ca.learner.net.parameters(), cb.learner.net.parameters())),
+           "priorities_equal": torch.equal(ca.replay.priorities,
+                                           cb.replay.priorities)}
+    print(json.dumps({"qrdqn_twice": out}), flush=True)
+    return out
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", choices=("all", "cumsum"), default="all",
+                        help="cumsum: the cumsum checks only")
+    args = parser.parse_args()
     # cuBLAS needs a fixed workspace for use_deterministic_algorithms.
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
@@ -160,11 +216,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
-    compare_iqn("index_put", index_put_update)
-    compare_iqn("last_wins", pring.prioritized_ring_update)
-    compare_iqn("index_put_deterministic_algorithms", index_put_update,
-                deterministic=True)
-    r2d2_twice()
+    if args.only == "all":
+        compare_iqn("index_put", index_put_update)
+        compare_iqn("last_wins", pring.prioritized_ring_update)
+        compare_iqn("index_put_deterministic_algorithms", index_put_update,
+                    deterministic=True)
+        r2d2_twice()
+    cumsum_twice()
+    cumsum_path_twice()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -25,6 +25,10 @@ slice5 = {"dist_dqn_tpu_torch.envs.pixel_reacher",
 assert slice5 <= set(names), sorted(slice5 - set(names))
 slice6 = {"dist_dqn_tpu_torch.utils.checkpoint", "dist_dqn_tpu_torch.evaluate"}
 assert slice6 <= set(names), sorted(slice6 - set(names))
+assert "dist_dqn_tpu_torch.population" in names
+from dist_dqn_tpu_torch.population import (make_population_train,
+                                           member_hp, member_seeds)
+from dist_dqn_tpu_torch.models import member_forward, stack_networks
 from dist_dqn_tpu_torch.models import ImplicitQuantileNetwork, NoisyDense
 from dist_dqn_tpu_torch.ops.losses import (categorical_projection,
                                            iqn_quantile_huber_td,
@@ -44,4 +48,4 @@ def test_port_imports_no_jax_and_no_reference_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 24 and bad.strip() == "[]"
+    assert int(count) >= 25 and bad.strip() == "[]"

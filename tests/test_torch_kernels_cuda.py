@@ -231,3 +231,122 @@ def test_sampler_kernel_refuses_bad_inputs(cuda):
         tps.kernel_stratified_sample(w.t(), u)        # not contiguous
     with pytest.raises(ValueError):
         tps.kernel_stratified_sample(w, u.cpu())      # devices differ
+
+
+# --------------------------------------------------------------------------
+# The member axis: M planes [M, T, B] in one launch (the population).
+# --------------------------------------------------------------------------
+
+def _member_inputs(cuda, M, T, B, S, zero_frac=0.3, seed=20):
+    rng = np.random.default_rng(seed)
+    w = np.stack([_mass(rng, T, B, zero_frac) for _ in range(M)])
+    u = ((np.arange(S) + rng.uniform(size=(M, S))) / S).astype(np.float32)
+    return torch.from_numpy(w).to(cuda), torch.from_numpy(u).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,T,B,S", [
+    (4, 62500, 16, 512),     # the population_apex_dedup plane
+    (3, 3 * R + 7, 5, 128),  # a partial last chunk, scalar loads
+    (2, 1, 8, 32),           # one row
+    (5, 700, 8, 33),         # a partial last draw block
+])
+def test_member_axis_launch_equals_one_launch_per_plane(cuda, M, T, B, S):
+    """One launch over [M, T, B] gives, for member m, bit for bit what a
+    2-D launch on plane m alone gives; and agrees with the plain
+    member-axis version as the 2-D kernel does."""
+    w, u = _member_inputs(cuda, M, T, B, S)
+    before = tps.kernel_stratified_sample.launches
+    got = tps.kernel_stratified_sample(w, u)
+    assert tps.kernel_stratified_sample.launches == before + 1
+    assert [tuple(x.shape) for x in got] == [(M, S)] * 3 + [(M,)]
+    for m in range(M):
+        _assert_same_draw([x[m] for x in got],
+                          tps.kernel_stratified_sample(w[m], u[m]))
+    tp, bp, _, totp = tps.plain_stratified_sample(w, u)
+    tk, bk, pk, totk = got
+    assert ((tk == tp) & (bk == bp)).float().mean() >= 0.98
+    wk = w[torch.arange(M, device=cuda)[:, None], tk.long(), bk.long()]
+    assert torch.equal(pk, wk) and bool((pk > 0).all())
+    torch.testing.assert_close(totk, totp, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_member_axis_with_zero_mass_members_and_rows(cuda):
+    """A member whose plane holds no mass, one with mass in a single row,
+    and two ordinary ones: each draw equals its own 2-D launch and the
+    plain version, and only the empty member picks zero mass."""
+    w, u = _member_inputs(cuda, 4, 3 * R + 7, 16, 256, seed=21)
+    w[1] = 0.0
+    w[2, :] = 0.0
+    w[2, 2 * R + 3, 5] = 1.5
+    got = tps.kernel_stratified_sample(w, u)
+    for m in range(4):
+        _assert_same_draw([x[m] for x in got],
+                          tps.kernel_stratified_sample(w[m], u[m]))
+    _assert_same_draw(got[:2], tps.plain_stratified_sample(w, u)[:2])
+    assert float(got[3][1]) == 0.0 and bool((got[2][1] == 0).all())
+    assert bool((got[0][2] == 2 * R + 3).all() and (got[1][2] == 5).all())
+    assert bool((got[2][[0, 2, 3]] > 0).all())
+
+
+@pytest.mark.cuda
+def test_member_axis_of_one_is_the_2d_call(cuda):
+    w, u = _draw_inputs(cuda)
+    got = tps.kernel_stratified_sample(w[None], u[None])
+    _assert_same_draw([x[0] for x in got], tps.kernel_stratified_sample(w, u))
+
+
+@pytest.mark.cuda
+def test_member_axis_replays_in_a_cuda_graph(cuda):
+    """Eager calls at M = 4 and a graph of 10 of them replayed twice all
+    equal one eager call: every member's sync words are back at zero."""
+    w, u = _member_inputs(cuda, 4, 62500, 16, 512)
+    want = [x.clone() for x in tps.kernel_stratified_sample(w, u)]
+    _assert_same_draw(tps.kernel_stratified_sample(w, u), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tps.kernel_stratified_sample(w, u)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tps.kernel_stratified_sample(w, u) for _ in range(10)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got in outs:
+            _assert_same_draw(got, want)
+    # A 2-D call between member-axis calls reuses the same workspace.
+    tps.kernel_stratified_sample(w[0], u[0])
+    _assert_same_draw(tps.kernel_stratified_sample(w, u), want)
+
+
+@pytest.mark.cuda
+def test_member_axis_draw_is_one_device_kernel(cuda):
+    from torch.autograd import DeviceType
+    w, u = _member_inputs(cuda, 4, 62500, 16, 512)
+    tps.kernel_stratified_sample(w, u)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            tps.kernel_stratified_sample(w, u)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 10 and all("sample_kernel" in n for n in names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_shape,u_shape", [
+    ((3, 8, 4), (4,)),        # 3-D plane, 1-D uniforms
+    ((3, 8, 4), (2, 4)),      # members disagree
+    ((8, 4), (3, 4)),         # 2-D plane, 2-D uniforms
+    ((0, 8, 4), (0, 4)),      # no members
+    ((2, 2, 8, 4), (2, 4)),   # 4-D
+])
+def test_member_axis_refuses_bad_shapes(cuda, w_shape, u_shape):
+    with pytest.raises(ValueError):
+        tps.kernel_stratified_sample(torch.ones(w_shape, device=cuda),
+                                     torch.full(u_shape, 0.5, device=cuda))

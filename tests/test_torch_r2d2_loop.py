@@ -188,7 +188,9 @@ def test_r2d2_cli_profiles_a_chosen_training_chunk(capsys, tmp_path):
 @pytest.mark.parametrize("assignments,error", [
     # The JAX package's ValueError: no noisy heads on the recurrent net.
     (["network.noisy=true"], ValueError),
-    (["population.size=2"], NotImplementedError),
+    # The JAX package's ValueError: the sequence learner has no member
+    # axis.
+    (["population.size=2"], ValueError),
     # Not read by the recurrent loop, as in the JAX package: trains in f32.
     (["network.actor_dtype=bfloat16"], None),
     (["replay.updates_per_chunk=2"], ValueError),
@@ -221,6 +223,10 @@ _IGNORED = {
                       "scan-ratio path); ignored",
     "--actor-dtype": "# --actor-dtype is not supported by the recurrent "
                      "(R2D2) fused loop yet; ignored",
+    # dist_dqn_tpu/train.py:1128-1130.
+    "--population": "# --population is not supported by the recurrent "
+                    "(R2D2) fused loop yet (its sequence learner has no "
+                    "member axis); ignored",
 }
 
 
@@ -228,9 +234,9 @@ _IGNORED = {
                                   ["--actor-dtype", "bfloat16"],
                                   ["--population", "2"]])
 def test_r2d2_cli_refuses(monkeypatch, capsys, flag):
-    """``--population`` is refused; ``--replay-ratio`` and
-    ``--actor-dtype`` print the JAX CLI's warning, are ignored, and the
-    run trains with one grad step per train event and a float32 actor."""
+    """``--replay-ratio``, ``--actor-dtype`` and ``--population`` print
+    the JAX CLI's warning, are ignored, and the run trains one recurrent
+    policy with one grad step per train event and a float32 actor."""
     from dist_dqn_tpu_torch.train import main
 
     if flag[0] not in _IGNORED:

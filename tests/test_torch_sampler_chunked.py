@@ -242,3 +242,14 @@ def test_launch_geometry_fills_the_card_at_the_apex_shape():
     geo = tps.launch_geometry(APEX[0], 512)
     assert geo.chunks >= 132          # the H100's SMs
     assert (geo.rows_per_chunk, geo.chunks, geo.draw_blocks) == (256, 245, 16)
+
+
+@pytest.mark.parametrize("members", [1, 2, 4, 7])
+def test_launch_geometry_member_axis(members):
+    """A member axis keeps each member's grid and grows the workspace: a
+    scratch and a done and a drawn count per member, one ticket counter."""
+    solo = tps.launch_geometry(APEX[0], 512)
+    geo = tps.launch_geometry(APEX[0], 512, members)
+    assert geo[:4] == solo[:4]
+    assert geo.scratch_f64 == members * solo.scratch_f64
+    assert geo.sync_words == 1 + 2 * members and solo.sync_words == 3

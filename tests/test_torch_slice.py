@@ -278,13 +278,30 @@ def test_device_busy_is_the_union_of_kernel_intervals():
 
 @pytest.mark.parametrize("flag", [
     # Flags still refused (the checkpoint flags are ported and tested in
-    # tests/test_torch_resume.py).
+    # tests/test_torch_resume.py); the population flags are ported
+    # (tests/test_torch_population.py): --population runs a stacked
+    # population, and --population-spec is validated at the parser.
     ["--runtime", "host-replay"], ["--mesh-devices", "2"],
     ["--population", "2"], ["--runtime", "apex"],
-    ["--telemetry-port", "9100"], ["--population-spec", "{}"]])
-def test_train_cli_refuses_unported_flags(flag):
+    ["--telemetry-port", "9100"],
+    ["--population-spec", '{"lr": [0.001, 0.002]}']])
+def test_train_cli_refuses_unported_flags(flag, capsys):
     from dist_dqn_tpu_torch.train import main
 
+    if flag[0] == "--population":
+        main(["--config", "cartpole", *_TINY_CLI, *flag])
+        rows = [json.loads(line)
+                for line in capsys.readouterr().out.splitlines()]
+        assert [r["env_frames"] for r in rows] == [160, 320]
+        assert rows[-1]["population"] == 2
+        assert len(rows[-1]["loss_members"]) == 2
+        return
+    if flag[0] == "--population-spec":
+        # Two lr entries for the default --population 1.
+        with pytest.raises(SystemExit):
+            main(["--config", "apex", "--device", "cpu", *flag])
+        assert "each vector must be length M" in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit, match="not ported yet"):
         main(["--config", "apex", "--device", "cpu", *flag])
 
@@ -293,7 +310,8 @@ _CONFIG_CASES = {
     # The heads of the distributional slice train, with eval (the noisy
     # evaluator acts with noise).
     "network.noisy=true": None,
-    "population.size=2": NotImplementedError,
+    # Ported: a stacked population of two (its rows checked below).
+    "population.size=2": None,
     "network.num_atoms=51": None,
     "network.iqn=true": None,
     # The JAX learner's ValueError: Munchausen needs n_step 1 (cartpole
@@ -318,6 +336,9 @@ def test_train_refuses_unported_config(assignment):
     assert history[-1]["grad_steps_in_chunk"] == 50
     assert all(np.isfinite(r["loss"]) and np.isfinite(r["eval_return"])
                for r in history)
+    if assignment.startswith("population"):
+        assert all(r["population"] == 2 and len(r["loss_members"]) == 2
+                   and len(r["eval_return_members"]) == 2 for r in history)
 
 
 _TINY_CLI = ["--device", "cpu", "--total-env-steps", "320",
