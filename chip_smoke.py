@@ -11,12 +11,15 @@ them or outside a checkout of the repository. Phases, each fatal:
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (the sampler: the apex PER plane, a ragged
    mostly-zero plane, R2D2's sequence plane with mass in every 40th row,
-   and the PixelCatch bar's small plane; and the population's four apex
-   planes ``[4, 62500, 16]`` in one member-axis launch, which must equal
-   four 2-D launches bit for bit), and time both beside one PyTorch
-   library call computing the same function and the card's bound. Times
-   are device times (CUDA events around replays of a CUDA graph of 20
-   calls); the ``*eager_ms`` keys time the same calls launched from
+   the PixelCatch bar's small plane, the host-replay device plane
+   ``[1954, 512]`` of apex's 1M slots with its last 448 cells empty (and
+   the card time of ``stratified_sample_rows``, the plane's draw below
+   the kernel's crossover, and whether it repeats), and the population's
+   four apex planes ``[4, 62500, 16]`` in one member-axis launch, which
+   must equal four 2-D launches bit for bit), and time both beside one
+   PyTorch library call computing the same function and the card's bound.
+   Times are device times (CUDA events around replays of a CUDA graph of
+   20 calls); the ``*eager_ms`` keys time the same calls launched from
    Python one by one, which is what the main path pays. The kernel's
    outputs from CUDA graph replays must equal an eager call's, and
    ``device_launches_per_call`` counts the kernels the card runs per
@@ -28,7 +31,8 @@ them or outside a checkout of the repository. Phases, each fatal:
    transition start (obs and next_obs, merged rows) and for 64 windows of
    R2D2's 125 steps.
 4. Drive the main paths through ``dist_dqn_tpu_torch.train.train``, each
-   at full width past ``min_fill`` for a few hundred grad steps (only r2d2
+   at full width past ``min_fill`` for a few hundred grad steps (apex and
+   apex_dedup with ``min_fill`` 22,000 in place of 50,000; only r2d2
    evaluates inside its run; atari_breakout, rainbow and qrdqn evaluate
    once after it, and the later phases drive the evaluator), with
    the kernel launch counters zeroed just before and read just after
@@ -36,7 +40,7 @@ them or outside a checkout of the repository. Phases, each fatal:
    * apex: 1M-transition PER ring, batch 512, Nature CNN, bf16;
    * r2d2 with ``replay.pallas_sampler=True``: the recurrent Nature-CNN +
      LSTM-512 net (bf16), 6,250 x 16 sequence ring, 64 sequences of 125
-     steps per grad step, one sampler launch per grad step;
+     steps per grad step, one sampler launch per grad step (69 of them);
    * atari_breakout: the atari preset on PixelBreakout with a frame-dedup
      ring (200k transitions), the bf16 actor and replay ratio 2;
    * apex_dedup: apex with a frame-dedup ring (1M transitions, at most 12
@@ -49,7 +53,7 @@ them or outside a checkout of the repository. Phases, each fatal:
      sampler launch, batch 256, a grad step every 4th iteration of 64
      envs, about 110 grad steps past the fill at 20,000 frames;
    * population_apex_dedup, after apex_dedup: ``--population 4`` with a
-     spec of four epsilons, learning rates and gammas, 56,000 frames per
+     spec of four epsilons, learning rates and gammas, 28,000 frames per
      member (752 grad steps each, one sampler launch per grad step for
      all four), peak memory at most four times apex_dedup's bar, and
      fewer than twice apex_dedup's device kernels per training iteration
@@ -69,9 +73,9 @@ them or outside a checkout of the repository. Phases, each fatal:
    with a float32 reference forward of the same weights, noise off.
 7. Checkpoints, each right after the path it reuses (selecting one with
    ``--only`` runs its path too):
-   * checkpoint_apex: the apex path saves its learner every 28,000 frames
-     into a checkpoint dir; the same call relaunched to 112,000 frames
-     must resume at 56,000, refill the ring and take as many grad steps
+   * checkpoint_apex: the apex path saves its learner every 14,000 frames
+     into a checkpoint dir; the same call relaunched to 56,000 frames
+     must resume at 28,000, refill the ring and take as many grad steps
      as the first leg, one sampler launch each, its learner's ``steps``
      continuing from the saved count; then ``evaluate_checkpoint`` (with
      ``export_params``, read back bit-equal) and
@@ -79,7 +83,7 @@ them or outside a checkout of the repository. Phases, each fatal:
      returns;
    * resume_r2d2: r2d2 as its path runs it (without its evaluation),
      stopped at 3,200 frames with ``checkpoint_replay`` (the whole carry,
-     about 3.3 GB on disk) and resumed to 4,800 frames, must equal the
+     about 3.3 GB on disk) and resumed to 3,600 frames, must equal the
      uninterrupted path bit for bit: learner, optimizer, ring,
      priorities, env state, actor carry and every generator;
    * evaluate_iqn_risk: the iqn path saves its learner at its end, and
@@ -92,7 +96,19 @@ them or outside a checkout of the repository. Phases, each fatal:
      refused with the width's text.
    Their save and restore seconds and bytes are printed; the checkpoint
    dirs live in one temporary directory, removed at the end.
-8. population_learner_lockstep: the cartpole learner at its preset width
+8. The host-replay runtime (host_replay_loop.py) at apex's full width:
+   * host_replay_apex_dedup: ``--runtime host-replay --config apex --set
+     replay.frame_dedup=true --per --device-sampling``, 56,000 frames in
+     chunks of 125 iterations (a 7.06 GB dedup ring in host memory, PER
+     through the device plane ``[1954, 512]``, S = 512): at least 300
+     grad steps past the fill, one sampler launch per grad step, a finite
+     loss; prints the rows' rates, the evacuation columns, host RSS and
+     the card's peak memory;
+   * host_replay_uniform_pair: uniform, pipelined and prefetched against
+     the serial ``--no-pipeline --no-prefetch`` reference (2,000 frames,
+     100 grad steps each): equal final params on the card; the pipelined
+     leg traces its first training chunk for the device's busy share.
+9. population_learner_lockstep: the cartpole learner at its preset width
    as a population of two (own learning rates) and as two solo learners,
    on the same batches for 100 grad steps: params within rtol 1e-5, atol
    1e-6. Then a 4,000-frame two-member fused run beside the two solo runs
@@ -124,14 +140,15 @@ from concurrent.futures import ThreadPoolExecutor
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # Main paths: name -> (preset, --set overrides, total env frames,
-# iterations per chunk). apex fills its ring at 50,000 frames (min_fill);
-# 6,000 more are 376 grad steps at 16 frames per step. r2d2 fills
-# at 2,500 frames (157 iterations of 16 envs); 4,800 frames are 300
-# iterations, 144 of them with a grad step. atari_breakout fills at 20,000
-# frames (iteration 312 of 64 envs) and trains every 4th iteration, two
-# grad steps at a time: 204 events, 408 grad steps in 72,000 frames.
-# apex_dedup trains from iteration 3,124 to 3,499, 376 events of two grad
-# steps (as many per member as its population). rainbow, qrdqn, iqn and
+# iterations per chunk). apex and apex_dedup fill their rings at 22,000
+# frames here (the preset's min_fill is 50,000: a depth cut, see PERF.md
+# §4); 6,000 more are 376 grad steps at 16 frames per step (apex_dedup:
+# iterations 1,374 to 1,749, 376 events of two grad steps, as many per
+# member as its population). r2d2 fills at 2,500 frames (157 iterations of
+# 16 envs); 3,600 frames are 225 iterations, 69 of them with a grad step.
+# atari_breakout fills at 20,000 frames (iteration 312 of 64 envs) and
+# trains every 4th iteration, two grad steps at a time: 204 events, 408
+# grad steps in 72,000 frames. rainbow, qrdqn, iqn and
 # mdqn fill at 20,000 frames (iteration 312 of 64 envs) and train every 4th
 # iteration: 110 grad steps in 48,000 frames. Only r2d2 evaluates inside
 # its run (as its preset sets it): a greedy PixelPong evaluation plays
@@ -140,8 +157,9 @@ F32_OPS_PER_S = 67e12
 # by checkpoint_apex, evaluate_iqn_risk, the population phases and every
 # learning bar as well.
 MAIN_PATHS = {
-    "apex": ("apex", ["eval_every_steps=0"], 56_000, 250),
-    "r2d2": ("r2d2", ["replay.pallas_sampler=true"], 4_800, 100),
+    "apex": ("apex", ["replay.min_fill=22000", "eval_every_steps=0"],
+             28_000, 250),
+    "r2d2": ("r2d2", ["replay.pallas_sampler=true"], 3_600, 25),
     "atari_breakout": ("atari", ["env_name=pixel_breakout",
                                  "replay.frame_dedup=true",
                                  "network.actor_dtype=bfloat16",
@@ -149,7 +167,8 @@ MAIN_PATHS = {
                                  "eval_every_steps=0"], 72_000, 125),
     "apex_dedup": ("apex", ["replay.frame_dedup=true",
                             "replay.updates_per_chunk=2",
-                            "eval_every_steps=0"], 56_000, 125),
+                            "replay.min_fill=22000",
+                            "eval_every_steps=0"], 28_000, 125),
     **{preset: (preset, ["eval_every_steps=0"], 48_000, 125)
        for preset in ("rainbow", "qrdqn", "iqn", "mdqn")},
 }
@@ -160,14 +179,28 @@ APEX_DEDUP_MAX_GB = 12.0
 END_EVAL_PATHS = ("atari_breakout", "rainbow", "qrdqn")
 # Where the paths train and evaluate: the card.
 DEVICE = "cuda"
+# The host-replay path: apex at full width (Nature CNN, bf16, batch 512, 16
+# lanes, 1M slots) with a frame-dedup host ring (62,500 x 16 frames, 7.06
+# GB of DRAM) and PER through the device plane [1954, 512] (S = 512 per
+# draw). Chunks of 125 iterations are 2,000 frames; chunks 24-27 follow the
+# 50,000-frame fill, 125 grad steps each.
+HOST_REPLAY_PATH = ("apex", ["replay.frame_dedup=true",
+                             "eval_every_steps=0"], 56_000, 125)
+HOST_REPLAY_MIN_GRAD_STEPS = 300
+# The uniform pair: the same net, batch and ring in chunks of 25
+# iterations (400 frames), filled at 800 frames, then four chunks of 25
+# grad steps each. The pipelined leg traces chunk 1, the first that trains
+# (exporting the trace of a 50-iteration chunk took about 20 s).
+HOST_REPLAY_PAIR = ("apex", ["replay.frame_dedup=true", "replay.min_fill=800",
+                             "eval_every_steps=0"], 2_000, 25)
 # The population path: apex_dedup's preset with four members, each trained
-# as a solo apex_dedup run of its own epsilon, lr and gamma. 56,000 frames
-# per member: the fill at 50,000, then 376 train events of two grad steps.
+# as a solo apex_dedup run of its own epsilon, lr and gamma. 28,000 frames
+# per member: the fill at 22,000, then 376 train events of two grad steps.
 POPULATION_SIZE = 4
 POPULATION_SPEC = json.dumps({"epsilon": [0.01, 0.05, 0.1, 0.02],
                               "lr": [1e-4, 5e-5, 2e-4, 1e-4],
                               "gamma": [0.99, 0.99, 0.98, 0.995]})
-POPULATION_FRAMES = 56_000
+POPULATION_FRAMES = 28_000
 POPULATION_CHUNK = 125
 POPULATION_GRAD_STEPS = 752
 POPULATION_MAX_GB = POPULATION_SIZE * APEX_DEDUP_MAX_GB
@@ -184,15 +217,15 @@ POPULATION_MAX_LAUNCH_RATIO = 2.0
 LOCKSTEP_STEPS = 100
 LOCKSTEP_FRAMES = 4_000
 # The checkpoint phases and the main path each one reuses. checkpoint_apex
-# relaunches apex (saved every 28,000 frames) from 56,000 to 112,000
-# frames; resume_r2d2 stops r2d2 at 3,200 frames, after two of its chunks
-# of 1,600 frames.
+# relaunches apex (saved every 14,000 frames) from 28,000 to 56,000
+# frames; resume_r2d2 stops r2d2 at 3,200 frames, after 44 of its grad
+# steps, and resumes it for its last chunk of 400 frames.
 FOLLOW_UPS = {"apex": ("checkpoint_apex",), "r2d2": ("resume_r2d2",),
               "iqn": ("evaluate_iqn_risk",),
               "apex_dedup": ("population_apex_dedup",
                              "population_checkpoint")}
-APEX_SAVE_EVERY = 28_000
-APEX_RESUMED_TOTAL = 112_000
+APEX_SAVE_EVERY = 14_000
+APEX_RESUMED_TOTAL = 56_000
 R2D2_STOP = 3_200
 RISK_ETAS = (1.0, 0.25)
 TIMING_ITERS = 200
@@ -200,6 +233,15 @@ TIMING_ITERS = 200
 
 def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+_T0 = time.perf_counter()
+
+
+def _clock(phase: str) -> None:
+    """One line at the end of each phase: the script's seconds so far."""
+    print(json.dumps({"phase_done": phase,
+                      "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def _eager_ms(fn, iters: int, warmup: int = 10) -> float:
@@ -315,8 +357,12 @@ def _mass(rng, T, B, zero_frac, row_stride=1):
 SAMPLER_CASES = {"apex": (62500, 16, 512, 0.3, 1),
                  "ragged": (700, 8, 128, 0.9, 1),
                  "r2d2": (6250, 16, 64, 0.0, 40),
-                 "catch": (512, 32, 32, 0.0, 1)}
-TIMED_CASES = ("apex", "r2d2", "catch")
+                 "catch": (512, 32, 32, 0.0, 1),
+                 "host_plane": (1954, 512, 512, 0.3, 1)}
+TIMED_CASES = ("apex", "r2d2", "catch", "host_plane")
+# The host-replay device plane of apex's 1M slots: [ceil(1e6 / 512), 512]
+# cells, of which the last 448 (past slot 999,999) are never written.
+HOST_PLANE_LIVE_CELLS = 1_000_000
 
 
 def _time_sampler(sampler, w, u, iters: int) -> dict:
@@ -367,6 +413,26 @@ def _time_sampler(sampler, w, u, iters: int) -> dict:
             "device_launches_per_call": launches_per_call}
 
 
+def _time_rows_twin(sampler, w, u, iters: int) -> dict:
+    """The host-replay plane's torch draw below the kernel's crossover,
+    ``stratified_sample_rows`` over the plane's SAMPLE_BLOCK block sums,
+    timed at the same shape (device and eager), and whether two calls
+    agree bit for bit (its row scan has a fixed order)."""
+    import torch
+    T, B = w.shape
+    blk = w.reshape(T, B // sampler.SAMPLE_BLOCK,
+                    sampler.SAMPLE_BLOCK).sum(dim=2)
+
+    def rows():
+        return sampler.stratified_sample_rows(w, blk, u)
+
+    first, again = rows(), rows()
+    return {"rows_twin_ms": _device_ms(rows),
+            "rows_twin_eager_ms": _eager_ms(rows, iters),
+            "rows_twin_repeats": all(torch.equal(a, b)
+                                     for a, b in zip(first, again))}
+
+
 def check_sampler(sampler, iters: int) -> dict:
     """Kernel vs plain version at every case of SAMPLER_CASES. Bars: >= 98%
     (t, b) agreement, mass_sel == w[t, b] to rtol 1e-6, no zero-mass pick,
@@ -380,6 +446,8 @@ def check_sampler(sampler, iters: int) -> dict:
     report = {"max_abs_err": 0.0}
     for name, (T, B, S, zero, row_stride) in SAMPLER_CASES.items():
         w_np = _mass(rng, T, B, zero, row_stride)
+        if name == "host_plane":
+            w_np.reshape(-1)[HOST_PLANE_LIVE_CELLS:] = 0.0
         u_np = ((np.arange(S) + rng.uniform(size=S)) / S).astype(np.float32)
         w = torch.from_numpy(w_np).to(dev)
         u = torch.from_numpy(u_np).to(dev)
@@ -415,6 +483,8 @@ def check_sampler(sampler, iters: int) -> dict:
                   f"({name}): {checks}")
         if name in TIMED_CASES:
             timing = _time_sampler(sampler, w, u, iters)
+            if name == "host_plane":
+                timing.update(_time_rows_twin(sampler, w, u, iters))
             print(json.dumps({"sampler_timing": name, "T": T, "B": B,
                               "S": S, **timing}), flush=True)
             report[name] = {"T": T, "B": B, "S": S, **timing}
@@ -952,11 +1022,163 @@ def check_evaluate_iqn_risk(cfg, directory: str) -> None:
         _fail(f"evaluate_iqn_risk: non-finite returns {out}")
 
 
+def _host_rss_gb() -> dict:
+    """This process's resident host memory now and at its peak, GB."""
+    out = {}
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            key, _, value = line.partition(":")
+            if key == "VmRSS":
+                out[key] = int(value.split()[0]) * 1024 / 1e9
+    import resource
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    return {"host_rss_gb": out.get("VmRSS"), "host_rss_peak_gb": peak}
+
+
+def _drive_host_replay(cfg, total_env_steps: int, chunk_iters: int,
+                       logged=None, **options):
+    """One run of the port's host-replay runtime on the card; returns
+    (summary, wall seconds). ``logged`` collects the JSON rows it logs
+    besides the chunk rows."""
+    import torch
+
+    from dist_dqn_tpu_torch.host_replay_loop import run_host_replay
+
+    def log(line):
+        print(line, flush=True)
+        if logged is not None and line.startswith("{") \
+                and "env_frames" not in line:
+            logged.append(json.loads(line))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_host_replay(cfg, total_env_steps=total_env_steps,
+                          chunk_iters=chunk_iters, log_fn=log,
+                          device=DEVICE, **options)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_host_replay_apex_dedup(sampler) -> int:
+    """HOST_REPLAY_PATH through the host-replay runtime (pipelined and
+    prefetched, PER on the device plane): one sampler launch per grad
+    step at the plane [1954, 512], a finite loss. Prints the rows' rates,
+    the evacuation columns, host RSS and the card's peak memory; returns
+    the launches."""
+    import torch
+
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    preset, overrides, total, chunk_iters = HOST_REPLAY_PATH
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sampler.kernel_stratified_sample.launches = 0
+    out, wall = _drive_host_replay(cfg, total, chunk_iters,
+                                   prioritized=True, device_sampling=True)
+    launches = sampler.kernel_stratified_sample.launches
+    history = out["history"]
+    losses = [r["loss"] for r in history if "loss" in r]
+    training = [r for r in history if "loss" in r]
+    row = {"main_path": "host_replay_apex_dedup",
+           "device": torch.cuda.get_device_name(0), "wall_s": wall,
+           "env_frames": out["env_steps"], "grad_steps": out["grad_steps"],
+           "sampler_launches": launches,
+           "sampler": out["sampler"], "stale_batches": out["stale_batches"],
+           "final_loss": losses[-1] if losses else None,
+           "plane_shape": [-(-CONFIGS[preset].replay.capacity // 512), 512],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **_host_rss_gb(), "ring_gb": out["ring_gb"],
+           "env_steps_per_sec_chunks": [r["env_steps_per_sec"]
+                                        for r in history[1:]],
+           "grad_steps_per_sec_training": [
+               (r["grad_steps"] - p["grad_steps"]) / r["chunk_train_s"]
+               for p, r in zip(history, history[1:]) if "loss" in r],
+           **{k: [r[k] for r in history] for k in (
+               "evac_s", "evac_fence_wait_s", "evac_overlap_frac",
+               "device_idle_est_s", "chip_busy_s", "prefetch_wait_s",
+               "sample_s")},
+           "evac_fence_wait_s_total": out["evac_fence_wait_s_total"],
+           "d2h_bytes_total": out["d2h_bytes_total"],
+           "h2d_staged_bytes": out["h2d_staged_bytes"],
+           "chip_time": out["chip_time"],
+           "training_chunks": len(training),
+           "summary_grad_steps_per_sec": out["grad_steps_per_sec"],
+           "summary_env_steps_per_sec": out["env_steps_per_sec"]}
+    print(json.dumps(row), flush=True)
+    if out["grad_steps"] < HOST_REPLAY_MIN_GRAD_STEPS:
+        _fail(f"host_replay_apex_dedup: {out['grad_steps']} grad steps, "
+              f"want >= {HOST_REPLAY_MIN_GRAD_STEPS}")
+    if launches != out["grad_steps"] + out["stale_batches"]:
+        _fail(f"host_replay_apex_dedup: sampler kernel launched {launches} "
+              f"times for {out['grad_steps']} grad steps")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        _fail(f"host_replay_apex_dedup: non-finite loss: {losses}")
+    return launches
+
+
+def check_host_replay_uniform_pair(sampler, profile_dir: str) -> int:
+    """HOST_REPLAY_PAIR twice, uniform: pipelined and prefetched, then the
+    serial ``--no-pipeline --no-prefetch`` reference. Their final params
+    must be equal on the card (the JAX package's own pin); any stream or
+    buffer fence that let a batch or a slice be read early breaks it. The
+    pipelined leg traces its first training chunk (``profile_dir``) for
+    the device's busy share. Returns the sampler launches (none:
+    uniform)."""
+    import torch
+
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    preset, overrides, total, chunk_iters = HOST_REPLAY_PAIR
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    sampler.kernel_stratified_sample.launches = 0
+    runs, logged = {}, []
+    for name, options in (("pipelined", dict(profile_dir=profile_dir)),
+                          ("serial", dict(pipeline=False, prefetch=False))):
+        torch.cuda.empty_cache()
+        out, wall = _drive_host_replay(cfg, total, chunk_iters,
+                                       logged=logged, prioritized=False,
+                                       **options)
+        runs[name] = (out, wall)
+    profile = [r for r in logged if "profile_trace" in r]
+    (a, wall_a), (b, wall_b) = runs["pipelined"], runs["serial"]
+    params_a = list(a["learner"].net.parameters())
+    params_b = list(b["learner"].net.parameters())
+    equal = all(torch.equal(x, y) for x, y in zip(params_a, params_b))
+    launches = sampler.kernel_stratified_sample.launches
+    row = {"main_path": "host_replay_uniform_pair",
+           "wall_s": [wall_a, wall_b], "grad_steps": [a["grad_steps"],
+                                                     b["grad_steps"]],
+           "param_checksum": [a["param_checksum"], b["param_checksum"]],
+           "params_equal": equal,
+           "final_loss": [a["history"][-1].get("loss"),
+                          b["history"][-1].get("loss")],
+           "evac_fence_wait_s_total": [a["evac_fence_wait_s_total"],
+                                       b["evac_fence_wait_s_total"]],
+           "stale_batches": a["stale_batches"], "sampler_launches": launches,
+           # The traced chunk (chunk 1, the first that trains) of the
+           # pipelined leg.
+           "profiled_chunk": {k: profile[0].get(k) for k in (
+               "profile_wall_s", "device_busy_s", "device_busy_share",
+               "device_events")} if profile else None,
+           "profiled_chunk_row": a["history"][1]}
+    print(json.dumps(row), flush=True)
+    if not equal or a["grad_steps"] != b["grad_steps"] \
+            or not a["grad_steps"]:
+        _fail("host_replay_uniform_pair: the pipelined and serial runs end "
+              f"with different params (or no grad steps): {row}")
+    if launches:
+        _fail(f"host_replay_uniform_pair: {launches} sampler launches on "
+              "uniform runs")
+    return launches
+
+
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
+HOST_REPLAY_PHASES = ("host_replay_apex_dedup", "host_replay_uniform_pair")
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
-          "population_learner_lockstep", *BAR_PHASES)
+          "population_learner_lockstep", *HOST_REPLAY_PHASES, *BAR_PHASES)
 
 
 def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
@@ -1036,6 +1258,7 @@ def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
             if "population_checkpoint" in follows:
                 launches["population_checkpoint"] = \
                     check_population_checkpoint(cfg, directory, sampler)
+        _clock(name)
 
 
 def _profile_training(cfg, carry) -> dict:
@@ -1409,19 +1632,32 @@ def main(argv=None) -> int:
 
     sampler_report = (check_sampler(sampler, TIMING_ITERS)
                       if "sampler" in phases else None)
+    _clock("sampler")
     if "dedup_gather" in phases:
         check_dedup_gather()
+        _clock("dedup_gather")
 
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         run_main_paths(phases, sampler, launches, tmp)
-    if "population_learner_lockstep" in phases:
-        launches["population_learner_lockstep"] = \
-            check_population_learner_lockstep(sampler)
+        if "population_learner_lockstep" in phases:
+            launches["population_learner_lockstep"] = \
+                check_population_learner_lockstep(sampler)
+            _clock("population_learner_lockstep")
+        if "host_replay_apex_dedup" in phases:
+            launches["host_replay_apex_dedup"] = \
+                check_host_replay_apex_dedup(sampler)
+            _clock("host_replay_apex_dedup")
+        if "host_replay_uniform_pair" in phases:
+            launches["host_replay_uniform_pair"] = \
+                check_host_replay_uniform_pair(
+                    sampler, os.path.join(tmp, "host_replay_profile"))
+            _clock("host_replay_uniform_pair")
 
     for name in BAR_PHASES:
         if name in phases:
             launches[name] = run_learning_bar(name, sampler)
+            _clock(name)
 
     print(json.dumps({"phases": phases,
                       "wall_s": time.perf_counter() - t_start}), flush=True)
@@ -1450,6 +1686,10 @@ def main(argv=None) -> int:
             "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "eager_ms", "device_launches_per_call")}
            for case in ("r2d2", "catch")},
+        "host_plane_shape": {k: sampler_report["host_plane"][k] for k in (
+            "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "eager_ms", "device_launches_per_call",
+            "rows_twin_ms", "rows_twin_eager_ms", "rows_twin_repeats")},
         "population_shape": {k: sampler_report["population"][k] for k in (
             "M", "T", "B", "S", "ms", "one_launch_per_member_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",

@@ -17,7 +17,11 @@ Counterpart of ``dist_dqn_tpu/ops/pallas_sampler.py``:
     blocks that each scan a chunk of R rows, and P blocks that draw, per
     member). A population draws its M planes ``[M, T, B]`` in one launch,
     the twin of the JAX package's vmapped ``pallas_call``.
-  * :func:`importance_weights` (``:250``).
+  * :func:`stratified_sample_rows` (``:200``), the three-level draw over
+    block sums that the host-replay device plane uses below the kernel's
+    crossover, and :func:`importance_weights` (``:250``).
+  * :func:`fixed_order_cumsum`, the blocked scan both torch draws use, so
+    a draw repeats on the card.
 
 The kernel is compiled with ``nvcc`` into ``build/dist_dqn_tpu_torch/`` at
 its first use and loaded with ``ctypes`` (:func:`build_library`).
@@ -317,6 +321,76 @@ kernel_stratified_sample.launches = 0
 # The draw both replay samplers share.
 # --------------------------------------------------------------------------
 
+# Elements per block of :func:`fixed_order_cumsum`: 1M cells make 977
+# blocks, whose totals one short scan covers.
+SCAN_BLOCK = 1024
+
+
+def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan along the last dim whose order of additions is fixed
+    by the shape, not by the card's scheduling.
+
+    ``torch.cumsum`` of one long row on the card runs a single-pass scan
+    whose partial sums combine in whatever order its blocks finish, so
+    the same 200,000 floats can sum differently between two calls. Here
+    the row is padded to ``[R, SCAN_BLOCK]`` blocks, each block is scanned
+    along its own row (one block of threads per row, a fixed tree), and
+    the exclusive scan of the R block totals is added back. A row of at
+    most SCAN_BLOCK elements is scanned as ``torch.cumsum`` scans it."""
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        return torch.cumsum(x, dim=-1)
+    lead = x.shape[:-1]
+    rows = -(-n // SCAN_BLOCK)
+    blocks = torch.nn.functional.pad(x, (0, rows * SCAN_BLOCK - n)).reshape(
+        lead + (rows, SCAN_BLOCK))
+    inner = torch.cumsum(blocks, dim=-1)
+    totals = inner[..., -1]
+    offsets = torch.cumsum(totals, dim=-1) - totals
+    return (inner + offsets[..., None]).reshape(
+        lead + (rows * SCAN_BLOCK,))[..., :n]
+
+
+SAMPLE_BLOCK = 32  # lanes per second-level block of the hierarchical draw
+
+
+def stratified_sample_rows(w: torch.Tensor, blk_sums: torch.Tensor,
+                           u: torch.Tensor) -> Samples:
+    """Three-level inverse-CDF draw at explicit uniforms ``u`` [S] (twin of
+    ``stratified_sample_rows``, dist_dqn_tpu/ops/pallas_sampler.py:200):
+    the row by the [T] row-sum CDF (row sums reduced from ``blk_sums``
+    [T, NB], the per-``SAMPLE_BLOCK`` partial sums of ``w`` its owner keeps
+    up to date), then the block by the selected rows' [NB] block sums,
+    then the lane inside one block. Each level's residual is clamped
+    strictly inside its own mass, since the levels reduce in different
+    orders. Same (t_idx, b_idx, mass_sel, total) contract as
+    :func:`stratified_sample_at`; the row scan is
+    :func:`fixed_order_cumsum`."""
+    T, B = w.shape
+    NB = blk_sums.shape[1]
+    BS = B // NB
+    row_sums = blk_sums.sum(dim=1)
+    cdf = fixed_order_cumsum(row_sums)
+    total = cdf[-1]
+    pos = u.float() * total
+    t_idx = torch.searchsorted(cdf, pos).clamp(0, T - 1)
+    blk = blk_sums[t_idx]                                   # [S, NB]
+    blk_cdf = torch.cumsum(blk, dim=1)
+    res = torch.minimum(pos - (cdf[t_idx] - row_sums[t_idx]),
+                        blk_cdf[:, -1] * (1.0 - 1e-6))[:, None]
+    jb = (blk_cdf < res).int().sum(dim=1, keepdim=True).clamp(
+        max=NB - 1).long()                                  # [S, 1]
+    res2 = res - (blk_cdf.gather(1, jb) - blk.gather(1, jb))
+    sub = w.reshape(T, NB, BS)[t_idx, jb[:, 0]]             # [S, BS]
+    sub_cdf = torch.cumsum(sub, dim=1)
+    res2 = torch.minimum(res2, sub_cdf[:, -1:] * (1.0 - 1e-6))
+    b2 = (sub_cdf < res2).int().sum(dim=1, keepdim=True).clamp(
+        max=BS - 1).long()                                  # [S, 1]
+    mass = sub.gather(1, b2)[:, 0]
+    b_idx = jb[:, 0] * BS + b2[:, 0]
+    return t_idx.int(), b_idx.int(), mass, total
+
+
 def stratified_uniforms(generator, batch_size: int, device) -> torch.Tensor:
     """One uniform per stratum: (i + U[0, 1)) / S for i < S. ``generator``
     may be a list of M member generators: each draws its solo [S] jitter,
@@ -345,14 +419,15 @@ def stratified_sample_at(w: torch.Tensor, u: torch.Tensor,
     [S] in [0, 1) (or from [M, T, B] planes at [M, S] uniforms, each member
     on its own plane). ``use_kernel`` routes through
     :func:`kernel_stratified_sample`; otherwise the flat cumsum +
-    searchsorted twin of the JAX package's XLA path."""
+    searchsorted twin of the JAX package's XLA path, its scan of fixed
+    order (:func:`fixed_order_cumsum`)."""
     if use_kernel:
         return kernel_stratified_sample(w, u)
     if w.dim() == 2:
         return tuple(x[0] for x in stratified_sample_at(w[None], u[None]))
     num_envs = w.shape[-1]
     flat = w.reshape(w.shape[0], -1)
-    cdf = torch.cumsum(flat, dim=1)
+    cdf = fixed_order_cumsum(flat)
     total = cdf[:, -1]
     idx = torch.searchsorted(cdf, u * total[:, None]).clamp(
         0, flat.shape[1] - 1)

@@ -37,8 +37,18 @@ add ``population``, ``loss_members``, ``grad_steps_per_sec_member`` and
 program with member 0's overrides applied. On a recurrent config the flag
 prints the JAX CLI's warning and is ignored, as there.
 
-Meshes, telemetry and the other runtimes are not ported yet; asking for
-any of them raises instead of being ignored.
+``--runtime host-replay`` runs the host-replay runtime instead
+(host_replay_loop.py): the replay window in host DRAM, collect chunks
+evacuated to it through a background worker, batches prefetched to the
+card, uniform or (``--per``) prioritized sampling through a host sum-tree
+or (``--device-sampling``) a priority plane on the card; it prints the
+JAX loop's per-chunk rows and its summary. ``--no-pipeline``,
+``--evac-slices``, ``--no-prefetch``, ``--prefetch-depth`` and
+``--no-double-buffer`` select its serial references and depths; under the
+fused runtime they print the JAX CLI's "ignored" lines.
+
+Meshes, telemetry and the apex runtime are not ported yet; asking for any
+of them raises instead of being ignored.
 """
 from __future__ import annotations
 
@@ -348,13 +358,81 @@ def _refuse_unported(args) -> None:
     """Flags of the JAX CLI this port does not implement yet."""
     refused = [flag for flag, given in (
         ("--mesh-devices", args.mesh_devices != 1),
-        ("--runtime", args.runtime != "fused"),
+        ("--runtime apex", args.runtime == "apex"),
         ("--telemetry-port", args.telemetry_port is not None),
     ) if given]
     if refused:
         raise SystemExit(
             f"not ported yet: {', '.join(refused)} — the PyTorch port runs "
-            "the fused single-device runtime only (ROADMAP.md)")
+            "the fused and host-replay runtimes on one device only "
+            "(ROADMAP.md)")
+
+
+def _main_host_replay(cfg: ExperimentConfig, args) -> None:
+    """``--runtime host-replay`` (dist_dqn_tpu/train.py:1160-1229): the
+    JAX CLI's lines for the flags this runtime ignores, then the run and
+    its summary."""
+    from dist_dqn_tpu_torch.host_replay_loop import run_host_replay
+
+    if args.stop_at_return is not None:
+        print("# --stop-at-return is not supported by --runtime "
+              "host-replay (prototype surface); ignored")
+    if args.checkpoint_replay:
+        print("# --checkpoint-replay is implied by --runtime "
+              "host-replay --checkpoint-dir: its checkpoints are "
+              "always whole-state (per-shard rings + PER sampler "
+              "state + carry + learner) so resume is bit-identical "
+              "at any --mesh-devices width; flag ignored")
+    if args.save_every_frames and not args.checkpoint_dir:
+        print("# --save-every-frames does nothing without "
+              "--checkpoint-dir; ignored")
+    if args.eval_every_steps:
+        print("# periodic eval is not supported by --runtime "
+              "host-replay; ignored")
+    if args.seed is not None:
+        cfg = dataclasses.replace(cfg, seed=args.seed)
+    out = run_host_replay(
+        cfg, total_env_steps=args.total_env_steps or cfg.total_env_steps,
+        chunk_iters=args.chunk_iters, log_fn=print,
+        double_buffer=not args.no_double_buffer,
+        pipeline=not args.no_pipeline,
+        evac_slices=args.evac_slices,
+        prefetch=not args.no_prefetch,
+        prefetch_depth=args.prefetch_depth,
+        # None follows cfg.replay.prioritized; --per forces it on.
+        prioritized=True if args.per else None,
+        checkpoint_dir=args.checkpoint_dir,
+        save_every_frames=args.save_every_frames,
+        mesh_devices=args.mesh_devices,
+        device_sampling=args.device_sampling,
+        profile_dir=args.profile_dir, device=args.device)
+    out.pop("history", None)
+    out.pop("learner", None)
+    print(json.dumps(out))
+
+
+def _warn_host_replay_flags(args, parser) -> None:
+    """The JAX CLI's lines for host-replay flags under the fused runtime
+    (dist_dqn_tpu/train.py:1296-1314), which ignores them."""
+    if args.no_double_buffer:
+        print("# --no-double-buffer applies to --runtime host-replay only; "
+              "ignored under the fused runtime (its replay never leaves "
+              "the device)")
+    if args.no_pipeline \
+            or args.evac_slices != parser.get_default("evac_slices"):
+        print("# --no-pipeline/--evac-slices apply to --runtime "
+              "host-replay only; ignored under the fused runtime (its "
+              "replay never leaves the device)")
+    if args.no_prefetch or args.per \
+            or args.prefetch_depth != parser.get_default("prefetch_depth"):
+        print("# --no-prefetch/--prefetch-depth/--per apply to "
+              "--runtime host-replay only; ignored under the fused "
+              "runtime (its replay samples on device — "
+              "replay.prioritized selects the device sampler there)")
+    if args.device_sampling:
+        print("# --device-sampling applies to the apex/host-replay "
+              "runtimes; ignored under the fused runtime (its replay "
+              "is device-resident already)")
 
 
 def main(argv=None):
@@ -403,6 +481,39 @@ def main(argv=None):
     parser.add_argument("--population-spec", default=None, metavar="JSON",
                         help="per-member vectors: an object with any of "
                              "epsilon, lr, gamma, each of length M")
+    parser.add_argument("--no-double-buffer", action="store_true",
+                        help="--runtime host-replay only: sample -> upload "
+                             "-> train serially instead of through the "
+                             "double-buffered H2D staging (the "
+                             "numerically identical reference)")
+    parser.add_argument("--no-pipeline", action="store_true",
+                        help="--runtime host-replay only: evacuate each "
+                             "chunk with one blocking fetch instead of the "
+                             "streamed background evacuation (the "
+                             "numerically identical serial reference)")
+    parser.add_argument("--evac-slices", type=int, default=4,
+                        help="--runtime host-replay only: time slices each "
+                             "chunk's D2H evacuation streams through. "
+                             "Ignored under --no-pipeline")
+    parser.add_argument("--no-prefetch", action="store_true",
+                        help="--runtime host-replay only: sample train "
+                             "batches on the main thread instead of the "
+                             "background prefetcher (bit-identical under a "
+                             "fixed seed in uniform mode)")
+    parser.add_argument("--prefetch-depth", type=int, default=2,
+                        help="--runtime host-replay only: batches the "
+                             "prefetcher may stage ahead of the learner. "
+                             "Ignored under --no-prefetch")
+    parser.add_argument("--per", action="store_true",
+                        help="--runtime host-replay only: force "
+                             "prioritized sampling with IS weights and "
+                             "batched TD-error write-backs (presets with "
+                             "replay.prioritized=True enable it)")
+    parser.add_argument("--device-sampling", action="store_true",
+                        help="--runtime host-replay (with --per): sample "
+                             "priorities from a plane on the card (the "
+                             "sampler kernel at >= 100,000 cells) instead "
+                             "of the host sum-tree")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
     parser.add_argument("--mesh-devices", type=int, default=1)
@@ -416,8 +527,8 @@ def main(argv=None):
     if args.eval_every_steps is not None:
         cfg = dataclasses.replace(cfg, eval_every_steps=args.eval_every_steps)
     # The learner-utilization knobs, with the JAX CLI's ignored-flag
-    # warnings on a recurrent config.
-    recurrent = bool(cfg.network.lstm_size)
+    # warnings on a recurrent config of the fused runtime.
+    recurrent = bool(cfg.network.lstm_size) and args.runtime == "fused"
     if args.replay_ratio is not None:
         if recurrent:
             print("# --replay-ratio is not supported by the recurrent "
@@ -439,7 +550,11 @@ def main(argv=None):
         if args.population is not None and args.population < 1:
             parser.error(f"--population must be >= 1, got "
                          f"{args.population}")
-        if recurrent:
+        if args.runtime != "fused":
+            print("# --population/--population-spec apply to the fused "
+                  "runtime only (the apex/host-replay runtimes have no "
+                  "stacked-member plane yet); ignored")
+        elif recurrent:
             print("# --population is not supported by the recurrent "
                   "(R2D2) fused loop yet (its sequence learner has no "
                   "member axis); ignored")
@@ -455,6 +570,10 @@ def main(argv=None):
                 pop.resolve_spec(cfg)
             except ValueError as e:
                 parser.error(str(e))
+    if args.runtime == "host-replay":
+        _main_host_replay(cfg, args)
+        return
+    _warn_host_replay_flags(args, parser)
     stop_fn = None
     if args.stop_at_return is not None:
         target = args.stop_at_return

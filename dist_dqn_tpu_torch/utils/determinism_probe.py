@@ -12,9 +12,10 @@ which the two runs differ, the evals, and how many duplicate draws wrote
 different values. Then runs the r2d2 path (``replay.pallas_sampler=true``,
 3,200 frames) twice and says whether params, priorities, ring and actor
 carry are bit-equal. Then sums planes of 50,000, 200,000 and 1M floats
-with ``torch.cumsum`` (the PER cumsum twin's scan) five times each, and
-runs the qrdqn path (a 200k PER ring drawn through that twin, 48,000
-frames) twice. Needs a CUDA card.
+five times each with a flat ``torch.cumsum`` and with the PER cumsum
+twin's scan of fixed order (``ops/sampler.fixed_order_cumsum``), and runs
+the qrdqn path (a 200k PER ring drawn through that twin, 48,000 frames)
+twice. Needs a CUDA card.
 
     python -m dist_dqn_tpu_torch.utils.determinism_probe --only cumsum
 
@@ -161,30 +162,36 @@ def r2d2_twice(frames: int = 3_200) -> dict:
 
 def cumsum_twice(sizes=(50_000, 200_000, 1_000_000), repeats: int = 5
                  ) -> dict:
-    """``torch.cumsum`` of one plane ``repeats`` times: whether every sum
-    equals the first, the largest difference from it, and whether the
-    plane lifted to [1, N] (the solo draw's route since the member axis)
-    sums as the 1-D plane does."""
+    """A flat ``torch.cumsum`` of one plane ``repeats`` times, and the
+    twin's fixed-order scan as often: whether every sum equals the first,
+    the largest difference from it, and whether the plane lifted to
+    [1, N] (the solo draw's route since the member axis) sums as the 1-D
+    plane does."""
+    from dist_dqn_tpu_torch.ops.sampler import fixed_order_cumsum
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for n in sizes:
         x = torch.rand(n, generator=gen, device="cuda")
         x = x * (torch.rand(n, generator=gen, device="cuda") > 0.3)
-        first = torch.cumsum(x, dim=0)
-        again = [torch.cumsum(x, dim=0) for _ in range(repeats - 1)]
-        lifted = torch.cumsum(x[None], dim=1)[0]
-        out[str(n)] = {
-            "repeatable": all(torch.equal(first, y) for y in again),
-            "max_abs_diff": max(float((first - y).abs().max())
-                                for y in again),
-            "lifted_equals_1d": torch.equal(first, lifted)}
+        row = {}
+        for name, scan in (("flat", lambda v: torch.cumsum(v, dim=-1)),
+                           ("fixed_order", fixed_order_cumsum)):
+            first = scan(x)
+            again = [scan(x) for _ in range(repeats - 1)]
+            row[name] = {
+                "repeatable": all(torch.equal(first, y) for y in again),
+                "max_abs_diff": max(float((first - y).abs().max())
+                                    for y in again),
+                "lifted_equals_1d": torch.equal(first, scan(x[None])[0])}
+        out[str(n)] = row
     print(json.dumps({"cumsum_twice": out}), flush=True)
     return out
 
 
 def cumsum_path_twice(frames: int = 48_000) -> dict:
     """The qrdqn preset's path twice: its PER draw goes through the cumsum
-    twin over a 200k ring."""
+    twin (its fixed-order scan) over a 200k ring."""
     cfg = CONFIGS["qrdqn"]
     runs = []
     for _ in range(2):

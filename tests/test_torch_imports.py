@@ -26,6 +26,25 @@ assert slice5 <= set(names), sorted(slice5 - set(names))
 slice6 = {"dist_dqn_tpu_torch.utils.checkpoint", "dist_dqn_tpu_torch.evaluate"}
 assert slice6 <= set(names), sorted(slice6 - set(names))
 assert "dist_dqn_tpu_torch.population" in names
+slice8 = {"dist_dqn_tpu_torch." + m for m in (
+    "host_replay_loop", "replay.host", "replay.host_ring", "replay.staging",
+    "utils.ckpt_schema")}
+assert slice8 <= set(names), sorted(slice8 - set(names))
+from dist_dqn_tpu_torch.host_replay_loop import (CollectCarry,
+                                                 make_collect_chunk,
+                                                 run_host_replay)
+from dist_dqn_tpu_torch.replay.host import (DevicePrioritySampler, SumTree,
+                                            make_sum_tree, stratified_mass)
+from dist_dqn_tpu_torch.replay.host_ring import (HostTimeRing,
+                                                 RingDevicePrioritySampler,
+                                                 RingPrioritySampler)
+from dist_dqn_tpu_torch.replay.staging import (DoubleBufferedStager,
+                                               EvacuationWorker,
+                                               SamplePrefetcher,
+                                               StreamedEvacuator)
+from dist_dqn_tpu_torch.ops.sampler import (SAMPLE_BLOCK,
+                                            fixed_order_cumsum,
+                                            stratified_sample_rows)
 from dist_dqn_tpu_torch.population import (make_population_train,
                                            member_hp, member_seeds)
 from dist_dqn_tpu_torch.models import member_forward, stack_networks

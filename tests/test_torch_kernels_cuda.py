@@ -350,3 +350,67 @@ def test_member_axis_refuses_bad_shapes(cuda, w_shape, u_shape):
     with pytest.raises(ValueError):
         tps.kernel_stratified_sample(torch.ones(w_shape, device=cuda),
                                      torch.full(u_shape, 0.5, device=cuda))
+
+
+# The host-replay device plane of the apex preset's 1M slots.
+HOST_T, HOST_B, HOST_LIVE = 1954, 512, 1_000_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+def test_sampler_kernel_on_the_host_plane(cuda, zero_frac):
+    """The plane [1954, 512] with its last 448 cells unwritten, S = 512:
+    the kernel picks exactly the plain version's cells, never one past
+    slot 999,999."""
+    rng = np.random.default_rng(11)
+    w_np = _mass(rng, HOST_T, HOST_B, zero_frac)
+    w_np.reshape(-1)[HOST_LIVE:] = 0.0
+    u_np = ((np.arange(512) + rng.uniform(size=512)) / 512).astype(
+        np.float32)
+    w = torch.from_numpy(w_np).to(cuda)
+    u = torch.from_numpy(u_np).to(cuda)
+    got = tps.kernel_stratified_sample(w, u)
+    _assert_same_draw(got, tps.plain_stratified_sample(w, u))
+    flat = got[0].long() * HOST_B + got[1].long()
+    assert int(flat.max()) < HOST_LIVE
+    assert bool((got[2] > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [200_000, 1_000_000])
+def test_fixed_order_scan_repeats_on_the_card(cuda, n):
+    """The cumsum twin's blocked scan gives the same sums call after call
+    (a flat torch.cumsum of this length does not), solo and with a member
+    axis, and the draw through it the same picks."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(n, generator=gen, device=cuda)
+    x = x * (torch.rand(n, generator=gen, device=cuda) > 0.3)
+    first = tps.fixed_order_cumsum(x)
+    for _ in range(4):
+        assert torch.equal(tps.fixed_order_cumsum(x), first)
+        assert torch.equal(tps.fixed_order_cumsum(x[None])[0], first)
+    w = x.view(-1, 16)
+    u = tps.stratified_uniforms(gen, 256, cuda)
+    want = tps.stratified_sample_at(w, u)
+    for _ in range(3):
+        _assert_same_draw(tps.stratified_sample_at(w, u), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [1_000_000, 20_000])
+def test_device_priority_sampler_routes_by_plane_size(cuda, capacity):
+    """DevicePrioritySampler on the card draws through the kernel at or
+    above 100,000 cells (one launch per draw), else through the
+    three-level torch draw, and both pick cells with mass."""
+    from dist_dqn_tpu_torch.replay.host import DevicePrioritySampler
+
+    sampler = DevicePrioritySampler(capacity, device=cuda)
+    rng = np.random.default_rng(12)
+    sampler.set(np.arange(capacity),
+                rng.uniform(0.2, 3.0, capacity).astype(np.float32))
+    before = tps.kernel_stratified_sample.launches
+    idx, mass = sampler.sample_at((np.arange(512) + 0.5) / 512, capacity)
+    assert tps.kernel_stratified_sample.launches - before == \
+        int(capacity >= 100_000)
+    assert (idx < capacity).all() and (mass > 0).all()
+    np.testing.assert_allclose(mass, sampler._mirror[idx], rtol=1e-6)

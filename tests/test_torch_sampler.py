@@ -3,9 +3,10 @@
 The kernel's plain PyTorch version is held against the JAX package's
 Pallas kernel run in interpret mode, on the cases and bars of
 tests/test_pallas_sampler.py; the non-kernel draw against the JAX XLA
-path; ``importance_weights`` against its JAX twin. The CUDA kernel itself
-runs only on the card (tests/test_torch_kernels_cuda.py, and
-chip_smoke.py).
+path, whose scan of fixed order (``fixed_order_cumsum``) draws the same
+picks call after call; ``importance_weights`` against its JAX twin. The
+CUDA kernel itself runs only on the card (tests/test_torch_kernels_cuda.py,
+and chip_smoke.py).
 """
 import jax
 import jax.numpy as jnp
@@ -149,3 +150,43 @@ def test_importance_weights_match_jax(beta):
     np.testing.assert_allclose(got, want, rtol=1e-6)
     assert (got[::7] == 0).all()
 
+
+def test_fixed_order_cumsum_is_a_scan():
+    """The blocked scan equals a float64 scan to float32 rounding, equals
+    torch.cumsum exactly up to one block, and scans each member's row of a
+    stacked plane on its own."""
+    rng = np.random.default_rng(3)
+    for n in (1, 1000, 1024, 1025, 5000):
+        x = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
+        got = tps.fixed_order_cumsum(x)
+        want = np.cumsum(x.numpy().astype(np.float64))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+        if n <= tps.SCAN_BLOCK:
+            assert torch.equal(got, torch.cumsum(x, dim=0))
+    x = torch.from_numpy(rng.uniform(0, 1, (3, 4000)).astype(np.float32))
+    stacked = tps.fixed_order_cumsum(x)
+    for m in range(3):
+        assert torch.equal(stacked[m], tps.fixed_order_cumsum(x[m]))
+
+
+def test_cumsum_twin_draws_the_same_twice():
+    """C3's case: the cumsum twin (stratified_sample_at without the kernel)
+    gives the same picks twice, solo and member-axis, over a 200k plane,
+    and still agrees with the JAX XLA path where both scan in one block."""
+    rng = np.random.default_rng(8)
+    w = torch.from_numpy(_mass(rng, 12_500, 16))
+    u = torch.from_numpy(((np.arange(256) + rng.uniform(size=256))
+                          / 256).astype(np.float32))
+    first = tps.stratified_sample_at(w, u)
+    for got in (tps.stratified_sample_at(w, u),
+                tuple(x[0] for x in tps.stratified_sample_at(
+                    w[None], u[None]))):
+        for g, x in zip(got, first):
+            assert torch.equal(g, x)
+    small = _mass(rng, 64, 16)
+    want = [np.asarray(x) for x in jps.stratified_sample_at(
+        jnp.asarray(small), jnp.asarray(u.numpy()))]
+    got = [x.numpy() for x in tps.stratified_sample_at(
+        torch.from_numpy(small), u)]
+    for g, x in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, x)

@@ -280,7 +280,9 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     # Flags still refused (the checkpoint flags are ported and tested in
     # tests/test_torch_resume.py); the population flags are ported
     # (tests/test_torch_population.py): --population runs a stacked
-    # population, and --population-spec is validated at the parser.
+    # population, and --population-spec is validated at the parser;
+    # --runtime host-replay is ported (tests/test_torch_host_replay.py)
+    # and runs the host-replay loop.
     ["--runtime", "host-replay"], ["--mesh-devices", "2"],
     ["--population", "2"], ["--runtime", "apex"],
     ["--telemetry-port", "9100"],
@@ -295,6 +297,14 @@ def test_train_cli_refuses_unported_flags(flag, capsys):
         assert [r["env_frames"] for r in rows] == [160, 320]
         assert rows[-1]["population"] == 2
         assert len(rows[-1]["loss_members"]) == 2
+        return
+    if flag == ["--runtime", "host-replay"]:
+        main(["--config", "cartpole", *_TINY_CLI, *flag])
+        lines = capsys.readouterr().out.splitlines()
+        assert lines[0] == "# host-replay sampler: uniform"
+        rows = [json.loads(line) for line in lines[1:]]
+        assert [r["env_frames"] for r in rows[:-1]] == [160, 320]
+        assert rows[-1]["env_steps"] == 320 and rows[-1]["pipeline"]
         return
     if flag[0] == "--population-spec":
         # Two lr entries for the default --population 1.
