@@ -108,7 +108,19 @@ them or outside a checkout of the repository. Phases, each fatal:
      the serial ``--no-pipeline --no-prefetch`` reference (2,000 frames,
      100 grad steps each): equal final params on the card; the pipelined
      leg traces its first training chunk for the device's busy share.
-9. population_learner_lockstep: the cartpole learner at its preset width
+9. apex_service_pong, the Ape-X actor/learner service (``--runtime apex
+   --config apex --host-env pong --device-sampling``) at apex's full width:
+   8 actor processes of 8 numpy PixelPong envs stream zero-copy records
+   through shared memory; one batched act per ingest pass; a 1M host PER
+   shard whose device plane ``[1954, 512]`` is drawn through the sampler
+   kernel, S = 512; training from 20,000 transitions to 32,000 env steps.
+   Holds at least 300 grad steps, one sampler launch per grad step, one
+   act dispatch per ingest pass, no dropped, bad or undecodable records,
+   a finite loss; prints the rates, peak device memory, host RSS and the
+   device's busy share over the first train event (torch.profiler); then
+   the learner checkpoint saved at the end is restored and played by the
+   evaluate CLI.
+10. population_learner_lockstep: the cartpole learner at its preset width
    as a population of two (own learning rates) and as two solo learners,
    on the same batches for 100 grad steps: params within rtol 1e-5, atol
    1e-6. Then a 4,000-frame two-member fused run beside the two solo runs
@@ -187,6 +199,17 @@ DEVICE = "cuda"
 HOST_REPLAY_PATH = ("apex", ["replay.frame_dedup=true",
                              "eval_every_steps=0"], 56_000, 125)
 HOST_REPLAY_MIN_GRAD_STEPS = 300
+# The Ape-X service path (--runtime apex --config apex --host-env pong
+# --device-sampling): apex's full width (Nature CNN, bf16, batch 512, n-step
+# 3, a 1M-transition host PER shard whose device plane is [1954, 512], S =
+# 512 per draw), 8 actor processes of 8 numpy PixelPong envs each. Training
+# starts at 20,000 transitions (the preset's 50,000: a depth cut) and the
+# run ends at 32,000 env steps; at one grad step per 64 inserts the learner
+# owes about 310 grad steps at the fill and about 500 at the end.
+APEX_SERVICE_PATH = ("apex", ["replay.min_fill=20000", "eval_every_steps=0"],
+                     32_000)
+APEX_SERVICE_ACTORS = (8, 8)
+APEX_SERVICE_MIN_GRAD_STEPS = 300
 # The uniform pair: the same net, batch and ring in chunks of 25
 # iterations (400 frames), filled at 800 frames, then four chunks of 25
 # grad steps each. The pipelined leg traces chunk 1, the first that trains
@@ -1117,6 +1140,116 @@ def check_host_replay_apex_dedup(sampler) -> int:
     return launches
 
 
+def check_apex_service_pong(sampler, directory: str) -> int:
+    """APEX_SERVICE_PATH through the port's Ape-X service: actor processes
+    over shared memory, one batched act per ingest pass, actor-shipped
+    priorities, PER through the device plane. Holds: at least
+    APEX_SERVICE_MIN_GRAD_STEPS grad steps, one sampler launch per grad
+    step, one act dispatch per ingest pass, no dropped, torn or bad
+    records and no actor restarts, a finite loss; traces the first train event (torch.profiler) for the
+    device's busy share; then the learner checkpoint it saved at the end
+    is restored and played by the port's evaluate CLI. Returns the
+    launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from dist_dqn_tpu_torch import evaluate
+    from dist_dqn_tpu_torch.actors.service import (ApexLearnerService,
+                                                   ApexRuntimeConfig)
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    preset, overrides, total = APEX_SERVICE_PATH
+    actors, lanes = APEX_SERVICE_ACTORS
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    ckpt_dir = os.path.join(directory, "checkpoint")
+    rt = ApexRuntimeConfig(host_env="pong", num_actors=actors,
+                           envs_per_actor=lanes, total_env_steps=total,
+                           device_sampling=True, checkpoint_dir=ckpt_dir,
+                           save_every_steps=total,
+                           profile_dir=os.path.join(directory, "profile"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    service = ApexLearnerService(cfg, rt, log_fn=lambda line: print(
+        line, flush=True), device=DEVICE)
+    sampler.kernel_stratified_sample.launches = 0
+    out = service.run()
+    launches = sampler.kernel_stratified_sample.launches
+    profile = service.profile_row or {}
+    t_fill = out["run_s"] - out["train_s"]
+    row = {"main_path": "apex_service_pong",
+           "device": torch.cuda.get_device_name(0),
+           "actors": actors, "envs_per_actor": lanes,
+           "env_steps": out["env_steps"], "grad_steps": out["grad_steps"],
+           "sampler_launches": launches,
+           "run_s": out["run_s"], "train_s": out["train_s"],
+           "env_steps_per_sec": out["env_steps"] / out["run_s"],
+           "env_steps_per_sec_before_fill": cfg.replay.min_fill / t_fill,
+           "grad_steps_per_sec_training": out["grad_steps"] / out["train_s"],
+           "ingest_passes": out["ingest_passes"],
+           "ingest_device_calls_per_pass":
+               out["ingest_device_calls_per_pass"],
+           "device_calls": out["device_calls"],
+           "ring_dropped": out["ring_dropped"],
+           "ingest_torn_reads": out["ingest_torn_reads"],
+           "actor_restarts": out["actor_restarts"],
+           "bad_records": out["bad_records"],
+           "ingest_decode_errors": out["ingest_decode_errors"],
+           "replay_size": out["replay_size"],
+           "episodes_completed": out["episodes_completed"],
+           "episode_return_recent": out["episode_return_recent"],
+           "bytes_on_wire": out["bytes_on_wire"],
+           "final_loss": out["loss"],
+           "plane_shape": list(service.replay.device_sampler.plane.shape),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **_host_rss_gb(),
+           "traced_train_event": {k: profile.get(k) for k in (
+               "profile_wall_s", "device_busy_s", "device_busy_share",
+               "device_events")}}
+    del service
+    if out["grad_steps"] < APEX_SERVICE_MIN_GRAD_STEPS:
+        _fail(f"apex_service_pong: {out['grad_steps']} grad steps, want >= "
+              f"{APEX_SERVICE_MIN_GRAD_STEPS}")
+    if launches != out["grad_steps"]:
+        _fail(f"apex_service_pong: sampler kernel launched {launches} times "
+              f"for {out['grad_steps']} grad steps")
+    if out["ingest_device_calls_per_pass"] != 1.0:
+        _fail(f"apex_service_pong: {out['ingest_device_calls_per_pass']} "
+              "act dispatches per ingest pass, want 1.0")
+    # The zero-copy actors publish into their slot rings, so a lost record
+    # shows as a torn read there (ring_dropped reads the request ring,
+    # which this path does not write); a respawned actor lost its lanes.
+    if out["ring_dropped"] or out["ingest_torn_reads"] \
+            or out["bad_records"] or out["ingest_decode_errors"] \
+            or out["actor_restarts"]:
+        _fail(f"apex_service_pong: dropped {out['ring_dropped']}, torn "
+              f"{out['ingest_torn_reads']}, bad {out['bad_records']}, "
+              f"undecodable {out['ingest_decode_errors']} records, "
+              f"{out['actor_restarts']} actor restarts")
+    if not math.isfinite(out["loss"]):
+        _fail(f"apex_service_pong: non-finite loss {out['loss']}")
+    if profile.get("device_busy_share") is None:
+        _fail("apex_service_pong: the first train event was not traced")
+    # The port's evaluate CLI restores the learner checkpoint the run saved
+    # at its end and plays it on the card.
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        evaluate.main(["--config", preset, "--checkpoint-dir", ckpt_dir,
+                       "--episodes", "1", "--device", DEVICE,
+                       *(a for o in overrides for a in ("--set", o))])
+    restored = json.loads(text.getvalue().strip().splitlines()[-1])
+    row["evaluate"] = {**restored, "seconds": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    if restored["frames"] != out["env_steps"] \
+            or not math.isfinite(restored["eval_return"]):
+        _fail(f"apex_service_pong: evaluate restored {restored}, want the "
+              f"checkpoint at {out['env_steps']} env steps and a finite "
+              "return")
+    return launches
+
+
 def check_host_replay_uniform_pair(sampler, profile_dir: str) -> int:
     """HOST_REPLAY_PAIR twice, uniform: pipelined and prefetched, then the
     serial ``--no-pipeline --no-prefetch`` reference. Their final params
@@ -1176,9 +1309,11 @@ def check_host_replay_uniform_pair(sampler, profile_dir: str) -> int:
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
 HOST_REPLAY_PHASES = ("host_replay_apex_dedup", "host_replay_uniform_pair")
+APEX_SERVICE_PHASES = ("apex_service_pong",)
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
-          "population_learner_lockstep", *HOST_REPLAY_PHASES, *BAR_PHASES)
+          "population_learner_lockstep", *HOST_REPLAY_PHASES,
+          *APEX_SERVICE_PHASES, *BAR_PHASES)
 
 
 def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
@@ -1653,6 +1788,10 @@ def main(argv=None) -> int:
                 check_host_replay_uniform_pair(
                     sampler, os.path.join(tmp, "host_replay_profile"))
             _clock("host_replay_uniform_pair")
+        if "apex_service_pong" in phases:
+            launches["apex_service_pong"] = check_apex_service_pong(
+                sampler, os.path.join(tmp, "apex_service_pong"))
+            _clock("apex_service_pong")
 
     for name in BAR_PHASES:
         if name in phases:

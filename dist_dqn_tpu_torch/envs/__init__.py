@@ -2,34 +2,43 @@
 
 ``dmc_pixels`` (the rainbow preset's env) is PixelReacher, as in the JAX
 package's registry: the fused on-device loop runs the synthetic
-DMC-shaped reacher.
+DMC-shaped reacher. The host envs the Ape-X actors step
+(``gym_adapter.py``, ``host_pong.py``, ``host_breakout.py``) are numpy
+only; so that an actor process can import them without torch, the batched
+envs load lazily, on first access.
 """
 from __future__ import annotations
 
+import importlib
 from typing import Optional
-
-from dist_dqn_tpu_torch.envs.base import TorchEnv
-from dist_dqn_tpu_torch.envs.cartpole import CartPole
-from dist_dqn_tpu_torch.envs.pixel_breakout import PixelBreakout
-from dist_dqn_tpu_torch.envs.pixel_catch import PixelCatch
-from dist_dqn_tpu_torch.envs.pixel_pong import PixelPong
-from dist_dqn_tpu_torch.envs.pixel_reacher import PixelReacher
-from dist_dqn_tpu_torch.utils.device import resolve_device
 
 __all__ = ["CartPole", "PixelBreakout", "PixelCatch", "PixelPong",
            "PixelReacher", "TorchEnv", "make_env"]
 
-_ENVS = {"cartpole": CartPole, "pixel_pong": PixelPong,
-         "pixel_breakout": PixelBreakout, "pixel_catch": PixelCatch,
-         "dmc_pixels": PixelReacher}
+_LAZY = {"TorchEnv": "base", "CartPole": "cartpole",
+         "PixelBreakout": "pixel_breakout", "PixelCatch": "pixel_catch",
+         "PixelPong": "pixel_pong", "PixelReacher": "pixel_reacher"}
+
+_ENVS = {"cartpole": "CartPole", "pixel_pong": "PixelPong",
+         "pixel_breakout": "PixelBreakout", "pixel_catch": "PixelCatch",
+         "dmc_pixels": "PixelReacher"}
 
 
-def make_env(name: str, device: Optional[str] = None, **kwargs) -> TorchEnv:
+def __getattr__(name: str):
+    if name in _LAZY:
+        module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def make_env(name: str, device: Optional[str] = None, **kwargs):
     """Build a batched env by registry name, on ``device`` (default: the
     card; see utils/device.py)."""
+    from dist_dqn_tpu_torch.utils.device import resolve_device
+
     dev = resolve_device(device)
     if name not in _ENVS:
         raise KeyError(
             f"env {name!r} is not ported yet; the port has "
             f"{', '.join(sorted(_ENVS))}")
-    return _ENVS[name](dev, **kwargs)
+    return __getattr__(_ENVS[name])(dev, **kwargs)

@@ -19,12 +19,7 @@ import torch
 import torch.nn as nn
 
 from dist_dqn_tpu_torch.config import ExperimentConfig
-
-
-def pad_pow2(n: int) -> int:
-    """Smallest power of two >= n (the JAX package's ingest bucket rule,
-    dist_dqn_tpu/replay/host.py)."""
-    return 1 << max(int(n) - 1, 0).bit_length()
+from dist_dqn_tpu_torch.utils.pow2 import pad_pow2  # noqa: F401
 
 
 def resolve_train_batch(cfg: ExperimentConfig) -> int:

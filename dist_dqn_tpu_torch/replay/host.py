@@ -1,12 +1,12 @@
-"""The host-DRAM replay pieces the host-replay runtime needs (twin of the
-first half of ``dist_dqn_tpu/replay/host.py``).
+"""Host-DRAM replay (twin of ``dist_dqn_tpu/replay/host.py``).
 
-* :func:`stratified_mass` (``:50``): the stratified jitter every host-side
+* :func:`pad_pow2` (``:41``), the power-of-two bucket rule, and
+  :func:`stratified_mass` (``:50``), the stratified jitter every host-side
   PER sampler shares.
 * :class:`SumTree` (``:194``): the vectorized numpy sum-tree, and
   :func:`make_sum_tree` (``:174``), which returns it. The JAX package's
-  default is its C++ ``NativeSumTree``; the port's copy of that tree comes
-  with the Ape-X service, whose default it is.
+  default is its C++ ``NativeSumTree``, which the port does not have yet
+  (ROADMAP.md A8).
 * :class:`DevicePrioritySampler` (``:249-584``): the ``p ** alpha`` mass
   plane of a host-DRAM store, kept ``[ceil(capacity / lanes), lanes]`` f32
   on the card. Host writes buffer as (idx, mass) pairs, deduplicated last
@@ -16,24 +16,27 @@ first half of ``dist_dqn_tpu/replay/host.py``).
   the card the draw launches the sampler kernel
   (``ops/sampler.kernel_stratified_sample``); below that, and on the CPU,
   it runs :func:`~dist_dqn_tpu_torch.ops.sampler.stratified_sample_rows`
-  over the block sums.
+  over the block sums. :meth:`DevicePrioritySampler.sample` draws from the
+  plane's own generator; ``sample_at`` at explicit uniforms.
+* :class:`PrioritizedHostReplay` (``:585``) and :class:`UniformHostReplay`
+  (``:817``): the Ape-X service's stores, items in host numpy arrays.
 
-This module is numpy apart from the plane. ``PrioritizedHostReplay`` and
-``UniformHostReplay`` (the Ape-X service's stores) are not ported yet.
+This module is numpy apart from the plane.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dist_dqn_tpu_torch.loop_common import pad_pow2
 from dist_dqn_tpu_torch.ops.sampler import (SAMPLE_BLOCK,
+                                            importance_weights,
                                             kernel_stratified_sample,
                                             stratified_sample_rows)
 from dist_dqn_tpu_torch.utils.device import resolve_device
+from dist_dqn_tpu_torch.utils.pow2 import pad_pow2  # noqa: F401
 
 # Cells at or above which the plane's draw on the card goes through the
 # sampler kernel (the JAX package's ``pallas_routing`` crossover).
@@ -150,9 +153,9 @@ class DevicePrioritySampler:
     ladder without reading the device. :meth:`dispatch_at` and
     :meth:`materialize_at` split an explicit-uniform draw: the scatter of
     the pending writes and the draw are queued on the device, and only
-    the materialize reads the result back. (The JAX plane's ``sample``,
-    a draw from its own generator, serves the Ape-X service's store and
-    comes with it.)
+    the materialize reads the result back. :meth:`sample` draws at
+    stratified uniforms from the plane's own generator (``seed``, on the
+    plane's device) and returns IS weights: the Ape-X store's draw.
 
     ``use_kernel`` (default: on the card at or above ``KERNEL_MIN_CELLS``
     cells) draws through the sampler kernel's wrapper; otherwise through
@@ -164,8 +167,11 @@ class DevicePrioritySampler:
     _TOTAL_RESUM_EVERY = 256
 
     def __init__(self, capacity: int, lanes: int = 512,
-                 use_kernel: Optional[bool] = None, device=None):
+                 use_kernel: Optional[bool] = None, device=None,
+                 seed: int = 0):
         self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
         self.capacity = int(capacity)
         self.lanes = int(lanes)
         self.rows = -(-self.capacity // self.lanes)
@@ -284,3 +290,254 @@ class DevicePrioritySampler:
                   ) -> Tuple[np.ndarray, np.ndarray]:
         """Synchronous explicit-uniform draw (dispatch + materialize)."""
         return self.materialize_at(self.dispatch_at(u), size)
+
+    def sample(self, batch_size: int, beta: float, size: int
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """The pending writes, then one draw of ``batch_size`` picks at
+        stratified uniforms ``(arange(S) + U) / S`` from the plane's own
+        generator: (flat slot indices [S] int64, IS weights [S] f32,
+        ``(size * P(i)) ** -beta`` normalized by the batch max). A pick at
+        or past ``size`` (a zero-mass cell past the written region) is
+        clamped to ``size - 1`` with its weight zeroed."""
+        self.draw_dispatches += 1
+        self._flush_writes()
+        dev = self.device
+        u = (torch.arange(batch_size, dtype=torch.float32, device=dev)
+             + torch.rand(batch_size, generator=self.generator, device=dev)
+             ) / batch_size
+        t, b, mass, total = self._select_at(u)
+        w = importance_weights(mass, total.float(),
+                               torch.tensor(float(size), device=dev),
+                               float(beta))
+        idx = (t.long() * self.lanes + b.long()).cpu().numpy()
+        w = w.float().cpu().numpy()
+        oob = idx >= size
+        if oob.any():
+            idx = np.minimum(idx, size - 1)
+            w = np.where(oob, np.float32(0.0), w)
+        return idx, w
+
+
+class PrioritizedHostReplay:
+    """One prioritized replay shard over host DRAM (the Ape-X service's
+    store).
+
+    Items are dicts of numpy arrays (n-step-folded transitions), stored
+    from the first batch's dtypes and shapes. ``alpha`` is folded into the
+    stored mass at write time. ``sampler="tree"`` draws on the host through
+    the numpy sum-tree; ``sampler="device"`` keeps the mass plane on
+    ``sampler_device`` (the card by default) and draws through
+    :class:`DevicePrioritySampler`. The items stay in host memory either
+    way.
+
+    Every slot carries a write generation (``generation``), so a deferred
+    priority write-back (``update_priorities(..., expected_gen=...)``)
+    skips slots overwritten since they were drawn.
+    """
+
+    def __init__(self, capacity: int, alpha: float = 0.6,
+                 priority_eps: float = 1e-6, seed: int = 0,
+                 native: Optional[bool] = None, sampler: str = "tree",
+                 sampler_device=None, shard: Optional[int] = None):
+        if sampler not in ("tree", "device"):
+            raise ValueError(f"sampler must be 'tree' or 'device', got "
+                             f"{sampler!r}")
+        self.capacity = capacity
+        self.alpha = alpha
+        self.priority_eps = priority_eps
+        self.sampler = sampler
+        self.shard = shard
+        self.device_sampler = (
+            DevicePrioritySampler(capacity, seed=seed, device=sampler_device)
+            if sampler == "device" else None)
+        # Device mode never reads a host tree.
+        self.tree = (None if self.device_sampler is not None
+                     else make_sum_tree(capacity, native=native))
+        self._data: Optional[Dict[str, np.ndarray]] = None
+        self._pos = 0
+        self._size = 0
+        self._max_priority = 1.0
+        self._rng = np.random.default_rng(seed)
+        self.added = 0
+        self.sampled = 0
+        # Items per sticky routing shard (ingest/router.py).
+        self.added_by_shard: Dict[int, int] = {}
+        self._slot_gen = np.zeros(capacity, np.int64)
+
+    def __len__(self) -> int:
+        return self._size
+
+    def _ensure_storage(self, items: Dict[str, np.ndarray]) -> None:
+        if self._data is None:
+            self._data = {
+                k: np.zeros((self.capacity,) + v.shape[1:], v.dtype)
+                for k, v in items.items()
+            }
+
+    def _set_mass(self, idx: np.ndarray, mass: np.ndarray) -> None:
+        if self.device_sampler is not None:
+            self.device_sampler.set(idx, mass)
+        else:
+            self.tree.set(idx, mass)
+
+    def add(self, items: Dict[str, np.ndarray],
+            priorities: Optional[np.ndarray] = None,
+            shard: Optional[int] = None) -> None:
+        """Ring-write a batch; without ``priorities`` the items get the
+        running max priority. ``shard`` (the sticky routing tag) counts
+        into ``added_by_shard``."""
+        batch = next(iter(items.values())).shape[0]
+        if shard is not None:
+            self.added_by_shard[shard] = \
+                self.added_by_shard.get(shard, 0) + batch
+        self._ensure_storage(items)
+        idx = (self._pos + np.arange(batch)) % self.capacity
+        for k, v in items.items():
+            self._data[k][idx] = v
+        if priorities is None:
+            p = np.full(batch, self._max_priority)
+        else:
+            p = np.abs(np.asarray(priorities, np.float64)) \
+                + self.priority_eps
+            self._max_priority = max(self._max_priority, float(p.max()))
+        self._set_mass(idx, p ** self.alpha)
+        self.added += batch
+        self._slot_gen[idx] = self.added
+        self._pos = int((self._pos + batch) % self.capacity)
+        self._size = int(min(self._size + batch, self.capacity))
+
+    def sample(self, batch_size: int, beta: float
+               ) -> Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]:
+        """Stratified prioritized sample -> (items, indices, IS weights)."""
+        if self._size == 0:
+            raise ValueError("sample() on an empty replay shard")
+        if self.device_sampler is not None:
+            idx, weights = self.device_sampler.sample(batch_size, beta,
+                                                      self._size)
+        else:
+            total = self.tree.total
+            idx = self.tree.sample(
+                stratified_mass(self._rng, batch_size, total))
+            idx = np.minimum(idx, self._size - 1)
+            p_sel = self.tree.get(idx) / total
+            weights = (self._size * np.maximum(p_sel, 1e-12)) ** (-beta)
+            weights = (weights / weights.max()).astype(np.float32)
+        items = {k: v[idx] for k, v in self._data.items()}
+        self.sampled += batch_size
+        return items, idx, weights
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        """Snapshot: the item arrays over the whole ring, the per-slot
+        ``p ** alpha`` mass, the generations and the cursor/counters."""
+        if self._data is None:
+            raise ValueError("state_dict() on an unallocated shard "
+                             "(nothing added yet)")
+        if self.device_sampler is not None:
+            self.device_sampler._flush_writes()
+            mass = self.device_sampler.plane.reshape(-1)[
+                :self.capacity].cpu().numpy().copy()
+        else:
+            mass = np.asarray(
+                self.tree.get(np.arange(self.capacity, dtype=np.int64)),
+                np.float64)
+        out = {f"data.{k}": v for k, v in self._data.items()}
+        out.update(mass=mass, slot_gen=self._slot_gen.copy(),
+                   meta=np.array([self._pos, self._size, self.added,
+                                  self.sampled], np.int64),
+                   max_priority=np.float64(self._max_priority),
+                   alpha=np.float64(self.alpha),
+                   capacity=np.int64(self.capacity))
+        return out
+
+    def load_state_dict(self, state: Dict[str, np.ndarray]) -> None:
+        """Restore a :meth:`state_dict` snapshot into this (same-capacity,
+        same-alpha) shard."""
+        if int(state["capacity"]) != self.capacity:
+            raise ValueError(
+                f"replay snapshot capacity {int(state['capacity'])} != "
+                f"configured {self.capacity} — restore with the same "
+                "replay.capacity used at save time")
+        if float(state["alpha"]) != self.alpha:
+            raise ValueError(
+                f"replay snapshot alpha {float(state['alpha'])} != "
+                f"configured {self.alpha}")
+        self._data = {k[len("data."):]: np.array(v)
+                      for k, v in state.items() if k.startswith("data.")}
+        self._pos, self._size, self.added, self.sampled = (
+            int(x) for x in state["meta"])
+        self._max_priority = float(state["max_priority"])
+        self._slot_gen = np.array(state["slot_gen"], np.int64)
+        idx = np.arange(self.capacity, dtype=np.int64)
+        mass = np.asarray(state["mass"], np.float64)
+        self._set_mass(idx, mass.astype(np.float32)
+                       if self.device_sampler is not None else mass)
+
+    def generation(self, idx: np.ndarray) -> np.ndarray:
+        """Write-generation stamps of the given slots."""
+        return self._slot_gen[np.asarray(idx, np.int64)].copy()
+
+    def update_priorities(self, idx: np.ndarray, priorities: np.ndarray,
+                          expected_gen: Optional[np.ndarray] = None) -> None:
+        """Write back learner |TD| priorities. With ``expected_gen`` (the
+        ``generation`` read at sample time), slots overwritten since are
+        skipped."""
+        idx = np.asarray(idx, np.int64)
+        p = np.abs(np.asarray(priorities, np.float64)) + self.priority_eps
+        if expected_gen is not None:
+            live = self._slot_gen[idx] == expected_gen
+            if not live.all():
+                idx, p = idx[live], p[live]
+            if idx.size == 0:
+                return
+        self._max_priority = max(self._max_priority, float(p.max()))
+        self._set_mass(idx, p ** self.alpha)
+
+
+class UniformHostReplay:
+    """Uniform ring-buffer shard with the same item interface."""
+
+    def __init__(self, capacity: int, seed: int = 0):
+        self.capacity = capacity
+        self._data: Optional[Dict[str, np.ndarray]] = None
+        self._pos = 0
+        self._size = 0
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return self._size
+
+    def add(self, items: Dict[str, np.ndarray]) -> None:
+        batch = next(iter(items.values())).shape[0]
+        if self._data is None:
+            self._data = {
+                k: np.zeros((self.capacity,) + v.shape[1:], v.dtype)
+                for k, v in items.items()
+            }
+        idx = (self._pos + np.arange(batch)) % self.capacity
+        for k, v in items.items():
+            self._data[k][idx] = v
+        self._pos = int((self._pos + batch) % self.capacity)
+        self._size = int(min(self._size + batch, self.capacity))
+
+    def sample(self, batch_size: int) -> Dict[str, np.ndarray]:
+        idx = self._rng.integers(0, self._size, size=batch_size)
+        return {k: v[idx] for k, v in self._data.items()}
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        if self._data is None:
+            raise ValueError("state_dict() on an unallocated shard "
+                             "(nothing added yet)")
+        out = {f"data.{k}": v for k, v in self._data.items()}
+        out.update(meta=np.array([self._pos, self._size], np.int64),
+                   capacity=np.int64(self.capacity))
+        return out
+
+    def load_state_dict(self, state: Dict[str, np.ndarray]) -> None:
+        if int(state["capacity"]) != self.capacity:
+            raise ValueError(
+                f"replay snapshot capacity {int(state['capacity'])} != "
+                f"configured {self.capacity} — restore with the same "
+                "replay.capacity used at save time")
+        self._data = {k[len("data."):]: np.array(v)
+                      for k, v in state.items() if k.startswith("data.")}
+        self._pos, self._size = (int(x) for x in state["meta"])

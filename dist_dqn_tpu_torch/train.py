@@ -47,8 +47,21 @@ JAX loop's per-chunk rows and its summary. ``--no-pipeline``,
 ``--no-double-buffer`` select its serial references and depths; under the
 fused runtime they print the JAX CLI's "ignored" lines.
 
-Meshes, telemetry and the apex runtime are not ported yet; asking for any
-of them raises instead of being ignored.
+``--runtime apex`` runs the Ape-X actor/learner split instead
+(actors/service.py): ``--num-actors`` actor processes step
+``--envs-per-actor`` host envs each (``--host-env``: a gymnasium name such
+as CartPole-v1, ``pong``, ``breakout`` or ``synthstack``) and stream
+zero-copy records through shared memory to the learner service, which acts
+for them in one batched call per pass, seeds priorities from their q
+planes and trains from the host PER shard (``--device-sampling``: its
+priority plane on the card, drawn through the sampler kernel). A non-pixel
+host env swaps the config's torso for the MLP, as the JAX CLI does; the
+summary prints as JSON. ``--transport``, ``--no-wire-dedup`` and
+``--shm-batch`` are the JAX CLI's.
+
+Meshes, telemetry, and the options of the apex runtime that are not ported
+yet (remote actors, the legacy transport, several learner devices or
+replay shards) raise instead of being ignored.
 """
 from __future__ import annotations
 
@@ -357,15 +370,80 @@ def _checkpoint_row(what: str, record: dict) -> dict:
 def _refuse_unported(args) -> None:
     """Flags of the JAX CLI this port does not implement yet."""
     refused = [flag for flag, given in (
-        ("--mesh-devices", args.mesh_devices != 1),
-        ("--runtime apex", args.runtime == "apex"),
+        ("--mesh-devices", args.mesh_devices != 1 and args.runtime != "apex"),
         ("--telemetry-port", args.telemetry_port is not None),
     ) if given]
     if refused:
         raise SystemExit(
             f"not ported yet: {', '.join(refused)} — the PyTorch port runs "
-            "the fused and host-replay runtimes on one device only "
-            "(ROADMAP.md)")
+            "on one device only (ROADMAP.md A6, A10)")
+
+
+def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
+    """``--runtime apex`` (dist_dqn_tpu/train.py:1225-1286): the JAX CLI's
+    lines for the flags this runtime ignores, the MLP torso for a
+    non-pixel host env, then the service and its summary."""
+    from dist_dqn_tpu_torch.actors.service import (ApexLearnerService,
+                                                   ApexRuntimeConfig)
+    from dist_dqn_tpu_torch.envs.gym_adapter import is_pixel_env
+
+    if args.mesh_devices != 1:
+        print("# --mesh-devices applies to the fused/host-replay "
+              "runtimes; use --learner-devices for apex batch "
+              "sharding")
+    if args.stop_at_return is not None:
+        print("# --stop-at-return applies to the fused runtime only; "
+              "ignored under --runtime apex")
+    if args.no_double_buffer:
+        print("# --no-double-buffer applies to --runtime host-replay "
+              "only; the apex service staging knob is "
+              "ApexRuntimeConfig.stage_depth — ignored")
+    if args.no_pipeline \
+            or args.evac_slices != parser.get_default("evac_slices"):
+        print("# --no-pipeline/--evac-slices apply to --runtime "
+              "host-replay only; ignored under --runtime apex")
+    if args.no_prefetch or args.per \
+            or args.prefetch_depth != parser.get_default(
+                "prefetch_depth"):
+        print("# --no-prefetch/--prefetch-depth/--per apply to "
+              "--runtime host-replay only; the apex service is "
+              "always prioritized and staged via "
+              "ApexRuntimeConfig — ignored")
+    if not is_pixel_env(args.host_env):
+        # Non-pixel host env: the config's Nature-CNN torso can't eat
+        # flat observations — swap in the MLP torso, keep the rest.
+        print(f"# host env {args.host_env} is non-pixel: using MLP torso")
+        cfg = dataclasses.replace(
+            cfg, network=dataclasses.replace(
+                cfg.network, torso="mlp", compute_dtype="float32"))
+    rt = ApexRuntimeConfig(
+        host_env=args.host_env, num_actors=args.num_actors,
+        envs_per_actor=args.envs_per_actor,
+        total_env_steps=args.total_env_steps or cfg.total_env_steps,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_replay=args.checkpoint_replay,
+        save_every_steps=(args.save_every_frames or cfg.eval_every_steps
+                          or 100_000),
+        eval_every_steps=(args.eval_every_steps
+                          if args.eval_every_steps is not None else 0),
+        eval_episodes=cfg.eval_episodes,
+        tcp_port=args.tcp_port,
+        num_remote_actors=args.num_remote_actors,
+        spawn_remote_actors=args.remote_actor_mode == "local",
+        learner_devices=args.learner_devices,
+        device_sampling=args.device_sampling,
+        transport=args.transport,
+        actor_priorities=not args.no_actor_priorities,
+        ingest_shards=args.ingest_shards,
+        wire_dedup=not args.no_wire_dedup,
+        shm_batch=args.shm_batch,
+        shard_sampling=args.shard_sampling,
+        profile_dir=args.profile_dir)
+    try:
+        service = ApexLearnerService(cfg, rt, device=args.device)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from e
+    print(json.dumps(service.run()))
 
 
 def _main_host_replay(cfg: ExperimentConfig, args) -> None:
@@ -412,8 +490,17 @@ def _main_host_replay(cfg: ExperimentConfig, args) -> None:
 
 
 def _warn_host_replay_flags(args, parser) -> None:
-    """The JAX CLI's lines for host-replay flags under the fused runtime
-    (dist_dqn_tpu/train.py:1296-1314), which ignores them."""
+    """The JAX CLI's lines for apex and host-replay flags under the fused
+    runtime (dist_dqn_tpu/train.py:1287-1314), which ignores them."""
+    if args.transport != parser.get_default("transport") \
+            or args.no_actor_priorities \
+            or args.ingest_shards != parser.get_default("ingest_shards") \
+            or args.no_wire_dedup or args.shard_sampling \
+            or args.shm_batch != parser.get_default("shm_batch"):
+        print("# --transport/--no-actor-priorities/--ingest-shards/"
+              "--no-wire-dedup/--shm-batch/--shard-sampling apply "
+              "to --runtime apex only (the fused/host-replay runtimes "
+              "have no actor transport); ignored")
     if args.no_double_buffer:
         print("# --no-double-buffer applies to --runtime host-replay only; "
               "ignored under the fused runtime (its replay never leaves "
@@ -510,16 +597,48 @@ def main(argv=None):
                              "batched TD-error write-backs (presets with "
                              "replay.prioritized=True enable it)")
     parser.add_argument("--device-sampling", action="store_true",
-                        help="--runtime host-replay (with --per): sample "
-                             "priorities from a plane on the card (the "
-                             "sampler kernel at >= 100,000 cells) instead "
+                        help="sample priorities from a plane on the card "
+                             "(the sampler kernel at >= 100,000 cells): "
+                             "the apex runtime's replay shard, or "
+                             "--runtime host-replay with --per, instead "
                              "of the host sum-tree")
+    parser.add_argument("--runtime", default="fused",
+                        choices=("fused", "apex", "host-replay"),
+                        help="fused: the on-device loop; host-replay: the "
+                             "replay window in host DRAM; apex: actor "
+                             "processes + the learner service over shared "
+                             "memory (host envs)")
+    parser.add_argument("--host-env", default="CartPole-v1",
+                        help="apex runtime: host env actors step "
+                             "(e.g. CartPole-v1, pong, breakout)")
+    parser.add_argument("--num-actors", type=int, default=4)
+    parser.add_argument("--envs-per-actor", type=int, default=8)
+    parser.add_argument("--transport", choices=("zerocopy", "legacy"),
+                        default="zerocopy",
+                        help="apex runtime experience path: zerocopy = "
+                             "schema-negotiated raw-array records through "
+                             "shared-memory slot rings with actor-shipped "
+                             "priorities (legacy is not ported)")
+    parser.add_argument("--no-wire-dedup", action="store_true",
+                        help="apex runtime: actors on frame-stacked pixel "
+                             "envs ship full stacks instead of each frame "
+                             "once")
+    parser.add_argument("--shm-batch", type=int, default=1,
+                        help="apex runtime: records per shared-memory slot "
+                             "publish of feeder processes (only 1 is "
+                             "ported: feeders are ROADMAP.md A8, item 4)")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
     parser.add_argument("--mesh-devices", type=int, default=1)
-    parser.add_argument("--runtime", default="fused",
-                        choices=("fused", "apex", "host-replay"))
     parser.add_argument("--telemetry-port", type=int, default=None)
+    parser.add_argument("--num-remote-actors", type=int, default=0)
+    parser.add_argument("--tcp-port", type=int, default=None)
+    parser.add_argument("--remote-actor-mode", choices=("local", "external"),
+                        default="local")
+    parser.add_argument("--learner-devices", type=int, default=1)
+    parser.add_argument("--no-actor-priorities", action="store_true")
+    parser.add_argument("--ingest-shards", type=int, default=1)
+    parser.add_argument("--shard-sampling", action="store_true")
     args = parser.parse_args(argv)
 
     cfg = apply_overrides(CONFIGS[args.config], args.overrides)
@@ -538,7 +657,11 @@ def main(argv=None):
             cfg = dataclasses.replace(cfg, replay=dataclasses.replace(
                 cfg.replay, updates_per_chunk=args.replay_ratio))
     if args.actor_dtype is not None:
-        if recurrent:
+        if args.runtime == "apex":
+            print("# --actor-dtype applies to the fused/host-replay "
+                  "runtimes only; the apex service acts on the live "
+                  "learner params — ignored")
+        elif recurrent:
             print("# --actor-dtype is not supported by the recurrent "
                   "(R2D2) fused loop yet; ignored")
         else:
@@ -572,6 +695,9 @@ def main(argv=None):
                 parser.error(str(e))
     if args.runtime == "host-replay":
         _main_host_replay(cfg, args)
+        return
+    if args.runtime == "apex":
+        _main_apex(cfg, args, parser)
         return
     _warn_host_replay_flags(args, parser)
     stop_fn = None

@@ -414,3 +414,35 @@ def test_device_priority_sampler_routes_by_plane_size(cuda, capacity):
         int(capacity >= 100_000)
     assert (idx < capacity).all() and (mass > 0).all()
     np.testing.assert_allclose(mass, sampler._mirror[idx], rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_device_priority_sampler_sample_is_one_launch_in_range(cuda):
+    """The Ape-X store's draw (``DevicePrioritySampler.sample``, uniforms
+    from the plane's own generator) at the plane [1954, 512] of apex's 1M
+    slots, 40,000 of them written as a 40,000-step run leaves them: one
+    kernel launch per call, every pick inside [0, size), every weight
+    positive and at most 1, the same picks from the same seed."""
+    from dist_dqn_tpu_torch.replay.host import DevicePrioritySampler
+
+    capacity, size = 1_000_000, 40_000
+    draws = []
+    for _ in range(2):
+        sampler = DevicePrioritySampler(capacity, device=cuda, seed=5)
+        assert sampler.use_kernel
+        assert tuple(sampler.plane.shape) == (HOST_T, HOST_B)
+        rng = np.random.default_rng(13)
+        sampler.set(np.arange(size),
+                    rng.uniform(0.2, 3.0, size).astype(np.float32))
+        picks = []
+        for _ in range(20):
+            before = tps.kernel_stratified_sample.launches
+            idx, w = sampler.sample(512, 0.4, size)
+            assert tps.kernel_stratified_sample.launches - before == 1
+            assert idx.shape == (512,) and (idx >= 0).all()
+            assert (idx < size).all()
+            assert (w > 0).all() and w.max() == np.float32(1.0)
+            picks.append(idx)
+        draws.append(np.stack(picks))
+        assert sampler.draw_dispatches == 20
+    np.testing.assert_array_equal(draws[0], draws[1])

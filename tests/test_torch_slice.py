@@ -282,9 +282,10 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     # (tests/test_torch_population.py): --population runs a stacked
     # population, and --population-spec is validated at the parser;
     # --runtime host-replay is ported (tests/test_torch_host_replay.py)
-    # and runs the host-replay loop.
+    # and runs the host-replay loop; --runtime apex is ported
+    # (tests/test_torch_apex_service.py), and its remote actors are not.
     ["--runtime", "host-replay"], ["--mesh-devices", "2"],
-    ["--population", "2"], ["--runtime", "apex"],
+    ["--population", "2"], ["--runtime", "apex", "--num-remote-actors", "1"],
     ["--telemetry-port", "9100"],
     ["--population-spec", '{"lr": [0.001, 0.002]}']])
 def test_train_cli_refuses_unported_flags(flag, capsys):
