@@ -120,7 +120,39 @@ them or outside a checkout of the repository. Phases, each fatal:
    device's busy share over the first train event (torch.profiler); then
    the learner checkpoint saved at the end is restored and played by the
    evaluate CLI.
-10. population_learner_lockstep: the cartpole learner at its preset width
+10. The rest of the Ape-X service, each phase on its own fleet of actor
+   processes, the kernel launch counters zeroed just before each run:
+   * apex_service_r2d2_pong: ``--runtime apex --config r2d2 --host-env
+     pong --device-sampling`` at r2d2's full width (Nature CNN, dueling,
+     LSTM 512, bf16, burn-in 40, unroll 80, n = 5, batch 64), 8 actor
+     processes of 8 envs, the shard cut to 2,048 sequences of 125 steps
+     (7.2 GB of host memory); training from the preset's fill of 128
+     sequences for about 150 grad steps. Holds a finite loss, grad steps,
+     every inserted sequence carrying its ``initial_sequence_priorities``
+     priority, one act dispatch per ingest pass, one plane draw per grad
+     step through ``stratified_sample_rows`` (the plane has 2,048 cells,
+     under the kernel's 100,000) and no kernel launch, no torn read,
+     restart or bad record;
+   * apex_service_remote_bootstrap: ``--config apex --host-env pong
+     --device-sampling --no-actor-priorities --num-actors 4
+     --num-remote-actors 4 --remote-actor-mode local`` at apex's full width
+     (the 1M shard, plane ``[1954, 512]``): 4 actors over shared memory
+     and 4 over TCP, the learner-side bootstrap fused into the act
+     dispatch over the C++ assembler, training from 16,000 transitions to
+     24,000 env steps. Holds one sampler launch per grad step, the native
+     assembler, fused bootstraps (a standalone one only at the final
+     forced flush), one act dispatch per ingest pass, records from every
+     remote id, no corrupt frame, rejected hello, torn read or restart;
+   * apex_service_snapshot_synthstack: ``--config apex --host-env
+     synthstack --device-sampling --checkpoint-dir D --checkpoint-replay``
+     at the full 1M capacity (the MLP torso, as the CLI swaps in for this
+     non-pixel env; the shard's arrays 0.5 GB), training from 20,000
+     transitions: run 1 to 40,000 env steps, run 2 resumed to 52,000.
+     Holds ``replay_snapshot_restored_items`` equal to run 1's
+     ``replay_size``, the restored plane's mass equal to the snapshot's
+     bit for bit, run 2 training before it inserted ``min_fill`` items of
+     its own, and one sampler launch per grad step in both runs.
+11. population_learner_lockstep: the cartpole learner at its preset width
    as a population of two (own learning rates) and as two solo learners,
    on the same batches for 100 grad steps: params within rtol 1e-5, atol
    1e-6. Then a 4,000-frame two-member fused run beside the two solo runs
@@ -210,6 +242,27 @@ APEX_SERVICE_PATH = ("apex", ["replay.min_fill=20000", "eval_every_steps=0"],
                      32_000)
 APEX_SERVICE_ACTORS = (8, 8)
 APEX_SERVICE_MIN_GRAD_STEPS = 300
+# The rest of the service (PERF.md §4 lists the cuts). R2D2 at full width
+# with 8 actors of 8 envs (the preset's layout is 256 x 16) and a shard of
+# 2,048 sequences (the preset's 100,000 would need 353 GB of host memory):
+# the fill of 128 sequences lands at about 10,600 env steps (two windows
+# per lane), and the learner owes one grad step per sequence, at most 4
+# per pass of 64 env steps: about 150 grad steps by 13,500 env steps (124
+# by 13,000 in PR 10's first full call).
+APEX_R2D2_PATH = ("r2d2", ["replay.capacity=2048"], 13_500)
+APEX_R2D2_ACTORS = (8, 8)
+APEX_R2D2_MIN_GRAD_STEPS = 100
+# Remote actors and the learner-side bootstrap: apex's full width, 4 local
+# and 4 remote actors of 8 envs, training from 16,000 transitions (the
+# preset's 50,000: a depth cut) to 24,000 env steps, about 375 grad steps.
+APEX_REMOTE_PATH = ("apex", ["replay.min_fill=16000"], 24_000)
+APEX_REMOTE_ACTORS = (4, 4, 8)
+APEX_REMOTE_MIN_GRAD_STEPS = 250
+# Warm-replay snapshots: apex's 1M shard on synthstack (MLP torso), training
+# from 20,000 transitions; run 1 to 40,000 env steps (snapshots at 40,000
+# and at the end), run 2 resumed to 52,000.
+APEX_SNAPSHOT_PATH = ("apex", ["replay.min_fill=20000"], 40_000, 52_000)
+APEX_SNAPSHOT_ACTORS = (8, 8)
 # The uniform pair: the same net, batch and ring in chunks of 25
 # iterations (400 frames), filled at 800 frames, then four chunks of 25
 # grad steps each. The pipelined leg traces chunk 1, the first that trains
@@ -1250,6 +1303,283 @@ def check_apex_service_pong(sampler, directory: str) -> int:
     return launches
 
 
+def _service_row(name: str, service, out: dict, launches: int,
+                 **extra) -> dict:
+    """The ``main_path`` line of one Ape-X service run: its rates, counts,
+    loss counts, peak device memory and host RSS."""
+    import torch
+
+    t_fill = (out["run_s"] - out["train_s"]
+              if out["train_s"] is not None else out["run_s"])
+    return {"main_path": name, "device": torch.cuda.get_device_name(0),
+            "env_steps": out["env_steps"], "grad_steps": out["grad_steps"],
+            "sampler_launches": launches,
+            "run_s": out["run_s"], "train_s": out["train_s"],
+            "env_steps_per_sec": out["env_steps"] / out["run_s"],
+            "fill_s": t_fill,
+            "grad_steps_per_sec_training":
+                (out["grad_steps"] / out["train_s"]
+                 if out["train_s"] else None),
+            **{k: out[k] for k in (
+                "ingest_passes", "ingest_device_calls_per_pass",
+                "device_calls", "ring_dropped", "ingest_torn_reads",
+                "actor_restarts", "bad_records", "ingest_decode_errors",
+                "hello_rejects", "tcp_corrupt_frames", "tcp_shed_records",
+                "tcp_backpressure", "assembler", "transport",
+                "actor_priorities", "replay_size", "records_by_actor",
+                "ingest_bytes", "episodes_completed",
+                "episode_return_recent", "loss")},
+            "plane_shape": list(service.replay.device_sampler.plane.shape),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **_host_rss_gb(), **extra}
+
+
+def _run_service(sampler, cfg, rt, service_hook=None):
+    """Build the port's Ape-X service on the card and run it with the
+    kernel's launch counter zeroed just before; returns (service, summary,
+    launches). ``service_hook(service)`` runs between the two."""
+    import torch
+
+    from dist_dqn_tpu_torch.actors.service import ApexLearnerService
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    service = ApexLearnerService(cfg, rt, log_fn=lambda line: print(
+        line, flush=True), device=DEVICE)
+    if service_hook is not None:
+        service_hook(service)
+    sampler.kernel_stratified_sample.launches = 0
+    out = service.run()
+    return service, out, sampler.kernel_stratified_sample.launches
+
+
+def _service_clean(name: str, out: dict) -> None:
+    if out["ring_dropped"] or out["ingest_torn_reads"] \
+            or out["bad_records"] or out["ingest_decode_errors"] \
+            or out["actor_restarts"] or out["hello_rejects"] \
+            or out["tcp_corrupt_frames"] or out["tcp_shed_records"]:
+        _fail(f"{name}: dropped {out['ring_dropped']}, torn "
+              f"{out['ingest_torn_reads']}, bad {out['bad_records']}, "
+              f"undecodable {out['ingest_decode_errors']} records, "
+              f"{out['actor_restarts']} actor restarts, "
+              f"{out['hello_rejects']} rejected hellos, "
+              f"{out['tcp_corrupt_frames']} corrupt and "
+              f"{out['tcp_shed_records']} shed TCP frames")
+    if not math.isfinite(out["loss"]):
+        _fail(f"{name}: non-finite loss {out['loss']}")
+
+
+def check_apex_service_r2d2_pong(sampler) -> int:
+    """APEX_R2D2_PATH: R2D2 on the split at full width. Every insert must
+    carry finite act-time sequence priorities, one per sequence; the plane
+    (2,048 cells) draws through ``stratified_sample_rows``, so the kernel
+    must not launch while each grad step draws once. Returns the
+    launches (0)."""
+    import numpy as np
+
+    from dist_dqn_tpu_torch.actors.service import ApexRuntimeConfig
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    preset, overrides, total = APEX_R2D2_PATH
+    actors, lanes = APEX_R2D2_ACTORS
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    rt = ApexRuntimeConfig(host_env="pong", num_actors=actors,
+                           envs_per_actor=lanes, total_env_steps=total,
+                           device_sampling=True)
+    inserts = []
+
+    def hook(service):
+        add = service.replay.add
+
+        def recorded(items, priorities=None, shard=None):
+            inserts.append((items["obs"].shape[:2],
+                            None if priorities is None
+                            else np.asarray(priorities)))
+            add(items, priorities=priorities, shard=shard)
+        service.replay.add = recorded
+
+    service, out, launches = _run_service(sampler, cfg, rt, hook)
+    seq_len = service.seq_len
+    rows = sum(shape[0] for shape, _ in inserts)
+    row = _service_row(
+        "apex_service_r2d2_pong", service, out, launches,
+        actors=actors, envs_per_actor=lanes, seq_len=seq_len,
+        capacity_sequences=cfg.replay.capacity,
+        sequences_inserted=rows,
+        uses_kernel=service.replay.device_sampler.use_kernel,
+        priorities_min=min((float(p.min()) for _, p in inserts
+                            if p is not None), default=None),
+        priorities_max=max((float(p.max()) for _, p in inserts
+                            if p is not None), default=None))
+    print(json.dumps(row), flush=True)
+    del service
+    _service_clean("apex_service_r2d2_pong", out)
+    if out["grad_steps"] < APEX_R2D2_MIN_GRAD_STEPS:
+        _fail(f"apex_service_r2d2_pong: {out['grad_steps']} grad steps, "
+              f"want >= {APEX_R2D2_MIN_GRAD_STEPS}")
+    if not inserts or min(rows, cfg.replay.capacity) != out["replay_size"] \
+            or any(p is None or p.shape != (shape[0],)
+                   or not np.isfinite(p).all() or shape[1] != seq_len
+                   for shape, p in inserts):
+        _fail(f"apex_service_r2d2_pong: {len(inserts)} inserts of "
+              f"{rows} sequences, not each with finite act-time "
+              f"priorities at length {seq_len}")
+    if out["ingest_device_calls_per_pass"] != 1.0:
+        _fail(f"apex_service_r2d2_pong: "
+              f"{out['ingest_device_calls_per_pass']} act dispatches per "
+              "ingest pass, want 1.0")
+    if row["uses_kernel"] or launches != 0 \
+            or out["device_calls"].get("replay_sample") != out["grad_steps"]:
+        _fail(f"apex_service_r2d2_pong: {launches} kernel launches and "
+              f"{out['device_calls'].get('replay_sample')} plane draws for "
+              f"{out['grad_steps']} grad steps (want 0 and one each: the "
+              "plane is under the kernel's crossover)")
+    return launches
+
+
+def check_apex_service_remote_bootstrap(sampler) -> int:
+    """APEX_REMOTE_PATH: local and remote (TCP) actors feeding the
+    learner-side bootstrap. Holds one sampler launch per grad step, the
+    C++ assembler, bootstraps riding the fused act dispatches (a
+    standalone one only at the final forced flush), one act dispatch per
+    ingest pass, records from every remote id. Returns the launches."""
+    from dist_dqn_tpu_torch.actors.service import ApexRuntimeConfig
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    preset, overrides, total = APEX_REMOTE_PATH
+    local, remote, lanes = APEX_REMOTE_ACTORS
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    rt = ApexRuntimeConfig(host_env="pong", num_actors=local,
+                           num_remote_actors=remote, envs_per_actor=lanes,
+                           total_env_steps=total, device_sampling=True,
+                           actor_priorities=False,
+                           spawn_remote_actors=True)
+    service, out, launches = _run_service(sampler, cfg, rt)
+    calls = out["device_calls"]
+    act_calls = calls.get("act", 0) + calls.get("fused_act_bootstrap", 0)
+    remote_ids = [str(i) for i in range(local, local + remote)]
+    row = _service_row(
+        "apex_service_remote_bootstrap", service, out, launches,
+        local_actors=local, remote_actors=remote, envs_per_actor=lanes,
+        act_dispatches_per_pass=act_calls / max(out["ingest_passes"], 1),
+        tcp_address=list(service.tcp_address))
+    print(json.dumps(row), flush=True)
+    del service
+    _service_clean("apex_service_remote_bootstrap", out)
+    if out["grad_steps"] < APEX_REMOTE_MIN_GRAD_STEPS:
+        _fail(f"apex_service_remote_bootstrap: {out['grad_steps']} grad "
+              f"steps, want >= {APEX_REMOTE_MIN_GRAD_STEPS}")
+    if launches != out["grad_steps"]:
+        _fail(f"apex_service_remote_bootstrap: sampler kernel launched "
+              f"{launches} times for {out['grad_steps']} grad steps")
+    if out["assembler"] != "native":
+        _fail(f"apex_service_remote_bootstrap: the {out['assembler']} "
+              "assembler ran, want the native one")
+    if calls.get("fused_act_bootstrap", 0) == 0 \
+            or calls.get("bootstrap", 0) > 1:
+        _fail(f"apex_service_remote_bootstrap: device calls {calls}: the "
+              "bootstraps must ride the fused act dispatches")
+    if act_calls != out["ingest_passes"]:
+        _fail(f"apex_service_remote_bootstrap: {act_calls} act dispatches "
+              f"in {out['ingest_passes']} ingest passes, want one each")
+    if any(out["records_by_actor"].get(i, 0) == 0 for i in remote_ids):
+        _fail(f"apex_service_remote_bootstrap: records by actor "
+              f"{out['records_by_actor']}, want every remote id "
+              f"{remote_ids}")
+    return launches
+
+
+def check_apex_service_snapshot_synthstack(sampler, directory: str) -> int:
+    """APEX_SNAPSHOT_PATH: run 1 saves the learner and the replay shard;
+    run 2 restores both. Holds the restored item count, the restored
+    plane's mass bit for bit against the snapshot, run 2 training before
+    it inserted ``min_fill`` items of its own, one sampler launch per
+    grad step in both runs. Returns the launches of both."""
+    import dataclasses
+
+    import numpy as np
+
+    from dist_dqn_tpu_torch.actors.service import ApexRuntimeConfig
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+    from dist_dqn_tpu_torch.envs.gym_adapter import is_pixel_env
+
+    preset, overrides, first_total, second_total = APEX_SNAPSHOT_PATH
+    actors, lanes = APEX_SNAPSHOT_ACTORS
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    assert not is_pixel_env("synthstack")
+    # The MLP torso, as the train CLI swaps it in for a non-pixel host env.
+    cfg = dataclasses.replace(cfg, network=dataclasses.replace(
+        cfg.network, torso="mlp", compute_dtype="float32"))
+    ckpt_dir = os.path.join(directory, "checkpoint")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    rt = ApexRuntimeConfig(host_env="synthstack", num_actors=actors,
+                           envs_per_actor=lanes, total_env_steps=first_total,
+                           device_sampling=True, checkpoint_dir=ckpt_dir,
+                           checkpoint_replay=True,
+                           save_every_steps=first_total)
+    service, first, launches1 = _run_service(sampler, cfg, rt)
+    row1 = _service_row("apex_service_snapshot_synthstack_run1", service,
+                        first, launches1)
+    print(json.dumps(row1), flush=True)
+    del service
+    _service_clean("apex_service_snapshot_synthstack run 1", first)
+    snapshot = os.path.join(ckpt_dir, "replay_shard.npz")
+    with np.load(snapshot) as f:
+        saved_mass = f["mass"].copy()
+        saved_added = int(f["meta"][2])
+    restored = {}
+
+    def hook(service):
+        sampler_ = service.replay.device_sampler
+        sampler_._flush_writes()
+        plane = sampler_.plane.reshape(-1)[:cfg.replay.capacity]
+        restored["mass_equal"] = bool(np.array_equal(
+            plane.cpu().numpy(), saved_mass.astype(np.float32)))
+        restored["items"] = len(service.replay)
+        train = service._train_to_target
+
+        def first_train(*args, **kwargs):
+            restored.setdefault("added_at_first_train",
+                                service.replay.added)
+            return train(*args, **kwargs)
+        service._train_to_target = first_train
+
+    service, second, launches2 = _run_service(
+        sampler, cfg, dataclasses.replace(rt, total_env_steps=second_total),
+        hook)
+    new_at_first = restored.get("added_at_first_train", 0) - saved_added
+    row2 = _service_row("apex_service_snapshot_synthstack", service, second,
+                        launches2, run1=row1, snapshot_mb=os.path.getsize(
+                            snapshot) / 2**20,
+                        replay_snapshot=second["replay_snapshot"],
+                        restored_plane_mass_equal=restored["mass_equal"],
+                        inserted_before_first_train=new_at_first)
+    print(json.dumps(row2), flush=True)
+    del service
+    _service_clean("apex_service_snapshot_synthstack run 2", second)
+    snap = second["replay_snapshot"] or {}
+    if snap.get("replay_snapshot_restored_items") != first["replay_size"] \
+            or restored["items"] != first["replay_size"]:
+        _fail(f"apex_service_snapshot_synthstack: restored {snap}, want "
+              f"run 1's {first['replay_size']} items")
+    if not restored["mass_equal"]:
+        _fail("apex_service_snapshot_synthstack: the restored plane's mass "
+              "differs from the snapshot's")
+    if "added_at_first_train" not in restored \
+            or new_at_first >= cfg.replay.min_fill:
+        _fail(f"apex_service_snapshot_synthstack: run 2 inserted "
+              f"{new_at_first} items before it trained (min_fill "
+              f"{cfg.replay.min_fill}): it refilled instead of resuming "
+              "warm")
+    for n, (out, launches) in enumerate(((first, launches1),
+                                         (second, launches2)), 1):
+        if out["grad_steps"] == 0 or launches != out["grad_steps"]:
+            _fail(f"apex_service_snapshot_synthstack: run {n} launched the "
+                  f"sampler kernel {launches} times for "
+                  f"{out['grad_steps']} grad steps")
+    return launches1 + launches2
+
+
 def check_host_replay_uniform_pair(sampler, profile_dir: str) -> int:
     """HOST_REPLAY_PAIR twice, uniform: pipelined and prefetched, then the
     serial ``--no-pipeline --no-prefetch`` reference. Their final params
@@ -1309,7 +1639,9 @@ def check_host_replay_uniform_pair(sampler, profile_dir: str) -> int:
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
 HOST_REPLAY_PHASES = ("host_replay_apex_dedup", "host_replay_uniform_pair")
-APEX_SERVICE_PHASES = ("apex_service_pong",)
+APEX_SERVICE_PHASES = ("apex_service_pong", "apex_service_r2d2_pong",
+                       "apex_service_remote_bootstrap",
+                       "apex_service_snapshot_synthstack")
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
           "population_learner_lockstep", *HOST_REPLAY_PHASES,
@@ -1792,6 +2124,19 @@ def main(argv=None) -> int:
             launches["apex_service_pong"] = check_apex_service_pong(
                 sampler, os.path.join(tmp, "apex_service_pong"))
             _clock("apex_service_pong")
+        if "apex_service_r2d2_pong" in phases:
+            launches["apex_service_r2d2_pong"] = \
+                check_apex_service_r2d2_pong(sampler)
+            _clock("apex_service_r2d2_pong")
+        if "apex_service_remote_bootstrap" in phases:
+            launches["apex_service_remote_bootstrap"] = \
+                check_apex_service_remote_bootstrap(sampler)
+            _clock("apex_service_remote_bootstrap")
+        if "apex_service_snapshot_synthstack" in phases:
+            launches["apex_service_snapshot_synthstack"] = \
+                check_apex_service_snapshot_synthstack(
+                    sampler, os.path.join(tmp, "apex_service_snapshot"))
+            _clock("apex_service_snapshot_synthstack")
 
     for name in BAR_PHASES:
         if name in phases:

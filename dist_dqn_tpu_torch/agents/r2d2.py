@@ -118,7 +118,8 @@ def make_r2d2_learner(cfg: LearnerConfig, rcfg: ReplayConfig,
     return init, train_step
 
 
-def make_recurrent_actor_step(num_actions: int) -> Callable:
+def make_recurrent_actor_step(num_actions: int,
+                              return_q: bool = False) -> Callable:
     """Epsilon-greedy acting for the recurrent net, carry threaded by the
     caller.
 
@@ -126,17 +127,27 @@ def make_recurrent_actor_step(num_actions: int) -> Callable:
     int64)``. The caller zeroes the carry of envs whose episode ended
     before the next call (the fused loop does so right after the env
     step), so there are no reset flags here.
+
+    With ``return_q`` the step also yields ``(q_sel, q_max)`` [B] float32:
+    the Q-value of the action taken and the greedy value. The Ape-X
+    service records them per step, so fresh sequences enter replay with
+    inference-time TD priorities (``initial_sequence_priorities``).
     """
 
     @torch.no_grad()
     def act(net: nn.Module, carry, obs: torch.Tensor,
-            generator: Optional[torch.Generator], epsilon: float):
+            generator: Optional[torch.Generator], epsilon):
         carry, q = net(carry, obs)
         greedy = q.argmax(dim=-1)
         random_a = torch.randint(0, num_actions, greedy.shape,
                                  generator=generator, device=obs.device)
         explore = torch.rand(greedy.shape, generator=generator,
                              device=obs.device) < epsilon
-        return carry, torch.where(explore, random_a, greedy)
+        actions = torch.where(explore, random_a, greedy)
+        if not return_q:
+            return carry, actions
+        q32 = q.float()
+        q_sel = q32.gather(-1, actions[:, None])[:, 0]
+        return carry, actions, q_sel, q32.amax(dim=-1)
 
     return act

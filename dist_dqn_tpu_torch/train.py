@@ -50,18 +50,26 @@ fused runtime they print the JAX CLI's "ignored" lines.
 ``--runtime apex`` runs the Ape-X actor/learner split instead
 (actors/service.py): ``--num-actors`` actor processes step
 ``--envs-per-actor`` host envs each (``--host-env``: a gymnasium name such
-as CartPole-v1, ``pong``, ``breakout`` or ``synthstack``) and stream
-zero-copy records through shared memory to the learner service, which acts
-for them in one batched call per pass, seeds priorities from their q
-planes and trains from the host PER shard (``--device-sampling``: its
-priority plane on the card, drawn through the sampler kernel). A non-pixel
-host env swaps the config's torso for the MLP, as the JAX CLI does; the
-summary prints as JSON. ``--transport``, ``--no-wire-dedup`` and
-``--shm-batch`` are the JAX CLI's.
+as CartPole-v1, ``pong``, ``breakout`` or ``synthstack``) and stream their
+records through shared memory to the learner service, which acts for them
+in one batched call per pass and trains from the host PER shard
+(``--device-sampling``: its priority plane on the card, drawn through the
+sampler kernel). Insertion priorities come from the actors' q planes, or
+with ``--no-actor-priorities`` (or ``--transport legacy``) from the
+learner-side bootstrap on the card over the C++ n-step assembler. A
+recurrent config (``--config r2d2``) assembles sequences with the act's
+carries. ``--num-remote-actors`` adds TCP actors: spawned locally, or with
+``--remote-actor-mode external`` left for workers started with ``python -m
+dist_dqn_tpu_torch.actors.remote`` against ``--tcp-port``.
+``--checkpoint-replay`` with ``--checkpoint-dir`` snapshots the replay
+shard beside the learner checkpoint, and a resumed run starts from it warm.
+A non-pixel host env swaps the config's torso for the MLP, as the JAX CLI
+does; the summary prints as JSON. ``--no-wire-dedup`` and ``--shm-batch``
+are the JAX CLI's.
 
 Meshes, telemetry, and the options of the apex runtime that are not ported
-yet (remote actors, the legacy transport, several learner devices or
-replay shards) raise instead of being ignored.
+yet (feeders, several learner devices or replay shards) raise instead of
+being ignored.
 """
 from __future__ import annotations
 
@@ -558,7 +566,9 @@ def main(argv=None):
     parser.add_argument("--checkpoint-replay", action="store_true",
                         help="checkpoint the whole fused carry (ring, env "
                              "states, generators): the resumed run is "
-                             "bit-equal to an uninterrupted one")
+                             "bit-equal to an uninterrupted one; under "
+                             "--runtime apex, snapshot the replay shard "
+                             "beside the learner and resume it warm")
     parser.add_argument("--stop-at-return", type=float, default=None,
                         help="stop early once eval_return reaches this "
                              "value (e.g. 475 = CartPole solved)")
@@ -618,7 +628,8 @@ def main(argv=None):
                         help="apex runtime experience path: zerocopy = "
                              "schema-negotiated raw-array records through "
                              "shared-memory slot rings with actor-shipped "
-                             "priorities (legacy is not ported)")
+                             "priorities; legacy = the JSON-header codec "
+                             "with the learner-side bootstrap")
     parser.add_argument("--no-wire-dedup", action="store_true",
                         help="apex runtime: actors on frame-stacked pixel "
                              "envs ship full stacks instead of each frame "
@@ -627,16 +638,29 @@ def main(argv=None):
                         help="apex runtime: records per shared-memory slot "
                              "publish of feeder processes (only 1 is "
                              "ported: feeders are ROADMAP.md A8, item 4)")
+    parser.add_argument("--num-remote-actors", type=int, default=0,
+                        help="apex runtime: remote (TCP) actor slots")
+    parser.add_argument("--tcp-port", type=int, default=None,
+                        help="apex runtime: listen for remote actors "
+                             "(actors/remote.py) on this port on every "
+                             "interface; 0 = an ephemeral port. Without "
+                             "it, remote actors use an ephemeral loopback "
+                             "port (logged as tcp_address)")
+    parser.add_argument("--remote-actor-mode", choices=("local", "external"),
+                        default="local",
+                        help="local: the service spawns its remote actors "
+                             "as local processes; external: it waits for "
+                             "workers started with python -m "
+                             "dist_dqn_tpu_torch.actors.remote")
+    parser.add_argument("--no-actor-priorities", action="store_true",
+                        help="apex runtime: seed insertion priorities with "
+                             "the learner-side bootstrap on the card "
+                             "instead of the actors' q planes")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
     parser.add_argument("--mesh-devices", type=int, default=1)
     parser.add_argument("--telemetry-port", type=int, default=None)
-    parser.add_argument("--num-remote-actors", type=int, default=0)
-    parser.add_argument("--tcp-port", type=int, default=None)
-    parser.add_argument("--remote-actor-mode", choices=("local", "external"),
-                        default="local")
     parser.add_argument("--learner-devices", type=int, default=1)
-    parser.add_argument("--no-actor-priorities", action="store_true")
     parser.add_argument("--ingest-shards", type=int, default=1)
     parser.add_argument("--shard-sampling", action="store_true")
     args = parser.parse_args(argv)

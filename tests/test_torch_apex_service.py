@@ -5,8 +5,11 @@
   word for word, and builds the same ``ApexRuntimeConfig`` from the same
   flags (both services stubbed);
 * the service's constructor refusals carry the JAX service's text, and
-  every option this slice leaves out raises "not ported yet" naming its
-  ROADMAP.md item, before any shared-memory segment exists;
+  every option the port leaves out raises "not ported yet" naming its
+  ROADMAP.md item, before any shared-memory segment exists; the options
+  ported since (remote actors, the legacy wire, the learner-side
+  bootstrap, replay snapshots, a recurrent config) build their paths and
+  leave nothing behind;
 * a short end-to-end run on the CPU (one actor process) through the CLI,
   in a subprocess with a time limit, holds the JAX package's plumbing
   invariants (tests/test_apex_integration.py:34-44): steps flowed, the
@@ -151,13 +154,8 @@ def test_constructor_refusals_match_jax_word_for_word(case):
 
 
 _UNPORTED = {
-    "remote_actors": (dict(num_remote_actors=1), "A8, item 1"),
-    "tcp_port": (dict(tcp_port=0), "A8, item 1"),
-    "legacy": (dict(transport="legacy"), "A8, item 2"),
-    "bootstrap": (dict(actor_priorities=False), "A8, item 2"),
     "feeder": (dict(host_env="feeder:pixel"), "A8, item 4"),
     "shm_batch": (dict(shm_batch=4), "A8, item 4"),
-    "checkpoint_replay": (dict(checkpoint_replay=True), "A8, item 6"),
     "learner_devices": (dict(learner_devices=2), "A6"),
     "ingest_shards": (dict(ingest_shards=2), "A6"),
     "trace_path": (dict(trace_path="t.json"), "A10"),
@@ -178,11 +176,96 @@ def test_unported_options_raise_naming_their_item(case):
     assert set(os.listdir(shm_dir())) == before
 
 
-def test_recurrent_config_is_refused():
-    cfg = tconfig.CONFIGS["r2d2"]
-    with pytest.raises(NotImplementedError, match="A8, item 3"):
-        tservice.ApexLearnerService(cfg, tservice.ApexRuntimeConfig(),
-                                    device="cpu")
+_PORTED = {
+    "remote_actors": dict(num_remote_actors=1),
+    "tcp_port": dict(tcp_port=0),
+    "legacy": dict(transport="legacy"),
+    "bootstrap": dict(actor_priorities=False),
+    "checkpoint_replay": dict(checkpoint_replay=True),
+}
+
+
+@pytest.mark.parametrize("case", list(_PORTED))
+def test_ported_options_build_their_paths(case, tmp_path):
+    """The options ROADMAP.md A8 items 1, 2 and 6 refused until this slice
+    build the JAX service's paths (the same attributes on both), and a
+    shutdown leaves no segment and no listener thread behind."""
+    from dist_dqn_tpu import config as jconfig
+    from dist_dqn_tpu.actors.service import ApexLearnerService as JService
+    from dist_dqn_tpu.actors.service import ApexRuntimeConfig as JRt
+    kw = dict(_PORTED[case])
+    if case == "checkpoint_replay":
+        kw["checkpoint_dir"] = str(tmp_path / "ours")
+    ours = tservice.ApexLearnerService(
+        _tiny_cfg(), tservice.ApexRuntimeConfig(**kw), log_fn=lambda s: None,
+        device="cpu")
+    if case == "checkpoint_replay":
+        kw["checkpoint_dir"] = str(tmp_path / "theirs")
+    theirs = JService(jconfig.CONFIGS["cartpole"], JRt(**kw),
+                      log_fn=lambda s: None)
+    try:
+        assert ours.total_actors == theirs.total_actors
+        assert (ours.tcp_server is None) == (theirs.tcp_server is None)
+        if ours.tcp_server is not None:
+            assert ours.tcp_address[0] == theirs.tcp_address[0]
+            assert ours.tcp_address[1] > 0
+        assert bool(ours._zc_rings) == bool(theirs._zc_rings)
+        assert ours.actor_prio == (theirs._act_q is not None)
+        assert bool(ours._fused) == (theirs._fused is not None)
+        native = type(theirs.assemblers[0]).__name__ == "NativeNStepAssembler"
+        assert ours.assembler_kind == ("native" if native else "python")
+        assert [type(a).__name__ for a in ours.assemblers] == \
+            [type(a).__name__ for a in theirs.assemblers]
+        np.testing.assert_array_equal(ours.actor_eps, theirs.actor_eps)
+        if case == "checkpoint_replay":
+            assert ours._replay_snapshot_path().endswith(
+                os.path.join("ours", "replay_shard.npz"))
+            assert os.path.basename(ours._replay_snapshot_path()) == \
+                os.path.basename(theirs._replay_snapshot_path())
+    finally:
+        ours.shutdown()
+        theirs.shutdown()
+    # Other test workers share the shared-memory directory: look for this
+    # run's own names only.
+    assert not ours.run_dir.exists()
+    if os.path.isdir("/dev/shm"):
+        assert not [n for n in os.listdir("/dev/shm")
+                    if n.startswith(f"req_{ours.run_id}")]
+    if ours.tcp_server is not None:
+        threads = ours.tcp_server._threads + [ours.tcp_server._thread]
+        assert not any(t.is_alive() for t in threads)
+
+
+def test_recurrent_config_builds_the_sequence_path():
+    """A recurrent config (r2d2 at full width, on the numpy Pong) builds
+    the JAX service's sequence path: the sequence assembler at L = burn-in
+    + unroll + n, the stride, min_fill and the cadence in sequences, no
+    actor priorities and no bootstrap."""
+    from dist_dqn_tpu import config as jconfig
+    from dist_dqn_tpu.actors.service import ApexLearnerService as JService
+    from dist_dqn_tpu.actors.service import ApexRuntimeConfig as JRt
+
+    kw = dict(host_env="pong", num_actors=2, envs_per_actor=3)
+    ours = tservice.ApexLearnerService(
+        tconfig.CONFIGS["r2d2"], tservice.ApexRuntimeConfig(**kw),
+        log_fn=lambda s: None, device="cpu")
+    theirs = JService(jconfig.CONFIGS["r2d2"], JRt(**kw),
+                      log_fn=lambda s: None)
+    try:
+        assert ours.recurrent and theirs.recurrent
+        assert ours.seq_len == theirs.seq_len == 125
+        a, b = ours.assemblers[0], theirs.assemblers[0]
+        assert type(a).__name__ == type(b).__name__ == "SequenceAssembler"
+        assert (a.L, a.stride, len(a.lanes)) == (b.L, b.stride,
+                                                 len(b.lanes)) == (125, 40, 3)
+        assert ours._min_fill_items() == theirs._min_fill_items() == 128
+        assert ours._inserts_per_grad() == theirs._inserts_per_grad() == 1
+        assert not ours.actor_prio and theirs._act_q is None
+        assert ours._prio_fn is None and theirs._prio_fn is None
+        assert ours.replay_ratio == theirs.replay_ratio == 1
+    finally:
+        ours.shutdown()
+        theirs.shutdown()
 
 
 class _LockstepActor:
@@ -455,6 +538,7 @@ def test_apex_cli_runs_end_to_end_on_the_cpu(env_name, tmp_path):
 
 
 _ACTOR_SIDE = ("dist_dqn_tpu_torch.actors.actor",
+               "dist_dqn_tpu_torch.actors.remote",
                "dist_dqn_tpu_torch.actors.assembler",
                "dist_dqn_tpu_torch.actors.act_dispatch",
                "dist_dqn_tpu_torch.actors.transport",

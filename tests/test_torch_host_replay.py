@@ -390,4 +390,4 @@ def test_cli_host_replay_runs_and_needs_a_device(capsys, monkeypatch):
         main(argv)
     with pytest.raises(SystemExit, match="not ported yet"):
         main(["--config", "cartpole", "--runtime", "apex", "--device",
-              "cpu", "--num-remote-actors", "1"])
+              "cpu", "--learner-devices", "2"])

@@ -36,6 +36,17 @@ slice9 = {"dist_dqn_tpu_torch." + m for m in (
     "ingest.schema", "ingest.router", "ingest.shm_ring", "envs.gym_adapter",
     "envs.host_pong", "envs.host_breakout", "utils.host_eval", "utils.pow2")}
 assert slice9 <= set(names), sorted(slice9 - set(names))
+slice10 = {"dist_dqn_tpu_torch." + m for m in (
+    "actors.remote", "replay.sharded")}
+assert slice10 <= set(names), sorted(slice10 - set(names))
+from dist_dqn_tpu_torch.actors.actor import run_remote_actor
+from dist_dqn_tpu_torch.actors.assembler import (NativeNStepAssembler,
+                                                 SequenceAssembler,
+                                                 initial_sequence_priorities)
+from dist_dqn_tpu_torch.actors.remote import main as remote_main
+from dist_dqn_tpu_torch.actors.transport import (TcpRecordClient,
+                                                 TcpRecordServer)
+from dist_dqn_tpu_torch.replay.sharded import restore_replay_snapshot
 from dist_dqn_tpu_torch.actors.service import (ApexLearnerService,
                                                ApexRuntimeConfig, run_apex)
 from dist_dqn_tpu_torch.actors.actor import run_actor

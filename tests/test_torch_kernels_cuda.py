@@ -446,3 +446,44 @@ def test_device_priority_sampler_sample_is_one_launch_in_range(cuda):
         draws.append(np.stack(picks))
         assert sampler.draw_dispatches == 20
     np.testing.assert_array_equal(draws[0], draws[1])
+
+
+@pytest.mark.cuda
+def test_kernel_draw_on_a_restored_plane(cuda):
+    """A replay snapshot of apex's 1M slots (30,000 written, priorities
+    updated, as a service run saves it) restored into a fresh store on the
+    card through ``replay/sharded.py restore_replay_snapshot``: the plane
+    holds the snapshot's mass bit for bit, and the kernel's draw on it at
+    explicit uniforms equals the plain version's on the same plane."""
+    from dist_dqn_tpu_torch.replay.host import PrioritizedHostReplay
+    from dist_dqn_tpu_torch.replay.sharded import restore_replay_snapshot
+
+    rng = np.random.default_rng(14)
+    capacity, size = 1_000_000, 30_000
+    src = PrioritizedHostReplay(capacity, sampler="device",
+                                sampler_device=cuda)
+    src.add({"x": np.arange(size, dtype=np.int64)},
+            priorities=rng.uniform(0.05, 4.0, size))
+    idx = rng.integers(0, size, 4096)
+    src.update_priorities(idx, rng.uniform(0.0, 6.0, 4096),
+                          expected_gen=src.generation(idx))
+    state = src.state_dict()
+    dst = PrioritizedHostReplay(capacity, sampler="device",
+                                sampler_device=cuda)
+    info = restore_replay_snapshot(dst, state)
+    assert info["records"] == size and not info["resharded"]
+    sampler = dst.device_sampler
+    sampler._flush_writes()
+    plane = sampler.plane
+    assert tuple(plane.shape) == (HOST_T, HOST_B) and sampler.use_kernel
+    np.testing.assert_array_equal(
+        plane.reshape(-1)[:capacity].cpu().numpy(),
+        state["mass"].astype(np.float32))
+    u = torch.from_numpy(((np.arange(512) + rng.uniform(size=512)) / 512)
+                         .astype(np.float32)).to(cuda)
+    before = tps.kernel_stratified_sample.launches
+    got = tps.kernel_stratified_sample(plane, u)
+    assert tps.kernel_stratified_sample.launches == before + 1
+    _assert_same_draw(got, tps.plain_stratified_sample(plane, u))
+    flat = got[0].long() * HOST_B + got[1].long()
+    assert int(flat.max()) < size and bool((got[2] > 0).all())
