@@ -152,7 +152,33 @@ them or outside a checkout of the repository. Phases, each fatal:
      ``replay_size``, the restored plane's mass equal to the snapshot's
      bit for bit, run 2 training before it inserted ``min_fill`` items of
      its own, and one sampler launch per grad step in both runs.
-11. population_learner_lockstep: the cartpole learner at its preset width
+11. Feeders in place of the actors (actors/feeder.py: processes replaying
+   pre-encoded records as fast as the rings take them), at apex's full
+   width (the 1M shard, training from 20,000 transitions), 2 feeders of 8
+   lanes:
+   * apex_service_feeder_pixel: ``--host-env feeder:pixel --transport
+     zerocopy --shm-batch 8 --device-sampling`` to 80,000 env steps, actor
+     priorities from the pool's q planes, the plane ``[1954, 512]``. Holds
+     one sampler launch per grad step, one act dispatch per ingest pass,
+     no torn, bad or undecodable record, no restart, a finite loss; prints
+     records/s, env steps/s, grad steps/s in training, host RSS, peak
+     device memory and the busy share of the first train event; saves
+     the learner at its end;
+   * apex_service_feeder_legacy_tree: the same with ``--transport legacy``
+     (one record per publish into the request ring, the learner-side
+     bootstrap over the C++ assembler) from 16,000 transitions to 64,000
+     env steps, drawing from the host sum-tree: the ``NativeSumTree``, no
+     kernel launch, one tree draw per grad step; the request ring's
+     refused pushes (the feeders' backpressure, retried) are printed.
+     Both feeder phases print the service thread's seconds by part of
+     its loop (ring drain, act, bootstrap, grad steps, idle);
+   * evaluate_fake_ale: with ``DQN_FAKE_ALE=1``, the evaluate CLI plays the
+     pixel phase's checkpoint on the fake ALE's Pong (``--host-env
+     ale:Pong``, 2 whole games): a finite return in [-21, 21]; then
+     ``atari57 --mode eval --games Pong`` over a root holding it as
+     ``Pong/`` prints the HNS rollup from the shipped table. No sampler
+     launch.
+12. population_learner_lockstep: the cartpole learner at its preset width
    as a population of two (own learning rates) and as two solo learners,
    on the same batches for 100 grad steps: params within rtol 1e-5, atol
    1e-6. Then a 4,000-frame two-member fused run beside the two solo runs
@@ -263,6 +289,33 @@ APEX_REMOTE_MIN_GRAD_STEPS = 250
 # and at the end), run 2 resumed to 52,000.
 APEX_SNAPSHOT_PATH = ("apex", ["replay.min_fill=20000"], 40_000, 52_000)
 APEX_SNAPSHOT_ACTORS = (8, 8)
+# Feeders in place of actors (actors/feeder.py): the service's ceiling once
+# env stepping is gone. apex's full width (Nature CNN, bf16, batch 512, the
+# 1M shard; with --device-sampling its plane [1954, 512], S = 512), 2 feeder
+# processes of 8 lanes (benchmarks/apex_feeder_bench.py's layout), training
+# from 20,000 transitions (the preset's 50,000: a depth cut). The zero-copy
+# phase publishes 8 records per slot (that bench's shm batch); the legacy
+# phase (the JSON codec, the learner-side bootstrap over the C++
+# assembler, the host tree: legacy refuses --device-sampling) one. Feeders
+# keep the rings full, so an ingest pass drains its whole burst of 256
+# records per ring (zero-copy: about 3,600 env steps a pass, 0.7-1.2 s of
+# host time at pixel width; PERF.md §5) and trains at most
+# train_steps_per_pass (4) grad steps: from 20,000 to 80,000 env steps
+# 16 passes and 64 grad steps (PERF.md §6). The legacy request ring (64 MB)
+# gives about 240 records of 0.45 MB a pass (1,700-1,900 env steps): from
+# 16,000 to 64,000 about 26 passes and 100 grad steps. Each phase is held
+# to a grad-step bar near what it reaches.
+APEX_FEEDER_PATH = ("apex", ["replay.min_fill=20000", "eval_every_steps=0"])
+APEX_FEEDER_PIXEL_TOTAL = 80_000
+APEX_FEEDER_PIXEL_MIN_GRAD_STEPS = 50
+APEX_FEEDER_LEGACY = (16_000, 64_000)
+APEX_FEEDER_LEGACY_MIN_GRAD_STEPS = 80
+APEX_FEEDER_ACTORS = (2, 8)
+APEX_FEEDER_SHM_BATCH = 8
+# evaluate_fake_ale: the feeder phase's checkpoint played on the fake ALE's
+# Pong (DQN_FAKE_ALE=1) by the evaluate CLI and by atari57 --mode eval,
+# FAKE_ALE_EPISODES whole games each.
+FAKE_ALE_EPISODES = 2
 # The uniform pair: the same net, batch and ring in chunks of 25
 # iterations (400 frames), filled at 800 frames, then four chunks of 25
 # grad steps each. The pipelined leg traces chunk 1, the first that trains
@@ -305,6 +358,9 @@ APEX_RESUMED_TOTAL = 56_000
 R2D2_STOP = 3_200
 RISK_ETAS = (1.0, 0.25)
 TIMING_ITERS = 200
+# Idle seconds after a counted torch.profiler session opens and before it
+# closes (see _profile_device).
+PROFILE_SETTLE_S = 0.05
 
 
 def _fail(msg: str) -> None:
@@ -381,11 +437,16 @@ def _profile_device(fn, calls: int) -> dict:
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
+        # Room for the profiler's clock error at both ends of its window:
+        # a kernel launched right after the session opens can be stamped
+        # before it and dropped (ROADMAP.md C7).
+        time.sleep(PROFILE_SETTLE_S)
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(PROFILE_SETTLE_S)
     return {"events": len(_device_spans(prof)), "busy_s": _busy_seconds(prof),
             "wall_s": wall}
 
@@ -1329,7 +1390,9 @@ def _service_row(name: str, service, out: dict, launches: int,
                 "actor_priorities", "replay_size", "records_by_actor",
                 "ingest_bytes", "episodes_completed",
                 "episode_return_recent", "loss")},
-            "plane_shape": list(service.replay.device_sampler.plane.shape),
+            "plane_shape": (
+                list(service.replay.device_sampler.plane.shape)
+                if service.replay.device_sampler is not None else None),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             **_host_rss_gb(), **extra}
 
@@ -1580,6 +1643,203 @@ def check_apex_service_snapshot_synthstack(sampler, directory: str) -> int:
     return launches1 + launches2
 
 
+def _feeder_records(out: dict) -> dict:
+    """Records and rates of a feeder run: records ingested, records and
+    env steps per second of the whole run, records and host seconds per
+    ingest pass, and the service thread's seconds by part of its loop:
+    ``ingest_s_per_pass`` (ring drain, act and bootstrap with their
+    inserts) over every pass, ``train_s_per_training_pass`` and
+    ``train_s_per_grad_step`` (sample, gather, dispatch and the priority
+    write-back) over the passes that trained."""
+    records = sum(out["records_by_actor"].values())
+    passes = max(out["ingest_passes"], 1)
+    loop_s = out["loop_s"]
+    ingest_s = loop_s["drain"] + loop_s["act"] + loop_s["bootstrap"]
+    return {"records": records, "records_per_sec": records / out["run_s"],
+            "env_steps_per_sec": out["env_steps"] / out["run_s"],
+            "records_per_pass": records / passes,
+            "seconds_per_pass": out["run_s"] / passes,
+            "loop_s": loop_s, "train_passes": out["train_passes"],
+            "ingest_s_per_pass": ingest_s / passes,
+            "train_s_per_training_pass":
+                loop_s["train"] / max(out["train_passes"], 1),
+            "train_s_per_grad_step":
+                loop_s["train"] / max(out["grad_steps"], 1),
+            "train_share_of_loop": loop_s["train"] / max(
+                sum(loop_s.values()), 1e-9)}
+
+
+def check_apex_service_feeder_pixel(sampler, directory: str) -> int:
+    """APEX_FEEDER_PATH with ``feeder:pixel`` on the zero-copy slot rings,
+    APEX_FEEDER_SHM_BATCH records per slot publish, actor priorities from
+    the pool's q planes and the plane [1954, 512] drawn through the
+    sampler kernel. Holds at least APEX_FEEDER_PIXEL_MIN_GRAD_STEPS grad
+    steps,
+    one sampler launch per grad step, one act dispatch per ingest pass, no
+    torn, bad or undecodable record and no restart, a finite loss; prints
+    the record and env-step rates, grad steps/s in training, host RSS,
+    peak device memory and the device's busy share over the first train
+    event (torch.profiler); saves the learner at the end into
+    ``directory/checkpoint``. Returns the launches."""
+    from dist_dqn_tpu_torch.actors.service import ApexRuntimeConfig
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    preset, overrides = APEX_FEEDER_PATH
+    feeders, lanes = APEX_FEEDER_ACTORS
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    rt = ApexRuntimeConfig(host_env="feeder:pixel", num_actors=feeders,
+                           envs_per_actor=lanes,
+                           total_env_steps=APEX_FEEDER_PIXEL_TOTAL,
+                           device_sampling=True, transport="zerocopy",
+                           shm_batch=APEX_FEEDER_SHM_BATCH,
+                           checkpoint_dir=os.path.join(directory,
+                                                       "checkpoint"),
+                           save_every_steps=APEX_FEEDER_PIXEL_TOTAL,
+                           profile_dir=os.path.join(directory, "profile"))
+    slots = {}
+    service, out, launches = _run_service(
+        sampler, cfg, rt, lambda svc: slots.update(
+            bytes=svc._zc_rings[0].slot_size))
+    name = "apex_service_feeder_pixel"
+    profile = service.profile_row or {}
+    row = _service_row(name, service, out, launches, feeders=feeders,
+                       envs_per_actor=lanes, shm_batch=out["shm_batch"],
+                       slot_bytes=slots["bytes"], **_feeder_records(out),
+                       traced_train_event={k: profile.get(k) for k in (
+                           "profile_wall_s", "device_busy_s",
+                           "device_busy_share", "device_events")})
+    print(json.dumps(row), flush=True)
+    del service
+    _service_clean(name, out)
+    if out["grad_steps"] < APEX_FEEDER_PIXEL_MIN_GRAD_STEPS:
+        _fail(f"{name}: {out['grad_steps']} grad steps, want >= "
+              f"{APEX_FEEDER_PIXEL_MIN_GRAD_STEPS}")
+    if launches != out["grad_steps"]:
+        _fail(f"{name}: sampler kernel launched {launches} times for "
+              f"{out['grad_steps']} grad steps")
+    if row["plane_shape"] != [1954, 512]:
+        _fail(f"{name}: plane {row['plane_shape']}, want [1954, 512]")
+    if out["ingest_device_calls_per_pass"] != 1.0 \
+            or not out["actor_priorities"]:
+        _fail(f"{name}: {out['ingest_device_calls_per_pass']} act "
+              "dispatches per ingest pass (want 1.0), actor priorities "
+              f"{out['actor_priorities']}")
+    return launches
+
+
+def check_apex_service_feeder_legacy_tree(sampler) -> int:
+    """APEX_FEEDER_PATH with ``feeder:pixel`` on the legacy wire (one
+    record per publish into the shared request ring), the learner-side
+    bootstrap over the C++ assembler, and draws from the host sum-tree,
+    which must be the native one. Holds no kernel launch and one tree draw
+    per grad step, the native assembler, the record checks of the pixel
+    phase and at least APEX_FEEDER_LEGACY_MIN_GRAD_STEPS grad steps.
+    Ring-full retries (``ring_dropped``: pushes the full request ring
+    refused, and the feeder retried) are printed, not held. Returns the
+    launches (0)."""
+    from dist_dqn_tpu_torch.actors.service import ApexRuntimeConfig
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    preset, overrides = APEX_FEEDER_PATH
+    fill, total = APEX_FEEDER_LEGACY
+    feeders, lanes = APEX_FEEDER_ACTORS
+    cfg = apply_overrides(CONFIGS[preset],
+                          [*overrides, f"replay.min_fill={fill}"])
+    rt = ApexRuntimeConfig(host_env="feeder:pixel", num_actors=feeders,
+                           envs_per_actor=lanes, total_env_steps=total,
+                           transport="legacy", shm_batch=1)
+    service, out, launches = _run_service(sampler, cfg, rt)
+    name = "apex_service_feeder_legacy_tree"
+    backend = type(service.replay.tree).__name__
+    draws = service.replay.sampled // service.train_batch
+    row = _service_row(name, service, out, launches, feeders=feeders,
+                       envs_per_actor=lanes, tree_backend=backend,
+                       tree_draws=draws,
+                       ring_full_retries=out["ring_dropped"],
+                       **_feeder_records(out))
+    print(json.dumps(row), flush=True)
+    del service
+    # The request ring's refused pushes are the feeders' backpressure here,
+    # retried and not lost: every other loss count is held at zero.
+    _service_clean(name, {**out, "ring_dropped": 0})
+    if backend != "NativeSumTree":
+        _fail(f"{name}: the store draws from {backend}, want NativeSumTree")
+    if out["grad_steps"] < APEX_FEEDER_LEGACY_MIN_GRAD_STEPS:
+        _fail(f"{name}: {out['grad_steps']} grad steps, want >= "
+              f"{APEX_FEEDER_LEGACY_MIN_GRAD_STEPS}")
+    if launches != 0 or draws != out["grad_steps"]:
+        _fail(f"{name}: {launches} kernel launches and {draws} tree draws "
+              f"for {out['grad_steps']} grad steps (want 0 and one each)")
+    if out["assembler"] != "native" or out["actor_priorities"]:
+        _fail(f"{name}: the {out['assembler']} assembler with actor "
+              f"priorities {out['actor_priorities']}, want the native one "
+              "and the learner-side bootstrap")
+    return launches
+
+
+def check_evaluate_fake_ale(sampler, feeder_dir: str, directory: str) -> int:
+    """The feeder phase's learner checkpoint (6 actions, as ale:Pong has)
+    played with ``DQN_FAKE_ALE=1`` on the fake ALE's Pong: by the evaluate
+    CLI (``--host-env ale:Pong``), which must return a finite return in
+    [-21, 21], then by ``atari57 --mode eval --games Pong`` over a root
+    holding it as ``Pong/``, which prints the HNS rollup from the shipped
+    table. Greedy play draws from no replay, so the sampler kernel's
+    count, zeroed just before the two calls, must read 0 after them;
+    returns it."""
+    import contextlib
+    import io
+
+    from dist_dqn_tpu_torch import atari57, evaluate
+
+    preset, overrides = APEX_FEEDER_PATH
+    ckpt = os.path.join(feeder_dir, "checkpoint")
+    sets = [a for o in overrides for a in ("--set", o)]
+    common = ["--config", preset, "--episodes", str(FAKE_ALE_EPISODES),
+              "--device", DEVICE, *sets]
+    root = os.path.join(directory, "atari57_root")
+    os.makedirs(root, exist_ok=True)
+    os.symlink(ckpt, os.path.join(root, "Pong"))
+    before = os.environ.get("DQN_FAKE_ALE")
+    os.environ["DQN_FAKE_ALE"] = "1"
+    sampler.kernel_stratified_sample.launches = 0
+    try:
+        out = {}
+        for tool, argv in (
+                ("evaluate", ["--checkpoint-dir", ckpt, "--host-env",
+                              "ale:Pong", *common]),
+                ("atari57", ["--mode", "eval", "--games", "Pong",
+                             "--checkpoint-root", root, *common])):
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                (evaluate if tool == "evaluate" else atari57).main(argv)
+            out[tool] = json.loads(text.getvalue().strip().splitlines()[-1])
+            out[f"{tool}_s"] = time.perf_counter() - t0
+    finally:
+        if before is None:
+            os.environ.pop("DQN_FAKE_ALE", None)
+        else:
+            os.environ["DQN_FAKE_ALE"] = before
+    launches = sampler.kernel_stratified_sample.launches
+    out["sampler_launches"] = launches
+    print(json.dumps({"evaluate_fake_ale": out}), flush=True)
+    if launches != 0:
+        _fail(f"evaluate_fake_ale: the sampler kernel launched {launches} "
+              "times in greedy play, want 0")
+    ret = out["evaluate"].get("eval_return")
+    if out["evaluate"].get("host_env") != "ale:Pong" or ret is None \
+            or not math.isfinite(ret) or not -21.0 <= ret <= 21.0:
+        _fail(f"evaluate_fake_ale: evaluate --host-env ale:Pong returned "
+              f"{out['evaluate']}")
+    hns = out["atari57"].get("hns", {})
+    if out["atari57"].get("games_evaluated") != 1 \
+            or "Pong" not in hns.get("per_game", {}) \
+            or not math.isfinite(hns.get("median_hns", math.nan)):
+        _fail(f"evaluate_fake_ale: atari57 --mode eval rolled up "
+              f"{out['atari57']}")
+    return launches
+
+
 def check_host_replay_uniform_pair(sampler, profile_dir: str) -> int:
     """HOST_REPLAY_PAIR twice, uniform: pipelined and prefetched, then the
     serial ``--no-pipeline --no-prefetch`` reference. Their final params
@@ -1641,7 +1901,9 @@ BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
 HOST_REPLAY_PHASES = ("host_replay_apex_dedup", "host_replay_uniform_pair")
 APEX_SERVICE_PHASES = ("apex_service_pong", "apex_service_r2d2_pong",
                        "apex_service_remote_bootstrap",
-                       "apex_service_snapshot_synthstack")
+                       "apex_service_snapshot_synthstack",
+                       "apex_service_feeder_pixel",
+                       "apex_service_feeder_legacy_tree", "evaluate_fake_ale")
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
           "population_learner_lockstep", *HOST_REPLAY_PHASES,
@@ -2137,6 +2399,21 @@ def main(argv=None) -> int:
                 check_apex_service_snapshot_synthstack(
                     sampler, os.path.join(tmp, "apex_service_snapshot"))
             _clock("apex_service_snapshot_synthstack")
+        # evaluate_fake_ale plays the pixel feeder phase's checkpoint, so
+        # selecting it runs that phase too.
+        feeder_dir = os.path.join(tmp, "apex_service_feeder_pixel")
+        if {"apex_service_feeder_pixel", "evaluate_fake_ale"} & set(phases):
+            launches["apex_service_feeder_pixel"] = \
+                check_apex_service_feeder_pixel(sampler, feeder_dir)
+            _clock("apex_service_feeder_pixel")
+        if "apex_service_feeder_legacy_tree" in phases:
+            launches["apex_service_feeder_legacy_tree"] = \
+                check_apex_service_feeder_legacy_tree(sampler)
+            _clock("apex_service_feeder_legacy_tree")
+        if "evaluate_fake_ale" in phases:
+            launches["evaluate_fake_ale"] = check_evaluate_fake_ale(
+                sampler, feeder_dir, os.path.join(tmp, "evaluate_fake_ale"))
+            _clock("evaluate_fake_ale")
 
     for name in BAR_PHASES:
         if name in phases:

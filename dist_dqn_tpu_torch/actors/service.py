@@ -27,9 +27,11 @@ in one loop,
     checkpoint and resumes with it warm.
 
 Actor processes (``actors/actor.py``) start with the ``spawn`` method and
-import no torch. Options of the JAX service this slice leaves out (feeders
-and batched slot publishes, several learner devices or replay shards,
-tracing and telemetry) raise "not ported yet" naming their ROADMAP.md item.
+import no torch; a ``feeder:`` host env spawns feeder processes
+(``actors/feeder.py``) in their place, which pump pre-encoded records,
+``shm_batch`` to a slot publish. Options of the JAX service this port leaves
+out (several learner devices or replay shards, tracing and telemetry) raise
+"not ported yet" naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -63,6 +65,12 @@ from dist_dqn_tpu_torch.utils.device import resolve_device
 # it goes out in _PRIO_CHUNK pieces, the JAX service's split baseline.
 _PRIO_CHUNK = 256
 _PRIO_MAX_ROWS = 2048
+# The parts of one service-loop pass that the summary's loop_s times: the
+# slot and request rings read, the batched act with the actor-priority
+# inserts, the learner-side bootstrap with its inserts, the grad steps with
+# their priority write-back, the stop and export of the first train event's
+# trace (profile_dir only), and the sleep of a pass that found no record.
+LOOP_PARTS = ("drain", "act", "bootstrap", "train", "trace", "idle")
 
 
 @dataclasses.dataclass
@@ -129,8 +137,8 @@ class ApexRuntimeConfig:
     transport: str = "zerocopy"
     # Frame-stack dedup on the wire for frame-stacked pixel envs.
     wire_dedup: bool = True
-    # Records per shared-memory slot publish of feeder processes; only 1
-    # (rollout actors publish one record per slot) is ported.
+    # Records per shared-memory slot publish of feeder processes (rollout
+    # actors are lock-step and publish one record per slot).
     shm_batch: int = 1
     # Ingest-side per-shard sampling (not ported yet).
     shard_sampling: bool = False
@@ -199,12 +207,6 @@ def _refuse(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn) -> None:
         raise ValueError(f"unknown transport {rt.transport!r} "
                          f"(expected 'zerocopy' or 'legacy')")
     # What the port leaves out, in ROADMAP.md's order.
-    if rt.host_env.startswith("feeder:"):
-        raise _not_ported(f"the feeder host env {rt.host_env!r}",
-                          "A8, item 4")
-    if rt.shm_batch != 1:
-        raise _not_ported(f"shm_batch={rt.shm_batch} (batched slot "
-                          "publishes of the feeders)", "A8, item 4")
     if rt.learner_devices != 1:
         raise _not_ported(f"learner_devices={rt.learner_devices}", "A6")
     if rt.ingest_shards > 1 or rt.shard_sampling:
@@ -377,8 +379,9 @@ class ApexLearnerService:
         slot = 0
         if rt.transport == "zerocopy":
             # A slot fits the larger of a step record and the hello
-            # ([lanes, obs] plus its JSON header), and the dedup worst case
-            # where the env stacks frames.
+            # ([lanes, obs] plus its JSON header), the dedup worst case
+            # where the env stacks frames, and shm_batch records of a
+            # batching feeder.
             schema = ingest.step_schema(obs_example.shape, obs_example.dtype,
                                         rt.envs_per_actor)
             slot = max(ingest.max_record_bytes(schema),
@@ -389,6 +392,9 @@ class ApexLearnerService:
                         schema, self._probe_frame_stack))
                 except ValueError:
                     pass    # the obs layout does not carry the stack
+            if rt.shm_batch > 1:
+                from dist_dqn_tpu_torch.ingest.shm_ring import batch_bytes
+                slot = max(slot, batch_bytes([slot] * rt.shm_batch))
 
         # The network, the learner and the assembly of this config.
         self.net = build_network(cfg.network, self.num_actions,
@@ -519,6 +525,10 @@ class ApexLearnerService:
         # Wall clock marks of the summary: the run, the first train event.
         self._t_run = self._t_end = None
         self._t_first_train = None
+        # Host seconds of the service thread by part of the loop, and the
+        # passes that took a grad step (the summary's loop_s, train_passes).
+        self.loop_s = dict.fromkeys(LOOP_PARTS, 0.0)
+        self.train_passes = 0
         self._eval_env = None
         self._eval_gen = None
         self._next_eval = rt.eval_every_steps or float("inf")
@@ -658,11 +668,19 @@ class ApexLearnerService:
         if actor_id < self.rt.num_actors:
             # A zero-copy actor attaches its slot ring, POSIX shared memory
             # named "{req}_zc_{id}"; a legacy one the shared request ring
-            # in the run's directory.
+            # in the run's directory. A feeder: host env spawns the feeder
+            # in the actor's place, with the same arguments; feeders take
+            # the slot batching, actors the dedup switch.
             req = (f"req_{self.run_id}" if self.rt.transport == "zerocopy"
                    else f"{self.run_id}/req")
+            target = run_actor
+            if self.rt.host_env.startswith("feeder:"):
+                from dist_dqn_tpu_torch.actors.feeder import run_feeder
+                target = run_feeder
+                kwargs = {"transport": self.rt.transport,
+                          "shm_batch": self.rt.shm_batch}
             return _spawn_process(
-                run_actor,
+                target,
                 (actor_id, self.rt.host_env, self.rt.envs_per_actor,
                  1000 + 7 * actor_id, req, f"{self.run_id}/act_{actor_id}",
                  self.stop_path), kwargs)
@@ -1405,10 +1423,12 @@ class ApexLearnerService:
         from dist_dqn_tpu_torch.train import _write_profile
 
         prof, self._profiler = self._profiler, None
+        t0 = time.perf_counter()
         prof.stop()
         self.profile_row = _write_profile(
             prof, self.rt.profile_dir, time.perf_counter() - self._profile_t0,
             self.device.type == "cuda")
+        self.loop_s["trace"] += time.perf_counter() - t0
         self.log.log_fn(json.dumps(self.profile_row))
 
     def _finalize_train(self) -> None:
@@ -1496,12 +1516,24 @@ class ApexLearnerService:
             self.spawn_actors()
             self._t_run = self._last_record = time.perf_counter()
             last_log = time.perf_counter()
+            clock, loop_s = time.perf_counter, self.loop_s
             while self.env_steps < self.rt.total_env_steps:
+                t0 = clock()
                 drained = self._drain_transports()
+                t1 = clock()
                 self._flush_act_queue()
                 self._insert_actor_prio()
+                t2 = clock()
                 self._flush_pending()
+                t3 = clock()
+                grad_steps, trace_s = self.grad_steps, loop_s["trace"]
                 self._maybe_train()
+                t4 = clock()
+                loop_s["drain"] += t1 - t0
+                loop_s["act"] += t2 - t1
+                loop_s["bootstrap"] += t3 - t2
+                loop_s["train"] += t4 - t3 - (loop_s["trace"] - trace_s)
+                self.train_passes += self.grad_steps > grad_steps
                 if self._ckpt is not None \
                         and self._ckpt.maybe_save(self.env_steps, self.state):
                     self._save_replay_snapshot()
@@ -1515,6 +1547,7 @@ class ApexLearnerService:
                     last_log = time.perf_counter()
                 if not drained:
                     time.sleep(0.0002)
+                    loop_s["idle"] += clock() - t4
                 now = time.perf_counter()
                 if now - last_log > self.rt.log_every_s:
                     self.supervise_actors()
@@ -1607,8 +1640,10 @@ class ApexLearnerService:
                 # The port's additions: the assembler that ran, the TCP
                 # listener's loss counts, rejected hellos, records per
                 # actor, the replay snapshot restored at start, the last
-                # retired loss, and the wall of the run and of its
-                # training part (from the first train event to the end).
+                # retired loss, the wall of the run and of its training
+                # part (from the first train event to the end), the
+                # thread's seconds by part of the loop and the passes
+                # that trained.
                 "assembler": self.assembler_kind,
                 "tcp_corrupt_frames": (tcp.corrupt_frames
                                        if tcp is not None else 0),
@@ -1623,7 +1658,9 @@ class ApexLearnerService:
                           if self._t_end is not None else None),
                 "train_s": (self._t_end - self._t_first_train
                             if self._t_end is not None
-                            and self._t_first_train is not None else None)}
+                            and self._t_first_train is not None else None),
+                "loop_s": dict(self.loop_s),
+                "train_passes": self.train_passes}
 
 
 def run_apex(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn=print,

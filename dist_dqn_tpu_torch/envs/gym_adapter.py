@@ -5,8 +5,10 @@ pipeline, and the numpy pixel games.
 The batched envs of this package run on the card inside the fused loop;
 these are what the actor processes step on the host: ``"CartPole-v1"``
 and other gymnasium names (gymnasium is imported only for them), ALE Atari
-when ``ale-py`` is present, ``"pong"`` / ``"breakout"`` (the numpy twins of
-the pixel games) and ``"synthstack"``.
+when ``ale-py`` is present or, with ``DQN_FAKE_ALE=1``, the in-repo fake
+(``envs/fake_ale.py``), DM-Control pixels (``envs/dmc_adapter.py``),
+``"pong"`` / ``"breakout"`` (the numpy twins of the pixel games),
+``"synthstack"`` and the feeder specs (``actors/feeder.py``).
 
 Atari preprocessing follows the Nature/ALE recipe: frame-skip with 2-frame
 max-pooling, grayscale, 84x84 resize, 4-frame stacking, reward clipping, in
@@ -266,7 +268,8 @@ class SynthStackedEnv:
 
 
 # The ale: factory override: a callable game_name -> raw ALE-style env,
-# used instead of gymnasium.make when set.
+# used instead of gymnasium.make when set (or when DQN_FAKE_ALE=1 selects
+# the in-repo fake).
 _ale_factory = None
 
 
@@ -287,9 +290,9 @@ def _resolve_ale_factory():
     import os
 
     if os.environ.get("DQN_FAKE_ALE") == "1":
-        raise NotImplementedError(
-            "DQN_FAKE_ALE=1: the in-repo fake ALE (envs/fake_ale.py) is not "
-            "ported yet (ROADMAP.md A8)")
+        from dist_dqn_tpu_torch.envs.fake_ale import FakeALEEnv
+
+        return FakeALEEnv
     return None
 
 
@@ -310,16 +313,19 @@ def make_host_env(name: str, num_envs: int, seed: int = 0,
     """Build a host vector env by name.
 
     ``"CartPole-v1"`` etc. -> plain gymnasium; ``"ale:<Game>"`` -> ALE with
-    Atari preprocessing (requires ale-py; raises a clear error otherwise);
-    ``"pong"`` / ``"breakout"`` -> the numpy pixel games
-    (envs/host_pong.py, envs/host_breakout.py); ``"synthstack"`` -> the
-    synthetic stacked env. ``"dmc:"`` and ``"feeder:"`` names are not
-    ported yet.
+    Atari preprocessing (requires ale-py, or ``DQN_FAKE_ALE=1`` for the
+    in-repo fake; raises a clear error otherwise);
+    ``"dmc:<domain>:<task>"`` -> DM-Control pixels with discretized torques
+    (envs/dmc_adapter.py); ``"pong"`` / ``"breakout"`` -> the numpy pixel
+    games (envs/host_pong.py, envs/host_breakout.py); ``"synthstack"`` ->
+    the synthetic stacked env; ``"feeder:pixel"`` / ``"feeder:vector"`` ->
+    the feeders' spec envs of random draws (actors/feeder.py).
     """
-    if name.startswith(("feeder:", "dmc:")):
-        raise NotImplementedError(
-            f"host env {name!r}: the {name.split(':', 1)[0]}: envs are not "
-            "ported yet (ROADMAP.md A8)")
+    if name.startswith("feeder:"):
+        from dist_dqn_tpu_torch.actors.feeder import FeederSpecEnv
+
+        return HostVectorEnv(lambda: FeederSpecEnv(name), num_envs,
+                             seed=seed)
 
     if name == "synthstack":
         return HostVectorEnv(SynthStackedEnv, num_envs, seed=seed)
@@ -333,6 +339,20 @@ def make_host_env(name: str, num_envs: int, seed: int = 0,
         from dist_dqn_tpu_torch.envs.host_breakout import HostPixelBreakout
 
         return HostVectorEnv(HostPixelBreakout, num_envs, seed=seed)
+
+    if name.startswith("dmc:"):
+        from dist_dqn_tpu_torch.envs.dmc_adapter import DMCPixelEnv
+
+        parts = name.split(":", 2)
+        if len(parts) != 3 or not all(parts[1:]):
+            raise ValueError(
+                f"DMC env name must be 'dmc:<domain>:<task>', got {name!r}")
+        _, domain, task = parts
+
+        def make_fn():
+            return DMCPixelEnv(domain, task)
+
+        return HostVectorEnv(make_fn, num_envs, seed=seed)
 
     if name.startswith("ale:"):
         game = name.split(":", 1)[1]

@@ -7,10 +7,12 @@ checkpoint a training run saved with ``--checkpoint-dir`` (either kind)
 and run greedy episodes on the config's env, with no training machinery
 in the loop. Prints one JSON line with the mean undiscounted return (one
 per retained step with ``--all-steps``). ``--member K`` plays member K of
-a population run's stacked checkpoint (and is required there). Runs on
-``cuda`` unless ``--device cpu`` is given. Host envs (``--host-env``) and
-the telemetry surface are not ported yet; asking for them raises with the
-reason.
+a population run's stacked checkpoint (and is required there).
+``--host-env NAME`` plays whole games with raw scores on a host env
+(``ale:<Game>``, with ``DQN_FAKE_ALE=1`` the in-repo fake; gymnasium names;
+``dmc:<domain>:<task>``), the deploy-side counterpart of an Ape-X run. Runs
+on ``cuda`` unless ``--device cpu`` is given. The telemetry surface is not
+ported yet; asking for it raises with the reason.
 """
 from __future__ import annotations
 
@@ -127,6 +129,69 @@ def evaluate_checkpoint(cfg: ExperimentConfig, checkpoint_dir: str,
     return out
 
 
+def evaluate_checkpoint_host(cfg: ExperimentConfig, checkpoint_dir: str,
+                             host_env: str, episodes: int = 10,
+                             seed: int = 0, epsilon: float = 0.001,
+                             max_steps: int = 20_000, step: int = None,
+                             member: int = None, device=None) -> dict:
+    """Greedy checkpoint episodes on a host env (ALE, DM-Control,
+    gymnasium): the deploy-side counterpart of an Ape-X run, which trains
+    on host envs.
+
+    The network takes the host env's action count (an ``ale:`` checkpoint
+    trained on Breakout has 4 heads), one env lane per episode, whole-game
+    episodes and raw game scores (``for_eval=True``: episodic life and
+    reward clipping are training devices). Exploration draws come from a
+    generator seeded with ``seed``; episodes stop at ``max_steps``.
+    """
+    from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
+    from dist_dqn_tpu_torch.models import build_network
+    from dist_dqn_tpu_torch.utils.host_eval import run_greedy_episodes
+
+    dev = resolve_device(device)
+    env = make_host_env(host_env, episodes, seed=10_000 + seed,
+                        for_eval=True)
+    obs_shape = env.reset().shape[1:]
+    net = build_network(cfg.network, env.num_actions, obs_shape,
+                        device=dev, seed=seed)
+    frames, net = _restore_latest(checkpoint_dir, net, step=step,
+                                  member=member)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    on_done = None
+    if cfg.network.lstm_size > 0:
+        from dist_dqn_tpu_torch.agents.r2d2 import make_recurrent_actor_step
+        step_fn = make_recurrent_actor_step(env.num_actions)
+        carry = [net.initial_state(episodes)]
+
+        def act(obs, eps):
+            carry[0], actions = step_fn(net, carry[0],
+                                        torch.from_numpy(obs).to(dev), gen,
+                                        eps)
+            return actions.cpu().numpy()
+
+        def on_done(done):
+            # The carry of a lane whose episode ended restarts at zero.
+            keep = torch.from_numpy(~done).float().to(dev)[:, None]
+            carry[0] = (carry[0][0] * keep, carry[0][1] * keep)
+    else:
+        from dist_dqn_tpu_torch.agents.dqn import make_actor_step
+        step_fn = make_actor_step(env.num_actions)
+
+        def act(obs, eps):
+            return step_fn(net, torch.from_numpy(obs).to(dev), gen,
+                           eps).cpu().numpy()
+
+    returns, truncated = run_greedy_episodes(
+        env, act, episodes=episodes, epsilon=epsilon, max_steps=max_steps,
+        on_done=on_done)
+    out = {"eval_return": float(returns.mean()), "frames": frames,
+           "episodes": episodes, "config": cfg.name, "host_env": host_env,
+           "episodes_truncated": truncated}
+    if member is not None:
+        out["member"] = member
+    return out
+
+
 def _skip_row(step: int) -> dict:
     """The row --all-steps prints for a checkpoint a live training run's
     retention deleted mid-walk."""
@@ -191,7 +256,6 @@ def _refuse_unported(args) -> None:
     """Flags of the JAX CLI this port does not implement yet, refused with
     the ROADMAP.md item that brings them."""
     refused = [reason for reason, given in (
-        ("--host-env (host envs, ROADMAP.md A8)", args.host_env is not None),
         ("--telemetry-port/--telemetry-host/--telemetry-snapshot/"
          "--fleet-dir (telemetry, ROADMAP.md A10)",
          any(x is not None for x in (args.telemetry_port,
@@ -236,18 +300,21 @@ def main(argv=None):
                         metavar="SECONDS",
                         help="retry a missing checkpoint for up to this "
                              "many seconds instead of failing at once")
+    parser.add_argument("--host-env", default=None,
+                        help="evaluate on a host env (e.g. ale:Breakout, "
+                             "CartPole-v1, dmc:reacher:easy) instead of "
+                             "the config's batched env")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
-    parser.add_argument("--host-env", default=None)
     parser.add_argument("--telemetry-port", type=int, default=None)
     parser.add_argument("--telemetry-host", default=None)
     parser.add_argument("--telemetry-snapshot", default=None)
     parser.add_argument("--fleet-dir", default=None)
     args = parser.parse_args(argv)
     _refuse_unported(args)
-    if args.export_params and args.all_steps:
+    if args.export_params and (args.all_steps or args.host_env):
         parser.error("--export-params applies to the single-point surface "
-                     "(not --all-steps)")
+                     "of the config's env (not --all-steps or --host-env)")
     try:
         cfg = apply_overrides(CONFIGS[args.config], args.overrides)
     except ValueError as e:
@@ -260,6 +327,12 @@ def main(argv=None):
             out["risk_cvar_eta"] = args.risk_cvar_eta
         print(json.dumps(out), flush=True)
 
+    def run_host(step=None):
+        tag_and_print(evaluate_checkpoint_host(
+            cfg, args.checkpoint_dir, args.host_env, episodes=args.episodes,
+            seed=args.seed, step=step,
+            member=args.member, device=args.device))
+
     def dispatch():
         # A cheap presence probe before any env/network build, so every
         # --wait-for-checkpoint retry of an empty or absent directory is
@@ -267,7 +340,24 @@ def main(argv=None):
         if not checkpoint_present(args.checkpoint_dir):
             raise CheckpointMissingError(
                 f"no checkpoint found under {args.checkpoint_dir!r}")
-        if args.all_steps:
+        if args.host_env and args.all_steps:
+            # Host envs: one restore per retained step through the
+            # single-point surface; a step deleted mid-walk is skipped.
+            from dist_dqn_tpu_torch.utils.checkpoint import \
+                list_checkpoint_steps
+
+            steps = list_checkpoint_steps(args.checkpoint_dir)
+            if not steps:
+                raise CheckpointMissingError(
+                    f"no checkpoint found under {args.checkpoint_dir!r}")
+            for step in steps:
+                try:
+                    run_host(step)
+                except CheckpointMissingError:
+                    tag_and_print(_skip_row(step))
+        elif args.host_env:
+            run_host()
+        elif args.all_steps:
             evaluate_checkpoint_curve(
                 cfg, args.checkpoint_dir, episodes=args.episodes,
                 seed=args.seed, log_fn=tag_and_print, device=args.device,

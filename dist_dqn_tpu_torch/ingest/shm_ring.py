@@ -18,16 +18,26 @@ before touching its body and ``2*seq + 2`` after, then advances
 that died mid-write leaves an odd stamp: the record is dropped and counted
 in ``torn_reads``, never decoded.
 
-One record per slot, as rollout actors publish. The JAX package's batched
-slot publish (``push_batch``), whose only producers are its feeder
-processes, is not ported yet (ROADMAP.md A8, item 4).
+Batched slot publishes: a lock-step actor keeps one record in flight, but
+an unthrottled feeder (``actors/feeder.py``) would pay the whole stamp,
+length and sequence handshake per record. :meth:`ShmSlotRing.push_batch`
+puts up to N records into one slot: one odd/even stamp cycle, one
+``write_seq`` advance and one torn-read re-check for the batch. A batched
+slot sets the high bit of its length word (``BATCH_FLAG``), and its payload
+is ``u32 n | (u32 len_i | bytes_i) * n``; :meth:`ShmSlotRing.pop` unbatches
+it into a consumer-side queue, so the drain cannot tell feeders from
+actors. A batch of one takes :meth:`ShmSlotRing.push`, byte for byte the
+unbatched wire, and a torn batched slot drops the whole batch.
 
 Stdlib + numpy only (actor processes import no torch).
 """
 from __future__ import annotations
 
+import struct
+import time
+from collections import deque
 from multiprocessing import shared_memory
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -35,6 +45,15 @@ HEADER_BYTES = 32
 SLOT_HEADER_BYTES = 16
 # Header u64 indices.
 _NSLOTS, _SLOT_SIZE, _WRITE_SEQ, _READ_SEQ = 0, 1, 2, 3
+#: High bit of a slot's length word: the payload is a batch
+#: (``u32 n | (u32 len_i | bytes_i) * n``), not one record.
+BATCH_FLAG = 0x80000000
+
+
+def batch_bytes(payload_sizes) -> int:
+    """Slot bytes one batched publish of records of these sizes needs (the
+    slot sizing of batching feeders)."""
+    return 4 + sum(4 + int(n) for n in payload_sizes)
 
 
 class ShmSlotRing:
@@ -74,6 +93,9 @@ class ShmSlotRing:
                           HEADER_BYTES + i * self._stride + 8)
             for i in range(self.nslots)]
         self.torn_reads = 0
+        # Records of an already-popped batched slot awaiting delivery (only
+        # the consumer touches it).
+        self._pending_pop: "deque[bytes]" = deque()
 
     def _slot_data(self, i: int) -> memoryview:
         off = HEADER_BYTES + i * self._stride + SLOT_HEADER_BYTES
@@ -106,10 +128,56 @@ class ShmSlotRing:
         self._hdr[_WRITE_SEQ] = w + 1
         return True
 
+    def push_batch(self, payloads: Sequence) -> bool:
+        """Publish up to N records in one slot: one stamp cycle and one
+        ``write_seq`` advance for the batch. False when the ring is full
+        (the caller retries the whole batch). A batch of one takes
+        :meth:`push`, so it is the unbatched wire byte for byte."""
+        if len(payloads) == 1:
+            return self.push(payloads[0])
+        if not payloads:
+            return True
+        total = batch_bytes(len(p) for p in payloads)
+        if total > self.slot_size:
+            raise ValueError(
+                f"batch of {len(payloads)} records needs {total} bytes, "
+                f"exceeds slot_size {self.slot_size}")
+        w = self._claim()
+        if w is None:
+            return False
+        i = w % self.nslots
+        self._stamps[i][0] = 2 * w + 1          # odd: write in flight
+        self._lengths[i][0] = total | BATCH_FLAG
+        slot = self._slot_data(i)
+        struct.pack_into("<I", slot, 0, len(payloads))
+        off = 4
+        for p in payloads:
+            struct.pack_into("<I", slot, off, len(p))
+            off += 4
+            slot[off:off + len(p)] = p
+            off += len(p)
+        self._stamps[i][0] = 2 * w + 2          # even: published
+        self._hdr[_WRITE_SEQ] = w + 1
+        return True
+
+    def push_batch_wait(self, payloads: Sequence, stop=lambda: False,
+                        poll_s: float = 0.0005) -> bool:
+        """Blocking :meth:`push_batch`: retry until published, or return
+        False once ``stop()`` is true."""
+        while not self.push_batch(payloads):
+            if stop():
+                return False
+            time.sleep(poll_s)
+        return True
+
     # -- consumer ----------------------------------------------------------
     def pop(self) -> Optional[bytes]:
         """Next record as an owned bytes copy, or None when empty. A torn
-        slot is counted and skipped."""
+        slot is counted and skipped whole (for a batched slot, the whole
+        batch). A batched slot's records queue consumer-side, and the next
+        calls deliver them in order."""
+        if self._pending_pop:
+            return self._pending_pop.popleft()
         r = int(self._hdr[_READ_SEQ])
         if r >= int(self._hdr[_WRITE_SEQ]):
             return None
@@ -120,18 +188,31 @@ class ShmSlotRing:
             self._hdr[_READ_SEQ] = r + 1
             return None
         n = int(self._lengths[i][0])
+        batched = bool(n & BATCH_FLAG)
+        n &= ~BATCH_FLAG
         out = bytes(self._slot_data(i)[:n])
         if self._stamps[i][0] != want:          # torn during the copy
             self.torn_reads += 1
             self._hdr[_READ_SEQ] = r + 1
             return None
         self._hdr[_READ_SEQ] = r + 1
-        return out
+        if not batched:
+            return out
+        (count,) = struct.unpack_from("<I", out, 0)
+        off = 4
+        for _ in range(count):
+            (ln,) = struct.unpack_from("<I", out, off)
+            off += 4
+            self._pending_pop.append(out[off:off + ln])
+            off += ln
+        return self._pending_pop.popleft() if self._pending_pop else None
 
     @property
     def pending(self) -> int:
-        """Records awaiting drain."""
-        return int(self._hdr[_WRITE_SEQ]) - int(self._hdr[_READ_SEQ])
+        """Records awaiting drain: a batched slot still in shared memory
+        counts as one until popped; records of a popped batch count each."""
+        return (int(self._hdr[_WRITE_SEQ]) - int(self._hdr[_READ_SEQ])
+                + len(self._pending_pop))
 
     def close(self) -> None:
         # Drop every numpy view of the mapping first: an exported buffer

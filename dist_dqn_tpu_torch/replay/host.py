@@ -3,10 +3,14 @@
 * :func:`pad_pow2` (``:41``), the power-of-two bucket rule, and
   :func:`stratified_mass` (``:50``), the stratified jitter every host-side
   PER sampler shares.
-* :class:`SumTree` (``:194``): the vectorized numpy sum-tree, and
-  :func:`make_sum_tree` (``:174``), which returns it. The JAX package's
-  default is its C++ ``NativeSumTree``, which the port does not have yet
-  (ROADMAP.md A8).
+* :class:`NativeSumTree` (``:107``): the C++ sum-tree
+  (``replay/_native/sumtree.cc``, the port's own copy, built with ``g++``
+  by ``actors/transport.py build_native_lib`` into
+  ``build/dist_dqn_tpu_torch/``): delta-propagated writes, a descent per
+  query, a periodic exact rebuild, and an exact ``state_dict``.
+  :class:`SumTree` (``:194``): the vectorized numpy sum-tree.
+  :func:`make_sum_tree` (``:174``) picks the native tree where it builds,
+  else the numpy tree with a one-time ``RuntimeWarning``.
 * :class:`DevicePrioritySampler` (``:249-584``): the ``p ** alpha`` mass
   plane of a host-DRAM store, kept ``[ceil(capacity / lanes), lanes]`` f32
   on the card. Host writes buffer as (idx, mass) pairs, deduplicated last
@@ -25,7 +29,10 @@ This module is numpy apart from the plane.
 """
 from __future__ import annotations
 
+import ctypes
+import threading
 import time
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -37,6 +44,11 @@ from dist_dqn_tpu_torch.ops.sampler import (SAMPLE_BLOCK,
                                             stratified_sample_rows)
 from dist_dqn_tpu_torch.utils.device import resolve_device
 from dist_dqn_tpu_torch.utils.pow2 import pad_pow2  # noqa: F401
+
+_NATIVE_DIR = Path(__file__).parent / "_native"
+_tree_lib = None
+_tree_lib_lock = threading.Lock()
+_fallback_warned = False
 
 # Cells at or above which the plane's draw on the card goes through the
 # sampler kernel (the JAX package's ``pallas_routing`` crossover).
@@ -61,12 +73,121 @@ def _check_tree_idx(idx: np.ndarray, capacity: int) -> np.ndarray:
     return idx
 
 
+# Leaf writes between the native tree's exact rebuilds of its interior
+# nodes (the float64 drift bound of delta propagation; see sumtree.cc).
+_REBUILD_EVERY_WRITES = 1 << 22
+
+
+def _native_tree_lib() -> ctypes.CDLL:
+    """Build (if needed) and load the C++ sum-tree library."""
+    global _tree_lib
+    with _tree_lib_lock:
+        if _tree_lib is None:
+            from dist_dqn_tpu_torch.actors.transport import build_native_lib
+            lib = ctypes.CDLL(str(build_native_lib(
+                "sumtree.cc", "libdqnsumtree.so", directory=_NATIVE_DIR)))
+            lib.dqn_tree_create.restype = ctypes.c_void_p
+            lib.dqn_tree_create.argtypes = [ctypes.c_int64]
+            lib.dqn_tree_destroy.argtypes = [ctypes.c_void_p]
+            lib.dqn_tree_total.restype = ctypes.c_double
+            lib.dqn_tree_total.argtypes = [ctypes.c_void_p]
+            lib.dqn_tree_writes.restype = ctypes.c_uint64
+            lib.dqn_tree_writes.argtypes = [ctypes.c_void_p]
+            lib.dqn_tree_rebuild.argtypes = [ctypes.c_void_p]
+            lib.dqn_tree_dump.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_void_p]
+            lib.dqn_tree_load.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_uint64]
+            for name in ("dqn_tree_get", "dqn_tree_set", "dqn_tree_sample"):
+                getattr(lib, name).argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int64]
+            _tree_lib = lib
+    return _tree_lib
+
+
+class NativeSumTree:
+    """C++ sum-tree (``replay/_native/sumtree.cc``) with the
+    :class:`SumTree` interface: the same P(i) contract and tie rule, writes
+    by delta propagation with a periodic exact rebuild."""
+
+    def __init__(self, capacity: int):
+        self._lib = _native_tree_lib()
+        self.capacity = pad_pow2(capacity)  # as dqn_tree_create pads it
+        self._h = self._lib.dqn_tree_create(capacity)
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h is not None:
+            self._lib.dqn_tree_destroy(h)
+
+    @property
+    def total(self) -> float:
+        return float(self._lib.dqn_tree_total(self._h))
+
+    def get(self, idx: np.ndarray) -> np.ndarray:
+        idx = _check_tree_idx(idx, self.capacity)
+        out = np.empty(idx.shape[0], np.float64)
+        self._lib.dqn_tree_get(self._h, idx.ctypes.data, out.ctypes.data,
+                               idx.shape[0])
+        return out
+
+    def set(self, idx: np.ndarray, values: np.ndarray) -> None:
+        idx = _check_tree_idx(idx, self.capacity)
+        values = np.ascontiguousarray(
+            np.broadcast_to(values, idx.shape), np.float64)
+        self._lib.dqn_tree_set(self._h, idx.ctypes.data, values.ctypes.data,
+                               idx.shape[0])
+        if self._lib.dqn_tree_writes(self._h) >= _REBUILD_EVERY_WRITES:
+            self._lib.dqn_tree_rebuild(self._h)
+
+    def sample(self, mass: np.ndarray) -> np.ndarray:
+        mass = np.ascontiguousarray(mass, np.float64)
+        out = np.empty(mass.shape[0], np.int64)
+        self._lib.dqn_tree_sample(self._h, mass.ctypes.data, out.ctypes.data,
+                                  mass.shape[0])
+        return out
+
+    def state_dict(self) -> dict:
+        """Exact snapshot: the whole interior-node heap and the write
+        counter. Delta propagation makes interior sums path-dependent, so a
+        bit-identical resume restores the heap as it is; a rebuild from the
+        leaves would differ in the last ulp."""
+        nodes = np.empty(2 * self.capacity, np.float64)
+        writes = ctypes.c_uint64(0)
+        self._lib.dqn_tree_dump(self._h, nodes.ctypes.data,
+                                ctypes.byref(writes))
+        return {"backend": np.bytes_(b"native"), "nodes": nodes,
+                "writes": np.uint64(writes.value)}
+
+    def load_state_dict(self, state: dict) -> None:
+        nodes = np.ascontiguousarray(state["nodes"], np.float64)
+        if nodes.shape[0] != 2 * self.capacity:
+            raise ValueError(
+                f"tree snapshot holds {nodes.shape[0] // 2} padded slots, "
+                f"this tree has {self.capacity}")
+        self._lib.dqn_tree_load(self._h, nodes.ctypes.data,
+                                ctypes.c_uint64(int(state["writes"])))
+
+
 def make_sum_tree(capacity: int, native: Optional[bool] = None):
-    """The sum-tree backend: the numpy :class:`SumTree`. ``native=True``
-    asks for the C++ tree, which the port does not have yet."""
-    if native:
-        raise ValueError("the native sum-tree is not ported yet; use the "
-                         "numpy tree (native=None)")
+    """The sum-tree backend: the native C++ tree where it builds (the
+    default); else, with ``native=None``, the numpy tree and one
+    ``RuntimeWarning`` per process. ``native=True`` raises when the native
+    tree does not build; ``native=False`` takes the numpy tree."""
+    global _fallback_warned
+    if native is None or native:
+        try:
+            return NativeSumTree(capacity)
+        except Exception as e:  # noqa: BLE001 — the build's own error
+            if native:
+                raise
+            if not _fallback_warned:
+                _fallback_warned = True
+                import warnings
+
+                warnings.warn(f"native sum-tree unavailable ({e!r}); "
+                              "using numpy tree", RuntimeWarning)
     return SumTree(capacity)
 
 
@@ -325,7 +446,8 @@ class PrioritizedHostReplay:
     Items are dicts of numpy arrays (n-step-folded transitions), stored
     from the first batch's dtypes and shapes. ``alpha`` is folded into the
     stored mass at write time. ``sampler="tree"`` draws on the host through
-    the numpy sum-tree; ``sampler="device"`` keeps the mass plane on
+    the sum-tree :func:`make_sum_tree` picks (``native``: the C++ tree by
+    default); ``sampler="device"`` keeps the mass plane on
     ``sampler_device`` (the card by default) and draws through
     :class:`DevicePrioritySampler`. The items stay in host memory either
     way.

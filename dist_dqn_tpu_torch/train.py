@@ -64,12 +64,15 @@ dist_dqn_tpu_torch.actors.remote`` against ``--tcp-port``.
 ``--checkpoint-replay`` with ``--checkpoint-dir`` snapshots the replay
 shard beside the learner checkpoint, and a resumed run starts from it warm.
 A non-pixel host env swaps the config's torso for the MLP, as the JAX CLI
-does; the summary prints as JSON. ``--no-wire-dedup`` and ``--shm-batch``
-are the JAX CLI's.
+does; the summary prints as JSON. ``--host-env feeder:pixel`` or
+``feeder:vector`` replaces the actors with feeder processes that pump
+pre-encoded records (``--shm-batch N``: N records per slot publish), and
+``DQN_FAKE_ALE=1`` routes ``ale:`` names to the in-repo fake ALE.
+``--no-wire-dedup`` is the JAX CLI's.
 
 Meshes, telemetry, and the options of the apex runtime that are not ported
-yet (feeders, several learner devices or replay shards) raise instead of
-being ignored.
+yet (several learner devices or replay shards) raise instead of being
+ignored.
 """
 from __future__ import annotations
 
@@ -635,9 +638,12 @@ def main(argv=None):
                              "envs ship full stacks instead of each frame "
                              "once")
     parser.add_argument("--shm-batch", type=int, default=1,
-                        help="apex runtime: records per shared-memory slot "
-                             "publish of feeder processes (only 1 is "
-                             "ported: feeders are ROADMAP.md A8, item 4)")
+                        help="apex runtime: feeder processes "
+                             "(--host-env feeder:pixel|feeder:vector) put "
+                             "this many step records into one shared-"
+                             "memory slot publish; 1 = one record per "
+                             "publish; rollout actors are lock-step and "
+                             "unaffected")
     parser.add_argument("--num-remote-actors", type=int, default=0,
                         help="apex runtime: remote (TCP) actor slots")
     parser.add_argument("--tcp-port", type=int, default=None,

@@ -33,6 +33,7 @@ from dist_dqn_tpu_torch.actors import actor as tactor
 from dist_dqn_tpu_torch.actors import service as tservice
 from dist_dqn_tpu_torch.actors.transport import decode_arrays, encode_arrays
 from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
+from dist_dqn_tpu_torch.replay import host as thost
 
 NUM_ACTIONS = {"synthstack": 4, "CartPole-v1": 2}
 
@@ -180,7 +181,10 @@ def _services(preset, overrides, rt_kw, their_rt_kw=None):
     except BaseException:
         ours.shutdown()
         raise
+    # The numpy tree on both sides: JAX's C++ tree does not compile with
+    # g++ 12, and the port's agrees with numpy to rtol 1e-12 only.
     theirs.replay.tree = jhost.SumTree(theirs.replay.capacity)
+    ours.replay.tree = thost.SumTree(ours.replay.capacity)
     return ours, theirs
 
 

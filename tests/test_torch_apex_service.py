@@ -154,8 +154,6 @@ def test_constructor_refusals_match_jax_word_for_word(case):
 
 
 _UNPORTED = {
-    "feeder": (dict(host_env="feeder:pixel"), "A8, item 4"),
-    "shm_batch": (dict(shm_batch=4), "A8, item 4"),
     "learner_devices": (dict(learner_devices=2), "A6"),
     "ingest_shards": (dict(ingest_shards=2), "A6"),
     "trace_path": (dict(trace_path="t.json"), "A10"),
@@ -182,14 +180,17 @@ _PORTED = {
     "legacy": dict(transport="legacy"),
     "bootstrap": dict(actor_priorities=False),
     "checkpoint_replay": dict(checkpoint_replay=True),
+    "feeder": dict(host_env="feeder:pixel"),
+    "shm_batch": dict(host_env="feeder:vector", shm_batch=4),
 }
 
 
 @pytest.mark.parametrize("case", list(_PORTED))
 def test_ported_options_build_their_paths(case, tmp_path):
-    """The options ROADMAP.md A8 items 1, 2 and 6 refused until this slice
-    build the JAX service's paths (the same attributes on both), and a
-    shutdown leaves no segment and no listener thread behind."""
+    """The options ROADMAP.md A8 items 1, 2, 4 and 6 refused until they
+    were ported build the JAX service's paths (the same attributes and slot
+    sizes on both), and a shutdown leaves no segment and no listener thread
+    behind."""
     from dist_dqn_tpu import config as jconfig
     from dist_dqn_tpu.actors.service import ApexLearnerService as JService
     from dist_dqn_tpu.actors.service import ApexRuntimeConfig as JRt
@@ -210,6 +211,9 @@ def test_ported_options_build_their_paths(case, tmp_path):
             assert ours.tcp_address[0] == theirs.tcp_address[0]
             assert ours.tcp_address[1] > 0
         assert bool(ours._zc_rings) == bool(theirs._zc_rings)
+        assert [r.slot_size for r in ours._zc_rings.values()] == \
+            [r.slot_size for r in theirs._zc_rings.values()]
+        assert ours.num_actions == theirs.num_actions
         assert ours.actor_prio == (theirs._act_q is not None)
         assert bool(ours._fused) == (theirs._fused is not None)
         native = type(theirs.assemblers[0]).__name__ == "NativeNStepAssembler"
@@ -359,6 +363,7 @@ def test_actor_priorities_fold_like_the_jax_service(wire_dedup,
     from dist_dqn_tpu import config as jconfig
     from dist_dqn_tpu.actors import service as jservice
     from dist_dqn_tpu.replay import host as jhost
+    from dist_dqn_tpu_torch.replay import host as thost
 
     overrides = ["seed=5", "network.torso=mlp", "network.mlp_features=(16,)",
                  "network.hidden=0", "network.compute_dtype=float32",
@@ -377,9 +382,10 @@ def test_actor_priorities_fold_like_the_jax_service(wire_dedup,
         theirs = jservice.ApexLearnerService(
             jconfig.apply_overrides(jconfig.CONFIGS["cartpole"], overrides),
             jservice.ApexRuntimeConfig(**rt_kw), log_fn=lambda s: None)
-        # The numpy tree on both sides (the JAX store would take the
-        # native one where it builds; the port has only the numpy tree).
+        # The numpy tree on both sides: JAX's C++ tree does not compile
+        # with g++ 12, and the port's agrees with numpy to rtol 1e-12 only.
         theirs.replay.tree = jhost.SumTree(128)
+        ours.replay.tree = thost.SumTree(128)
         act = _fake_act(4, 8 * 8 * 4)
         our_w, their_w = [], []
         our_train, their_train = _fake_train(our_w), _fake_train(their_w)

@@ -95,11 +95,22 @@ def test_atari_preprocessing_equals_jax(episodic_life, clip):
                                   jga._area_resize_84(frame))
 
 
-def test_ale_and_unported_host_envs_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tga.make_host_env("dmc:cartpole:swingup", 1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tga.make_host_env("feeder:pixel", 1)
+def test_ale_and_unported_host_envs_raise(monkeypatch):
+    """The dmc: and feeder: names build the JAX package's envs (or, where
+    GL is missing, raise its error), and ale: without ale-py or the fake
+    still says it needs ale-py."""
+    monkeypatch.delenv("DQN_FAKE_ALE", raising=False)
+    for name in ("dmc:cartpole:swingup", "feeder:pixel"):
+        try:
+            want = jga.make_host_env(name, 1)
+        except NotImplementedError as e:
+            with pytest.raises(NotImplementedError) as got:
+                tga.make_host_env(name, 1)
+            assert str(got.value) == str(e)
+            continue
+        got = tga.make_host_env(name, 1)
+        assert got.num_actions == want.num_actions
+        assert got.reset().shape == want.reset().shape
     try:
         import ale_py  # noqa: F401
     except ImportError:

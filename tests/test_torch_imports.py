@@ -39,6 +39,20 @@ assert slice9 <= set(names), sorted(slice9 - set(names))
 slice10 = {"dist_dqn_tpu_torch." + m for m in (
     "actors.remote", "replay.sharded")}
 assert slice10 <= set(names), sorted(slice10 - set(names))
+slice11 = {"dist_dqn_tpu_torch." + m for m in (
+    "actors.feeder", "envs.fake_ale", "envs.dmc_adapter", "atari57",
+    "atari57_refs")}
+assert slice11 <= set(names), sorted(slice11 - set(names))
+from dist_dqn_tpu_torch.actors.feeder import (FeederSpecEnv,
+                                              parse_feeder_spec, run_feeder)
+from dist_dqn_tpu_torch.atari57 import (ATARI_57, evaluate_suite,
+                                        normalized_scores, train_suite)
+from dist_dqn_tpu_torch.atari57_refs import HUMAN_RANDOM_SCORES
+from dist_dqn_tpu_torch.envs.dmc_adapter import DMCPixelEnv
+from dist_dqn_tpu_torch.envs.fake_ale import FakeALEEnv
+from dist_dqn_tpu_torch.evaluate import evaluate_checkpoint_host
+from dist_dqn_tpu_torch.ingest.shm_ring import batch_bytes
+from dist_dqn_tpu_torch.replay.host import NativeSumTree
 from dist_dqn_tpu_torch.actors.actor import run_remote_actor
 from dist_dqn_tpu_torch.actors.assembler import (NativeNStepAssembler,
                                                  SequenceAssembler,
@@ -90,3 +104,27 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count, bad = proc.stdout.split(" ", 1)
     assert int(count) >= 41 and bad.strip() == "[]"
+
+
+_NO_TORCH = r"""
+import sys
+import dist_dqn_tpu_torch.actors.feeder
+import dist_dqn_tpu_torch.envs.fake_ale
+import dist_dqn_tpu_torch.atari57_refs
+from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
+make_host_env("feeder:pixel", 2).reset()
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("torch", "jax", "dist_dqn_tpu"))
+print(bad)
+"""
+
+
+def test_feeder_and_fake_ale_load_no_torch():
+    """Feeder processes, like actors, start without torch: the feeder, the
+    fake ALE and the reference table import numpy only."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _NO_TORCH], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "[]"

@@ -8,11 +8,35 @@ so run it there without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_kernels_cuda.py
 """
+import contextlib
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from dist_dqn_tpu_torch.ops import sampler as tps
+
+# torch.profiler stamps device records with the card's clock converted to
+# the host's, off by up to a few milliseconds (a kernel can be stamped
+# before the host call that launched it), and keeps only the records inside
+# its session's window: a kernel launched right after the session opens
+# can be stamped before it and dropped (ROADMAP.md C7). A counted session
+# idles this long after it opens and before it closes.
+_PROFILE_SETTLE_S = 0.05
+
+
+@contextlib.contextmanager
+def _counted_profile():
+    """A torch.profiler session (host and card) whose window has room for
+    the clock error at both ends; the body's work is synchronised."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(_PROFILE_SETTLE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(_PROFILE_SETTLE_S)
 
 
 @pytest.fixture
@@ -146,12 +170,9 @@ def test_sampler_draw_is_one_device_kernel(cuda):
     tps.kernel_stratified_sample(w, u)
     torch.cuda.synchronize()
     calls = 10
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with _counted_profile() as prof:
         for _ in range(calls):
             tps.kernel_stratified_sample(w, u)
-        torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(names) == calls, names
     assert len(set(names)) == 1 and "sample_kernel" in names[0], names
@@ -328,12 +349,9 @@ def test_member_axis_draw_is_one_device_kernel(cuda):
     w, u = _member_inputs(cuda, 4, 62500, 16, 512)
     tps.kernel_stratified_sample(w, u)
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with _counted_profile() as prof:
         for _ in range(10):
             tps.kernel_stratified_sample(w, u)
-        torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(names) == 10 and all("sample_kernel" in n for n in names)
 

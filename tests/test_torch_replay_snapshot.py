@@ -115,7 +115,9 @@ def test_a_jax_snapshot_restores_and_draws_like_jax(tmp_path):
         state = dict(f)
     theirs = jhost.PrioritizedHostReplay(500, alpha=0.6, native=False)
     theirs.load_state_dict(state)
-    ours = thost.PrioritizedHostReplay(500, alpha=0.6)
+    # The numpy tree on both sides (JAX's C++ tree does not compile with
+    # g++ 12; the port's agrees with numpy to rtol 1e-12 only).
+    ours = thost.PrioritizedHostReplay(500, alpha=0.6, native=False)
     info = restore_replay_snapshot(ours, state)
     assert info == {"records": 500, "from_shards": 1, "to_shards": 1,
                     "resharded": False}
