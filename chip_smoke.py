@@ -98,7 +98,7 @@ them or outside a checkout of the repository. Phases, each fatal:
    dirs live in one temporary directory, removed at the end.
 8. The host-replay runtime (host_replay_loop.py) at apex's full width:
    * host_replay_apex_dedup: ``--runtime host-replay --config apex --set
-     replay.frame_dedup=true --per --device-sampling``, 56,000 frames in
+     replay.frame_dedup=true --per --device-sampling``, 54,000 frames in
      chunks of 125 iterations (a 7.06 GB dedup ring in host memory, PER
      through the device plane ``[1954, 512]``, S = 512): at least 300
      grad steps past the fill, one sampler launch per grad step, a finite
@@ -113,7 +113,7 @@ them or outside a checkout of the repository. Phases, each fatal:
    8 actor processes of 8 numpy PixelPong envs stream zero-copy records
    through shared memory; one batched act per ingest pass; a 1M host PER
    shard whose device plane ``[1954, 512]`` is drawn through the sampler
-   kernel, S = 512; training from 20,000 transitions to 32,000 env steps.
+   kernel, S = 512; training from 20,000 transitions to 28,000 env steps.
    Holds at least 300 grad steps, one sampler launch per grad step, one
    act dispatch per ingest pass, no dropped, bad or undecodable records,
    a finite loss; prints the rates, peak device memory, host RSS and the
@@ -139,7 +139,7 @@ them or outside a checkout of the repository. Phases, each fatal:
      (the 1M shard, plane ``[1954, 512]``): 4 actors over shared memory
      and 4 over TCP, the learner-side bootstrap fused into the act
      dispatch over the C++ assembler, training from 16,000 transitions to
-     24,000 env steps. Holds one sampler launch per grad step, the native
+     22,000 env steps. Holds one sampler launch per grad step, the native
      assembler, fused bootstraps (a standalone one only at the final
      forced flush), one act dispatch per ingest pass, records from every
      remote id, no corrupt frame, rejected hello, torn read or restart;
@@ -178,7 +178,25 @@ them or outside a checkout of the repository. Phases, each fatal:
      ``atari57 --mode eval --games Pong`` over a root holding it as
      ``Pong/`` prints the HNS rollup from the shipped table. No sampler
      launch.
-12. population_learner_lockstep: the cartpole learner at its preset width
+12. serving_apex, the serving tier (``dist_dqn_tpu_torch/serving/``) over
+   an apex learner checkpoint made from the seed at full width (Nature
+   CNN, dueling, bf16, 6 actions, uint8 obs [84, 84, 4], ``max_rows`` 256,
+   a ladder of 9 buckets): served greedy actions must equal
+   ``make_actor_step`` on the restored net at epsilon 0 on the same padded
+   bucket bit for bit (fan-in 1, three concurrent 1-row clients in one
+   dispatch, a full bucket of 256); rows whose action differs between
+   buckets of 4 and of 256 are counted and must have a top-2 gap within
+   the bf16 torso's error (2 x 0.05 x max|Q_f32|); a hot reload (step 200
+   from other params) under 8 clients for 2 s must serve one version per
+   dispatch, never go back, and serve the step-200 net's actions after the
+   swap; a queue limit of 4 under 32 concurrent clients must answer 429
+   with Retry-After and no 5xx; the CLI (``python -m
+   dist_dqn_tpu_torch.serving --config apex``) must announce its port,
+   answer, serve /healthz and /metrics and drain to rc 0 on SIGTERM.
+   Prints warmup seconds and the act step's time per bucket, a lone
+   request's p50/p99, closed loops of 16 one-row clients with batching on
+   and off, peak device memory, and no sampler launch.
+13. population_learner_lockstep: the cartpole learner at its preset width
    as a population of two (own learning rates) and as two solo learners,
    on the same batches for 100 grad steps: params within rtol 1e-5, atol
    1e-6. Then a 4,000-frame two-member fused run beside the two solo runs
@@ -252,20 +270,22 @@ DEVICE = "cuda"
 # The host-replay path: apex at full width (Nature CNN, bf16, batch 512, 16
 # lanes, 1M slots) with a frame-dedup host ring (62,500 x 16 frames, 7.06
 # GB of DRAM) and PER through the device plane [1954, 512] (S = 512 per
-# draw). Chunks of 125 iterations are 2,000 frames; chunks 24-27 follow the
-# 50,000-frame fill, 125 grad steps each.
+# draw). Chunks of 125 iterations are 2,000 frames; chunks 24-26 follow the
+# 50,000-frame fill, 125 grad steps each (chunk 27 went with the serving
+# phase's seconds: a depth cut).
 HOST_REPLAY_PATH = ("apex", ["replay.frame_dedup=true",
-                             "eval_every_steps=0"], 56_000, 125)
+                             "eval_every_steps=0"], 54_000, 125)
 HOST_REPLAY_MIN_GRAD_STEPS = 300
 # The Ape-X service path (--runtime apex --config apex --host-env pong
 # --device-sampling): apex's full width (Nature CNN, bf16, batch 512, n-step
 # 3, a 1M-transition host PER shard whose device plane is [1954, 512], S =
 # 512 per draw), 8 actor processes of 8 numpy PixelPong envs each. Training
 # starts at 20,000 transitions (the preset's 50,000: a depth cut) and the
-# run ends at 32,000 env steps; at one grad step per 64 inserts the learner
-# owes about 310 grad steps at the fill and about 500 at the end.
+# run ends at 28,000 env steps (32,000 before the serving phase); at one
+# grad step per 64 inserts the learner owes about 310 grad steps at the
+# fill and about 440 at the end.
 APEX_SERVICE_PATH = ("apex", ["replay.min_fill=20000", "eval_every_steps=0"],
-                     32_000)
+                     28_000)
 APEX_SERVICE_ACTORS = (8, 8)
 APEX_SERVICE_MIN_GRAD_STEPS = 300
 # The rest of the service (PERF.md §4 lists the cuts). R2D2 at full width
@@ -273,15 +293,16 @@ APEX_SERVICE_MIN_GRAD_STEPS = 300
 # 2,048 sequences (the preset's 100,000 would need 353 GB of host memory):
 # the fill of 128 sequences lands at about 10,600 env steps (two windows
 # per lane), and the learner owes one grad step per sequence, at most 4
-# per pass of 64 env steps: about 150 grad steps by 13,500 env steps (124
-# by 13,000 in PR 10's first full call).
-APEX_R2D2_PATH = ("r2d2", ["replay.capacity=2048"], 13_500)
+# per pass of 64 env steps: 172 grad steps by 13,536 env steps, so about
+# 130 by 12,800 (cut from 13,500 for the serving phase's seconds).
+APEX_R2D2_PATH = ("r2d2", ["replay.capacity=2048"], 12_800)
 APEX_R2D2_ACTORS = (8, 8)
 APEX_R2D2_MIN_GRAD_STEPS = 100
 # Remote actors and the learner-side bootstrap: apex's full width, 4 local
 # and 4 remote actors of 8 envs, training from 16,000 transitions (the
-# preset's 50,000: a depth cut) to 24,000 env steps, about 375 grad steps.
-APEX_REMOTE_PATH = ("apex", ["replay.min_fill=16000"], 24_000)
+# preset's 50,000: a depth cut) to 22,000 env steps (24,000 before the
+# serving phase), about 340 grad steps.
+APEX_REMOTE_PATH = ("apex", ["replay.min_fill=16000"], 22_000)
 APEX_REMOTE_ACTORS = (4, 4, 8)
 APEX_REMOTE_MIN_GRAD_STEPS = 250
 # Warm-replay snapshots: apex's 1M shard on synthstack (MLP torso), training
@@ -361,6 +382,19 @@ TIMING_ITERS = 200
 # Idle seconds after a counted torch.profiler session opens and before it
 # closes (see _profile_device).
 PROFILE_SETTLE_S = 0.05
+# serving_apex: the serving tier over an apex checkpoint at full width
+# (max_rows 256: a ladder of 9 buckets). The pin server coalesces for 25
+# ms so three concurrent 1-row clients ride one dispatch; the timed
+# servers wait 2 ms. SERVING_SEEDS make the step-100 and step-200 nets.
+SERVING_MAX_ROWS = 256
+SERVING_PIN_WAIT_MS = 25.0
+SERVING_WAIT_MS = 2.0
+SERVING_SEEDS = (0, 7)
+SERVING_RELOAD = (8, 2.0, 0.5)       # clients, seconds, save at
+SERVING_SHED = (4, 32)               # queue limit, concurrent clients
+SERVING_LONE_REQUESTS = 200
+SERVING_CLOSED_LOOP = (16, 1.5)      # 1-row clients, seconds per arm
+SERVING_ACT_ITERS = 50
 
 
 def _fail(msg: str) -> None:
@@ -1896,6 +1930,467 @@ def check_host_replay_uniform_pair(sampler, profile_dir: str) -> int:
     return launches
 
 
+def _serving_ref(act, net, obs, bucket: int):
+    """The act step at epsilon 0 on ``obs`` (numpy rows) zero-padded to
+    ``bucket`` rows, as the batcher packs it; the first ``len(obs)``
+    actions (numpy int32)."""
+    import numpy as np
+    import torch
+
+    padded = np.zeros((bucket,) + obs.shape[1:], obs.dtype)
+    padded[:len(obs)] = obs
+    gen = torch.Generator(device=DEVICE)
+    acts = act(net, torch.from_numpy(padded).to(DEVICE), gen,
+               torch.zeros(bucket, device=DEVICE))
+    return acts.cpu().numpy().astype(np.int32)[:len(obs)]
+
+
+def _closed_loop(address: str, obs, clients: int, seconds: float,
+                 registry) -> dict:
+    """``clients`` threads, each on its own connection, sending ``obs``
+    back to back for ``seconds``: requests/s, rows/s, the mean fan-in
+    (requests per dispatch, from the registry's counters) and client-side
+    latency percentiles (ms)."""
+    import threading
+
+    import numpy as np
+
+    from dist_dqn_tpu_torch.serving import ServingClient
+    from dist_dqn_tpu_torch.telemetry import collectors as tmc
+
+    def count(name):
+        return sum(i.value for i in registry.collect().get(name, []))
+
+    lat, errors = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+    barrier = threading.Barrier(clients + 1, timeout=60)
+
+    def run():
+        cl = ServingClient(address)
+        mine = []
+        try:
+            barrier.wait()
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                cl.act(obs, greedy=True)
+                mine.append(time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            cl.close()
+            with lock:
+                lat.extend(mine)
+
+    threads = [threading.Thread(target=run, name=f"serving-load-{i}")
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    req0 = count(tmc.SERVING_REQUESTS)
+    disp0 = count(tmc.SERVING_DISPATCHES)
+    barrier.wait()
+    t0 = time.perf_counter()
+    time.sleep(seconds)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    wall = time.perf_counter() - t0
+    dispatches = count(tmc.SERVING_DISPATCHES) - disp0
+    ms = np.asarray(lat) * 1e3
+    return {"clients": clients, "requests": len(lat), "wall_s": wall,
+            "requests_per_s": len(lat) / wall,
+            "rows_per_s": len(lat) * len(obs) / wall,
+            "mean_fanin_requests": (count(tmc.SERVING_REQUESTS) - req0)
+            / max(dispatches, 1),
+            "p50_ms": float(np.percentile(ms, 50)) if len(ms) else None,
+            "p99_ms": float(np.percentile(ms, 99)) if len(ms) else None,
+            "errors": errors[:3]}
+
+
+def check_serving_apex(sampler, directory: str) -> int:
+    """The serving tier (dist_dqn_tpu_torch/serving/) over an apex learner
+    checkpoint at full width (Nature CNN, dueling, bf16, pixel_pong's 6
+    actions, uint8 obs [84, 84, 4], max_rows 256). Holds: greedy served
+    actions bit-equal to ``make_actor_step`` on the restored net at
+    epsilon 0 on the same padded bucket (fan-in 1, fan-in 3 in one
+    dispatch, a full bucket); rows whose action differs between bucket 4
+    and bucket 256 have a top-2 gap within the bf16 torso's error; a hot
+    reload under load serves one version per dispatch, never goes back,
+    and serves the step-200 net's actions after the swap; 429 with
+    Retry-After and no 5xx under overload; the CLI announces, answers,
+    serves /healthz and /metrics and drains to rc 0 on SIGTERM. Prints
+    the timings; no sampler launch (returns the count)."""
+    import dataclasses
+    import http.client
+    import itertools
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from dist_dqn_tpu_torch.actors.act_dispatch import bucket_rows
+    from dist_dqn_tpu_torch.actors.transport import encode_arrays
+    from dist_dqn_tpu_torch.agents.dqn import make_actor_step, make_learner
+    from dist_dqn_tpu_torch.config import CONFIGS
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.evaluate import _restore_latest
+    from dist_dqn_tpu_torch.models import build_network
+    from dist_dqn_tpu_torch.serving import ServingClient, build_server
+    from dist_dqn_tpu_torch.telemetry import get_registry
+    from dist_dqn_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    t_phase = time.perf_counter()
+    cfg = CONFIGS["apex"]
+    env = make_env(cfg.env_name, device=DEVICE)
+    shape, n_act = tuple(env.observation_shape), env.num_actions
+    del env
+    nets = [build_network(cfg.network, n_act, shape, device=DEVICE, seed=s)
+            for s in SERVING_SEEDS]
+    ckpt = TrainCheckpointer(directory)
+    ckpt.save(100, make_learner(cfg.learner, nets[0])[0](nets[0]))
+    _, net = _restore_latest(directory, build_network(
+        cfg.network, n_act, shape, device=DEVICE, seed=99))
+    act = make_actor_step(n_act)
+    rng = np.random.default_rng(cfg.seed)
+    obs = rng.integers(0, 256, (SERVING_MAX_ROWS,) + shape, dtype=np.uint8)
+    registry = get_registry()
+    quiet = lambda *_: None  # noqa: E731
+    sampler.kernel_stratified_sample.launches = 0
+    out = {"max_rows": SERVING_MAX_ROWS, "buckets": []}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+
+    # -- the greedy pin and the hot reload, on one server ----------------
+    server = build_server(cfg, {"default": directory}, device=DEVICE,
+                          max_rows=SERVING_MAX_ROWS,
+                          max_wait_ms=SERVING_PIN_WAIT_MS,
+                          poll_interval_s=0.1, log_fn=quiet)
+    try:
+        out["warmup_s_by_bucket"] = dict(server.batcher.warmup_s)
+        out["buckets"] = sorted(server.batcher.warmup_s)
+        cl = ServingClient(server.address)
+        try:
+            r1 = cl.act(obs[:5], greedy=True)
+            rfull = cl.act(obs, greedy=True)
+        finally:
+            cl.close()
+        pin = {"fanin1": bool(np.array_equal(
+                   r1.actions, _serving_ref(act, net, obs[:5], 8))),
+               "full": bool(np.array_equal(
+                   rfull.actions,
+                   _serving_ref(act, net, obs, SERVING_MAX_ROWS)))}
+        clients = [ServingClient(server.address) for _ in range(3)]
+        barrier = threading.Barrier(3, timeout=60)
+        res = [None] * 3
+
+        def one(i):
+            barrier.wait()
+            res[i] = clients[i].act(obs[i:i + 1], greedy=True)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        for c in clients:
+            c.close()
+        served = [int(r.actions[0]) for r in res]
+        refs = []
+        for order in itertools.permutations(range(3)):
+            a = _serving_ref(act, net, obs[list(order)], 4)
+            refs.append([int(a[order.index(i)]) for i in range(3)])
+        pin["fanin3"] = served in refs
+        pin["fanin3_requests"] = max(r.fanin_requests for r in res)
+        out["greedy_pin"] = pin
+        if not (pin["fanin1"] and pin["full"] and pin["fanin3"]
+                and pin["fanin3_requests"] == 3
+                and r1.version == rfull.version == 1):
+            _fail(f"serving_apex: served greedy actions differ from the "
+                  f"act step on the same bucket: {pin}")
+
+        # Across buckets: each row in buckets of 4 against the same row in
+        # the bucket of 256, beside a float32 copy of the net.
+        ref32 = build_network(dataclasses.replace(
+            cfg.network, compute_dtype="float32"), n_act, shape,
+            device=DEVICE)
+        ref32.load_state_dict(net.state_dict())
+        obs_t = torch.from_numpy(obs).to(DEVICE)
+        with torch.no_grad():
+            q256 = net.q_values(obs_t).float()
+            q4 = torch.cat([net.q_values(obs_t[i:i + 4]).float()
+                            for i in range(0, SERVING_MAX_ROWS, 4)])
+            q32 = ref32.q_values(obs_t).float()
+        differ = (q4.argmax(-1) != q256.argmax(-1)).cpu().numpy()
+        top2 = torch.topk(q256, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        # check_outputs' rule for the bf16 torso: 0.05 of the Q scale per
+        # forward, so two buckets' forwards may differ by twice that.
+        scale = float(q32.abs().max().clamp(min=1e-3))
+        bound = 2 * 0.05 * scale
+        out["across_buckets"] = {
+            "rows": SERVING_MAX_ROWS, "buckets": [4, SERVING_MAX_ROWS],
+            "rows_action_differs": int(differ.sum()),
+            "max_abs_dq": float((q4 - q256).abs().max()),
+            "min_top2_gap_of_differing": (float(gap[differ].min())
+                                          if differ.any() else None),
+            "bf16_vs_f32_max_abs": float(max((q4 - q32).abs().max(),
+                                             (q256 - q32).abs().max())),
+            "gap_bound": bound, "bound_rule": "2 x 0.05 x max|Q_f32|"}
+        if differ.any() and float(gap[differ].max()) > bound:
+            _fail(f"serving_apex: a row's action differs across buckets "
+                  f"with a top-2 gap past the bf16 bound: "
+                  f"{out['across_buckets']}")
+
+        # Hot reload under load: the same 3 rows from every client, where
+        # the step-100 and step-200 nets disagree.
+        n_clients, load_s, save_at = SERVING_RELOAD
+        a1 = _serving_ref(act, nets[0], obs, SERVING_MAX_ROWS)
+        a2 = _serving_ref(act, nets[1], obs, SERVING_MAX_ROWS)
+        rows = np.nonzero(a1 != a2)[0][:3]
+        if len(rows) < 3:
+            _fail("serving_apex: the two nets agree on almost every row")
+        probe = obs[rows]
+        batcher = server.batcher
+        real = batcher._dispatch_inner
+        dispatches = []
+
+        def spy(batch):
+            real(batch)
+            if all(p.result is not None for p in batch):
+                dispatches.append(
+                    ({p.result.version for p in batch}, len(batch),
+                     np.concatenate([p.result.actions for p in batch])))
+
+        batcher._dispatch_inner = spy
+        seen, errors = {}, []
+        stop = threading.Event()
+
+        def hammer(i):
+            c = ServingClient(server.address)
+            try:
+                while not stop.is_set():
+                    r = c.act(probe, greedy=True)
+                    seen.setdefault(i, []).append(
+                        (r.version, r.step, time.perf_counter()))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{type(e).__name__}: {e}")
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=hammer, args=(i,))
+                   for i in range(n_clients)]
+        for t in threads:
+            t.start()
+        time.sleep(save_at)
+        t_save = time.perf_counter()
+        ckpt.save(200, make_learner(cfg.learner, nets[1])[0](nets[1]))
+        t_saved = time.perf_counter()
+        save_s = t_saved - t_save
+        time.sleep(max(load_s - save_at - save_s, 0.5))
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        batcher._dispatch_inner = real
+        versions = [v for rs in seen.values() for v, _, _ in rs]
+        refs = {}
+        wrong = 0
+        for vs, k, acts in dispatches:
+            if len(vs) != 1:
+                continue
+            (v,) = vs
+            if (v, k) not in refs:
+                refs[(v, k)] = _serving_ref(
+                    act, nets[v - 1], np.concatenate([probe] * k),
+                    bucket_rows(3 * k))
+            wrong += int(not np.array_equal(acts, refs[(v, k)]))
+        reload = {
+            "requests": len(versions), "dispatches": len(dispatches),
+            "mixed_dispatches": sum(len(vs) != 1 for vs, _, _ in dispatches),
+            "versions": sorted(set(versions)),
+            "went_back": sum(any(b[0] < a[0] for a, b in zip(rs, rs[1:]))
+                             for rs in seen.values()),
+            "dispatches_off_their_net": wrong,
+            "v2_dispatches": sum(vs == {2} for vs, _, _ in dispatches),
+            "mean_fanin_requests": (sum(k for _, k, _ in dispatches)
+                                    / max(len(dispatches), 1)),
+            "save_s": save_s,
+            # From the save's return to the first response from step 200.
+            "swap_s": min((t for rs in seen.values() for v, _, t in rs
+                           if v == 2), default=math.inf) - t_saved,
+            "errors": errors[:3]}
+        out["hot_reload"] = reload
+        if (errors or reload["mixed_dispatches"] or reload["went_back"]
+                or wrong or reload["versions"] != [1, 2]
+                or not reload["v2_dispatches"]
+                or any(s != {1: 100, 2: 200}[v]
+                       for rs in seen.values() for v, s, _ in rs)):
+            _fail(f"serving_apex: hot reload under load: {reload}")
+    finally:
+        server.close()
+
+    # -- the act step's device time per bucket -----------------------------
+    gen = torch.Generator(device=DEVICE).manual_seed(cfg.seed)
+    act_ms = {}
+    for n in out["buckets"]:
+        o = torch.zeros((n,) + shape, dtype=torch.uint8, device=DEVICE)
+        e = torch.zeros(n, device=DEVICE)
+        act_ms[n] = _eager_ms(lambda: act(net, o, gen, e),
+                              SERVING_ACT_ITERS)
+    out["act_ms_by_bucket"] = act_ms
+
+    # -- shedding ----------------------------------------------------------
+    limit, n_shed = SERVING_SHED
+    server = build_server(cfg, {"default": directory}, device=DEVICE,
+                          max_rows=SERVING_MAX_ROWS, max_wait_ms=400.0,
+                          queue_limit=limit, poll_interval_s=3600.0,
+                          log_fn=quiet)
+    statuses, retry_after = [], []
+    body = encode_arrays({"obs": obs[:1]}, meta={"greedy": True})
+    barrier = threading.Barrier(n_shed, timeout=60)
+
+    def shed_one():
+        conn = http.client.HTTPConnection(server.host, server.port,
+                                          timeout=60)
+        try:
+            barrier.wait()
+            conn.request("POST", "/v1/act", body=body)
+            resp = conn.getresponse()
+            resp.read()
+            statuses.append(resp.status)
+            if resp.status == 429:
+                retry_after.append(resp.getheader("Retry-After"))
+        finally:
+            conn.close()
+
+    try:
+        threads = [threading.Thread(target=shed_one) for _ in range(n_shed)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        server.close()
+    out["shedding"] = {"queue_limit": limit, "clients": n_shed,
+                       "ok": statuses.count(200), "shed": statuses.count(429),
+                       "5xx": sum(s >= 500 for s in statuses),
+                       "retry_after": sorted(set(retry_after))}
+    if (len(statuses) != n_shed or not retry_after
+            or not all(h and int(h) >= 1 for h in retry_after)
+            or any(s not in (200, 429) for s in statuses)):
+        _fail(f"serving_apex: shedding: {out['shedding']} ({statuses})")
+
+    # -- timings at max_wait 2 ms: a lone request, then closed loops --------
+    clients, seconds = SERVING_CLOSED_LOOP
+    for batching in (True, False):
+        server = build_server(cfg, {"default": directory}, device=DEVICE,
+                              max_rows=SERVING_MAX_ROWS,
+                              max_wait_ms=SERVING_WAIT_MS,
+                              batching=batching, poll_interval_s=3600.0,
+                              log_fn=quiet)
+        try:
+            if batching:
+                cl = ServingClient(server.address)
+                try:
+                    lone = []
+                    for _ in range(SERVING_LONE_REQUESTS):
+                        t0 = time.perf_counter()
+                        cl.act(obs[:1], greedy=True)
+                        lone.append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    cl.close()
+                out["lone_request_ms"] = {
+                    "requests": SERVING_LONE_REQUESTS,
+                    "max_wait_ms": SERVING_WAIT_MS,
+                    "p50": float(np.percentile(lone, 50)),
+                    "p99": float(np.percentile(lone, 99))}
+            arm = _closed_loop(server.address, obs[:1], clients, seconds,
+                               registry)
+        finally:
+            server.close()
+        out["closed_loop_batching" if batching
+            else "closed_loop_no_batching"] = arm
+        if arm["errors"] or not arm["requests"]:
+            _fail(f"serving_apex: closed loop (batching={batching}): {arm}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out["peak_device_gb"] = peak / 1e9
+    # The servers' own share: the peak over what the phase's nets held.
+    out["serving_peak_over_nets_gb"] = (peak - mem0) / 1e9
+
+    # -- the CLI -------------------------------------------------------------
+    t_cli = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dist_dqn_tpu_torch.serving", "--config",
+         "apex", "--checkpoint-dir", directory, "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli, lines = {}, []
+    try:
+        deadline = time.time() + 180
+        while time.time() < deadline and "port" not in cli:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line.rstrip())
+            try:
+                row = json.loads(line)
+            except ValueError:
+                continue
+            if "serving_warmup_buckets" in row:
+                cli["warmup"] = row
+            if "serving_port" in row:
+                cli["port"] = row["serving_port"]
+                cli["announced_s"] = time.perf_counter() - t_cli
+                cli["announced_step"] = row["policies"]["default"]["step"]
+        if "port" not in cli:
+            _fail(f"serving_apex: the CLI never announced its port: "
+                  f"{lines[-20:]}")
+        c = ServingClient(f"127.0.0.1:{cli['port']}")
+        try:
+            r = c.act(obs[:2], greedy=True)
+            cli["answered"] = r.actions.shape == (2,)
+            cli["healthz"] = c.healthz()[0]
+            status, text = c._get("/metrics")
+        finally:
+            c.close()
+        samples = [ln for ln in text.decode().splitlines()
+                   if ln and not ln.startswith("#")]
+        for ln in samples:
+            float(ln.rsplit(" ", 1)[1])       # every sample parses
+        cli["metrics_status"] = status
+        cli["metrics_samples"] = len(samples)
+        cli["metrics_requests"] = [ln for ln in samples if ln.startswith(
+            "dqn_serving_requests_total")]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rest, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rest, _ = proc.communicate()
+    cli["rc"] = proc.returncode
+    tail = [json.loads(ln) for ln in rest.splitlines() if ln.startswith("{")]
+    cli["drained"] = bool(tail) and tail[-1].get("serving_drained") is True
+    cli["s"] = time.perf_counter() - t_cli
+    out["cli"] = cli
+    if (cli["rc"] != 0 or not cli["drained"] or not cli["answered"]
+            or cli["healthz"] != 200 or cli["metrics_status"] != 200
+            or not cli["metrics_requests"]):
+        _fail(f"serving_apex: the CLI: {cli} {rest[-2000:]}")
+
+    launches = sampler.kernel_stratified_sample.launches
+    out["sampler_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"serving_apex": out}), flush=True)
+    if launches:
+        _fail(f"serving_apex: {launches} sampler launches, want 0")
+    return launches
+
+
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
 HOST_REPLAY_PHASES = ("host_replay_apex_dedup", "host_replay_uniform_pair")
@@ -1907,7 +2402,7 @@ APEX_SERVICE_PHASES = ("apex_service_pong", "apex_service_r2d2_pong",
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
           "population_learner_lockstep", *HOST_REPLAY_PHASES,
-          *APEX_SERVICE_PHASES, *BAR_PHASES)
+          *APEX_SERVICE_PHASES, "serving_apex", *BAR_PHASES)
 
 
 def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
@@ -2414,6 +2909,10 @@ def main(argv=None) -> int:
             launches["evaluate_fake_ale"] = check_evaluate_fake_ale(
                 sampler, feeder_dir, os.path.join(tmp, "evaluate_fake_ale"))
             _clock("evaluate_fake_ale")
+        if "serving_apex" in phases:
+            launches["serving_apex"] = check_serving_apex(
+                sampler, os.path.join(tmp, "serving_apex"))
+            _clock("serving_apex")
 
     for name in BAR_PHASES:
         if name in phases:

@@ -28,18 +28,9 @@ from dist_dqn_tpu_torch.config import CONFIGS, ExperimentConfig, \
 from dist_dqn_tpu_torch.utils.checkpoint import (CheckpointMissingError,
                                                  TrainCheckpointer,
                                                  checkpoint_present,
-                                                 read_checkpoint_kind,
-                                                 save_pytree,
+                                                 params_prefix, save_pytree,
                                                  wait_for_checkpoint)
 from dist_dqn_tpu_torch.utils.device import resolve_device
-
-
-def _ckpt_prefix(checkpoint_dir: str):
-    """Where the learner lives inside this directory's checkpoints:
-    learner-kind saves it at the root; --checkpoint-replay (carry-kind)
-    nests it one level down."""
-    return (("learner",) if read_checkpoint_kind(checkpoint_dir) == "carry"
-            else ())
 
 
 def _restore_latest(checkpoint_dir: str, example_params, step=None,
@@ -55,7 +46,7 @@ def _restore_latest(checkpoint_dir: str, example_params, step=None,
     ckpt = TrainCheckpointer(checkpoint_dir)
     try:
         restored = ckpt.restore_params(example_params, step=step,
-                                       prefix=_ckpt_prefix(checkpoint_dir),
+                                       prefix=params_prefix(checkpoint_dir),
                                        member=member)
     except FileNotFoundError as e:
         # Skippable only when the requested step is gone from the retained
@@ -210,7 +201,7 @@ def evaluate_checkpoint_curve(cfg: ExperimentConfig, checkpoint_dir: str,
     if not os.path.isdir(checkpoint_dir):
         raise FileNotFoundError(
             f"no checkpoint found under {checkpoint_dir!r}")
-    prefix = _ckpt_prefix(checkpoint_dir)
+    prefix = params_prefix(checkpoint_dir)
     ckpt = TrainCheckpointer(checkpoint_dir)
     steps = ckpt.all_steps()
     if not steps:

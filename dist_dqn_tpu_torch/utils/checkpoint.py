@@ -515,6 +515,17 @@ def read_checkpoint_kind(directory: str):
         return None
 
 
+def params_prefix(directory: str) -> Tuple[str, ...]:
+    """Where the learner lives inside this directory's checkpoints, the
+    ``prefix`` of :meth:`TrainCheckpointer.restore_params`: learner-kind
+    saves it at the root; ``--checkpoint-replay`` (carry-kind) and the
+    host-replay runtime's whole-state saves (host_loop-kind) nest it one
+    level down. The one rule every deploy surface restores by (evaluate,
+    the serving model store)."""
+    return (("learner",) if read_checkpoint_kind(directory)
+            in ("carry", "host_loop") else ())
+
+
 def record_population_size(directory: str, size: int) -> None:
     """Stamp a population run's member-axis width M. The stacked tree's
     leading [M] axis is checkpoint structure: resuming a population-M'

@@ -43,6 +43,23 @@ slice11 = {"dist_dqn_tpu_torch." + m for m in (
     "actors.feeder", "envs.fake_ale", "envs.dmc_adapter", "atari57",
     "atari57_refs")}
 assert slice11 <= set(names), sorted(slice11 - set(names))
+slice12 = {"dist_dqn_tpu_torch." + m for m in (
+    "serving", "serving.__main__", "serving.batcher", "serving.client",
+    "serving.model_store", "serving.router", "serving.server",
+    "serving.types", "telemetry", "telemetry.collectors",
+    "telemetry.exposition", "telemetry.registry", "telemetry.server",
+    "telemetry.watchdog")}
+assert slice12 <= set(names), sorted(slice12 - set(names))
+from dist_dqn_tpu_torch.serving import (ActResult, MicroBatcher, ModelStore,
+                                        PolicyServer, PolicySnapshot,
+                                        QueueFullError, Router,
+                                        ServerClosedError, ServingClient,
+                                        ServingError, SloTracker,
+                                        UnknownPolicyError, build_server)
+from dist_dqn_tpu_torch.telemetry import (Registry, healthz_body,
+                                          register_health_probe,
+                                          render_prometheus)
+from dist_dqn_tpu_torch.utils.checkpoint import params_prefix
 from dist_dqn_tpu_torch.actors.feeder import (FeederSpecEnv,
                                               parse_feeder_spec, run_feeder)
 from dist_dqn_tpu_torch.atari57 import (ATARI_57, evaluate_suite,
@@ -128,3 +145,28 @@ def test_feeder_and_fake_ale_load_no_torch():
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+_SERVING_HELP = r"""
+import runpy, sys
+sys.argv = ["dist_dqn_tpu_torch.serving", "--help"]
+try:
+    runpy.run_module("dist_dqn_tpu_torch.serving", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "dist_dqn_tpu"))
+print(bad)
+"""
+
+
+def test_serving_cli_help_loads_no_jax():
+    """``python -m dist_dqn_tpu_torch.serving --help`` prints its flags
+    without loading JAX or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _SERVING_HELP], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "--checkpoint-dir" in proc.stdout and "--device" in proc.stdout
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
