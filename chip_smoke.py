@@ -204,6 +204,35 @@ them or outside a checkout of the repository. Phases, each fatal:
    which a member's actions or replay draws differ from its solo twin's
    is reported, not held to a bar.
 
+14. The data-parallel mesh (``dist_dqn_tpu_torch/parallel/``):
+   * mesh_apex_nccl: ``python -m dist_dqn_tpu_torch.train --config apex
+     --mesh-devices 0`` (its ``main``, in this process) at apex's full
+     width with the apex path's fill and depth cuts and a learner
+     checkpoint at its end: the group must be NCCL of size 1, the rows
+     rank 0's only, the sampler launches equal the grad steps, the saved
+     learner finite; prints grad steps/s;
+   * mesh_apex_2rank: two spawned ranks sharing the card over a ``gloo``
+     group this script builds, each calling ``make_mesh_fused_train`` at
+     apex's full width (a 500,000-cell shard, 256 of the 512 rows, 8 of
+     the 16 lanes): the ranks' learners must end bit-equal (rank 0's flat
+     copy broadcast and compared on rank 1), ``env_frames`` must be
+     ``iteration x 16`` and each rank's sampler launches its grad steps
+     (its own counter, zeroed before its run). Prints each rank's peak
+     device memory, grad steps/s and the all-reduce's ms per step (CUDA
+     events around the gradient-sized all-reduce): a mechanism check, as
+     two ranks on one card say nothing of multi-card speed. Then one apex
+     learner step on 512 rows whole beside the same step as 2 x 256
+     through the group, from the same weights, on each rank: the
+     gradient the optimizer is handed (the all-reduced mean) within 4 x
+     2^-8 of the whole batch's by relative norm, and the loss within 4 x
+     2^-8 of its size (four bf16 roundings: a forward and a backward on
+     each side); every number finite. Two controls must fail
+     the gradient bound, or the phase fails: the rank's own 256-row
+     gradient (no all-reduce) and the all-reduced sum without the divide;
+   * mesh_r2d2_2rank: ``make_mesh_r2d2_train`` at the r2d2 preset's width
+     on the two ranks, two chunks past its fill: bit-equal learners, one
+     sampler launch per grad step.
+
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -395,6 +424,23 @@ SERVING_SHED = (4, 32)               # queue limit, concurrent clients
 SERVING_LONE_REQUESTS = 200
 SERVING_CLOSED_LOOP = (16, 1.5)      # 1-row clients, seconds per arm
 SERVING_ACT_ITERS = 50
+# The mesh phases. mesh_apex_nccl is the apex path (fill, depth, chunk)
+# through the CLI at world size 1. The two-rank phases share the card over
+# gloo: apex fills at 8,000 frames (4,000 per rank, 500 iterations of 8
+# lanes), then 101 grad steps per rank by 9,600; r2d2 fills at 2,500
+# frames (iteration 156 of 8 lanes per rank) and trains to 3,200, two
+# chunks of 25 iterations past the fill: 44 grad steps per rank.
+MESH_NCCL_PATH = ("apex", ["replay.min_fill=22000", "eval_every_steps=0"],
+                  28_000, 250)
+MESH_2RANK_PATHS = {
+    "mesh_apex_2rank": ("apex", ["replay.min_fill=8000",
+                                 "eval_every_steps=0"], 9_600, 50),
+    "mesh_r2d2_2rank": ("r2d2", ["replay.pallas_sampler=true",
+                                 "eval_every_steps=0"], 3_200, 25),
+}
+MESH_RANKS = 2
+MESH_DEADLINE_S = 600
+MESH_ALLREDUCE_ITERS = 20
 
 
 def _fail(msg: str) -> None:
@@ -523,14 +569,17 @@ def _mass(rng, T, B, zero_frac, row_stride=1):
 
 # name: (T, B, S, zero share, row stride). The apex PER plane; a ragged,
 # mostly zero one; R2D2's sequence plane, where window starts are seeded
-# every sequence_stride=40 writes, so only every 40th row has mass; and the
-# PixelCatch learning bar's 16,384-transition plane of 32 lanes.
+# every sequence_stride=40 writes, so only every 40th row has mass; the
+# PixelCatch learning bar's 16,384-transition plane of 32 lanes; the
+# host-replay plane; and one rank's plane of the two-rank apex mesh (8 of
+# the 16 lanes, 256 of the 512 rows).
 SAMPLER_CASES = {"apex": (62500, 16, 512, 0.3, 1),
                  "ragged": (700, 8, 128, 0.9, 1),
                  "r2d2": (6250, 16, 64, 0.0, 40),
                  "catch": (512, 32, 32, 0.0, 1),
-                 "host_plane": (1954, 512, 512, 0.3, 1)}
-TIMED_CASES = ("apex", "r2d2", "catch", "host_plane")
+                 "host_plane": (1954, 512, 512, 0.3, 1),
+                 "mesh_rank": (62500, 8, 256, 0.3, 1)}
+TIMED_CASES = ("apex", "r2d2", "catch", "host_plane", "mesh_rank")
 # The host-replay device plane of apex's 1M slots: [ceil(1e6 / 512), 512]
 # cells, of which the last 448 (past slot 999,999) are never written.
 HOST_PLANE_LIVE_CELLS = 1_000_000
@@ -2391,6 +2440,390 @@ def check_serving_apex(sampler, directory: str) -> int:
     return launches
 
 
+class _Tee:
+    """A stdout that keeps what it is given and passes it on."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+        self._part = ""
+
+    def write(self, text):
+        self.out.write(text)
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        self.lines.extend(done)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def check_mesh_apex_nccl(sampler, directory: str) -> int:
+    """MESH_NCCL_PATH through the CLI's ``main`` in this process
+    (``--mesh-devices 0``), with a learner checkpoint at its end: the group
+    must be NCCL of world size 1 on the card, every row rank 0's (one per
+    chunk), one sampler launch per grad step, and the saved learner
+    finite. Returns the launches."""
+    import contextlib
+
+    import torch
+
+    from dist_dqn_tpu_torch import parallel
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.models import build_network
+    from dist_dqn_tpu_torch.train import main as train_main
+    from dist_dqn_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+    name = "mesh_apex_nccl"
+    preset, overrides, total, chunk_iters = MESH_NCCL_PATH
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    argv = ["--config", preset, "--mesh-devices", "0", "--total-env-steps",
+            str(total), "--chunk-iters", str(chunk_iters),
+            "--checkpoint-dir", directory,
+            *(a for o in overrides for a in ("--set", o))]
+    meshes = []
+    real_make_mesh = parallel.make_mesh
+
+    def make_mesh(*args, **kwargs):
+        mesh = real_make_mesh(*args, **kwargs)
+        meshes.append({"backend": mesh.backend, "size": mesh.size,
+                       "rank": mesh.rank, "device": str(mesh.device)})
+        return mesh
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    parallel.make_mesh = make_mesh
+    sampler.kernel_stratified_sample.launches = 0
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            train_main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        parallel.make_mesh = real_make_mesh
+    launches = sampler.kernel_stratified_sample.launches
+    rows = [json.loads(line) for line in tee.lines
+            if line.startswith("{") and "env_frames" in line]
+    grad_steps = int(sum(r["grad_steps_in_chunk"] for r in rows))
+    env = make_env(cfg.env_name, device=DEVICE)
+    net = build_network(cfg.network, env.num_actions, env.observation_shape,
+                        device=DEVICE)
+    restored = TrainCheckpointer(directory).restore_params(net)
+    finite = restored is not None and all(
+        bool(torch.isfinite(p).all()) for p in net.parameters())
+    frames_per_chunk = chunk_iters * cfg.actor.num_envs
+    chunks = -(-total // frames_per_chunk)
+    row = {"main_path": name, "device": torch.cuda.get_device_name(0),
+           "meshes": meshes, "wall_s": wall,
+           "env_frames": [r["env_frames"] for r in rows],
+           "grad_steps": grad_steps, "sampler_launches": launches,
+           "grad_steps_per_sec_chunks": [r["grad_steps_per_sec"]
+                                         for r in rows[1:]],
+           "env_steps_per_sec_chunks": [r["env_steps_per_sec"]
+                                        for r in rows[1:]],
+           "losses": [r["loss"] for r in rows if r["grad_steps_in_chunk"]],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "saved_learner_finite": finite,
+           "saved_at_frames": restored[0] if restored else None}
+    print(json.dumps(row), flush=True)
+    if meshes != [{"backend": "nccl", "size": 1, "rank": 0,
+                   "device": "cuda:0"}]:
+        _fail(f"{name}: the mesh was {meshes}, not NCCL of one rank")
+    if [r["env_frames"] for r in rows] != [
+            frames_per_chunk * (i + 1) for i in range(chunks)]:
+        _fail(f"{name}: rows {row['env_frames']} (want {chunks} chunks of "
+              f"{frames_per_chunk} frames, rank 0's only)")
+    if grad_steps <= 0 or launches != grad_steps:
+        _fail(f"{name}: {launches} sampler launches for {grad_steps} grad "
+              "steps")
+    if not finite or not all(math.isfinite(x) for x in row["losses"]):
+        _fail(f"{name}: non-finite loss or saved learner")
+    return launches
+
+
+def _mesh_rank(rank: int, address: str, jobs, out_dir: str) -> None:
+    """One rank of the two-rank phases: join a gloo group on the card (both
+    ranks on cuda:0), run each job and write its report."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from dist_dqn_tpu_torch.parallel import distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.set_device(dev)
+    # gloo, not NCCL: NCCL refuses two ranks on one card, and gloo carries
+    # the two collectives the port uses (all_reduce, broadcast) on it.
+    dist.init_process_group("gloo", init_method=f"tcp://{address}",
+                            world_size=MESH_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(device=dev)
+        report = {}
+        for job in jobs:
+            report[job] = _mesh_train(mesh, job)
+            torch.cuda.empty_cache()
+            if job == "mesh_apex_2rank":
+                report["mesh_apex_sharded_step"] = _mesh_sharded_step(mesh)
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as fh:
+            json.dump(report, fh)
+    finally:
+        distributed.shutdown()
+
+
+def _mesh_train(mesh, job: str) -> dict:
+    """MESH_2RANK_PATHS[job] through the mesh trainer on this rank, its
+    sampler counter zeroed just before: rows, launches, peak memory,
+    whether its learner equals rank 0's bit for bit, and the all-reduce's
+    time at the gradient's size."""
+    import torch
+
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.models import build_network
+    from dist_dqn_tpu_torch.ops import sampler
+    from dist_dqn_tpu_torch.parallel import (make_mesh_fused_train,
+                                             make_mesh_r2d2_train)
+    from dist_dqn_tpu_torch.parallel.learner import global_metrics
+
+    preset, overrides, total, chunk_iters = MESH_2RANK_PATHS[job]
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    torch.cuda.reset_peak_memory_stats()
+    env = make_env(cfg.env_name, device=mesh.device)
+    net = build_network(cfg.network, env.num_actions, env.observation_shape,
+                        device=mesh.device, seed=cfg.seed)
+    make = (make_mesh_r2d2_train if cfg.network.lstm_size
+            else make_mesh_fused_train)
+    init, run = make(cfg, env, net, mesh)
+    carry = init(cfg.seed)
+    sampler.kernel_stratified_sample.launches = 0
+    rows = []
+    frames = 0
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    while frames < total:
+        t0 = time.perf_counter()
+        carry, metrics = run(carry, chunk_iters)
+        row = global_metrics({k: metrics[k] for k in (
+            "episode_return", "episodes", "loss")})
+        row.update(env_frames=metrics["env_frames"],
+                   grad_steps_in_chunk=metrics["grad_steps_in_chunk"],
+                   seconds=time.perf_counter() - t0)
+        rows.append(row)
+        frames = row["env_frames"]
+    run_s = time.perf_counter() - t_run
+    launches = sampler.kernel_stratified_sample.launches
+    learner = carry.learner
+    flat = torch.cat([p.detach().reshape(-1) for p in (
+        *learner.net.parameters(), *learner.target_net.parameters())])
+    rank0 = flat.clone()
+    mesh.broadcast_([rank0])
+    buf = torch.zeros(sum(p.numel() for p in learner.net.parameters()) + 3,
+                      device=mesh.device)
+    for _ in range(3):
+        mesh.pmean([buf])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(MESH_ALLREDUCE_ITERS):
+        mesh.pmean([buf])
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / MESH_ALLREDUCE_ITERS
+    grad_steps = int(sum(r["grad_steps_in_chunk"] for r in rows))
+    training = [r for r in rows if r["grad_steps_in_chunk"]]
+    out = {
+        "rank": mesh.rank, "backend": mesh.backend, "size": mesh.size,
+        "lanes": cfg.actor.num_envs // mesh.size, "rows": rows,
+        "grad_steps": grad_steps, "sampler_launches": launches,
+        "steps": learner.steps, "run_s": run_s,
+        "grad_steps_per_sec_training_chunks": [
+            r["grad_steps_in_chunk"] / r["seconds"] for r in training],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "learner_equals_rank0": bool(torch.equal(flat, rank0)),
+        "params_finite": bool(torch.isfinite(flat).all()),
+        "allreduce_floats": buf.numel(),
+        "allreduce_ms": start.elapsed_time(end) / MESH_ALLREDUCE_ITERS,
+        "allreduce_host_ms": host_ms,
+        "iterations": carry.iteration}
+    del carry, learner, flat, rank0, buf
+    return out
+
+
+def _mesh_sharded_step(mesh) -> dict:
+    """One apex learner step on 512 rows whole, and the same step as 2 x
+    256 through the group, from the same weights and batch (drawn from a
+    seed, equal on both ranks). The gradient each optimizer is handed (on
+    the sharded side, the all-reduced mean) is held against the whole
+    batch's by the relative norm of their difference; so are two controls
+    that must fail the bound: this rank's own 256-row gradient (a step
+    without the all-reduce, or on half the batch) and the all-reduced sum
+    without the divide. Also |dloss|, |dparam|, |dpriority| and whether
+    every number is finite."""
+    import torch
+
+    from dist_dqn_tpu_torch.agents.dqn import ClipAdam, make_learner
+    from dist_dqn_tpu_torch.config import CONFIGS
+    from dist_dqn_tpu_torch.models import build_network
+    from dist_dqn_tpu_torch.parallel.learner import (make_sharded_train_step,
+                                                     train_step_specs)
+    from dist_dqn_tpu_torch.types import Transition
+
+    class GradRecorder(ClipAdam):
+        """The optimizer, keeping the flat gradient its step is handed."""
+        grad = None
+
+        def step(self, params, grads, state):
+            self.grad = torch.cat([g.detach().float().reshape(-1)
+                                   for g in grads])
+            return super().step(params, grads, state)
+
+    cfg = CONFIGS["apex"]
+    dev = mesh.device
+    rows = cfg.learner.batch_size
+    shape = (84, 84, 4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def frames():
+        return torch.randint(0, 256, (rows, *shape), generator=gen,
+                             device=dev, dtype=torch.uint8)
+
+    batch = Transition(
+        obs=frames(),
+        action=torch.randint(0, 6, (rows,), generator=gen, device=dev),
+        reward=torch.rand(rows, generator=gen, device=dev) * 2 - 1,
+        discount=(torch.rand(rows, generator=gen, device=dev) < 0.9).float()
+        * cfg.learner.gamma ** cfg.learner.n_step,
+        next_obs=frames())
+    weights = torch.rand(rows, generator=gen, device=dev) * 0.8 + 0.2
+
+    def learner(axis=None):
+        net = build_network(cfg.network, 6, shape, device=dev, seed=11)
+        tx = GradRecorder(cfg.learner)
+        init, step = make_learner(cfg.learner, net, tx=tx, axis=axis)
+        return tx, init(net), step
+
+    tx_whole, state, step = learner()
+    whole, m_whole = step(state, batch, weights)
+    tx_part, state, step = learner(mesh)
+    sharded = make_sharded_train_step(step, mesh, *train_step_specs())
+    part, m_part = sharded(state, batch, weights)
+    tx_local, state, step = learner()
+    block = mesh.rows(rows // mesh.size)
+    step(state, Transition(*(f[block] for f in batch)), weights[block])
+    g = tx_whole.grad
+
+    def rel_err(x):
+        return float((x - g).norm() / g.norm())
+
+    # bf16 keeps 8 significant bits: four roundings of 2^-8 (one in the
+    # forward and one in the backward on each side).
+    bound = 4 * 2.0 ** -8
+    loss = float(m_whole["loss"])
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        g, tx_part.grad, m_whole["loss"], m_part["loss"],
+        *part.net.parameters()))
+    return {"rows": rows, "rows_per_rank": rows // mesh.size,
+            "grad_rel_err": rel_err(tx_part.grad),
+            "grad_bound": bound,
+            "bound_rule": "|g_sharded - g_whole| / |g_whole| and |dloss| / "
+                          "|loss| <= 4 x 2^-8 (bf16 roundings)",
+            "control_local_rel_err": rel_err(tx_local.grad),
+            "control_sum_rel_err": rel_err(tx_part.grad * mesh.size),
+            "max_abs_dgrad": float((tx_part.grad - g).abs().max()),
+            "grad_norm_whole": float(g.norm()),
+            "loss_whole": loss, "loss_sharded": float(m_part["loss"]),
+            "max_abs_dloss": abs(float(m_part["loss"]) - loss),
+            "loss_bound": bound * abs(loss),
+            "max_abs_dparam": max(float((a - b).detach().abs().max())
+                                  for a, b in zip(whole.net.parameters(),
+                                                  part.net.parameters())),
+            "max_abs_dpriority": float((m_whole["priorities"]
+                                        - m_part["priorities"]).abs().max()),
+            "finite": finite}
+
+
+def check_mesh_2rank(phases) -> dict:
+    """The two-rank phases in ``phases``, in one spawned group of two ranks
+    on this card; each rank's report printed and held. Returns the sampler
+    launches of each phase (summed over the ranks)."""
+    import torch
+
+    from dist_dqn_tpu_torch.parallel import distributed
+
+    jobs = [p for p in MESH_2RANK_PATHS if p in phases]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as out:
+        distributed.spawn(_mesh_rank, (
+            f"127.0.0.1:{distributed.free_port()}", jobs, out), MESH_RANKS,
+            deadline_s=MESH_DEADLINE_S)
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(out, f"{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    wall = time.perf_counter() - t0
+    launches = {}
+    for job in jobs:
+        reports = [rk[job] for rk in ranks]
+        chunk_iters = MESH_2RANK_PATHS[job][3]
+        print(json.dumps({"main_path": job,
+                          "device": torch.cuda.get_device_name(0),
+                          "spawn_wall_s": wall, "ranks": reports}),
+              flush=True)
+        launches[job] = sum(r["sampler_launches"] for r in reports)
+        for r in reports:
+            lanes_total = r["lanes"] * r["size"]
+            if r["backend"] != "gloo" or r["size"] != MESH_RANKS:
+                _fail(f"{job}: rank {r['rank']} in a {r['backend']} group "
+                      f"of {r['size']}")
+            if not r["learner_equals_rank0"] or not r["params_finite"]:
+                _fail(f"{job}: rank {r['rank']}'s learner differs from "
+                      "rank 0's or is not finite")
+            frames = [x["env_frames"] for x in r["rows"]]
+            if frames != [chunk_iters * lanes_total * (i + 1)
+                          for i in range(len(frames))] or \
+                    frames[-1] != r["iterations"] * lanes_total:
+                _fail(f"{job}: env_frames {frames} are not iterations x "
+                      f"{lanes_total}")
+            if r["grad_steps"] <= 0 or r["sampler_launches"] != \
+                    r["grad_steps"] or r["steps"] != r["grad_steps"]:
+                _fail(f"{job}: rank {r['rank']} launched the sampler "
+                      f"{r['sampler_launches']} times for {r['grad_steps']} "
+                      "grad steps")
+            if not all(math.isfinite(x["loss"]) for x in r["rows"]):
+                _fail(f"{job}: non-finite loss on rank {r['rank']}")
+        same = [[{k: v for k, v in x.items() if k != "seconds"}
+                 for x in r["rows"]] for r in reports]
+        if same[0] != same[1]:
+            _fail(f"{job}: the ranks report different global metrics")
+        if job == "mesh_apex_2rank":
+            steps = [rk["mesh_apex_sharded_step"] for rk in ranks]
+            print(json.dumps({"mesh_apex_sharded_step": steps}), flush=True)
+            for st in steps:
+                # Written so that a NaN fails.
+                if not (st["finite"] and st["grad_rel_err"] <= st[
+                        "grad_bound"] and st["max_abs_dloss"] <= st[
+                        "loss_bound"]):
+                    _fail(f"mesh_apex_sharded_step: the sharded gradient is "
+                          f"off the whole batch's by {st['grad_rel_err']} "
+                          f"(bound {st['grad_bound']}), |dloss| "
+                          f"{st['max_abs_dloss']} (bound {st['loss_bound']}),"
+                          f" or a value is not finite")
+                if not (st["control_local_rel_err"] > st["grad_bound"] and
+                        st["control_sum_rel_err"] > st["grad_bound"]):
+                    _fail(f"mesh_apex_sharded_step: a control passes the "
+                          f"gradient bound {st['grad_bound']}: {st}")
+    return launches
+
+
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
 HOST_REPLAY_PHASES = ("host_replay_apex_dedup", "host_replay_uniform_pair")
@@ -2399,10 +2832,11 @@ APEX_SERVICE_PHASES = ("apex_service_pong", "apex_service_r2d2_pong",
                        "apex_service_snapshot_synthstack",
                        "apex_service_feeder_pixel",
                        "apex_service_feeder_legacy_tree", "evaluate_fake_ale")
+MESH_PHASES = ("mesh_apex_nccl", *MESH_2RANK_PATHS)
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
           "population_learner_lockstep", *HOST_REPLAY_PHASES,
-          *APEX_SERVICE_PHASES, "serving_apex", *BAR_PHASES)
+          *APEX_SERVICE_PHASES, "serving_apex", *MESH_PHASES, *BAR_PHASES)
 
 
 def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
@@ -2913,6 +3347,13 @@ def main(argv=None) -> int:
             launches["serving_apex"] = check_serving_apex(
                 sampler, os.path.join(tmp, "serving_apex"))
             _clock("serving_apex")
+        if "mesh_apex_nccl" in phases:
+            launches["mesh_apex_nccl"] = check_mesh_apex_nccl(
+                sampler, os.path.join(tmp, "mesh_apex_nccl"))
+            _clock("mesh_apex_nccl")
+        if set(MESH_2RANK_PATHS) & set(phases):
+            launches.update(check_mesh_2rank(phases))
+            _clock("mesh_2rank")
 
     for name in BAR_PHASES:
         if name in phases:
@@ -2950,6 +3391,9 @@ def main(argv=None) -> int:
             "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "eager_ms", "device_launches_per_call",
             "rows_twin_ms", "rows_twin_eager_ms", "rows_twin_repeats")},
+        "mesh_rank_shape": {k: sampler_report["mesh_rank"][k] for k in (
+            "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "eager_ms", "device_launches_per_call")},
         "population_shape": {k: sampler_report["population"][k] for k in (
             "M", "T", "B", "S", "ms", "one_launch_per_member_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",

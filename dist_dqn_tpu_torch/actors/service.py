@@ -208,9 +208,9 @@ def _refuse(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn) -> None:
                          f"(expected 'zerocopy' or 'legacy')")
     # What the port leaves out, in ROADMAP.md's order.
     if rt.learner_devices != 1:
-        raise _not_ported(f"learner_devices={rt.learner_devices}", "A6")
+        raise _not_ported(f"learner_devices={rt.learner_devices}", "A6c")
     if rt.ingest_shards > 1 or rt.shard_sampling:
-        raise _not_ported("ingest_shards > 1 and shard_sampling", "A6")
+        raise _not_ported("ingest_shards > 1 and shard_sampling", "A6c")
     if rt.trace_path is not None:
         raise _not_ported("the host-loop trace (trace_path)", "A10")
     if rt.telemetry_port is not None:

@@ -224,6 +224,15 @@ def init_learner_state(net: nn.Module, tx: ClipAdam,
                         generator=generator)
 
 
+def broadcast_learner(learner: LearnerState, axis) -> None:
+    """Overwrite a learner's parameters, target and optimizer moments with
+    rank 0's, in one broadcast: the replicas start equal whatever each
+    rank's initialisation did."""
+    opt = learner.opt_state
+    axis.broadcast_([*learner.net.parameters(),
+                     *learner.target_net.parameters(), *opt.mu, *opt.nu])
+
+
 @torch.no_grad()
 def sync_target(cfg: LearnerConfig, state: LearnerState) -> None:
     """After ``state.steps`` grad steps: a soft Polyak step toward the
@@ -280,7 +289,7 @@ Draws = Dict[str, object]
 
 
 def make_learner(cfg: LearnerConfig, net: nn.Module,
-                 tx: Optional[ClipAdam] = None):
+                 tx: Optional[ClipAdam] = None, axis=None):
     """Build (init, train_step) for the feed-forward Q-network ``net``,
     of any head; its head picks the loss branch, as the JAX
     ``make_learner(net, cfg)``'s does. ``init(net, generator=None)`` wraps
@@ -293,9 +302,27 @@ def make_learner(cfg: LearnerConfig, net: nn.Module,
     "online", "next" and "target"; without it they come from
     ``state.generator``: three independent noise draws for a noisy net
     (``dqn.py:197``), the online and target taus for IQN.
+
+    With ``axis`` (a :class:`~dist_dqn_tpu_torch.parallel.mesh.Mesh`) the
+    step is one rank's of a data-parallel learner (``dqn.py:328-334``):
+    the batch is the rank's row block, the gradients and the scalar
+    metrics (``loss``, ``raw_loss``, ``mean_q_target_gap``) are averaged
+    across ranks in one flat all-reduce before the optimizer step, so the
+    clip sees the averaged gradient, and ``priorities`` stay the rank's
+    own rows. IQN's taus are keyed by global batch position: every rank
+    draws (or is given) the global ``[rows x size, num]`` block of each
+    forward from its replicated generator and keeps its own rows, so a
+    row-sharded step sees the fractions of the whole-batch step. A noisy
+    net's layer noise is per parameter and needs nothing: the replicated
+    generator draws the same noise on every rank. A population under a
+    mesh is refused, as in JAX.
     """
     check_munchausen(cfg, net)
     members = members_of(net)
+    if members and axis is not None:
+        raise ValueError("a population's learner does not run under a "
+                         "mesh (--population and --mesh-devices are "
+                         "mutually exclusive)")
     if tx is None:
         tx = make_optimizer(cfg, members)
 
@@ -404,12 +431,23 @@ def make_learner(cfg: LearnerConfig, net: nn.Module,
                                       ("online", net.num_tau))}
         return {name: draw_noise(net, generator) for name in noisy_forwards}
 
+    def rank_taus(state: LearnerState, draws: Optional[Draws],
+                  rows: int) -> Draws:
+        """Under a mesh, IQN's draws of this rank's rows: the global
+        block, drawn or given, cut to the rank's row block."""
+        if draws is None:
+            draws = draw_step(state.generator, rows * axis.size)
+        block = axis.rows(rows)
+        return {name: taus[block] for name, taus in draws.items()}
+
     def train_step(state: LearnerState, batch: Transition,
                    weights: Optional[torch.Tensor] = None,
                    draws: Optional[Draws] = None
                    ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
         if weights is None:
             weights = torch.ones_like(batch.reward)
+        if axis is not None and kind == "iqn":
+            draws = rank_taus(state, draws, batch.reward.shape[0])
 
         def source(name):
             if not random:
@@ -419,16 +457,24 @@ def make_learner(cfg: LearnerConfig, net: nn.Module,
         params = list(state.net.parameters())
         per_example, priorities = loss_fn(state, batch, source)
         loss = torch.mean(weights * per_example)
-        grads = torch.autograd.grad(loss, params)
-        grad_norm = tx.step(params, list(grads), state.opt_state)
+        grads = list(torch.autograd.grad(loss, params))
+        loss = loss.detach()
+        raw_loss = per_example.detach().mean()
+        mean_gap = priorities.mean()
+        if axis is not None:
+            # The gradient all-reduce over the dp axis, with the scalar
+            # metrics riding the same flat buffer.
+            *grads, loss, raw_loss, mean_gap = axis.pmean(
+                grads + [loss, raw_loss, mean_gap])
+        grad_norm = tx.step(params, grads, state.opt_state)
         state.steps += 1
         sync_target(cfg, state)
         metrics = {
-            "loss": loss.detach(),
-            "raw_loss": per_example.detach().mean(),
+            "loss": loss,
+            "raw_loss": raw_loss,
             "priorities": priorities,
             "grad_norm": grad_norm,
-            "mean_q_target_gap": priorities.mean(),
+            "mean_q_target_gap": mean_gap,
         }
         return state, metrics
 

@@ -32,12 +32,16 @@ from dist_dqn_tpu_torch.types import SequenceSample
 
 
 def make_r2d2_learner(cfg: LearnerConfig, rcfg: ReplayConfig,
-                      tx: Optional[ClipAdam] = None):
+                      tx: Optional[ClipAdam] = None, axis=None):
     """Build (init, train_step) for a ``RecurrentQNetwork`` over sequences.
 
     ``init(net)`` wraps a built network into a :class:`LearnerState`.
     ``train_step(state, sample) -> (state, metrics)``; metrics holds device
     tensors ``loss``, ``raw_loss``, ``priorities`` [S] and ``grad_norm``.
+    With ``axis`` (a ``parallel.mesh.Mesh``) the sample is this rank's
+    sequences and the gradients, ``loss`` and ``raw_loss`` are averaged
+    across ranks in one flat all-reduce before the optimizer step (JAX
+    ``agents/r2d2.py:133-136``); priorities stay the rank's own.
     """
     burn = rcfg.burn_in
     unroll = rcfg.unroll_length
@@ -99,8 +103,12 @@ def make_r2d2_learner(cfg: LearnerConfig, rcfg: ReplayConfig,
         per_step = losses.huber(td, cfg.huber_delta)
         per_seq = per_step.mean(dim=0)                    # [S]
         loss = torch.mean(sample.weights * per_seq)
-        grads = torch.autograd.grad(loss, params)
-        grad_norm = tx.step(params, list(grads), state.opt_state)
+        grads = list(torch.autograd.grad(loss, params))
+        loss = loss.detach()
+        raw_loss = per_seq.detach().mean()
+        if axis is not None:
+            *grads, loss, raw_loss = axis.pmean(grads + [loss, raw_loss])
+        grad_norm = tx.step(params, grads, state.opt_state)
         state.steps += 1
         sync_target(cfg, state)
 
@@ -108,8 +116,8 @@ def make_r2d2_learner(cfg: LearnerConfig, rcfg: ReplayConfig,
         priorities = (eta * abs_td.max(dim=0).values
                       + (1.0 - eta) * abs_td.mean(dim=0))
         metrics = {
-            "loss": loss.detach(),
-            "raw_loss": per_seq.detach().mean(),
+            "loss": loss,
+            "raw_loss": raw_loss,
             "priorities": priorities,
             "grad_norm": grad_norm,
         }

@@ -36,7 +36,7 @@ sidecar of utils/ckpt_schema.py), and a run killed at chunk k resumes
 bit-identically.
 
 ``mesh_devices != 1`` and ``sharded_collect=True`` (the data-parallel
-runtime) are not ported yet, nor are the JAX loop's telemetry registry,
+runtime, ROADMAP.md A6b) are not ported yet, nor are the JAX loop's telemetry registry,
 heartbeats, flight records, watchdog hooks and chaos seams.
 """
 from __future__ import annotations
@@ -244,7 +244,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         raise ValueError(
             "not ported yet: the data-parallel host-replay runtime "
             "(--mesh-devices != 1, sharded_collect); the PyTorch port runs "
-            "it at one device (ROADMAP.md)")
+            "it at one device (ROADMAP.md A6b)")
     dev = resolve_device(device)
     dp = 1
 

@@ -167,6 +167,28 @@ def generators(seed: int, device: torch.device, n: int
             for s in seeds]
 
 
+def rank_generators(seed: int, device: torch.device, rank: int = 0
+                    ) -> List[torch.Generator]:
+    """The fused loops' four generators (env, exploration, replay draws,
+    learner) for rank ``rank`` of a mesh run, or for a single-device run
+    (rank 0), where they are ``generators(seed, device, 4)``.
+
+    The learner's is ``SeedSequence(seed)``'s fourth word on every rank:
+    the replicated learner must draw the same IQN taus and layer noise
+    everywhere (JAX keys it from the unfolded base key,
+    ``train_loop.py:170-176``). The other three are per rank, as JAX folds
+    the rank into the env, exploration and sample keys: rank 0 keeps the
+    single-device run's first three words, so a world-size-1 mesh runs the
+    single-device program, and rank r > 0 takes the first three words of
+    ``SeedSequence(seed, spawn_key=(r,))``, a stream independent of the
+    base one."""
+    base = np.random.SeedSequence(seed).generate_state(4, dtype=np.uint64)
+    own = (base if rank == 0 else np.random.SeedSequence(
+        seed, spawn_key=(rank,)).generate_state(3, dtype=np.uint64))
+    return [torch.Generator(device=device).manual_seed(int(s))
+            for s in (*own[:3], base[3])]
+
+
 def _linear_schedule(init: float, end: float, steps: int
                      ) -> Callable[[int], float]:
     """optax.linear_schedule(init, end, steps)(count) in float32."""
@@ -236,16 +258,32 @@ def episode_stats_update(ep_return: torch.Tensor,
     return ep_return, completed_return, completed_count
 
 
-def chunk_metrics(carry, B: int) -> Dict[str, object]:
+def chunk_metrics(carry, B: int, mesh=None) -> Dict[str, object]:
     """A chunk's metrics from a loop carry: device tensors the caller reads
     once per chunk ([M] for a population, per member), and host ints
-    ``env_frames`` and ``grad_steps_in_chunk`` (per member)."""
+    ``env_frames`` and ``grad_steps_in_chunk`` (per member).
+
+    Under a ``mesh`` they are global, as JAX's ``reduce_chunk_metrics``
+    makes them (``loop_common.py:280-305``): ``completed_return`` and
+    ``completed_count`` summed over the ranks and ``loss_sum`` averaged,
+    in one all-reduce; ``env_frames`` is ``iteration x B x size``. The
+    grad-step count is a host int equal on every rank (every rank trains
+    on the same iterations), so its mean is itself. The carry keeps the
+    rank's own accumulators."""
+    completed_return = carry.completed_return
+    completed_count = carry.completed_count
+    loss_sum = carry.loss_sum
+    shards = 1
+    if mesh is not None:
+        shards = mesh.size
+        completed_return, completed_count, loss_sum = mesh.psum(
+            [completed_return, completed_count, loss_sum])
+        loss_sum = loss_sum / shards
     return {
-        "env_frames": carry.iteration * B,
-        "episode_return": carry.completed_return
-        / carry.completed_count.clamp(min=1.0),
-        "episodes": carry.completed_count,
-        "loss": carry.loss_sum / max(carry.train_count, 1),
+        "env_frames": carry.iteration * B * shards,
+        "episode_return": completed_return / completed_count.clamp(min=1.0),
+        "episodes": completed_count,
+        "loss": loss_sum / max(carry.train_count, 1),
         "grad_steps_in_chunk": carry.train_count,
     }
 

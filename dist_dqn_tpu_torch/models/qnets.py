@@ -374,10 +374,14 @@ class ImplicitQuantileNetwork(nn.Module):
     def sample_quantiles(self, obs: torch.Tensor, num: int,
                          draw: Union[torch.Generator, torch.Tensor]
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """([B, A, num] values, [B, num] taus). One plain [B, num] block of
-        U(0, 1) draws: the JAX package keys each example's taus by its
-        batch position so a sharded batch draws the same ones, which a
-        multi-card learner will need (ROADMAP.md)."""
+        """([B, A, num] values, [B, num] taus): ``draw`` is a generator,
+        from which one plain [B, num] block of U(0, 1) draws is taken, or
+        the [B, num] taus themselves. The JAX package keys each example's
+        taus by its global batch position so a row-sharded batch draws
+        the same ones; the port's data-parallel learner gets the same
+        property by drawing the global block from its replicated
+        generator on every rank and handing each rank its rows
+        (agents/dqn.py ``make_learner``'s ``axis``)."""
         if isinstance(draw, torch.Generator):
             taus = torch.rand(obs.shape[0], num, generator=draw,
                               device=obs.device)

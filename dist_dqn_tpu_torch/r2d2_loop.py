@@ -23,7 +23,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from dist_dqn_tpu_torch import loop_common
-from dist_dqn_tpu_torch.agents.dqn import LearnerState
+from dist_dqn_tpu_torch.agents.dqn import LearnerState, broadcast_learner
 from dist_dqn_tpu_torch.agents.r2d2 import (make_r2d2_learner,
                                             make_recurrent_actor_step)
 from dist_dqn_tpu_torch.config import ExperimentConfig
@@ -58,9 +58,16 @@ def _zero_done(carry, done: torch.Tensor):
 
 
 def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
-                    device=None):
+                    device=None, axis=None, num_shards: int = 1):
     """Returns (init, run_chunk), the contract of
-    ``train_loop.make_fused_train``, for a ``RecurrentQNetwork``."""
+    ``train_loop.make_fused_train``, for a ``RecurrentQNetwork``.
+
+    With ``axis`` (a ``parallel.mesh.Mesh`` of ``num_shards`` ranks) they
+    are one rank's of the mesh, as there (JAX ``r2d2_loop.py:51-136``):
+    per-shard env lanes, batch, fill and slots, the rank's own env,
+    exploration and replay generators, rank 0's learner on every rank, an
+    averaged gradient, global chunk metrics and the max of the new-window
+    priority seed over the ranks at each chunk's end (``:231-236``)."""
     dev = resolve_device(device)
     rcfg = cfg.replay
     if rcfg.updates_per_chunk != 1:
@@ -70,18 +77,22 @@ def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
             "feed-forward config")
     seq_len = rcfg.burn_in + rcfg.unroll_length + cfg.learner.n_step
     stride = rcfg.sequence_stride or rcfg.unroll_length
-    init_learner, train_step = make_r2d2_learner(cfg.learner, rcfg)
+    if axis is not None and axis.size != num_shards:
+        raise ValueError(f"num_shards={num_shards} but the mesh has "
+                         f"{axis.size} ranks")
+    init_learner, train_step = make_r2d2_learner(cfg.learner, rcfg,
+                                                 axis=axis)
     act = make_recurrent_actor_step(env.num_actions)
-    B, batch_size = loop_common.shard_sizes(cfg)
-    min_fill = max(rcfg.min_fill, 1)
-    num_slots = max(rcfg.capacity // B, seq_len + 2)
+    B, batch_size = loop_common.shard_sizes(cfg, num_shards)
+    min_fill = max(rcfg.min_fill // num_shards, 1)
+    num_slots = max(rcfg.capacity // (B * num_shards), seq_len + 2)
     if num_slots < seq_len + stride:
         # A seeded start lives num_slots - seq_len + 1 writes and seeds come
         # every `stride` writes; a smaller ring can hold no live start.
         raise ValueError(
             f"sequence ring too small: num_slots={num_slots} < "
             f"seq_len+stride={seq_len + stride}; raise replay.capacity")
-    epsilon, beta_at = loop_common.make_schedules(cfg, B)
+    epsilon, beta_at = loop_common.make_schedules(cfg, B, num_shards)
     use_kernel = loop_common.kernel_routing(rcfg.pallas_sampler, dev)
     stack, stored_shape, frame_shape, slice_newest = \
         loop_common.resolve_frame_dedup(rcfg, env, env.observation_shape)
@@ -107,16 +118,20 @@ def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
                 and iteration % cfg.train_every == 0)
 
     def init(seed: int) -> R2D2Carry:
-        gen_env, gen_act, gen_sample = loop_common.generators(seed, dev, 3)
+        gen_env, gen_act, gen_sample, _ = loop_common.rank_generators(
+            seed, dev, 0 if axis is None else axis.rank)
         env_state, obs = env.v_reset(B, gen_env)
         replay = sring.sequence_ring_init(num_slots, B,
                                           flatten(slice_newest(obs))[0],
                                           net.lstm_size,
                                           merge_obs_rows=flat_storage)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
+        learner = init_learner(net)
+        if axis is not None:
+            broadcast_learner(learner, axis)
         return R2D2Carry(
             env_state=env_state, obs=obs, actor_carry=net.initial_state(B),
-            replay=replay, learner=init_learner(net), gen_env=gen_env,
+            replay=replay, learner=learner, gen_env=gen_env,
             gen_act=gen_act, gen_sample=gen_sample, iteration=0,
             ep_return=torch.zeros((B,), dtype=torch.float32, device=dev),
             completed_return=zero.clone(), completed_count=zero.clone(),
@@ -172,7 +187,10 @@ def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
         carry.train_count = 0
         for _ in range(num_iters):
             one_iteration(carry)
-        return carry, loop_common.chunk_metrics(carry, B)
+        if axis is not None:
+            # Keep the fresh-window priority seed replicated (global max).
+            carry.replay.max_priority = axis.pmax(carry.replay.max_priority)
+        return carry, loop_common.chunk_metrics(carry, B, axis)
 
     return init, run_chunk
 

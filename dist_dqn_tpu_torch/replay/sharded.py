@@ -8,7 +8,7 @@ layout the port runs, the same-layout branch delegates to the store's exact
 ``p ** alpha`` mass come back bit for bit, into the host sum-tree or the
 device plane alike. A snapshot of a sharded store (``num_shards`` in it)
 needs the migration branch and the sharded store, which belong to the
-multi-device work: it raises "not ported yet (ROADMAP.md A6)".
+multi-device work: it raises "not ported yet (ROADMAP.md A6c)".
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ def restore_replay_snapshot(replay, state: Dict[str, np.ndarray]) -> Dict:
         raise NotImplementedError(
             f"not ported yet: restoring a {src_shards}-shard replay "
             "snapshot (the resharding migration and the sharded store) "
-            "(ROADMAP.md A6)")
+            "(ROADMAP.md A6c)")
     replay.load_state_dict(dict(state))
     return {"records": len(replay), "from_shards": 1, "to_shards": 1,
             "resharded": False}

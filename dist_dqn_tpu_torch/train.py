@@ -70,14 +70,27 @@ pre-encoded records (``--shm-batch N``: N records per slot publish), and
 ``DQN_FAKE_ALE=1`` routes ``ale:`` names to the in-repo fake ALE.
 ``--no-wire-dedup`` is the JAX CLI's.
 
-Meshes, telemetry, and the options of the apex runtime that are not ported
-yet (several learner devices or replay shards) raise instead of being
-ignored.
+``--mesh-devices N`` trains the fused runtime (R2D2 included) as a
+data-parallel mesh of N ranks, one process per device (parallel/): each
+rank steps ``num_envs / N`` env lanes into its own replay shard, draws its
+own rows of the batch (PER through the sampler kernel on its own plane)
+and averages its gradients with the others' in one all-reduce per grad
+step, over NCCL on cards (``0`` means every card) or ``gloo`` with
+``--device cpu`` (N CPU ranks). ``--coordinator host:port --num-processes
+P --process-id i`` joins P such processes, each with its local ranks, into
+one mesh numbered process by process. Rank 0 alone logs rows, evaluates,
+profiles and reads and writes checkpoints, and broadcasts what it resumed
+from to the other ranks.
+
+Telemetry, checkpoint-replay under a mesh, and the options of the apex and
+host-replay runtimes that are not ported yet (several learner devices,
+replay shards or host-replay ranks) raise instead of being ignored.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -86,16 +99,25 @@ import torch
 from torch.autograd import DeviceType
 
 from dist_dqn_tpu_torch import population as pop
+from dist_dqn_tpu_torch.agents.dqn import broadcast_learner
 from dist_dqn_tpu_torch.config import CONFIGS, ExperimentConfig, \
     apply_overrides
 from dist_dqn_tpu_torch.envs import make_env
 from dist_dqn_tpu_torch.models import build_network, stack_networks
+from dist_dqn_tpu_torch.parallel import distributed
 from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_evaluator, make_r2d2_train
 from dist_dqn_tpu_torch.train_loop import make_evaluator, make_fused_train
 from dist_dqn_tpu_torch.utils.checkpoint import (TrainCheckpointer,
                                                 record_checkpoint_kind,
                                                 record_population_size)
 from dist_dqn_tpu_torch.utils.device import resolve_device
+
+# The refusal of a carry-kind checkpoint under a mesh.
+MESH_CHECKPOINT_REPLAY = (
+    "not ported yet: --checkpoint-replay with a mesh — the mesh's carry "
+    "is sharded, and its save needs the per-shard layout the host-replay "
+    "data-parallel sidecar brings (ROADMAP.md A6b); drop the flag to save "
+    "the learner, which every rank restores")
 
 
 def _device_spans(prof):
@@ -139,9 +161,19 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
           chunk_iters: int = 2000, log_fn=print, device=None, stop_fn=None,
           profile_dir: str = None, profile_chunk: int = None,
           checkpoint_dir: str = None, save_every_frames: int = 0,
-          checkpoint_replay: bool = False):
+          checkpoint_replay: bool = False, mesh=None):
     """Run training on ``device`` (default: the card); returns
     (final_carry, history list of metric rows).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) runs this call as one rank of the
+    data-parallel mesh, on ``mesh.device``: the rank's lanes and replay
+    shard, the replicated learner (parallel/learner.py), global rows. Rank
+    0 alone logs, evaluates (from its replica), profiles and reads and
+    writes checkpoints: it broadcasts the learner and frame cursor it
+    resumed from, and at each chunk boundary whether ``stop_fn`` ended
+    the run, so every rank continues from the same state whatever
+    storage it sees. A population or ``checkpoint_replay`` under a mesh
+    raises.
 
     ``stop_fn(row)`` may end the run early at a chunk boundary.
     ``profile_dir`` traces one chunk: ``profile_chunk`` (0-based), by
@@ -153,7 +185,9 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     (:func:`_train_population`); M = 1 with a spec applies member 0's
     overrides to the plain program.
     """
-    dev = resolve_device(device)
+    if mesh is not None:
+        _check_mesh_run(cfg, checkpoint_replay)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if cfg.population.size > 1:
         return _train_population(
             cfg, total_env_steps=total_env_steps, seed=seed,
@@ -168,20 +202,29 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     env = make_env(cfg.env_name, device=dev)
     net = build_network(cfg.network, env.num_actions, env.observation_shape,
                         device=dev, seed=seed)
-    if cfg.network.lstm_size:
+    if mesh is not None:
+        from dist_dqn_tpu_torch.parallel import (make_mesh_fused_train,
+                                                 make_mesh_r2d2_train)
+        make = (make_mesh_r2d2_train if cfg.network.lstm_size
+                else make_mesh_fused_train)
+        init, run_chunk = make(cfg, env, net, mesh)
+    elif cfg.network.lstm_size:
         init, run_chunk = make_r2d2_train(cfg, env, net, device=dev)
-        evaluate = make_r2d2_evaluator(cfg, env,
-                                       num_episodes=cfg.eval_episodes)
     else:
         init, run_chunk = make_fused_train(cfg, env, net, device=dev)
-        evaluate = make_evaluator(cfg, env, num_episodes=cfg.eval_episodes)
+    evaluate = (make_r2d2_evaluator if cfg.network.lstm_size
+                else make_evaluator)(cfg, env, num_episodes=cfg.eval_episodes)
     eval_gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    ckpt = _checkpointer(checkpoint_dir, save_every_frames, cfg,
-                         checkpoint_replay)
+    ckpt = None
+    if mesh is not None:
+        log_fn = distributed.main_process_log(log_fn)
+    if mesh is None or mesh.rank == 0:
+        ckpt = _checkpointer(checkpoint_dir, save_every_frames, cfg,
+                             checkpoint_replay)
     return _chunk_loop(cfg, init(seed), run_chunk, evaluate, eval_gen, ckpt,
                        total_env_steps or cfg.total_env_steps, chunk_iters,
                        log_fn, dev, stop_fn, profile_dir, profile_chunk,
-                       checkpoint_replay)
+                       checkpoint_replay, mesh=mesh)
 
 
 def _train_population(cfg: ExperimentConfig, total_env_steps: int = 0,
@@ -247,12 +290,19 @@ def _checkpointer(checkpoint_dir, save_every_frames, cfg, checkpoint_replay):
 
 def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
                 chunk_iters, log_fn, dev, stop_fn, profile_dir, profile_chunk,
-                checkpoint_replay, members: int = 0):
+                checkpoint_replay, members: int = 0, mesh=None):
     """Resume from ``ckpt``, then run chunks until the frame cursor reaches
     ``total``, logging one row per chunk; returns (carry, history).
-    ``members`` > 0: a population's [M] metrics and rows."""
+    ``members`` > 0: a population's [M] metrics and rows. Under a
+    ``mesh``, rank 0 alone holds ``ckpt``, evaluates and profiles; the
+    other ranks take its resume point and its stop decisions by broadcast
+    (their rows carry no eval_return)."""
+    main = mesh is None or mesh.rank == 0
+    if not main:
+        profile_dir = None
     frames = 0            # the loop's frame cursor (per member)
     frame_offset = 0      # added to the carry's own frame count
+    restored = None
     if ckpt is not None:
         restored = ckpt.restore_latest(
             carry if checkpoint_replay else carry.learner)
@@ -273,6 +323,9 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
                 # refills, the exploration schedule starts over.
                 carry.learner = tree
                 frame_offset = frames
+    if mesh is not None:
+        frames = frame_offset = _resume_from_rank0(
+            mesh, carry.learner, restored is not None, frames)
 
     def save_tree():
         return carry if checkpoint_replay else carry.learner
@@ -324,22 +377,54 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
                 "grad_steps_in_chunk": grad_steps,
                 "grad_steps_per_sec": grad_steps / dt,
             }
+        # The frame cursor is global, so every rank keeps the same
+        # evaluation schedule; rank 0 alone runs it.
         if frames >= next_eval:
-            returns = evaluate(carry.learner.net, eval_gen).tolist()
-            if members:
-                row["eval_return_members"] = returns
-                returns = sum(returns) / members
-            row["eval_return"] = returns
+            if main:
+                returns = evaluate(carry.learner.net, eval_gen).tolist()
+                if members:
+                    row["eval_return_members"] = returns
+                    returns = sum(returns) / members
+                row["eval_return"] = returns
             next_eval = frames + cfg.eval_every_steps
         history.append(row)
         log_fn(json.dumps({k: _rounded(v) for k, v in row.items()}))
         if ckpt is not None and ckpt.maybe_save(frames, save_tree()):
             log_fn(json.dumps(_checkpoint_row("save", ckpt.last_save)))
-        if stop_fn is not None and stop_fn(row):
+        if stop_fn is not None and _rank0_stops(mesh, main and stop_fn(row)):
             break
     if ckpt is not None and ckpt.save(frames, save_tree()):
         log_fn(json.dumps(_checkpoint_row("save", ckpt.last_save)))
     return carry, history
+
+
+def _rank0_stops(mesh, stop: bool) -> bool:
+    """Rank 0's ``stop`` on every rank of ``mesh`` (one broadcast): a
+    rank that stopped alone would leave the others waiting in the next
+    all-reduce."""
+    if mesh is None:
+        return stop
+    t = torch.tensor([int(stop)], dtype=torch.int32, device=mesh.device)
+    mesh.broadcast_([t])
+    return bool(t.item())
+
+
+def _resume_from_rank0(mesh, learner, restored: bool, frames: int) -> int:
+    """Rank 0's resume point on every rank of ``mesh``: its frame cursor
+    and, where it restored one, its learner (weights, target, optimizer
+    moments and counts, the step's generator). Returns the cursor."""
+    head = torch.tensor([int(restored), frames, learner.steps,
+                         learner.opt_state.count], dtype=torch.int64,
+                        device=mesh.device)
+    mesh.broadcast_([head])
+    restored, frames, steps, count = head.tolist()
+    if restored:
+        broadcast_learner(learner, mesh)
+        gen = learner.generator.get_state().to(mesh.device)
+        mesh.broadcast_([gen])
+        learner.generator.set_state(gen.cpu())
+        learner.steps, learner.opt_state.count = steps, count
+    return frames
 
 
 def _population_row(members, frames, ep_ret, episodes, loss, frames_chunk,
@@ -378,16 +463,122 @@ def _checkpoint_row(what: str, record: dict) -> dict:
             "checkpoint_bytes": record["bytes"]}
 
 
+def _pick_mesh_devices(num_devices: int, multiprocess: bool,
+                       device=None, num_processes: int = 1) -> int:
+    """Local ranks of the dp mesh (twin of dist_dqn_tpu/train.py:24-45),
+    one per device: on ``cuda`` one per card (``0``: every card), with
+    ``device="cpu"`` ``num_devices`` CPU ranks (a process of a
+    multi-process run is one CPU rank, as a JAX CPU process is one device).
+    A multi-process mesh spans the GLOBAL device list, every process's
+    local ranks; a single-process request larger than the machine raises
+    instead of silently truncating."""
+    on_card = torch.device(device or "cuda").type == "cuda"
+    if on_card:
+        resolve_device("cuda")
+        local = torch.cuda.device_count()
+    else:
+        local = 1 if multiprocess else max(num_devices or 1, 1)
+    if multiprocess:
+        total = local * num_processes
+        if num_devices not in (0, 1, total):
+            raise ValueError(
+                f"multi-process runs use all {total} global devices; "
+                f"--mesh-devices {num_devices} is not meaningful (pass 0)")
+        return local
+    if num_devices in (0, None):
+        return local
+    if local < num_devices:
+        raise ValueError(f"--mesh-devices {num_devices} requested but only "
+                         f"{local} available")
+    return num_devices
+
+
+def run_mesh(cfg: ExperimentConfig, num_devices: int = 0, device=None,
+             coordinator: str = None, num_processes: int = 1,
+             process_id: int = 0, **train_kwargs) -> None:
+    """Train as a data-parallel mesh: :func:`_pick_mesh_devices` local
+    ranks, each running :func:`train` on its device with the mesh
+    (rank 0 prints the rows). One local rank runs in this process; more
+    are spawned and joined, and a rank that fails ends the others and
+    re-raises here. With ``coordinator`` (``host:port``) and
+    ``num_processes`` > 1 this process's ranks are those of process
+    ``process_id`` in a world numbered process by process; else the ranks
+    meet on a free local port. Nothing waits for ever: a collective
+    raises after ``distributed.DEFAULT_TIMEOUT_S`` without its peers, and
+    once one rank has ended cleanly the others must end within
+    ``distributed.SPAWN_FINISH_S``.
+    ``train_kwargs`` must pickle (``stop_fn`` a module-level function or a
+    partial of one)."""
+    _check_mesh_run(cfg, train_kwargs.get("checkpoint_replay", False))
+    multiprocess = coordinator is not None and num_processes > 1
+    local = _pick_mesh_devices(num_devices, multiprocess, device,
+                               num_processes)
+    address = coordinator or f"127.0.0.1:{distributed.free_port()}"
+    world = local * (num_processes if multiprocess else 1)
+    first = local * process_id if multiprocess else 0
+    kind = torch.device(device or "cuda").type
+    # CPU ranks of one process share its cores.
+    threads = (max(torch.get_num_threads() // local, 1)
+               if kind == "cpu" and local > 1 else 0)
+    args = (cfg, address, world, first, kind, threads, train_kwargs)
+    if local == 1:
+        _rank_main(0, *args)
+    else:
+        distributed.spawn(_rank_main, args, local)
+
+
+def _check_mesh_run(cfg: ExperimentConfig, checkpoint_replay: bool) -> None:
+    """What a mesh run refuses: a population (JAX's text) and a carry-kind
+    checkpoint."""
+    if cfg.population.size > 1:
+        raise ValueError(
+            "--population composes with the single-device fused runtime "
+            "only for now: the population fills ONE chip by vmap-stacking "
+            "members; run one population process per device instead of "
+            "--mesh-devices")
+    if checkpoint_replay:
+        raise ValueError(MESH_CHECKPOINT_REPLAY)
+
+
+def _rank_main(local_rank: int, cfg, address: str, world: int, first: int,
+               kind: str, threads: int, train_kwargs: dict) -> None:
+    """One rank of :func:`run_mesh`: join the group, train, leave."""
+    from dist_dqn_tpu_torch.parallel import make_mesh
+
+    if threads:
+        torch.set_num_threads(threads)
+    dev = distributed.initialize(address, world, first + local_rank,
+                                 [local_rank], device=kind)
+    try:
+        train(cfg, mesh=make_mesh(device=dev),
+              log_fn=functools.partial(print, flush=True), **train_kwargs)
+    finally:
+        distributed.shutdown()
+
+
+def _reached_return(target: float, row: dict) -> bool:
+    """``--stop-at-return``'s test of a row."""
+    return row.get("eval_return", -float("inf")) >= target
+
+
 def _refuse_unported(args) -> None:
-    """Flags of the JAX CLI this port does not implement yet."""
-    refused = [flag for flag, given in (
-        ("--mesh-devices", args.mesh_devices != 1 and args.runtime != "apex"),
-        ("--telemetry-port", args.telemetry_port is not None),
+    """Flags of the JAX CLI this port does not implement yet, each with its
+    ROADMAP.md item."""
+    mesh = args.mesh_devices != 1 or (args.coordinator is not None
+                                      and args.num_processes > 1)
+    if args.checkpoint_replay and mesh and args.runtime == "fused":
+        raise SystemExit(MESH_CHECKPOINT_REPLAY)
+    refused = [(flag, item) for flag, item, given in (
+        ("--mesh-devices", "A6b",
+         args.mesh_devices != 1 and args.runtime == "host-replay"),
+        ("--coordinator", "A6b" if args.runtime == "host-replay" else "A6c",
+         args.coordinator is not None and args.runtime != "fused"),
+        ("--telemetry-port", "A10", args.telemetry_port is not None),
     ) if given]
     if refused:
         raise SystemExit(
-            f"not ported yet: {', '.join(refused)} — the PyTorch port runs "
-            "on one device only (ROADMAP.md A6, A10)")
+            f"not ported yet: {', '.join(f for f, _ in refused)} "
+            f"(ROADMAP.md {', '.join(i for _, i in refused)})")
 
 
 def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
@@ -662,9 +853,24 @@ def main(argv=None):
                         help="apex runtime: seed insertion priorities with "
                              "the learner-side bootstrap on the card "
                              "instead of the actors' q planes")
+    parser.add_argument("--mesh-devices", type=int, default=1,
+                        help="fused runtime: train as a data-parallel mesh "
+                             "of this many ranks, one process per device "
+                             "(0 = every card; with --device cpu, CPU "
+                             "ranks over gloo); multi-process runs use "
+                             "every process's ranks")
+    parser.add_argument("--coordinator", default=None,
+                        help="multi-process mesh: host:port of rank 0's "
+                             "rendezvous. Every process runs this same "
+                             "command with its own --process-id; rank 0 "
+                             "alone reads and writes --checkpoint-dir")
+    parser.add_argument("--num-processes", type=int, default=1,
+                        help="multi-process mesh: total process count")
+    parser.add_argument("--process-id", type=int, default=0,
+                        help="multi-process mesh: this process's id "
+                             "(0-based)")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
-    parser.add_argument("--mesh-devices", type=int, default=1)
     parser.add_argument("--telemetry-port", type=int, default=None)
     parser.add_argument("--learner-devices", type=int, default=1)
     parser.add_argument("--ingest-shards", type=int, default=1)
@@ -711,6 +917,12 @@ def main(argv=None):
             print("# --population is not supported by the recurrent "
                   "(R2D2) fused loop yet (its sequence learner has no "
                   "member axis); ignored")
+        elif args.mesh_devices != 1 and (args.population or 1) > 1:
+            parser.error(
+                "--population and --mesh-devices are mutually exclusive: "
+                "the population fills ONE chip by vmap-stacking members; "
+                "run one population process per device (or drop one "
+                "flag)")
         else:
             cfg = dataclasses.replace(cfg, population=dataclasses.replace(
                 cfg.population,
@@ -732,15 +944,22 @@ def main(argv=None):
     _warn_host_replay_flags(args, parser)
     stop_fn = None
     if args.stop_at_return is not None:
-        target = args.stop_at_return
-        stop_fn = lambda row: row.get("eval_return",  # noqa: E731
-                                      -float("inf")) >= target
-    train(cfg, total_env_steps=args.total_env_steps, seed=args.seed,
-          chunk_iters=args.chunk_iters, device=args.device, stop_fn=stop_fn,
-          profile_dir=args.profile_dir, profile_chunk=args.profile_chunk,
-          checkpoint_dir=args.checkpoint_dir,
-          save_every_frames=args.save_every_frames,
-          checkpoint_replay=args.checkpoint_replay)
+        stop_fn = functools.partial(_reached_return, args.stop_at_return)
+    kwargs = dict(total_env_steps=args.total_env_steps, seed=args.seed,
+                  chunk_iters=args.chunk_iters, stop_fn=stop_fn,
+                  profile_dir=args.profile_dir,
+                  profile_chunk=args.profile_chunk,
+                  checkpoint_dir=args.checkpoint_dir,
+                  save_every_frames=args.save_every_frames,
+                  checkpoint_replay=args.checkpoint_replay)
+    if args.mesh_devices != 1 or (args.coordinator is not None
+                                  and args.num_processes > 1):
+        run_mesh(cfg, num_devices=args.mesh_devices, device=args.device,
+                 coordinator=args.coordinator,
+                 num_processes=args.num_processes,
+                 process_id=args.process_id, **kwargs)
+        return
+    train(cfg, device=args.device, **kwargs)
 
 
 if __name__ == "__main__":

@@ -36,8 +36,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from dist_dqn_tpu_torch import loop_common
-from dist_dqn_tpu_torch.agents.dqn import (LearnerState, make_actor_step,
-                                           make_learner,
+from dist_dqn_tpu_torch.agents.dqn import (LearnerState, broadcast_learner,
+                                           make_actor_step, make_learner,
                                            make_population_optimizer,
                                            set_member_lr)
 from dist_dqn_tpu_torch.config import ExperimentConfig
@@ -83,7 +83,8 @@ class TrainCarry:
 
 
 def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
-                     device=None, member_hp: Optional[MemberHP] = None):
+                     device=None, member_hp: Optional[MemberHP] = None,
+                     axis=None, num_shards: int = 1):
     """Returns (init, run_chunk): ``init(seed)`` builds the carry around
     ``net`` (the online Q-network, on ``device``); ``run_chunk(carry,
     num_iters)`` runs ``num_iters`` fused iterations and returns the carry
@@ -92,16 +93,32 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
 
     With ``member_hp`` (a population of M), ``net`` is the members' stacked
     net (models.stack_networks), ``init(seeds)`` takes the M members' seeds
-    and every tensor metric is [M]."""
+    and every tensor metric is [M].
+
+    With ``axis`` (a ``parallel.mesh.Mesh`` of ``num_shards`` ranks) the
+    functions are one rank's of the data-parallel mesh
+    (parallel/learner.py): sizes are per shard (``train_loop.py:109-121``:
+    env lanes and the batch from ``shard_sizes``, ``min_fill //
+    num_shards``, ``capacity // (B x num_shards)`` slots), the env,
+    exploration and replay generators are the rank's own
+    (``loop_common.rank_generators``), the learner starts from rank 0's
+    parameters and optimizer state on every rank and averages its
+    gradients across them, the chunk metrics are global, and under PER
+    the new-item priority seed is the max over the ranks at each chunk's
+    end (``train_loop.py:316-321``)."""
     dev = resolve_device(device)
     prioritized = cfg.replay.prioritized
     M = 0 if member_hp is None else int(member_hp.eps_end.shape[0])
     if members_of(net) != M:
         raise ValueError(f"the net stacks {members_of(net)} members, the "
                          f"population has {M}")
+    if axis is not None and axis.size != num_shards:
+        raise ValueError(f"num_shards={num_shards} but the mesh has "
+                         f"{axis.size} ranks")
+    rank = 0 if axis is None else axis.rank
     tx = (make_population_optimizer(cfg.learner, M)
           if M and member_hp.lr is not None else None)
-    init_learner, train_step = make_learner(cfg.learner, net, tx)
+    init_learner, train_step = make_learner(cfg.learner, net, tx, axis=axis)
     act = make_actor_step(env.num_actions)
     replay_ratio = loop_common.resolve_replay_ratio(cfg)
     updates = cfg.updates_per_train * replay_ratio
@@ -111,9 +128,10 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     defer_writeback = prioritized and replay_ratio > 1
     actor_snapshot = loop_common.make_actor_param_cast(
         cfg.network.actor_dtype)
-    B, batch_size = loop_common.shard_sizes(cfg)
-    min_fill = max(cfg.replay.min_fill, 1)
-    num_slots = max(cfg.replay.capacity // B, cfg.learner.n_step + 2)
+    B, batch_size = loop_common.shard_sizes(cfg, num_shards)
+    min_fill = max(cfg.replay.min_fill // num_shards, 1)
+    num_slots = max(cfg.replay.capacity // (B * num_shards),
+                    cfg.learner.n_step + 2)
     n_step = cfg.learner.n_step
     gamma = member_hp.gamma.to(dev) if M else cfg.learner.gamma
     # Exact truncation bootstrap for cheap (non-pixel) observations; pixel
@@ -122,10 +140,10 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     store_final = (env.observation_dtype != torch.uint8
                    if cfg.replay.store_final_obs is None
                    else cfg.replay.store_final_obs)
-    epsilon, beta_at = loop_common.make_schedules(cfg, B)
+    epsilon, beta_at = loop_common.make_schedules(cfg, B, num_shards)
     if M:
         # The members' epsilons, an [M] tensor on the device.
-        eps_at = loop_common.make_member_epsilon(cfg, B)
+        eps_at = loop_common.make_member_epsilon(cfg, B, num_shards)
         eps_lanes = (member_hp.eps_delta.to(dev), member_hp.eps_end.to(dev))
 
         def epsilon(iteration: int) -> torch.Tensor:
@@ -170,8 +188,8 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
             env_state, obs = env.v_reset_members(B, gen_env)
             example = flatten(slice_newest(obs))[0, 0]
         else:
-            gen_env, gen_act, gen_sample, gen_learn = loop_common.generators(
-                seed, dev, 4)
+            gen_env, gen_act, gen_sample, gen_learn = \
+                loop_common.rank_generators(seed, dev, rank)
             env_state, obs = env.v_reset(B, gen_env)
             example = flatten(slice_newest(obs))[0]
         if prioritized:
@@ -186,6 +204,8 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
         learner = init_learner(net, gen_learn)
         if M and member_hp.lr is not None:
             set_member_lr(learner, member_hp.lr)
+        if axis is not None:
+            broadcast_learner(learner, axis)
         lead = (M,) if M else ()
         zero = torch.zeros(lead, dtype=torch.float32, device=dev)
         return TrainCarry(
@@ -266,7 +286,10 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
         actor_net = actor_snapshot(carry.learner.net)
         for _ in range(num_iters):
             one_iteration(carry, actor_net)
-        return carry, loop_common.chunk_metrics(carry, B)
+        if axis is not None and prioritized:
+            # Keep the new-item priority seed replicated (the global max).
+            carry.replay.max_priority = axis.pmax(carry.replay.max_priority)
+        return carry, loop_common.chunk_metrics(carry, B, axis)
 
     return init, run_chunk
 

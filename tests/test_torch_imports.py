@@ -50,6 +50,21 @@ slice12 = {"dist_dqn_tpu_torch." + m for m in (
     "telemetry.exposition", "telemetry.registry", "telemetry.server",
     "telemetry.watchdog")}
 assert slice12 <= set(names), sorted(slice12 - set(names))
+slice13 = {"dist_dqn_tpu_torch." + m for m in (
+    "parallel", "parallel.distributed", "parallel.mesh", "parallel.learner")}
+assert slice13 <= set(names), sorted(slice13 - set(names))
+from dist_dqn_tpu_torch.parallel import (Mesh, make_mesh,
+                                         make_mesh_fused_train,
+                                         make_mesh_r2d2_train)
+from dist_dqn_tpu_torch.parallel.learner import (global_metrics,
+                                                 make_sharded_train_step,
+                                                 scan_train_step_specs,
+                                                 train_step_specs)
+from dist_dqn_tpu_torch.parallel.distributed import (host_replica,
+                                                     initialize,
+                                                     is_main_process,
+                                                     main_process_log,
+                                                     shutdown, spawn)
 from dist_dqn_tpu_torch.serving import (ActResult, MicroBatcher, ModelStore,
                                         PolicyServer, PolicySnapshot,
                                         QueueFullError, Router,

@@ -285,25 +285,36 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     # and runs the host-replay loop; --runtime apex is ported with its
     # remote actors (tests/test_torch_apex_service.py,
     # tests/test_torch_remote_actors.py), and several learner devices
-    # are not.
+    # are not; --mesh-devices is ported on the fused runtime
+    # (tests/test_torch_mesh.py, tests/test_torch_distributed.py) and
+    # trains two CPU ranks, of which rank 0 alone prints rows (the ranks
+    # are processes of their own: capfd reads their output).
     ["--runtime", "host-replay"], ["--mesh-devices", "2"],
     ["--population", "2"], ["--runtime", "apex", "--learner-devices", "2"],
     ["--telemetry-port", "9100"],
     ["--population-spec", '{"lr": [0.001, 0.002]}']])
-def test_train_cli_refuses_unported_flags(flag, capsys):
+def test_train_cli_refuses_unported_flags(flag, capfd):
     from dist_dqn_tpu_torch.train import main
 
+    if flag == ["--mesh-devices", "2"]:
+        main(["--config", "cartpole", *_TINY_CLI, *flag])
+        rows = [json.loads(line)
+                for line in capfd.readouterr().out.splitlines()]
+        assert [r["env_frames"] for r in rows] == [160, 320]
+        assert rows[-1]["grad_steps_in_chunk"] == 40
+        assert all(np.isfinite(r["loss"]) for r in rows)
+        return
     if flag[0] == "--population":
         main(["--config", "cartpole", *_TINY_CLI, *flag])
         rows = [json.loads(line)
-                for line in capsys.readouterr().out.splitlines()]
+                for line in capfd.readouterr().out.splitlines()]
         assert [r["env_frames"] for r in rows] == [160, 320]
         assert rows[-1]["population"] == 2
         assert len(rows[-1]["loss_members"]) == 2
         return
     if flag == ["--runtime", "host-replay"]:
         main(["--config", "cartpole", *_TINY_CLI, *flag])
-        lines = capsys.readouterr().out.splitlines()
+        lines = capfd.readouterr().out.splitlines()
         assert lines[0] == "# host-replay sampler: uniform"
         rows = [json.loads(line) for line in lines[1:]]
         assert [r["env_frames"] for r in rows[:-1]] == [160, 320]
@@ -313,7 +324,7 @@ def test_train_cli_refuses_unported_flags(flag, capsys):
         # Two lr entries for the default --population 1.
         with pytest.raises(SystemExit):
             main(["--config", "apex", "--device", "cpu", *flag])
-        assert "each vector must be length M" in capsys.readouterr().err
+        assert "each vector must be length M" in capfd.readouterr().err
         return
     with pytest.raises(SystemExit, match="not ported yet"):
         main(["--config", "apex", "--device", "cpu", *flag])
