@@ -14,7 +14,9 @@ them or outside a checkout of the repository. Phases, each fatal:
    the PixelCatch bar's small plane, the host-replay device plane
    ``[1954, 512]`` of apex's 1M slots with its last 448 cells empty (and
    the card time of ``stratified_sample_rows``, the plane's draw below
-   the kernel's crossover, and whether it repeats), and the population's
+   the kernel's crossover, and whether it repeats), a host-replay mesh
+   rank's plane ``[977, 512]`` with S = 256 (500,000 live cells, also each
+   shard plane of the two-shard 1M store), and the population's
    four apex planes ``[4, 62500, 16]`` in one member-axis launch, which
    must equal four 2-D launches bit for bit), and time both beside one
    PyTorch library call computing the same function and the card's bound.
@@ -231,7 +233,38 @@ them or outside a checkout of the repository. Phases, each fatal:
      gradient (no all-reduce) and the all-reduced sum without the divide;
    * mesh_r2d2_2rank: ``make_mesh_r2d2_train`` at the r2d2 preset's width
      on the two ranks, two chunks past its fill: bit-equal learners, one
-     sampler launch per grad step.
+     sampler launch per grad step;
+   * mesh_resume_r2d2_2rank: mesh_r2d2_2rank through ``train()`` with
+     ``checkpoint_replay`` on the two ranks, killed right after its save
+     at 2,800 frames (its second; every rank writes its own carry shard,
+     rank 0 the step) and relaunched to 3,200: rank 0 alone logs the
+     resume, and
+     every leaf of each rank's carry (learner, optimizer, ring,
+     priorities, env state, LSTM carry, generators) must equal
+     mesh_r2d2_2rank's own, bit for bit; one sampler launch per grad step;
+   * mesh_host_replay_2rank: ``run_host_replay`` on the two ranks (the
+     path of ``--runtime host-replay --config apex --set
+     replay.frame_dedup=true --per --device-sampling --mesh-devices 2``):
+     each rank 8 of the 16 lanes, a 62,500-slot x 8-lane dedup ring in
+     host memory, its own evacuation worker and prefetcher, the plane
+     ``[977, 512]`` and 256 of the 512 rows; filled at 8,000 frames, 250
+     grad steps per rank by 10,000. Each rank must launch the sampler once
+     per grad step (with the stale batches' draws), end with rank 0's
+     learner bit for bit, report the same global row columns,
+     ``env_frames`` = iterations x 16 and per-shard bytes that sum to the
+     total and equal each ring's appends, with a finite loss. Prints each
+     rank's rates, evacuation columns, host RSS and peak device memory;
+     it runs first in the spawn, so the RSS is its own.
+15. sharded_store_device: the two-shard item store
+   (``replay/sharded.py ShardedPrioritizedReplay``, 1M items, one plane
+   ``[977, 512]`` per shard on the card) with integer priorities (alpha
+   1), 20 draws of S = 512: one kernel launch per shard per draw, every
+   picked slot equal to the plain version's at the same uniforms (max
+   abs err 0; integer masses keep every float32 partial sum exact), the
+   items those slots'; then 1,000 inserts overwrite slots of shard 0 and
+   a write-back of the last draw's rows and 500 of those slots, with the
+   generations read before, must skip the overwritten ones (the
+   generation guard) and land on the rest.
 
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
@@ -438,9 +471,44 @@ MESH_2RANK_PATHS = {
     "mesh_r2d2_2rank": ("r2d2", ["replay.pallas_sampler=true",
                                  "eval_every_steps=0"], 3_200, 25),
 }
+# The host-replay runtime on the two ranks: apex at full width with a
+# frame-dedup ring, PER on the device plane; each rank 8 of the 16 lanes, a
+# 62,500-slot x 8-lane ring in host memory, the plane [977, 512] and 256
+# of the 512 rows. It fills at 8,000 frames (the preset's 50,000: a depth
+# cut): chunks of 125 iterations are 2,000 frames, chunks 4 and 5 train,
+# 250 grad steps per rank by 10,000.
+MESH_HOST_REPLAY_PATH = ("apex", ["replay.frame_dedup=true",
+                                  "replay.min_fill=8000",
+                                  "eval_every_steps=0"], 10_000, 125)
+MESH_HOST_REPLAY_MIN_GRAD_STEPS = 200
+# The host-replay row columns every rank computes alike (the others are
+# each rank's own clock).
+MESH_GLOBAL_ROW_KEYS = ("env_frames", "grad_steps", "episode_return",
+                        "evac_s", "evac_fence_wait_s", "d2h_bytes",
+                        "ring_transitions", "ring_gb", "sample_s",
+                        "prefetch_wait_s", "prefetch_depth", "stale_batches",
+                        "h2d_staged_bytes", "loss")
+# mesh_resume_r2d2_2rank: mesh_r2d2_2rank through train() with
+# checkpoint_replay, saving at its first chunk (400 frames) and every
+# 2,400 after, killed right after its 2nd save (2,800 frames, past the
+# fill) and relaunched to 3,200 (one chunk), against mesh_r2d2_2rank's own
+# carry.
+MESH_RESUME_SAVE_EVERY = 2_400
+MESH_RESUME_AT = 2_800
+# The host-replay phase runs first in the spawn, so that its ranks' host
+# RSS holds no earlier phase's freed memory.
+MESH_2RANK_PHASES = ("mesh_host_replay_2rank", *MESH_2RANK_PATHS,
+                     "mesh_resume_r2d2_2rank")
 MESH_RANKS = 2
 MESH_DEADLINE_S = 600
 MESH_ALLREDUCE_ITERS = 20
+# sharded_store_device: ShardedPrioritizedReplay of 2 shards over 1M items
+# with device planes (each [977, 512]), S = 512 per draw, 20 draws. alpha
+# 1 and eps 0 keep every priority an integer mass (1-8), so every partial
+# sum is exact in float32 and the kernel must pick exactly the plain
+# version's cells; write-backs of 512 rows after 1,000 fresh inserts.
+SHARDED_STORE = (2, 1_000_000, 512, 20)
+SHARDED_STORE_OVERWRITE = 1_000
 
 
 def _fail(msg: str) -> None:
@@ -571,18 +639,23 @@ def _mass(rng, T, B, zero_frac, row_stride=1):
 # mostly zero one; R2D2's sequence plane, where window starts are seeded
 # every sequence_stride=40 writes, so only every 40th row has mass; the
 # PixelCatch learning bar's 16,384-transition plane of 32 lanes; the
-# host-replay plane; and one rank's plane of the two-rank apex mesh (8 of
-# the 16 lanes, 256 of the 512 rows).
+# host-replay plane; one rank's plane of the two-rank apex mesh (8 of
+# the 16 lanes, 256 of the 512 rows); and one rank's host-replay plane of
+# the two-rank host-replay mesh (62,500 slots x 8 lanes, 256 rows), which
+# is also each shard plane of the two-shard 1M store (500,000 slots).
 SAMPLER_CASES = {"apex": (62500, 16, 512, 0.3, 1),
                  "ragged": (700, 8, 128, 0.9, 1),
                  "r2d2": (6250, 16, 64, 0.0, 40),
                  "catch": (512, 32, 32, 0.0, 1),
                  "host_plane": (1954, 512, 512, 0.3, 1),
-                 "mesh_rank": (62500, 8, 256, 0.3, 1)}
-TIMED_CASES = ("apex", "r2d2", "catch", "host_plane", "mesh_rank")
-# The host-replay device plane of apex's 1M slots: [ceil(1e6 / 512), 512]
-# cells, of which the last 448 (past slot 999,999) are never written.
-HOST_PLANE_LIVE_CELLS = 1_000_000
+                 "mesh_rank": (62500, 8, 256, 0.3, 1),
+                 "mesh_host_plane": (977, 512, 256, 0.3, 1)}
+TIMED_CASES = ("apex", "r2d2", "catch", "host_plane", "mesh_rank",
+               "mesh_host_plane")
+# The host-replay device planes' written cells: apex's 1M slots in
+# [ceil(1e6 / 512), 512] (the last 448 cells are never written), and a
+# rank's (or a store shard's) 500,000 in [977, 512] (the last 224).
+PLANE_LIVE_CELLS = {"host_plane": 1_000_000, "mesh_host_plane": 500_000}
 
 
 def _time_sampler(sampler, w, u, iters: int) -> dict:
@@ -666,8 +739,8 @@ def check_sampler(sampler, iters: int) -> dict:
     report = {"max_abs_err": 0.0}
     for name, (T, B, S, zero, row_stride) in SAMPLER_CASES.items():
         w_np = _mass(rng, T, B, zero, row_stride)
-        if name == "host_plane":
-            w_np.reshape(-1)[HOST_PLANE_LIVE_CELLS:] = 0.0
+        if name in PLANE_LIVE_CELLS:
+            w_np.reshape(-1)[PLANE_LIVE_CELLS[name]:] = 0.0
         u_np = ((np.arange(S) + rng.uniform(size=S)) / S).astype(np.float32)
         w = torch.from_numpy(w_np).to(dev)
         u = torch.from_numpy(u_np).to(dev)
@@ -703,7 +776,7 @@ def check_sampler(sampler, iters: int) -> dict:
                   f"({name}): {checks}")
         if name in TIMED_CASES:
             timing = _time_sampler(sampler, w, u, iters)
-            if name == "host_plane":
+            if name in PLANE_LIVE_CELLS:
                 timing.update(_time_rows_twin(sampler, w, u, iters))
             print(json.dumps({"sampler_timing": name, "T": T, "B": B,
                               "S": S, **timing}), flush=True)
@@ -2565,8 +2638,18 @@ def _mesh_rank(rank: int, address: str, jobs, out_dir: str) -> None:
     try:
         mesh = make_mesh(device=dev)
         report = {}
+        ref = None
         for job in jobs:
-            report[job] = _mesh_train(mesh, job)
+            if job == "mesh_host_replay_2rank":
+                report[job] = _mesh_host_replay(mesh)
+            elif job == "mesh_resume_r2d2_2rank":
+                report[job] = _mesh_resume_r2d2(
+                    mesh, ref, os.path.join(out_dir, "resume_r2d2"))
+                ref = None
+            else:
+                keep = (job == "mesh_r2d2_2rank"
+                        and "mesh_resume_r2d2_2rank" in jobs)
+                report[job], ref = _mesh_train(mesh, job, keep)
             torch.cuda.empty_cache()
             if job == "mesh_apex_2rank":
                 report["mesh_apex_sharded_step"] = _mesh_sharded_step(mesh)
@@ -2576,11 +2659,12 @@ def _mesh_rank(rank: int, address: str, jobs, out_dir: str) -> None:
         distributed.shutdown()
 
 
-def _mesh_train(mesh, job: str) -> dict:
+def _mesh_train(mesh, job: str, keep: bool = False):
     """MESH_2RANK_PATHS[job] through the mesh trainer on this rank, its
     sampler counter zeroed just before: rows, launches, peak memory,
     whether its learner equals rank 0's bit for bit, and the all-reduce's
-    time at the gradient's size."""
+    time at the gradient's size. Returns (report, the final carry's
+    leaves when ``keep``, else None)."""
     import torch
 
     from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
@@ -2653,8 +2737,150 @@ def _mesh_train(mesh, job: str) -> dict:
         "allreduce_ms": start.elapsed_time(end) / MESH_ALLREDUCE_ITERS,
         "allreduce_host_ms": host_ms,
         "iterations": carry.iteration}
+    kept = _carry_leaves(carry) if keep else None
     del carry, learner, flat, rank0, buf
-    return out
+    return out, kept
+
+
+def _carry_leaves(carry) -> list:
+    """Every leaf of a carry's state tree, in walk order, tensors cloned on
+    their device."""
+    import torch
+
+    from dist_dqn_tpu_torch.utils.checkpoint import state_tree, tree_leaves
+
+    return [t.clone() if isinstance(t, torch.Tensor) else t
+            for t in tree_leaves(state_tree(carry))]
+
+
+def _mesh_resume_r2d2(mesh, ref, directory: str) -> dict:
+    """mesh_r2d2_2rank through ``train()`` with ``checkpoint_replay``:
+    killed right after its save at MESH_RESUME_AT frames, then
+    relaunched to the path's end (its sampler counter zeroed just before
+    the relaunch). Every leaf of this rank's resumed carry (learner,
+    optimizer, ring, priorities, env state, LSTM carry, generators) must
+    equal ``ref``, the uninterrupted mesh_r2d2_2rank carry."""
+    import torch
+
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+    from dist_dqn_tpu_torch.ops import sampler
+    from dist_dqn_tpu_torch.train import train
+
+    # The tests' kill switch for a mesh run (it imports only the port).
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_mesh_workers import KillAfterSaves, Killed
+
+    preset, overrides, total, chunk_iters = MESH_2RANK_PATHS[
+        "mesh_r2d2_2rank"]
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    kw = dict(total_env_steps=total, chunk_iters=chunk_iters,
+              checkpoint_dir=directory, checkpoint_replay=True,
+              save_every_frames=MESH_RESUME_SAVE_EVERY)
+    logged = []
+    t0 = time.perf_counter()
+    killed = False
+    try:
+        train(cfg, mesh=KillAfterSaves(mesh, 2), log_fn=logged.append,
+              **kw)
+    except Killed:
+        killed = True
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    sampler.kernel_stratified_sample.launches = 0
+    carry, history = train(cfg, mesh=mesh, log_fn=logged.append, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = sampler.kernel_stratified_sample.launches
+    got = _carry_leaves(carry)
+    differ = [i for i, (a, b) in enumerate(zip(ref, got))
+              if not (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                      else a == b)]
+    rows = [json.loads(x) for x in logged if x.startswith("{")]
+    return {"rank": mesh.rank, "killed": killed,
+            "killed_run_s": t1 - t0, "resumed_run_s": t2 - t1,
+            "logged": rows, "leaves": len(got),
+            "leaves_equal": len(got) == len(ref) and not differ,
+            "differing_leaves": differ[:8],
+            "resumed_frames": [r["env_frames"] for r in history],
+            "grad_steps": int(sum(r["grad_steps_in_chunk"]
+                                  for r in history)),
+            "sampler_launches": launches,
+            "shard_files": sorted(os.listdir(os.path.join(
+                directory, f"rank{mesh.rank}")))
+            if mesh.rank else None}
+
+
+def _mesh_host_replay(mesh) -> dict:
+    """MESH_HOST_REPLAY_PATH through ``run_host_replay`` as this rank of
+    the mesh (pipelined, prefetched, PER on this rank's device plane), its
+    sampler counter zeroed just before: launches, grad steps, the rows'
+    global columns, per-shard bytes, whether its learner equals rank 0's,
+    rates, evacuation columns, host RSS before and after the run (and the
+    process's peak) and peak device memory."""
+    import torch
+
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+    from dist_dqn_tpu_torch.host_replay_loop import run_host_replay
+    from dist_dqn_tpu_torch.ops import sampler
+
+    preset, overrides, total, chunk_iters = MESH_HOST_REPLAY_PATH
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = _host_rss_gb()["host_rss_gb"]
+    sampler.kernel_stratified_sample.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_host_replay(cfg, total_env_steps=total,
+                          chunk_iters=chunk_iters,
+                          log_fn=lambda line: print(line, flush=True),
+                          mesh=mesh, mesh_devices=mesh.size,
+                          prioritized=True, device_sampling=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sampler.kernel_stratified_sample.launches
+    learner = out.pop("learner")
+    flat = torch.cat([p.detach().reshape(-1) for p in (
+        *learner.net.parameters(), *learner.target_net.parameters())])
+    rank0 = flat.clone()
+    mesh.broadcast_([rank0])
+    history = out["history"]
+    losses = [r["loss"] for r in history if "loss" in r]
+    report = {
+        "rank": mesh.rank, "backend": mesh.backend, "size": mesh.size,
+        "lanes": out["collect_lane_block"], "wall_s": wall,
+        "env_steps": out["env_steps"], "chunks": len(history),
+        "chunk_iters": chunk_iters, "grad_steps": out["grad_steps"],
+        "stale_batches": out["stale_batches"], "sampler_launches": launches,
+        "plane_shape": [-(-(cfg.replay.capacity // cfg.actor.num_envs
+                            * out["collect_lane_block"]) // 512), 512],
+        "rows_per_rank": out["train_batch"] // mesh.size,
+        "global_rows": [{k: r[k] for k in MESH_GLOBAL_ROW_KEYS if k in r}
+                        for r in history],
+        "d2h_bytes_by_shard": out["d2h_bytes_by_shard"],
+        "ring_bytes_by_shard": out["ring_bytes_by_shard"],
+        "d2h_bytes_total": out["d2h_bytes_total"],
+        "losses": losses,
+        "learner_equals_rank0": bool(torch.equal(flat, rank0)),
+        "params_finite": bool(torch.isfinite(flat).all()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "host_rss_before_gb": rss_before, **_host_rss_gb(),
+        "ring_gb": out["ring_gb"],
+        "env_steps_per_sec_chunks": [r["env_steps_per_sec"]
+                                     for r in history[1:]],
+        "grad_steps_per_sec_training": [
+            (r["grad_steps"] - p["grad_steps"]) / r["chunk_train_s"]
+            for p, r in zip(history, history[1:]) if "loss" in r],
+        **{k: [r[k] for r in history] for k in (
+            "evac_s", "evac_fence_wait_s", "evac_overlap_frac",
+            "chip_busy_s", "prefetch_wait_s", "sample_s")},
+        "evac_fence_wait_s_total": out["evac_fence_wait_s_total"],
+        "chip_time": out["chip_time"],
+        "summary_grad_steps_per_sec": out["grad_steps_per_sec"],
+        "summary_env_steps_per_sec": out["env_steps_per_sec"]}
+    del learner, flat, rank0
+    return report
 
 
 def _mesh_sharded_step(mesh) -> dict:
@@ -2758,7 +2984,8 @@ def check_mesh_2rank(phases) -> dict:
 
     from dist_dqn_tpu_torch.parallel import distributed
 
-    jobs = [p for p in MESH_2RANK_PATHS if p in phases]
+    jobs = [p for p in MESH_2RANK_PHASES if p in phases
+            or (p == "mesh_r2d2_2rank" and "mesh_resume_r2d2_2rank" in phases)]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as out:
@@ -2773,6 +3000,12 @@ def check_mesh_2rank(phases) -> dict:
     launches = {}
     for job in jobs:
         reports = [rk[job] for rk in ranks]
+        if job == "mesh_host_replay_2rank":
+            launches[job] = _hold_mesh_host_replay(reports, wall)
+            continue
+        if job == "mesh_resume_r2d2_2rank":
+            launches[job] = _hold_mesh_resume(reports, wall)
+            continue
         chunk_iters = MESH_2RANK_PATHS[job][3]
         print(json.dumps({"main_path": job,
                           "device": torch.cuda.get_device_name(0),
@@ -2824,6 +3057,199 @@ def check_mesh_2rank(phases) -> dict:
     return launches
 
 
+def _hold_mesh_host_replay(reports, wall: float) -> int:
+    """mesh_host_replay_2rank's holds: on each rank one sampler launch per
+    grad step (plus the stale batches' draws), a learner bit-equal to rank
+    0's, env_frames = iterations x 16, the per-shard bytes summing to the
+    total and equal to the bytes each ring appended, finite losses; the
+    same global row columns on both ranks. Returns the launches."""
+    import torch
+
+    job = "mesh_host_replay_2rank"
+    print(json.dumps({"main_path": job,
+                      "device": torch.cuda.get_device_name(0),
+                      "spawn_wall_s": wall, "ranks": reports}), flush=True)
+    launches = sum(r["sampler_launches"] for r in reports)
+    for r in reports:
+        lanes_total = r["lanes"] * r["size"]
+        frames = [x["env_frames"] for x in r["global_rows"]]
+        if r["backend"] != "gloo" or r["size"] != MESH_RANKS:
+            _fail(f"{job}: rank {r['rank']} in a {r['backend']} group of "
+                  f"{r['size']}")
+        if not r["learner_equals_rank0"] or not r["params_finite"]:
+            _fail(f"{job}: rank {r['rank']}'s learner differs from rank "
+                  "0's or is not finite")
+        if frames != [r["chunk_iters"] * lanes_total * (i + 1)
+                      for i in range(r["chunks"])] or \
+                r["env_steps"] != r["chunks"] * r["chunk_iters"] \
+                * lanes_total:
+            _fail(f"{job}: env_frames {frames} are not iterations x "
+                  f"{lanes_total}")
+        if r["grad_steps"] < MESH_HOST_REPLAY_MIN_GRAD_STEPS or \
+                r["sampler_launches"] < r["grad_steps"]:
+            _fail(f"{job}: rank {r['rank']} took {r['grad_steps']} grad "
+                  f"steps with {r['sampler_launches']} sampler launches")
+        if sum(r["d2h_bytes_by_shard"]) != r["d2h_bytes_total"] or \
+                r["d2h_bytes_by_shard"] != r["ring_bytes_by_shard"]:
+            _fail(f"{job}: per-shard bytes {r['d2h_bytes_by_shard']} "
+                  f"(rings {r['ring_bytes_by_shard']}) against the total "
+                  f"{r['d2h_bytes_total']}")
+        if not r["losses"] or not all(math.isfinite(x)
+                                      for x in r["losses"]):
+            _fail(f"{job}: non-finite loss on rank {r['rank']}")
+    r0 = reports[0]
+    if launches != MESH_RANKS * r0["grad_steps"] + r0["stale_batches"]:
+        _fail(f"{job}: {launches} sampler launches on the ranks for "
+              f"{r0['grad_steps']} grad steps each and "
+              f"{r0['stale_batches']} stale batches")
+    if reports[0]["global_rows"] != reports[1]["global_rows"]:
+        _fail(f"{job}: the ranks report different global rows")
+    return launches
+
+
+def _hold_mesh_resume(reports, wall: float) -> int:
+    """mesh_resume_r2d2_2rank's holds: both ranks killed after the save,
+    the relaunch resumed at it on rank 0 (logged there alone), every leaf
+    of each rank's carry equal to the uninterrupted run's, one sampler
+    launch per grad step of the resumed leg, rank 1's shard files."""
+    import torch
+
+    job = "mesh_resume_r2d2_2rank"
+    print(json.dumps({"main_path": job,
+                      "device": torch.cuda.get_device_name(0),
+                      "spawn_wall_s": wall, "ranks": reports}), flush=True)
+    total = MESH_2RANK_PATHS["mesh_r2d2_2rank"][2]
+    resumed = [x for x in reports[0]["logged"] if "resumed_at_frames" in x]
+    if resumed != [{"resumed_at_frames": MESH_RESUME_AT,
+                    "with_replay": True}] or reports[1]["logged"]:
+        _fail(f"{job}: rank 0 logged {resumed}, rank 1 "
+              f"{reports[1]['logged'][:3]}")
+    for r in reports:
+        if not r["killed"] or not r["leaves_equal"]:
+            _fail(f"{job}: rank {r['rank']} killed={r['killed']}, carry "
+                  f"leaves differing from the uninterrupted run: "
+                  f"{r['differing_leaves']}")
+        if r["resumed_frames"] != [total] or r["grad_steps"] <= 0 or \
+                r["sampler_launches"] != r["grad_steps"]:
+            _fail(f"{job}: rank {r['rank']} resumed to "
+                  f"{r['resumed_frames']} with {r['grad_steps']} grad steps "
+                  f"and {r['sampler_launches']} sampler launches")
+    if reports[1]["shard_files"] != sorted(
+            f"{f}.pt" for f in (400, MESH_RESUME_AT, total)):
+        _fail(f"{job}: rank 1's carry shards {reports[1]['shard_files']}")
+    return sum(r["sampler_launches"] for r in reports)
+
+
+def check_sharded_store_device(sampler) -> int:
+    """SHARDED_STORE on the card: ``ShardedPrioritizedReplay(2, 1M,
+    sampler="device")`` filled with integer priorities, then draws of S =
+    512 with the kernel launch counter zeroed just before. Each draw must
+    launch the kernel once per shard that takes rows (each plane is
+    [977, 512]) and pick exactly the cells the plain version picks at the
+    same uniforms (max abs err 0 over the slot ids), and the items
+    must be those slots'. Then 1,000 fresh inserts overwrite shard 0's
+    oldest slots and a write-back of the last draw's rows lands under the
+    generation guard: overwritten slots keep their insert's mass, live
+    ones take the written one (the last draw's rows and 500 overwritten
+    slots). Returns the launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dist_dqn_tpu_torch.replay.host import stratified_mass
+    from dist_dqn_tpu_torch.replay.sharded import (ShardedPrioritizedReplay,
+                                                   _map_mass_to_shards)
+
+    shards, capacity, S, draws = SHARDED_STORE
+    t0 = time.perf_counter()
+    store = ShardedPrioritizedReplay(shards, capacity, alpha=1.0,
+                                     priority_eps=0.0, seed=3,
+                                     sampler="device")
+    cap = store.shard_capacity
+    rng = np.random.default_rng(0)
+    for s in range(shards):
+        for lo in range(0, cap, 100_000):
+            ids = np.arange(s * cap + lo, s * cap + lo + 100_000)
+            store.add({"id": ids.astype(np.int64)},
+                      priorities=rng.integers(1, 9, ids.shape[0])
+                      .astype(np.float64), shard=s)
+    store.sample(S, beta=0.4)          # lands the fill's writes
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    planes = [x.device_sampler for x in store.shards]
+    sampler.kernel_stratified_sample.launches = 0
+    dispatched = store.device_sample_dispatches
+    expected = 0
+    err = 0
+    draw_s = []
+    for _ in range(draws):
+        before = copy.deepcopy(store._rng)
+        totals = np.array([p.total for p in planes], np.float64)
+        t1 = time.perf_counter()
+        items, idx, w = store.sample(S, beta=0.4)
+        draw_s.append(time.perf_counter() - t1)
+        mass = stratified_mass(before, S, float(totals.sum()))
+        shard_of, local = _map_mass_to_shards(mass, totals)
+        for s, plane in enumerate(planes):
+            rows = shard_of == s
+            if not rows.any():
+                continue
+            expected += 1
+            u = torch.as_tensor(np.asarray(local[rows] / totals[s],
+                                           np.float32),
+                                device=plane.plane.device)
+            t, b, m, _ = sampler.plain_stratified_sample(plane.plane, u)
+            ref = (t.long() * plane.lanes + b.long()).cpu().numpy()
+            err = max(err, int(np.abs(idx[rows] - s * cap - ref).max()))
+        if not np.array_equal(items["id"], idx):
+            _fail("sharded_store_device: the gathered items are not the "
+                  "drawn slots'")
+    launches = sampler.kernel_stratified_sample.launches
+    dispatches = store.device_sample_dispatches - dispatched
+    # The generation guard: overwrite shard 0's oldest slots, then write
+    # back the last draw's rows and half the overwritten slots, with the
+    # generations read before the overwrite.
+    back = np.concatenate([idx, np.arange(SHARDED_STORE_OVERWRITE // 2)])
+    gens = store.generation(back)
+    fresh = rng.integers(1, 9, SHARDED_STORE_OVERWRITE).astype(np.float64)
+    store.add({"id": np.full(SHARDED_STORE_OVERWRITE, -1, np.int64)},
+              priorities=fresh, shard=0)
+    written = rng.integers(1, 9, back.shape[0]).astype(np.float64)
+    store.update_priorities(back, written, expected_gen=gens)
+    want = {}
+    for slot, p in zip(back, written):
+        s, local_slot = divmod(int(slot), cap)
+        live = not (s == 0 and local_slot < SHARDED_STORE_OVERWRITE)
+        want[(s, local_slot)] = p if live else fresh[local_slot]
+    for p in planes:
+        p._flush_writes()
+    got = {k: float(planes[k[0]].plane.reshape(-1)[k[1]]) for k in want}
+    guard_ok = all(got[k] == float(v) for k, v in want.items())
+    row = {"main_path": "sharded_store_device",
+           "device": torch.cuda.get_device_name(0), "shards": shards,
+           "capacity": capacity, "plane_shape": list(planes[0].plane.shape),
+           "rows_per_draw": S, "draws": draws, "sampler_launches": launches,
+           "expected_launches": expected, "dispatches": dispatches,
+           "max_abs_err": err, "fill_s": t_fill,
+           "draw_ms": [x * 1e3 for x in draw_s],
+           "guard_rows": len(want),
+           "guard_overwritten": sum(1 for s, l in want
+                                    if s == 0 and
+                                    l < SHARDED_STORE_OVERWRITE),
+           "guard_ok": guard_ok,
+           "weights_max": float(w.max())}
+    print(json.dumps(row), flush=True)
+    if launches != expected or dispatches != expected or err != 0:
+        _fail(f"sharded_store_device: {launches} kernel launches and "
+              f"{dispatches} dispatches for {expected} shard draws, max "
+              f"abs err {err} against the plain version")
+    if not guard_ok:
+        _fail("sharded_store_device: a write-back landed on an overwritten "
+              "slot, or a live one kept its old mass")
+    return launches
+
+
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
 HOST_REPLAY_PHASES = ("host_replay_apex_dedup", "host_replay_uniform_pair")
@@ -2832,11 +3258,12 @@ APEX_SERVICE_PHASES = ("apex_service_pong", "apex_service_r2d2_pong",
                        "apex_service_snapshot_synthstack",
                        "apex_service_feeder_pixel",
                        "apex_service_feeder_legacy_tree", "evaluate_fake_ale")
-MESH_PHASES = ("mesh_apex_nccl", *MESH_2RANK_PATHS)
+MESH_PHASES = ("mesh_apex_nccl", *MESH_2RANK_PHASES)
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
           "population_learner_lockstep", *HOST_REPLAY_PHASES,
-          *APEX_SERVICE_PHASES, "serving_apex", *MESH_PHASES, *BAR_PHASES)
+          *APEX_SERVICE_PHASES, "serving_apex", *MESH_PHASES,
+          "sharded_store_device", *BAR_PHASES)
 
 
 def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
@@ -3351,9 +3778,12 @@ def main(argv=None) -> int:
             launches["mesh_apex_nccl"] = check_mesh_apex_nccl(
                 sampler, os.path.join(tmp, "mesh_apex_nccl"))
             _clock("mesh_apex_nccl")
-        if set(MESH_2RANK_PATHS) & set(phases):
+        if set(MESH_2RANK_PHASES) & set(phases):
             launches.update(check_mesh_2rank(phases))
             _clock("mesh_2rank")
+    if "sharded_store_device" in phases:
+        launches["sharded_store_device"] = check_sharded_store_device(sampler)
+        _clock("sharded_store_device")
 
     for name in BAR_PHASES:
         if name in phases:
@@ -3394,6 +3824,13 @@ def main(argv=None) -> int:
         "mesh_rank_shape": {k: sampler_report["mesh_rank"][k] for k in (
             "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "eager_ms", "device_launches_per_call")},
+        # A rank's plane of the host-replay mesh and a shard plane of the
+        # two-shard store.
+        "mesh_host_plane_shape": {
+            k: sampler_report["mesh_host_plane"][k] for k in (
+                "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "eager_ms", "device_launches_per_call",
+                "rows_twin_ms", "rows_twin_eager_ms", "rows_twin_repeats")},
         "population_shape": {k: sampler_report["population"][k] for k in (
             "M", "T", "B", "S", "ms", "one_launch_per_member_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",

@@ -1,5 +1,5 @@
 """The host-replay runtime: a collect/train loop with the replay window in
-host DRAM (twin of ``dist_dqn_tpu/host_replay_loop.py`` at one device).
+host DRAM (twin of ``dist_dqn_tpu/host_replay_loop.py``).
 
 The fused loop keeps its replay window in device memory. This loop splits
 the program at the replay boundary and runs the split as a three-stage
@@ -35,34 +35,66 @@ update. ``checkpoint_dir`` saves whole state at a quiesced chunk boundary
 sidecar of utils/ckpt_schema.py), and a run killed at chunk k resumes
 bit-identically.
 
-``mesh_devices != 1`` and ``sharded_collect=True`` (the data-parallel
-runtime, ROADMAP.md A6b) are not ported yet, nor are the JAX loop's telemetry registry,
-heartbeats, flight records, watchdog hooks and chaos seams.
+**Data-parallel mode** (``mesh``: a ``parallel.mesh.Mesh``, one process per
+device). JAX drives its dp shards from one process; here rank r is shard r
+and holds everything of it: its ``B / dp`` lane block and collect carry,
+its own ``HostTimeRing`` of ``num_slots x B / dp``, its evacuation worker
+and prefetcher, its priority sampler (a sum-tree, or a plane on its own
+device; the ring draws at explicit uniforms, so JAX's per-shard plane
+seed has no twin) and its ``train_batch / dp`` rows of every batch,
+drawn from stream ``(k, r)`` (a 1-shard mesh keeps ``(k,)``). Its rows are the global rows
+``Mesh.rows``; the learner step is the data-parallel one (agents/dqn.py
+with ``axis``): one flat gradient all-reduce. What JAX's one-process
+mechanism makes observable is reproduced with one reduction per chunk
+(``Mesh.gather``): ``evac_s`` and the fence wait are the slowest shard's,
+bytes and sampling columns are sums, ``d2h_bytes_by_shard`` and
+``ring_bytes_by_shard`` list every shard, so rank 0's rows and summary
+carry JAX's keys with JAX's meanings (``chip_time`` is rank 0's own
+device ledger). JAX's ``replicated_device_views`` has no counterpart:
+each rank casts its own bf16 actor snapshot once per chunk. Rank 0
+alone logs. ``sharded_collect=True`` at one device runs this machinery on
+a world-size-1 mesh, bit-identical to the plain program.
+
+At dp > 1 the checkpoint is still one ``host_loop_<step>.npz`` in the
+schema's per-shard layout (``ring_shard{i}_*``, ``carry{s}_leaf{i}``,
+``pending{s}_*``, ``wb{s}_*``), and ring bytes never cross the process
+group: every rank fences its evacuation and writes its shard's entries to
+a part file beside the step, and rank 0 copies the parts' members into the
+one sidecar, then commits the learner step. On resume rank 0 picks the
+step and checks the pins, every rank loads only its own shard's keys, and
+a rank that cannot makes every rank raise.
+
+The JAX loop's telemetry registry, heartbeats, flight records, watchdog
+hooks and chaos seams are not ported yet (ROADMAP.md A10).
 """
 from __future__ import annotations
 
 import dataclasses
-import glob
 import json
 import math
 import os
+import re
+import shutil
 import time
 import zipfile
-from typing import NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from dist_dqn_tpu_torch import loop_common
-from dist_dqn_tpu_torch.agents.dqn import (LearnerState, make_actor_step,
-                                           make_learner)
+from dist_dqn_tpu_torch.agents.dqn import (LearnerState, broadcast_learner,
+                                           make_actor_step, make_learner)
 from dist_dqn_tpu_torch.config import ExperimentConfig
 from dist_dqn_tpu_torch.envs import make_env
 from dist_dqn_tpu_torch.envs.base import TorchEnv
 from dist_dqn_tpu_torch.models import build_network
+from dist_dqn_tpu_torch.parallel.learner import sync_learner_from_rank0
 from dist_dqn_tpu_torch.replay.host_ring import (HostTimeRing, PerSample,
                                                  RingDevicePrioritySampler,
                                                  RingPrioritySampler)
+from dist_dqn_tpu_torch.replay.sharded import (shard_state,
+                                               split_shard_state)
 from dist_dqn_tpu_torch.replay.staging import (DoubleBufferedStager,
                                                EvacuationWorker,
                                                SamplePrefetcher,
@@ -70,8 +102,9 @@ from dist_dqn_tpu_torch.replay.staging import (DoubleBufferedStager,
 from dist_dqn_tpu_torch.types import Transition
 from dist_dqn_tpu_torch.utils import ckpt_schema
 from dist_dqn_tpu_torch.utils.checkpoint import (TrainCheckpointer,
-                                                atomic_savez,
-                                                record_checkpoint_kind)
+                                                load_state_tree,
+                                                record_checkpoint_kind,
+                                                state_tree, tree_leaves)
 from dist_dqn_tpu_torch.utils.device import resolve_device
 
 
@@ -95,6 +128,13 @@ class _HostLoopState(NamedTuple):
     carry: CollectCarry
 
 
+class _MeshLoopState(NamedTuple):
+    """A data-parallel run's checkpoint step (rank 0's): the learner; the
+    collect carries ride the sidecar, one per shard."""
+
+    learner: LearnerState
+
+
 class _UniformTag(NamedTuple):
     """Uniform-mode sample bookkeeping: the ring generation the batch was
     drawn against (the prefetcher's staleness handshake)."""
@@ -103,7 +143,8 @@ class _UniformTag(NamedTuple):
 
 
 def make_collect_chunk(cfg: ExperimentConfig, env: TorchEnv,
-                       frame_stack: int):
+                       frame_stack: int, lanes: Optional[int] = None,
+                       num_shards: int = 1):
     """(init, collect): a device chunk of act -> step that RETURNS its
     transitions (time-major [C, B, ...] in one buffer per field, allocated
     at the chunk's start) plus its episode stats, and writes no ring.
@@ -111,12 +152,19 @@ def make_collect_chunk(cfg: ExperimentConfig, env: TorchEnv,
     ``init(gen_env, gen_act)`` resets the env lanes; ``collect(carry,
     actor_net, num_iters)`` returns ``(carry, records, (completed_return,
     completed_count))``, the records a dict of obs (the newest frame under
-    dedup), action, reward, terminated and truncated. ``actor_net`` is the
-    net the chunk acts on (the bf16 snapshot with ``network.actor_dtype``).
+    dedup), action (int32, as JAX's), reward, terminated and truncated.
+    ``actor_net`` is the net the chunk acts on (the bf16 snapshot with
+    ``network.actor_dtype``).
+
+    ``lanes``/``num_shards`` build one shard's program of a data-parallel
+    run: ``lanes`` env lanes (the shard's block), with epsilon decaying in
+    per-shard iteration units (``make_schedules`` divides the horizon by
+    ``lanes * num_shards``), so the shards together walk the schedule the
+    whole-B program walks at the same global frame count.
     """
-    B = cfg.actor.num_envs
+    B = cfg.actor.num_envs if lanes is None else int(lanes)
     act = make_actor_step(env.num_actions)
-    epsilon, _ = loop_common.make_schedules(cfg, B)
+    epsilon, _ = loop_common.make_schedules(cfg, B, num_shards)
     slice_newest = ((lambda o: o[..., -1:]) if frame_stack
                     else (lambda o: o))
 
@@ -134,7 +182,7 @@ def make_collect_chunk(cfg: ExperimentConfig, env: TorchEnv,
         records = {
             "obs": torch.empty((num_iters,) + tuple(newest.shape),
                                dtype=newest.dtype, device=dev),
-            "action": torch.empty((num_iters, B), dtype=torch.int64,
+            "action": torch.empty((num_iters, B), dtype=torch.int32,
                                   device=dev),
             "reward": torch.empty((num_iters, B), dtype=torch.float32,
                                   device=dev),
@@ -166,6 +214,21 @@ def make_collect_chunk(cfg: ExperimentConfig, env: TorchEnv,
     return init, collect
 
 
+def host_replay_generators(seed: int, device, rank: int = 0
+                           ) -> List[torch.Generator]:
+    """(env, exploration, learner) generators of the host-replay loop.
+    Rank 0 (and a single-device run) takes ``SeedSequence(seed)``'s first
+    three words, ``loop_common.generators(seed, device, 3)``; rank r > 0
+    its own env and exploration streams, the first two words of
+    ``SeedSequence(seed, spawn_key=(r,))``. The learner's is the same on
+    every rank: the replicated learner draws the same noise everywhere."""
+    base = np.random.SeedSequence(seed).generate_state(3, dtype=np.uint64)
+    own = (base if rank == 0 else np.random.SeedSequence(
+        seed, spawn_key=(rank,)).generate_state(2, dtype=np.uint64))
+    return [torch.Generator(device=device).manual_seed(int(s))
+            for s in (own[0], own[1], base[2])]
+
+
 class _ResumedEvacHandle:
     """Completion-handle stand-in installed on resume: the chunk it fences
     was already appended to the ring inside the checkpoint."""
@@ -181,6 +244,198 @@ def _host(x) -> np.ndarray:
     """A record field on the host: a device tensor read back, or a restored
     numpy array as it is."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# --------------------------------------------------------------------------
+# The data-parallel sidecar's pieces.
+# --------------------------------------------------------------------------
+
+# Keys of one shard in the sidecar (the shard id in group 1); every other
+# key is shared by the shards.
+_SHARD_KEY = re.compile(
+    r"^(?:ring_shard(\d+)_|carry(\d+)_leaf|wb(\d+)_|pending(\d+)_)")
+
+
+def _key_shard(key: str) -> Optional[int]:
+    m = _SHARD_KEY.match(key)
+    if m is None:
+        return None
+    return int(next(g for g in m.groups() if g is not None))
+
+
+def carry_leaves(carry: CollectCarry) -> List[np.ndarray]:
+    """A collect carry as the sidecar's ``carry{s}_leaf{i}`` arrays: the
+    leaves of its state tree (env state, obs, generator states, iteration,
+    episode returns) in walk order."""
+    out = []
+    for leaf in tree_leaves(state_tree(carry)):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.dtype == torch.bfloat16:
+                raise TypeError("a collect carry holds no bf16 leaves")
+            out.append(leaf.cpu().numpy())
+        else:
+            out.append(np.asarray(leaf))
+    return out
+
+
+def carry_from_leaves(template: CollectCarry, leaves: List[np.ndarray]
+                      ) -> CollectCarry:
+    """Read :func:`carry_leaves` arrays back into ``template`` (a freshly
+    initialized carry of the same config), checking every leaf."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        if t is None:
+            return None
+        leaf = next(it)
+        if isinstance(t, torch.Tensor):
+            return torch.from_numpy(np.array(leaf))
+        return type(t)(leaf.item() if isinstance(leaf, np.ndarray)
+                       else leaf)
+
+    tree = build(state_tree(template))
+    if next(it, None) is not None:
+        raise ValueError("the sidecar holds more collect-carry leaves than "
+                         "this config's carry")
+    return load_state_tree(template, tree, "carry")
+
+
+def compose_sidecar(path: str, shared: Dict[str, np.ndarray],
+                    parts: List[str]) -> None:
+    """Write the one sidecar ``path`` (atomically, through ``path.tmp``):
+    ``shared`` arrays plus every member of each part file, whose ``.npy``
+    bytes are streamed across unchanged (an npz is an uncompressed zip of
+    ``.npy`` members, as ``np.savez`` writes it)."""
+    tmp = f"{path}.tmp"
+    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zout:
+        for k, v in shared.items():
+            with zout.open(f"{k}.npy", "w", force_zip64=True) as fo:
+                np.lib.format.write_array(fo, np.asanyarray(v),
+                                          allow_pickle=False)
+        for part in parts:
+            with zipfile.ZipFile(part) as zin:
+                for info in zin.infolist():
+                    with zin.open(info) as fi, \
+                            zout.open(info.filename, "w",
+                                      force_zip64=True) as fo:
+                        shutil.copyfileobj(fi, fo, 1 << 24)
+    os.replace(tmp, path)
+
+
+def prune_sidecars(checkpoint_dir: str, keep, upto: int) -> None:
+    """Delete the sidecars (``host_loop_<step>.npz``) and rank part files
+    (``host_loop_<step>.part<r>.npz``) of every step up to ``upto`` that
+    is not in ``keep``: each holds a ring window. A run killed between its
+    ranks' part writes and rank 0's compose leaves parts of a step that
+    never committed; they go here too."""
+    pat = re.compile(r"^host_loop_(\d+)(\.part\d+)?\.npz$")
+    for name in os.listdir(checkpoint_dir):
+        m = pat.match(name)
+        if m is not None and int(m.group(1)) <= upto and \
+                int(m.group(1)) not in keep:
+            os.remove(os.path.join(checkpoint_dir, name))
+
+
+def _npz_keys(path: str) -> List[str]:
+    with zipfile.ZipFile(path) as z:
+        return [n[:-len(".npy")] for n in z.namelist()]
+
+
+def _check_resume_pins(side: dict, checkpoint_dir: str, chunk_iters: int,
+                       dp: int, mesh_mode: bool, per_enabled: bool,
+                       prio_writeback_batch: int,
+                       device_sampling: bool) -> None:
+    """The sidecar pins a resume must match, with the JAX loop's texts
+    (``host_replay_loop.py:1062-1159``)."""
+    ver = int(side.get("sidecar_version", 0))
+    if ver != ckpt_schema.SIDECAR_VERSION:
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir!r} carries sidecar "
+            f"schema v{ver}, this build reads "
+            f"v{ckpt_schema.SIDECAR_VERSION} — resume with a "
+            "matching build (utils/ckpt_schema.py documents the "
+            "history), or start a fresh --checkpoint-dir")
+    if int(side["chunk_iters"]) != chunk_iters:
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir!r} was written with "
+            f"--chunk-iters {int(side['chunk_iters'])}, this "
+            f"run uses {chunk_iters} — resume with the same "
+            "loop shape (the ring/env config is already "
+            "validated by the snapshot shapes)")
+    if int(side["dp"]) != dp:
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir!r} was written at "
+            f"--mesh-devices {int(side['dp'])}, this run uses "
+            f"{dp} — resume with the same mesh width "
+            "(re-sharding a lane-striped host-replay window is "
+            "not supported; docs/fault_tolerance.md 'resuming "
+            "a sharded run')")
+    if bool(side["sharded_collect"]) != mesh_mode:
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir!r} was written "
+            f"with sharded_collect="
+            f"{bool(side['sharded_collect'])}, this run "
+            f"resolves sharded_collect={mesh_mode} — resume "
+            "with the same collect mode (the collect carries "
+            "are stored per mode)")
+    if per_enabled and \
+            int(side["prio_writeback_batch"]) != prio_writeback_batch:
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir!r} was written "
+            f"with prio_writeback_batch="
+            f"{int(side['prio_writeback_batch'])}, this run "
+            f"uses {prio_writeback_batch} — resume with the "
+            "same PER write-back cadence")
+    if int(side.get("population", 1)) != 1:
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir!r} was written with "
+            f"population={int(side['population'])} stacked "
+            "members, but --runtime host-replay trains a single "
+            "policy — the member axis is checkpoint structure. "
+            "Resume it under the fused --population runtime, or "
+            "start a fresh --checkpoint-dir")
+    if bool(side["per"]) != per_enabled:
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir!r} was written with "
+            f"prioritized={bool(side['per'])}, this run "
+            f"configures prioritized={per_enabled} — a uniform "
+            "snapshot cannot honestly seed a sum-tree (and vice "
+            "versa); resume with the same sampler, or start a "
+            "fresh --checkpoint-dir")
+    if per_enabled and \
+            int(side["per_sampler_kind"]) != int(device_sampling):
+        kinds = {0: "host sum-tree", 1: "device plane"}
+        raise ValueError(
+            f"checkpoint at {checkpoint_dir!r} was written with "
+            f"the {kinds[int(side['per_sampler_kind'])]} PER "
+            f"backend, this run configures the "
+            f"{kinds[int(device_sampling)]} — resume with the "
+            "same --device-sampling setting, or start a fresh "
+            "--checkpoint-dir")
+
+
+def resolve_mesh_width(mesh_devices: int, device=None) -> int:
+    """The data-parallel width a ``mesh_devices`` request means, with the
+    JAX loop's refusals (``host_replay_loop.py:358-363``): 0 is every card
+    (one CPU rank with ``device="cpu"``); more than the machine's cards
+    raises. CPU ranks are processes, so any positive count is allowed."""
+    if mesh_devices < 0:
+        raise ValueError(f"mesh_devices must be >= 0, got {mesh_devices}")
+    on_card = torch.device(device or "cuda").type == "cuda"
+    count = None
+    if on_card:
+        resolve_device("cuda")
+        count = torch.cuda.device_count()
+    dp = (count or 1) if mesh_devices == 0 else int(mesh_devices)
+    if count is not None and dp > count:
+        raise ValueError(f"--mesh-devices {dp} requested but only "
+                         f"{count} devices are available")
+    return dp
 
 
 def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
@@ -199,7 +454,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                     sharded_collect: Optional[bool] = None,
                     device_sampling: bool = False,
                     profile_dir: Optional[str] = None,
-                    device=None):
+                    device=None, mesh=None):
     """Run the host-replay loop on ``device`` (default: the card); returns
     the summary dict under the JAX loop's keys, plus ``history`` (the
     per-chunk rows) and ``learner`` (the final LearnerState).
@@ -221,6 +476,17 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
     saves whole state every ``save_every_frames`` (default: the eval
     period, at least one chunk) and at the end, and resumes from the newest
     step whose sidecar reads.
+
+    ``mesh`` runs this call as one rank of the data-parallel runtime (the
+    module docstring), on ``mesh.device``; ``mesh_devices`` must then be 0,
+    1 or the mesh's size. Without a mesh, ``mesh_devices`` > 1 (or
+    ``sharded_collect=True``) starts the ranks itself through
+    ``train.run_mesh`` and returns rank 0's summary without ``learner``
+    (``log_fn`` must then pickle, and ``env`` must be None); a world-size-1
+    mesh runs in this process and keeps it. The mesh always runs the
+    sharded collect: ``sharded_collect=False`` at dp > 1 raises, as in
+    JAX. Under the mesh, ``prefetch=False`` runs the fully serial
+    per-shard reference (JAX's main-thread stager is single-chip only).
     """
     if cfg.network.lstm_size > 0:
         raise ValueError(
@@ -240,17 +506,53 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             "device: the priority planes hold p^alpha mass (uniform "
             "draws never touch a tree). Add --per or drop "
             "--device-sampling")
-    if mesh_devices != 1 or sharded_collect:
+    if mesh is not None:
+        dp = mesh.size
+        if mesh_devices not in (0, 1, dp):
+            raise ValueError(f"mesh_devices={mesh_devices} does not match "
+                             f"the mesh's {dp} ranks")
+    else:
+        dp = resolve_mesh_width(mesh_devices, device)
+    if sharded_collect is False and dp > 1:
         raise ValueError(
-            "not ported yet: the data-parallel host-replay runtime "
-            "(--mesh-devices != 1, sharded_collect); the PyTorch port runs "
-            "it at one device (ROADMAP.md A6b)")
-    dev = resolve_device(device)
-    dp = 1
+            "--mesh-devices > 1 always runs the sharded collect path; "
+            "sharded_collect=False is only meaningful at mesh width 1")
+    mesh_mode = dp > 1 or bool(sharded_collect) or mesh is not None
+    B = cfg.actor.num_envs
+    if dp > 1 and B % dp:
+        raise ValueError(
+            f"actor.num_envs={B} not divisible by --mesh-devices {dp}: "
+            "each dp shard owns one env-lane block of the collect chunk")
+    train_batch = loop_common.resolve_train_batch(cfg)
+    if dp > 1 and train_batch % dp:
+        raise ValueError(
+            f"train batch {train_batch} not divisible by --mesh-devices "
+            f"{dp}: each dp shard draws and uploads an equal row block "
+            "(widen replay.train_batch or change the mesh size)")
+    if mesh_mode and mesh is None:
+        if env is not None:
+            raise ValueError("a data-parallel run builds each rank's env "
+                             "on its own device; pass env=None")
+        from dist_dqn_tpu_torch.train import run_mesh
+        return run_mesh(
+            cfg, num_devices=dp, device=device, runtime="host-replay",
+            total_env_steps=total_env_steps, chunk_iters=chunk_iters,
+            log_fn=log_fn, double_buffer=double_buffer, pipeline=pipeline,
+            evac_slices=evac_slices, prefetch=prefetch,
+            prefetch_depth=prefetch_depth, prioritized=prioritized,
+            prio_writeback_batch=prio_writeback_batch,
+            checkpoint_dir=checkpoint_dir,
+            save_every_frames=save_every_frames,
+            device_sampling=device_sampling, profile_dir=profile_dir)
+    dev = mesh.device if mesh_mode else resolve_device(device)
+    rank = mesh.rank if mesh_mode else 0
+    main = rank == 0
+    if not main:
+        log_fn = lambda *a, **k: None  # noqa: E731 — rank 0 alone logs
+        profile_dir = None
 
     if env is None:
         env = make_env(cfg.env_name, device=dev)
-    B = cfg.actor.num_envs
     obs_shape = tuple(env.observation_shape)
     stack = (cfg.replay.frame_dedup
              and getattr(env, "frame_stack", 0)) or 0
@@ -270,56 +572,71 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             "replay.capacity (one chunk == the whole window would make "
             "the ring a FIFO of the last chunk — keep chunk_iters well "
             "below the slot count)")
+    lanes = B // dp
 
     net = build_network(cfg.network, env.num_actions, obs_shape,
                         device=dev, seed=cfg.seed)
-    init_collect, collect = make_collect_chunk(cfg, env, stack)
-    init_learner, train_step = make_learner(cfg.learner, net)
+    if mesh_mode:
+        init_collect, collect = make_collect_chunk(
+            cfg, env, stack, lanes=lanes, num_shards=dp)
+    else:
+        init_collect, collect = make_collect_chunk(cfg, env, stack)
+    init_learner, train_step = make_learner(
+        cfg.learner, net, axis=mesh if mesh_mode else None)
     replay_ratio = loop_common.resolve_replay_ratio(cfg)
-    train_batch = loop_common.resolve_train_batch(cfg)
+    lb = train_batch // dp
     # The bf16 actor snapshot: one cast per chunk; the learner's f32
     # masters stay as they are.
     actor_snapshot = loop_common.make_actor_param_cast(
         cfg.network.actor_dtype)
 
-    ring = HostTimeRing(num_slots, B, stored_shape,
+    ring = HostTimeRing(num_slots, lanes, stored_shape,
                         torch.empty((), dtype=env.observation_dtype)
                         .numpy().dtype, frame_stack=stack)
-    gen_env, gen_act, gen_learn = loop_common.generators(cfg.seed, dev, 3)
+    ring_bytes = 0          # bytes appended into this rank's ring
+    gen_env, gen_act, gen_learn = host_replay_generators(cfg.seed, dev,
+                                                         rank)
     carry = init_collect(gen_env, gen_act)
     state = init_learner(net, gen_learn)
+    if mesh_mode:
+        # The replicas start equal whatever each rank's init did.
+        broadcast_learner(state, mesh)
 
     per_sampler = None
+    sampler_kw = dict(n_step=cfg.learner.n_step,
+                      alpha=cfg.replay.priority_exponent,
+                      beta=cfg.replay.importance_exponent,
+                      eps=cfg.replay.priority_eps)
     if per_enabled and device_sampling:
-        per_sampler = RingDevicePrioritySampler(
-            ring, n_step=cfg.learner.n_step,
-            alpha=cfg.replay.priority_exponent,
-            beta=cfg.replay.importance_exponent,
-            eps=cfg.replay.priority_eps, device=dev)
-        log_fn("# host-replay sampler: prioritized device plane "
-               f"({dev.type}, "
-               f"alpha={cfg.replay.priority_exponent}, "
-               f"beta={cfg.replay.importance_exponent}, "
-               f"prio_writeback_batch={prio_writeback_batch})")
+        per_sampler = RingDevicePrioritySampler(ring, device=dev,
+                                                **sampler_kw)
     elif per_enabled:
-        per_sampler = RingPrioritySampler(
-            ring, n_step=cfg.learner.n_step,
-            alpha=cfg.replay.priority_exponent,
-            beta=cfg.replay.importance_exponent,
-            eps=cfg.replay.priority_eps)
-        log_fn("# host-replay sampler: prioritized sum-tree "
-               f"({type(per_sampler.tree).__name__}, "
-               f"alpha={cfg.replay.priority_exponent}, "
-               f"beta={cfg.replay.importance_exponent}, "
-               f"prio_writeback_batch={prio_writeback_batch})")
+        per_sampler = RingPrioritySampler(ring, **sampler_kw)
+    knobs = (f"alpha={cfg.replay.priority_exponent}, "
+             f"beta={cfg.replay.importance_exponent}, "
+             f"prio_writeback_batch={prio_writeback_batch}")
+    if per_sampler is None:
+        log_fn("# host-replay sampler: uniform"
+               + (f" x {dp} shards" if dp > 1 else ""))
+    elif mesh_mode:
+        kind = ("device plane" if device_sampling else
+                f"sum-tree ({type(per_sampler.tree).__name__})")
+        log_fn(f"# host-replay sampler: prioritized {kind} x {dp} "
+               f"shards ({knobs})")
+    elif device_sampling:
+        log_fn(f"# host-replay sampler: prioritized device plane "
+               f"({dev.type}, {knobs})")
     else:
-        log_fn("# host-replay sampler: uniform")
+        log_fn(f"# host-replay sampler: prioritized sum-tree "
+               f"({type(per_sampler.tree).__name__}, {knobs})")
 
     def _batch_rng(k: int) -> np.random.Generator:
         # Batch k's content is a pure function of (k, ring window), never
-        # of which thread drew it or when.
+        # of which thread drew it or when; stream (k, r) is shard r's
+        # block of batch k (a 1-shard mesh keeps (k,)).
+        key = (k, rank) if dp > 1 else (k,)
         return np.random.default_rng(
-            np.random.SeedSequence(cfg.seed, spawn_key=(k,)))
+            np.random.SeedSequence(cfg.seed, spawn_key=key))
 
     def _transition(hb) -> Transition:
         return Transition(obs=hb.obs, action=hb.action.astype(np.int64),
@@ -327,15 +644,14 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                           next_obs=hb.next_obs)
 
     def sample_host(k: int):
-        """Batch k's host-side sample + gather -> (host tree, aux)."""
+        """Batch k's host-side sample + gather (this rank's ``lb`` rows)
+        -> (host tree, aux)."""
         rng_k = _batch_rng(k)
         if per_sampler is not None:
-            hb, aux = per_sampler.sample(rng_k, train_batch,
-                                         cfg.learner.gamma)
+            hb, aux = per_sampler.sample(rng_k, lb, cfg.learner.gamma)
             # IS weights travel with the batch through the staging.
             return (_transition(hb), aux.weights), aux
-        hs = ring.sample(rng_k, train_batch, cfg.learner.n_step,
-                         cfg.learner.gamma)
+        hs = ring.sample(rng_k, lb, cfg.learner.n_step, cfg.learner.gamma)
         return _transition(hs.batch), _UniformTag(generation=hs.generation)
 
     def put_batch(tree):
@@ -343,16 +659,24 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                         tree)
 
     def ring_append(tree, lo, hi):
+        nonlocal ring_bytes
         ring.add_chunk(tree["obs"], tree["action"], tree["reward"],
                        tree["terminated"], tree["truncated"])
+        ring_bytes += sum(np.asarray(tree[k]).nbytes for k in (
+            "obs", "action", "reward", "terminated", "truncated"))
 
     prefetcher = stager = None
     if prefetch:
         prefetcher = SamplePrefetcher(sample_host, depth=prefetch_depth,
                                       wait_generation=ring.wait_generation,
                                       device=dev)
-    elif double_buffer:
+    elif double_buffer and not mesh_mode:
         stager = DoubleBufferedStager(depth=2, device=dev)
+    elif double_buffer:
+        log_fn("# --no-prefetch with --mesh-devices > 1 runs the fully "
+               "serial per-shard reference (sample -> per-device upload "
+               "-> assemble); the double-buffered stager is single-chip "
+               "only — ignored")
 
     evacuator = worker = None
     if pipeline:
@@ -363,11 +687,12 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
     # average is exactly one event per train_every iterations.
     updates_per_train = max(cfg.updates_per_train, 1) * replay_ratio
     train_debt_iters = 0
-    weights = torch.ones((train_batch,), dtype=torch.float32, device=dev)
+    weights = torch.ones((lb,), dtype=torch.float32, device=dev)
 
-    # Batched priority write-backs (PER only): each train step's |TD| stays
-    # a device tensor in this list and lands as one update per
-    # prio_writeback_batch steps, chronological, last write winning.
+    # Batched priority write-backs (PER only): each train step's |TD| (this
+    # rank's rows) stays a device tensor in this list and lands as one
+    # update per prio_writeback_batch steps, chronological, last write
+    # winning.
     wb_pending = []
     is_w_sum, is_w_count, is_w_min = 0.0, 0, 1.0
 
@@ -410,148 +735,163 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         # is never finer than one chunk.
         save_period = save_every_frames or max(cfg.eval_every_steps,
                                                chunk_iters * B)
-        ckpt = TrainCheckpointer(checkpoint_dir,
-                                 save_every_frames=save_period)
-        record_checkpoint_kind(checkpoint_dir, "host_loop")
+        if main:
+            ckpt = TrainCheckpointer(checkpoint_dir,
+                                     save_every_frames=save_period)
+            record_checkpoint_kind(checkpoint_dir, "host_loop")
         next_save = save_period
 
         def _sidecar_path(step: int) -> str:
             return os.path.join(checkpoint_dir, f"host_loop_{step}.npz")
 
-        # The newest step whose sidecar reads wins; a step whose sidecar
-        # is torn or missing is deleted and the next older one tried.
+        def _part_path(step: int, shard: int) -> str:
+            return os.path.join(checkpoint_dir,
+                                f"host_loop_{step}.part{shard}.npz")
+
+        # Rank 0 picks the step: the newest whose sidecar reads (a step
+        # whose sidecar is torn or missing is deleted and the next older
+        # one tried) and whose pins match this run. Under the mesh it
+        # reads only the shared keys; each rank reads its own below.
         side = step = None
-        for cand in sorted(ckpt.all_steps(), reverse=True):
+        refusal = None
+        if main:
             try:
-                with np.load(_sidecar_path(cand)) as f:
-                    side = {k: f[k] for k in f.files}
-                step = cand
-                break
-            except (FileNotFoundError, ValueError, EOFError, KeyError,
-                    zipfile.BadZipFile) as e:
-                log_fn(f"# checkpoint step {cand}: sidecar unreadable "
-                       f"({type(e).__name__}: {e}) — deleting the "
-                       "unusable step and falling back to the previous "
-                       "one")
-                ckpt.delete(cand)
-                try:
-                    os.remove(_sidecar_path(cand))
-                except OSError:
-                    pass
-        if side is not None:
-            ver = int(side.get("sidecar_version", 0))
-            if ver != ckpt_schema.SIDECAR_VERSION:
-                raise ValueError(
-                    f"checkpoint at {checkpoint_dir!r} carries sidecar "
-                    f"schema v{ver}, this build reads "
-                    f"v{ckpt_schema.SIDECAR_VERSION} — resume with a "
-                    "matching build (utils/ckpt_schema.py documents the "
-                    "history), or start a fresh --checkpoint-dir")
-            if int(side["chunk_iters"]) != chunk_iters:
-                raise ValueError(
-                    f"checkpoint at {checkpoint_dir!r} was written with "
-                    f"--chunk-iters {int(side['chunk_iters'])}, this "
-                    f"run uses {chunk_iters} — resume with the same "
-                    "loop shape (the ring/env config is already "
-                    "validated by the snapshot shapes)")
-            if int(side["dp"]) != dp:
-                raise ValueError(
-                    f"checkpoint at {checkpoint_dir!r} was written at "
-                    f"--mesh-devices {int(side['dp'])}, this run uses "
-                    f"{dp} — resume with the same mesh width "
-                    "(re-sharding a lane-striped host-replay window is "
-                    "not supported; docs/fault_tolerance.md 'resuming "
-                    "a sharded run')")
-            if bool(side["sharded_collect"]):
-                raise ValueError(
-                    f"checkpoint at {checkpoint_dir!r} was written "
-                    f"with sharded_collect="
-                    f"{bool(side['sharded_collect'])}, this run "
-                    f"resolves sharded_collect=False — resume "
-                    "with the same collect mode (the collect carries "
-                    "are stored per mode)")
-            if per_enabled and \
-                    int(side["prio_writeback_batch"]) \
-                    != prio_writeback_batch:
-                raise ValueError(
-                    f"checkpoint at {checkpoint_dir!r} was written "
-                    f"with prio_writeback_batch="
-                    f"{int(side['prio_writeback_batch'])}, this run "
-                    f"uses {prio_writeback_batch} — resume with the "
-                    "same PER write-back cadence")
-            if int(side.get("population", 1)) != 1:
-                raise ValueError(
-                    f"checkpoint at {checkpoint_dir!r} was written with "
-                    f"population={int(side['population'])} stacked "
-                    "members, but --runtime host-replay trains a single "
-                    "policy — the member axis is checkpoint structure. "
-                    "Resume it under the fused --population runtime, or "
-                    "start a fresh --checkpoint-dir")
-            if bool(side["per"]) != per_enabled:
-                raise ValueError(
-                    f"checkpoint at {checkpoint_dir!r} was written with "
-                    f"prioritized={bool(side['per'])}, this run "
-                    f"configures prioritized={per_enabled} — a uniform "
-                    "snapshot cannot honestly seed a sum-tree (and vice "
-                    "versa); resume with the same sampler, or start a "
-                    "fresh --checkpoint-dir")
-            if per_enabled and \
-                    int(side["per_sampler_kind"]) != int(device_sampling):
-                _kinds = {0: "host sum-tree", 1: "device plane"}
-                raise ValueError(
-                    f"checkpoint at {checkpoint_dir!r} was written with "
-                    f"the {_kinds[int(side['per_sampler_kind'])]} PER "
-                    f"backend, this run configures the "
-                    f"{_kinds[int(device_sampling)]} — resume with the "
-                    "same --device-sampling setting, or start a fresh "
-                    "--checkpoint-dir")
-            _, tree = ckpt.restore_latest(_HostLoopState(state, carry),
-                                          step=step)
-            state, carry = tree.learner, tree.carry
-            ring.load_state_dict({k[len("ring_"):]: v for k, v in
-                                  side.items() if k.startswith("ring_")})
-            if per_sampler is not None:
-                per_sampler.load_state_dict(
-                    {k[len("per_"):]: v for k, v in side.items()
-                     if k.startswith("per_")})
+                for cand in sorted(ckpt.all_steps(), reverse=True):
+                    try:
+                        with np.load(_sidecar_path(cand)) as f:
+                            side = {k: f[k] for k in f.files
+                                    if not mesh_mode
+                                    or _key_shard(k) is None}
+                        step = cand
+                        break
+                    except (FileNotFoundError, ValueError, EOFError,
+                            KeyError, zipfile.BadZipFile) as e:
+                        log_fn(f"# checkpoint step {cand}: sidecar "
+                               f"unreadable ({type(e).__name__}: {e}) — "
+                               "deleting the unusable step and falling "
+                               "back to the previous one")
+                        ckpt.delete(cand)
+                        try:
+                            os.remove(_sidecar_path(cand))
+                        except OSError:
+                            pass
+                if side is not None:
+                    _check_resume_pins(side, checkpoint_dir, chunk_iters,
+                                       dp, mesh_mode, per_enabled,
+                                       prio_writeback_batch,
+                                       device_sampling)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                if not mesh_mode:
+                    raise
+                refusal = e
+        if mesh_mode:
+            # Rank 0's verdict on every rank: 0 = fresh start, 1 = resume
+            # step, 2 = rank 0 refused (every rank raises, none waits).
+            head = torch.tensor(
+                [2 if refusal is not None else int(step is not None),
+                 step if step is not None else -1], dtype=torch.int64,
+                device=dev)
+            mesh.broadcast_([head])
+            status, step = head.tolist()
+            if status == 2:
+                if refusal is not None:
+                    raise refusal
+                raise RuntimeError(
+                    f"rank 0 refused to resume from {checkpoint_dir!r}; "
+                    "its error names the cause")
+        if step is not None and step >= 0:
+            failure = None
+            try:
+                if mesh_mode:
+                    # The shared keys and this rank's shard, nothing else.
+                    with np.load(_sidecar_path(step)) as f:
+                        side = {k: f[k] for k in f.files
+                                if _key_shard(k) in (None, rank)}
+                if main:
+                    tree = (_HostLoopState(state, carry) if not mesh_mode
+                            else _MeshLoopState(state))
+                    _, tree = ckpt.restore_latest(tree, step=step)
+                    state = tree.learner
+                    if not mesh_mode:
+                        carry = tree.carry
+                if mesh_mode:
+                    ring_sub, per_sub = split_shard_state(
+                        {k[len("ring_"):]: v for k, v in side.items()
+                         if k.startswith("ring_shard")}, rank + 1)
+                    ring_state, per_state = ring_sub[rank], per_sub[rank]
+                    n_leaves = sum(1 for k in side
+                                   if k.startswith(f"carry{rank}_leaf"))
+                    carry = carry_from_leaves(
+                        carry, [side[f"carry{rank}_leaf{i}"]
+                                for i in range(n_leaves)])
+                else:
+                    ring_state = {k[len("ring_"):]: v for k, v in
+                                  side.items() if k.startswith("ring_")}
+                    per_state = {k[len("per_"):]: v for k, v in
+                                 side.items() if k.startswith("per_")}
+                ring.load_state_dict(ring_state)
+                if per_sampler is not None:
+                    per_sampler.load_state_dict(per_state)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                if not mesh_mode:
+                    raise
+                failure = e
+            if mesh_mode:
+                failed = mesh.gather([failure is not None])[:, 0]
+                if failed.any():
+                    if failure is not None:
+                        raise failure
+                    raise RuntimeError(
+                        f"rank(s) {np.flatnonzero(failed).tolist()} could "
+                        f"not restore their shard of step {step} from "
+                        f"{checkpoint_dir!r}")
+                sync_learner_from_rank0(mesh, state)
             env_steps = int(side["env_steps"])
             grad_steps = int(side["grad_steps"])
             ring.current_params_version = grad_steps
             sample_k = int(side["sample_k"])
             if prefetcher is not None:
-                # Per-index batch RNG: continue the killed run's indices.
+                # Per-index batch RNG: continue the killed run's indices
+                # (every shard's prefetcher shares the one cursor).
                 prefetcher.seek(sample_k)
             train_debt_iters = int(side["train_debt_iters"])
             start_chunk = int(side["next_chunk"])
             next_save = env_steps + save_period
             resumed = True
             # Deferred write-backs ride the sidecar as they were, and flush
-            # on the killed run's schedule.
+            # on the killed run's schedule; this rank's block of each
+            # entry's priorities.
+            wb = rank if mesh_mode else 0
             for j in range(int(side.get("wb_count", 0))):
-                leaf = np.asarray(side["wb0_leaf"][j], np.int64)
+                leaf = np.asarray(side[f"wb{wb}_leaf"][j], np.int64)
                 aux = PerSample(
                     leaf=leaf, t_idx=np.zeros_like(leaf, np.int32),
                     b_idx=np.zeros_like(leaf, np.int32),
-                    slot_gen=np.asarray(side["wb0_slot_gen"][j], np.int64),
+                    slot_gen=np.asarray(side[f"wb{wb}_slot_gen"][j],
+                                        np.int64),
                     weights=np.zeros(leaf.shape[0], np.float32),
                     generation=0)
-                wb_pending.append(
-                    (aux, np.asarray(side["wb_prios"][j], np.float64)))
+                prios = np.asarray(side["wb_prios"][j], np.float64)
+                wb_pending.append((aux, prios[rank * lb:(rank + 1) * lb]))
             if bool(side["has_stats"]):
+                cr, cc = (np.asarray(side[k]).reshape(-1)[rank]
+                          for k in ("stats_cr", "stats_cc"))
                 resume_stats = tuple(
-                    torch.tensor(float(side[k]), dtype=torch.float32,
-                                 device=dev)
-                    for k in ("stats_cr", "stats_cc"))
+                    torch.tensor(float(x), dtype=torch.float32, device=dev)
+                    for x in (cr, cc))
             if bool(side["has_pending"]):
-                resume_pending = {
-                    k[len("pending_"):]: v for k, v in side.items()
-                    if k.startswith("pending_")}
+                prefix = f"pending{rank}_" if mesh_mode else "pending_"
+                resume_pending = {k[len(prefix):]: v for k, v in
+                                  side.items() if k.startswith(prefix)}
+            del side
             log_fn(json.dumps({"resumed_at_frames": env_steps,
                                "resumed_at_chunk": start_chunk,
                                "resumed_dp": dp,
                                "resumed_per": per_enabled}))
 
     d2h_bytes_total = 0
+    d2h_bytes_by_shard = [0] * dp if mesh_mode else None
+    collect_dispatch_s = 0.0
     fence_wait_total = 0.0
     sample_s_total = 0.0
     prefetch_wait_s_total = 0.0
@@ -572,18 +912,16 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         in-flight evacuation is fenced first, and the serial path's
         un-appended records, the dispatched chunk's episode stats and the
         deferred write-backs go into the checkpoint as they are (reads
-        only, so the continuing run stays bit-identical)."""
+        only, so the continuing run stays bit-identical). Under the mesh
+        every rank writes its shard's part and rank 0 composes the one
+        sidecar before it commits the learner step."""
         nonlocal last_saved
         if env_steps <= last_saved:
             return
         t_save = time.perf_counter()
         if pipeline and handle is not None:
             handle.wait()
-        side = {f"ring_{k}": v for k, v in ring.state_dict().items()}
-        if per_sampler is not None:
-            side.update({f"per_{k}": v for k, v in
-                         per_sampler.state_dict().items()})
-        side.update(
+        shared = dict(
             sidecar_version=np.int64(ckpt_schema.SIDECAR_VERSION),
             env_steps=np.int64(env_steps),
             grad_steps=np.int64(grad_steps),
@@ -595,38 +933,70 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             per=np.bool_(per_enabled),
             per_sampler_kind=np.int64(int(device_sampling)),
             population=np.int64(1),
-            sharded_collect=np.bool_(False),
+            sharded_collect=np.bool_(mesh_mode),
             prio_writeback_batch=np.int64(prio_writeback_batch),
             wb_count=np.int64(len(wb_pending)),
             has_stats=np.bool_(stats is not None),
             has_pending=np.bool_(records is not None))
+        if not mesh_mode:
+            own = {f"ring_{k}": v for k, v in ring.state_dict().items()}
+            if per_sampler is not None:
+                own.update({f"per_{k}": v for k, v in
+                            per_sampler.state_dict().items()})
+        else:
+            own = {f"ring_{k}": v for k, v in shard_state(
+                rank, ring, per_sampler).items()}
+            for i, leaf in enumerate(carry_leaves(carry)):
+                own[f"carry{rank}_leaf{i}"] = leaf
+        wb = rank if mesh_mode else 0
         if wb_pending:
-            side["wb0_leaf"] = np.stack([a.leaf for a, _ in wb_pending])
-            side["wb0_slot_gen"] = np.stack(
+            own[f"wb{wb}_leaf"] = np.stack([a.leaf for a, _ in wb_pending])
+            own[f"wb{wb}_slot_gen"] = np.stack(
                 [a.slot_gen for a, _ in wb_pending])
-            side["wb_prios"] = np.stack([_prios(p) for _, p in wb_pending])
+            prios = np.stack([_prios(p) for _, p in wb_pending])
+            if mesh_mode:
+                # [dp, wb_count, lb] -> the global [wb_count, train_batch].
+                prios = mesh.gather(prios).transpose(1, 0, 2).reshape(
+                    prios.shape[0], -1)
+            shared["wb_prios"] = prios
         if stats is not None:
-            s_cr, s_cc = (float(x) for x in stats)
-            side.update(stats_cr=np.float32(s_cr), stats_cc=np.float32(s_cc))
+            pair = [float(x) for x in stats]
+            if mesh_mode:
+                table = mesh.gather(pair)
+                shared.update(stats_cr=table[:, 0].astype(np.float32),
+                              stats_cc=table[:, 1].astype(np.float32))
+            else:
+                shared.update(stats_cr=np.float32(pair[0]),
+                              stats_cc=np.float32(pair[1]))
         if records is not None:
-            side.update({f"pending_{k}": _host(v)
-                         for k, v in records.items()})
-        ckpt_schema.validate_sidecar(side.keys())
-        # The sidecar lands before the step: a committed step implies its
-        # sidecar exists.
-        atomic_savez(_sidecar_path(env_steps), **side)
-        ckpt.save(env_steps, _HostLoopState(state, carry))
+            prefix = f"pending{rank}_" if mesh_mode else "pending_"
+            own.update({f"{prefix}{k}": _host(v)
+                        for k, v in records.items()})
+        path = _sidecar_path(env_steps)
+        if not mesh_mode:
+            side = {**own, **shared}
+            ckpt_schema.validate_sidecar(side.keys())
+            compose_sidecar(path, side, [])
+        else:
+            part = _part_path(env_steps, rank)
+            compose_sidecar(part, own, [])
+            mesh.barrier()
+            if main:
+                shared["ring_num_shards"] = np.int64(dp)
+                parts = [_part_path(env_steps, s) for s in range(dp)]
+                ckpt_schema.validate_sidecar(
+                    list(shared) + [k for p in parts for k in _npz_keys(p)])
+                # The sidecar lands before the step: a committed step
+                # implies its sidecar exists.
+                compose_sidecar(path, shared, parts)
+                for p in parts:
+                    os.remove(p)
         last_saved = env_steps
-        # Prune sidecars with the retained steps: each holds a window.
-        keep = set(ckpt.all_steps())
-        for old in glob.glob(os.path.join(checkpoint_dir,
-                                          "host_loop_*.npz")):
-            try:
-                old_step = int(os.path.basename(old)[len("host_loop_"):-4])
-            except ValueError:
-                continue
-            if old_step not in keep:
-                os.remove(old)
+        if not main:
+            return
+        ckpt.save(env_steps, _HostLoopState(state, carry) if not mesh_mode
+                  else _MeshLoopState(state))
+        prune_sidecars(checkpoint_dir, set(ckpt.all_steps()), env_steps)
         log_fn(json.dumps({"host_replay_checkpoint": env_steps,
                            "save_s": round(time.perf_counter() - t_save, 3),
                            "shards_saved": dp}))
@@ -635,9 +1005,12 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         """One chunk's collect, queued on the device with the params as
         they stand now. Returns (records, stats); on the card also records
         the event the records are complete at (the evacuation's start)."""
-        nonlocal carry, records_ready
+        nonlocal carry, records_ready, collect_dispatch_s
+        t_d = time.perf_counter()
         carry, r, st = collect(carry, actor_snapshot(state.net),
                                chunk_iters)
+        if mesh_mode:
+            collect_dispatch_s += time.perf_counter() - t_d
         if dev.type == "cuda":
             records_ready = torch.cuda.Event()
             records_ready.record()
@@ -689,29 +1062,23 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 fence_wait_s = t_fence - t_dispatch
                 evac_s = handle.stats["evac_s"]
                 d2h_bytes = handle.stats["bytes"]
-                overlap = max(0.0, min(1.0, 1.0 - fence_wait_s
-                                       / max(evac_s, 1e-9)))
                 t_evac_parts = None
             else:
                 # Serial reference: one blocking fetch, one append, then
                 # the look-ahead dispatch (the same pre-train params).
                 host = {k: _host(v) for k, v in records.items()}
                 t_mono_fetch = time.perf_counter()
-                ring.add_chunk(host["obs"], host["action"], host["reward"],
-                               host["terminated"], host["truncated"])
+                ring_append(host, 0, chunk_iters)
                 t_fence = time.perf_counter()
                 d2h_bytes = int(sum(v.nbytes for v in host.values()))
                 del host
                 fence_wait_s = evac_s = t_fence - t0
-                overlap = 0.0
                 t_evac_parts = (t_mono_fetch - t0, t_fence - t_mono_fetch)
                 if g + 1 < num_chunks:
                     next_records, next_stats = _dispatch_chunk()
+            local_fence_wait_s = fence_wait_s
             records = next_records
             env_steps += chunk_iters * B
-            d2h_bytes_total += d2h_bytes
-            fence_wait_total += fence_wait_s
-            overlap_fracs.append(overlap)
             # Occupancy after chunk g's fence, before chunk g+1's appends.
             ring_transitions = ring.size * B
 
@@ -789,8 +1156,6 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                     did = grads_this_chunk
                     grad_steps += did
                     ring.current_params_version = grad_steps
-                    sample_s_total += ev_sample_s
-                    prefetch_wait_s_total += ev_wait_s
             # Chunk g+1's evacuation: every sample of chunk g's event is
             # drawn, so its slices may publish from here on.
             if pipeline and records is not None:
@@ -803,20 +1168,51 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
 
             cr, cc = torch.stack(list(stats)).tolist()
             stats = next_stats
+            h2d = (prefetcher.bytes_staged if prefetcher is not None
+                   else stager.bytes_staged if stager is not None else 0)
+            if mesh_mode:
+                # The chunk's columns over every shard, in one reduction:
+                # the slowest shard's evacuation and fence wait, the sums
+                # of bytes, sampling walls, depths, staleness and episode
+                # stats (JAX's _MultiEvacHandle and per-shard loops).
+                table = mesh.gather([evac_s, fence_wait_s, d2h_bytes,
+                                     ev_sample_s, ev_wait_s, ev_stale,
+                                     ev_depth_sum, cr, cc, h2d])
+                evac_s, fence_wait_s = (float(table[:, i].max())
+                                        for i in (0, 1))
+                for s in range(dp):
+                    d2h_bytes_by_shard[s] += int(table[s, 2])
+                d2h_bytes = int(table[:, 2].sum())
+                ev_sample_s, ev_wait_s = (float(table[:, i].sum())
+                                          for i in (3, 4))
+                ev_stale, ev_depth_sum = (int(table[:, i].sum())
+                                          for i in (5, 6))
+                cr, cc = (float(table[:, i].sum()) for i in (7, 8))
+                h2d = int(table[:, 9].sum())
             t_stats = time.perf_counter()
             ep = float(cr) / max(float(cc), 1.0)
+            overlap = (0.0 if not pipeline else
+                       max(0.0, min(1.0, 1.0 - fence_wait_s
+                                    / max(evac_s, 1e-9))))
+            d2h_bytes_total += d2h_bytes
+            fence_wait_total += fence_wait_s
+            overlap_fracs.append(overlap)
+            if did:
+                sample_s_total += ev_sample_s
+                prefetch_wait_s_total += ev_wait_s
 
             # The train section ends at a device fence, so minus its
-            # host-blocked share it is the chunk's train device time.
+            # host-blocked share it is the chunk's train device time (this
+            # rank's device).
             sample_blocked = 0.0 if prefetcher is not None else ev_sample_s
             wall = t_stats - t0
             train_busy = min(max((t_train - t_fence) - sample_blocked
                                  - ev_wait_s, 0.0), wall)
             idle_other = max(wall - train_busy - sample_blocked
-                             - fence_wait_s - ev_wait_s, 0.0)
+                             - local_fence_wait_s - ev_wait_s, 0.0)
             for key, secs in (("busy", train_busy),
                               ("sample", sample_blocked),
-                              ("evac_fence", fence_wait_s),
+                              ("evac_fence", local_fence_wait_s),
                               ("prefetch_wait", ev_wait_s),
                               ("other", idle_other)):
                 chip_time[key] += secs
@@ -840,7 +1236,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 "device_idle_est_s": round(fence_wait_s, 4),
                 "d2h_bytes": d2h_bytes,
                 "ring_transitions": ring_transitions,
-                "ring_gb": round(ring.nbytes / 1e9, 3),
+                "ring_gb": round(ring.nbytes * dp / 1e9, 3),
                 "sample_s": round(ev_sample_s, 4),
                 "chip_busy_s": round(train_busy, 4),
                 "idle_other_s": round(idle_other, 4),
@@ -852,10 +1248,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             if t_evac_parts is not None:
                 row["chunk_collect_fetch_s"] = round(t_evac_parts[0], 4)
                 row["chunk_ring_s"] = round(t_evac_parts[1], 4)
-            if prefetcher is not None:
-                row["h2d_staged_bytes"] = prefetcher.bytes_staged
-            elif stager is not None:
-                row["h2d_staged_bytes"] = stager.bytes_staged
+            if prefetcher is not None or stager is not None:
+                row["h2d_staged_bytes"] = h2d
             if did:
                 row["loss"] = round(float(metrics["loss"]), 4)
             history.append(row)
@@ -866,10 +1260,10 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 log_fn(json.dumps(_write_profile(
                     prof, profile_dir, wall, dev.type == "cuda")))
                 prof = None
-            if ckpt is not None and env_steps >= next_save:
+            if checkpoint_dir and env_steps >= next_save:
                 next_save = env_steps + save_period
                 _save_checkpoint(g)
-        if ckpt is not None and num_chunks:
+        if checkpoint_dir and num_chunks:
             # The final whole-state save: resuming a completed run is a
             # pass straight to the summary.
             _save_checkpoint(num_chunks - 1)
@@ -891,7 +1285,25 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         np.float64(np.sum(p.detach().cpu().numpy().astype(np.float64)))
         for p in state.net.parameters()))
     n = max(len(overlap_fracs), 1)
-    samplers = [per_sampler] if per_sampler is not None else []
+    per = per_sampler
+    totals = [per.writeback_flushes if per else 0,
+              per.writeback_rows if per else 0,
+              per.writeback_dropped if per else 0,
+              is_w_sum, is_w_count, is_w_min, collect_dispatch_s,
+              prefetcher.stale_total if prefetcher is not None else 0,
+              prefetcher.bytes_staged if prefetcher is not None
+              else stager.bytes_staged if stager is not None else 0,
+              ring_bytes]
+    ring_bytes_by_shard = None
+    if mesh_mode:
+        # The run's per-shard counters over every rank (JAX sums its
+        # shards' samplers and prefetchers).
+        table = mesh.gather(totals)
+        totals = list(table.sum(axis=0))
+        totals[5] = float(table[:, 5].min())
+        ring_bytes_by_shard = [int(b) for b in table[:, 9]]
+    (wb_flushes, wb_rows, wb_dropped, is_w_sum, is_w_count, is_w_min,
+     collect_dispatch_s, stale_total, h2d_total, _) = totals
     return {
         "env_steps": env_steps, "grad_steps": grad_steps,
         "wall_s": round(wall, 1),
@@ -901,13 +1313,13 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         "replay_ratio": replay_ratio,
         "train_batch": train_batch,
         "actor_dtype": cfg.network.actor_dtype or "float32",
-        "sharded_collect": False,
-        "collect_lane_block": B,
-        "collect_dispatch_s_total": 0.0,
-        "d2h_bytes_by_shard": None,
-        "ring_bytes_by_shard": None,
+        "sharded_collect": mesh_mode,
+        "collect_lane_block": lanes,
+        "collect_dispatch_s_total": round(collect_dispatch_s, 4),
+        "d2h_bytes_by_shard": d2h_bytes_by_shard,
+        "ring_bytes_by_shard": ring_bytes_by_shard,
         "ring_transitions": ring.size * B,
-        "ring_gb": round(ring.nbytes / 1e9, 3),
+        "ring_gb": round(ring.nbytes * dp / 1e9, 3),
         "window_transitions_max": num_slots * B,
         "pipeline": pipeline,
         "evac_slices": evac_slices if evacuator is not None else 0,
@@ -916,23 +1328,18 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         "evac_overlap_frac_mean": round(sum(overlap_fracs) / n, 4),
         "param_checksum": param_checksum,
         "double_buffer": stager is not None or prefetcher is not None,
-        "h2d_staged_bytes": (
-            prefetcher.bytes_staged if prefetcher is not None
-            else stager.bytes_staged if stager is not None else 0),
+        "h2d_staged_bytes": int(h2d_total),
         "prefetch": prefetcher is not None,
         "prefetch_depth": prefetch_depth if prefetcher is not None else 0,
-        "prioritized": bool(samplers),
-        "sampler": ("device" if (samplers and device_sampling)
-                    else "tree" if samplers else "uniform"),
+        "prioritized": per_sampler is not None,
+        "sampler": ("device" if (per_sampler is not None and device_sampling)
+                    else "tree" if per_sampler is not None else "uniform"),
         "sample_s_total": round(sample_s_total, 4),
         "prefetch_wait_s_total": round(prefetch_wait_s_total, 4),
-        "stale_batches": (prefetcher.stale_total
-                          if prefetcher is not None else 0),
-        "prio_writeback_flushes": sum(s.writeback_flushes
-                                      for s in samplers),
-        "prio_writeback_rows": sum(s.writeback_rows for s in samplers),
-        "prio_writeback_dropped": sum(s.writeback_dropped
-                                      for s in samplers),
+        "stale_batches": int(stale_total),
+        "prio_writeback_flushes": int(wb_flushes),
+        "prio_writeback_rows": int(wb_rows),
+        "prio_writeback_dropped": int(wb_dropped),
         "is_weight_mean": round(is_w_sum / is_w_count, 6)
         if is_w_count else 1.0,
         "is_weight_min": round(is_w_min, 6) if is_w_count else 1.0,
@@ -940,3 +1347,4 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         "history": history,
         "learner": state,
     }
+

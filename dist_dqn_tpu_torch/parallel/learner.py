@@ -178,6 +178,23 @@ def make_sharded_train_step(train_step, mesh: Mesh, data_specs,
     return sharded
 
 
+def sync_learner_from_rank0(mesh: Mesh, learner) -> None:
+    """Make every rank's learner rank 0's: weights, target, optimizer
+    moments (agents/dqn.py ``broadcast_learner``), the step's generator
+    state, the step counter and the optimizer's count. A resume that
+    restored the learner on rank 0 alone ends with this."""
+    from dist_dqn_tpu_torch.agents.dqn import broadcast_learner
+
+    head = torch.tensor([learner.steps, learner.opt_state.count],
+                        dtype=torch.int64, device=mesh.device)
+    mesh.broadcast_([head])
+    broadcast_learner(learner, mesh)
+    gen = learner.generator.get_state().to(mesh.device)
+    mesh.broadcast_([gen])
+    learner.generator.set_state(gen.cpu())
+    learner.steps, learner.opt_state.count = head.tolist()
+
+
 def global_metrics(metrics: Dict) -> Dict:
     """A chunk's metrics as host floats for logging; mirrors each into a
     ``dqn_mesh_<name>`` registry gauge on the way."""

@@ -7,13 +7,16 @@ device: :class:`Mesh` holds the group, this rank's index and device, the
 axis size and its name, and the collectives the loops and learners run
 over it. Each collective is ONE flat ``all_reduce`` or ``broadcast`` per
 call, whatever the number of tensors, the only two ops ``gloo`` carries
-on a CUDA tensor.
+on a CUDA tensor. :meth:`Mesh.gather` and :meth:`Mesh.barrier` carry
+host numbers (a loop's per-chunk columns, a checkpoint's small shared
+arrays) in one all-reduce of a zero table.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -60,6 +63,24 @@ class Mesh:
         out = tensor.clone()
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
         return out
+
+    def gather(self, values) -> np.ndarray:
+        """Every rank's ``values`` (host numbers, any fixed shape) as one
+        float64 ``[size, *shape]`` array on every rank, in one all-reduce:
+        each rank writes its row into a zero table, and adding zeros is
+        exact. Under ``gloo`` the table stays on the host."""
+        local = np.asarray(values, np.float64)
+        dev = (torch.device("cpu") if self.backend == "gloo"
+               else self.device)
+        table = torch.zeros((self.size,) + local.shape,
+                            dtype=torch.float64, device=dev)
+        table[self.rank] = torch.from_numpy(local).to(dev)
+        dist.all_reduce(table, group=self.group)
+        return table.cpu().numpy()
+
+    def barrier(self) -> None:
+        """Return once every rank has reached this call."""
+        self.gather(np.zeros(1))
 
     @torch.no_grad()
     def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0

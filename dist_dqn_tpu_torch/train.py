@@ -79,12 +79,16 @@ step, over NCCL on cards (``0`` means every card) or ``gloo`` with
 ``--device cpu`` (N CPU ranks). ``--coordinator host:port --num-processes
 P --process-id i`` joins P such processes, each with its local ranks, into
 one mesh numbered process by process. Rank 0 alone logs rows, evaluates,
-profiles and reads and writes checkpoints, and broadcasts what it resumed
-from to the other ranks.
+profiles and reads and writes the learner's checkpoints, and broadcasts
+what it resumed from to the other ranks. With ``--checkpoint-replay`` every
+rank also writes its own carry shard (``<dir>/rank<r>/``) before rank 0
+commits the step, and restores it at the step rank 0 picked; a resume at
+another mesh width raises naming both. ``--runtime host-replay
+--mesh-devices N`` runs the host-replay runtime's ranks the same way
+(host_replay_loop.py); ``--coordinator`` is refused there.
 
-Telemetry, checkpoint-replay under a mesh, and the options of the apex and
-host-replay runtimes that are not ported yet (several learner devices,
-replay shards or host-replay ranks) raise instead of being ignored.
+Telemetry and the options of the apex runtime that are not ported yet
+(several learner devices or replay shards) raise instead of being ignored.
 """
 from __future__ import annotations
 
@@ -93,13 +97,14 @@ import dataclasses
 import functools
 import json
 import os
+import tempfile
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 
 from dist_dqn_tpu_torch import population as pop
-from dist_dqn_tpu_torch.agents.dqn import broadcast_learner
 from dist_dqn_tpu_torch.config import CONFIGS, ExperimentConfig, \
     apply_overrides
 from dist_dqn_tpu_torch.envs import make_env
@@ -107,17 +112,20 @@ from dist_dqn_tpu_torch.models import build_network, stack_networks
 from dist_dqn_tpu_torch.parallel import distributed
 from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_evaluator, make_r2d2_train
 from dist_dqn_tpu_torch.train_loop import make_evaluator, make_fused_train
-from dist_dqn_tpu_torch.utils.checkpoint import (TrainCheckpointer,
+from dist_dqn_tpu_torch.utils.checkpoint import (RankCarryShards,
+                                                TrainCheckpointer,
+                                                check_mesh_width,
                                                 record_checkpoint_kind,
                                                 record_population_size)
 from dist_dqn_tpu_torch.utils.device import resolve_device
 
-# The refusal of a carry-kind checkpoint under a mesh.
-MESH_CHECKPOINT_REPLAY = (
-    "not ported yet: --checkpoint-replay with a mesh — the mesh's carry "
-    "is sharded, and its save needs the per-shard layout the host-replay "
-    "data-parallel sidecar brings (ROADMAP.md A6b); drop the flag to save "
-    "the learner, which every rank restores")
+# Why --coordinator cannot carry the host-replay runtime.
+HOST_REPLAY_COORDINATOR = (
+    "--coordinator with --runtime host-replay: the host-replay mesh is the "
+    "local ranks of one process (--mesh-devices N on this machine), whose "
+    "shards share one checkpoint sidecar on local disk; the JAX runtime "
+    "likewise places every shard's carry from one process. Run it on one "
+    "machine with --mesh-devices instead")
 
 
 def _device_spans(prof):
@@ -172,8 +180,9 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     writes checkpoints: it broadcasts the learner and frame cursor it
     resumed from, and at each chunk boundary whether ``stop_fn`` ended
     the run, so every rank continues from the same state whatever
-    storage it sees. A population or ``checkpoint_replay`` under a mesh
-    raises.
+    storage it sees. With ``checkpoint_replay`` every rank saves and
+    restores its own carry shard besides (utils/checkpoint.py
+    ``RankCarryShards``). A population under a mesh raises.
 
     ``stop_fn(row)`` may end the run early at a chunk boundary.
     ``profile_dir`` traces one chunk: ``profile_chunk`` (0-based), by
@@ -186,7 +195,7 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     overrides to the plain program.
     """
     if mesh is not None:
-        _check_mesh_run(cfg, checkpoint_replay)
+        _check_mesh_run(cfg)
     dev = mesh.device if mesh is not None else resolve_device(device)
     if cfg.population.size > 1:
         return _train_population(
@@ -215,16 +224,18 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     evaluate = (make_r2d2_evaluator if cfg.network.lstm_size
                 else make_evaluator)(cfg, env, num_episodes=cfg.eval_episodes)
     eval_gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    ckpt = None
+    ckpt = shards = None
     if mesh is not None:
         log_fn = distributed.main_process_log(log_fn)
     if mesh is None or mesh.rank == 0:
         ckpt = _checkpointer(checkpoint_dir, save_every_frames, cfg,
                              checkpoint_replay)
+    elif checkpoint_dir and checkpoint_replay:
+        shards = RankCarryShards(checkpoint_dir, mesh.rank)
     return _chunk_loop(cfg, init(seed), run_chunk, evaluate, eval_gen, ckpt,
                        total_env_steps or cfg.total_env_steps, chunk_iters,
                        log_fn, dev, stop_fn, profile_dir, profile_chunk,
-                       checkpoint_replay, mesh=mesh)
+                       checkpoint_replay, mesh=mesh, shards=shards)
 
 
 def _train_population(cfg: ExperimentConfig, total_env_steps: int = 0,
@@ -290,22 +301,34 @@ def _checkpointer(checkpoint_dir, save_every_frames, cfg, checkpoint_replay):
 
 def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
                 chunk_iters, log_fn, dev, stop_fn, profile_dir, profile_chunk,
-                checkpoint_replay, members: int = 0, mesh=None):
+                checkpoint_replay, members: int = 0, mesh=None, shards=None):
     """Resume from ``ckpt``, then run chunks until the frame cursor reaches
     ``total``, logging one row per chunk; returns (carry, history).
     ``members`` > 0: a population's [M] metrics and rows. Under a
     ``mesh``, rank 0 alone holds ``ckpt``, evaluates and profiles; the
     other ranks take its resume point and its stop decisions by broadcast
-    (their rows carry no eval_return)."""
+    (their rows carry no eval_return). With ``checkpoint_replay`` under a
+    mesh the other ranks hold ``shards``, their own carry shards, written
+    before rank 0 commits each step and restored at the step it picked."""
     main = mesh is None or mesh.rank == 0
     if not main:
         profile_dir = None
     frames = 0            # the loop's frame cursor (per member)
     frame_offset = 0      # added to the carry's own frame count
     restored = None
+    refusal = None
     if ckpt is not None:
-        restored = ckpt.restore_latest(
-            carry if checkpoint_replay else carry.learner)
+        try:
+            if checkpoint_replay:
+                check_mesh_width(ckpt.directory,
+                                 mesh.size if mesh is not None else 1,
+                                 record=mesh is not None)
+            restored = ckpt.restore_latest(
+                carry if checkpoint_replay else carry.learner)
+        except Exception as e:  # noqa: BLE001 — re-raised on every rank
+            if mesh is None:
+                raise
+            refusal = e
         if restored is not None:
             frames, tree = restored
             resumed = {"resumed_at_frames": frames,
@@ -324,11 +347,34 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
                 carry.learner = tree
                 frame_offset = frames
     if mesh is not None:
-        frames = frame_offset = _resume_from_rank0(
-            mesh, carry.learner, restored is not None, frames)
+        frames, carry = _resume_from_rank0(
+            mesh, carry, restored is not None, frames, refusal,
+            shards if checkpoint_replay else None)
+        frame_offset = 0 if checkpoint_replay else frames
 
     def save_tree():
         return carry if checkpoint_replay else carry.learner
+
+    def save(final: bool) -> None:
+        """A save at this chunk boundary (``final``: the run's last). A
+        mesh's carry-kind save is rank 0's decision on every rank: each
+        other rank writes its shard first, then rank 0 commits the
+        step."""
+        if mesh is not None and checkpoint_replay and (
+                ckpt is not None or shards is not None):
+            due = torch.tensor(
+                [int(ckpt is not None and (final or ckpt.is_due(frames)))],
+                dtype=torch.int32, device=mesh.device)
+            mesh.broadcast_([due])
+            if not due.item():
+                return
+            if shards is not None:
+                shards.save(frames, carry)
+            mesh.barrier()
+        if ckpt is None:
+            return
+        if (ckpt.save if final else ckpt.maybe_save)(frames, save_tree()):
+            log_fn(json.dumps(_checkpoint_row("save", ckpt.last_save)))
 
     B = cfg.actor.num_envs
     history = []
@@ -389,12 +435,10 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
             next_eval = frames + cfg.eval_every_steps
         history.append(row)
         log_fn(json.dumps({k: _rounded(v) for k, v in row.items()}))
-        if ckpt is not None and ckpt.maybe_save(frames, save_tree()):
-            log_fn(json.dumps(_checkpoint_row("save", ckpt.last_save)))
+        save(final=False)
         if stop_fn is not None and _rank0_stops(mesh, main and stop_fn(row)):
             break
-    if ckpt is not None and ckpt.save(frames, save_tree()):
-        log_fn(json.dumps(_checkpoint_row("save", ckpt.last_save)))
+    save(final=True)
     return carry, history
 
 
@@ -409,22 +453,42 @@ def _rank0_stops(mesh, stop: bool) -> bool:
     return bool(t.item())
 
 
-def _resume_from_rank0(mesh, learner, restored: bool, frames: int) -> int:
+def _resume_from_rank0(mesh, carry, restored: bool, frames: int,
+                       refusal=None, shards=None):
     """Rank 0's resume point on every rank of ``mesh``: its frame cursor
     and, where it restored one, its learner (weights, target, optimizer
-    moments and counts, the step's generator). Returns the cursor."""
-    head = torch.tensor([int(restored), frames, learner.steps,
-                         learner.opt_state.count], dtype=torch.int64,
-                        device=mesh.device)
+    moments and counts, the step's generator). With ``shards`` (a
+    carry-kind checkpoint) every other rank first restores its own carry
+    shard at that step. A rank 0 ``refusal``, or a rank that cannot
+    restore, raises on every rank. Returns (frames, carry)."""
+    from dist_dqn_tpu_torch.parallel.learner import sync_learner_from_rank0
+
+    head = torch.tensor([2 if refusal is not None else int(restored),
+                         frames], dtype=torch.int64, device=mesh.device)
     mesh.broadcast_([head])
-    restored, frames, steps, count = head.tolist()
-    if restored:
-        broadcast_learner(learner, mesh)
-        gen = learner.generator.get_state().to(mesh.device)
-        mesh.broadcast_([gen])
-        learner.generator.set_state(gen.cpu())
-        learner.steps, learner.opt_state.count = steps, count
-    return frames
+    status, frames = head.tolist()
+    if status == 2:
+        if refusal is not None:
+            raise refusal
+        raise RuntimeError("rank 0 could not resume the mesh's checkpoint; "
+                           "its error names the cause")
+    if not status:
+        return frames, carry
+    failure = None
+    if shards is not None:
+        try:
+            carry = shards.restore(frames, carry)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            failure = e
+    failed = mesh.gather([failure is not None])[:, 0]
+    if failed.any():
+        if failure is not None:
+            raise failure
+        raise RuntimeError(
+            f"rank(s) {np.flatnonzero(failed).tolist()} could not restore "
+            f"their carry shard of step {frames}")
+    sync_learner_from_rank0(mesh, carry.learner)
+    return frames, carry
 
 
 def _population_row(members, frames, ep_ret, episodes, loss, frames_chunk,
@@ -495,21 +559,28 @@ def _pick_mesh_devices(num_devices: int, multiprocess: bool,
 
 def run_mesh(cfg: ExperimentConfig, num_devices: int = 0, device=None,
              coordinator: str = None, num_processes: int = 1,
-             process_id: int = 0, **train_kwargs) -> None:
+             process_id: int = 0, runtime: str = "fused", **train_kwargs):
     """Train as a data-parallel mesh: :func:`_pick_mesh_devices` local
-    ranks, each running :func:`train` on its device with the mesh
+    ranks, each running :func:`train` (``runtime="host-replay"``:
+    ``host_replay_loop.run_host_replay``) on its device with the mesh
     (rank 0 prints the rows). One local rank runs in this process; more
     are spawned and joined, and a rank that fails ends the others and
     re-raises here. With ``coordinator`` (``host:port``) and
     ``num_processes`` > 1 this process's ranks are those of process
-    ``process_id`` in a world numbered process by process; else the ranks
-    meet on a free local port. Nothing waits for ever: a collective
-    raises after ``distributed.DEFAULT_TIMEOUT_S`` without its peers, and
-    once one rank has ended cleanly the others must end within
-    ``distributed.SPAWN_FINISH_S``.
-    ``train_kwargs`` must pickle (``stop_fn`` a module-level function or a
-    partial of one)."""
-    _check_mesh_run(cfg, train_kwargs.get("checkpoint_replay", False))
+    ``process_id`` in a world numbered process by process (the fused
+    runtime only); else the ranks meet on a free local port. Nothing waits
+    for ever: a collective raises after ``distributed.DEFAULT_TIMEOUT_S``
+    without its peers, and once one rank has ended cleanly the others must
+    end within ``distributed.SPAWN_FINISH_S``.
+    ``train_kwargs`` must pickle when ranks are spawned (``stop_fn`` and
+    ``log_fn`` module-level functions or partials of them). Returns rank
+    0's host-replay summary (without ``learner`` from a spawned rank), or
+    None for the fused runtime."""
+    host_replay = runtime == "host-replay"
+    if host_replay and coordinator is not None:
+        raise ValueError(HOST_REPLAY_COORDINATOR)
+    if not host_replay:
+        _check_mesh_run(cfg)
     multiprocess = coordinator is not None and num_processes > 1
     local = _pick_mesh_devices(num_devices, multiprocess, device,
                                num_processes)
@@ -520,38 +591,54 @@ def run_mesh(cfg: ExperimentConfig, num_devices: int = 0, device=None,
     # CPU ranks of one process share its cores.
     threads = (max(torch.get_num_threads() // local, 1)
                if kind == "cpu" and local > 1 else 0)
-    args = (cfg, address, world, first, kind, threads, train_kwargs)
     if local == 1:
-        _rank_main(0, *args)
-    else:
-        distributed.spawn(_rank_main, args, local)
+        return _rank_main(0, cfg, address, world, first, kind, threads,
+                          runtime, train_kwargs, None)
+    with tempfile.TemporaryDirectory() as out:
+        distributed.spawn(_rank_main, (cfg, address, world, first, kind,
+                                       threads, runtime, train_kwargs, out),
+                          local)
+        path = os.path.join(out, "rank0.pt")
+        if os.path.exists(path):
+            return torch.load(path, weights_only=False)
+    return None
 
 
-def _check_mesh_run(cfg: ExperimentConfig, checkpoint_replay: bool) -> None:
-    """What a mesh run refuses: a population (JAX's text) and a carry-kind
-    checkpoint."""
+def _check_mesh_run(cfg: ExperimentConfig) -> None:
+    """What a fused mesh run refuses: a population (JAX's text)."""
     if cfg.population.size > 1:
         raise ValueError(
             "--population composes with the single-device fused runtime "
             "only for now: the population fills ONE chip by vmap-stacking "
             "members; run one population process per device instead of "
             "--mesh-devices")
-    if checkpoint_replay:
-        raise ValueError(MESH_CHECKPOINT_REPLAY)
 
 
 def _rank_main(local_rank: int, cfg, address: str, world: int, first: int,
-               kind: str, threads: int, train_kwargs: dict) -> None:
-    """One rank of :func:`run_mesh`: join the group, train, leave."""
+               kind: str, threads: int, runtime: str, train_kwargs: dict,
+               out_dir) -> object:
+    """One rank of :func:`run_mesh`: join the group, run, leave. A spawned
+    rank 0 leaves its host-replay summary in ``out_dir``."""
     from dist_dqn_tpu_torch.parallel import make_mesh
 
     if threads:
         torch.set_num_threads(threads)
     dev = distributed.initialize(address, world, first + local_rank,
                                  [local_rank], device=kind)
+    kwargs = dict(train_kwargs)
+    kwargs.setdefault("log_fn", functools.partial(print, flush=True))
     try:
-        train(cfg, mesh=make_mesh(device=dev),
-              log_fn=functools.partial(print, flush=True), **train_kwargs)
+        mesh = make_mesh(device=dev)
+        if runtime != "host-replay":
+            train(cfg, mesh=mesh, **kwargs)
+            return None
+        from dist_dqn_tpu_torch.host_replay_loop import run_host_replay
+        out = run_host_replay(cfg, mesh=mesh, mesh_devices=0, **kwargs)
+        if out_dir is not None:
+            out.pop("learner")
+            if mesh.rank == 0:
+                torch.save(out, os.path.join(out_dir, "rank0.pt"))
+        return out
     finally:
         distributed.shutdown()
 
@@ -564,21 +651,17 @@ def _reached_return(target: float, row: dict) -> bool:
 def _refuse_unported(args) -> None:
     """Flags of the JAX CLI this port does not implement yet, each with its
     ROADMAP.md item."""
-    mesh = args.mesh_devices != 1 or (args.coordinator is not None
-                                      and args.num_processes > 1)
-    if args.checkpoint_replay and mesh and args.runtime == "fused":
-        raise SystemExit(MESH_CHECKPOINT_REPLAY)
     refused = [(flag, item) for flag, item, given in (
-        ("--mesh-devices", "A6b",
-         args.mesh_devices != 1 and args.runtime == "host-replay"),
-        ("--coordinator", "A6b" if args.runtime == "host-replay" else "A6c",
-         args.coordinator is not None and args.runtime != "fused"),
+        ("--coordinator", "A6c",
+         args.coordinator is not None and args.runtime == "apex"),
         ("--telemetry-port", "A10", args.telemetry_port is not None),
     ) if given]
     if refused:
         raise SystemExit(
             f"not ported yet: {', '.join(f for f, _ in refused)} "
             f"(ROADMAP.md {', '.join(i for _, i in refused)})")
+    if args.coordinator is not None and args.runtime == "host-replay":
+        raise SystemExit(HOST_REPLAY_COORDINATOR)
 
 
 def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
@@ -671,9 +754,12 @@ def _main_host_replay(cfg: ExperimentConfig, args) -> None:
               "host-replay; ignored")
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, seed=args.seed)
+    # --mesh-devices N > 1 spawns N ranks (run_mesh); rank 0 prints the
+    # rows and this process the summary.
     out = run_host_replay(
         cfg, total_env_steps=args.total_env_steps or cfg.total_env_steps,
-        chunk_iters=args.chunk_iters, log_fn=print,
+        chunk_iters=args.chunk_iters,
+        log_fn=functools.partial(print, flush=True),
         double_buffer=not args.no_double_buffer,
         pipeline=not args.no_pipeline,
         evac_slices=args.evac_slices,
@@ -854,8 +940,9 @@ def main(argv=None):
                              "the learner-side bootstrap on the card "
                              "instead of the actors' q planes")
     parser.add_argument("--mesh-devices", type=int, default=1,
-                        help="fused runtime: train as a data-parallel mesh "
-                             "of this many ranks, one process per device "
+                        help="fused and host-replay runtimes: train as a "
+                             "data-parallel mesh of this many ranks, one "
+                             "process per device "
                              "(0 = every card; with --device cpu, CPU "
                              "ranks over gloo); multi-process runs use "
                              "every process's ranks")

@@ -86,6 +86,15 @@ def state_tree(obj) -> Any:
     raise TypeError(f"cannot checkpoint an object of type {type(obj)!r}")
 
 
+def tree_leaves(tree) -> list:
+    """The non-None leaves of a :func:`state_tree`, in walk order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
 def _check_tensor(path: str, template: torch.Tensor, saved) -> None:
     if not isinstance(saved, torch.Tensor):
         raise CheckpointStructureError(
@@ -230,9 +239,13 @@ class TrainCheckpointer:
         self.last_save: Optional[dict] = None
         self.last_restore: Optional[dict] = None
 
+    def is_due(self, frames: int) -> bool:
+        """Whether :meth:`maybe_save` at ``frames`` saves."""
+        return frames >= self._next_save
+
     def maybe_save(self, frames: int, tree) -> bool:
         """Save when the frame cursor crosses the next save boundary."""
-        if frames < self._next_save:
+        if not self.is_due(frames):
             return False
         self.save(frames, tree)
         self._next_save = frames + self.save_every_frames
@@ -393,6 +406,87 @@ class TrainCheckpointer:
 
     def close(self) -> None:
         """Nothing is held open between calls."""
+
+
+class RankCarryShards:
+    """Rank ``rank``'s carry shards of a data-parallel carry-kind checkpoint
+    (``--checkpoint-replay`` under a mesh): ``<directory>/rank<r>/<frames>.pt``,
+    each the rank's whole carry (its lanes, replay shard, generators and
+    learner replica), written atomically before rank 0 commits step
+    ``frames`` and kept for the newest ``max_to_keep`` steps, as rank 0
+    keeps its steps. Rank 0's own carry is its step (TrainCheckpointer)."""
+
+    def __init__(self, directory: str, rank: int, max_to_keep: int = 3):
+        self.directory = os.path.join(directory, f"rank{int(rank)}")
+        self.max_to_keep = max_to_keep
+
+    def _path(self, frames: int) -> str:
+        return os.path.join(self.directory, f"{int(frames)}.pt")
+
+    def steps(self) -> Tuple[int, ...]:
+        try:
+            names = os.listdir(self.directory)
+        except OSError:
+            return ()
+        return tuple(sorted(int(n[:-3]) for n in names
+                            if n.endswith(".pt") and n[:-3].isdigit()))
+
+    def save(self, frames: int, tree) -> int:
+        """Write the shard of step ``frames``; returns its bytes."""
+        os.makedirs(self.directory, exist_ok=True)
+        size = _atomic_torch_save(state_tree(tree), self._path(frames))
+        for old in self.steps()[:-self.max_to_keep]:
+            os.remove(self._path(old))
+        return size
+
+    def restore(self, frames: int, example):
+        """Read the shard of step ``frames`` back into the live
+        ``example``; raises FileNotFoundError naming the rank's directory
+        when this rank has no shard of that step."""
+        path = self._path(frames)
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"no carry shard of step {frames} under "
+                f"{self.directory!r}: every rank of a --checkpoint-replay "
+                "mesh restores its own shard, written beside rank 0's "
+                "step")
+        try:
+            return load_state_tree(example, _torch_load(path))
+        except CheckpointStructureError as e:
+            raise ValueError(
+                f"carry shard {path!r} does not match this rank's carry. "
+                f"{_DRIFT}\n{e}") from e
+
+
+_MESH_WIDTH_FILE = "MESH_WIDTH"
+
+
+def check_mesh_width(directory: str, width: int, record: bool) -> None:
+    """Pin a carry-kind directory to the mesh width that wrote it: each
+    rank's carry holds its own lanes and replay shard, so a resume at
+    another width cannot restore it (JAX's restore raises on the sharded
+    shapes). A recorded width other than ``width`` raises naming both;
+    ``record`` stamps ``width`` where none is recorded (a directory
+    without a stamp was written by a single device)."""
+    path = os.path.join(directory, _MESH_WIDTH_FILE)
+    try:
+        with open(path) as fh:
+            existing = int(fh.read().strip() or 1)
+    except OSError:
+        existing = None
+    saved = existing if existing is not None else (
+        1 if TrainCheckpointer(directory).all_steps() else width)
+    if saved != width:
+        raise ValueError(
+            f"checkpoint directory {directory!r} holds the carry of a "
+            f"{saved}-rank mesh, but this run has {width} rank(s) — each "
+            "rank's carry holds its own env lanes and replay shard, so it "
+            f"restores only at --mesh-devices {saved}. Resume at that "
+            "width, or use a fresh --checkpoint-dir")
+    if record and existing is None:
+        os.makedirs(directory, exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(str(int(width)))
 
 
 class CheckpointMissingError(FileNotFoundError):

@@ -9,7 +9,10 @@ ends its peers and fails the run within the spawn's deadline, and a rank
 that outlives its peers is ended; the refusals give the JAX CLI's texts (the
 population x mesh parser error, too many cards) or name their ROADMAP.md
 item; the "# ..." lines the CLI prints for ignored flags under a mesh
-equal the JAX CLI's. Every spawned group and subprocess has a deadline.
+equal the JAX CLI's; ``--checkpoint-replay`` under a 2-rank mesh resumes
+every rank's carry bit-equal, for PER CartPole and the tiny R2D2, and at
+another width raises as JAX's restore does. Every spawned group and
+subprocess has a deadline.
 """
 import json
 import os
@@ -194,15 +197,129 @@ def test_population_with_mesh_gives_jax_parser_error(capsys):
         ttr.run_mesh(cfg, 2, device="cpu")
 
 
+HOST_REPLAY_TINY = ["--set", "replay.capacity=4096",
+                    "--set", "replay.min_fill=64", "--chunk-iters", "50"]
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["--mesh-devices", "2", "--checkpoint-replay",
-      "--checkpoint-dir", "unused"], "A6b"),
-    (["--runtime", "host-replay", "--mesh-devices", "2"], "A6b"),
+    (["--mesh-devices", "2", "--checkpoint-replay", *TINY], None),
+    (["--runtime", "host-replay", "--mesh-devices", "2", "--total-env-steps",
+      "800", "--set", "learner.batch_size=16", "--set", "actor.num_envs=8",
+      *HOST_REPLAY_TINY], None),
     (["--runtime", "apex", "--coordinator", "127.0.0.1:1"], "A6c"),
 ], ids=["checkpoint_replay", "host_replay", "apex_coordinator"])
-def test_unported_mesh_paths_name_their_item(argv, item):
-    with pytest.raises(SystemExit, match=rf"not ported yet.*{item}"):
-        ttr.main(["--config", "cartpole", "--device", "cpu", *argv])
+def test_unported_mesh_paths_name_their_item(argv, item, tmp_path, capsys):
+    """The CLI's mesh paths: ``--checkpoint-replay`` under a mesh and
+    ``--runtime host-replay --mesh-devices 2`` run (every rank writes its
+    carry shard beside rank 0's steps; the host-replay summary prints
+    once); ``--coordinator`` under the apex runtime is refused naming its
+    ROADMAP.md item."""
+    argv = ["--config", "cartpole", "--device", "cpu", *argv,
+            "--checkpoint-dir", str(tmp_path / "ckpt")]
+    if item is not None:
+        with pytest.raises(SystemExit, match=rf"not ported yet.*{item}"):
+            ttr.main(argv)
+        return
+    ttr.main(argv)
+    entries = sorted(os.listdir(tmp_path / "ckpt"))
+    if "--checkpoint-replay" in argv:
+        assert entries == ["160", "320", "CHECKPOINT_KIND", "LATEST",
+                           "MESH_WIDTH", "rank1"]
+        assert sorted(os.listdir(tmp_path / "ckpt" / "rank1")) == [
+            "160.pt", "320.pt"]
+    else:
+        summary = _rows(capsys.readouterr().out)[-1]
+        assert summary["dp_size"] == 2 and summary["env_steps"] == 800
+        assert "host_loop_800.npz" in entries
+
+
+# The carry-kind resume cases: JAX test_distributed.py's tiny CartPole with
+# PER (16 envs over 2 ranks, 4 chunks of 640 frames, a save every chunk,
+# killed after the 2nd) and its tiny R2D2.
+CARRY_CASES = {
+    "per_cartpole": dict(preset="cartpole", overrides=[
+        "network.mlp_features=(32,)", "actor.num_envs=16",
+        "replay.capacity=2048", "replay.min_fill=64",
+        "learner.batch_size=32", "replay.prioritized=true",
+        "eval_every_steps=0"]),
+    "r2d2": dict(preset="r2d2", overrides=[
+        "env_name=cartpole", "network.torso=mlp",
+        "network.mlp_features=(16,)", "network.hidden=0",
+        "network.lstm_size=8", "network.compute_dtype=float32",
+        "network.lstm_dtype=float32", "replay.capacity=2048",
+        "replay.min_fill=64", "replay.burn_in=2", "replay.unroll_length=4",
+        "replay.sequence_stride=2", "learner.n_step=2",
+        "learner.batch_size=32", "actor.num_envs=16",
+        "eval_every_steps=0"]),
+}
+
+
+@pytest.fixture(scope="module")
+def carry_resumes(tmp_path_factory):
+    d = tmp_path_factory.mktemp("carry_resume")
+    jobs = [("fused_carry_resume", dict(
+        case, directory=str(d / name), total=2560, iters=40,
+        save_every=640, kill_after=2))
+        for name, case in CARRY_CASES.items()]
+    ranks = run_ranks(jobs)
+    return {"dir": d, "ranks": {name: [r[i] for r in ranks]
+                                for i, name in enumerate(CARRY_CASES)}}
+
+
+@pytest.mark.parametrize("name", list(CARRY_CASES))
+def test_mesh_carry_checkpoint_resumes_bit_equal(carry_resumes, name):
+    """``--checkpoint-replay`` under a 2-rank mesh: a run killed right
+    after its save at 1,280 frames and relaunched ends with every rank's
+    whole carry (ring, env states, generators, learner) bit-equal to the
+    uninterrupted run's, and the replicas equal each other."""
+    r0, r1 = carry_resumes["ranks"][name]
+    for rank in (r0, r1):
+        assert len(rank["ref"]) == len(rank["resumed"])
+        for a, b in zip(rank["ref"], rank["resumed"]):
+            np.testing.assert_array_equal(a, b)
+    assert [json.loads(x) for x in r0["logged"]
+            if "resumed_at_frames" in x] == [
+        {"resumed_at_frames": 1280, "with_replay": True}]
+    assert r1["logged"] == []
+    assert r0["shards"] == ["1280", "1920", "2560", "CHECKPOINT_KIND",
+                            "LATEST", "MESH_WIDTH", "rank1"]
+
+
+def test_mesh_carry_checkpoint_at_another_width_raises_as_jax(
+        carry_resumes):
+    """JAX's checkpoint of a dp-2 fused carry does not restore into a dp-1
+    run (its restore refuses the sharded shapes); the port's 2-rank carry
+    checkpoint raises at one device too, naming both widths."""
+    from dist_dqn_tpu.config import apply_overrides as japply
+    from dist_dqn_tpu.config import CONFIGS as JCONFIGS
+    from dist_dqn_tpu.envs import make_jax_env
+    from dist_dqn_tpu.models import build_network as jbuild
+    from dist_dqn_tpu.parallel import make_mesh as jmesh
+    from dist_dqn_tpu.parallel import make_mesh_fused_train as jmesh_train
+    from dist_dqn_tpu.train_loop import make_fused_train as jfused
+    from dist_dqn_tpu.utils.checkpoint import TrainCheckpointer as JCkpt
+
+    case = CARRY_CASES["per_cartpole"]
+    jcfg = japply(JCONFIGS["cartpole"], case["overrides"])
+    env = make_jax_env(jcfg.env_name)
+    net = jbuild(jcfg.network, env.num_actions)
+    init2, _ = jmesh_train(jcfg, env, net,
+                           jmesh(devices=jax.devices()[:2]))
+    jdir = str(carry_resumes["dir"] / "jax")
+    ck = JCkpt(jdir, save_every_frames=1)
+    ck.save(640, init2(jax.random.PRNGKey(0)))
+    ck.wait()
+    init1, _ = jfused(jcfg, env, net)
+    with pytest.raises(ValueError):
+        JCkpt(jdir, save_every_frames=1).restore_latest(
+            jax.jit(init1)(jax.random.PRNGKey(0)))
+
+    cfg = ttr.apply_overrides(ttr.CONFIGS["cartpole"], case["overrides"])
+    with pytest.raises(ValueError, match=r"2-rank mesh, but this run has 1 "
+                                         r"rank.*--mesh-devices 2"):
+        ttr.train(cfg, total_env_steps=3200, chunk_iters=40, device="cpu",
+                  checkpoint_dir=str(carry_resumes["dir"] / "per_cartpole"),
+                  checkpoint_replay=True, log_fn=lambda s: None)
 
 
 def _comment_lines(text):

@@ -15,6 +15,8 @@
   plane.
 * The CLI's refusals and "ignored" lines, word for word against the JAX
   package's train.py.
+* The data-parallel runtime from the plain call (two spawned CPU ranks,
+  and one rank in this process).
 """
 import dataclasses
 import json
@@ -36,6 +38,7 @@ from dist_dqn_tpu_torch import loop_common as tlc
 from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
 from dist_dqn_tpu_torch.envs import make_env
 from torch_parity import RESET_DRAWS, STEP_DRAWS
+import torch_mesh_workers as workers
 
 _CARTPOLE = ["network.mlp_features=(32,)", "replay.capacity=4096",
              "replay.min_fill=64", "learner.batch_size=16",
@@ -71,25 +74,57 @@ def _assert_same_params(a, b):
 # One collect chunk against the JAX package's.
 # --------------------------------------------------------------------------
 
-def test_collect_chunk_matches_jax(monkeypatch):
-    """PixelPong with a dedup stack, 4 lanes, 40 iterations under a fixed
-    action table (both actors read it by iteration; the epsilon schedule
-    is replaced by the iteration counter to index it): obs (the newest
-    frame), actions, rewards, episode flags, the carry's obs and the
-    chunk's episode stats equal bit for bit."""
-    B, C = 4, 40
-    table = np.random.default_rng(0).integers(0, 3, (C, B)).astype(np.int32)
+def _pong_collect_against_jax(monkeypatch, B, C, lanes=None, num_shards=1,
+                              real_schedule=False):
+    """One PixelPong dedup chunk of ``lanes`` (default B) lanes in both
+    packages under a fixed action table, the port's env handed the JAX
+    env's draws. With ``real_schedule`` both actors take the real epsilon
+    schedule, record it and return the table's row by call count;
+    otherwise the schedule is replaced by the iteration counter, which
+    indexes the table."""
+    L = B if lanes is None else lanes
+    table = np.random.default_rng(0).integers(0, 3, (C, L)).astype(np.int32)
     jcfg = dataclasses.replace(
         JCONFIGS["apex"], actor=dataclasses.replace(JCONFIGS["apex"].actor,
                                                     num_envs=B))
-    monkeypatch.setattr(jlc, "make_schedules",
-                        lambda cfg, B, num_shards=1: (lambda it: it, None))
-    monkeypatch.setattr(
-        jhrl, "make_actor_step",
-        lambda net: lambda params, obs, key, eps: jnp.asarray(table)[
-            eps.astype(jnp.int32)])
+    j_eps, t_eps = [], []
+    if real_schedule:
+        from jax.experimental import io_callback
+
+        def j_row(eps):
+            j_eps.append(np.float32(eps))
+            return table[(len(j_eps) - 1) % C]
+
+        monkeypatch.setattr(
+            jhrl, "make_actor_step",
+            lambda net: lambda params, obs, key, eps: io_callback(
+                j_row, jax.ShapeDtypeStruct((L,), jnp.int32), eps,
+                ordered=True))
+
+        def t_act(n):
+            def act(net, obs, gen, eps):
+                t_eps.append(np.float32(eps))
+                return torch.from_numpy(table[len(t_eps) - 1]).long()
+            return act
+    else:
+        monkeypatch.setattr(jlc, "make_schedules",
+                            lambda cfg, B, num_shards=1: (lambda it: it,
+                                                          None))
+        monkeypatch.setattr(
+            jhrl, "make_actor_step",
+            lambda net: lambda params, obs, key, eps: jnp.asarray(table)[
+                eps.astype(jnp.int32)])
+        monkeypatch.setattr(tlc, "make_schedules",
+                            lambda cfg, B, num_shards=1: (lambda it: it,
+                                                          None))
+
+        def t_act(n):
+            return lambda net, obs, gen, eps: torch.from_numpy(
+                table[int(eps)]).long()
     jenv = make_jax_env("pixel_pong")
-    jinit, jcollect = jhrl.make_collect_chunk(jcfg, jenv, None, 4)
+    jinit, jcollect = jhrl.make_collect_chunk(jcfg, jenv, None, 4,
+                                              lanes=lanes,
+                                              num_shards=num_shards)
     rng = jax.random.PRNGKey(3)
     jcarry = jinit(rng)
     _, jrec, jstats = jcollect(jcarry, None, C)
@@ -99,25 +134,21 @@ def test_collect_chunk_matches_jax(monkeypatch):
         draws.append(STEP_DRAWS["pixel_pong"](c.env_state))
         c, _, _ = jcollect(c, None, 1)
 
-    tcfg = _cfg("apex", ["actor.num_envs=4"])
-    monkeypatch.setattr(tlc, "make_schedules",
-                        lambda cfg, B, num_shards=1: (lambda it: it, None))
-    monkeypatch.setattr(
-        thrl, "make_actor_step",
-        lambda n: lambda net, obs, gen, eps: torch.from_numpy(
-            table[int(eps)]).long())
+    tcfg = _cfg("apex", [f"actor.num_envs={B}"])
+    monkeypatch.setattr(thrl, "make_actor_step", t_act)
     tenv = make_env("pixel_pong", device="cpu")
     feed = iter(draws)
     monkeypatch.setattr(tenv, "draw", lambda n, g: next(feed))
-    _, tcollect = thrl.make_collect_chunk(tcfg, tenv, 4)
+    _, tcollect = thrl.make_collect_chunk(tcfg, tenv, 4, lanes=lanes,
+                                          num_shards=num_shards)
     k_env, _ = jax.random.split(rng)
-    env_state, obs = tenv.v_reset(B, draws=RESET_DRAWS["pixel_pong"](k_env,
-                                                                     B))
+    env_state, obs = tenv.v_reset(L, draws=RESET_DRAWS["pixel_pong"](k_env,
+                                                                     L))
     carry = thrl.CollectCarry(env_state=env_state, obs=obs.clone(),
                               gen_env=None, gen_act=None, iteration=0,
-                              ep_return=torch.zeros(B))
+                              ep_return=torch.zeros(L))
     carry, rec, stats = tcollect(carry, None, C)
-    assert rec["obs"].shape == (C, B, 84, 84, 1)
+    assert rec["obs"].shape == (C, L, 84, 84, 1)
     for key in ("obs", "action", "reward", "terminated", "truncated"):
         np.testing.assert_array_equal(rec[key].numpy(), np.asarray(jrec[key]),
                                       err_msg=key)
@@ -125,6 +156,39 @@ def test_collect_chunk_matches_jax(monkeypatch):
     assert carry.iteration == C
     for got, want in zip(stats, jstats):
         assert float(got) == float(want)
+    if real_schedule:
+        assert len(t_eps) == C and len(set(t_eps)) > 1
+        # Within one float32 ulp: JAX's compiled scan contracts the
+        # schedule's ``delta * frac + end`` into one fused multiply-add,
+        # where its eager schedule (held exactly in test_torch_schedules)
+        # and the port round twice.
+        np.testing.assert_array_max_ulp(np.array(t_eps),
+                                        np.array(j_eps[:C]), maxulp=1)
+    return t_eps
+
+
+def test_collect_chunk_matches_jax(monkeypatch):
+    """PixelPong with a dedup stack, 4 lanes, 40 iterations under a fixed
+    action table (both actors read it by iteration; the epsilon schedule
+    is replaced by the iteration counter to index it): obs (the newest
+    frame), actions, rewards, episode flags, the carry's obs and the
+    chunk's episode stats equal bit for bit."""
+    _pong_collect_against_jax(monkeypatch, 4, 40)
+
+
+def test_lane_block_collect_matches_jax(monkeypatch):
+    """One shard's program of a 2-shard run (``lanes=2, num_shards=2`` of
+    B = 4, 16 iterations) against JAX's, both actors on the real epsilon schedule in
+    per-shard units: the records, the carry's obs and the stats equal bit
+    for bit, the epsilon each iteration acts on to one float32 ulp; the
+    schedule is the whole-B program's, not a lone 2-lane program's."""
+    eps = _pong_collect_against_jax(monkeypatch, 4, 16, lanes=2,
+                                    num_shards=2, real_schedule=True)
+    cfg = _cfg("apex", ["actor.num_envs=4"])
+    (whole, _), (lone, _) = (tlc.make_schedules(cfg, 4),
+                             tlc.make_schedules(cfg, 2))
+    assert eps == [np.float32(whole(i)) for i in range(len(eps))]
+    assert eps != [np.float32(lone(i)) for i in range(len(eps))]
 
 
 # --------------------------------------------------------------------------
@@ -321,9 +385,19 @@ def test_refusals_match_jax(case):
 
 
 def test_mesh_is_not_ported_yet():
-    for kw in (dict(mesh_devices=2), dict(sharded_collect=True)):
-        with pytest.raises(ValueError, match="not ported yet"):
-            _run(_cfg("cartpole", _CARTPOLE), **kw)
+    """The data-parallel runtime runs from the plain call: ``mesh_devices=2``
+    starts two CPU ranks and returns rank 0's summary (no learner: it
+    stayed in the rank), ``sharded_collect=True`` runs one rank in this
+    process (tests/test_torch_host_replay_mesh.py holds both against JAX
+    and the plain program)."""
+    cfg = _cfg("cartpole", _CARTPOLE)
+    for kw, dp in ((dict(mesh_devices=2), 2), (dict(sharded_collect=True), 1)):
+        out = thrl.run_host_replay(cfg, total_env_steps=800, chunk_iters=50,
+                                   device="cpu", log_fn=workers.quiet, **kw)
+        assert out["sharded_collect"] and out["dp_size"] == dp
+        assert out["env_steps"] == 800 and out["grad_steps"] > 0
+        assert len(out["d2h_bytes_by_shard"]) == dp
+        assert ("learner" in out) == (dp == 1)
 
 
 def _comment_lines(text):

@@ -75,6 +75,20 @@ from dist_dqn_tpu_torch.telemetry import (Registry, healthz_body,
                                           register_health_probe,
                                           render_prometheus)
 from dist_dqn_tpu_torch.utils.checkpoint import params_prefix
+from dist_dqn_tpu_torch.replay.sharded import (ShardedHostReplay,
+                                               ShardedPrioritizedReplay,
+                                               restore_replay_snapshot,
+                                               shard_state,
+                                               split_shard_state)
+from dist_dqn_tpu_torch.host_replay_loop import (carry_from_leaves,
+                                                 carry_leaves,
+                                                 compose_sidecar,
+                                                 prune_sidecars,
+                                                 host_replay_generators,
+                                                 resolve_mesh_width)
+from dist_dqn_tpu_torch.parallel.learner import sync_learner_from_rank0
+from dist_dqn_tpu_torch.utils.checkpoint import (RankCarryShards,
+                                                 check_mesh_width)
 from dist_dqn_tpu_torch.actors.feeder import (FeederSpecEnv,
                                               parse_feeder_spec, run_feeder)
 from dist_dqn_tpu_torch.atari57 import (ATARI_57, evaluate_suite,

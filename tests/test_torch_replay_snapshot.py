@@ -147,7 +147,28 @@ def test_a_jax_snapshot_restores_and_draws_like_jax(tmp_path):
 
 
 def test_a_sharded_snapshot_is_refused_naming_a6():
-    state = {"num_shards": np.int64(2), "shard_capacity": np.int64(8)}
-    with pytest.raises(NotImplementedError,
-                       match=r"not ported yet: .*ROADMAP.md A6"):
-        restore_replay_snapshot(thost.PrioritizedHostReplay(16), state)
+    """A sharded snapshot, once refused, now migrates: JAX's 2-shard store
+    restored into one shard lands every live record once with its saved
+    mass, into the port's store exactly as into JAX's (records, mass,
+    cursors, the evidence dict)."""
+    from dist_dqn_tpu.replay.host import PrioritizedHostReplay as JStore
+    from dist_dqn_tpu.replay.sharded import \
+        ShardedPrioritizedReplay as JSharded
+    from dist_dqn_tpu.replay.sharded import \
+        restore_replay_snapshot as jax_restore
+
+    rng = np.random.default_rng(5)
+    src = JSharded(2, 64, native=False)
+    for s in (0, 1, 0):
+        n = 40
+        src.add({"id": rng.random(n).astype(np.float32),
+                 "action": rng.integers(0, 4, n).astype(np.int32)},
+                priorities=rng.random(n) + 0.1, shard=s)
+    state = src.state_dict()
+    theirs = JStore(48, native=False)
+    want = jax_restore(theirs, state)
+    ours = thost.PrioritizedHostReplay(48, native=False)
+    got = restore_replay_snapshot(ours, state)
+    assert got == want and got["resharded"] and got["from_shards"] == 2
+    for k, v in theirs.state_dict().items():
+        np.testing.assert_array_equal(ours.state_dict()[k], v, err_msg=k)

@@ -36,6 +36,19 @@ def test_epsilon_and_beta_schedules_exact(name):
         assert t_beta(it) == float(j_beta(jnp.int32(it))), it
 
 
+@pytest.mark.parametrize("name", ["cartpole", "apex", "atari"])
+def test_per_shard_schedules_exact(name):
+    """One shard of a 2-shard run: epsilon and beta in per-shard
+    iteration units, over the shard's B/2 lanes."""
+    jcfg, tcfg = _both(name, total_env_steps=200_000)
+    B = jcfg.actor.num_envs // 2
+    j_eps, j_beta = jlc.make_schedules(jcfg, B, 2)
+    t_eps, t_beta = tlc.make_schedules(tcfg, B, 2)
+    for it in (0, 1, 7, 100, 1234, 5000, 12_499, 12_500, 10 ** 6):
+        assert t_eps(it) == float(j_eps(jnp.int32(it))), it
+        assert t_beta(it) == float(j_beta(jnp.int32(it))), it
+
+
 @pytest.mark.parametrize("schedule,end", [("constant", 0.0),
                                           ("linear", 1e-5),
                                           ("cosine", 1e-5)])

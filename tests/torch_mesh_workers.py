@@ -1,5 +1,5 @@
 """Rank bodies of the port's mesh tests (tests/test_torch_mesh.py,
-tests/test_torch_distributed.py).
+tests/test_torch_distributed.py, tests/test_torch_host_replay_mesh.py).
 
 :func:`run_ranks` spawns N ``gloo`` ranks through the port's own
 ``parallel.distributed.spawn`` (a deadline, a failing rank ends the others)
@@ -200,6 +200,155 @@ def checkpoint_resume(mesh, case):
     return out
 
 
+class Killed(Exception):
+    """The stand-in for a process killed right after a checkpoint save."""
+
+
+class KillAfterSaves:
+    """A mesh whose ranks all die together right after the ``saves``-th
+    checkpoint save: every save of the port's mesh loops ends in one
+    ``barrier``, and after the last one every rank raises :class:`Killed`
+    at its next collective, before entering it, so no rank waits on a dead
+    peer and rank 0 has committed the step."""
+
+    def __init__(self, mesh, saves: int):
+        self._mesh = mesh
+        self._left = saves
+
+    def __getattr__(self, name):
+        return getattr(self._mesh, name)
+
+    def _check(self):
+        if self._left <= 0:
+            raise Killed
+
+    def barrier(self):
+        self._check()
+        self._mesh.barrier()
+        self._left -= 1
+
+    def psum(self, tensors):
+        self._check()
+        return self._mesh.psum(tensors)
+
+    def pmean(self, tensors):
+        self._check()
+        return self._mesh.pmean(tensors)
+
+    def gather(self, values):
+        self._check()
+        return self._mesh.gather(values)
+
+    def broadcast_(self, tensors, src: int = 0):
+        self._check()
+        return self._mesh.broadcast_(tensors, src)
+
+
+class KillInSave(KillAfterSaves):
+    """A mesh whose ranks all die together inside the ``saves + 1``-th
+    checkpoint save, at its barrier: every rank has written its part file
+    and rank 0 has not yet composed the sidecar or committed the step."""
+
+    def _check(self):
+        pass
+
+    def barrier(self):
+        if self._left <= 0:
+            raise Killed
+        self._mesh.barrier()
+        self._left -= 1
+
+
+def quiet(*_args, **_kwargs):
+    """A log function that drops its rows (picklable, for spawned ranks)."""
+
+
+def _cfg_of(case):
+    return tconfig.apply_overrides(tconfig.CONFIGS[case["preset"]],
+                                   case["overrides"])
+
+
+def host_replay(mesh, case):
+    """``run_host_replay`` as a mesh rank, once per entry of
+    ``case["runs"]`` (keywords; ``kill_after_saves`` kills the run after
+    that many saves, ``kill_in_save`` inside the save after that many,
+    ``catch`` records the error the run raises). Per run: the summary
+    without ``learner``, the flat final params, the rows this rank logged
+    and the checkpoint directory's files, or ``{"killed": True, ...}``, or
+    ``{"error": text}``."""
+    from dist_dqn_tpu_torch.host_replay_loop import run_host_replay
+
+    cfg = _cfg_of(case)
+    out = []
+    for kw in case["runs"]:
+        kw = dict(kw)
+        run_mesh = mesh
+        if "kill_after_saves" in kw:
+            run_mesh = KillAfterSaves(mesh, kw.pop("kill_after_saves"))
+        elif "kill_in_save" in kw:
+            run_mesh = KillInSave(mesh, kw.pop("kill_in_save"))
+        catch = kw.pop("catch", False)
+        directory = kw.get("checkpoint_dir")
+        logged = []
+        try:
+            summary = run_host_replay(
+                cfg, mesh=run_mesh, mesh_devices=mesh.size,
+                log_fn=logged.append, **kw)
+        except Killed:
+            out.append({"killed": True, "logged": logged,
+                        "files": sorted(os.listdir(directory))})
+            continue
+        except Exception as e:  # noqa: BLE001 — the case asked for it
+            if not catch:
+                raise
+            out.append({"error": f"{type(e).__name__}: {e}"})
+            continue
+        learner = summary.pop("learner")
+        summary["params"] = _flat(learner.net)
+        summary["logged"] = logged
+        if directory:
+            summary["files"] = sorted(os.listdir(directory))
+        out.append(summary)
+    return out
+
+
+def _carry_arrays(carry) -> list:
+    """Every tensor of a fused carry (ring, env states, generators,
+    learner) as host arrays, in walk order."""
+    from dist_dqn_tpu_torch.utils.checkpoint import state_tree, tree_leaves
+
+    return [_np(t.float() if t.dtype == torch.bfloat16 else t)
+            if isinstance(t, torch.Tensor) else np.asarray(t)
+            for t in tree_leaves(state_tree(carry))]
+
+
+def fused_carry_resume(mesh, case):
+    """``train(checkpoint_replay=True)`` as a mesh rank: the uninterrupted
+    run to ``total``; a run killed right after its ``kill_after``-th save;
+    the relaunch that resumes it to ``total``. Returns each rank's final
+    carry arrays of the reference and the resumed run, and rank 0's
+    resume row."""
+    from dist_dqn_tpu_torch.train import train
+
+    cfg = _cfg_of(case)
+    kw = dict(total_env_steps=case["total"], chunk_iters=case["iters"],
+              checkpoint_replay=True, save_every_frames=case["save_every"])
+    ref, _ = train(cfg, mesh=mesh, log_fn=quiet,
+                   **{k: v for k, v in kw.items() if k != "checkpoint_replay"})
+    try:
+        train(cfg, mesh=KillAfterSaves(mesh, case["kill_after"]),
+              log_fn=quiet, checkpoint_dir=case["directory"], **kw)
+        raise AssertionError("the run was not killed")
+    except Killed:
+        pass
+    logged = []
+    resumed, _ = train(cfg, mesh=mesh, log_fn=logged.append,
+                       checkpoint_dir=case["directory"], **kw)
+    return {"ref": _carry_arrays(ref), "resumed": _carry_arrays(resumed),
+            "logged": logged,
+            "shards": sorted(os.listdir(case["directory"]))}
+
+
 def failing(mesh, _):
     """Rank 1 raises; rank 0 waits in a collective it never completes."""
     if mesh.rank == 1:
@@ -219,4 +368,6 @@ def linger(local_rank):
 
 
 BODIES = {"sharded_steps": sharded_steps, "chunks": chunks,
-          "checkpoint_resume": checkpoint_resume, "failing": failing}
+          "checkpoint_resume": checkpoint_resume, "failing": failing,
+          "host_replay": host_replay,
+          "fused_carry_resume": fused_carry_resume}
