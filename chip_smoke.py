@@ -129,7 +129,8 @@ them or outside a checkout of the repository. Phases, each fatal:
      LSTM 512, bf16, burn-in 40, unroll 80, n = 5, batch 64), 8 actor
      processes of 8 envs, the shard cut to 2,048 sequences of 125 steps
      (7.2 GB of host memory); training from the preset's fill of 128
-     sequences for about 150 grad steps. Holds a finite loss, grad steps,
+     sequences to 11,800 env steps, about 60 grad steps. Holds a finite
+     loss, at least 40 grad steps,
      every inserted sequence carrying its ``initial_sequence_priorities``
      priority, one act dispatch per ingest pass, one plane draw per grad
      step through ``stratified_sample_rows`` (the plane has 2,048 cells,
@@ -265,6 +266,40 @@ them or outside a checkout of the repository. Phases, each fatal:
    a write-back of the last draw's rows and 500 of those slots, with the
    generations read before, must skip the overwritten ones (the
    generation guard) and land on the rest.
+16. The Ape-X service's distributed paths, at apex's full width on pixel
+   pong (8 x 8 actors, filled at 6,000 transitions, run to 9,000 env
+   steps), the kernel's launch counters zeroed just before each run:
+   * apex_service_shards_pong: ``--ingest-shards 2 --device-sampling``:
+     two item shards of 500,000, each drawing on its own plane ``[977,
+     512]`` through the kernel. Holds both shards fed, the inserts by shard
+     summing to the store's, the launches equal to the store's plane
+     dispatches and the ``replay_sample`` calls and a multiple of 2, and
+     each shard plane's draw at explicit uniforms equal to the plain
+     version's (max abs err 0);
+   * apex_service_shard_sampling_pong: ``--ingest-shards 2
+     --shard-sampling`` on the host trees: at least one pre-packed batch
+     per grad step, no kernel launch;
+   * apex_service_learners_2rank: ``--learner-devices 2`` as two ``gloo``
+     ranks on this card (the service leads one learner rank; every train
+     event broadcasts the 512-row batch, each rank trains on 256): before
+     the run, one event on a seeded batch against the whole batch's step
+     from the same weights (the all-reduced gradient within 4 x 2^-8 by
+     relative norm, the priorities in global row order within it, and
+     three controls off it: rank 0's own gradient, the sum without the
+     divide, the rank blocks swapped); then bit-equal replicas at the end
+     and one sampler launch per grad step on the plane ``[1954, 512]``;
+   * apex_service_multihost_2proc: two service processes in one ``gloo``
+     group on this card (the group built here: NCCL refuses two ranks on
+     one card), each with 4 x 8 actors and a 1M store whose plane ``[1954,
+     512]`` draws 256 rows through the kernel, agreeing on the counters
+     and training in lockstep to 9,000 global env steps; rank 0 evaluates
+     in a thread. Holds equal grad steps, the global cursor, no rate rows
+     and no eval on process 1, bit-equal learners, launches equal to each
+     process's plane draws and grad steps; prints each process's grad
+     steps/s, the all-reduce's ms, peak memory and host RSS. Then the
+     CLI's ``--coordinator`` path at world size 1 over NCCL (``train.main
+     --runtime apex --coordinator 127.0.0.1:P --num-processes 1``): an
+     NCCL group of one, left at the end, one launch per grad step.
 
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
@@ -355,11 +390,13 @@ APEX_SERVICE_MIN_GRAD_STEPS = 300
 # 2,048 sequences (the preset's 100,000 would need 353 GB of host memory):
 # the fill of 128 sequences lands at about 10,600 env steps (two windows
 # per lane), and the learner owes one grad step per sequence, at most 4
-# per pass of 64 env steps: 172 grad steps by 13,536 env steps, so about
-# 130 by 12,800 (cut from 13,500 for the serving phase's seconds).
-APEX_R2D2_PATH = ("r2d2", ["replay.capacity=2048"], 12_800)
+# per pass of 64 env steps; past the fill the service trains about 3 grad
+# steps and steps about 60 env steps a second: about 60 grad steps by
+# 11,800 (cut from 12,800 for the distributed service phases' seconds,
+# from 13,500 before that for the serving phase's).
+APEX_R2D2_PATH = ("r2d2", ["replay.capacity=2048"], 11_800)
 APEX_R2D2_ACTORS = (8, 8)
-APEX_R2D2_MIN_GRAD_STEPS = 100
+APEX_R2D2_MIN_GRAD_STEPS = 40
 # Remote actors and the learner-side bootstrap: apex's full width, 4 local
 # and 4 remote actors of 8 envs, training from 16,000 transitions (the
 # preset's 50,000: a depth cut) to 22,000 env steps (24,000 before the
@@ -509,6 +546,29 @@ MESH_ALLREDUCE_ITERS = 20
 # version's cells; write-backs of 512 rows after 1,000 fresh inserts.
 SHARDED_STORE = (2, 1_000_000, 512, 20)
 SHARDED_STORE_OVERWRITE = 1_000
+# The Ape-X service's distributed paths: apex's full width on pixel pong
+# (Nature CNN, bf16, batch 512, a 1M store), 8 actor processes of 8 envs,
+# filled at 6,000 transitions (the preset's 50,000: a depth cut) and run to
+# 9,000 env steps: at one grad step per 64 inserts, about 94 owed at the
+# fill and 140 at the end, at most 4 a pass. The shard phases split the
+# store in two (500,000 each: planes [977, 512] under device_sampling).
+APEX_DIST_PATH = ("apex", ["replay.min_fill=6000", "eval_every_steps=0"],
+                  9_000)
+APEX_DIST_ACTORS = (8, 8)
+APEX_SHARDS = 2
+APEX_DIST_MIN_GRAD_STEPS = 100
+# Two service processes sharing the card, each with 4 actors of 8 envs and
+# a 1M store (plane [1954, 512], 256 of the 512 rows per process), each
+# filled at 3,000 of its own transitions, to 9,000 global env steps; rank
+# 0 evaluates every 4,500 in a thread, 2 games capped at the env's 2,000
+# steps. Then the CLI's --coordinator path at world size 1 over NCCL, 4 x 8
+# actors, filled at 2,000 and run to 4,000.
+MULTIHOST_PATH = ("apex", ["replay.min_fill=3000"], 9_000)
+MULTIHOST_ACTORS = (4, 8)
+MULTIHOST_EVAL = (4_500, 2)
+MULTIHOST_MIN_GRAD_STEPS = 100
+COORDINATOR_PATH = ("apex", ["replay.min_fill=2000", "eval_every_steps=0"],
+                    4_000)
 
 
 def _fail(msg: str) -> None:
@@ -1548,12 +1608,13 @@ def _service_row(name: str, service, out: dict, launches: int,
                 "episode_return_recent", "loss")},
             "plane_shape": (
                 list(service.replay.device_sampler.plane.shape)
-                if service.replay.device_sampler is not None else None),
+                if getattr(service.replay, "device_sampler", None)
+                is not None else None),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             **_host_rss_gb(), **extra}
 
 
-def _run_service(sampler, cfg, rt, service_hook=None):
+def _run_service(sampler, cfg, rt, service_hook=None, **service_kw):
     """Build the port's Ape-X service on the card and run it with the
     kernel's launch counter zeroed just before; returns (service, summary,
     launches). ``service_hook(service)`` runs between the two."""
@@ -1564,7 +1625,7 @@ def _run_service(sampler, cfg, rt, service_hook=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     service = ApexLearnerService(cfg, rt, log_fn=lambda line: print(
-        line, flush=True), device=DEVICE)
+        line, flush=True), device=DEVICE, **service_kw)
     if service_hook is not None:
         service_hook(service)
     sampler.kernel_stratified_sample.launches = 0
@@ -3250,6 +3311,497 @@ def check_sharded_store_device(sampler) -> int:
     return launches
 
 
+# --------------------------------------------------------------------------
+# The Ape-X service's distributed paths (ROADMAP.md A6c).
+# --------------------------------------------------------------------------
+
+def _hold_service(name: str, out: dict, launches: int, min_grad_steps: int
+                  ) -> None:
+    _service_clean(name, out)
+    if out["grad_steps"] < min_grad_steps:
+        _fail(f"{name}: {out['grad_steps']} grad steps, want >= "
+              f"{min_grad_steps}")
+    if out["ingest_device_calls_per_pass"] != 1.0:
+        _fail(f"{name}: {out['ingest_device_calls_per_pass']} act "
+              "dispatches per ingest pass, want 1.0")
+
+
+def _apex_dist_rt(**kw):
+    from dist_dqn_tpu_torch.actors.service import ApexRuntimeConfig
+
+    actors, lanes = APEX_DIST_ACTORS
+    return ApexRuntimeConfig(host_env="pong", num_actors=actors,
+                             envs_per_actor=lanes,
+                             total_env_steps=APEX_DIST_PATH[2], **kw)
+
+
+def check_apex_service_shards_pong(sampler) -> int:
+    """APEX_DIST_PATH with ``ingest_shards=2`` and ``device_sampling``: two
+    item shards of 500,000 transitions, each drawing on its own plane
+    ``[977, 512]`` through the kernel. Holds: both shards got records and
+    inserts, the inserts by shard sum to the store's, the kernel's
+    launches equal the store's plane dispatches and the service's
+    ``replay_sample`` calls, the dispatches are a multiple of the two
+    shards (each draw takes rows from both), and each shard plane's draw
+    at explicit uniforms picks exactly the plain version's cells (max abs
+    err 0). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    name = "apex_service_shards_pong"
+    preset, overrides, _ = APEX_DIST_PATH
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    t0 = time.perf_counter()
+    service, out, launches = _run_service(
+        sampler, cfg, _apex_dist_rt(device_sampling=True,
+                                    ingest_shards=APEX_SHARDS))
+    store = service.replay
+    dispatches = store.device_sample_dispatches
+    planes = [s.device_sampler for s in store.shards]
+    # Each shard plane's draw at explicit uniforms, kernel against the plain
+    # version (these launches come after the count was read).
+    rng = np.random.default_rng(1)
+    err = 0
+    for p in planes:
+        S = cfg.learner.batch_size // APEX_SHARDS
+        u = torch.as_tensor(np.sort(rng.random(S)).astype(np.float32),
+                            device=p.plane.device)
+        t_k, b_k, m_k, _ = sampler.kernel_stratified_sample(p.plane, u)
+        t_p, b_p, m_p, _ = sampler.plain_stratified_sample(p.plane, u)
+        got = t_k.long() * p.lanes + b_k.long()
+        want = t_p.long() * p.lanes + b_p.long()
+        err = max(err, int((got - want).abs().max()),
+                  float((m_k - m_p).abs().max()))
+    added = {int(k): v for k, v in out["replay_added_by_shard"].items()}
+    row = _service_row(name, service, out, launches,
+                       shards=APEX_SHARDS,
+                       plane_shapes=[list(p.plane.shape) for p in planes],
+                       records_by_shard=out["records_by_shard"],
+                       replay_added_by_shard=added,
+                       store_added=store.added,
+                       plane_dispatches=dispatches,
+                       replay_sample_calls=out["device_calls"].get(
+                           "replay_sample", 0),
+                       max_abs_err=err,
+                       phase_s=time.perf_counter() - t0)
+    del service, store, planes
+    print(json.dumps(row), flush=True)
+    _hold_service(name, out, launches, APEX_DIST_MIN_GRAD_STEPS)
+    if sorted(added) != list(range(APEX_SHARDS)) or min(added.values()) <= 0 \
+            or len(out["records_by_shard"]) != APEX_SHARDS:
+        _fail(f"{name}: records {out['records_by_shard']}, inserts {added}: "
+              "a shard got nothing")
+    if sum(added.values()) != row["store_added"]:
+        _fail(f"{name}: inserts by shard {added} do not sum to the store's "
+              f"{row['store_added']}")
+    if launches != dispatches or dispatches != row["replay_sample_calls"] \
+            or dispatches % APEX_SHARDS or launches < out["grad_steps"]:
+        _fail(f"{name}: {launches} kernel launches, {dispatches} plane "
+              f"dispatches, {row['replay_sample_calls']} replay_sample "
+              f"calls for {out['grad_steps']} grad steps")
+    if err != 0:
+        _fail(f"{name}: a shard plane's kernel draw is off the plain "
+              f"version's by {err}")
+    return launches
+
+
+def check_apex_service_shard_sampling_pong(sampler) -> int:
+    """APEX_DIST_PATH with ``ingest_shards=2`` and ``shard_sampling``: the
+    host trees, drawn and gathered by one worker thread per shard. Holds:
+    at least one pre-packed batch per grad step (up to ``pipeline_depth``
+    more drawn ahead), both shards fed, no kernel launch. Returns the
+    launches (0)."""
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    name = "apex_service_shard_sampling_pong"
+    preset, overrides, _ = APEX_DIST_PATH
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    t0 = time.perf_counter()
+    service, out, launches = _run_service(
+        sampler, cfg, _apex_dist_rt(ingest_shards=APEX_SHARDS,
+                                    shard_sampling=True))
+    row = _service_row(name, service, out, launches,
+                       shard_sampling=out["shard_sampling"],
+                       shard_sample_batches=out["shard_sample_batches"],
+                       records_by_shard=out["records_by_shard"],
+                       replay_added_by_shard=out["replay_added_by_shard"],
+                       loop_s=out["loop_s"],
+                       phase_s=time.perf_counter() - t0)
+    del service
+    print(json.dumps(row), flush=True)
+    _hold_service(name, out, launches, APEX_DIST_MIN_GRAD_STEPS)
+    if not out["shard_sampling"] \
+            or out["shard_sample_batches"] < out["grad_steps"] \
+            or len(out["replay_added_by_shard"]) != APEX_SHARDS:
+        _fail(f"{name}: {out['shard_sample_batches']} pre-packed batches "
+              f"for {out['grad_steps']} grad steps, inserts "
+              f"{out['replay_added_by_shard']}")
+    if launches:
+        _fail(f"{name}: {launches} kernel launches on the host trees")
+    return launches
+
+
+def _learner_ranks_grad_check(service) -> dict:
+    """One train event of the service's learner ranks (2 x 256 rows) on a
+    seeded batch of 512, before its run, against one learner on the whole
+    batch from the same weights: the gradient the optimizer is handed (the
+    all-reduced mean on the ranks) within 4 x 2^-8 of the whole batch's by
+    relative norm, two controls failing that bound (rank 0's own 256-row
+    gradient, the all-reduced sum without the divide), and the priorities
+    in global row order (within the bound; with the rank blocks swapped,
+    off it)."""
+    import copy
+
+    import torch
+
+    from dist_dqn_tpu_torch.agents.dqn import ClipAdam, make_learner
+    from dist_dqn_tpu_torch.types import Transition
+
+    cfg = service.cfg
+    dev = service.device
+    rows = cfg.learner.batch_size
+    half = rows // 2
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shape = (84, 84, 4)             # pixel pong's stacked frames
+
+    def frames():
+        return torch.randint(0, 256, (rows, *shape), generator=gen,
+                             device=dev, dtype=torch.uint8)
+
+    batch = Transition(
+        obs=frames(),
+        action=torch.randint(0, service.num_actions, (rows,), generator=gen,
+                             device=dev),
+        reward=torch.rand(rows, generator=gen, device=dev) * 2 - 1,
+        discount=(torch.rand(rows, generator=gen, device=dev) < 0.9).float()
+        * cfg.learner.gamma ** cfg.learner.n_step,
+        next_obs=frames())
+    weights = torch.rand(rows, generator=gen, device=dev) * 0.8 + 0.2
+    weights_before = copy.deepcopy(service.state.net.state_dict())
+    grads = []
+    real_step = ClipAdam.step
+
+    def recording_step(self, params, g, state):
+        grads.append(torch.cat([x.detach().float().reshape(-1) for x in g]))
+        return real_step(self, params, g, state)
+
+    ClipAdam.step = recording_step
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        service.state, m = service._learners.train(
+            service.state, (Transition(*(x[None] for x in batch)),
+                            weights[None]), scan=True)
+        prios = m["priorities"].reshape(-1).float()
+        torch.cuda.synchronize()
+        event_ms = (time.perf_counter() - t0) * 1e3
+
+        def solo(block):
+            net = copy.deepcopy(service.net)
+            net.load_state_dict(weights_before)
+            init, step = make_learner(cfg.learner, net)
+            state = init(net, torch.Generator(device=dev).manual_seed(0))
+            _, mm = step(state, Transition(*(x[block] for x in batch)),
+                         weights[block])
+            return mm
+
+        m_whole = solo(slice(0, rows))
+        solo(slice(0, half))
+    finally:
+        ClipAdam.step = real_step
+    g_part, g_whole, g_local = grads
+
+    def rel(x, ref):
+        return float((x - ref).norm() / ref.norm())
+
+    p_whole = m_whole["priorities"].float()
+    swapped = torch.cat([prios[half:], prios[:half]])
+    bound = 4 * 2.0 ** -8
+    return {"rows": rows, "rows_per_rank": half,
+            "event_ms_host": event_ms,
+            "grad_rel_err": rel(g_part, g_whole), "grad_bound": bound,
+            "control_local_rel_err": rel(g_local, g_whole),
+            "control_sum_rel_err": rel(g_part * 2, g_whole),
+            "priority_rel_err": rel(prios, p_whole),
+            "control_swapped_priority_rel_err": rel(swapped, p_whole),
+            "finite": bool(torch.isfinite(g_part).all()
+                           and torch.isfinite(prios).all())}
+
+
+def check_apex_service_learners_2rank(sampler) -> int:
+    """APEX_DIST_PATH with ``learner_devices=2`` as two ``gloo`` ranks on
+    this card (``learner_backend="gloo"``): the service leads one learner
+    rank; every train event broadcasts the 512-row batch and each rank
+    trains on 256 rows. Before the run, one event on a seeded batch is held
+    against the whole batch's step (:func:`_learner_ranks_grad_check`).
+    Holds: bit-equal replicas at the end, one sampler launch per grad step
+    on the 1M plane ``[1954, 512]``, the gradient and priority bounds and
+    both controls failing. Returns the launches."""
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+
+    name = "apex_service_learners_2rank"
+    preset, overrides, _ = APEX_DIST_PATH
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    check = {}
+    t0 = time.perf_counter()
+    service, out, launches = _run_service(
+        sampler, cfg, _apex_dist_rt(device_sampling=True, learner_devices=2),
+        service_hook=lambda s: check.update(_learner_ranks_grad_check(s)),
+        learner_backend="gloo")
+    row = _service_row(name, service, out, launches,
+                       learner_devices=out["learner_devices"],
+                       learner_replicas_equal=out["learner_replicas_equal"],
+                       grad_check=check, phase_s=time.perf_counter() - t0)
+    del service
+    print(json.dumps(row), flush=True)
+    _hold_service(name, out, launches, APEX_DIST_MIN_GRAD_STEPS)
+    if out["learner_devices"] != 2 or out["learner_replicas_equal"] is not True:
+        _fail(f"{name}: {out['learner_devices']} learner ranks, replicas "
+              f"equal: {out['learner_replicas_equal']}")
+    if launches != out["grad_steps"]:
+        _fail(f"{name}: {launches} sampler launches for {out['grad_steps']} "
+              "grad steps")
+    bound = check["grad_bound"]
+    # Written so that a NaN fails.
+    if not (check["finite"] and check["grad_rel_err"] <= bound
+            and check["priority_rel_err"] <= bound):
+        _fail(f"{name}: the ranks' gradient or priorities are off the whole "
+              f"batch's: {check}")
+    if not (check["control_local_rel_err"] > bound
+            and check["control_sum_rel_err"] > bound
+            and check["control_swapped_priority_rel_err"] > bound):
+        _fail(f"{name}: a control passes the bound {bound}: {check}")
+    return launches
+
+
+def _allreduce_ms(mesh, numel: int) -> dict:
+    """Device and host ms of one gradient-sized all-reduce over the group
+    (every rank calls it)."""
+    import torch
+
+    buf = torch.zeros(numel, device=mesh.device)
+    for _ in range(3):
+        mesh.pmean([buf])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(MESH_ALLREDUCE_ITERS):
+        mesh.pmean([buf])
+    end.record()
+    end.synchronize()
+    return {"allreduce_floats": numel,
+            "allreduce_ms": start.elapsed_time(end) / MESH_ALLREDUCE_ITERS,
+            "allreduce_host_ms": (time.perf_counter() - t0) * 1e3
+            / MESH_ALLREDUCE_ITERS}
+
+
+def _multihost_rank(rank: int, address: str, out_dir: str) -> None:
+    """One of the two service processes of apex_service_multihost_2proc:
+    join a gloo group on this card, run the service (which finds the group
+    and trains collectively), time a gradient-sized all-reduce, write the
+    report."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from dist_dqn_tpu_torch.actors.service import (ApexLearnerService,
+                                                   ApexRuntimeConfig)
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+    from dist_dqn_tpu_torch.ops import sampler
+    from dist_dqn_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://{address}",
+                            world_size=MESH_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        preset, overrides, total = MULTIHOST_PATH
+        actors, lanes = MULTIHOST_ACTORS
+        every, episodes = MULTIHOST_EVAL
+        cfg = apply_overrides(CONFIGS[preset], overrides)
+        rt = ApexRuntimeConfig(host_env="pong", num_actors=actors,
+                               envs_per_actor=lanes, total_env_steps=total,
+                               device_sampling=True, eval_every_steps=every,
+                               eval_episodes=episodes)
+        lines = []
+
+        def log(line):
+            lines.append(line)
+            print(f"[process {rank}] {line}", flush=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        service = ApexLearnerService(cfg, rt, log_fn=log, device=dev)
+        sampler.kernel_stratified_sample.launches = 0
+        out = service.run()
+        launches = sampler.kernel_stratified_sample.launches
+        rows = [json.loads(x) for x in lines if x.startswith("{")]
+        report = {
+            "rank": rank, "backend": service._mh.mesh.backend,
+            "size": service._mh.mesh.size,
+            "sampler_launches": launches,
+            "plane_draws": service.replay.device_sampler.draw_dispatches,
+            "plane_shape": list(service.replay.device_sampler.plane.shape),
+            "local_batch": service._local_batch,
+            "rate_rows": sum("env_steps_per_sec_per_chip" in r
+                             for r in rows),
+            "eval_returns": [r["eval_return"] for r in rows
+                             if "eval_return" in r],
+            "eval_episodes_truncated": [r["eval_episodes_truncated"]
+                                        for r in rows
+                                        if "eval_episodes_truncated" in r],
+            "grad_steps_per_sec_training": (out["grad_steps"]
+                                            / out["train_s"]
+                                            if out["train_s"] else None),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            **_host_rss_gb(),
+            **{k: out[k] for k in (
+                "env_steps", "grad_steps", "global_env_steps",
+                "learner_replicas_equal", "run_s", "train_s", "loss",
+                "device_calls", "ingest_device_calls_per_pass",
+                "ring_dropped", "ingest_torn_reads", "bad_records",
+                "ingest_decode_errors", "actor_restarts", "hello_rejects",
+                "tcp_corrupt_frames", "tcp_shed_records", "replay_size")},
+            **_allreduce_ms(service._mh.mesh, sum(
+                p.numel() for p in service.state.net.parameters()) + 3)}
+        del service
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as fh:
+            json.dump(report, fh)
+    finally:
+        distributed.shutdown()
+
+
+def check_apex_service_multihost_2proc(sampler) -> int:
+    """MULTIHOST_PATH: two service processes in one ``gloo`` group on this
+    card (NCCL refuses two ranks on one card, so the group is built here,
+    as the two-rank mesh phases build theirs), each with its own 4 x 8
+    actors and 1M store whose plane ``[1954, 512]`` draws its 256 rows
+    through the kernel; they agree on the counters and train in lockstep.
+    Rank 0 evaluates in a thread. Holds: equal grad steps, the global
+    cursor at the total, no rate rows on process 1, ``eval_return`` on
+    process 0 only, bit-equal learners, each process's launches equal to
+    its plane draws and grad steps. Then the CLI's ``--coordinator`` path
+    at world size 1 over NCCL (:func:`_coordinator_nccl`). Returns the
+    launches of both processes and of the CLI run."""
+    import torch
+
+    from dist_dqn_tpu_torch.parallel import distributed
+
+    name = "apex_service_multihost_2proc"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as out:
+        distributed.spawn(_multihost_rank, (
+            f"127.0.0.1:{distributed.free_port()}", out), MESH_RANKS,
+            deadline_s=MESH_DEADLINE_S)
+        reports = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(out, f"{r}.json")) as fh:
+                reports.append(json.load(fh))
+    wall = time.perf_counter() - t0
+    cli = _coordinator_nccl(sampler)
+    print(json.dumps({"main_path": name,
+                      "device": torch.cuda.get_device_name(0),
+                      "spawn_wall_s": wall, "processes": reports,
+                      "coordinator_nccl": cli}), flush=True)
+    total = MULTIHOST_PATH[2]
+    grads = {r["grad_steps"] for r in reports}
+    if len(grads) != 1 or min(grads) < MULTIHOST_MIN_GRAD_STEPS:
+        _fail(f"{name}: grad steps {[r['grad_steps'] for r in reports]}, "
+              f"want equal and >= {MULTIHOST_MIN_GRAD_STEPS}")
+    for r in reports:
+        _service_clean(f"{name} process {r['rank']}", r)
+        if r["backend"] != "gloo" or r["size"] != MESH_RANKS \
+                or r["global_env_steps"] < total \
+                or r["global_env_steps"] != reports[0]["global_env_steps"]:
+            _fail(f"{name}: process {r['rank']} in a {r['backend']} group "
+                  f"of {r['size']}, global env steps "
+                  f"{r['global_env_steps']} (want >= {total}, equal)")
+        if r["learner_replicas_equal"] is not True:
+            _fail(f"{name}: process {r['rank']}'s learner differs from "
+                  "rank 0's")
+        if r["sampler_launches"] != r["plane_draws"] \
+                or r["sampler_launches"] != r["grad_steps"]:
+            _fail(f"{name}: process {r['rank']} launched the kernel "
+                  f"{r['sampler_launches']} times for {r['plane_draws']} "
+                  f"plane draws and {r['grad_steps']} grad steps")
+    if reports[1]["rate_rows"] or reports[1]["eval_returns"] \
+            or not reports[0]["eval_returns"]:
+        _fail(f"{name}: process 1 printed {reports[1]['rate_rows']} rows "
+              f"and evals {reports[1]['eval_returns']}; process 0 evals "
+              f"{reports[0]['eval_returns']}")
+    if not all(math.isfinite(x) for r in reports for x in r["eval_returns"]):
+        _fail(f"{name}: a non-finite eval return")
+    return sum(r["sampler_launches"] for r in reports) + cli["launches"]
+
+
+def _coordinator_nccl(sampler) -> dict:
+    """``python -m dist_dqn_tpu_torch.train --runtime apex --coordinator
+    127.0.0.1:P --num-processes 1 --process-id 0`` (its ``main``, in this
+    process) at COORDINATOR_PATH: the group must be NCCL of world size 1
+    (one process is one host, so the service trains alone), the run must
+    train with one kernel launch per grad step and leave the group."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from dist_dqn_tpu_torch.parallel import distributed
+    from dist_dqn_tpu_torch.train import main as train_main
+
+    preset, overrides, total = COORDINATOR_PATH
+    actors, lanes = MULTIHOST_ACTORS
+    argv = ["--config", preset, "--runtime", "apex", "--host-env", "pong",
+            "--device-sampling", "--num-actors", str(actors),
+            "--envs-per-actor", str(lanes), "--total-env-steps", str(total),
+            "--coordinator", f"127.0.0.1:{distributed.free_port()}",
+            "--num-processes", "1", "--process-id", "0",
+            *(a for o in overrides for a in ("--set", o))]
+    groups = []
+    real = distributed.initialize
+
+    def initialize(*args, **kwargs):
+        dev = real(*args, **kwargs)
+        groups.append({"backend": dist.get_backend(),
+                       "size": dist.get_world_size(), "device": str(dev)})
+        return dev
+
+    tee = _Tee(sys.stdout)
+    distributed.initialize = initialize
+    sampler.kernel_stratified_sample.launches = 0
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            train_main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        distributed.initialize = real
+    launches = sampler.kernel_stratified_sample.launches
+    summary = json.loads([x for x in tee.lines
+                          if x.startswith('{"env_steps"')][-1])
+    out = {"groups": groups, "left_group": not dist.is_initialized(),
+           "wall_s": wall, "launches": launches,
+           **{k: summary[k] for k in ("env_steps", "grad_steps", "loss",
+                                      "global_env_steps")}}
+    if groups != [{"backend": "nccl", "size": 1, "device": "cuda:0"}] \
+            or not out["left_group"]:
+        _fail(f"apex_service_multihost_2proc: the CLI's group was {groups}, "
+              f"left: {out['left_group']}")
+    if summary["grad_steps"] <= 0 or launches != summary["grad_steps"] \
+            or not math.isfinite(summary["loss"]):
+        _fail(f"apex_service_multihost_2proc: the CLI run took "
+              f"{summary['grad_steps']} grad steps with {launches} launches, "
+              f"loss {summary['loss']}")
+    return out
+
+
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
 HOST_REPLAY_PHASES = ("host_replay_apex_dedup", "host_replay_uniform_pair")
@@ -3259,11 +3811,18 @@ APEX_SERVICE_PHASES = ("apex_service_pong", "apex_service_r2d2_pong",
                        "apex_service_feeder_pixel",
                        "apex_service_feeder_legacy_tree", "evaluate_fake_ale")
 MESH_PHASES = ("mesh_apex_nccl", *MESH_2RANK_PHASES)
+APEX_DIST_PHASES = {
+    "apex_service_shards_pong": check_apex_service_shards_pong,
+    "apex_service_shard_sampling_pong":
+        check_apex_service_shard_sampling_pong,
+    "apex_service_learners_2rank": check_apex_service_learners_2rank,
+    "apex_service_multihost_2proc": check_apex_service_multihost_2proc,
+}
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
           "population_learner_lockstep", *HOST_REPLAY_PHASES,
           *APEX_SERVICE_PHASES, "serving_apex", *MESH_PHASES,
-          "sharded_store_device", *BAR_PHASES)
+          "sharded_store_device", *APEX_DIST_PHASES, *BAR_PHASES)
 
 
 def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
@@ -3784,6 +4343,10 @@ def main(argv=None) -> int:
     if "sharded_store_device" in phases:
         launches["sharded_store_device"] = check_sharded_store_device(sampler)
         _clock("sharded_store_device")
+    for name, check in APEX_DIST_PHASES.items():
+        if name in phases:
+            launches[name] = check(sampler)
+            _clock(name)
 
     for name in BAR_PHASES:
         if name in phases:

@@ -29,17 +29,36 @@ in one loop,
 Actor processes (``actors/actor.py``) start with the ``spawn`` method and
 import no torch; a ``feeder:`` host env spawns feeder processes
 (``actors/feeder.py``) in their place, which pump pre-encoded records,
-``shm_batch`` to a slot publish. Options of the JAX service this port leaves
-out (several learner devices or replay shards, tracing and telemetry) raise
-"not ported yet" naming their ROADMAP.md item.
+``shm_batch`` to a slot publish.
+
+The distributed paths:
+
+  * ``ingest_shards`` > 1 splits the store into that many item shards
+    (``replay/sharded.py ShardedPrioritizedReplay``), every actor's stream
+    landing in its sticky shard; with ``device_sampling`` each shard has
+    its own plane; ``shard_sampling`` moves the draw and gather into one
+    worker thread per shard (``ShardSampleService``);
+  * ``learner_devices`` > 1 makes this process rank 0 of a group of
+    learner ranks that each hold a replica and train on their rows of
+    every batch (``actors/learner_ranks.py``);
+  * in a process group of more than one rank (``--coordinator``) every
+    process runs its own service, with its own actors and store, and
+    trains in lockstep with the others through the counter agreement and
+    the collective step of ``actors/multihost.py``; rank 0 alone logs,
+    saves the learner and evaluates, in a thread of its own.
+
+Tracing and telemetry (ROADMAP.md A10) raise "not ported yet" naming their
+item.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
 import shutil
 import sys
+import threading
 import time
 import types
 import uuid
@@ -48,6 +67,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dist_dqn_tpu_torch import ingest
 from dist_dqn_tpu_torch.actors.act_dispatch import pack_act_rows
@@ -76,8 +96,9 @@ LOOP_PARTS = ("drain", "act", "bootstrap", "train", "trace", "idle")
 @dataclasses.dataclass
 class ApexRuntimeConfig:
     """Host-side knobs of the actor/learner split: every field and default
-    of the JAX package's. The fields of options this slice does not port
-    are refused by :class:`ApexLearnerService` when set."""
+    of the JAX package's. The fields of options the port leaves out
+    (tracing and telemetry) are refused by :class:`ApexLearnerService`
+    when set."""
 
     host_env: str = "CartPole-v1"   # host env actors step (ale:<Game> for ALE)
     num_actors: int = 2
@@ -105,7 +126,8 @@ class ApexRuntimeConfig:
     tcp_port: Optional[int] = None
     num_remote_actors: int = 0
     spawn_remote_actors: bool = True
-    # Train batches sharded over this many devices (only 1 is ported).
+    # Train batches sharded over this many learner ranks, one per card,
+    # gradients averaged in one all-reduce per grad step (0 = every card).
     learner_devices: int = 1
     # C++ n-step assembly on the learner-side bootstrap path (feed-forward
     # configs); falls back to the Python assembler with a log line.
@@ -117,7 +139,8 @@ class ApexRuntimeConfig:
     device_sampling: bool = False
     # Warn once when no actor record arrived for this many seconds.
     stall_warn_s: float = 30.0
-    # Multi-host counter agreement period (multi-host is not ported).
+    # Multi-host: the least period between two counter agreements
+    # (actors/multihost.py); each blocks until every process joins.
     sync_every_s: float = 0.05
     # At most this many train steps per service-loop pass: the cadence
     # debt persists, and ingestion keeps the actors fed meanwhile.
@@ -140,12 +163,14 @@ class ApexRuntimeConfig:
     # Records per shared-memory slot publish of feeder processes (rollout
     # actors are lock-step and publish one record per slot).
     shm_batch: int = 1
-    # Ingest-side per-shard sampling (not ported yet).
+    # Ingest-side per-shard sampling (ingest_shards > 1): a worker thread
+    # per shard draws and gathers, the learner pops pre-packed batches.
     shard_sampling: bool = False
     # Insertion priorities from the actors' q planes (zerocopy only);
     # False seeds them with the learner-side bootstrap on the card.
     actor_priorities: bool = True
-    # Replay shards (only 1 is ported).
+    # Replay shards: > 1 splits the store, each actor's stream landing in
+    # its sticky shard.
     ingest_shards: int = 1
     # Prometheus endpoint (not ported yet).
     telemetry_port: Optional[int] = None
@@ -160,7 +185,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _refuse(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn) -> None:
     """The JAX service's constructor refusals, word for word, then the
-    options this slice does not port."""
+    options the port leaves out."""
     if rt.ingest_shards < 1:
         raise ValueError(
             f"ingest_shards must be >= 1, got {rt.ingest_shards}")
@@ -206,11 +231,7 @@ def _refuse(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn) -> None:
     if rt.transport not in ("zerocopy", "legacy"):
         raise ValueError(f"unknown transport {rt.transport!r} "
                          f"(expected 'zerocopy' or 'legacy')")
-    # What the port leaves out, in ROADMAP.md's order.
-    if rt.learner_devices != 1:
-        raise _not_ported(f"learner_devices={rt.learner_devices}", "A6c")
-    if rt.ingest_shards > 1 or rt.shard_sampling:
-        raise _not_ported("ingest_shards > 1 and shard_sampling", "A6c")
+    # What the port leaves out.
     if rt.trace_path is not None:
         raise _not_ported("the host-loop trace (trace_path)", "A10")
     if rt.telemetry_port is not None:
@@ -300,6 +321,29 @@ class _HostCopy:
         return self.host.numpy()
 
 
+class _SaveCadence:
+    """The save schedule of ``TrainCheckpointer`` without its writes: a
+    multi-host process other than rank 0 keeps it to snapshot its replay
+    store at the steps rank 0 saves the learner (every process sees the
+    same agreed cursors, so they decide alike)."""
+
+    def __init__(self, directory: str, save_every_frames: int,
+                 resumed: Optional[int] = None):
+        os.makedirs(directory, exist_ok=True)
+        self.save_every_frames = save_every_frames
+        self._next_save = (0 if resumed is None
+                           else resumed + save_every_frames)
+
+    def maybe_save(self, frames: int, tree) -> bool:
+        if frames < self._next_save:
+            return False
+        self._next_save = frames + self.save_every_frames
+        return True
+
+    def save(self, frames: int, tree) -> bool:
+        return True
+
+
 @torch.no_grad()
 def _bootstrap_priorities(net, target_net, obs, action, reward, discount,
                           next_obs):
@@ -347,10 +391,13 @@ class ApexLearnerService:
         peer gets a NACK."""
 
     def __init__(self, cfg: ExperimentConfig, rt: ApexRuntimeConfig,
-                 log_fn=print, device=None):
+                 log_fn=print, device=None, learner_backend=None):
+        """``learner_backend`` names the learner ranks' backend
+        (``learner_devices`` > 1): by default NCCL on cards and ``gloo`` on
+        the CPU; ``"gloo"`` on a card puts every learner rank on this
+        service's card, the two-ranks-on-one-card check of a machine with
+        one card (NCCL refuses two ranks on one card)."""
         from dist_dqn_tpu_torch import loop_common
-        from dist_dqn_tpu_torch.models import build_network
-        from dist_dqn_tpu_torch.replay.host import PrioritizedHostReplay
 
         # Every refusal comes before any shared-memory segment exists.
         _refuse(cfg, rt, log_fn)
@@ -363,6 +410,49 @@ class ApexLearnerService:
         self.total_actors = rt.num_actors + rt.num_remote_actors
         self.replay_ratio = loop_common.resolve_replay_ratio(cfg)
         self.train_batch = loop_common.resolve_train_batch(cfg)
+        # What shutdown() releases, so that it may run at any point.
+        self.procs: Dict[int, object] = {}
+        self._zc_rings: Dict[int, ingest.ShmSlotRing] = {}
+        self.act_boxes: List[ShmMailbox] = []
+        self.tcp_server = None
+        self.req_ring = None
+        self.run_dir = None
+        self._learners = None
+        self._shard_sampler = None
+        self._clean_exit = False
+
+        # Multi-host: a process group of more than one rank (--coordinator)
+        # makes every process a host with its own service, actors and
+        # store, training collectively (actors/multihost.py); rank 0
+        # reports.
+        self.distributed = (dist.is_available() and dist.is_initialized()
+                            and dist.get_world_size() > 1)
+        if self.distributed:
+            from dist_dqn_tpu_torch.parallel.distributed import \
+                main_process_log
+            self.log = _RateLogger(main_process_log(log_fn))
+        # Several learner ranks: batches shard over them, gradients are
+        # averaged across them, the learner is replicated.
+        from dist_dqn_tpu_torch.actors.learner_ranks import (
+            LearnerRanks, pick_learner_devices)
+        if self.distributed:
+            if rt.learner_devices != 1:
+                log_fn("# distributed mode: the train mesh spans every "
+                       "global device; --learner-devices ignored")
+            self.n_learners = 1
+        else:
+            self.n_learners = pick_learner_devices(
+                rt.learner_devices, self.device,
+                share_card=learner_backend == "gloo")
+        if not self.distributed and cfg.learner.batch_size % self.n_learners:
+            raise ValueError(
+                f"batch_size={cfg.learner.batch_size} not divisible by "
+                f"learner_devices={self.n_learners}")
+        if not self.distributed and self.train_batch % self.n_learners:
+            raise ValueError(
+                f"train batch {self.train_batch} not divisible by "
+                f"learner_devices={self.n_learners} (rows shard evenly "
+                "over the learner mesh)")
 
         # Probe a host env for the action count, an obs example and the
         # frame-stack depth the slot rings must fit dedup records for.
@@ -396,6 +486,41 @@ class ApexLearnerService:
                 from dist_dqn_tpu_torch.ingest.shm_ring import batch_bytes
                 slot = max(slot, batch_bytes([slot] * rt.shm_batch))
 
+        # The learner's data-parallel axis: the multi-host group, or the
+        # learner ranks this process starts and leads as rank 0.
+        self._mh = None
+        axis = None
+        if self.distributed:
+            from dist_dqn_tpu_torch.actors.multihost import MultihostLearner
+            self._mh = MultihostLearner(device=self.device)
+            axis = self._mh.mesh
+        elif self.n_learners > 1:
+            self._learners = LearnerRanks(self.n_learners, self.device,
+                                          backend=learner_backend)
+            try:
+                axis = self._learners.start(cfg, self.num_actions,
+                                            obs_example.shape,
+                                            _spawn_process)
+            except BaseException:
+                self._learners.close(clean=False)
+                raise
+
+        try:
+            self._build(log_fn, obs_example, axis, slot)
+        except BaseException:
+            self.shutdown()
+            raise
+        self._last_record = time.perf_counter()
+
+    def _build(self, log_fn, obs_example: np.ndarray, axis, slot: int
+               ) -> None:
+        """The constructor's part after the learner's axis exists: the
+        network, learner and assembly, the store, the checkpoint restore
+        and the transport endpoints (``slot``: the zero-copy slot size)."""
+        from dist_dqn_tpu_torch.models import build_network
+        from dist_dqn_tpu_torch.replay.host import PrioritizedHostReplay
+
+        cfg, rt = self.cfg, self.rt
         # The network, the learner and the assembly of this config.
         self.net = build_network(cfg.network, self.num_actions,
                                  obs_example.shape, device=self.device,
@@ -414,9 +539,9 @@ class ApexLearnerService:
             from dist_dqn_tpu_torch.agents.r2d2 import (
                 make_r2d2_learner, make_recurrent_actor_step)
 
-            init, self._train_step = make_r2d2_learner(cfg.learner,
-                                                       cfg.replay)
-            self.state = init(self.net)
+            init, train_step = make_r2d2_learner(cfg.learner, cfg.replay,
+                                                 axis=axis)
+            init_args = (self.net,)
             self._act_rec = make_recurrent_actor_step(self.num_actions,
                                                       return_q=True)
             self.seq_len = (cfg.replay.burn_in + cfg.replay.unroll_length
@@ -436,8 +561,9 @@ class ApexLearnerService:
         else:
             from dist_dqn_tpu_torch.agents.dqn import make_learner
 
-            init, self._train_step = make_learner(cfg.learner, self.net)
-            self.state = init(self.net, torch.Generator(
+            init, train_step = make_learner(cfg.learner, self.net,
+                                            axis=axis)
+            init_args = (self.net, torch.Generator(
                 device=self.device).manual_seed(cfg.seed + 1))
             self._act_q = _make_act_q(self.num_actions)
             self.actor_prio = (rt.transport == "zerocopy"
@@ -468,11 +594,31 @@ class ApexLearnerService:
             self._fused = rt.fused_ingest and not self.actor_prio
         self.assemblers = [self._asm_factory(rt.envs_per_actor)
                            for _ in range(self.total_actors)]
-        if self.replay_ratio > 1 and self.recurrent:
+        self._host_params = None
+        self._local_batch = cfg.learner.batch_size
+        if self.distributed:
+            from dist_dqn_tpu_torch.parallel.learner import train_step_specs
+
+            # Every process inits, then takes rank 0's learner: the
+            # group's first collective, before any actor spawns.
+            self.state = self._mh.wrap_init(init)(*init_args)
+            self._local_batch, _ = self._mh.shard_batch_size(
+                cfg.learner.batch_size)
+            self._train_step = self._mh.wrap_train_step(
+                train_step, *train_step_specs(self.recurrent))
+        else:
+            self.state = init(*init_args)
+            self._train_step = train_step
+        if self.replay_ratio > 1 and (self.recurrent or self.distributed):
             log_fn("# replay.updates_per_chunk > 1 is not supported "
                    "on the recurrent / multi-host apex paths yet; "
                    "running at replay ratio 1")
             self.replay_ratio = 1
+        if self.distributed and self.train_batch != cfg.learner.batch_size:
+            log_fn("# replay.train_batch widening is single-host only "
+                   "(multi-host batches shard from learner.batch_size); "
+                   "ignored")
+            self.train_batch = cfg.learner.batch_size
         self.actor_dtype = "float32"
         if cfg.network.actor_dtype not in ("", "float32"):
             log_fn("# network.actor_dtype is not applied by the apex "
@@ -480,11 +626,35 @@ class ApexLearnerService:
                    "running actor inference in float32")
         # The store's draw stream takes the default seed, as the JAX
         # service's does: it does not follow cfg.seed.
-        self.replay = PrioritizedHostReplay(
-            cfg.replay.capacity, alpha=cfg.replay.priority_exponent,
-            priority_eps=cfg.replay.priority_eps,
-            sampler="device" if rt.device_sampling else "tree",
-            sampler_device=self.device)
+        if rt.ingest_shards > 1:
+            # N item shards, inserts routed by the sticky shard id every
+            # frame header carries, one global ladder over the shards' mass
+            # and slot ids encoded globally, so the write-backs work
+            # unchanged; with device_sampling each shard draws on its own
+            # plane, the cards round-robin (shard i on card i % count, as
+            # JAX assigns its devices), or this process's device on the CPU
+            # and under multi-host.
+            from dist_dqn_tpu_torch.replay.sharded import \
+                ShardedPrioritizedReplay
+            self.replay = ShardedPrioritizedReplay(
+                rt.ingest_shards, cfg.replay.capacity,
+                alpha=cfg.replay.priority_exponent,
+                priority_eps=cfg.replay.priority_eps,
+                sampler="device" if rt.device_sampling else "tree",
+                sampler_device=(None if self.device.type == "cuda"
+                                and not self.distributed else self.device))
+        else:
+            self.replay = PrioritizedHostReplay(
+                cfg.replay.capacity, alpha=cfg.replay.priority_exponent,
+                priority_eps=cfg.replay.priority_eps,
+                sampler="device" if rt.device_sampling else "tree",
+                sampler_device=self.device)
+        if rt.shard_sampling:
+            # The draw and gather move into per-shard worker threads; the
+            # learner pops pre-packed batches.
+            from dist_dqn_tpu_torch.replay.sharded import ShardSampleService
+            self._shard_sampler = ShardSampleService(
+                self.replay, depth=max(rt.pipeline_depth, 1))
         # The Ape-X epsilon ladder: eps_i = base ** (1 + i/(N-1) alpha).
         n_act = max(self.total_actors - 1, 1)
         self.actor_eps = np.array([
@@ -522,6 +692,7 @@ class ApexLearnerService:
         self.ingest_passes = 0
         self._last_loss = 0.0
         self.replay_snapshot: Optional[dict] = None
+        self.learner_replicas_equal: Optional[bool] = None
         # Wall clock marks of the summary: the run, the first train event.
         self._t_run = self._t_end = None
         self._t_first_train = None
@@ -532,85 +703,163 @@ class ApexLearnerService:
         self._eval_env = None
         self._eval_gen = None
         self._next_eval = rt.eval_every_steps or float("inf")
+        # Async eval (multi-host): the worker thread and its results; the
+        # thread appends, the loop pops (deque operations are atomic).
+        self._eval_thread: Optional[threading.Thread] = None
+        self._eval_results: deque = deque()
         self._ckpt = None
         self._profiler = None
         self._profile_t0 = 0.0
         self.profile_row: Optional[dict] = None
+        # Multi-host cursors: the agreed global env steps, a resumed run's
+        # saved global count, and the next agreement's earliest time.
+        self.global_env_steps = 0
+        self._resume_global = 0
+        self._next_sync = 0.0
+        # Double-buffered H2D staging: one learner only; the learner ranks
+        # and the multi-host step take host batches of their own.
         self._stager = None
-        if rt.stage_depth > 0:
+        if rt.stage_depth > 0 and not self.distributed \
+                and self.n_learners == 1:
             from dist_dqn_tpu_torch.replay.staging import \
                 DoubleBufferedStager
             self._stager = DoubleBufferedStager(depth=rt.stage_depth,
                                                 device=self.device)
         if rt.checkpoint_dir:
             self._restore_learner()
+        if self._learners is not None:
+            # Every learner rank takes rank 0's learner, restored or not.
+            self._learners.bind(self.state, train_step, self.recurrent)
+        self._refresh_host_params()
 
         # The transport endpoints, created before the actors spawn: the
         # request ring, the act mailboxes and the stop file in a directory
         # of this run's own (removed whole by shutdown), the slot rings
         # as POSIX shared memory named after the run, and the TCP
         # listener of the remote actors.
-        self.procs: Dict[int, object] = {}
-        self._zc_rings: Dict[int, ingest.ShmSlotRing] = {}
         self.ingest_torn_reads = 0
-        self.act_boxes: List[ShmMailbox] = []
-        self.tcp_server = None
         self.tcp_address = None
         self._actor_conn: Dict[int, int] = {}   # remote actor -> conn id
         self.run_dir = shm_dir() / self.run_id
         self.run_dir.mkdir()
         self.stop_path = str(self.run_dir / "stop")
-        try:
-            self.req_ring = ShmRing(f"{self.run_id}/req",
-                                    capacity=rt.ring_mb * 1024 * 1024,
-                                    create=True)
-            for i in range(rt.num_actors):
-                self.act_boxes.append(ShmMailbox(
-                    f"{self.run_id}/act_{i}", max_size=1 << 20,
-                    create=True))
-                if rt.transport == "zerocopy":
-                    self._zc_rings[i] = ingest.ShmSlotRing(
-                        f"req_{self.run_id}_zc_{i}", slot_size=slot,
-                        nslots=8, create=True)
-            if rt.tcp_port is not None or rt.num_remote_actors:
-                from dist_dqn_tpu_torch.actors.transport import \
-                    TcpRecordServer
-                # Loopback unless a port was asked for: the record stream
-                # is unauthenticated.
-                host = "0.0.0.0" if rt.tcp_port is not None else "127.0.0.1"
-                self.tcp_server = TcpRecordServer(host=host,
-                                                  port=rt.tcp_port or 0)
-                self.tcp_address = self.tcp_server.address
-                log_fn(json.dumps({"tcp_address": list(self.tcp_address)}))
-        except BaseException:
-            self.shutdown()
-            raise
-        self._last_record = time.perf_counter()
+        self.req_ring = ShmRing(f"{self.run_id}/req",
+                                capacity=rt.ring_mb * 1024 * 1024,
+                                create=True)
+        for i in range(rt.num_actors):
+            self.act_boxes.append(ShmMailbox(
+                f"{self.run_id}/act_{i}", max_size=1 << 20, create=True))
+            if rt.transport == "zerocopy":
+                self._zc_rings[i] = ingest.ShmSlotRing(
+                    f"req_{self.run_id}_zc_{i}", slot_size=slot,
+                    nslots=8, create=True)
+        if rt.tcp_port is not None or rt.num_remote_actors:
+            from dist_dqn_tpu_torch.actors.transport import TcpRecordServer
+            # Loopback unless a port was asked for: the record stream is
+            # unauthenticated.
+            host = "0.0.0.0" if rt.tcp_port is not None else "127.0.0.1"
+            self.tcp_server = TcpRecordServer(host=host,
+                                              port=rt.tcp_port or 0)
+            self.tcp_address = self.tcp_server.address
+            log_fn(json.dumps({"tcp_address": list(self.tcp_address)}))
 
     # -- learner state and checkpoints --------------------------------------
+    @property
+    def _rank(self) -> int:
+        """This process's rank in the multi-host group (0 outside one)."""
+        return self._mh.mesh.rank if self.distributed else 0
+
     def _restore_learner(self) -> None:
+        """Rank 0 (the only process outside a group) holds the learner's
+        checkpointer and restores the newest step; in a multi-host group it
+        broadcasts the resumed cursor, every process takes its learner, and
+        the other processes keep the save cadence for their own replay
+        snapshots. The saved cursor of a multi-host run is the global
+        agreed count: local env steps restart at 0 and the offset folds
+        into the agreement (else each host's copy would be summed N
+        times)."""
         from dist_dqn_tpu_torch.utils.checkpoint import (
             TrainCheckpointer, record_checkpoint_kind)
 
-        self._ckpt = TrainCheckpointer(
-            self.rt.checkpoint_dir,
-            save_every_frames=self.rt.save_every_steps)
-        record_checkpoint_kind(self.rt.checkpoint_dir, "learner")
-        restored = self._ckpt.restore_latest(self.state)
-        if restored is not None:
-            # The run continues toward the same total_env_steps; the
-            # replay refills from the live actors unless its snapshot
-            # restores below.
-            resumed, self.state = restored
+        resumed = None
+        if self._rank == 0:
+            self._ckpt = TrainCheckpointer(
+                self.rt.checkpoint_dir,
+                save_every_frames=self.rt.save_every_steps)
+            record_checkpoint_kind(self.rt.checkpoint_dir, "learner")
+            restored = self._ckpt.restore_latest(self.state)
+            if restored is not None:
+                resumed, self.state = restored
+        if self.distributed:
+            from dist_dqn_tpu_torch.parallel.learner import \
+                sync_learner_from_rank0
+
+            mesh = self._mh.mesh
+            head = torch.tensor([-1 if resumed is None else resumed],
+                                dtype=torch.int64, device=mesh.device)
+            mesh.broadcast_([head])
+            resumed = None if int(head[0]) < 0 else int(head[0])
+            if self._rank != 0:
+                self._ckpt = _SaveCadence(self.rt.checkpoint_dir,
+                                          self.rt.save_every_steps, resumed)
+            if resumed is not None:
+                sync_learner_from_rank0(mesh, self.state)
+        if resumed is None:
+            return
+        # The run continues toward the same total_env_steps; the replay
+        # refills from the live actors unless its snapshot restores below.
+        if self.distributed:
+            self._resume_global = resumed
+            self.global_env_steps = resumed
+        else:
             self.env_steps = resumed
-            if self.rt.eval_every_steps:
-                self._next_eval = resumed + self.rt.eval_every_steps
-            self.log.log_fn(f'{{"resumed_at_env_steps": {resumed}}}')
-            if self.rt.checkpoint_replay:
-                self._load_replay_snapshot()
+        if self.rt.eval_every_steps:
+            self._next_eval = resumed + self.rt.eval_every_steps
+        self.log.log_fn(f'{{"resumed_at_env_steps": {resumed}}}')
+        if self.rt.checkpoint_replay:
+            self._load_replay_snapshot()
+
+    def _refresh_host_params(self) -> None:
+        """Multi-host: refresh the copy of the learner's net (and of its
+        target, which the feed-forward priority bootstrap reads) that the
+        act, bootstrap and eval programs use, after each train burst. The
+        optimizer and a restore write the learner in place, so acting reads
+        this copy, as JAX's act reads its host mirror: params as stale as
+        the last burst."""
+        if not self.distributed:
+            return
+        live = (self.state.net,
+                self.state.target_net if self._prio_fn is not None else None)
+        if self._host_params is None:
+            self._host_params = tuple(
+                None if m is None else copy.deepcopy(m).requires_grad_(False)
+                for m in live)
+            return
+        with torch.no_grad():
+            for mirror, net in zip(self._host_params, live):
+                if mirror is None:
+                    continue
+                for a, b in zip(mirror.state_dict().values(),
+                                net.state_dict().values()):
+                    a.copy_(b)
+
+    @property
+    def _policy_params(self):
+        """The net the act and eval programs read."""
+        return self._host_params[0] if self.distributed else self.state.net
+
+    @property
+    def _target_policy_params(self):
+        """The target net the priority bootstrap reads."""
+        return (self._host_params[1] if self.distributed
+                else self.state.target_net)
 
     def _replay_snapshot_path(self) -> str:
-        return os.path.join(self.rt.checkpoint_dir, "replay_shard.npz")
+        # Multi-host: each process owns its store and snapshots its own
+        # file beside the learner checkpoint.
+        suffix = f"_p{self._rank}" if self.distributed else ""
+        return os.path.join(self.rt.checkpoint_dir,
+                            f"replay_shard{suffix}.npz")
 
     def _save_replay_snapshot(self) -> None:
         """Snapshot the shard beside the learner checkpoint, atomically.
@@ -635,12 +884,14 @@ class ApexLearnerService:
             "replay_snapshot_s": round(wall, 3),
             "replay_snapshot_mb": round(os.path.getsize(path) / 2**20, 1),
             "replay_snapshot_items": len(self.replay),
-            "replay_snapshot_shards": 1}))
+            "replay_snapshot_shards": getattr(self.replay, "num_shards",
+                                              1)}))
 
     def _load_replay_snapshot(self) -> None:
         """Restore the snapshot beside the learner checkpoint, if any,
-        through ``replay/sharded.py restore_replay_snapshot`` (the exact
-        ``load_state_dict`` at one shard)."""
+        through ``replay/sharded.py restore_replay_snapshot``: exact at the
+        same shard count, a migration across shard counts (every record
+        once, its priority kept; write generations reset)."""
         from dist_dqn_tpu_torch.replay.sharded import restore_replay_snapshot
 
         path = self._replay_snapshot_path()
@@ -709,14 +960,23 @@ class ApexLearnerService:
                 self.procs[actor_id] = self._spawn_one(actor_id)
 
     def shutdown(self) -> None:
-        """Stop the actors, close the listener (joining its threads),
-        unlink every segment this service created and remove its run
-        directory (idempotent; run on every exit path of :meth:`run`)."""
-        try:
-            with open(self.stop_path, "w") as f:
-                f.write("stop")
-        except OSError:
-            pass
+        """Stop the shard sampler, the learner ranks and the actors, close
+        the listener (joining its threads), unlink every segment this
+        service created and remove its run directory (idempotent; run on
+        every exit path of :meth:`run` and of a failed construction). The
+        learner ranks are told to stop after a clean run and terminated
+        otherwise."""
+        if self._shard_sampler is not None:
+            self._shard_sampler.close()
+        if self._learners is not None:
+            self._learners.close(clean=self._clean_exit)
+            self._learners = None
+        if self.run_dir is not None:
+            try:
+                with open(self.stop_path, "w") as f:
+                    f.write("stop")
+            except OSError:
+                pass
         # Closing the listener first ends the remote actors' waits for a
         # reply at once (they see EOF, then the stop file).
         if self.tcp_server is not None:
@@ -727,7 +987,7 @@ class ApexLearnerService:
                 p.terminate()
                 p.join(timeout=5)
         self.procs = {}
-        if getattr(self, "req_ring", None) is not None:
+        if self.req_ring is not None:
             self.req_ring.unlink()
         for ring in self._zc_rings.values():
             self.ingest_torn_reads += ring.torn_reads
@@ -737,7 +997,8 @@ class ApexLearnerService:
         for b in self.act_boxes:
             b.unlink()
         self.act_boxes = []
-        shutil.rmtree(self.run_dir, ignore_errors=True)
+        if self.run_dir is not None:
+            shutil.rmtree(self.run_dir, ignore_errors=True)
 
     # -- acting ----------------------------------------------------------------
     def _count_device_call(self, kind: str) -> None:
@@ -756,8 +1017,9 @@ class ApexLearnerService:
         its result copied to pinned memory with an event (read on a later
         pass by ``_drain_bootstraps``). One dispatch."""
         b_batch, b_items, b_count = boot
-        out = self._act_q(self.state.net, obs, self._act_gen, eps)
-        prios = self._prio_fn(self.state.net, self.state.target_net,
+        out = self._act_q(self._policy_params, obs, self._act_gen, eps)
+        prios = self._prio_fn(self._policy_params,
+                              self._target_policy_params,
                               *self._boot_tensors(b_batch))
         self._boot_inflight.append((_HostCopy(prios), b_items, b_count))
         return out
@@ -798,7 +1060,7 @@ class ApexLearnerService:
             carry_t = tuple(torch.from_numpy(np.concatenate(x + [pad])).to(dev)
                             for x in (cs, hs))
             (c, h), actions, q_sel, q_max = self._act_rec(
-                self.state.net, carry_t, obs_t, self._act_gen, eps_t)
+                self._policy_params, carry_t, obs_t, self._act_gen, eps_t)
             self._count_device_call("act")
             out = torch.cat([c.float(), h.float(),
                              torch.stack([actions.float(), q_sel, q_max],
@@ -813,7 +1075,7 @@ class ApexLearnerService:
                 self._count_device_call("fused_act_bootstrap")
             else:
                 actions, q_sel, q_max = self._act_q(
-                    self.state.net, obs_t, self._act_gen, eps_t)
+                    self._policy_params, obs_t, self._act_gen, eps_t)
                 self._count_device_call("act")
             out = torch.stack([actions.float(), q_sel, q_max]).cpu().numpy()
             acts_np, qs_np, qm_np = out
@@ -1149,7 +1411,8 @@ class ApexLearnerService:
                 if popped is None:
                     break
                 batch, items, count = popped
-                prios = self._prio_fn(self.state.net, self.state.target_net,
+                prios = self._prio_fn(self._policy_params,
+                                      self._target_policy_params,
                                       *self._boot_tensors(batch))
                 self._count_device_call("bootstrap")
                 self._boot_inflight.append((_HostCopy(prios), items, count))
@@ -1175,7 +1438,8 @@ class ApexLearnerService:
                                                    axis=0)])
                          if pad else v[lo:hi])
                      for k, v in cat.items()}
-            prios = self._prio_fn(self.state.net, self.state.target_net,
+            prios = self._prio_fn(self._policy_params,
+                                  self._target_policy_params,
                                   *self._boot_tensors(batch))
             self._count_device_call("bootstrap")
             self._boot_inflight.append(
@@ -1290,10 +1554,18 @@ class ApexLearnerService:
         return inserts
 
     def _sample_replay(self, batch_size: int, beta: float):
-        """One draw -> (items, idx, IS weights, generations)."""
+        """One draw -> (items, idx, IS weights, generations): through the
+        per-shard sampling service when armed (a pre-packed batch whose
+        generations were read at draw time under the shard locks), else
+        the store's inline draw, counting one ``replay_sample`` device call
+        per plane draw dispatched (one per shard that takes rows)."""
+        if self._shard_sampler is not None:
+            return self._shard_sampler.sample(batch_size, beta)
         items, idx, weights = self.replay.sample(batch_size, beta)
         if self.rt.device_sampling:
-            seen = self.replay.device_sampler.draw_dispatches
+            seen = (self.replay.device_sample_dispatches
+                    if hasattr(self.replay, "device_sample_dispatches")
+                    else self.replay.device_sampler.draw_dispatches)
             for _ in range(seen - self._replay_draws_counted):
                 self._count_device_call("replay_sample")
             self._replay_draws_counted = seen
@@ -1346,32 +1618,59 @@ class ApexLearnerService:
     def _train_event(self, *args):
         """One train event: the sequence learner's step, or
         ``replay_ratio`` steps over the stacked batches (the JAX service's
-        scan over ``train_step``; priorities concatenated in sub-step
-        order, loss the sub-step mean)."""
-        from dist_dqn_tpu_torch.types import Transition
+        scan over ``train_step``; priorities stacked in sub-step order,
+        loss the sub-step mean). With learner ranks the event runs on
+        every rank, each on its rows, and the priorities come back in
+        global row order."""
+        from dist_dqn_tpu_torch.actors.learner_ranks import make_scan_step
 
         if self.recurrent:
             sample = args[0]
             if sample.action.dtype != torch.int64:
                 sample = sample._replace(action=sample.action.long())
-            self.state, m = self._train_step(self.state, sample)
-            return m
-        batch, weights = args
-        prios, losses = [], []
-        for j in range(self.replay_ratio):
-            self.state, m = self._train_step(
-                self.state, Transition(*(x[j] for x in batch)), weights[j])
-            prios.append(m["priorities"])
-            losses.append(m["loss"])
-        return {"priorities": torch.cat(prios),
-                "loss": torch.stack(losses).mean()}
+            args = (sample,)
+        if self._learners is not None:
+            self.state, m = self._learners.train(
+                self.state, args, scan=not self.recurrent)
+        elif self.recurrent:
+            self.state, m = self._train_step(self.state, *args)
+        else:
+            self.state, m = make_scan_step(self._train_step)(self.state,
+                                                             *args)
+        return m
 
     def _maybe_train(self) -> None:
+        if self.distributed:
+            return self._maybe_train_distributed()
         if len(self.replay) < self._min_fill_items():
             return
         target = (self.replay.added * self.replay_ratio
                   // self._inserts_per_grad())
         self._train_to_target(target, self.env_steps, self.train_batch)
+
+    def _maybe_train_distributed(self) -> None:
+        """Multi-host cadence (actors/multihost.py): agree on the global
+        counters at most every ``sync_every_s``, then every process runs
+        the same number of collective train steps, each on its own store's
+        rows. Ingestion stays asynchronous; only this is lockstep."""
+        if time.perf_counter() < self._next_sync:
+            return
+        ready = int(len(self.replay) >= self._min_fill_items())
+        agreed = self._mh.agree(np.array(
+            [self.replay.added, ready, self.env_steps], np.int64))
+        self._next_sync = time.perf_counter() + self.rt.sync_every_s
+        g_added, ready_count, g_env = (int(v) for v in agreed)
+        # A resumed run's saved cursor re-enters here, once.
+        self.global_env_steps = g_env + self._resume_global
+        if ready_count < self._mh.nprocs:
+            return  # some host's store is still below min_fill
+        target = g_added // self._inserts_per_grad()
+        before = self.grad_steps
+        self._train_to_target(target, self.global_env_steps,
+                              self._local_batch)
+        if self.grad_steps > before:
+            # A fresh copy for the act, bootstrap and eval programs.
+            self._refresh_host_params()
 
     def _train_to_target(self, target_grad_steps: int, progress_steps: int,
                          batch_size: int) -> None:
@@ -1465,9 +1764,12 @@ class ApexLearnerService:
             self._finalize_train()
         self._flush_prio_writebacks(force=True)
 
-    def _evaluate(self) -> float:
-        """Greedy episodes on a service-owned host env; returns the mean
-        undiscounted return (a step-capped count is recorded)."""
+    def _evaluate_impl(self, net) -> tuple:
+        """Greedy episodes of ``net`` on a service-owned host env; the
+        recurrent policy threads its own eval carry. Returns (mean
+        undiscounted return, step-capped episode count). Touches only the
+        eval's own env and generator and the given net, so the async eval
+        thread may run it while the loop trains."""
         from dist_dqn_tpu_torch.utils.host_eval import run_greedy_episodes
 
         n = self.rt.eval_episodes
@@ -1486,9 +1788,8 @@ class ApexLearnerService:
 
             def act(obs, epsilon):
                 carry[0], actions, _, _ = self._act_rec(
-                    self.state.net, carry[0],
-                    torch.from_numpy(obs).to(self.device), self._eval_gen,
-                    epsilon)
+                    net, carry[0], torch.from_numpy(obs).to(self.device),
+                    self._eval_gen, epsilon)
                 return actions.cpu().numpy()
 
             def on_done(done):
@@ -1498,15 +1799,82 @@ class ApexLearnerService:
         else:
             def act(obs, epsilon):
                 actions, _, _ = self._act_q(
-                    self.state.net, torch.from_numpy(obs).to(self.device),
+                    net, torch.from_numpy(obs).to(self.device),
                     self._eval_gen, epsilon)
                 return actions.cpu().numpy()
 
         returns, truncated = run_greedy_episodes(self._eval_env, act,
                                                  episodes=n, on_done=on_done)
+        return float(returns.mean()), float(truncated)
+
+    def _evaluate(self) -> float:
+        """Synchronous eval (one host); a step-capped count is recorded,
+        so a low return is not mistaken for a regression."""
+        ret, truncated = self._evaluate_impl(self._policy_params)
         if truncated:
-            self.log.record(eval_episodes_truncated=float(truncated))
-        return float(returns.mean())
+            self.log.record(eval_episodes_truncated=truncated)
+        return ret
+
+    def _start_async_eval(self) -> None:
+        """Multi-host eval must not stall the group: an inline eval on rank
+        0 would hold every peer at its next agreement for the whole eval.
+        A thread plays the episodes on its own copy of the policy net,
+        taken now (the only learner state it touches), issues no
+        collective, and its result is logged when it ends."""
+        if self._eval_thread is not None and self._eval_thread.is_alive():
+            self.log.record(eval_skipped=1.0)  # the last one still runs
+            return
+        net = copy.deepcopy(self._policy_params)
+        at_steps = self._progress()
+        dev = self._mh.mesh.device
+
+        def work():
+            try:
+                if dev.type == "cuda":
+                    # A new thread starts on card 0.
+                    torch.cuda.set_device(dev)
+                self._eval_results.append((at_steps,
+                                           self._evaluate_impl(net)))
+            except Exception as e:  # noqa: BLE001 — surfaced by the poller
+                self._eval_results.append((at_steps, e))
+
+        self._eval_thread = threading.Thread(target=work, daemon=True,
+                                             name="apex-eval")
+        self._eval_thread.start()
+
+    def _poll_async_eval(self) -> None:
+        while True:
+            try:
+                at_steps, res = self._eval_results.popleft()
+            except IndexError:
+                return
+            if isinstance(res, Exception):
+                self.log.log_fn(f"# async eval failed: {res!r}")
+                continue
+            ret, truncated = res
+            if truncated:
+                self.log.record(eval_episodes_truncated=truncated)
+            self.log.record(env_steps=at_steps, eval_return=ret)
+            self.log.flush()
+
+    def _progress(self) -> int:
+        """The run's cursor: local env steps, or the group's agreed global
+        count in multi-host mode (the same on every process at each
+        agreement, so every process takes its termination, eval and
+        checkpoint decisions in the same order)."""
+        return self.global_env_steps if self.distributed else self.env_steps
+
+    def _check_replicas(self) -> Optional[bool]:
+        """Whether every learner replica equals rank 0's, bit for bit (a
+        collective of the learner ranks or of the multi-host group; None
+        for a single learner)."""
+        if self._learners is not None:
+            return self._learners.check(self.state)
+        if self.distributed:
+            from dist_dqn_tpu_torch.parallel.learner import \
+                learner_replicas_equal
+            return learner_replicas_equal(self._mh.mesh, self.state)
+        return None
 
     # -- the loop --------------------------------------------------------------
     def run(self) -> dict:
@@ -1517,7 +1885,7 @@ class ApexLearnerService:
             self._t_run = self._last_record = time.perf_counter()
             last_log = time.perf_counter()
             clock, loop_s = time.perf_counter, self.loop_s
-            while self.env_steps < self.rt.total_env_steps:
+            while self._progress() < self.rt.total_env_steps:
                 t0 = clock()
                 drained = self._drain_transports()
                 t1 = clock()
@@ -1534,17 +1902,24 @@ class ApexLearnerService:
                 loop_s["bootstrap"] += t3 - t2
                 loop_s["train"] += t4 - t3 - (loop_s["trace"] - trace_s)
                 self.train_passes += self.grad_steps > grad_steps
-                if self._ckpt is not None \
-                        and self._ckpt.maybe_save(self.env_steps, self.state):
+                if self._ckpt is not None and self._ckpt.maybe_save(
+                        self._progress(), self.state):
                     self._save_replay_snapshot()
-                if self.env_steps >= self._next_eval:
-                    self._next_eval = self.env_steps \
+                if self._progress() >= self._next_eval:
+                    self._next_eval = self._progress() \
                         + self.rt.eval_every_steps
                     self._finalize_all_train()
-                    self.log.record(env_steps=self.env_steps,
-                                    eval_return=self._evaluate())
-                    self.log.flush()
+                    # Multi-host: rank 0 alone plays, in a thread; every
+                    # process advances _next_eval alike (agreed cursor).
+                    if self.distributed:
+                        if self._rank == 0:
+                            self._start_async_eval()
+                    else:
+                        self.log.record(env_steps=self.env_steps,
+                                        eval_return=self._evaluate())
+                        self.log.flush()
                     last_log = time.perf_counter()
+                self._poll_async_eval()
                 if not drained:
                     time.sleep(0.0002)
                     loop_s["idle"] += clock() - t4
@@ -1571,13 +1946,18 @@ class ApexLearnerService:
             self._insert_actor_prio()
             self._flush_pending(force=True)
             self._finalize_all_train()
+            if self._eval_thread is not None:
+                self._eval_thread.join(timeout=60)
+                self._poll_async_eval()
             if self._profiler is not None:
                 self._profile_stop()
+            self.learner_replicas_equal = self._check_replicas()
             if self._ckpt is not None:
-                self._ckpt.save(self.env_steps, self.state)
+                self._ckpt.save(self._progress(), self.state)
                 self._save_replay_snapshot()
             ring_dropped = self.req_ring.dropped
             self._t_end = time.perf_counter()
+            self._clean_exit = True
         finally:
             if self._profiler is not None:
                 self._profiler.stop()
@@ -1586,9 +1966,8 @@ class ApexLearnerService:
         return self.summary(ring_dropped)
 
     def summary(self, ring_dropped: int = 0) -> dict:
-        """The run's summary under the JAX service's keys; those of options
-        the port leaves out carry the JAX values of one shard, and the
-        chip-time plane of the telemetry (ROADMAP.md A10) is ``None``."""
+        """The run's summary under the JAX service's keys; the chip-time
+        plane of the telemetry (ROADMAP.md A10) is ``None``."""
         frames, saved = self._dedup_retired
         for dec in self._decoders.values():
             frames += getattr(dec, "frames_reused", 0)
@@ -1605,17 +1984,18 @@ class ApexLearnerService:
                 "dedup_frames_reused": int(frames),
                 "dedup_bytes_saved": int(saved),
                 "shm_batch": self.rt.shm_batch,
-                "shard_sampling": False,
+                "shard_sampling": self._shard_sampler is not None,
                 "sampler": ("device" if self.rt.device_sampling
                             else "tree"),
-                "shard_sample_batches": 0,
+                "shard_sample_batches": (self._shard_sampler.batches
+                                         if self._shard_sampler else 0),
                 "records_by_shard": dict(self.router.records_by_shard),
                 "replay_added_by_shard": dict(self.replay.added_by_shard),
                 "ingest_decode_errors": self.router.decode_errors,
                 "replay_ratio": self.replay_ratio,
                 "train_batch": self.train_batch,
                 "actor_dtype": self.actor_dtype,
-                "global_env_steps": 0,
+                "global_env_steps": self.global_env_steps,
                 "episodes_completed": self.episodes_completed,
                 "episode_return_recent":
                     (float(np.mean(self._ep_returns))
@@ -1642,8 +2022,9 @@ class ApexLearnerService:
                 # actor, the replay snapshot restored at start, the last
                 # retired loss, the wall of the run and of its training
                 # part (from the first train event to the end), the
-                # thread's seconds by part of the loop and the passes
-                # that trained.
+                # thread's seconds by part of the loop, the passes that
+                # trained, and the learner's ranks with whether their
+                # replicas ended bit-equal (None for one learner).
                 "assembler": self.assembler_kind,
                 "tcp_corrupt_frames": (tcp.corrupt_frames
                                        if tcp is not None else 0),
@@ -1660,7 +2041,9 @@ class ApexLearnerService:
                             if self._t_end is not None
                             and self._t_first_train is not None else None),
                 "loop_s": dict(self.loop_s),
-                "train_passes": self.train_passes}
+                "train_passes": self.train_passes,
+                "learner_devices": self.n_learners,
+                "learner_replicas_equal": self.learner_replicas_equal}
 
 
 def run_apex(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn=print,

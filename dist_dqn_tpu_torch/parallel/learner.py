@@ -195,6 +195,28 @@ def sync_learner_from_rank0(mesh: Mesh, learner) -> None:
     learner.steps, learner.opt_state.count = head.tolist()
 
 
+def learner_replicas_equal(mesh: Mesh, learner) -> bool:
+    """Whether every rank's learner equals rank 0's, bit for bit: weights,
+    target, optimizer moments, step and optimizer counts and the step's
+    generator state. Rank 0's copies are broadcast, each rank counts the
+    tensors of its own that differ, and one all-reduce sums the counts, so
+    every rank returns the same answer (a collective: every rank calls
+    it)."""
+    opt = learner.opt_state
+    dev = mesh.device
+    mine = [t.detach() for t in (*learner.net.parameters(),
+                                 *learner.target_net.parameters(),
+                                 *opt.mu, *opt.nu)]
+    mine.append(torch.tensor([learner.steps, opt.count], dtype=torch.int64,
+                             device=dev))
+    mine.append(learner.generator.get_state().to(dev))
+    rank0 = [t.clone() for t in mine]
+    mesh.broadcast_(rank0)
+    differ = sum(not torch.equal(a, b) for a, b in zip(mine, rank0))
+    total = mesh.psum([torch.tensor([float(differ)], device=dev)])[0]
+    return float(total) == 0.0
+
+
 def global_metrics(metrics: Dict) -> Dict:
     """A chunk's metrics as host floats for logging; mirrors each into a
     ``dqn_mesh_<name>`` registry gauge on the way."""

@@ -26,13 +26,18 @@
   :func:`_insert_with_mass`): every live record lands exactly once in
   target shard ``global_id % M`` with its saved ``p ** alpha`` mass.
 
-The ingest-side ``ShardSampleService`` (JAX ``:668-860``) is the Ape-X
-service's ``--shard-sampling`` and stays with it (ROADMAP.md A6c).
+* :class:`ShardSampleService` (JAX ``:668-860``), the Ape-X service's
+  ``--shard-sampling``: one worker thread per shard and a coordinator run
+  :meth:`ShardedPrioritizedReplay._shard_draw`, the facade's own per-shard
+  draw, and hand the learner up to ``depth`` pre-packed batches with the
+  generations read at draw time; a thread that dies leaves a tombstone
+  that raises :class:`ShardSamplerError` at the next ``sample``.
 
 This module is numpy apart from the device planes.
 """
 from __future__ import annotations
 
+import queue
 import re
 import threading
 from typing import Dict, List, Optional, Tuple
@@ -491,10 +496,17 @@ class ShardedPrioritizedReplay:
     def _shard_draw(self, s_id: int, rows: np.ndarray,
                     local_mass: np.ndarray, T: float, batch_size: int,
                     idx_g: np.ndarray, p_sel: np.ndarray,
-                    out: Optional[Dict[str, np.ndarray]]
+                    out: Optional[Dict[str, np.ndarray]],
+                    gen: Optional[np.ndarray] = None
                     ) -> Optional[Dict[str, np.ndarray]]:
         """One shard's slice of a stratified draw: tree sample and item
-        gather into the caller's batch rows, under the shard's lock."""
+        gather into the caller's batch rows, under the shard's lock. The
+        unit :class:`ShardSampleService`'s workers run, so the threaded
+        draw and the facade's are the same math. ``gen`` (the service's
+        path) takes the drawn slots' write generations under the same lock
+        hold as the gather: a batch that waits in the queue while inserts
+        overwrite its slots still fails the write-back's generation
+        guard."""
         if not rows.any():
             return out
         s = self.shards[s_id]
@@ -503,6 +515,8 @@ class ShardedPrioritizedReplay:
             idx = np.minimum(idx, max(len(s), 1) - 1)
             p_sel[rows] = s.tree.get(idx) / max(T, 1e-300)
             idx_g[rows] = idx + s_id * self.shard_capacity
+            if gen is not None:
+                gen[rows] = s.generation(idx)
             if out is None:
                 out = {k: np.empty((batch_size,) + v.shape[1:], v.dtype)
                        for k, v in s._data.items()}
@@ -570,6 +584,169 @@ class ShardedPrioritizedReplay:
                    if k.startswith(prefix)}
             if sub:
                 s.load_state_dict(sub)
+
+
+# --------------------------------------------------------------------------
+# Ingest-side per-shard sampling.
+# --------------------------------------------------------------------------
+
+class ShardSamplerError(RuntimeError):
+    """A sampling thread died; re-raised on the learner thread at the next
+    ``sample`` (a tombstone)."""
+
+
+class ShardSampleService:
+    """The stratified draw and gather run where the data lives: one worker
+    thread per replay shard and a coordinator hand the learner pre-packed
+    batches through a bounded queue.
+
+    The coordinator draws the one global stratified mass ladder from the
+    facade's rng, splits it by tree mass, and each shard's worker runs its
+    slice of :meth:`ShardedPrioritizedReplay._shard_draw` (the function
+    the facade's inline draw runs, under the same per-shard lock)
+    concurrently with the other shards and with the service's inserts.
+    With inserts quiesced, ``sample`` is therefore bit for bit
+    ``replay.sample`` at the same batch size; live, batches are drawn up
+    to ``depth`` train events ahead against the replay of that moment,
+    with priorities still written back through the generation guard.
+
+    ``beta`` rides each request, so a queued batch's IS exponent lags the
+    learner by at most ``depth`` draws. ``batch_size`` must stay the same
+    over a service's life (the apex learner's does). The registry
+    histograms of the draw and of the learner's wait are telemetry
+    (ROADMAP.md A10).
+    """
+
+    def __init__(self, replay: ShardedPrioritizedReplay, depth: int = 2,
+                 name: str = "apex"):
+        self.replay = replay
+        self.depth = max(1, int(depth))
+        self._requests: "queue.Queue" = queue.Queue()
+        self._results: "queue.Queue" = queue.Queue()
+        self._tasks: List["queue.Queue"] = [
+            queue.Queue() for _ in range(replay.num_shards)]
+        self._done: "queue.Queue" = queue.Queue()
+        self._outstanding = 0
+        self._err: Optional[BaseException] = None
+        self._closed = False
+        self.batches = 0
+        self._workers = [
+            threading.Thread(target=self._shard_loop, args=(s_id,),
+                             name=f"{name}-shard-sampler-{s_id}",
+                             daemon=True)
+            for s_id in range(replay.num_shards)]
+        self._coord = threading.Thread(target=self._coord_loop,
+                                       name=f"{name}-sample-coord",
+                                       daemon=True)
+        for w in self._workers:
+            w.start()
+        self._coord.start()
+
+    # -- threads -------------------------------------------------------------
+    def _shard_loop(self, s_id: int) -> None:
+        while True:
+            task = self._tasks[s_id].get()
+            if task is None:
+                return
+            rows, local_mass, T, batch, idx_g, p_sel, out, gen = task
+            try:
+                self.replay._shard_draw(s_id, rows, local_mass, T, batch,
+                                        idx_g, p_sel, out, gen=gen)
+                self._done.put(None)
+            except BaseException as e:  # noqa: BLE001 — tombstoned
+                self._done.put(e)
+
+    def _coord_loop(self) -> None:
+        replay = self.replay
+        while True:
+            req = self._requests.get()
+            if req is None:
+                return
+            batch, beta = req
+            try:
+                size = len(replay)
+                if size == 0:
+                    raise ValueError("sample() on an empty replay shard")
+                totals = np.array([s.tree.total for s in replay.shards],
+                                  np.float64)
+                T = float(totals.sum())
+                mass = stratified_mass(replay._rng, batch, T)
+                shard_of, local_mass = _map_mass_to_shards(mass, totals)
+                idx_g = np.empty(batch, np.int64)
+                p_sel = np.empty(batch, np.float64)
+                gen = np.empty(batch, np.int64)
+                # The packed batch exists before any worker starts (the
+                # facade allocates it inside its serial loop), from the
+                # first shard that holds data.
+                out = None
+                for s in replay.shards:
+                    if s._data is not None:
+                        out = {k: np.empty((batch,) + v.shape[1:], v.dtype)
+                               for k, v in s._data.items()}
+                        break
+                if out is None:
+                    raise ValueError("sample() before any shard holds data")
+                active = 0
+                for s_id in range(replay.num_shards):
+                    rows = shard_of == s_id
+                    if not rows.any():
+                        continue
+                    self._tasks[s_id].put((rows, local_mass, T, batch,
+                                           idx_g, p_sel, out, gen))
+                    active += 1
+                errs = [e for e in (self._done.get() for _ in range(active))
+                        if e is not None]
+                if errs:
+                    raise errs[0]
+                weights = (size * np.maximum(p_sel, 1e-12)) ** (-beta)
+                weights = (weights / weights.max()).astype(np.float32)
+                replay.sampled += batch
+                self._results.put((out, idx_g, weights, gen))
+            except BaseException as e:  # noqa: BLE001 — tombstoned
+                self._results.put(e)
+                return
+
+    # -- the learner's side --------------------------------------------------
+    def sample(self, batch_size: int, beta: float):
+        """-> (items, idx, weights, generations): keeps up to ``depth``
+        requests in flight and pops the oldest finished batch, waiting
+        only when the workers are behind. The generations were read at
+        draw time under the shard locks."""
+        if self._err is not None:
+            raise ShardSamplerError(
+                f"shard sampling service died: {self._err!r}") \
+                from self._err
+        while self._outstanding < self.depth:
+            self._requests.put((int(batch_size), float(beta)))
+            self._outstanding += 1
+        while True:
+            try:
+                res = self._results.get(timeout=5.0)
+                break
+            except queue.Empty:
+                if not self._coord.is_alive():
+                    self._err = ShardSamplerError(
+                        "sample coordinator thread died silently")
+                    raise self._err
+        self._outstanding -= 1
+        if isinstance(res, BaseException):
+            self._err = res
+            raise ShardSamplerError(
+                f"shard sampling failed: {res!r}") from res
+        self.batches += 1
+        return res
+
+    def close(self) -> None:
+        """Stop the coordinator and the workers (idempotent)."""
+        if self._closed:
+            return
+        self._closed = True
+        self._requests.put(None)
+        for q in self._tasks:
+            q.put(None)
+        self._coord.join(timeout=5)
+        for w in self._workers:
+            w.join(timeout=5)
 
 
 # --------------------------------------------------------------------------

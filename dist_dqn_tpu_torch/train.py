@@ -68,7 +68,16 @@ does; the summary prints as JSON. ``--host-env feeder:pixel`` or
 ``feeder:vector`` replaces the actors with feeder processes that pump
 pre-encoded records (``--shm-batch N``: N records per slot publish), and
 ``DQN_FAKE_ALE=1`` routes ``ale:`` names to the in-repo fake ALE.
-``--no-wire-dedup`` is the JAX CLI's.
+``--no-wire-dedup`` is the JAX CLI's. ``--ingest-shards N`` splits the
+store into N item shards, each actor's stream in its sticky shard (with
+``--device-sampling`` one plane per shard), and ``--shard-sampling`` draws
+from them in one worker thread per shard. ``--learner-devices N`` makes the
+service rank 0 of N learner ranks, one per card (``0``: every card; CPU
+ranks over ``gloo`` with ``--device cpu``), each training on its rows of
+every batch. ``--coordinator host:port --num-processes P --process-id i``
+joins P service processes, one per card, each with its own actors and
+store, training in lockstep (actors/multihost.py); rank 0 alone logs rows,
+evaluates and saves the learner.
 
 ``--mesh-devices N`` trains the fused runtime (R2D2 included) as a
 data-parallel mesh of N ranks, one process per device (parallel/): each
@@ -87,8 +96,7 @@ another mesh width raises naming both. ``--runtime host-replay
 --mesh-devices N`` runs the host-replay runtime's ranks the same way
 (host_replay_loop.py); ``--coordinator`` is refused there.
 
-Telemetry and the options of the apex runtime that are not ported yet
-(several learner devices or replay shards) raise instead of being ignored.
+Telemetry (ROADMAP.md A10) raises instead of being ignored.
 """
 from __future__ import annotations
 
@@ -652,8 +660,6 @@ def _refuse_unported(args) -> None:
     """Flags of the JAX CLI this port does not implement yet, each with its
     ROADMAP.md item."""
     refused = [(flag, item) for flag, item, given in (
-        ("--coordinator", "A6c",
-         args.coordinator is not None and args.runtime == "apex"),
         ("--telemetry-port", "A10", args.telemetry_port is not None),
     ) if given]
     if refused:
@@ -667,7 +673,9 @@ def _refuse_unported(args) -> None:
 def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
     """``--runtime apex`` (dist_dqn_tpu/train.py:1225-1286): the JAX CLI's
     lines for the flags this runtime ignores, the MLP torso for a
-    non-pixel host env, then the service and its summary."""
+    non-pixel host env, then the service and its summary. With
+    ``--coordinator`` this process joins the group first (JAX
+    ``train.py:943-950``), one card per process, and leaves it after."""
     from dist_dqn_tpu_torch.actors.service import (ApexLearnerService,
                                                    ApexRuntimeConfig)
     from dist_dqn_tpu_torch.envs.gym_adapter import is_pixel_env
@@ -724,11 +732,20 @@ def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
         shm_batch=args.shm_batch,
         shard_sampling=args.shard_sampling,
         profile_dir=args.profile_dir)
+    # At world size 1 with learner ranks the group would hold this process
+    # alone, and the learner ranks form the process's one group instead.
+    if args.coordinator is not None and (args.num_processes > 1
+                                         or args.learner_devices == 1):
+        distributed.initialize(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device or "cuda")
     try:
-        service = ApexLearnerService(cfg, rt, device=args.device)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from e
-    print(json.dumps(service.run()))
+        try:
+            service = ApexLearnerService(cfg, rt, device=args.device)
+        except NotImplementedError as e:
+            raise SystemExit(str(e)) from e
+        print(json.dumps(service.run()))
+    finally:
+        distributed.shutdown()
 
 
 def _main_host_replay(cfg: ExperimentConfig, args) -> None:
@@ -947,21 +964,37 @@ def main(argv=None):
                              "ranks over gloo); multi-process runs use "
                              "every process's ranks")
     parser.add_argument("--coordinator", default=None,
-                        help="multi-process mesh: host:port of rank 0's "
-                             "rendezvous. Every process runs this same "
-                             "command with its own --process-id; rank 0 "
-                             "alone reads and writes --checkpoint-dir")
+                        help="multi-process mesh, or multi-host apex "
+                             "service: host:port of rank 0's rendezvous. "
+                             "Every process runs this same command with "
+                             "its own --process-id; rank 0 alone reads "
+                             "and writes the learner in --checkpoint-dir "
+                             "(apex: every process snapshots its own "
+                             "replay store there)")
     parser.add_argument("--num-processes", type=int, default=1,
                         help="multi-process mesh: total process count")
     parser.add_argument("--process-id", type=int, default=0,
                         help="multi-process mesh: this process's id "
                              "(0-based)")
+    parser.add_argument("--learner-devices", type=int, default=1,
+                        help="apex runtime: shard train batches over this "
+                             "many learner ranks, one per card (0 = every "
+                             "card; with --device cpu, CPU ranks over "
+                             "gloo); gradients averaged in one "
+                             "all-reduce per grad step")
+    parser.add_argument("--ingest-shards", type=int, default=1,
+                        help="apex runtime: replay-shard count; every "
+                             "actor's stream lands in its sticky shard. "
+                             "N > 1 needs the zerocopy transport with "
+                             "actor priorities (or a recurrent config); "
+                             "with --device-sampling one plane per shard")
+    parser.add_argument("--shard-sampling", action="store_true",
+                        help="apex runtime (--ingest-shards > 1): draw and "
+                             "gather in one worker thread per shard and "
+                             "hand the learner pre-packed batches")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
     parser.add_argument("--telemetry-port", type=int, default=None)
-    parser.add_argument("--learner-devices", type=int, default=1)
-    parser.add_argument("--ingest-shards", type=int, default=1)
-    parser.add_argument("--shard-sampling", action="store_true")
     args = parser.parse_args(argv)
 
     cfg = apply_overrides(CONFIGS[args.config], args.overrides)

@@ -6,10 +6,12 @@
   flags (both services stubbed);
 * the service's constructor refusals carry the JAX service's text, and
   every option the port leaves out raises "not ported yet" naming its
-  ROADMAP.md item, before any shared-memory segment exists; the options
-  ported since (remote actors, the legacy wire, the learner-side
-  bootstrap, replay snapshots, a recurrent config) build their paths and
-  leave nothing behind;
+  ROADMAP.md item, before any shared-memory segment exists, also beside
+  the distributed options (several learner devices or replay shards),
+  which run (tests/test_torch_apex_distributed.py); the options ported
+  since (remote actors, the legacy wire, the learner-side bootstrap,
+  replay snapshots, a recurrent config) build their paths and leave
+  nothing behind;
 * a short end-to-end run on the CPU (one actor process) through the CLI,
   in a subprocess with a time limit, holds the JAX package's plumbing
   invariants (tests/test_apex_integration.py:34-44): steps flowed, the
@@ -65,11 +67,14 @@ _CLI_CASES = {
                       "--prefetch-depth", "3", "--mesh-devices", "2",
                       "--actor-dtype", "bfloat16", "--eval-every-steps",
                       "500", "--population", "2"],
+    # Flags once refused, since ported (the distributed ones in
+    # tests/test_torch_apex_distributed.py).
     "unported_flags_reach_the_config": [
         "--config", "apex", "--runtime", "apex", "--learner-devices", "2",
-        "--ingest-shards", "2", "--no-actor-priorities", "--tcp-port", "0",
-        "--num-remote-actors", "1", "--remote-actor-mode", "external",
-        "--transport", "legacy", "--checkpoint-replay"],
+        "--ingest-shards", "2", "--shard-sampling", "--no-actor-priorities",
+        "--tcp-port", "0", "--num-remote-actors", "1",
+        "--remote-actor-mode", "external", "--transport", "legacy",
+        "--checkpoint-replay"],
 }
 
 
@@ -153,9 +158,13 @@ def test_constructor_refusals_match_jax_word_for_word(case):
     assert tlog == jlog
 
 
+# The distributed options (A6c) run since they were ported; beside a
+# still-refused option they must not get past its refusal, nor start a
+# learner rank or a shard sampler before it.
 _UNPORTED = {
-    "learner_devices": (dict(learner_devices=2), "A6"),
-    "ingest_shards": (dict(ingest_shards=2), "A6"),
+    "learner_devices": (dict(learner_devices=2, telemetry_port=0), "A10"),
+    "ingest_shards": (dict(ingest_shards=2, shard_sampling=True,
+                           trace_path="t.json"), "A10"),
     "trace_path": (dict(trace_path="t.json"), "A10"),
     "telemetry": (dict(telemetry_port=0), "A10"),
 }

@@ -134,6 +134,16 @@ from dist_dqn_tpu_torch.models import ImplicitQuantileNetwork, NoisyDense
 from dist_dqn_tpu_torch.ops.losses import (categorical_projection,
                                            iqn_quantile_huber_td,
                                            munchausen_bonus)
+slice15 = {"dist_dqn_tpu_torch." + m for m in (
+    "actors.multihost", "actors.learner_ranks")}
+assert slice15 <= set(names), sorted(slice15 - set(names))
+from dist_dqn_tpu_torch.actors.multihost import MultihostLearner
+from dist_dqn_tpu_torch.actors.learner_ranks import (LearnerRanks,
+                                                     pick_learner_devices,
+                                                     run_learner_rank)
+from dist_dqn_tpu_torch.replay.sharded import (ShardSampleService,
+                                               ShardSamplerError)
+from dist_dqn_tpu_torch.parallel.learner import learner_replicas_equal
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",

@@ -284,13 +284,16 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     # --runtime host-replay is ported (tests/test_torch_host_replay.py)
     # and runs the host-replay loop; --runtime apex is ported with its
     # remote actors (tests/test_torch_apex_service.py,
-    # tests/test_torch_remote_actors.py), and several learner devices
-    # are not; --mesh-devices is ported on the fused runtime
+    # tests/test_torch_remote_actors.py) and its distributed options
+    # (tests/test_torch_apex_distributed.py), so its case names a
+    # telemetry flag, still refused, beside several learner devices;
+    # --mesh-devices is ported on the fused runtime
     # (tests/test_torch_mesh.py, tests/test_torch_distributed.py) and
     # trains two CPU ranks, of which rank 0 alone prints rows (the ranks
     # are processes of their own: capfd reads their output).
     ["--runtime", "host-replay"], ["--mesh-devices", "2"],
-    ["--population", "2"], ["--runtime", "apex", "--learner-devices", "2"],
+    ["--population", "2"],
+    ["--runtime", "apex", "--learner-devices", "2", "--telemetry-port", "0"],
     ["--telemetry-port", "9100"],
     ["--population-spec", '{"lr": [0.001, 0.002]}']])
 def test_train_cli_refuses_unported_flags(flag, capfd):

@@ -247,15 +247,17 @@ class KillAfterSaves:
 class KillInSave(KillAfterSaves):
     """A mesh whose ranks all die together inside the ``saves + 1``-th
     checkpoint save, at its barrier: every rank has written its part file
-    and rank 0 has not yet composed the sidecar or committed the step."""
+    and rank 0 has not yet composed the sidecar or committed the step.
+    The ranks pass that barrier before they die, so no rank lists the
+    directory before every part is there."""
 
     def _check(self):
         pass
 
     def barrier(self):
+        self._mesh.barrier()
         if self._left <= 0:
             raise Killed
-        self._mesh.barrier()
         self._left -= 1
 
 
