@@ -301,6 +301,25 @@ them or outside a checkout of the repository. Phases, each fatal:
      --runtime apex --coordinator 127.0.0.1:P --num-processes 1``): an
      NCCL group of one, left at the end, one launch per grad step.
 
+17. The telemetry plane, read in four of the phases above (no phase of
+   its own): apex, host_replay_apex_dedup, apex_service_pong and
+   serving_apex each set a run manifest, ask their runtime for its
+   telemetry endpoint on port 0 (the runtime must log the bound port),
+   and serve the process registry on a port-0 endpoint of their own,
+   which the phase's end scrapes over HTTP (``/metrics``, every line held
+   to the Prometheus text rules of the JAX package's tests,
+   ``/metrics.json`` and ``/debug/config``, whose config hash must be the
+   manifest's). The counters' growth over the phase must equal the
+   phase's own counts: apex's grad and env steps and its ring's size and
+   capacity; the host-replay ring's size, appends, draws, D2H bytes and
+   priority write-back rows; the service's env and grad steps, ingest
+   records and train dispatches; serving's requests (and the serving
+   CLI's own ``--telemetry-port``). apex_service_pong also times 100,000
+   counter, gauge and histogram updates on the host and prints the
+   microseconds per update, per service grad step
+   (``SERVICE_UPDATES_PER_GRAD_STEP``) and per ingested record
+   (``SERVICE_UPDATES_PER_RECORD``).
+
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -314,10 +333,12 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 # The card's published peaks (H100 SXM data sheet): HBM bandwidth and the
@@ -569,6 +590,161 @@ MULTIHOST_EVAL = (4_500, 2)
 MULTIHOST_MIN_GRAD_STEPS = 100
 COORDINATOR_PATH = ("apex", ["replay.min_fill=2000", "eval_every_steps=0"],
                     4_000)
+
+
+#: Prometheus text-format line shapes (format 0.0.4), the rules the JAX
+#: package's tests/test_telemetry.py holds its exposition to: comments,
+#: and samples with optional labels and a float, Inf or NaN value.
+_SAMPLE_RE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"\\]*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"\\]*")*\})?'
+    r' [-+]?(\d+(\.\d+)?([eE][-+]?\d+)?|\+?Inf|NaN)$')
+_COMMENT_RE = re.compile(
+    r'^# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]*( .*)?$')
+
+#: Registry updates the Ape-X service makes per grad step on
+#: apex_service_pong's path (ratio 1, device plane, staged batches), from
+#: the code: counters: the grad-step and the ``train`` and
+#: ``replay_sample`` device-call counters, the plane's write-back rows,
+#: the store's sampled items, the stager's batches and bytes; gauges: the
+#: stager's occupancy at stage and at pop, and the store's max priority
+#: once per batched write-back (every ``prio_writeback_batch`` = 8 grad
+#: steps); histograms: the plane's draw seconds and the grad-step latency
+#: at retirement.
+SERVICE_UPDATES_PER_GRAD_STEP = {"counter": 7, "gauge": 2 + 1 / 8,
+                                 "histogram": 2}
+#: And per ingested step record: counters: env steps, the router's records,
+#: bytes and shard records, the actor-priority transitions, the store's
+#: added items; gauges: the store's size, occupancy and max priority at
+#: the insert; histogram: the slot ring's fan-in.
+SERVICE_UPDATES_PER_RECORD = {"counter": 6, "gauge": 3, "histogram": 1}
+TELEMETRY_UPDATES = 100_000
+
+
+class _PhaseTelemetry:
+    """The telemetry plane around one phase: a run manifest (its config
+    hash printed), the registry as it stood before the phase, and a
+    port-0 endpoint serving the process registry, scraped over HTTP by
+    :meth:`scrape` at the phase's end."""
+
+    def __init__(self, phase: str, cfg):
+        import torch
+
+        from dist_dqn_tpu_torch import telemetry
+
+        self.phase = phase
+        man = telemetry.build_manifest(cfg, argv=[sys.argv[0], phase],
+                                       extra={"device": {
+                                           "name": torch.cuda.get_device_name(
+                                               0),
+                                           "cuda": torch.version.cuda}})
+        telemetry.set_run_manifest(man)
+        self.config_hash = man["config_hash"]
+        print(json.dumps({"phase_manifest": phase,
+                          "config_hash": self.config_hash}), flush=True)
+        self.before = telemetry.get_registry().snapshot()
+        self.server = telemetry.start_server(0)
+
+    def _get(self, path: str) -> bytes:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{self.server.port}{path}",
+                timeout=30) as r:
+            return r.read()
+
+    def scrape(self) -> "_Scrape":
+        """One scrape of ``/metrics``, ``/metrics.json`` and
+        ``/debug/config``; fails the phase on an invalid exposition line
+        or a config hash other than the manifest's."""
+        try:
+            text = self._get("/metrics").decode()
+            after = json.loads(self._get("/metrics.json"))
+            config = json.loads(self._get("/debug/config"))
+        finally:
+            self.server.close()
+        bad = [ln for ln in text.strip().splitlines()
+               if not (_COMMENT_RE.match(ln) or _SAMPLE_RE.match(ln))]
+        if not text.endswith("\n") or bad:
+            _fail(f"{self.phase}: invalid exposition lines: {bad[:5]}")
+        if config.get("config_hash") != self.config_hash:
+            _fail(f"{self.phase}: /debug/config hash "
+                  f"{config.get('config_hash')}, manifest "
+                  f"{self.config_hash}")
+        samples = sum(1 for ln in text.splitlines()
+                      if ln and not ln.startswith("#"))
+        return _Scrape(self.phase, self.before, after, samples)
+
+
+class _Scrape:
+    """A phase's scrape: ``grew(key)`` is a series' growth over the phase
+    (its value for a gauge), ``sum_grew(prefix)`` over every series of a
+    family; ``hold`` compares them with the phase's own counts."""
+
+    def __init__(self, phase, before, after, samples):
+        self.phase, self.before, self.after = phase, before, after
+        self.samples = samples
+
+    def grew(self, key: str) -> float:
+        now = self.after.get(key)
+        if now is None:
+            _fail(f"{self.phase}: /metrics.json has no series {key}")
+        if now["type"] == "gauge":
+            return now["value"]
+        return now["value"] - self.before.get(key, {}).get("value", 0.0)
+
+    def sum_grew(self, family: str) -> float:
+        return sum(self.grew(k) for k in self.after
+                   if k == family or k.startswith(family + "{"))
+
+    def hold(self, pairs: dict) -> dict:
+        """``pairs``: series -> (scraped, the phase's own count). Prints
+        them and fails on any difference."""
+        held = {k: [float(got), float(want)]
+                for k, (got, want) in pairs.items()}
+        print(json.dumps({"telemetry_scrape": self.phase,
+                          "samples": self.samples, "held": held}),
+              flush=True)
+        off = {k: v for k, v in held.items() if v[0] != v[1]}
+        if off:
+            _fail(f"{self.phase}: scraped counters differ from the "
+                  f"phase's own counts: {off}")
+        return held
+
+
+def _logged_telemetry_port(phase: str, rows) -> int:
+    """The port a runtime logged for ``telemetry_port=0``."""
+    ports = [r["telemetry_port"] for r in rows if "telemetry_port" in r]
+    if len(ports) != 1 or ports[0] <= 0:
+        _fail(f"{phase}: the runtime logged telemetry ports {ports}")
+    return ports[0]
+
+
+def time_registry_updates(n: int = TELEMETRY_UPDATES) -> dict:
+    """Host microseconds per counter, gauge and histogram update of the
+    port's registry (``n`` of each on a fresh registry), and per grad
+    step of the service at SERVICE_UPDATES_PER_GRAD_STEP."""
+    from dist_dqn_tpu_torch.telemetry import Registry
+
+    reg = Registry()
+    c = reg.counter("dqn_bench_total", "bench")
+    g = reg.gauge("dqn_bench", "bench")
+    h = reg.histogram("dqn_bench_seconds", "bench")
+    us = {}
+    for kind, fn in (("counter", c.inc), ("gauge", lambda: g.set(1.5)),
+                     ("histogram", lambda: h.observe(0.003))):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us[kind] = (time.perf_counter() - t0) / n * 1e6
+    if c.value != n or h.count != n:
+        _fail(f"registry timing: {c.value} counts, {h.count} observations")
+    return {"updates_each": n, "us_per_update": us,
+            "updates_per_service_grad_step": SERVICE_UPDATES_PER_GRAD_STEP,
+            "us_per_service_grad_step": sum(
+                SERVICE_UPDATES_PER_GRAD_STEP[k] * us[k] for k in us),
+            "updates_per_service_record": SERVICE_UPDATES_PER_RECORD,
+            "us_per_service_record": sum(
+                SERVICE_UPDATES_PER_RECORD[k] * us[k] for k in us)}
 
 
 def _fail(msg: str) -> None:
@@ -1006,6 +1182,27 @@ class _FlushWatch:
         return bool(torch.stack(self.changed).all()) if self.changed else False
 
 
+def _hold_fused_scrape(tm, logged, carry, history, launches: int) -> None:
+    """apex's scrape: the grad and env steps its rows count, its device
+    ring's size and capacity, and one sampler launch per grad step."""
+    _logged_telemetry_port(tm.phase, logged)
+    scrape = tm.scrape()
+    ring = carry.replay.ring
+    slots, lanes = ring.action.shape[-2:]
+    grad_steps = sum(r["grad_steps_in_chunk"] for r in history)
+    scrape.hold({
+        "dqn_grad_steps_total": (scrape.grew("dqn_grad_steps_total"),
+                                 grad_steps),
+        "dqn_env_steps_total": (scrape.grew("dqn_env_steps_total"),
+                                history[-1]["env_frames"]),
+        "dqn_replay_size{store=device}": (
+            scrape.grew("dqn_replay_size{store=device}"), ring.size * lanes),
+        "dqn_replay_capacity{store=device}": (
+            scrape.grew("dqn_replay_capacity{store=device}"), slots * lanes),
+        "sampler_launches_per_grad_step": (launches / max(grad_steps, 1),
+                                           1.0)})
+
+
 def drive_main_path(cfg, total_env_steps: int, chunk_iters: int,
                     stop_fn=None, logged=None, **checkpoint):
     """One config through the port's train() on the card. ``checkpoint``
@@ -1426,10 +1623,35 @@ def check_host_replay_apex_dedup(sampler) -> int:
     cfg = apply_overrides(CONFIGS[preset], overrides)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    tm = _PhaseTelemetry("host_replay_apex_dedup", cfg)
+    logged = []
     sampler.kernel_stratified_sample.launches = 0
-    out, wall = _drive_host_replay(cfg, total, chunk_iters,
-                                   prioritized=True, device_sampling=True)
+    out, wall = _drive_host_replay(cfg, total, chunk_iters, logged=logged,
+                                   prioritized=True, device_sampling=True,
+                                   telemetry_port=0)
     launches = sampler.kernel_stratified_sample.launches
+    _logged_telemetry_port(tm.phase, logged)
+    scrape = tm.scrape()
+    ring_key = "{store=host_ring}"
+    scrape.hold({
+        "dqn_replay_size" + ring_key: (
+            scrape.grew("dqn_replay_size" + ring_key),
+            out["history"][-1]["ring_transitions"]),
+        "dqn_replay_added_total" + ring_key: (
+            scrape.grew("dqn_replay_added_total" + ring_key),
+            out["env_steps"]),
+        "dqn_replay_sampled_total" + ring_key: (
+            scrape.grew("dqn_replay_sampled_total" + ring_key),
+            (out["grad_steps"] + out["stale_batches"]) * out["train_batch"]),
+        "dqn_host_replay_d2h_bytes_total{loop=host_replay}": (
+            scrape.grew("dqn_host_replay_d2h_bytes_total{loop=host_replay}"),
+            out["d2h_bytes_total"]),
+        "dqn_host_replay_prio_writeback_rows_total{loop=host_replay}": (
+            scrape.grew("dqn_host_replay_prio_writeback_rows_total"
+                        "{loop=host_replay}"), out["prio_writeback_rows"]),
+        "sampler_launches_per_grad_step": (
+            launches / max(out["grad_steps"] + out["stale_batches"], 1),
+            1.0)})
     history = out["history"]
     losses = [r["loss"] for r in history if "loss" in r]
     training = [r for r in history if "loss" in r]
@@ -1498,14 +1720,41 @@ def check_apex_service_pong(sampler, directory: str) -> int:
                            envs_per_actor=lanes, total_env_steps=total,
                            device_sampling=True, checkpoint_dir=ckpt_dir,
                            save_every_steps=total,
-                           profile_dir=os.path.join(directory, "profile"))
+                           profile_dir=os.path.join(directory, "profile"),
+                           telemetry_port=0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    service = ApexLearnerService(cfg, rt, log_fn=lambda line: print(
-        line, flush=True), device=DEVICE)
+    tm = _PhaseTelemetry("apex_service_pong", cfg)
+    logged = []
+
+    def log(line):
+        print(line, flush=True)
+        if line.startswith('{"telemetry_port"'):
+            logged.append(json.loads(line))
+
+    service = ApexLearnerService(cfg, rt, log_fn=log, device=DEVICE)
     sampler.kernel_stratified_sample.launches = 0
     out = service.run()
     launches = sampler.kernel_stratified_sample.launches
+    _logged_telemetry_port(tm.phase, logged)
+    scrape = tm.scrape()
+    scrape.hold({
+        "dqn_env_steps_total": (scrape.grew("dqn_env_steps_total"),
+                                out["env_steps"]),
+        "dqn_grad_steps_total": (scrape.grew("dqn_grad_steps_total"),
+                                 out["grad_steps"]),
+        "dqn_ingest_records_total": (
+            scrape.sum_grew("dqn_ingest_records_total"),
+            sum(out["records_by_shard"].values())),
+        "dqn_service_device_calls_total{call=train}": (
+            scrape.grew("dqn_service_device_calls_total{call=train}"),
+            out["device_calls"]["train"]),
+        "dqn_replay_size{store=host}": (
+            scrape.grew("dqn_replay_size{store=host}"), out["replay_size"]),
+        "sampler_launches_per_grad_step": (
+            launches / max(out["grad_steps"], 1), 1.0)})
+    overhead = time_registry_updates()
+    print(json.dumps({"telemetry_overhead": overhead}), flush=True)
     profile = service.profile_row or {}
     t_fill = out["run_s"] - out["train_s"]
     row = {"main_path": "apex_service_pong",
@@ -2467,6 +2716,9 @@ def check_serving_apex(sampler, directory: str) -> int:
         _fail(f"serving_apex: shedding: {out['shedding']} ({statuses})")
 
     # -- timings at max_wait 2 ms: a lone request, then closed loops --------
+    # The scrape's window: the lone requests and both closed loops.
+    tm = _PhaseTelemetry("serving_apex", cfg)
+    served = 0
     clients, seconds = SERVING_CLOSED_LOOP
     for batching in (True, False):
         server = build_server(cfg, {"default": directory}, device=DEVICE,
@@ -2490,14 +2742,19 @@ def check_serving_apex(sampler, directory: str) -> int:
                     "max_wait_ms": SERVING_WAIT_MS,
                     "p50": float(np.percentile(lone, 50)),
                     "p99": float(np.percentile(lone, 99))}
+                served += SERVING_LONE_REQUESTS
             arm = _closed_loop(server.address, obs[:1], clients, seconds,
                                registry)
+            served += arm["requests"]
         finally:
             server.close()
         out["closed_loop_batching" if batching
             else "closed_loop_no_batching"] = arm
         if arm["errors"] or not arm["requests"]:
             _fail(f"serving_apex: closed loop (batching={batching}): {arm}")
+    key = "dqn_serving_requests_total{policy=default}"
+    scrape = tm.scrape()
+    scrape.hold({key: (scrape.grew(key), served)})
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     out["peak_device_gb"] = peak / 1e9
@@ -2508,7 +2765,8 @@ def check_serving_apex(sampler, directory: str) -> int:
     t_cli = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "dist_dqn_tpu_torch.serving", "--config",
-         "apex", "--checkpoint-dir", directory, "--port", "0"],
+         "apex", "--checkpoint-dir", directory, "--port", "0",
+         "--telemetry-port", "0"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     cli, lines = {}, []
@@ -2525,6 +2783,8 @@ def check_serving_apex(sampler, directory: str) -> int:
                 continue
             if "serving_warmup_buckets" in row:
                 cli["warmup"] = row
+            if "telemetry_port" in row:
+                cli["telemetry_port"] = row["telemetry_port"]
             if "serving_port" in row:
                 cli["port"] = row["serving_port"]
                 cli["announced_s"] = time.perf_counter() - t_cli
@@ -2540,6 +2800,13 @@ def check_serving_apex(sampler, directory: str) -> int:
             status, text = c._get("/metrics")
         finally:
             c.close()
+        # The CLI's own telemetry endpoint serves the same registry.
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{cli.get('telemetry_port')}/metrics",
+                timeout=30) as r:
+            cli["telemetry_endpoint_requests"] = [
+                ln for ln in r.read().decode().splitlines()
+                if ln.startswith("dqn_serving_requests_total")]
         samples = [ln for ln in text.decode().splitlines()
                    if ln and not ln.startswith("#")]
         for ln in samples:
@@ -2562,7 +2829,9 @@ def check_serving_apex(sampler, directory: str) -> int:
     out["cli"] = cli
     if (cli["rc"] != 0 or not cli["drained"] or not cli["answered"]
             or cli["healthz"] != 200 or cli["metrics_status"] != 200
-            or not cli["metrics_requests"]):
+            or not cli["metrics_requests"]
+            or cli["telemetry_endpoint_requests"]
+            != ['dqn_serving_requests_total{policy="default"} 1']):
         _fail(f"serving_apex: the CLI: {cli} {rest[-2000:]}")
 
     launches = sampler.kernel_stratified_sample.launches
@@ -3849,13 +4118,20 @@ def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         logged = []
+        tm = None
+        if name == "apex":
+            tm = _PhaseTelemetry(name, cfg)
+            checkpoint["telemetry_port"] = 0
         sampler.kernel_stratified_sample.launches = 0
         with _FlushWatch() as flushes:
             carry, history, wall = drive_main_path(
                 cfg, total_env_steps, chunk_iters, logged=logged,
                 **checkpoint)
         launches[name] = sampler.kernel_stratified_sample.launches
+        checkpoint.pop("telemetry_port", None)
         outputs = check_outputs(name, cfg, carry, history, launches[name])
+        if tm is not None:
+            _hold_fused_scrape(tm, logged, carry, history, launches[name])
         if cfg.replay.prioritized and cfg.replay.updates_per_chunk > 1:
             # One last-wins flush per train event, each landing new values.
             outputs["priority_flushes"] = len(flushes.changed)

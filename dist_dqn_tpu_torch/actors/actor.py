@@ -11,9 +11,13 @@ codec, through the shared request ring, and reads its act mailbox.
 :func:`run_remote_actor` (another host) speaks the same records over TCP in
 lock-step, reconnecting with a fresh hello when the connection drops.
 
-The JAX module's telemetry, heartbeats and chaos seams are not ported
-(ROADMAP.md A10). This module imports numpy and no torch: the service starts
-actors with the ``spawn`` method, and an actor never initialises CUDA.
+Each actor process keeps its own telemetry registry (a wall-clock
+heartbeat gauge, its env steps and, remote, its connects) and dumps it at
+exit or SIGTERM where ``DQN_TELEMETRY_SNAPSHOT`` names a file (``{pid}`` and
+``{tag}`` expand per process). The watchdog's stage heartbeats and the chaos
+seams are not ported (ROADMAP.md A10c, A10d). This module imports numpy and
+no torch: the service starts actors with the ``spawn`` method, and an actor
+never initialises CUDA.
 """
 from __future__ import annotations
 
@@ -28,6 +32,23 @@ from dist_dqn_tpu_torch.actors.transport import (CORRUPT_FRAME_NACK_KIND,
                                                  ShmMailbox, ShmRing,
                                                  decode_arrays, encode_arrays)
 from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
+from dist_dqn_tpu_torch.telemetry import (get_registry,
+                                          maybe_install_snapshot_from_env)
+
+
+def _actor_telemetry(actor_id: int, tag: str):
+    """Per-process liveness instruments (JAX ``actors/actor.py:32-56``): a
+    wall-clock heartbeat gauge and the steps counter. Actors are separate
+    processes, so the registry is process-local; ``DQN_TELEMETRY_SNAPSHOT``
+    dumps it on exit (SIGTERM included), which is how a post-mortem tells
+    a wedged actor (stale heartbeat) from a dead one."""
+    reg = get_registry()
+    maybe_install_snapshot_from_env(tag=f"{tag}{actor_id}")
+    labels = {"actor": str(actor_id)}
+    return (reg.gauge("dqn_actor_heartbeat_timestamp",
+                      "unix time of the last step-loop pass", labels),
+            reg.counter("dqn_actor_env_steps_total",
+                        "env steps taken by this actor process", labels))
 
 
 def _step_and_encode(env, actions, actor_id: int, t: int,
@@ -131,6 +152,7 @@ def run_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
         payload = encode_arrays({"obs": obs},
                                 _hello_meta(actor_id, t, transport))
     box = ShmMailbox(act_box)
+    heartbeat, steps_total = _actor_telemetry(actor_id, "actor")
     steps = 0
     params_ver = 0
     try:
@@ -158,6 +180,8 @@ def run_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
                 obs, t, payload = _step_and_encode(env, arrays["action"],
                                                    actor_id, t)
             steps += num_envs
+            steps_total.inc(num_envs)
+            heartbeat.set(time.time())
             while not ring.push(payload):
                 if os.path.exists(stop_path):
                     return
@@ -214,6 +238,11 @@ def run_remote_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
             compress="auto"))
         return client
 
+    heartbeat, steps_total = _actor_telemetry(actor_id, "remote")
+    reconnects = get_registry().counter(
+        "dqn_actor_reconnects_total",
+        "remote-actor connection (re)establishments",
+        labels={"actor": str(actor_id)})
     obs = env.reset()
     t = 0
     shard = 0
@@ -236,6 +265,7 @@ def run_remote_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
             try:
                 client = connect_and_hello(obs, t)
                 failures = 0
+                reconnects.inc()
             except OSError:
                 failures += 1
                 backoff = min(reconnect_backoff_s
@@ -276,6 +306,8 @@ def run_remote_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
             obs, t, payload = _step_and_encode(env, actions, actor_id, t,
                                                compress="auto")
         steps += num_envs
+        steps_total.inc(num_envs)
+        heartbeat.set(time.time())
         if not client.push(payload):
             client.close()
             client = None

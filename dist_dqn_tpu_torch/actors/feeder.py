@@ -16,8 +16,13 @@ service spawn :func:`run_feeder` in place of ``actors/actor.py run_actor``;
 ``make_host_env`` serves the same names (:class:`FeederSpecEnv`), so the
 service's env probe and evaluation work unchanged.
 
-The JAX module's registry counters, watchdog heartbeat and chaos seams are
-not ported (ROADMAP.md A10). This module imports numpy and no torch.
+Each feeder process counts the records it pushed and the pushes a full ring
+refused (``dqn_feeder_records_total``, ``dqn_feeder_ring_full_total``: the
+service-is-the-bottleneck signal this load generator exists to measure)
+in its own registry, and dumps it at exit or SIGTERM where
+``DQN_TELEMETRY_SNAPSHOT`` names a file. The heartbeat gauge, watchdog
+heartbeat and chaos seams are not ported (ROADMAP.md A10c, A10d). This
+module imports numpy and no torch.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from typing import Tuple
 import numpy as np
 
 from dist_dqn_tpu_torch import ingest
+from dist_dqn_tpu_torch.telemetry import (get_registry,
+                                          maybe_install_snapshot_from_env)
 from dist_dqn_tpu_torch.actors.transport import (ShmMailbox, ShmRing,
                                                  encode_arrays)
 
@@ -153,8 +160,16 @@ def run_feeder(actor_id: int, spec: str, num_envs: int, seed: int,
     ring = (ingest.ShmSlotRing(f"{req_ring}_zc_{actor_id}")
             if transport == "zerocopy" else ShmRing(req_ring))
     box = ShmMailbox(act_box)
+    reg = get_registry()
+    maybe_install_snapshot_from_env(tag=f"feeder{actor_id}")
+    labels = {"actor": str(actor_id)}
+    c_records = reg.counter("dqn_feeder_records_total",
+                            "records pushed into the shm ring", labels)
+    c_full = reg.counter("dqn_feeder_ring_full_total",
+                         "push attempts refused by a full ring", labels)
     steps = 0
     i = 0
+    last_mark = 0
     stop = False
     try:
         while not ring.push(hello):
@@ -170,7 +185,6 @@ def run_feeder(actor_id: int, spec: str, num_envs: int, seed: int,
                 break
             time.sleep(0.001)
         batching = shm_batch > 1 and transport == "zerocopy"
-        last_mark = 0
         while steps < max_env_steps and not stop:
             if batching:
                 pushed = ring.push_batch([pool[(i + k) % POOL_RECORDS]
@@ -181,17 +195,21 @@ def run_feeder(actor_id: int, spec: str, num_envs: int, seed: int,
                 n = shm_batch if batching else 1
                 i += n
                 steps += num_envs * n
-                # The stop file is checked every 256 records, off the hot
-                # path (a batched push may step over any single value).
+                # The stop file is checked, and the records counter
+                # advanced, every 256 records, off the hot path (a batched
+                # push may step over any single value).
                 if i - last_mark >= 256:
                     stop = os.path.exists(stop_path)
+                    c_records.inc(i - last_mark)
                     last_mark = i
             else:
                 # Ring full: the service is the bottleneck, which is what
                 # a feeder run measures. Yield briefly and retry.
+                c_full.inc()
                 time.sleep(0.0005)
                 stop = os.path.exists(stop_path)
     finally:
+        c_records.inc(i - last_mark)       # the tail since the last mark
         # The slot ring holds numpy views of the mapping: release them
         # before interpreter teardown.
         if hasattr(ring, "close"):

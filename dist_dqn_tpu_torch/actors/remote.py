@@ -13,16 +13,20 @@ num_actors + num_remote_actors)`` of the service's id space. Workers are
 stateless: on a dropped connection they reconnect and introduce themselves
 again, so killing and restarting one costs at most one assembly window.
 
-This module imports numpy and no torch. The JAX entry's
-``--telemetry-port``, ``--fleet-dir`` and ``--forensics-dir`` are refused
-(ROADMAP.md A10).
+``--telemetry-port P`` serves the worker's telemetry registry (its env
+steps and connects) at ``/metrics`` (0: an ephemeral port, printed as
+``{"telemetry_port": N}``). This module imports numpy and no torch. The JAX
+entry's ``--fleet-dir`` and ``--forensics-dir`` are refused (ROADMAP.md
+A10c).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import tempfile
 
+from dist_dqn_tpu_torch import telemetry
 from dist_dqn_tpu_torch.actors.actor import run_remote_actor
 
 
@@ -50,18 +54,24 @@ def main(argv=None) -> None:
     parser.add_argument("--no-wire-dedup", action="store_true",
                         help="ship full frame stacks on frame-stacked "
                              "pixel envs instead of each frame once")
+    parser.add_argument("--telemetry-port", type=int, default=None,
+                        help="serve this worker's /metrics (Prometheus "
+                             "text) on this port; 0 = ephemeral. Worker "
+                             "hosts are scraped independently of the "
+                             "learner (docs/observability.md)")
     # Flags of the JAX entry that are not ported: refused, never ignored.
-    parser.add_argument("--telemetry-port", type=int, default=None)
     parser.add_argument("--fleet-dir", default=None)
     parser.add_argument("--forensics-dir", default=None)
     args = parser.parse_args(argv)
     refused = [flag for flag, given in (
-        ("--telemetry-port", args.telemetry_port is not None),
         ("--fleet-dir", args.fleet_dir is not None),
         ("--forensics-dir", args.forensics_dir is not None)) if given]
     if refused:
         raise SystemExit(f"not ported yet: {', '.join(refused)} "
-                         "(ROADMAP.md A10)")
+                         "(ROADMAP.md A10c)")
+    server = telemetry.serve_if_asked(
+        args.telemetry_port, "127.0.0.1",
+        functools.partial(print, flush=True))
     host, port = args.address.rsplit(":", 1)
     seed = args.seed if args.seed is not None else 1000 + 7 * args.actor_id
     run_remote_actor(args.actor_id, args.env, args.num_envs, seed,
@@ -70,6 +80,8 @@ def main(argv=None) -> None:
                      max_consecutive_failures=args.max_reconnect_failures,
                      transport=args.transport,
                      dedup=not args.no_wire_dedup)
+    if server is not None:
+        server.close()
 
 
 if __name__ == "__main__":

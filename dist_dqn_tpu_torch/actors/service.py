@@ -47,8 +47,13 @@ The distributed paths:
     the collective step of ``actors/multihost.py``; rank 0 alone logs,
     saves the learner and evaluates, in a thread of its own.
 
-Tracing and telemetry (ROADMAP.md A10) raise "not ported yet" naming their
-item.
+The loop records the JAX service's telemetry families into the process
+registry (:meth:`ApexLearnerService._init_telemetry`), logs its rows
+through ``utils/metrics.py MetricLogger`` (mirrored into the registry),
+and with ``telemetry_port`` serves them at ``/metrics``. Every update is
+host arithmetic on values the loop already holds. The host-loop trace
+(``trace_path``) and the chip-time plane raise "not ported yet" naming
+ROADMAP.md A10b.
 """
 from __future__ import annotations
 
@@ -77,7 +82,10 @@ from dist_dqn_tpu_torch.actors.transport import (ShmMailbox, ShmRing,
                                                  shm_dir)
 from dist_dqn_tpu_torch.config import ExperimentConfig
 from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
+from dist_dqn_tpu_torch.telemetry import collectors as tmc
+from dist_dqn_tpu_torch.telemetry import get_registry, serve_if_asked
 from dist_dqn_tpu_torch.utils.device import resolve_device
+from dist_dqn_tpu_torch.utils.metrics import MetricLogger
 
 # The learner-side bootstrap takes up to _PRIO_MAX_ROWS pending transitions
 # per dispatch, padded to one of two row buckets: _PRIO_CHUNK (a few rows
@@ -96,8 +104,8 @@ LOOP_PARTS = ("drain", "act", "bootstrap", "train", "trace", "idle")
 @dataclasses.dataclass
 class ApexRuntimeConfig:
     """Host-side knobs of the actor/learner split: every field and default
-    of the JAX package's. The fields of options the port leaves out
-    (tracing and telemetry) are refused by :class:`ApexLearnerService`
+    of the JAX package's. The field of the option the port leaves out
+    (tracing, ``trace_path``) is refused by :class:`ApexLearnerService`
     when set."""
 
     host_env: str = "CartPole-v1"   # host env actors step (ale:<Game> for ALE)
@@ -172,7 +180,9 @@ class ApexRuntimeConfig:
     # Replay shards: > 1 splits the store, each actor's stream landing in
     # its sticky shard.
     ingest_shards: int = 1
-    # Prometheus endpoint (not ported yet).
+    # Prometheus scrape endpoint (telemetry/server.py): serve the process
+    # registry on this port; 0 binds an ephemeral port (logged as
+    # telemetry_port). None disables.
     telemetry_port: Optional[int] = None
     telemetry_host: str = "127.0.0.1"
     # torch.profiler trace of the first train event into this directory.
@@ -233,9 +243,7 @@ def _refuse(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn) -> None:
                          f"(expected 'zerocopy' or 'legacy')")
     # What the port leaves out.
     if rt.trace_path is not None:
-        raise _not_ported("the host-loop trace (trace_path)", "A10")
-    if rt.telemetry_port is not None:
-        raise _not_ported("the telemetry endpoint (telemetry_port)", "A10")
+        raise _not_ported("the host-loop trace (trace_path)", "A10b")
 
 
 def _spawn_process(target, args, kwargs):
@@ -256,45 +264,6 @@ def _spawn_process(target, args, kwargs):
     finally:
         sys.modules["__main__"] = main
     return p
-
-
-class _RateLogger:
-    """The JAX service's log rows: windowed env and grad step rates plus
-    the extras recorded since the last flush, one JSON line per flush."""
-
-    def __init__(self, log_fn, window_s: float = 30.0):
-        self.log_fn = log_fn
-        self.window_s = window_s
-        self._events = {"env": [], "grad": []}
-        self._extra: Dict[str, object] = {}
-
-    def _rate(self, key: str, now: float) -> float:
-        ev = self._events[key]
-        if len(ev) < 2 or now - ev[-1][0] >= self.window_s:
-            return 0.0
-        (t0, c0), (t1, c1) = ev[0], ev[-1]
-        return (c1 - c0) / max(t1 - t0, 1e-9)
-
-    def record(self, env_steps=None, grad_steps=None, **extra) -> None:
-        now = time.perf_counter()
-        for key, count in (("env", env_steps), ("grad", grad_steps)):
-            if count is None:
-                continue
-            ev = self._events[key]
-            ev.append((now, count))
-            while len(ev) > 2 and ev[0][0] < now - self.window_s:
-                ev.pop(0)
-        self._extra.update(extra)
-
-    def flush(self) -> dict:
-        now = time.perf_counter()
-        row = {"env_steps_per_sec_per_chip": round(self._rate("env", now), 2),
-               "grad_steps_per_sec": round(self._rate("grad", now), 2)}
-        row.update({k: (round(v, 4) if isinstance(v, float) else v)
-                    for k, v in self._extra.items()})
-        self._extra.clear()
-        self.log_fn(json.dumps(row))
-        return row
 
 
 class _HostCopy:
@@ -404,7 +373,7 @@ class ApexLearnerService:
         self.device = resolve_device(device)
         self.cfg, self.rt = cfg, rt
         self.run_id = uuid.uuid4().hex[:8]
-        self.log = _RateLogger(log_fn)
+        self.log = MetricLogger(log_fn=log_fn)
         # Actor ids: [0, num_actors) local (shared memory), [num_actors,
         # total_actors) remote (TCP).
         self.total_actors = rt.num_actors + rt.num_remote_actors
@@ -420,6 +389,7 @@ class ApexLearnerService:
         self._learners = None
         self._shard_sampler = None
         self._clean_exit = False
+        self.telemetry_server = None
 
         # Multi-host: a process group of more than one rank (--coordinator)
         # makes every process a host with its own service, actors and
@@ -430,7 +400,7 @@ class ApexLearnerService:
         if self.distributed:
             from dist_dqn_tpu_torch.parallel.distributed import \
                 main_process_log
-            self.log = _RateLogger(main_process_log(log_fn))
+            self.log = MetricLogger(log_fn=main_process_log(log_fn))
         # Several learner ranks: batches shard over them, gradients are
         # averaged across them, the learner is replicated.
         from dist_dqn_tpu_torch.actors.learner_ranks import (
@@ -507,6 +477,9 @@ class ApexLearnerService:
 
         try:
             self._build(log_fn, obs_example, axis, slot)
+            # Every process of a multi-host group binds its own.
+            self.telemetry_server = serve_if_asked(
+                rt.telemetry_port, rt.telemetry_host, log_fn)
         except BaseException:
             self.shutdown()
             raise
@@ -655,6 +628,7 @@ class ApexLearnerService:
             from dist_dqn_tpu_torch.replay.sharded import ShardSampleService
             self._shard_sampler = ShardSampleService(
                 self.replay, depth=max(rt.pipeline_depth, 1))
+        self._init_telemetry()
         # The Ape-X epsilon ladder: eps_i = base ** (1 + i/(N-1) alpha).
         n_act = max(self.total_actors - 1, 1)
         self.actor_eps = np.array([
@@ -724,7 +698,8 @@ class ApexLearnerService:
             from dist_dqn_tpu_torch.replay.staging import \
                 DoubleBufferedStager
             self._stager = DoubleBufferedStager(depth=rt.stage_depth,
-                                                device=self.device)
+                                                device=self.device,
+                                                name="apex_service")
         if rt.checkpoint_dir:
             self._restore_learner()
         if self._learners is not None:
@@ -762,6 +737,150 @@ class ApexLearnerService:
                                               port=rt.tcp_port or 0)
             self.tcp_address = self.tcp_server.address
             log_fn(json.dumps({"tcp_address": list(self.tcp_address)}))
+
+    def _init_telemetry(self) -> None:
+        """Registry instruments of the service loop (JAX
+        ``actors/service.py:747-860``): pipeline queue depths, throughput
+        counters, and the grad-step latency and param-mirror staleness
+        histograms that localize a learner-utilization drop. The
+        chip-time plane's program table is ROADMAP.md A10b."""
+        reg = get_registry()
+        self._tm_env_steps = reg.counter(
+            tmc.ENV_STEPS, "env transitions ingested from actors")
+        self._tm_grad_steps = reg.counter(
+            tmc.GRAD_STEPS, "learner train steps dispatched")
+        self._tm_grad_latency = reg.histogram(
+            tmc.GRAD_LATENCY,
+            "train-step dispatch -> priority materialization")
+        self._tm_param_staleness = reg.histogram(
+            tmc.PARAM_STALENESS,
+            "age of the host param mirror at each refresh")
+        self._tm_act_queue = reg.gauge(
+            "dqn_service_act_queue_requests",
+            "actor act requests awaiting the batched device call")
+        self._tm_pending = reg.gauge(
+            "dqn_service_pending_transitions",
+            "assembled transitions awaiting priority bootstrap dispatch")
+        self._tm_boot_inflight = reg.gauge(
+            "dqn_service_bootstrap_inflight",
+            "priority-bootstrap chunks dispatched, not yet inserted")
+        self._tm_train_inflight = reg.gauge(
+            "dqn_service_train_inflight",
+            "pipelined train steps awaiting priority write-back")
+        # Experience-lineage staleness: every sampled batch ages its
+        # records' lineage stamps into the shared families.
+        self._tm_sample_age, self._tm_sample_staleness = \
+            tmc.lineage_histograms("apex")
+        # Dispatch accounting: one counter series per dispatched-program
+        # kind, cached on first use.
+        self._tm_device_calls: Dict[str, object] = {}
+        self._tm_fanin = reg.histogram(
+            tmc.DISPATCH_FANIN,
+            "obs rows per batched act/fused dispatch",
+            buckets=tmc.FANIN_BUCKETS)
+        self._tm_ingest_passes = reg.counter(
+            tmc.INGEST_PASSES,
+            "drain bursts that ingested at least one actor record")
+        self._tm_prio_pending = reg.gauge(
+            tmc.PRIO_WRITEBACK_PENDING,
+            "train steps accumulated toward the next batched priority "
+            "write-back")
+        self._tm_bad_records = reg.counter(
+            "dqn_service_bad_records_total",
+            "malformed/misrouted records rejected at the TCP boundary")
+        self._tm_actor_prio = reg.counter(
+            tmc.INGEST_ACTOR_PRIO_TRANSITIONS,
+            "transitions inserted with actor-shipped |TD| priorities "
+            "(zero learner-side bootstrap dispatches)")
+        # The frame-dedup plane: swept from the decoders' plain-int
+        # counters on the log cadence (no registry calls on the decode
+        # path).
+        self._tm_dedup_frames = reg.counter(
+            tmc.INGEST_DEDUP_FRAMES_REUSED,
+            "frame-stack slots served by dedup back-references instead "
+            "of wire bytes")
+        self._tm_dedup_bytes = reg.counter(
+            tmc.INGEST_DEDUP_BYTES_SAVED,
+            "wire bytes the dedup plane avoided vs the undeduped "
+            "zero-copy layout")
+        self._dedup_swept = (0, 0)
+        self._tm_ring_dropped = reg.gauge(
+            "dqn_transport_ring_dropped",
+            "records the shm ring dropped (producer overrun)")
+        self._tm_ring_pending = reg.gauge(
+            "dqn_transport_ring_pending_bytes",
+            "bytes queued in the shm ring awaiting drain")
+        self._tm_record_age = reg.gauge(
+            "dqn_ingest_last_record_age_seconds",
+            "seconds since the last valid actor record")
+        self._tm_stalls = reg.counter(
+            "dqn_ingest_stalls_total", "watchdog-detected ingest stalls")
+        self._tm_actor_restarts = reg.counter(
+            "dqn_actor_restarts_total",
+            "dead actor processes restarted by supervision")
+        self._tm_degraded = reg.gauge(
+            tmc.INGEST_DEGRADED,
+            "1 while supervision sees at least half the actor fleet "
+            "dead (degraded, not wedged)")
+        self._degraded = False
+        self._tm_actor_alive: Dict[int, object] = {}
+        self._tm_episodes = reg.counter(
+            "dqn_episodes_completed_total", "training episodes finished")
+        # The learner-utilization config surface: which replay ratio /
+        # batch width / actor dtype shaped this learner's rate.
+        _ll = {"loop": "apex"}
+        reg.gauge(tmc.LEARNER_REPLAY_RATIO,
+                  "grad sub-steps per scanned train dispatch",
+                  _ll).set(self.replay_ratio)
+        reg.gauge(tmc.LEARNER_TRAIN_BATCH,
+                  "effective (bucketed) train batch width",
+                  _ll).set(self.train_batch)
+        reg.gauge(tmc.LEARNER_ACTOR_DTYPE_INFO,
+                  "1 for the active actor inference dtype",
+                  {**_ll, "dtype": self.actor_dtype}).set(1)
+        # Checkpoint/resume: replay-snapshot save wall + bytes; resumes
+        # count at the restore site.
+        self._tm_ckpt_save = reg.histogram(
+            tmc.CHECKPOINT_SAVE_SECONDS,
+            "replay-snapshot save wall (flushes + npz write)", _ll)
+        self._tm_ckpt_bytes = reg.counter(
+            tmc.CHECKPOINT_BYTES,
+            "checkpoint bytes written (replay snapshot)", _ll)
+        reg.gauge(tmc.CHECKPOINT_SHARDS_SAVED,
+                  "replay shards carried by each snapshot",
+                  _ll).set(getattr(self.replay, "num_shards", 1))
+        # None until the FIRST mirror exists: construction -> first
+        # refresh is not mirror staleness.
+        self._last_param_refresh = None
+
+    def _dedup_totals(self):
+        """(frames_reused, bytes_saved) summed over every LIVE dedup
+        decoder plus the retired accumulator (a re-hello replaces an
+        actor's decoder with zeroed counters, and its totals fold into
+        ``_dedup_retired`` first), so the sum stays monotone."""
+        frames, saved = self._dedup_retired
+        for dec in self._decoders.values():
+            frames += getattr(dec, "frames_reused", 0)
+            saved += getattr(dec, "bytes_saved", 0)
+        return frames, saved
+
+    def _sweep_dedup_counters(self) -> None:
+        frames, saved = self._dedup_totals()
+        seen_f, seen_b = self._dedup_swept
+        if frames > seen_f:
+            self._tm_dedup_frames.inc(frames - seen_f)
+        if saved > seen_b:
+            self._tm_dedup_bytes.inc(saved - seen_b)
+        self._dedup_swept = (frames, saved)
+
+    def _actor_alive_gauge(self, actor_id: int):
+        g = self._tm_actor_alive.get(actor_id)
+        if g is None:
+            g = get_registry().gauge(
+                "dqn_actor_alive", "1 while the actor process is alive",
+                labels={"actor": str(actor_id)})
+            self._tm_actor_alive[actor_id] = g
+        return g
 
     # -- learner state and checkpoints --------------------------------------
     @property
@@ -828,6 +947,12 @@ class ApexLearnerService:
         the last burst."""
         if not self.distributed:
             return
+        # Param-broadcast staleness: how old the previous mirror got
+        # before this refresh replaced it.
+        now = time.perf_counter()
+        if self._last_param_refresh is not None:
+            self._tm_param_staleness.observe(now - self._last_param_refresh)
+        self._last_param_refresh = now
         live = (self.state.net,
                 self.state.target_net if self._prio_fn is not None else None)
         if self._host_params is None:
@@ -880,6 +1005,8 @@ class ApexLearnerService:
         t0 = time.perf_counter()
         atomic_savez(path, **self.replay.state_dict())
         wall = time.perf_counter() - t0
+        self._tm_ckpt_save.observe(wall)
+        self._tm_ckpt_bytes.inc(os.path.getsize(path))
         self.log.log_fn(json.dumps({
             "replay_snapshot_s": round(wall, 3),
             "replay_snapshot_mb": round(os.path.getsize(path) / 2**20, 1),
@@ -900,6 +1027,10 @@ class ApexLearnerService:
         t0 = time.perf_counter()
         with np.load(path) as state:
             info = restore_replay_snapshot(self.replay, dict(state))
+        get_registry().counter(
+            tmc.CHECKPOINT_RESUMES,
+            "successful whole-state resumes",
+            {"loop": "apex"}).inc()
         self.replay_snapshot = {
             "replay_snapshot_restored_items": len(self.replay),
             "replay_snapshot_restore_s":
@@ -953,11 +1084,31 @@ class ApexLearnerService:
 
     def supervise_actors(self) -> None:
         """Restart dead actors: they are stateless, and a restarted one's
-        hello resets its assembly lanes and recurrent carry."""
+        hello resets its assembly lanes and recurrent carry. Half the
+        fleet dead at once is a degradation, not one death: it sets
+        ``dqn_ingest_degraded`` and logs one line per episode of it, as
+        the JAX service does."""
+        dead = 0
         for actor_id, p in list(self.procs.items()):
-            if not p.is_alive():
+            alive = p.is_alive()
+            self._actor_alive_gauge(actor_id).set(float(alive))
+            if not alive:
+                dead += 1
                 self.actor_restarts += 1
+                self._tm_actor_restarts.inc()
                 self.procs[actor_id] = self._spawn_one(actor_id)
+        fleet = max(len(self.procs), 1)
+        decimated = fleet > 1 and dead * 2 >= fleet
+        self._tm_degraded.set(float(decimated))
+        if decimated and not self._degraded:
+            self._degraded = True
+            self.log.log_fn(json.dumps(
+                {"ingest_degraded": True, "dead_actors": dead,
+                 "fleet": fleet, "env_steps": self.env_steps}))
+        elif not decimated and self._degraded:
+            self._degraded = False
+            self.log.log_fn(json.dumps(
+                {"ingest_degraded": False, "env_steps": self.env_steps}))
 
     def shutdown(self) -> None:
         """Stop the shard sampler, the learner ranks and the actors, close
@@ -968,6 +1119,11 @@ class ApexLearnerService:
         otherwise."""
         if self._shard_sampler is not None:
             self._shard_sampler.close()
+        if hasattr(self, "_tm_dedup_frames"):
+            self._sweep_dedup_counters()   # final partial-period deltas
+        if self.telemetry_server is not None:
+            self.telemetry_server.close()
+            self.telemetry_server = None
         if self._learners is not None:
             self._learners.close(clean=self._clean_exit)
             self._learners = None
@@ -1001,8 +1157,22 @@ class ApexLearnerService:
             shutil.rmtree(self.run_dir, ignore_errors=True)
 
     # -- acting ----------------------------------------------------------------
-    def _count_device_call(self, kind: str) -> None:
+    def _count_device_call(self, kind: str,
+                           rows: Optional[int] = None) -> None:
+        """One dispatched device program of ``kind`` (act / fused /
+        bootstrap / train / replay_sample). ``rows`` feeds the fan-in
+        histogram for the act-path dispatches."""
         self.device_calls[kind] = self.device_calls.get(kind, 0) + 1
+        c = self._tm_device_calls.get(kind)
+        if c is None:
+            c = get_registry().counter(
+                tmc.SERVICE_DEVICE_CALLS,
+                "device programs dispatched by the service loop",
+                labels={"call": kind})
+            self._tm_device_calls[kind] = c
+        c.inc()
+        if rows is not None:
+            self._tm_fanin.observe(float(rows))
 
     def _reply_actions(self, actor: int, obs: np.ndarray, t: int) -> int:
         """Queue one actor's act request for this pass's batched flush;
@@ -1061,7 +1231,7 @@ class ApexLearnerService:
                             for x in (cs, hs))
             (c, h), actions, q_sel, q_max = self._act_rec(
                 self._policy_params, carry_t, obs_t, self._act_gen, eps_t)
-            self._count_device_call("act")
+            self._count_device_call("act", rows=total)
             out = torch.cat([c.float(), h.float(),
                              torch.stack([actions.float(), q_sel, q_max],
                                          dim=1)], dim=1).cpu().numpy()
@@ -1072,11 +1242,11 @@ class ApexLearnerService:
             if boot is not None:
                 actions, q_sel, q_max = self._fused_act_bootstrap(
                     obs_t, eps_t, boot)
-                self._count_device_call("fused_act_bootstrap")
+                self._count_device_call("fused_act_bootstrap", rows=total)
             else:
                 actions, q_sel, q_max = self._act_q(
                     self._policy_params, obs_t, self._act_gen, eps_t)
-                self._count_device_call("act")
+                self._count_device_call("act", rows=total)
             out = torch.stack([actions.float(), q_sel, q_max]).cpu().numpy()
             acts_np, qs_np, qm_np = out
         acts_np = acts_np.astype(np.int32)
@@ -1302,6 +1472,7 @@ class ApexLearnerService:
                      arrays["reward"], terminated, truncated,
                      arrays["next_obs"])
         self.env_steps += arrays["reward"].shape[0]
+        self._tm_env_steps.inc(arrays["reward"].shape[0])
         if not self.recurrent and getattr(asm, "with_q", False):
             # This record's emissions bootstrap from the obs the act
             # request below flushes q planes for: park them under its id.
@@ -1357,6 +1528,7 @@ class ApexLearnerService:
                                       + emitted["discount"] * boot))
             self.replay.add(emitted, priorities=prios,
                             shard=self.router.shard_for(actor))
+            self._tm_actor_prio.inc(int(prios.shape[0]))
         self._flush_q.clear()
 
     # -- the learner-side bootstrap ----------------------------------------
@@ -1470,6 +1642,7 @@ class ApexLearnerService:
         silent = now - self._last_record
         if silent >= self.rt.stall_warn_s and not self._stall_warned:
             self._stall_warned = True
+            self._tm_stalls.inc()
             self.log.log_fn(f'{{"ingest_stalled_s": {silent:.1f}, '
                             f'"env_steps": {self.env_steps}}}')
 
@@ -1485,11 +1658,13 @@ class ApexLearnerService:
         if done.any():
             self._ep_returns.extend(acc[done].tolist())
             self.episodes_completed += int(done.sum())
+            self._tm_episodes.inc(int(done.sum()))
             acc = np.where(done, 0.0, acc)
         self._ep_accum[actor] = acc
 
     def _count_bad_record(self, where: str, e: Exception) -> None:
         self.bad_records += 1
+        self._tm_bad_records.inc()
         if self.bad_records <= 5:
             self.log.log_fn(f"# bad {where} record ({self.bad_records}): "
                             f"{type(e).__name__}: {e}")
@@ -1532,6 +1707,7 @@ class ApexLearnerService:
                     self._count_bad_record("TCP", e)
         if drained:
             self.ingest_passes += 1
+            self._tm_ingest_passes.inc()
         return drained
 
     # -- learner ---------------------------------------------------------------
@@ -1560,16 +1736,22 @@ class ApexLearnerService:
         the store's inline draw, counting one ``replay_sample`` device call
         per plane draw dispatched (one per shard that takes rows)."""
         if self._shard_sampler is not None:
-            return self._shard_sampler.sample(batch_size, beta)
-        items, idx, weights = self.replay.sample(batch_size, beta)
-        if self.rt.device_sampling:
-            seen = (self.replay.device_sample_dispatches
-                    if hasattr(self.replay, "device_sample_dispatches")
-                    else self.replay.device_sampler.draw_dispatches)
-            for _ in range(seen - self._replay_draws_counted):
-                self._count_device_call("replay_sample")
-            self._replay_draws_counted = seen
-        return items, idx, weights, self.replay.generation(idx)
+            out = self._shard_sampler.sample(batch_size, beta)
+        else:
+            items, idx, weights = self.replay.sample(batch_size, beta)
+            if self.rt.device_sampling:
+                seen = (self.replay.device_sample_dispatches
+                        if hasattr(self.replay, "device_sample_dispatches")
+                        else self.replay.device_sampler.draw_dispatches)
+                for _ in range(seen - self._replay_draws_counted):
+                    self._count_device_call("replay_sample")
+                self._replay_draws_counted = seen
+            out = items, idx, weights, self.replay.generation(idx)
+        # Batches without lineage keys are a silent no-op.
+        tmc.observe_sample_lineage(out[0], self.grad_steps,
+                                   self._tm_sample_age,
+                                   self._tm_sample_staleness)
+        return out
 
     def _host_sequence_sample(self, items, weights):
         """Host [S, L, ...] arrays -> a time-major numpy SequenceSample."""
@@ -1699,6 +1881,7 @@ class ApexLearnerService:
                 metrics = self._train_event(*self._to_device(host))
             self._count_device_call("train")
             self.grad_steps += self.replay_ratio
+            self._tm_grad_steps.inc(self.replay_ratio)
             self._in_flight.append((idx, gen, metrics, time.perf_counter()))
             while len(self._in_flight) > self.rt.pipeline_depth:
                 self._finalize_train()
@@ -1735,9 +1918,12 @@ class ApexLearnerService:
         them for the next batched write-back."""
         if not self._in_flight:
             return
-        idx, gen, metrics, _ = self._in_flight.popleft()
+        idx, gen, metrics, t_dispatch = self._in_flight.popleft()
         out = torch.cat([metrics["priorities"].float().reshape(-1),
                          metrics["loss"].float().reshape(1)]).cpu().numpy()
+        # Dispatch -> materialized: the read above waited for this step
+        # (and up to pipeline_depth - 1 queued before it).
+        self._tm_grad_latency.observe(time.perf_counter() - t_dispatch)
         self._last_loss = float(out[-1])
         self._prio_pending.append((idx, out[:-1], gen))
         self._profile_stop()
@@ -1927,6 +2113,17 @@ class ApexLearnerService:
                 if now - last_log > self.rt.log_every_s:
                     self.supervise_actors()
                     self._watchdog(now)
+                    # Queue-depth sweep (off the per-record path; one
+                    # gauge write each per log period).
+                    self._tm_act_queue.set(len(self._act_queue))
+                    self._tm_pending.set(self._pending_count)
+                    self._tm_boot_inflight.set(len(self._boot_inflight))
+                    self._tm_train_inflight.set(len(self._in_flight))
+                    self._tm_prio_pending.set(len(self._prio_pending))
+                    self._tm_ring_dropped.set(self.req_ring.dropped)
+                    self._tm_ring_pending.set(self.req_ring.pending_bytes)
+                    self._tm_record_age.set(now - self._last_record)
+                    self._sweep_dedup_counters()
                     self.log.record(env_steps=self.env_steps,
                                     grad_steps=self.grad_steps,
                                     replay_size=float(len(self.replay)),
@@ -1967,11 +2164,8 @@ class ApexLearnerService:
 
     def summary(self, ring_dropped: int = 0) -> dict:
         """The run's summary under the JAX service's keys; the chip-time
-        plane of the telemetry (ROADMAP.md A10) is ``None``."""
-        frames, saved = self._dedup_retired
-        for dec in self._decoders.values():
-            frames += getattr(dec, "frames_reused", 0)
-            saved += getattr(dec, "bytes_saved", 0)
+        plane of the telemetry (ROADMAP.md A10b) is ``None``."""
+        frames, saved = self._dedup_totals()
         ingest_calls = sum(self.device_calls.get(k, 0) for k in (
             "act", "fused_act_bootstrap", "bootstrap"))
         tcp = self.tcp_server

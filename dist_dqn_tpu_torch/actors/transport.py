@@ -16,10 +16,12 @@ part of ``dist_dqn_tpu/actors/transport.py``).
   (the lock-step actor's end), every record inside the integrity frame
   :func:`frame_encode` (``magic | length | crc32 | payload``).
 
-The JAX module's registry instruments and chaos seams are not ported
-(ROADMAP.md A10): the server's counts are plain attributes the service's
-summary reads. Stdlib + numpy only: actor processes import this module and
-no torch.
+The server's counts are plain attributes the service's summary reads, and
+registry series of the JAX module's names besides: records, backlog,
+backpressure, shed records and live connections of the TCP listener, and
+frames failing the integrity check by ``{reason, side}``. The chaos seams
+are not ported (ROADMAP.md A10d). Stdlib + numpy only: actor processes
+import this module and no torch.
 """
 from __future__ import annotations
 
@@ -38,6 +40,10 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from dist_dqn_tpu_torch.telemetry import get_registry
+from dist_dqn_tpu_torch.telemetry.collectors import (TRANSPORT_CORRUPT,
+                                                     TRANSPORT_SHED)
 
 _NATIVE_DIR = Path(__file__).parent / "_native"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
@@ -328,6 +334,13 @@ def _recv_exact(conn: socket.socket, n: int) -> Optional[bytes]:
     return b"".join(chunks)
 
 
+def _corrupt_frame_counter(reason: str, side: str):
+    return get_registry().counter(
+        TRANSPORT_CORRUPT,
+        "TCP frames failing the magic/length/CRC32 integrity check",
+        labels={"reason": reason, "side": side})
+
+
 class TcpRecordServer:
     """Full-duplex record endpoint for actors on other hosts.
 
@@ -371,6 +384,22 @@ class TcpRecordServer:
         self.corrupt_frames = 0       # frames failing the integrity check
         self.corrupt_by_reason: Dict[str, int] = {}
         self._shed_alarmed = False
+        # The ingress queue's registry series: backlog depth is the
+        # learner-behind signal on this path.
+        reg = get_registry()
+        self._c_records = reg.counter("dqn_transport_tcp_records_total",
+                                      "records accepted from remote actors")
+        self._g_backlog = reg.gauge("dqn_transport_tcp_backlog",
+                                    "records queued awaiting service drain")
+        self._c_backpressure = reg.counter(
+            "dqn_transport_tcp_backpressure_total",
+            "records that had to wait for backlog space")
+        self._c_shed = reg.counter(
+            TRANSPORT_SHED,
+            "records shed after the bounded backpressure wait (drain "
+            "stopped entirely — degrade instead of wedging)")
+        self._g_conns = reg.gauge("dqn_transport_tcp_connections",
+                                  "live remote-actor connections")
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._accept_loop,
                                         name="tcp-accept", daemon=True)
@@ -393,6 +422,7 @@ class TcpRecordServer:
                 self._next_conn += 1
                 self._conns[conn_id] = conn
                 self._send_locks[conn_id] = threading.Lock()
+                self._g_conns.set(len(self._conns))
                 t = threading.Thread(target=self._serve,
                                      args=(conn_id, conn),
                                      name=f"tcp-serve-{conn_id}",
@@ -430,6 +460,7 @@ class TcpRecordServer:
             with self._lock:
                 self._conns.pop(conn_id, None)
                 self._send_locks.pop(conn_id, None)
+                self._g_conns.set(len(self._conns))
             conn.close()
 
     def _append(self, conn_id: int, payload: bytes) -> None:
@@ -441,12 +472,15 @@ class TcpRecordServer:
                 if len(self._records) < self._max_backlog:
                     self._records.append((conn_id, payload))
                     self.records_received += 1
+                    self._g_backlog.set(len(self._records))
+                    self._c_records.inc()
                     # The drain is alive again: the next shed alarms.
                     self._shed_alarmed = False
                     return
                 if wait_start is None:
                     wait_start = time.monotonic()
                     self.backpressure_events += 1
+                    self._c_backpressure.inc()
             if time.monotonic() - wait_start > self._max_backpressure_wait_s:
                 self._shed(conn_id)
                 return
@@ -457,6 +491,7 @@ class TcpRecordServer:
             self.corrupt_frames += 1
             self.corrupt_by_reason[reason] = \
                 self.corrupt_by_reason.get(reason, 0) + 1
+        _corrupt_frame_counter(reason, side="server").inc()
 
     def _shed(self, conn_id: int) -> None:
         # Under the lock: every serve thread whose wait expired sheds at
@@ -465,6 +500,7 @@ class TcpRecordServer:
             self.shed_records += 1
             alarm = not self._shed_alarmed
             self._shed_alarmed = True
+        self._c_shed.inc()
         if alarm:
             print(json.dumps({
                 "transport_shedding": True, "conn_id": conn_id,
@@ -480,7 +516,9 @@ class TcpRecordServer:
         with self._lock:
             if not self._records:
                 return None
-            return self._records.pop(0)
+            rec = self._records.pop(0)
+            self._g_backlog.set(len(self._records))
+            return rec
 
     def send(self, conn_id: int, payload: bytes) -> bool:
         """Reply down a connection; False if it is gone (actor churn)."""
@@ -588,12 +626,16 @@ class TcpRecordClient:
         magic, n, crc = _FRAME_HDR.unpack(hdr)
         if magic != FRAME_MAGIC or n > MAX_FRAME_BYTES:
             self.corrupt_replies += 1
+            _corrupt_frame_counter(
+                "bad_magic" if magic != FRAME_MAGIC else "length",
+                side="client").inc()
             return None
         payload = self._recv_exact(n, keep_waiting)
         if payload is None:
             return None
         if not _frame_check(payload, crc):
             self.corrupt_replies += 1
+            _corrupt_frame_counter("crc", side="client").inc()
             return None
         return payload
 

@@ -11,18 +11,22 @@ a population run's stacked checkpoint (and is required there).
 ``--host-env NAME`` plays whole games with raw scores on a host env
 (``ale:<Game>``, with ``DQN_FAKE_ALE=1`` the in-repo fake; gymnasium names;
 ``dmc:<domain>:<task>``), the deploy-side counterpart of an Ape-X run. Runs
-on ``cuda`` unless ``--device cpu`` is given. The telemetry surface is not
-ported yet; asking for it raises with the reason.
+on ``cuda`` unless ``--device cpu`` is given. ``--telemetry-port``,
+``--telemetry-host`` and ``--telemetry-snapshot`` expose the process's
+telemetry registry as the train CLI does; ``--fleet-dir`` raises (ROADMAP.md
+A10c).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 
 import torch
 
+from dist_dqn_tpu_torch import telemetry
 from dist_dqn_tpu_torch.config import CONFIGS, ExperimentConfig, \
     apply_overrides
 from dist_dqn_tpu_torch.utils.checkpoint import (CheckpointMissingError,
@@ -246,16 +250,9 @@ def _apply_risk_eta(cfg: ExperimentConfig, eta) -> ExperimentConfig:
 def _refuse_unported(args) -> None:
     """Flags of the JAX CLI this port does not implement yet, refused with
     the ROADMAP.md item that brings them."""
-    refused = [reason for reason, given in (
-        ("--telemetry-port/--telemetry-host/--telemetry-snapshot/"
-         "--fleet-dir (telemetry, ROADMAP.md A10)",
-         any(x is not None for x in (args.telemetry_port,
-                                     args.telemetry_host,
-                                     args.telemetry_snapshot,
-                                     args.fleet_dir))),
-    ) if given]
-    if refused:
-        raise SystemExit(f"not ported yet: {', '.join(refused)}")
+    if args.fleet_dir is not None:
+        raise SystemExit("not ported yet: --fleet-dir (fleet registration, "
+                         "ROADMAP.md A10c)")
 
 
 def main(argv=None):
@@ -295,14 +292,33 @@ def main(argv=None):
                         help="evaluate on a host env (e.g. ale:Breakout, "
                              "CartPole-v1, dmc:reacher:easy) instead of "
                              "the config's batched env")
+    parser.add_argument("--telemetry-port", type=int, default=None,
+                        help="serve this process's telemetry registry "
+                             "(/metrics, /metrics.json, /healthz, "
+                             "/debug/*) on this port; 0 binds an "
+                             "ephemeral port (reported as a "
+                             "telemetry_port log line) — eval runs are "
+                             "scrapable exactly like train runs "
+                             "(docs/observability.md)")
+    parser.add_argument("--telemetry-host", default="127.0.0.1",
+                        help="bind address for --telemetry-port "
+                             "(loopback by default; 0.0.0.0 exposes the "
+                             "scrape surface outside the container/VM)")
+    parser.add_argument("--telemetry-snapshot", default=None,
+                        help="dump a JSON snapshot of the telemetry "
+                             "registry to this path at exit (offline "
+                             "runs; same data as /metrics.json)")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
-    parser.add_argument("--telemetry-port", type=int, default=None)
-    parser.add_argument("--telemetry-host", default=None)
-    parser.add_argument("--telemetry-snapshot", default=None)
     parser.add_argument("--fleet-dir", default=None)
     args = parser.parse_args(argv)
     _refuse_unported(args)
+    # The train CLI's scrape and snapshot knobs.
+    if args.telemetry_snapshot:
+        telemetry.install_snapshot_dump(args.telemetry_snapshot)
+    server = telemetry.serve_if_asked(
+        args.telemetry_port, args.telemetry_host,
+        functools.partial(print, flush=True))
     if args.export_params and (args.all_steps or args.host_env):
         parser.error("--export-params applies to the single-point surface "
                      "of the config's env (not --all-steps or --host-env)")
@@ -359,7 +375,11 @@ def main(argv=None):
                 seed=args.seed, export_params=args.export_params,
                 device=args.device, member=args.member))
 
-    wait_for_checkpoint(dispatch, args.wait_for_checkpoint)
+    try:
+        wait_for_checkpoint(dispatch, args.wait_for_checkpoint)
+    finally:
+        if server is not None:
+            server.close()
 
 
 if __name__ == "__main__":

@@ -64,8 +64,14 @@ one sidecar, then commits the learner step. On resume rank 0 picks the
 step and checks the pins, every rank loads only its own shard's keys, and
 a rank that cannot makes every rank raise.
 
-The JAX loop's telemetry registry, heartbeats, flight records, watchdog
-hooks and chaos seams are not ported yet (ROADMAP.md A10).
+Every rank records the JAX loop's telemetry families into its process
+registry (``{loop="host_replay"}``: the evacuation overlap and fence
+wait, D2H bytes, the learner config gauges and grad rate, the per-shard
+collect dispatch wall under the mesh, and the checkpoint saves, resumes
+and refusals by reason), beside those of its ring, samplers and staging.
+``telemetry_port`` serves rank 0's registry at ``/metrics``. The
+heartbeats, flight records, watchdog hooks and chaos seams are not ported
+yet (ROADMAP.md A10c, A10d).
 """
 from __future__ import annotations
 
@@ -95,6 +101,8 @@ from dist_dqn_tpu_torch.replay.host_ring import (HostTimeRing, PerSample,
                                                  RingPrioritySampler)
 from dist_dqn_tpu_torch.replay.sharded import (shard_state,
                                                split_shard_state)
+from dist_dqn_tpu_torch.telemetry import collectors as tmc
+from dist_dqn_tpu_torch.telemetry import get_registry, serve_if_asked
 from dist_dqn_tpu_torch.replay.staging import (DoubleBufferedStager,
                                                EvacuationWorker,
                                                SamplePrefetcher,
@@ -346,6 +354,15 @@ def _npz_keys(path: str) -> List[str]:
         return [n[:-len(".npy")] for n in z.namelist()]
 
 
+def _refused(reason: str, msg: str) -> ValueError:
+    """A resume refused at a sidecar pin: the ValueError of the JAX loop's
+    text, whose ``resume_refusal`` labels the
+    ``dqn_checkpoint_refused_resumes_total`` series it counts in."""
+    err = ValueError(msg)
+    err.resume_refusal = reason
+    return err
+
+
 def _check_resume_pins(side: dict, checkpoint_dir: str, chunk_iters: int,
                        dp: int, mesh_mode: bool, per_enabled: bool,
                        prio_writeback_batch: int,
@@ -354,21 +371,24 @@ def _check_resume_pins(side: dict, checkpoint_dir: str, chunk_iters: int,
     (``host_replay_loop.py:1062-1159``)."""
     ver = int(side.get("sidecar_version", 0))
     if ver != ckpt_schema.SIDECAR_VERSION:
-        raise ValueError(
+        raise _refused(
+            "sidecar_version",
             f"checkpoint at {checkpoint_dir!r} carries sidecar "
             f"schema v{ver}, this build reads "
             f"v{ckpt_schema.SIDECAR_VERSION} — resume with a "
             "matching build (utils/ckpt_schema.py documents the "
             "history), or start a fresh --checkpoint-dir")
     if int(side["chunk_iters"]) != chunk_iters:
-        raise ValueError(
+        raise _refused(
+            "chunk_iters",
             f"checkpoint at {checkpoint_dir!r} was written with "
             f"--chunk-iters {int(side['chunk_iters'])}, this "
             f"run uses {chunk_iters} — resume with the same "
             "loop shape (the ring/env config is already "
             "validated by the snapshot shapes)")
     if int(side["dp"]) != dp:
-        raise ValueError(
+        raise _refused(
+            "dp",
             f"checkpoint at {checkpoint_dir!r} was written at "
             f"--mesh-devices {int(side['dp'])}, this run uses "
             f"{dp} — resume with the same mesh width "
@@ -376,7 +396,8 @@ def _check_resume_pins(side: dict, checkpoint_dir: str, chunk_iters: int,
             "not supported; docs/fault_tolerance.md 'resuming "
             "a sharded run')")
     if bool(side["sharded_collect"]) != mesh_mode:
-        raise ValueError(
+        raise _refused(
+            "sharded_collect",
             f"checkpoint at {checkpoint_dir!r} was written "
             f"with sharded_collect="
             f"{bool(side['sharded_collect'])}, this run "
@@ -385,14 +406,16 @@ def _check_resume_pins(side: dict, checkpoint_dir: str, chunk_iters: int,
             "are stored per mode)")
     if per_enabled and \
             int(side["prio_writeback_batch"]) != prio_writeback_batch:
-        raise ValueError(
+        raise _refused(
+            "prio_writeback_batch",
             f"checkpoint at {checkpoint_dir!r} was written "
             f"with prio_writeback_batch="
             f"{int(side['prio_writeback_batch'])}, this run "
             f"uses {prio_writeback_batch} — resume with the "
             "same PER write-back cadence")
     if int(side.get("population", 1)) != 1:
-        raise ValueError(
+        raise _refused(
+            "population",
             f"checkpoint at {checkpoint_dir!r} was written with "
             f"population={int(side['population'])} stacked "
             "members, but --runtime host-replay trains a single "
@@ -400,7 +423,8 @@ def _check_resume_pins(side: dict, checkpoint_dir: str, chunk_iters: int,
             "Resume it under the fused --population runtime, or "
             "start a fresh --checkpoint-dir")
     if bool(side["per"]) != per_enabled:
-        raise ValueError(
+        raise _refused(
+            "per",
             f"checkpoint at {checkpoint_dir!r} was written with "
             f"prioritized={bool(side['per'])}, this run "
             f"configures prioritized={per_enabled} — a uniform "
@@ -410,7 +434,8 @@ def _check_resume_pins(side: dict, checkpoint_dir: str, chunk_iters: int,
     if per_enabled and \
             int(side["per_sampler_kind"]) != int(device_sampling):
         kinds = {0: "host sum-tree", 1: "device plane"}
-        raise ValueError(
+        raise _refused(
+            "sampler_kind",
             f"checkpoint at {checkpoint_dir!r} was written with "
             f"the {kinds[int(side['per_sampler_kind'])]} PER "
             f"backend, this run configures the "
@@ -454,7 +479,9 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                     sharded_collect: Optional[bool] = None,
                     device_sampling: bool = False,
                     profile_dir: Optional[str] = None,
-                    device=None, mesh=None):
+                    device=None, mesh=None,
+                    telemetry_port: Optional[int] = None,
+                    telemetry_host: str = "127.0.0.1"):
     """Run the host-replay loop on ``device`` (default: the card); returns
     the summary dict under the JAX loop's keys, plus ``history`` (the
     per-chunk rows) and ``learner`` (the final LearnerState).
@@ -487,6 +514,9 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
     sharded collect: ``sharded_collect=False`` at dp > 1 raises, as in
     JAX. Under the mesh, ``prefetch=False`` runs the fully serial
     per-shard reference (JAX's main-thread stager is single-chip only).
+    ``telemetry_port`` serves rank 0's telemetry registry at ``/metrics``
+    for the run (0: an ephemeral port, logged as a ``telemetry_port``
+    row).
     """
     if cfg.network.lstm_size > 0:
         raise ValueError(
@@ -543,7 +573,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             prio_writeback_batch=prio_writeback_batch,
             checkpoint_dir=checkpoint_dir,
             save_every_frames=save_every_frames,
-            device_sampling=device_sampling, profile_dir=profile_dir)
+            device_sampling=device_sampling, profile_dir=profile_dir,
+            telemetry_port=telemetry_port, telemetry_host=telemetry_host)
     dev = mesh.device if mesh_mode else resolve_device(device)
     rank = mesh.rank if mesh_mode else 0
     main = rank == 0
@@ -607,11 +638,15 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                       alpha=cfg.replay.priority_exponent,
                       beta=cfg.replay.importance_exponent,
                       eps=cfg.replay.priority_eps)
+    # Telemetry names: a mesh rank's pipeline objects are shard ``rank``'s
+    # of the JAX loop's per-shard ones.
+    tm_name = f"host_replay_s{rank}" if dp > 1 else "host_replay"
+    tm_shard = rank if mesh_mode else None
     if per_enabled and device_sampling:
         per_sampler = RingDevicePrioritySampler(ring, device=dev,
-                                                **sampler_kw)
+                                                name=tm_name, **sampler_kw)
     elif per_enabled:
-        per_sampler = RingPrioritySampler(ring, **sampler_kw)
+        per_sampler = RingPrioritySampler(ring, name=tm_name, **sampler_kw)
     knobs = (f"alpha={cfg.replay.priority_exponent}, "
              f"beta={cfg.replay.importance_exponent}, "
              f"prio_writeback_batch={prio_writeback_batch}")
@@ -668,10 +703,12 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
     prefetcher = stager = None
     if prefetch:
         prefetcher = SamplePrefetcher(sample_host, depth=prefetch_depth,
+                                      name=tm_name,
                                       wait_generation=ring.wait_generation,
                                       device=dev)
     elif double_buffer and not mesh_mode:
-        stager = DoubleBufferedStager(depth=2, device=dev)
+        stager = DoubleBufferedStager(depth=2, device=dev,
+                                      name="host_replay")
     elif double_buffer:
         log_fn("# --no-prefetch with --mesh-devices > 1 runs the fully "
                "serial per-shard reference (sample -> per-device upload "
@@ -680,8 +717,51 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
 
     evacuator = worker = None
     if pipeline:
-        evacuator = StreamedEvacuator(num_slices=evac_slices)
-        worker = EvacuationWorker(evacuator, ring_append)
+        evacuator = StreamedEvacuator(num_slices=evac_slices, name=tm_name,
+                                      shard=tm_shard)
+        worker = EvacuationWorker(evacuator, ring_append, name=tm_name,
+                                  shard=tm_shard)
+
+    reg = get_registry()
+    _labels = {"loop": "host_replay"}
+    g_overlap = reg.gauge(tmc.HOST_REPLAY_OVERLAP,
+                          "share of the last chunk's evacuation hidden "
+                          "off the training critical path", _labels)
+    h_fence = reg.histogram(tmc.HOST_REPLAY_FENCE_WAIT_SECONDS,
+                            "main-thread wait on the chunk publication "
+                            "fence (evacuation on the critical path)",
+                            _labels)
+    c_d2h = reg.counter(tmc.HOST_REPLAY_D2H_BYTES,
+                        "bytes evacuated device->host by the replay "
+                        "pipeline", _labels)
+    reg.gauge(tmc.LEARNER_REPLAY_RATIO,
+              "grad sub-steps per train event", _labels).set(replay_ratio)
+    reg.gauge(tmc.LEARNER_TRAIN_BATCH,
+              "effective (bucketed) train batch width",
+              _labels).set(train_batch)
+    reg.gauge(tmc.LEARNER_ACTOR_DTYPE_INFO,
+              "1 for the active actor inference dtype",
+              {**_labels, "dtype": cfg.network.actor_dtype
+               or "float32"}).set(1)
+    g_grad_rate = reg.gauge(tmc.LEARNER_GRAD_RATE,
+                            "grad steps per second (whole loop)",
+                            _labels)
+    # Under the mesh: the lane block this rank's collect acts over, its
+    # collect dispatch wall, and (serial path) its shard's D2H bytes.
+    h_collect_disp = c_shard_d2h = None
+    if mesh_mode:
+        reg.gauge(tmc.HOST_REPLAY_COLLECT_LANE_BLOCK,
+                  "env lanes per shard collect dispatch",
+                  _labels).set(lanes)
+        h_collect_disp = reg.histogram(
+            tmc.HOST_REPLAY_COLLECT_SECONDS,
+            "per-shard collect dispatch enqueue wall",
+            {**_labels, "shard": str(rank)})
+        c_shard_d2h = reg.counter(
+            tmc.HOST_REPLAY_SHARD_D2H_BYTES,
+            "bytes evacuated from this shard's own device into its "
+            "own ring (zero cross-shard lane scatter)",
+            {**_labels, "shard": str(rank)})
 
     # The train-event cadence carries its remainder across chunks, so the
     # average is exactly one event per train_every iterations.
@@ -731,6 +811,23 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
     resumed = False
     resume_stats = resume_pending = None
     if checkpoint_dir:
+        h_ckpt_save = reg.histogram(
+            tmc.CHECKPOINT_SAVE_SECONDS,
+            "whole quiesced checkpoint save wall (fence + sidecar + "
+            "orbax commit)", _labels)
+        c_ckpt_bytes = reg.counter(
+            tmc.CHECKPOINT_BYTES,
+            "checkpoint bytes written (sidecar + learner/carry tree)",
+            _labels)
+        reg.gauge(tmc.CHECKPOINT_SHARDS_SAVED,
+                  "replay shards carried by each whole-state save",
+                  _labels).set(dp)
+
+        def _count_refused(reason: str) -> None:
+            reg.counter(tmc.CHECKPOINT_REFUSED,
+                        "resume attempts refused at the sidecar pins",
+                        {**_labels, "reason": reason}).inc()
+
         # Each save copies the whole ring window, so the default cadence
         # is never finer than one chunk.
         save_period = save_every_frames or max(cfg.eval_every_steps,
@@ -766,6 +863,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                         break
                     except (FileNotFoundError, ValueError, EOFError,
                             KeyError, zipfile.BadZipFile) as e:
+                        _count_refused("torn_sidecar")
                         log_fn(f"# checkpoint step {cand}: sidecar "
                                f"unreadable ({type(e).__name__}: {e}) — "
                                "deleting the unusable step and falling "
@@ -776,10 +874,15 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                         except OSError:
                             pass
                 if side is not None:
-                    _check_resume_pins(side, checkpoint_dir, chunk_iters,
-                                       dp, mesh_mode, per_enabled,
-                                       prio_writeback_batch,
-                                       device_sampling)
+                    try:
+                        _check_resume_pins(side, checkpoint_dir,
+                                           chunk_iters, dp, mesh_mode,
+                                           per_enabled,
+                                           prio_writeback_batch,
+                                           device_sampling)
+                    except ValueError as e:
+                        _count_refused(e.resume_refusal)
+                        raise
             except Exception as e:  # noqa: BLE001 — re-raised below
                 if not mesh_mode:
                     raise
@@ -888,6 +991,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                                "resumed_at_chunk": start_chunk,
                                "resumed_dp": dp,
                                "resumed_per": per_enabled}))
+            reg.counter(tmc.CHECKPOINT_RESUMES,
+                        "successful whole-state resumes", _labels).inc()
 
     d2h_bytes_total = 0
     d2h_bytes_by_shard = [0] * dp if mesh_mode else None
@@ -997,8 +1102,11 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         ckpt.save(env_steps, _HostLoopState(state, carry) if not mesh_mode
                   else _MeshLoopState(state))
         prune_sidecars(checkpoint_dir, set(ckpt.all_steps()), env_steps)
+        save_s = time.perf_counter() - t_save
+        h_ckpt_save.observe(save_s)
+        c_ckpt_bytes.inc(os.path.getsize(path) + ckpt.last_save["bytes"])
         log_fn(json.dumps({"host_replay_checkpoint": env_steps,
-                           "save_s": round(time.perf_counter() - t_save, 3),
+                           "save_s": round(save_s, 3),
                            "shards_saved": dp}))
 
     def _dispatch_chunk():
@@ -1010,7 +1118,9 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         carry, r, st = collect(carry, actor_snapshot(state.net),
                                chunk_iters)
         if mesh_mode:
-            collect_dispatch_s += time.perf_counter() - t_d
+            dt = time.perf_counter() - t_d
+            collect_dispatch_s += dt
+            h_collect_disp.observe(dt)
         if dev.type == "cuda":
             records_ready = torch.cuda.Event()
             records_ready.record()
@@ -1022,6 +1132,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
     profile_chunk = (min(start_chunk + 1, num_chunks - 1)
                      if profile_dir else -1)
     prof = None
+    server = serve_if_asked(telemetry_port if main else None,
+                            telemetry_host, log_fn)
     try:
         # Extending a finished run: its checkpoint is a final save (no
         # chunk in flight), so it dispatches as a fresh start does.
@@ -1072,6 +1184,9 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 t_fence = time.perf_counter()
                 d2h_bytes = int(sum(v.nbytes for v in host.values()))
                 del host
+                c_d2h.inc(d2h_bytes)
+                if c_shard_d2h is not None:
+                    c_shard_d2h.inc(d2h_bytes)
                 fence_wait_s = evac_s = t_fence - t0
                 t_evac_parts = (t_mono_fetch - t0, t_fence - t_mono_fetch)
                 if g + 1 < num_chunks:
@@ -1197,6 +1312,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             d2h_bytes_total += d2h_bytes
             fence_wait_total += fence_wait_s
             overlap_fracs.append(overlap)
+            g_overlap.set(overlap)
+            h_fence.observe(fence_wait_s)
             if did:
                 sample_s_total += ev_sample_s
                 prefetch_wait_s_total += ev_wait_s
@@ -1276,6 +1393,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             prefetcher.close()
         if ckpt is not None:
             ckpt.close()
+        if server is not None:
+            server.close()
 
     # Land any accumulated write-backs before the summary counts them.
     _wb_flush()
@@ -1285,6 +1404,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         np.float64(np.sum(p.detach().cpu().numpy().astype(np.float64)))
         for p in state.net.parameters()))
     n = max(len(overlap_fracs), 1)
+    g_grad_rate.set(grad_steps / wall)
     per = per_sampler
     totals = [per.writeback_flushes if per else 0,
               per.writeback_rows if per else 0,

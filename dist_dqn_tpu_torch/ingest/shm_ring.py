@@ -41,6 +41,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from dist_dqn_tpu_torch.telemetry import get_registry
+from dist_dqn_tpu_torch.telemetry.collectors import (INGEST_SHM_BATCH_FANIN,
+                                                     INGEST_SHM_TORN,
+                                                     SHM_FANIN_BUCKETS)
+
 HEADER_BYTES = 32
 SLOT_HEADER_BYTES = 16
 # Header u64 indices.
@@ -93,6 +98,14 @@ class ShmSlotRing:
                           HEADER_BYTES + i * self._stride + 8)
             for i in range(self.nslots)]
         self.torn_reads = 0
+        self._c_torn = get_registry().counter(
+            INGEST_SHM_TORN,
+            "shm slot-ring records dropped on a stamp mismatch "
+            "(producer died mid-write or injected torn publish)")
+        self._h_fanin = get_registry().histogram(
+            INGEST_SHM_BATCH_FANIN,
+            "records delivered per slot publish (1 = unbatched)",
+            buckets=SHM_FANIN_BUCKETS)
         # Records of an already-popped batched slot awaiting delivery (only
         # the consumer touches it).
         self._pending_pop: "deque[bytes]" = deque()
@@ -185,6 +198,7 @@ class ShmSlotRing:
         want = np.uint64(2 * r + 2)
         if self._stamps[i][0] != want:
             self.torn_reads += 1
+            self._c_torn.inc()
             self._hdr[_READ_SEQ] = r + 1
             return None
         n = int(self._lengths[i][0])
@@ -193,12 +207,15 @@ class ShmSlotRing:
         out = bytes(self._slot_data(i)[:n])
         if self._stamps[i][0] != want:          # torn during the copy
             self.torn_reads += 1
+            self._c_torn.inc()
             self._hdr[_READ_SEQ] = r + 1
             return None
         self._hdr[_READ_SEQ] = r + 1
         if not batched:
+            self._h_fanin.observe(1.0)
             return out
         (count,) = struct.unpack_from("<I", out, 0)
+        self._h_fanin.observe(float(count))
         off = 4
         for _ in range(count):
             (ln,) = struct.unpack_from("<I", out, off)

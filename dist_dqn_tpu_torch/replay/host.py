@@ -42,6 +42,7 @@ from dist_dqn_tpu_torch.ops.sampler import (SAMPLE_BLOCK,
                                             importance_weights,
                                             kernel_stratified_sample,
                                             stratified_sample_rows)
+from dist_dqn_tpu_torch.telemetry import collectors as tm, get_registry
 from dist_dqn_tpu_torch.utils.device import resolve_device
 from dist_dqn_tpu_torch.utils.pow2 import pad_pow2  # noqa: F401
 
@@ -281,7 +282,8 @@ class DevicePrioritySampler:
     ``use_kernel`` (default: on the card at or above ``KERNEL_MIN_CELLS``
     cells) draws through the sampler kernel's wrapper; otherwise through
     :func:`stratified_sample_rows`. ``draw_dispatches`` counts draws and
-    ``writeback_rows`` the rows scattered into the plane.
+    ``writeback_rows`` the rows scattered into the plane; the draw wall and
+    the rows are also registry series labeled ``{shard}``.
     """
 
     #: Every this many flushes the mirror's running total is re-summed.
@@ -289,7 +291,7 @@ class DevicePrioritySampler:
 
     def __init__(self, capacity: int, lanes: int = 512,
                  use_kernel: Optional[bool] = None, device=None,
-                 seed: int = 0):
+                 seed: int = 0, shard: Optional[int] = None):
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -313,6 +315,16 @@ class DevicePrioritySampler:
         self._flushes = 0
         self.draw_dispatches = 0
         self.writeback_rows = 0
+        labels = {"shard": str(0 if shard is None else int(shard))}
+        reg = get_registry()
+        self._h_sample = reg.histogram(
+            tm.REPLAY_DEVICE_SAMPLE_SECONDS,
+            "on-device priority draw wall per shard: write-back flush + "
+            "dispatch + host materialization", labels)
+        self._c_wb_rows = reg.counter(
+            tm.REPLAY_DEVICE_WRITEBACK_ROWS,
+            "priority rows scattered into the shard's device plane "
+            "(post last-write-wins dedup, pre pow2 padding)", labels)
 
     @property
     def plane(self) -> torch.Tensor:
@@ -351,6 +363,7 @@ class DevicePrioritySampler:
                                    np.concatenate(self._pending_val))
         self._pending_idx, self._pending_val = [], []
         self.writeback_rows += int(idx.shape[0])
+        self._c_wb_rows.inc(idx.shape[0])
         self._flushes += 1
         if self._flushes % self._TOTAL_RESUM_EVERY == 0:
             self._total = float(self._mirror.sum())
@@ -398,13 +411,14 @@ class DevicePrioritySampler:
         selected f64 mass [S]). A pick at or past ``size``, or on a
         zero-mass cell, is clamped into range with its mass zeroed, so the
         caller's IS weight for it is zero."""
-        _, (idx, mass) = handle
+        t0, (idx, mass) = handle
         idx = idx.cpu().numpy().astype(np.int64)
         mass = mass.cpu().numpy().astype(np.float64)
         bad = (idx >= size) | (mass <= 0.0)
         if bad.any():
             idx = np.minimum(idx, size - 1)
             mass = np.where(bad, 0.0, mass)
+        self._h_sample.observe(time.perf_counter() - t0)
         return idx, mass
 
     def sample_at(self, u: np.ndarray, size: int
@@ -421,6 +435,7 @@ class DevicePrioritySampler:
         or past ``size`` (a zero-mass cell past the written region) is
         clamped to ``size - 1`` with its weight zeroed."""
         self.draw_dispatches += 1
+        t0 = time.perf_counter()
         self._flush_writes()
         dev = self.device
         u = (torch.arange(batch_size, dtype=torch.float32, device=dev)
@@ -436,6 +451,7 @@ class DevicePrioritySampler:
         if oob.any():
             idx = np.minimum(idx, size - 1)
             w = np.where(oob, np.float32(0.0), w)
+        self._h_sample.observe(time.perf_counter() - t0)
         return idx, w
 
 
@@ -470,7 +486,8 @@ class PrioritizedHostReplay:
         self.sampler = sampler
         self.shard = shard
         self.device_sampler = (
-            DevicePrioritySampler(capacity, seed=seed, device=sampler_device)
+            DevicePrioritySampler(capacity, seed=seed, device=sampler_device,
+                                  shard=shard)
             if sampler == "device" else None)
         # Device mode never reads a host tree.
         self.tree = (None if self.device_sampler is not None
@@ -485,6 +502,27 @@ class PrioritizedHostReplay:
         # Items per sticky routing shard (ingest/router.py).
         self.added_by_shard: Dict[int, int] = {}
         self._slot_gen = np.zeros(capacity, np.int64)
+        # Occupancy, eviction and priority distribution of the shard.
+        # Every series of a shared family carries the store label.
+        reg = get_registry()
+        labels = {"store": "host"}
+        self._g_size, self._g_cap, self._g_occ = tm.replay_gauges("host",
+                                                                  reg)
+        self._g_cap.set(capacity)
+        self._c_added = reg.counter(tm.REPLAY_ADDED,
+                                    "items written to the host shard",
+                                    labels)
+        self._c_sampled = reg.counter(tm.REPLAY_SAMPLED,
+                                      "items drawn from the host shard",
+                                      labels)
+        self._c_evicted = reg.counter(
+            tm.REPLAY_EVICTED, "ring overwrites of still-live items",
+            labels)
+        self._g_max_prio = reg.gauge(
+            tm.REPLAY_MAX_PRIORITY, "running max |TD| priority", labels)
+        self._g_mass = reg.gauge(
+            tm.REPLAY_PRIORITY_MASS,
+            "total p^alpha mass in the shard's sum-tree", labels)
 
     def __len__(self) -> int:
         return self._size
@@ -525,8 +563,15 @@ class PrioritizedHostReplay:
         self._set_mass(idx, p ** self.alpha)
         self.added += batch
         self._slot_gen[idx] = self.added
+        evicted = max(self._size + batch - self.capacity, 0)
         self._pos = int((self._pos + batch) % self.capacity)
         self._size = int(min(self._size + batch, self.capacity))
+        self._c_added.inc(batch)
+        if evicted:
+            self._c_evicted.inc(evicted)
+        self._g_size.set(self._size)
+        self._g_occ.set(self._size / self.capacity)
+        self._g_max_prio.set(self._max_priority)
 
     def sample(self, batch_size: int, beta: float
                ) -> Tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray]:
@@ -546,6 +591,9 @@ class PrioritizedHostReplay:
             weights = (weights / weights.max()).astype(np.float32)
         items = {k: v[idx] for k, v in self._data.items()}
         self.sampled += batch_size
+        self._c_sampled.inc(batch_size)
+        if self.tree is not None:
+            self._g_mass.set(self.tree.total)
         return items, idx, weights
 
     def state_dict(self) -> Dict[str, np.ndarray]:
@@ -612,6 +660,7 @@ class PrioritizedHostReplay:
             if idx.size == 0:
                 return
         self._max_priority = max(self._max_priority, float(p.max()))
+        self._g_max_prio.set(self._max_priority)
         self._set_mass(idx, p ** self.alpha)
 
 
@@ -624,6 +673,11 @@ class UniformHostReplay:
         self._pos = 0
         self._size = 0
         self._rng = np.random.default_rng(seed)
+        # A distinct store label: a process holding both a PER shard and
+        # a uniform buffer must not have them clobber one gauge series.
+        self._g_size, self._g_cap, self._g_occ = \
+            tm.replay_gauges("host_uniform")
+        self._g_cap.set(capacity)
 
     def __len__(self) -> int:
         return self._size
@@ -640,6 +694,8 @@ class UniformHostReplay:
             self._data[k][idx] = v
         self._pos = int((self._pos + batch) % self.capacity)
         self._size = int(min(self._size + batch, self.capacity))
+        self._g_size.set(self._size)
+        self._g_occ.set(self._size / self.capacity)
 
     def sample(self, batch_size: int) -> Dict[str, np.ndarray]:
         idx = self._rng.integers(0, self._size, size=batch_size)

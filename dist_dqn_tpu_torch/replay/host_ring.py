@@ -14,9 +14,10 @@ evacuation worker while the main thread (or a prefetcher thread) samples,
 so the ring carries a generation fence. Every ``add_chunk`` runs under the
 ring lock and bumps ``generation`` only after its arrays are written, and
 ``sample``/``gather`` hold the same lock: a sampler never sees a
-half-appended slice. The JAX module's telemetry (occupancy gauges, lineage
-histograms, write-back counters) is not ported yet; the lineage stamps
-themselves are kept, since checkpoints carry them.
+half-appended slice. The JAX module's telemetry rides along: the window's
+occupancy gauges and add/sample counters (``{store="host_ring"}``), the
+sample-age and staleness histograms aged from each slot's lineage stamps,
+and the samplers' write-back counters and mass gauges.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 
 from dist_dqn_tpu_torch.replay.host import (DevicePrioritySampler,
                                             make_sum_tree, stratified_mass)
+from dist_dqn_tpu_torch.telemetry import collectors as tm, get_registry
 
 
 class HostBatch(NamedTuple):
@@ -118,6 +120,20 @@ class HostTimeRing:
         # Publish hooks: run under the fence with the t-slots just
         # written, after arrays/pos/size/generation are updated.
         self._publish_hooks: List[Callable[[np.ndarray], None]] = []
+        # Telemetry: the host-DRAM window's occupancy and add/sample
+        # volume, labeled apart from the PER host shard.
+        reg = get_registry()
+        self._g_size, self._g_cap, self._g_occ = tm.replay_gauges(
+            "host_ring", reg)
+        self._g_cap.set(self.num_slots * self.num_envs)
+        self._c_added = reg.counter(tm.REPLAY_ADDED,
+                                    "transitions written to the host ring",
+                                    labels={"store": "host_ring"})
+        self._c_sampled = reg.counter(tm.REPLAY_SAMPLED,
+                                      "transitions drawn from the host "
+                                      "ring", labels={"store": "host_ring"})
+        self._h_sample_age, self._h_sample_staleness = \
+            tm.lineage_histograms("host_replay", reg)
 
     @property
     def nbytes(self) -> int:
@@ -152,6 +168,9 @@ class HostTimeRing:
             for hook in self._publish_hooks:
                 hook(idx)
             self._fence.notify_all()
+        self._c_added.inc(C * self.num_envs)
+        self._g_size.set(self.size * self.num_envs)
+        self._g_occ.set(self.size / self.num_slots)
 
     def add_publish_hook(self, hook: Callable[[np.ndarray], None]) -> None:
         """Register ``hook(idx)`` to run under the fence on every
@@ -200,6 +219,8 @@ class HostTimeRing:
             self.size = int(state["size"])
             self.generation = int(state["generation"])
             self._fence.notify_all()
+        self._g_size.set(self.size * self.num_envs)
+        self._g_occ.set(self.size / self.num_slots)
 
     def wait_generation(self, target: int,
                         timeout: Optional[float] = None) -> bool:
@@ -211,6 +232,23 @@ class HostTimeRing:
     # -- sampling -----------------------------------------------------------
     def _extra(self) -> int:
         return max(self.frame_stack - 1, 0)
+
+    def observe_lineage(self, t_idx: np.ndarray) -> None:
+        """Age the drawn slots' lineage stamps into the sample-age /
+        staleness histograms. Called by both samplers after the fence is
+        released: the stamps are telemetry, and a racing overwrite shifts
+        an observation by one chunk at worst. Slots never stamped (a
+        resumed window without stamps) are skipped whole."""
+        births = self.birth_time[t_idx]
+        live = births > 0.0
+        if not live.any():
+            return
+        now = time.time()
+        self._h_sample_age.observe_many(
+            np.maximum(now - births[live], 0.0))
+        self._h_sample_staleness.observe_many(np.maximum(
+            self.current_params_version - self.slot_version[t_idx][live],
+            0))
 
     def can_sample(self, n_step: int) -> bool:
         return self.size > n_step + self._extra()
@@ -276,6 +314,8 @@ class HostTimeRing:
                                  batch_size).astype(np.int32)
             generation = self.generation
             batch = self._gather_locked(t_idx, b_idx, n_step, gamma)
+        self._c_sampled.inc(batch_size)
+        self.observe_lineage(t_idx)
         return HostSample(batch=batch, t_idx=t_idx, b_idx=b_idx,
                           generation=generation)
 
@@ -302,7 +342,8 @@ class RingPrioritySampler:
 
     def __init__(self, ring: HostTimeRing, n_step: int,
                  alpha: float = 0.6, beta: float = 0.4,
-                 eps: float = 1e-6, native: Optional[bool] = None):
+                 eps: float = 1e-6, native: Optional[bool] = None,
+                 name: str = "host_replay"):
         self._stratified = stratified_mass
         self._ring = ring
         self.n_step = int(n_step)
@@ -320,6 +361,26 @@ class RingPrioritySampler:
         self.writeback_flushes = 0
         self.writeback_rows = 0
         self.writeback_dropped = 0
+        labels = {"loop": name}
+        reg = get_registry()
+        self._c_wb_batches = reg.counter(
+            tm.HOST_REPLAY_PRIO_WB_BATCHES,
+            "batched priority write-back flushes applied to the ring's "
+            "sum-tree", labels)
+        self._c_wb_rows = reg.counter(
+            tm.HOST_REPLAY_PRIO_WB_ROWS,
+            "priority rows written back (post generation filter)", labels)
+        self._c_wb_dropped = reg.counter(
+            tm.HOST_REPLAY_PRIO_WB_DROPPED,
+            "priority rows dropped because their slot was overwritten "
+            "before the batched write-back", labels)
+        self._g_max_prio = reg.gauge(tm.REPLAY_MAX_PRIORITY,
+                                     "running max |TD| priority",
+                                     {"store": "host_ring"})
+        self._g_mass = reg.gauge(
+            tm.REPLAY_PRIORITY_MASS,
+            "total p^alpha mass over the ring's valid region",
+            {"store": "host_ring"})
         with ring._fence:
             if ring.size:
                 # Adopt a pre-filled ring: seed everything stored at max.
@@ -380,6 +441,7 @@ class RingPrioritySampler:
         vals[np.isin(touched, cur_invalid)] = 0.0
         self._backend_set(flat, vals.reshape(-1))
         self._invalid_t = cur_invalid
+        self._g_mass.set(self._backend_total())
 
     # -- sampling -----------------------------------------------------------
     def sample(self, rng: np.random.Generator, batch_size: int,
@@ -416,6 +478,8 @@ class RingPrioritySampler:
             slot_gen = self._ring.slot_gen[t_idx].copy()
             generation = ring.generation
             batch = ring._gather_locked(t_idx, b_idx, self.n_step, gamma)
+        ring._c_sampled.inc(batch_size)
+        ring.observe_lineage(t_idx)
         return batch, PerSample(leaf=leaf, t_idx=t_idx, b_idx=b_idx,
                                 slot_gen=slot_gen, weights=w,
                                 generation=generation)
@@ -447,6 +511,8 @@ class RingPrioritySampler:
             slot_gen = self._ring.slot_gen[t_idx].copy()
             generation = ring.generation
             batch = ring._gather_locked(t_idx, b_idx, self.n_step, gamma)
+        ring._c_sampled.inc(n)
+        ring.observe_lineage(t_idx)
         per = PerSample(leaf=leaf, t_idx=t_idx, b_idx=b_idx,
                         slot_gen=slot_gen,
                         weights=np.zeros(n, np.float32),
@@ -512,8 +578,11 @@ class RingPrioritySampler:
                 vals = self._mass.copy()
                 vals[self._flat(self._invalid_t)] = 0.0
                 self._backend_set(flat, vals)
+            total = self._backend_total()
         (self.writeback_flushes, self.writeback_rows,
          self.writeback_dropped) = (int(x) for x in state["wb_counters"])
+        self._g_max_prio.set(self._max_priority)
+        self._g_mass.set(total)
 
     # -- priority write-backs ----------------------------------------------
     def update_priorities(self, leaf: np.ndarray, priorities: np.ndarray,
@@ -540,10 +609,18 @@ class RingPrioritySampler:
                 # it.
                 inv = np.isin(leaf // ring.num_envs, self._invalid_t)
                 self._backend_set(leaf, np.where(inv, 0.0, mass))
+            # Still under the fence: the total must not race a publish
+            # hook's backend set on the evacuation worker's thread.
+            total = self._backend_total()
         applied = int(leaf.size)
         self.writeback_flushes += 1
         self.writeback_rows += applied
         self.writeback_dropped += dropped
+        self._c_wb_batches.inc()
+        self._c_wb_rows.inc(applied)
+        self._c_wb_dropped.inc(dropped)
+        self._g_max_prio.set(self._max_priority)
+        self._g_mass.set(total)
         return applied, dropped
 
 
@@ -562,10 +639,12 @@ class RingDevicePrioritySampler(RingPrioritySampler):
     def __init__(self, ring: HostTimeRing, n_step: int,
                  alpha: float = 0.6, beta: float = 0.4,
                  eps: float = 1e-6, device=None,
-                 use_kernel: Optional[bool] = None):
+                 use_kernel: Optional[bool] = None,
+                 name: str = "host_replay"):
         self._device = device
         self._use_kernel = use_kernel
-        super().__init__(ring, n_step, alpha=alpha, beta=beta, eps=eps)
+        super().__init__(ring, n_step, alpha=alpha, beta=beta, eps=eps,
+                         name=name)
 
     def _make_backend(self, native: Optional[bool]) -> None:
         self.tree = None

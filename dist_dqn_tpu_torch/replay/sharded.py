@@ -40,6 +40,7 @@ from __future__ import annotations
 import queue
 import re
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -97,6 +98,7 @@ class ShardedHostReplay:
     def attach_priority_samplers(self, n_step: int, alpha: float,
                                  beta: float, eps: float,
                                  native: Optional[bool] = None,
+                                 name: str = "host_replay",
                                  device_sampling: bool = False,
                                  devices: Optional[List] = None
                                  ) -> List[RingPrioritySampler]:
@@ -110,13 +112,16 @@ class ShardedHostReplay:
             self.samplers = [
                 RingDevicePrioritySampler(
                     ring, n_step=n_step, alpha=alpha, beta=beta, eps=eps,
-                    device=devs[i % len(devs)])
+                    device=devs[i % len(devs)],
+                    name=f"{name}_s{i}" if self.num_shards > 1 else name)
                 for i, ring in enumerate(self.rings)]
             return self.samplers
         self.samplers = [
             RingPrioritySampler(ring, n_step=n_step, alpha=alpha, beta=beta,
-                                eps=eps, native=native)
-            for ring in self.rings]
+                                eps=eps, native=native,
+                                name=f"{name}_s{i}" if self.num_shards > 1
+                                else name)
+            for i, ring in enumerate(self.rings)]
         return self.samplers
 
     # -- aggregate ring surface ----------------------------------------------
@@ -612,13 +617,17 @@ class ShardSampleService:
 
     ``beta`` rides each request, so a queued batch's IS exponent lags the
     learner by at most ``depth`` draws. ``batch_size`` must stay the same
-    over a service's life (the apex learner's does). The registry
-    histograms of the draw and of the learner's wait are telemetry
-    (ROADMAP.md A10).
+    over a service's life (the apex learner's does). Each shard's draw
+    wall and the learner's wait are registry histograms
+    (``dqn_replay_shard_sample_seconds{shard}``,
+    ``dqn_replay_shard_sample_wait_seconds``).
     """
 
     def __init__(self, replay: ShardedPrioritizedReplay, depth: int = 2,
                  name: str = "apex"):
+        from dist_dqn_tpu_torch.telemetry import collectors as tmc
+        from dist_dqn_tpu_torch.telemetry import get_registry
+
         self.replay = replay
         self.depth = max(1, int(depth))
         self._requests: "queue.Queue" = queue.Queue()
@@ -629,6 +638,16 @@ class ShardSampleService:
         self._outstanding = 0
         self._err: Optional[BaseException] = None
         self._closed = False
+        reg = get_registry()
+        self._h_draw = {
+            s_id: reg.histogram(
+                tmc.REPLAY_SHARD_SAMPLE_SECONDS,
+                "per-shard ingest-side stratified draw + gather wall",
+                labels={"shard": str(s_id)})
+            for s_id in range(replay.num_shards)}
+        self._h_wait = reg.histogram(
+            tmc.REPLAY_SHARD_SAMPLE_WAIT,
+            "learner wait on the pre-packed per-shard block queue")
         self.batches = 0
         self._workers = [
             threading.Thread(target=self._shard_loop, args=(s_id,),
@@ -644,14 +663,17 @@ class ShardSampleService:
 
     # -- threads -------------------------------------------------------------
     def _shard_loop(self, s_id: int) -> None:
+        h = self._h_draw[s_id]
         while True:
             task = self._tasks[s_id].get()
             if task is None:
                 return
             rows, local_mass, T, batch, idx_g, p_sel, out, gen = task
+            t0 = time.perf_counter()
             try:
                 self.replay._shard_draw(s_id, rows, local_mass, T, batch,
                                         idx_g, p_sel, out, gen=gen)
+                h.observe(time.perf_counter() - t0)
                 self._done.put(None)
             except BaseException as e:  # noqa: BLE001 — tombstoned
                 self._done.put(e)
@@ -719,6 +741,7 @@ class ShardSampleService:
         while self._outstanding < self.depth:
             self._requests.put((int(batch_size), float(beta)))
             self._outstanding += 1
+        t0 = time.perf_counter()
         while True:
             try:
                 res = self._results.get(timeout=5.0)
@@ -729,6 +752,7 @@ class ShardSampleService:
                         "sample coordinator thread died silently")
                     raise self._err
         self._outstanding -= 1
+        self._h_wait.observe(time.perf_counter() - t0)
         if isinstance(res, BaseException):
             self._err = res
             raise ShardSamplerError(

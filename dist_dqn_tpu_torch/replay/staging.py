@@ -29,8 +29,12 @@ On the CPU the same classes run with plain tensors and the same threads:
 an upload is a copy (a batch never aliases a staging buffer it may be
 overwritten through), and a slice is a host view of the records.
 
-The JAX module's telemetry, heartbeats, flight records and chaos seams
-are not ported yet.
+Each class records the JAX module's telemetry families, labeled
+``{loop=name}``: staging occupancy and volume, D2H bytes and slices (with
+``{shard}`` twins under the mesh), evacuation and slice-lag seconds, and
+the prefetcher's sample and wait seconds, depth and stale drops. The
+heartbeats, flight records and chaos seams are not ported yet (ROADMAP.md
+A10c, A10d).
 """
 from __future__ import annotations
 
@@ -41,6 +45,8 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from dist_dqn_tpu_torch.telemetry import collectors as tm, get_registry
 
 
 # --------------------------------------------------------------------------
@@ -95,7 +101,7 @@ class DoubleBufferedStager:
     host memory and how far sampling may run ahead of training.
     """
 
-    def __init__(self, depth: int = 2, device=None):
+    def __init__(self, depth: int = 2, device=None, name: str = "learner"):
         if depth < 1:
             raise ValueError(f"stager depth must be >= 1, got {depth}")
         self.depth = depth
@@ -113,6 +119,17 @@ class DoubleBufferedStager:
         self._lock = threading.Lock()
         self._staged_total = 0
         self.bytes_staged = 0
+        labels = {"loop": name}
+        reg = get_registry()
+        self._g_occ = reg.gauge(
+            tm.STAGING_OCCUPANCY,
+            "H2D batches staged ahead, not yet consumed", labels)
+        self._c_staged = reg.counter(
+            tm.STAGING_STAGED, "batches staged through the double buffer",
+            labels)
+        self._c_bytes = reg.counter(
+            tm.STAGING_BYTES, "host bytes copied into staging buffers",
+            labels)
 
     def __len__(self) -> int:
         return self._queued
@@ -164,6 +181,9 @@ class DoubleBufferedStager:
         self._queue.put((rebuild(dev), event, aux))
         self._staged_total += 1
         self.bytes_staged += nbytes
+        self._c_staged.inc()
+        self._c_bytes.inc(nbytes)
+        self._g_occ.set(self._queued)
 
     def pop(self) -> Tuple[Any, Any]:
         """Oldest staged ``(device_batch, aux)``; raises when empty. On the
@@ -173,6 +193,7 @@ class DoubleBufferedStager:
         batch, event, aux = self._queue.get()
         with self._lock:
             self._queued -= 1
+        self._g_occ.set(self._queued)
         if event is not None:
             consumer = torch.cuda.current_stream(self.device)
             consumer.wait_event(event)
@@ -239,7 +260,8 @@ class StreamedEvacuator:
     them in ``add_chunk``).
     """
 
-    def __init__(self, num_slices: int = 4):
+    def __init__(self, num_slices: int = 4, name: str = "host_replay",
+                 shard: Optional[int] = None):
         if num_slices < 1:
             raise ValueError(
                 f"evacuator num_slices must be >= 1, got {num_slices}")
@@ -247,6 +269,23 @@ class StreamedEvacuator:
         self._stream: Optional["torch.cuda.Stream"] = None
         self.bytes_total = 0
         self.slices_total = 0
+        labels = {"loop": name}
+        reg = get_registry()
+        self._c_bytes = reg.counter(
+            tm.HOST_REPLAY_D2H_BYTES,
+            "bytes evacuated device->host by the replay pipeline", labels)
+        self._c_slices = reg.counter(
+            tm.HOST_REPLAY_EVAC_SLICES,
+            "sub-chunk D2H slices streamed", labels)
+        # One mesh rank's evacuator drains its own shard's lane block: its
+        # bytes carry an explicit {shard} label too.
+        self._c_shard_bytes = None
+        if shard is not None:
+            self._c_shard_bytes = reg.counter(
+                tm.HOST_REPLAY_SHARD_D2H_BYTES,
+                "bytes evacuated from this shard's own device into its "
+                "own ring (zero cross-shard lane scatter)",
+                {"loop": "host_replay", "shard": str(shard)})
 
     def start(self, records: Any,
               ready: Optional["torch.cuda.Event"] = None) -> _EvacJob:
@@ -286,9 +325,12 @@ class StreamedEvacuator:
         return _EvacJob(slices, bounds, rebuild, time.perf_counter())
 
     def drain(self, job: _EvacJob,
-              on_slice: Callable[[Any, int, int], None]) -> dict:
-        """Wait for and publish every slice of ``job`` in time order;
-        returns the chunk's stats (bytes, slices, evac_s)."""
+              on_slice: Callable[[Any, int, int], None],
+              on_slice_done: Optional[Callable[[int], None]] = None
+              ) -> dict:
+        """Wait for and publish every slice of ``job`` in time order
+        (``on_slice_done(i)`` after slice i); returns the chunk's stats
+        (bytes, slices, evac_s)."""
         nbytes = 0
         for i, ((host, event), (lo, hi)) in enumerate(zip(job.slices,
                                                           job.bounds)):
@@ -301,7 +343,13 @@ class StreamedEvacuator:
             # Release the slice's buffers once published.
             job.slices[i] = None
             self.slices_total += 1
+            self._c_slices.inc()
+            if on_slice_done is not None:
+                on_slice_done(i)
         self.bytes_total += nbytes
+        self._c_bytes.inc(nbytes)
+        if self._c_shard_bytes is not None:
+            self._c_shard_bytes.inc(nbytes)
         return {"bytes": nbytes, "slices": len(job.bounds),
                 "evac_s": time.perf_counter() - job.submitted_at}
 
@@ -321,11 +369,28 @@ class EvacuationWorker:
 
     def __init__(self, evacuator: StreamedEvacuator,
                  on_slice: Callable[[Any, int, int], None],
-                 name: str = "host_replay"):
+                 name: str = "host_replay", shard: Optional[int] = None):
         self._evac = evacuator
         self._on_slice = on_slice
         self._q: "queue.Queue" = queue.Queue()
         self._exc: Optional[BaseException] = None
+        labels = {"loop": name}
+        reg = get_registry()
+        self._h_evac = reg.histogram(
+            tm.HOST_REPLAY_EVAC_SECONDS,
+            "per-chunk evacuation wall (submit -> last slice published)",
+            labels)
+        self._h_lag = reg.histogram(
+            tm.HOST_REPLAY_SLICE_LAG_SECONDS,
+            "slice publication lag behind its chunk's submission", labels)
+        # The last drained chunk's evacuation wall for THIS shard's lane
+        # block, so a straggler rank shows up by label.
+        self._g_shard_evac = None
+        if shard is not None:
+            self._g_shard_evac = reg.gauge(
+                tm.HOST_REPLAY_SHARD_EVAC_SECONDS,
+                "last chunk's evacuation wall for this shard's lane "
+                "block", {"loop": "host_replay", "shard": str(shard)})
         self._thread = threading.Thread(
             target=self._run, name=f"evac-{name}", daemon=True)
         self._thread.start()
@@ -348,7 +413,17 @@ class EvacuationWorker:
             if job is None:
                 return
             try:
-                job._finish(self._evac.drain(job, self._on_slice))
+                t0 = job.submitted_at
+
+                def _lag(_i, t0=t0):
+                    self._h_lag.observe(time.perf_counter() - t0)
+
+                stats = self._evac.drain(job, self._on_slice,
+                                         on_slice_done=_lag)
+                self._h_evac.observe(stats["evac_s"])
+                if self._g_shard_evac is not None:
+                    self._g_shard_evac.set(stats["evac_s"])
+                job._finish(stats)
             except BaseException as e:  # propagate, never hang the fence
                 self._exc = e
                 job._fail(e)
@@ -396,7 +471,8 @@ class SamplePrefetcher:
         self._sample_fn = sample_fn
         self._wait_gen = wait_generation
         self.depth = int(depth)
-        self._stager = DoubleBufferedStager(depth=depth, device=device)
+        self._stager = DoubleBufferedStager(depth=depth, device=device,
+                                            name=name)
         self._work: "queue.Queue" = queue.Queue()
         self._ready = threading.Semaphore(0)
         self._free = threading.Semaphore(depth)
@@ -407,6 +483,24 @@ class SamplePrefetcher:
         self.wait_s_total = 0.0
         self.stale_total = 0
         self.sampled_total = 0
+        labels = {"loop": name}
+        reg = get_registry()
+        self._h_sample = reg.histogram(
+            tm.HOST_REPLAY_SAMPLE_SECONDS,
+            "host-side sample+gather wall per batch (prefetcher thread "
+            "when prefetching — off the critical path)", labels)
+        self._h_wait = reg.histogram(
+            tm.HOST_REPLAY_PREFETCH_WAIT_SECONDS,
+            "main-thread wait for a prefetched batch (the sample-side "
+            "share left on the critical path)", labels)
+        self._c_stale = reg.counter(
+            tm.HOST_REPLAY_STALE_BATCHES,
+            "prefetched batches dropped for carrying a ring generation "
+            "older than the train event's fence", labels)
+        self._g_depth = reg.gauge(
+            tm.HOST_REPLAY_PREFETCH_DEPTH,
+            "device-resident batches staged ahead of the learner",
+            labels)
         self._thread = threading.Thread(target=self._run,
                                         name=f"prefetch-{name}",
                                         daemon=True)
@@ -460,10 +554,12 @@ class SamplePrefetcher:
                 host_batch, aux = self._sample_fn(k)
                 if getattr(aux, "generation", min_generation) \
                         >= min_generation:
-                    stager = DoubleBufferedStager(
-                        depth=1, device=self._stager.device)
-                    stager.stage(host_batch)
-                    return stager.pop()[0], aux
+                    # A direct upload (a fresh copy), outside the
+                    # staging pool and its counters.
+                    dev = self._stager.device
+                    return tree_map(
+                        lambda a: torch.from_numpy(np.array(a)).to(dev),
+                        host_batch), aux
             if time.monotonic() >= deadline:
                 raise RuntimeError(
                     f"prefetch batch {k} waited 30s for ring "
@@ -485,8 +581,12 @@ class SamplePrefetcher:
         self._free.release()
         if getattr(aux, "generation", min_generation) < min_generation:
             self.stale_total += 1
+            self._c_stale.inc()
             device_batch, aux = self._resample(k, min_generation)
-        self.wait_s_total += time.perf_counter() - t0
+        self._g_depth.set(len(self._stager))
+        dt = time.perf_counter() - t0
+        self.wait_s_total += dt
+        self._h_wait.observe(dt)
         return device_batch, aux
 
     def _run(self) -> None:
@@ -511,9 +611,12 @@ class SamplePrefetcher:
                         return
                 t0 = time.perf_counter()
                 host_batch, aux = self._sample_fn(k)
-                self.sample_s_total += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.sample_s_total += dt
                 self.sampled_total += 1
+                self._h_sample.observe(dt)
                 self._stager.stage(host_batch, aux=(k, aux))
+                self._g_depth.set(len(self._stager))
                 self._ready.release()
             except BaseException as e:  # propagate, never hang a pop
                 self._exc = e

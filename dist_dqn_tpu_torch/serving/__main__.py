@@ -9,9 +9,11 @@ hot-reload and SLO-backed backpressure. Runs on ``cuda`` unless
 the bucket ladder ran, ``serving_port`` once requests are accepted, and
 ``serving_drained`` after SIGINT/SIGTERM, which drain the admitted
 requests and exit 0 (also while still waiting for a first checkpoint).
-The telemetry endpoint, fleet registration, forensics and chaos plans
-are not ported yet (ROADMAP.md A10); asking for them raises with the
-reason.
+``--telemetry-port`` also serves the registry on a separate telemetry
+endpoint (logged as ``telemetry_port``), and ``--telemetry-snapshot``
+dumps it at exit. Fleet registration (ROADMAP.md A10c), forensics (A10c)
+and chaos plans (A10d) are not ported yet; asking for them raises with
+the reason.
 """
 from __future__ import annotations
 
@@ -38,16 +40,12 @@ def _refuse_unported(args) -> None:
     """Flags and the chaos plan of the JAX CLI this port does not
     implement yet, refused with the ROADMAP.md item that brings them."""
     refused = [reason for reason, given in (
-        ("--telemetry-port/--telemetry-host/--telemetry-snapshot/"
-         "--fleet-dir (telemetry, ROADMAP.md A10)",
-         any(x is not None for x in (args.telemetry_port,
-                                     args.telemetry_host,
-                                     args.telemetry_snapshot,
-                                     args.fleet_dir))),
+        ("--fleet-dir (fleet registration, ROADMAP.md A10c)",
+         args.fleet_dir is not None),
         ("--forensics-dir/--watchdog-deadline-s (watchdog, ROADMAP.md "
-         "A10)", args.forensics_dir is not None
+         "A10c)", args.forensics_dir is not None
          or args.watchdog_deadline_s is not None),
-        ("DQN_CHAOS_PLAN (chaos, ROADMAP.md A10)",
+        ("DQN_CHAOS_PLAN (chaos, ROADMAP.md A10d)",
          bool(os.environ.get("DQN_CHAOS_PLAN"))),
     ) if given]
     if refused:
@@ -125,16 +123,26 @@ def main(argv=None):
                         metavar="PATH=VALUE", default=[],
                         help="override config fields by dotted path (must "
                              "match how the checkpoints were trained)")
+    parser.add_argument("--telemetry-port", type=int, default=None,
+                        help="ALSO serve the registry on a separate "
+                             "telemetry endpoint (the act server already "
+                             "exposes /metrics + /healthz)")
+    parser.add_argument("--telemetry-host", default="127.0.0.1",
+                        help="bind address for --telemetry-port")
+    parser.add_argument("--telemetry-snapshot", default=None,
+                        help="dump a registry JSON snapshot here at exit")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored (so their defaults are None).
-    parser.add_argument("--telemetry-port", type=int, default=None)
-    parser.add_argument("--telemetry-host", default=None)
-    parser.add_argument("--telemetry-snapshot", default=None)
     parser.add_argument("--fleet-dir", default=None)
     parser.add_argument("--forensics-dir", default=None)
     parser.add_argument("--watchdog-deadline-s", type=float, default=None)
     args = parser.parse_args(argv)
     _refuse_unported(args)
+    if args.telemetry_snapshot:
+        # Written at exit: the drain below ends in a normal exit, whose
+        # atexit leg dumps it whichever SIGTERM handler came first.
+        from dist_dqn_tpu_torch.telemetry import install_snapshot_dump
+        install_snapshot_dump(args.telemetry_snapshot)
 
     try:
         cfg = apply_overrides(CONFIGS[args.config], args.overrides)
@@ -193,6 +201,10 @@ def main(argv=None):
             return
         raise
 
+    from dist_dqn_tpu_torch import telemetry
+    telemetry_server = telemetry.serve_if_asked(
+        args.telemetry_port, args.telemetry_host,
+        lambda line: print(line, flush=True))
     print(json.dumps({
         "serving_port": server.port, "serving_host": server.host,
         "policies": {pid: {"version": hdr["version"], "step": hdr["step"]}
@@ -211,6 +223,8 @@ def main(argv=None):
         print(json.dumps({"serving_drained": bool(drained),
                           "drain_timeout_s": args.drain_timeout_s}),
               flush=True)
+        if telemetry_server is not None:
+            telemetry_server.close()
 
 
 if __name__ == "__main__":

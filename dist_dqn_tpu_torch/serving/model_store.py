@@ -29,7 +29,7 @@ before the reference swap, so the dispatch thread never sees a
 half-loaded module. An old snapshot is dropped only after the dispatch
 thread's last use of it, which ends in the ``.cpu()`` fence of its batch.
 
-Not ported (ROADMAP.md A10): the ``serving.reload`` chaos seam.
+Not ported (ROADMAP.md A10d): the ``serving.reload`` chaos seam.
 """
 from __future__ import annotations
 

@@ -1,26 +1,38 @@
-"""Telemetry core of the port (twin of part of ``dist_dqn_tpu/telemetry/``):
-the metrics registry, its Prometheus exposition, the serving tier's
-metric names and the health half of the watchdog. Stdlib only.
+"""Telemetry plane of the port (twin of ``dist_dqn_tpu/telemetry/``): the
+metrics registry, its Prometheus exposition, the metric family names and
+collector helpers every runtime records through, the ``/metrics`` scrape
+endpoint with its debug surface, the exit-flush lifecycle with the
+registry snapshot dump, the run manifest, and the health half of the
+watchdog. Stdlib only: the actor and feeder processes import it.
 
 Quick start::
 
     from dist_dqn_tpu_torch import telemetry
 
     reg = telemetry.get_registry()
-    shed = reg.counter("dqn_serving_shed_total", "requests shed")
-    text = telemetry.render_prometheus(reg)
+    steps = reg.counter("dqn_env_steps_total", "env steps processed")
+    server = telemetry.start_server(0)      # ephemeral port: server.port
 
-The standalone telemetry endpoint, the stall watchdog's sweeper, the
-divergence sentinel, forensics, the flight recorder, fleet registration,
-device-time attribution and the exit snapshot dump are not ported yet
-(ROADMAP.md A10).
+Serve ``/metrics`` with ``telemetry.start_server(port)``; dump a JSON
+snapshot at exit with ``telemetry.install_snapshot_dump(path)`` (or, in
+any process that calls ``maybe_install_snapshot_from_env``, through
+``DQN_TELEMETRY_SNAPSHOT``).
+
+Not ported yet: device-time attribution and the span tracer (ROADMAP.md
+A10b); the stall watchdog's sweeper, the divergence sentinel, forensics
+bundles, the flight recorder and fleet registration (A10c).
 """
 from dist_dqn_tpu_torch.telemetry.exposition import (  # noqa: F401
     CONTENT_TYPE, render_prometheus, snapshot, write_snapshot)
+from dist_dqn_tpu_torch.telemetry.lifecycle import (  # noqa: F401
+    install_snapshot_dump, maybe_install_snapshot_from_env, on_exit)
+from dist_dqn_tpu_torch.telemetry.manifest import (  # noqa: F401
+    build_manifest, get_run_manifest, set_run_manifest)
 from dist_dqn_tpu_torch.telemetry.registry import (  # noqa: F401
     DEFAULT_BUCKETS, Counter, Gauge, Histogram, NullRegistry, Registry,
     get_registry)
-from dist_dqn_tpu_torch.telemetry.server import healthz_body  # noqa: F401
+from dist_dqn_tpu_torch.telemetry.server import (  # noqa: F401
+    TelemetryServer, healthz_body, serve_if_asked, start_server)
 from dist_dqn_tpu_torch.telemetry.watchdog import (  # noqa: F401
-    Heartbeat, NullHeartbeat, health_state, heartbeat,
+    Heartbeat, NullHeartbeat, format_stacks, health_state, heartbeat,
     register_health_probe, unregister_health_probe)

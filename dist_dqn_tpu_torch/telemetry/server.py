@@ -1,17 +1,49 @@
-"""The ``/healthz`` body of the port (twin of ``healthz_body`` in
-``dist_dqn_tpu/telemetry/server.py``).
+"""Prometheus scrape endpoint + debug surface of the port (twin of
+``dist_dqn_tpu/telemetry/server.py``): a stdlib http.server on a daemon
+thread.
 
-Every HTTP surface of a process answers ``/healthz`` with this one body,
-so a failing health probe flips them all at once. The standalone
-telemetry endpoint (``TelemetryServer``, ``start_server`` and the
-``--telemetry-port`` flags) is not ported yet (ROADMAP.md A10); the
-serving tier's act server already serves ``/metrics`` and ``/healthz``.
+``TelemetryServer(port=0)`` binds an ephemeral port (the bound port is on
+``.port``) and serves
+
+  * ``/metrics`` and ``/`` — Prometheus text exposition (scrape this)
+  * ``/metrics.json`` — the JSON snapshot (same data, offline tooling)
+  * ``/healthz`` — liveness probe: 200 ``ok``, or 503 with the failing
+    health probes as JSON (telemetry/watchdog.py ``health_state``)
+  * ``/debug/stacks`` — every live thread's Python stack, by thread NAME
+  * ``/debug/config`` — the run manifest (git sha, versions, config
+    hash/dict, argv; telemetry/manifest.py) of this process
+  * ``/debug/flight`` and ``/debug/profile`` — 501: the flight recorder
+    (ROADMAP.md A10c) and on-demand device profiling (A10b) are not
+    ported yet, and the endpoint says so instead of a silent 404.
+
+Every body but the two 501s is byte for byte the JAX package's for the
+same registry contents, health probes and manifest. The handler renders
+under the registry's own locks, so a scrape never blocks a training loop
+for more than an instrument read. Loopback by default: the metric/debug
+surface is unauthenticated. Stdlib only.
 """
 from __future__ import annotations
 
 import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 
+from dist_dqn_tpu_torch.telemetry import manifest as manifest_mod
 from dist_dqn_tpu_torch.telemetry import watchdog as watchdog_mod
+from dist_dqn_tpu_torch.telemetry.exposition import (CONTENT_TYPE,
+                                                     render_prometheus,
+                                                     snapshot)
+from dist_dqn_tpu_torch.telemetry.registry import Registry, get_registry
+
+#: The debug endpoints of the JAX server whose modules the port lacks:
+#: path -> (what, ROADMAP.md item). They answer 501 naming the item.
+NOT_PORTED = {
+    "/debug/flight": ("the flight recorder's event tail (/debug/flight)",
+                      "A10c"),
+    "/debug/profile": ("on-demand device profiling (/debug/profile)",
+                       "A10b"),
+}
 
 
 def healthz_body():
@@ -25,3 +57,87 @@ def healthz_body():
         return 200, b"ok\n"
     return 503, (json.dumps({"status": "unhealthy", **detail},
                             sort_keys=True) + "\n").encode()
+
+
+class TelemetryServer:
+    def __init__(self, port: int = 0, host: str = "127.0.0.1",
+                 registry: Optional[Registry] = None):
+        registry = registry if registry is not None else get_registry()
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 — http.server API
+                path = self.path.split("?", 1)[0]
+                status = 200
+                if path in ("/metrics", "/"):
+                    body = render_prometheus(registry).encode()
+                    ctype = CONTENT_TYPE
+                elif path == "/metrics.json":
+                    body = (json.dumps(snapshot(registry), sort_keys=True)
+                            + "\n").encode()
+                    ctype = "application/json"
+                elif path == "/healthz":
+                    status, body = healthz_body()
+                    ctype = ("text/plain" if status == 200
+                             else "application/json")
+                elif path == "/debug/stacks":
+                    body = watchdog_mod.format_stacks().encode()
+                    ctype = "text/plain"
+                elif path == "/debug/config":
+                    man = manifest_mod.get_run_manifest()
+                    body = (json.dumps(man if man is not None else {},
+                                       sort_keys=True) + "\n").encode()
+                    ctype = "application/json"
+                elif path in NOT_PORTED:
+                    what, item = NOT_PORTED[path]
+                    status = 501
+                    body = (f"not ported yet: {what} (ROADMAP.md {item})\n"
+                            ).encode()
+                    ctype = "text/plain"
+                else:
+                    self.send_error(404)
+                    return
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, fmt, *args):
+                pass  # scrapes must not spam the JSON-line log stream
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd.daemon_threads = True
+        self.host, self.port = self._httpd.server_address[:2]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="telemetry-http", daemon=True)
+        self._thread.start()
+
+    @property
+    def address(self) -> str:
+        return f"http://{self.host}:{self.port}/metrics"
+
+    def close(self) -> None:
+        try:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        except OSError:
+            pass
+        self._thread.join(timeout=5)
+
+
+def start_server(port: int, host: str = "127.0.0.1",
+                 registry: Optional[Registry] = None) -> TelemetryServer:
+    """Convenience: build + start (port 0 = ephemeral, see ``.port``)."""
+    return TelemetryServer(port=port, host=host, registry=registry)
+
+
+def serve_if_asked(port: Optional[int], host: str, log_fn
+                   ) -> Optional[TelemetryServer]:
+    """An entry point's ``--telemetry-port``: None serves nothing;
+    otherwise the server, its bound port logged through ``log_fn`` as the
+    JAX entry points log it, ``{"telemetry_port": N}``."""
+    if port is None:
+        return None
+    server = start_server(port, host=host)
+    log_fn(json.dumps({"telemetry_port": server.port}))
+    return server

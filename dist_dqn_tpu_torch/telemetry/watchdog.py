@@ -1,6 +1,7 @@
 """The health half of the stall watchdog (twin of part of
-``dist_dqn_tpu/telemetry/watchdog.py``): stage heartbeats and the
-``/healthz`` state with its registered health probes.
+``dist_dqn_tpu/telemetry/watchdog.py``): stage heartbeats, the
+``/healthz`` state with its registered health probes, and the named
+thread stacks ``/debug/stacks`` serves.
 
 What is here:
 
@@ -12,8 +13,9 @@ What is here:
   * ``health_state``: the (ok, detail) pair every ``/healthz`` surface of
     the process serves, from the registered health probes
     (``register_health_probe``: the serving tier's SLO tracker flips it).
+  * ``format_stacks``: every live thread's Python stack by thread name.
 
-Not here yet (ROADMAP.md A10): the ``Watchdog`` sweeper thread that
+Not here yet (ROADMAP.md A10c): the ``Watchdog`` sweeper thread that
 expires heartbeats, the divergence sentinel, forensics bundles, the
 flight recorder and the emergency-checkpoint hooks. Until they land,
 ``health_state`` reports the probes only, which is what the JAX
@@ -24,8 +26,10 @@ Stdlib only.
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
+import traceback
 from typing import Dict, Optional
 
 
@@ -98,7 +102,7 @@ def heartbeat(stage: str, deadline_s: Optional[float] = None,
               startup_grace_s: float = 0.0):
     """A stage heartbeat on the global watchdog, or the no-op twin when
     none is installed — call sites never branch. The port installs no
-    watchdog yet (ROADMAP.md A10), so this is always the no-op twin."""
+    watchdog yet (ROADMAP.md A10c), so this is always the no-op twin."""
     return NULL_HEARTBEAT
 
 
@@ -131,3 +135,22 @@ def register_health_probe(name: str, probe) -> None:
 def unregister_health_probe(name: str) -> None:
     with _global_lock:
         _health_probes.pop(name, None)
+
+
+def format_stacks() -> str:
+    """Every live thread's Python stack, labeled with the thread's NAME
+    (``sys._current_frames`` keys on ident; ``threading.enumerate``
+    provides the mapping): what ``/debug/stacks`` serves. Unnamed threads
+    print as ``Thread-N``."""
+    frames = sys._current_frames()
+    by_ident = {t.ident: t for t in threading.enumerate()}
+    parts = []
+    for ident, frame in sorted(frames.items()):
+        t = by_ident.get(ident)
+        name = t.name if t is not None else f"<unregistered-{ident}>"
+        daemon = t.daemon if t is not None else "?"
+        parts.append(f"--- thread {name!r} (ident {ident}, "
+                     f"daemon={daemon}) ---")
+        parts.append("".join(traceback.format_stack(frame)).rstrip())
+        parts.append("")
+    return "\n".join(parts)

@@ -96,7 +96,16 @@ another mesh width raises naming both. ``--runtime host-replay
 --mesh-devices N`` runs the host-replay runtime's ranks the same way
 (host_replay_loop.py); ``--coordinator`` is refused there.
 
-Telemetry (ROADMAP.md A10) raises instead of being ignored.
+Every runtime records into the process telemetry registry;
+``--telemetry-port P`` serves it at ``/metrics`` (also ``/metrics.json``,
+``/healthz``, ``/debug/config`` and ``/debug/stacks``; ``0`` binds an
+ephemeral port, logged as ``{"telemetry_port": N}``; rank 0 alone under a
+mesh), ``--telemetry-host`` picks the bind address and
+``--telemetry-snapshot F`` dumps the registry to F at exit or SIGTERM. One
+``{"manifest": ...}`` line per run records the git sha, versions, config
+and its hash. ``--trace-path`` (ROADMAP.md A10b), ``--fleet-dir``,
+``--forensics-dir`` and ``--watchdog-deadline-s`` (A10c) raise instead of
+being ignored.
 """
 from __future__ import annotations
 
@@ -105,6 +114,7 @@ import dataclasses
 import functools
 import json
 import os
+import sys
 import tempfile
 import time
 
@@ -112,13 +122,16 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from dist_dqn_tpu_torch import loop_common
 from dist_dqn_tpu_torch import population as pop
+from dist_dqn_tpu_torch import telemetry
 from dist_dqn_tpu_torch.config import CONFIGS, ExperimentConfig, \
     apply_overrides
 from dist_dqn_tpu_torch.envs import make_env
 from dist_dqn_tpu_torch.models import build_network, stack_networks
 from dist_dqn_tpu_torch.parallel import distributed
 from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_evaluator, make_r2d2_train
+from dist_dqn_tpu_torch.telemetry import collectors as tmc
 from dist_dqn_tpu_torch.train_loop import make_evaluator, make_fused_train
 from dist_dqn_tpu_torch.utils.checkpoint import (RankCarryShards,
                                                 TrainCheckpointer,
@@ -173,13 +186,119 @@ def _write_profile(prof, profile_dir: str, wall_s: float, on_card: bool
     return row
 
 
+class _FusedTelemetry:
+    """The fused loop's registry instruments (dist_dqn_tpu/train.py:99-155),
+    or with ``members`` > 0 a population's (:481-515): the shared families
+    count aggregate member-steps, and per-member loss and eval gauges sit
+    beside them. Every update is host arithmetic on values the chunk's
+    one stacked read already brought back."""
+
+    def __init__(self, cfg: ExperimentConfig, members: int = 0):
+        reg = telemetry.get_registry()
+        fl = {"loop": "fused"}
+        self.members = members
+        if members:
+            reg.gauge(tmc.POPULATION_SIZE,
+                      "vmap-stacked members in this run", fl).set(members)
+            self.member_loss = [
+                reg.gauge(tmc.POPULATION_LOSS,
+                          "chunk-mean TD loss per member",
+                          {**fl, "member": str(k)}) for k in range(members)]
+            self.member_eval = [
+                reg.gauge(tmc.POPULATION_EVAL_RETURN,
+                          "greedy eval return per member",
+                          {**fl, "member": str(k)}) for k in range(members)]
+        self.env_steps = reg.counter(tmc.ENV_STEPS, "env frames processed")
+        self.env_rate = reg.gauge(tmc.ENV_RATE, "env-steps/sec (last chunk)")
+        self.grad_steps = reg.counter(tmc.GRAD_STEPS,
+                                      "learner grad steps taken")
+        if not members:
+            self.grad_latency = reg.histogram(
+                tmc.GRAD_LATENCY,
+                "per-grad-step share of the fused chunk wall")
+            self.staleness = reg.histogram(
+                tmc.PARAM_STALENESS,
+                "age of the host-visible params at each chunk boundary "
+                "(the fused loop refreshes them once per chunk)")
+        self.chunk = reg.histogram("dqn_chunk_seconds",
+                                   "fused chunk wall time")
+        self.loss = reg.gauge("dqn_loss", "chunk-mean TD loss")
+        self.episodes = reg.counter("dqn_episodes_completed_total",
+                                    "training episodes finished")
+        self.ep_return = reg.gauge("dqn_episode_return",
+                                   "chunk-mean finished-episode return")
+        self.grad_rate = reg.gauge(tmc.LEARNER_GRAD_RATE,
+                                   "grad steps per second (last chunk)", fl)
+        # The chunk stamps of the fused loop's experience lineage.
+        self.lineage = None if members else tmc.FusedLineageTable()
+        reg.gauge(tmc.LEARNER_REPLAY_RATIO, "grad sub-steps per train event",
+                  fl).set(loop_common.resolve_replay_ratio(cfg))
+        reg.gauge(tmc.LEARNER_TRAIN_BATCH,
+                  "effective (bucketed) train batch width",
+                  fl).set(loop_common.resolve_train_batch(cfg))
+        if not members:
+            reg.gauge(tmc.LEARNER_ACTOR_DTYPE_INFO,
+                      "1 for the active actor inference dtype",
+                      {**fl, "dtype": cfg.network.actor_dtype
+                       or "float32"}).set(1)
+
+    def observe_chunk(self, frames_delta: int, dt: float, grad_steps: float,
+                      loss, episodes, ep_ret, replay, max_priority,
+                      chunk_iters: int) -> None:
+        """One chunk boundary: ``grad_steps`` per member, and for a
+        population per-member lists of ``loss``, ``episodes`` and
+        ``ep_ret``; ``max_priority`` is the host value of a prioritized
+        ring's running max (or None)."""
+        M = self.members or 1
+        self.env_steps.inc(frames_delta * M)
+        self.env_rate.set(frames_delta * M / dt)
+        self.grad_steps.inc(grad_steps * M)
+        self.chunk.observe(dt)
+        if self.members:
+            self.grad_rate.set(grad_steps * M / dt)
+            for g, v in zip(self.member_loss, loss):
+                g.set(v)
+            self.loss.set(sum(loss) / M)
+            self.episodes.inc(max(sum(episodes), 0.0))
+            done = [r for r, n in zip(ep_ret, episodes) if n > 0]
+            if done:
+                self.ep_return.set(sum(done) / len(done))
+            return
+        # Host-visible params refresh once per chunk boundary, so the chunk
+        # wall bounds their staleness; grad-step latency is the per-step
+        # share of the chunk.
+        self.staleness.observe(dt)
+        if grad_steps:
+            self.grad_latency.observe(dt / grad_steps)
+        self.grad_rate.set(grad_steps / dt)
+        self.loss.set(loss)
+        self.episodes.inc(max(episodes, 0.0))
+        if episodes:
+            self.ep_return.set(ep_ret)
+        _, ring_slots = tmc.observe_device_ring(replay,
+                                                max_priority=max_priority)
+        self.lineage.on_chunk(self.grad_steps.value,
+                              max(1, ring_slots // chunk_iters))
+
+    def observe_eval(self, returns) -> None:
+        """A population's per-member eval returns."""
+        for g, v in zip(self.member_eval, returns):
+            g.set(v)
+
+
 def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
           chunk_iters: int = 2000, log_fn=print, device=None, stop_fn=None,
           profile_dir: str = None, profile_chunk: int = None,
           checkpoint_dir: str = None, save_every_frames: int = 0,
-          checkpoint_replay: bool = False, mesh=None):
+          checkpoint_replay: bool = False, mesh=None,
+          telemetry_port: int = None, telemetry_host: str = "127.0.0.1"):
     """Run training on ``device`` (default: the card); returns
     (final_carry, history list of metric rows).
+
+    Every chunk records into the process telemetry registry (the JAX
+    loop's families, :class:`_FusedTelemetry`); ``telemetry_port`` serves
+    it at ``/metrics`` for the run (0: an ephemeral port, logged as a
+    ``telemetry_port`` row), on rank 0 alone under a ``mesh``.
 
     ``mesh`` (a ``parallel.mesh.Mesh``) runs this call as one rank of the
     data-parallel mesh, on ``mesh.device``: the rank's lanes and replay
@@ -212,7 +331,8 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
             stop_fn=stop_fn, profile_dir=profile_dir,
             profile_chunk=profile_chunk, checkpoint_dir=checkpoint_dir,
             save_every_frames=save_every_frames,
-            checkpoint_replay=checkpoint_replay)
+            checkpoint_replay=checkpoint_replay,
+            telemetry_port=telemetry_port, telemetry_host=telemetry_host)
     if cfg.population.spec_json:
         cfg = pop.member_config(cfg, pop.resolve_spec(cfg), 0)
     seed = cfg.seed if seed is None else seed
@@ -240,10 +360,19 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
                              checkpoint_replay)
     elif checkpoint_dir and checkpoint_replay:
         shards = RankCarryShards(checkpoint_dir, mesh.rank)
-    return _chunk_loop(cfg, init(seed), run_chunk, evaluate, eval_gen, ckpt,
-                       total_env_steps or cfg.total_env_steps, chunk_iters,
-                       log_fn, dev, stop_fn, profile_dir, profile_chunk,
-                       checkpoint_replay, mesh=mesh, shards=shards)
+    tm = _FusedTelemetry(cfg)
+    server = telemetry.serve_if_asked(
+        telemetry_port if mesh is None or mesh.rank == 0 else None,
+        telemetry_host, log_fn)
+    try:
+        return _chunk_loop(cfg, init(seed), run_chunk, evaluate, eval_gen,
+                           ckpt, total_env_steps or cfg.total_env_steps,
+                           chunk_iters, log_fn, dev, stop_fn, profile_dir,
+                           profile_chunk, checkpoint_replay, tm, mesh=mesh,
+                           shards=shards)
+    finally:
+        if server is not None:
+            server.close()
 
 
 def _train_population(cfg: ExperimentConfig, total_env_steps: int = 0,
@@ -251,9 +380,11 @@ def _train_population(cfg: ExperimentConfig, total_env_steps: int = 0,
                       log_fn=print, device=None, stop_fn=None,
                       profile_dir: str = None, profile_chunk: int = None,
                       checkpoint_dir: str = None, save_every_frames: int = 0,
-                      checkpoint_replay: bool = False):
-    """The population twin of :func:`train` (dist_dqn_tpu/train.py:423-720,
-    without the telemetry registry): M members advance as one program.
+                      checkpoint_replay: bool = False,
+                      telemetry_port: int = None,
+                      telemetry_host: str = "127.0.0.1"):
+    """The population twin of :func:`train` (dist_dqn_tpu/train.py:423-720):
+    M members advance as one program.
 
     Member k is the solo run of ``population.member_config(cfg, spec, k)``
     seeded with ``population.member_seeds(seed, M)[k]``: its net's weights,
@@ -282,10 +413,17 @@ def _train_population(cfg: ExperimentConfig, total_env_steps: int = 0,
     evaluate = make_evaluator(cfg, env, num_episodes=cfg.eval_episodes)
     eval_gens = [torch.Generator(device=dev).manual_seed(s + 1)
                  for s in seeds]
-    return _chunk_loop(cfg, init(seeds), run_chunk, evaluate, eval_gens,
-                       ckpt, total_env_steps or cfg.total_env_steps,
-                       chunk_iters, log_fn, dev, stop_fn, profile_dir,
-                       profile_chunk, checkpoint_replay, members=M)
+    tm = _FusedTelemetry(cfg, members=M)
+    server = telemetry.serve_if_asked(telemetry_port, telemetry_host,
+                                      log_fn)
+    try:
+        return _chunk_loop(cfg, init(seeds), run_chunk, evaluate, eval_gens,
+                           ckpt, total_env_steps or cfg.total_env_steps,
+                           chunk_iters, log_fn, dev, stop_fn, profile_dir,
+                           profile_chunk, checkpoint_replay, tm, members=M)
+    finally:
+        if server is not None:
+            server.close()
 
 
 def _checkpointer(checkpoint_dir, save_every_frames, cfg, checkpoint_replay):
@@ -303,15 +441,26 @@ def _checkpointer(checkpoint_dir, save_every_frames, cfg, checkpoint_replay):
     record_checkpoint_kind(checkpoint_dir,
                            "carry" if checkpoint_replay else "learner")
     if cfg.population.size > 1:
-        record_population_size(checkpoint_dir, cfg.population.size)
+        try:
+            record_population_size(checkpoint_dir, cfg.population.size)
+        except ValueError:
+            # A stacked tree's member axis is structural: the refusal is
+            # counted under the family of the host-replay sidecar pins.
+            telemetry.get_registry().counter(
+                tmc.CHECKPOINT_REFUSED,
+                "resume attempts refused at the sidecar pins",
+                {"loop": "fused", "reason": "population"}).inc()
+            raise
     return ckpt
 
 
 def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
                 chunk_iters, log_fn, dev, stop_fn, profile_dir, profile_chunk,
-                checkpoint_replay, members: int = 0, mesh=None, shards=None):
+                checkpoint_replay, tm, members: int = 0, mesh=None,
+                shards=None):
     """Resume from ``ckpt``, then run chunks until the frame cursor reaches
-    ``total``, logging one row per chunk; returns (carry, history).
+    ``total``, logging one row per chunk and recording it into ``tm`` (a
+    :class:`_FusedTelemetry`); returns (carry, history).
     ``members`` > 0: a population's [M] metrics and rows. Under a
     ``mesh``, rank 0 alone holds ``ckpt``, evaluates and profiles; the
     other ranks take its resume point and its stop decisions by broadcast
@@ -404,18 +553,28 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
             prof.start()
         t0 = time.perf_counter()
         carry, metrics = run_chunk(carry, chunk_iters)
-        # One read of the chunk's device accumulators: the chunk fence.
-        ep_ret, episodes, loss = torch.stack(
-            [metrics["episode_return"], metrics["episodes"],
-             metrics["loss"]]).tolist()
+        # One read of the chunk's device accumulators: the chunk fence. A
+        # prioritized solo ring's running max priority (a device scalar)
+        # rides it for the telemetry.
+        fetch = [metrics["episode_return"], metrics["episodes"],
+                 metrics["loss"]]
+        max_prio = None if members else getattr(carry.replay,
+                                                 "max_priority", None)
+        if max_prio is not None:
+            fetch.append(max_prio.to(fetch[0].dtype))
+        ep_ret, episodes, loss, *max_prio = torch.stack(fetch).tolist()
         dt = time.perf_counter() - t0
         if prof is not None:
             prof.stop()
             log_fn(json.dumps(_write_profile(prof, profile_dir, dt,
                                              on_card)))
         chunk_index += 1
+        prev_frames = frames
         frames = frame_offset + metrics["env_frames"]
         grad_steps = float(metrics["grad_steps_in_chunk"])
+        tm.observe_chunk(max(frames - prev_frames, 0), dt, grad_steps, loss,
+                         episodes, ep_ret, carry.replay,
+                         max_prio[0] if max_prio else None, chunk_iters)
         if members:
             row = _population_row(members, frames, ep_ret, episodes, loss,
                                   chunk_iters * B, grad_steps, dt)
@@ -437,6 +596,7 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
             if main:
                 returns = evaluate(carry.learner.net, eval_gen).tolist()
                 if members:
+                    tm.observe_eval(returns)
                     row["eval_return_members"] = returns
                     returns = sum(returns) / members
                 row["eval_return"] = returns
@@ -602,9 +762,12 @@ def run_mesh(cfg: ExperimentConfig, num_devices: int = 0, device=None,
     if local == 1:
         return _rank_main(0, cfg, address, world, first, kind, threads,
                           runtime, train_kwargs, None)
+    # Spawned ranks start from a fresh import: they take this process's
+    # run manifest (rank 0 serves it and hashes it into LATEST).
     with tempfile.TemporaryDirectory() as out:
         distributed.spawn(_rank_main, (cfg, address, world, first, kind,
-                                       threads, runtime, train_kwargs, out),
+                                       threads, runtime, train_kwargs, out,
+                                       telemetry.get_run_manifest()),
                           local)
         path = os.path.join(out, "rank0.pt")
         if os.path.exists(path):
@@ -624,11 +787,14 @@ def _check_mesh_run(cfg: ExperimentConfig) -> None:
 
 def _rank_main(local_rank: int, cfg, address: str, world: int, first: int,
                kind: str, threads: int, runtime: str, train_kwargs: dict,
-               out_dir) -> object:
+               out_dir, manifest: dict = None) -> object:
     """One rank of :func:`run_mesh`: join the group, run, leave. A spawned
-    rank 0 leaves its host-replay summary in ``out_dir``."""
+    rank 0 leaves its host-replay summary in ``out_dir``; ``manifest`` is
+    the parent's run manifest."""
     from dist_dqn_tpu_torch.parallel import make_mesh
 
+    if manifest is not None:
+        telemetry.set_run_manifest(manifest)
     if threads:
         torch.set_num_threads(threads)
     dev = distributed.initialize(address, world, first + local_rank,
@@ -660,7 +826,11 @@ def _refuse_unported(args) -> None:
     """Flags of the JAX CLI this port does not implement yet, each with its
     ROADMAP.md item."""
     refused = [(flag, item) for flag, item, given in (
-        ("--telemetry-port", "A10", args.telemetry_port is not None),
+        ("--trace-path", "A10b", args.trace_path is not None),
+        ("--fleet-dir", "A10c", args.fleet_dir is not None),
+        ("--forensics-dir", "A10c", args.forensics_dir is not None),
+        ("--watchdog-deadline-s", "A10c",
+         args.watchdog_deadline_s is not None),
     ) if given]
     if refused:
         raise SystemExit(
@@ -668,6 +838,19 @@ def _refuse_unported(args) -> None:
             f"(ROADMAP.md {', '.join(i for _, i in refused)})")
     if args.coordinator is not None and args.runtime == "host-replay":
         raise SystemExit(HOST_REPLAY_COORDINATOR)
+
+
+def _run_manifest(cfg: ExperimentConfig, device) -> dict:
+    """The run manifest (telemetry/manifest.py) with what only torch
+    knows: the card's name and CUDA version on a card run."""
+    extra = None
+    if torch.device(device or "cuda").type == "cuda":
+        try:
+            extra = {"device": {"name": torch.cuda.get_device_name(0),
+                                "cuda": torch.version.cuda}}
+        except (AssertionError, RuntimeError):
+            pass    # no card: the run itself says so
+    return telemetry.build_manifest(cfg, argv=sys.argv, extra=extra)
 
 
 def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
@@ -731,6 +914,8 @@ def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
         wire_dedup=not args.no_wire_dedup,
         shm_batch=args.shm_batch,
         shard_sampling=args.shard_sampling,
+        telemetry_port=args.telemetry_port,
+        telemetry_host=args.telemetry_host,
         profile_dir=args.profile_dir)
     # At world size 1 with learner ranks the group would hold this process
     # alone, and the learner ranks form the process's one group instead.
@@ -788,7 +973,9 @@ def _main_host_replay(cfg: ExperimentConfig, args) -> None:
         save_every_frames=args.save_every_frames,
         mesh_devices=args.mesh_devices,
         device_sampling=args.device_sampling,
-        profile_dir=args.profile_dir, device=args.device)
+        profile_dir=args.profile_dir, device=args.device,
+        telemetry_port=args.telemetry_port,
+        telemetry_host=args.telemetry_host)
     out.pop("history", None)
     out.pop("learner", None)
     print(json.dumps(out))
@@ -992,13 +1179,35 @@ def main(argv=None):
                         help="apex runtime (--ingest-shards > 1): draw and "
                              "gather in one worker thread per shard and "
                              "hand the learner pre-packed batches")
+    parser.add_argument("--telemetry-port", type=int, default=None,
+                        help="serve the process telemetry registry's "
+                             "/metrics endpoint (Prometheus text format) "
+                             "on this port; 0 binds an ephemeral port "
+                             "(reported as a telemetry_port log line). "
+                             "Works on both runtimes; see "
+                             "docs/observability.md")
+    parser.add_argument("--telemetry-host", default="127.0.0.1",
+                        help="bind address for --telemetry-port: loopback "
+                             "by default (the metric/debug surface is "
+                             "unauthenticated); 0.0.0.0 makes /metrics "
+                             "and /healthz scrapeable from outside the "
+                             "container/VM. All runtimes")
+    parser.add_argument("--telemetry-snapshot", default=None,
+                        help="dump a JSON snapshot of the telemetry "
+                             "registry to this path at exit (offline "
+                             "runs; same data as /metrics.json)")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
-    parser.add_argument("--telemetry-port", type=int, default=None)
+    parser.add_argument("--trace-path", default=None)
+    parser.add_argument("--fleet-dir", default=None)
+    parser.add_argument("--forensics-dir", default=None)
+    parser.add_argument("--watchdog-deadline-s", type=float, default=None)
     args = parser.parse_args(argv)
 
     cfg = apply_overrides(CONFIGS[args.config], args.overrides)
     _refuse_unported(args)
+    if args.telemetry_snapshot:
+        telemetry.install_snapshot_dump(args.telemetry_snapshot)
     if args.eval_every_steps is not None:
         cfg = dataclasses.replace(cfg, eval_every_steps=args.eval_every_steps)
     # The learner-utilization knobs, with the JAX CLI's ignored-flag
@@ -1055,6 +1264,11 @@ def main(argv=None):
                 pop.resolve_spec(cfg)
             except ValueError as e:
                 parser.error(str(e))
+    # The run manifest: one provenance line per run, served at
+    # /debug/config and hashed into the checkpoint's LATEST pointer.
+    manifest = _run_manifest(cfg, args.device)
+    telemetry.set_run_manifest(manifest)
+    print(json.dumps({"manifest": manifest}))
     if args.runtime == "host-replay":
         _main_host_replay(cfg, args)
         return
@@ -1071,7 +1285,9 @@ def main(argv=None):
                   profile_chunk=args.profile_chunk,
                   checkpoint_dir=args.checkpoint_dir,
                   save_every_frames=args.save_every_frames,
-                  checkpoint_replay=args.checkpoint_replay)
+                  checkpoint_replay=args.checkpoint_replay,
+                  telemetry_port=args.telemetry_port,
+                  telemetry_host=args.telemetry_host)
     if args.mesh_devices != 1 or (args.coordinator is not None
                                   and args.num_processes > 1):
         run_mesh(cfg, num_devices=args.mesh_devices, device=args.device,

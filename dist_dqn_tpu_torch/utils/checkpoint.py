@@ -537,12 +537,16 @@ def _pointer_checksum(tree) -> Optional[float]:
 def write_latest_pointer(directory: str, step: int,
                          param_checksum=None) -> None:
     """Atomically (tmp + rename) stamp ``<directory>/LATEST`` with the
-    newest complete checkpoint step and its param checksum, so readers
-    address it without globbing step dirs. The manifest hash the JAX
-    package stamps beside them is null here (the port has no run
-    manifest yet)."""
+    newest complete checkpoint step, its param checksum and the run
+    manifest's config hash (telemetry/manifest.py; null in a process
+    with no run manifest), so readers address it without globbing step
+    dirs."""
+    from dist_dqn_tpu_torch.telemetry.manifest import get_run_manifest
+
+    man = get_run_manifest()
     payload = {"step": int(step), "param_checksum": param_checksum,
-               "manifest_hash": None, "saved_unix": time.time()}
+               "manifest_hash": man.get("config_hash") if man else None,
+               "saved_unix": time.time()}
     path = os.path.join(directory, _LATEST_FILE)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as fh:

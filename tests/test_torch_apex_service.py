@@ -158,15 +158,17 @@ def test_constructor_refusals_match_jax_word_for_word(case):
     assert tlog == jlog
 
 
-# The distributed options (A6c) run since they were ported; beside a
-# still-refused option they must not get past its refusal, nor start a
-# learner rank or a shard sampler before it.
+# The distributed options (A6c) and the telemetry endpoint (A10a) run since
+# they were ported; beside a still-refused option they must not get past
+# its refusal, nor start a learner rank, a shard sampler or a telemetry
+# server before it.
 _UNPORTED = {
-    "learner_devices": (dict(learner_devices=2, telemetry_port=0), "A10"),
+    "learner_devices": (dict(learner_devices=2, trace_path="t.json"),
+                        "A10b"),
     "ingest_shards": (dict(ingest_shards=2, shard_sampling=True,
-                           trace_path="t.json"), "A10"),
-    "trace_path": (dict(trace_path="t.json"), "A10"),
-    "telemetry": (dict(telemetry_port=0), "A10"),
+                           trace_path="t.json"), "A10b"),
+    "trace_path": (dict(trace_path="t.json"), "A10b"),
+    "telemetry": (dict(telemetry_port=0, trace_path="t.json"), "A10b"),
 }
 
 
@@ -181,6 +183,31 @@ def test_unported_options_raise_naming_their_item(case):
         tservice.ApexLearnerService(
             _tiny_cfg(), tservice.ApexRuntimeConfig(**kw), device="cpu")
     assert set(os.listdir(shm_dir())) == before
+
+
+def test_telemetry_port_serves_the_service_registry():
+    """``telemetry_port=0`` (ported in A10a) binds after the build, logs
+    the bound port, serves the service's families while it lives, and
+    closes with ``shutdown``."""
+    import urllib.request
+
+    logs = []
+    svc = tservice.ApexLearnerService(
+        _tiny_cfg(), tservice.ApexRuntimeConfig(telemetry_port=0),
+        log_fn=logs.append, device="cpu")
+    try:
+        port = json.loads(logs[-1])["telemetry_port"]
+        url = f"http://127.0.0.1:{port}"
+        text = urllib.request.urlopen(url + "/metrics",
+                                      timeout=10).read().decode()
+        assert "dqn_ingest_shards 1" in text
+        assert 'dqn_learner_replay_ratio{loop="apex"} 1' in text
+        assert urllib.request.urlopen(url + "/healthz",
+                                      timeout=10).read() == b"ok\n"
+    finally:
+        svc.shutdown()
+    with pytest.raises(OSError):
+        urllib.request.urlopen(url + "/healthz", timeout=5)
 
 
 _PORTED = {
@@ -365,7 +392,7 @@ def test_actor_priorities_fold_like_the_jax_service(wire_dedup,
     generation-guarded write-back, and the epsilon ladder. Every reply,
     IS weight, stored item, priority, generation and counter is equal,
     bit for bit. The JAX store also stamps each item's wire lineage
-    (telemetry, ROADMAP.md A10); the port stores no lineage."""
+    (ROADMAP.md A10c); the port stores no lineage."""
     import jax.numpy as jnp
     import torch
 

@@ -165,14 +165,28 @@ def test_architecture_drift_names_the_cause(tmp_path, saved_dueling):
         ckpt.restore_params(bf16)
 
 
-def test_torn_latest_pointer_falls_back_to_the_listing(tmp_path):
+def test_torn_latest_pointer_falls_back_to_the_listing(tmp_path,
+                                                       monkeypatch):
+    """The pointer names the newest step and, once the process has a run
+    manifest, the manifest's config hash: the JAX package's hash of the
+    same preset (null without a manifest, as in JAX). A torn pointer
+    falls back to the directory listing."""
+    from dist_dqn_tpu.telemetry import manifest as jmanifest
+    from dist_dqn_tpu_torch.telemetry import manifest as tmanifest
+
+    monkeypatch.setattr(tmanifest, "_run_manifest", None)
     state, _ = _learner()
     d = str(tmp_path / "ckpt")
     ckpt = TrainCheckpointer(d)
     ckpt.save(100, state)
+    assert tck.read_latest_pointer(d)["manifest_hash"] is None
+    tmanifest.set_run_manifest(
+        tmanifest.build_manifest(tconfig.CONFIGS["apex"]))
     ckpt.save(200, state)
     pointer = tck.read_latest_pointer(d)
-    assert pointer["step"] == 200 and pointer["manifest_hash"] is None
+    want = jmanifest.config_fingerprint(jconfig.CONFIGS["apex"])
+    assert pointer["step"] == 200
+    assert pointer["manifest_hash"] == want["config_hash"]
     with open(os.path.join(d, "LATEST"), "w") as fh:
         fh.write('{"st')                               # torn
     assert tck.read_latest_pointer(d) is None

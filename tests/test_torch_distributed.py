@@ -47,8 +47,9 @@ SUBPROCESS_S = 180
 
 
 def _rows(text):
+    """The JSON rows of a CLI's output, less its run manifest line."""
     return [json.loads(line) for line in text.splitlines()
-            if line.startswith("{")]
+            if line.startswith("{") and not line.startswith('{"manifest"')]
 
 
 def test_coordinator_processes_train_as_one_mesh():
@@ -207,16 +208,16 @@ HOST_REPLAY_TINY = ["--set", "replay.capacity=4096",
       "800", "--set", "learner.batch_size=16", "--set", "actor.num_envs=8",
       *HOST_REPLAY_TINY], None),
     (["--runtime", "apex", "--coordinator", "127.0.0.1:1",
-      "--telemetry-port", "0"], "A10"),
+      "--trace-path", "t.json"], "A10b"),
 ], ids=["checkpoint_replay", "host_replay", "apex_coordinator"])
 def test_unported_mesh_paths_name_their_item(argv, item, tmp_path, capsys):
     """The CLI's mesh paths: ``--checkpoint-replay`` under a mesh and
     ``--runtime host-replay --mesh-devices 2`` run (every rank writes its
     carry shard beside rank 0's steps; the host-replay summary prints
     once); ``--coordinator`` under the apex runtime runs since A6c
-    (tests/test_torch_apex_distributed.py), so its case names a telemetry
-    flag beside it, refused naming its ROADMAP.md item before any group
-    is joined."""
+    (tests/test_torch_apex_distributed.py), so its case names the trace
+    flag beside it (the telemetry flags run since A10a), refused naming
+    its ROADMAP.md item before any group is joined."""
     argv = ["--config", "cartpole", "--device", "cpu", *argv,
             "--checkpoint-dir", str(tmp_path / "ckpt")]
     if item is not None:

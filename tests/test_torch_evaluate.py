@@ -184,7 +184,7 @@ def test_r2d2_and_carry_kind_directories_are_evaluable(tmp_path):
 
 
 # ROADMAP.md items ported since their flags were refused here.
-_PORTED_ITEMS = {"A8"}
+_PORTED_ITEMS = {"A8", "A10a"}
 
 
 @pytest.mark.parametrize("flag,reason", [
@@ -193,16 +193,21 @@ _PORTED_ITEMS = {"A8"}
     # checkpoint.
     (["--host-env", "CartPole-v1"], "A8"),
     (["--host-env", "CartPole-v1", "--member", "0"], "A8"),
-    (["--telemetry-port", "9100"], "A10"),
-    (["--fleet-dir", "fleet"], "A10"),
+    # --telemetry-port (A10a) is ported: the eval serves /metrics while
+    # it plays.
+    (["--telemetry-port", "0"], "A10a"),
+    (["--fleet-dir", "fleet"], "A10c"),
 ])
 def test_cli_refuses_unported_flags_with_the_reason(tmp_path, flag, reason,
-                                                    capsys):
+                                                    capsys, monkeypatch):
     argv = ["--config", "cartpole", "--device", "cpu",
             "--checkpoint-dir", str(tmp_path), *flag]
     if reason not in _PORTED_ITEMS:
         with pytest.raises(SystemExit, match=f"not ported yet: .*{reason}"):
             ev.main(argv)
+        return
+    if reason == "A10a":
+        _check_eval_serves_metrics(tmp_path, argv, capsys, monkeypatch)
         return
     cfg = _cartpole()
     net = build_network(cfg.network, 2, (4,), device="cpu", seed=0)
@@ -226,6 +231,36 @@ def test_cli_refuses_unported_flags_with_the_reason(tmp_path, flag, reason,
     assert row["host_env"] == "CartPole-v1" and row["frames"] == 5
     assert row.get("member") == (0 if "--member" in flag else None)
     assert 1.0 <= row["eval_return"] <= 500.0
+
+
+def _check_eval_serves_metrics(tmp_path, argv, capsys, monkeypatch):
+    """``--telemetry-port 0``: the port line comes first, and /metrics
+    and /debug/stacks answer while the evaluation plays."""
+    import urllib.request
+
+    cfg = _cartpole()
+    net = build_network(cfg.network, 2, (4,), device="cpu", seed=0)
+    TrainCheckpointer(str(tmp_path)).save(
+        5, make_learner(cfg.learner, net)[0](net))
+    seen = {}
+    real = ev.evaluate_checkpoint
+
+    def scraping(*a, **k):
+        port = json.loads(capsys.readouterr().out.splitlines()[0])[
+            "telemetry_port"]
+        for path in ("/metrics", "/debug/stacks"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=10) as r:
+                seen[path] = r.status
+        return real(*a, **k)
+
+    monkeypatch.setattr(ev, "evaluate_checkpoint", scraping)
+    for a in CARTPOLE_TINY:
+        argv += ["--set", a]
+    ev.main(argv + ["--episodes", "1"])
+    assert seen == {"/metrics": 200, "/debug/stacks": 200}
+    row = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert row["frames"] == 5 and 1.0 <= row["eval_return"] <= 500.0
 
 
 def test_wait_for_checkpoint_cli_fails_fast_on_an_empty_dir(tmp_path):

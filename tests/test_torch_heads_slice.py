@@ -36,7 +36,7 @@ from dist_dqn_tpu_torch.ops import sampler as tps
 from dist_dqn_tpu_torch.replay import prioritized_device as tpring
 from dist_dqn_tpu_torch.utils.params import from_flax
 from test_torch_slice import S, _close, _fill_rings
-from torch_parity import NormalRecorder, to_numpy_tree
+from torch_parity import NormalRecorder, cli_rows, to_numpy_tree
 
 
 def test_one_rainbow_per_train_step_matches(monkeypatch):
@@ -161,7 +161,7 @@ def test_distributional_cli_with_dedup_ratio_and_bf16_actor(capsys, preset):
     for assignment in _TINY + _HEADS[preset]:
         argv += ["--set", assignment]
     main(argv)
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    rows = cli_rows(capsys.readouterr().out)
     assert [r["env_frames"] for r in rows] == [240, 480]
     # Iterations 8..28 even train in the first chunk (the dedup ring's stack
     # context is stored by then), all 15 in the second; two steps each.

@@ -454,6 +454,7 @@ def test_cli_host_replay_runs_and_needs_a_device(capsys, monkeypatch):
         argv += ["--set", o]
     main([*argv, "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
+    assert json.loads(lines.pop(0))["manifest"]["config_name"] == "cartpole"
     assert lines[0].startswith("# host-replay sampler: prioritized device "
                                "plane (cpu, alpha=0.6")
     summary = json.loads(lines[-1])
@@ -464,4 +465,4 @@ def test_cli_host_replay_runs_and_needs_a_device(capsys, monkeypatch):
         main(argv)
     with pytest.raises(SystemExit, match="not ported yet"):
         main(["--config", "cartpole", "--runtime", "apex", "--device",
-              "cpu", "--learner-devices", "2", "--telemetry-port", "0"])
+              "cpu", "--learner-devices", "2", "--trace-path", "t.json"])

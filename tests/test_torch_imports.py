@@ -53,6 +53,9 @@ assert slice12 <= set(names), sorted(slice12 - set(names))
 slice13 = {"dist_dqn_tpu_torch." + m for m in (
     "parallel", "parallel.distributed", "parallel.mesh", "parallel.learner")}
 assert slice13 <= set(names), sorted(slice13 - set(names))
+slice16 = {"dist_dqn_tpu_torch." + m for m in (
+    "telemetry.lifecycle", "telemetry.manifest", "utils.metrics")}
+assert slice16 <= set(names), sorted(slice16 - set(names))
 from dist_dqn_tpu_torch.parallel import (Mesh, make_mesh,
                                          make_mesh_fused_train,
                                          make_mesh_r2d2_train)
@@ -71,9 +74,21 @@ from dist_dqn_tpu_torch.serving import (ActResult, MicroBatcher, ModelStore,
                                         ServerClosedError, ServingClient,
                                         ServingError, SloTracker,
                                         UnknownPolicyError, build_server)
-from dist_dqn_tpu_torch.telemetry import (Registry, healthz_body,
-                                          register_health_probe,
-                                          render_prometheus)
+from dist_dqn_tpu_torch.telemetry import (Registry, TelemetryServer,
+                                          build_manifest, format_stacks,
+                                          get_run_manifest, healthz_body,
+                                          install_snapshot_dump,
+                                          maybe_install_snapshot_from_env,
+                                          on_exit, register_health_probe,
+                                          render_prometheus,
+                                          set_run_manifest, start_server)
+from dist_dqn_tpu_torch.telemetry.collectors import (FusedLineageTable,
+                                                     histogram_quantile,
+                                                     lineage_histograms,
+                                                     observe_device_ring,
+                                                     observe_sample_lineage,
+                                                     replay_gauges)
+from dist_dqn_tpu_torch.utils.metrics import MetricLogger, RateTracker
 from dist_dqn_tpu_torch.utils.checkpoint import params_prefix
 from dist_dqn_tpu_torch.replay.sharded import (ShardedHostReplay,
                                                ShardedPrioritizedReplay,
@@ -165,19 +180,27 @@ def test_port_imports_no_jax_and_no_reference_package():
 _NO_TORCH = r"""
 import sys
 import dist_dqn_tpu_torch.actors.feeder
+import dist_dqn_tpu_torch.actors.actor
+import dist_dqn_tpu_torch.actors.remote
 import dist_dqn_tpu_torch.envs.fake_ale
 import dist_dqn_tpu_torch.atari57_refs
+from dist_dqn_tpu_torch import telemetry
 from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
 make_host_env("feeder:pixel", 2).reset()
+telemetry.build_manifest(argv=["actor"])
+telemetry.maybe_install_snapshot_from_env(tag="actor0")
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("torch", "jax", "dist_dqn_tpu"))
+             if k.split(".")[0] in ("torch", "jax", "dist_dqn_tpu")
+             or k.startswith("dist_dqn_tpu_torch.utils"))
 print(bad)
 """
 
 
 def test_feeder_and_fake_ale_load_no_torch():
-    """Feeder processes, like actors, start without torch: the feeder, the
-    fake ALE and the reference table import numpy only."""
+    """Feeder and actor processes start without torch: the feeder, the
+    actors, the fake ALE, the reference table and the telemetry plane
+    (its manifest and exit snapshot included) import numpy only, and
+    nothing of utils/."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _NO_TORCH], cwd=REPO,
                           env=env, capture_output=True, text=True,

@@ -44,6 +44,7 @@ from dist_dqn_tpu_torch.utils.checkpoint import (TrainCheckpointer,
                                                  state_tree)
 from dist_dqn_tpu_torch.utils.params import from_flax
 from torch_parity import NormalRecorder, assert_trees_equal, to_numpy_tree
+from torch_parity import cli_rows
 
 QUIET = lambda line: None  # noqa: E731
 SPEC2 = json.dumps({"epsilon": [0.05, 0.2], "lr": [1e-3, 5e-4],
@@ -633,8 +634,8 @@ def test_member_actor_draws_each_members_solo_numbers():
 # --------------------------------------------------------------------------
 
 def test_stacked_checkpoint_roundtrip(tmp_path):
-    """The twin of JAX test_stacked_checkpoint_roundtrip, without its
-    telemetry counter."""
+    """The twin of JAX test_stacked_checkpoint_roundtrip, its refusal
+    counter included."""
     from dist_dqn_tpu_torch.evaluate import evaluate_checkpoint
 
     d = str(tmp_path / "pop2")
@@ -675,11 +676,18 @@ def test_stacked_checkpoint_roundtrip(tmp_path):
     assert json.loads(logs[0]) == {"resumed_at_frames": 1600,
                                    "with_replay": False, "population": 2}
 
-    # Resume at a different M is refused with the cause.
+    # Resume at a different M is refused with the cause, and counted.
+    from dist_dqn_tpu_torch.telemetry import collectors as tmc
+    from dist_dqn_tpu_torch.telemetry import get_registry
+    refused = get_registry().counter(
+        tmc.CHECKPOINT_REFUSED, "resume attempts refused at the sidecar pins",
+        {"loop": "fused", "reason": "population"})
+    before = refused.value
     spec3 = json.dumps({"lr": [1e-3, 5e-4, 2e-4]})
     with pytest.raises(ValueError, match="population-2 stacked tree") as e:
         train(_tiny_cfg(size=3, spec_json=spec3), **kw, log_fn=QUIET,
               checkpoint_dir=d)
+    assert refused.value == before + 1
     from dist_dqn_tpu.utils.checkpoint import record_population_size
     with pytest.raises(ValueError) as want:
         record_population_size(d, 3)
@@ -758,8 +766,10 @@ def test_train_cli_population_flag_routing(monkeypatch, capsys):
     assert seen["cfg"].population.spec_json == SPEC2
 
     train_mod.main(["--config", "r2d2", "--population", "2"])
-    out = capsys.readouterr().out
-    assert out.splitlines()[0] == (
+    # Each run's manifest line aside, the first line is the warning.
+    out = [line for line in capsys.readouterr().out.splitlines()
+           if not line.startswith('{"manifest"')]
+    assert out[0] == (
         "# --population is not supported by the recurrent (R2D2) fused "
         "loop yet (its sequence learner has no member axis); ignored")
     assert seen["cfg"].population.size == 1
@@ -783,7 +793,7 @@ def test_train_cli_population_runs(capsys):
 
     main(["--config", "cartpole", *_TINY_CLI, "--population", "2",
           "--population-spec", SPEC2])
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    rows = cli_rows(capsys.readouterr().out)
     assert [r["env_frames"] for r in rows] == [160, 320]
     for r in rows:
         assert r["population"] == 2 and len(r["loss_members"]) == 2

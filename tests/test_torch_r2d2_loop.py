@@ -16,6 +16,7 @@ from dist_dqn_tpu_torch.models import build_network
 from dist_dqn_tpu_torch.ops import sampler as tps
 from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_train
 from dist_dqn_tpu_torch.replay import sequence_device as tsring
+from torch_parity import cli_rows
 
 TINY = ["env_name=cartpole", "network.torso=mlp",
         "network.mlp_features=(16,)", "network.hidden=0",
@@ -157,7 +158,9 @@ def test_r2d2_cli_rows_on_cpu(capsys):
     for assignment in TINY:
         argv += ["--set", assignment]
     main(argv)
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    lines = capsys.readouterr().out.splitlines()
+    assert json.loads(lines[0])["manifest"]["config_name"] == "r2d2"
+    rows = [json.loads(line) for line in lines[1:]]
     assert [r["env_frames"] for r in rows] == [120, 240]
     for r in rows:
         assert {"env_frames", "loss", "episode_return", "episodes",
@@ -177,7 +180,7 @@ def test_r2d2_cli_profiles_a_chosen_training_chunk(capsys, tmp_path):
     for assignment in TINY:
         argv += ["--set", assignment]
     main(argv)
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    rows = cli_rows(capsys.readouterr().out)
     traced = [i for i, r in enumerate(rows) if "profile_trace" in r]
     assert traced == [3]                  # after chunks 0-2, before row 3
     assert rows[4]["env_frames"] == 4 * 8 * 4
@@ -251,7 +254,7 @@ def test_r2d2_cli_refuses(monkeypatch, capsys, flag):
     main(argv)
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == _IGNORED[flag[0]]
-    rows = [json.loads(line) for line in lines[1:]]
+    rows = cli_rows("\n".join(lines[1:]))
     assert [r["env_frames"] for r in rows] == [80]
     assert rows[0]["grad_steps_in_chunk"] == 20 - (64 // 4 - 1)
     assert acted and set(acted) == {torch.float32}

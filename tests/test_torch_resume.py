@@ -17,7 +17,7 @@ from dist_dqn_tpu_torch import config as tconfig
 from dist_dqn_tpu_torch.train import train
 from dist_dqn_tpu_torch.utils.checkpoint import (list_checkpoint_steps,
                                                  state_tree)
-from torch_parity import assert_trees_equal
+from torch_parity import assert_trees_equal, cli_rows
 
 QUIET = lambda line: None  # noqa: E731
 
@@ -172,13 +172,13 @@ def test_cli_saves_resumes_and_stops_at_return(tmp_path, capsys):
             "--set", "replay.min_fill=64", "--set", "learner.batch_size=16",
             "--set", "actor.num_envs=4"]
     main(argv)
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    rows = cli_rows(capsys.readouterr().out)
     assert [r["env_frames"] for r in rows if "env_frames" in r] == [300]
     assert [r["checkpoint_save_at_frames"] for r in rows
             if "checkpoint_save_s" in r] == [300]
     assert list_checkpoint_steps(d) == (300,)
     main(argv)
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    rows = cli_rows(capsys.readouterr().out)
     assert rows[0] == {"resumed_at_frames": 300, "with_replay": False}
     assert rows[1]["checkpoint_bytes"] > 0
     assert [r["env_frames"] for r in rows if "env_frames" in r] == [600]

@@ -66,6 +66,7 @@ TIME_LIMIT_S = {
     "test_greedy_actions_equal_the_jax_server": 120,
     "test_wire_is_the_jax_wire": 120,
     "test_host_replay_checkpoint_evaluates_and_serves": 120,
+    "test_cli_telemetry_flags_serve_and_snapshot": 120,
 }
 
 
@@ -520,15 +521,11 @@ def test_cli_sigterm_during_checkpoint_wait_exits_zero(tmp_path):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["--telemetry-port", "9100"], None),
-    (["--telemetry-host", "0.0.0.0"], None),
-    (["--telemetry-snapshot", "/dev/null"], None),
     (["--fleet-dir", "fleet"], None),
     (["--forensics-dir", "forensics"], None),
     (["--watchdog-deadline-s", "60"], None),
     ([], '{"faults": []}'),
-], ids=["telemetry_port", "telemetry_host", "telemetry_snapshot",
-        "fleet_dir", "forensics_dir", "watchdog_deadline_s",
+], ids=["fleet_dir", "forensics_dir", "watchdog_deadline_s",
         "chaos_plan"])
 def test_cli_refuses_unported_flags_with_the_reason(argv, env, tmp_path,
                                                     monkeypatch):
@@ -539,6 +536,66 @@ def test_cli_refuses_unported_flags_with_the_reason(argv, env, tmp_path,
     with pytest.raises(SystemExit, match=r"not ported yet: .*ROADMAP.md A10"):
         serving_cli.main(["--config", "cartpole", "--device", "cpu",
                           "--checkpoint-dir", str(tmp_path)] + argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--telemetry-port", "0"],
+    ["--telemetry-port", "0", "--telemetry-host", "0.0.0.0"],
+    ["--telemetry-port", "0", "--telemetry-snapshot", "SNAPSHOT"],
+], ids=["telemetry_port", "telemetry_host", "telemetry_snapshot"])
+def test_cli_telemetry_flags_serve_and_snapshot(argv, stack, tmp_path):
+    """The telemetry flags the port once refused: ``--telemetry-port``
+    serves the registry on an endpoint of its own (the serving families
+    included), ``--telemetry-host`` binds it on every interface, and
+    ``--telemetry-snapshot`` writes the registry at SIGTERM, with the
+    keys the live endpoint served, though the CLI's own SIGTERM handler
+    was installed after the dump's."""
+    snap = tmp_path / "snap.json"
+    argv = [str(snap) if a == "SNAPSHOT" else a for a in argv]
+    env = {k: v for k, v in os.environ.items() if k != "DQN_CHAOS_PLAN"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dist_dqn_tpu_torch.serving",
+         "--config", "cartpole", "--checkpoint-dir", stack.dir,
+         "--device", "cpu", "--port", "0", "--max-batch-rows", "2",
+         "--max-wait-ms", "1", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO, env=env)
+    try:
+        ports = {}
+        while "serving_port" not in ports:
+            line = proc.stdout.readline()
+            assert line, f"CLI ended early: {ports}"
+            if line.startswith("{"):
+                ports.update(json.loads(line))
+        cl = ServingClient(f"127.0.0.1:{ports['serving_port']}")
+        try:
+            cl.act(_obs(2), greedy=True)
+        finally:
+            cl.close()
+        base = f"127.0.0.1:{ports['telemetry_port']}"
+        conn = http.client.HTTPConnection(base, timeout=10)
+        conn.request("GET", "/metrics")
+        text = conn.getresponse().read().decode()
+        conn.request("GET", "/metrics.json")
+        live = json.loads(conn.getresponse().read())
+        conn.close()
+        assert 'dqn_serving_requests_total{policy="default"} 1' in text
+        assert live['dqn_serving_requests_total{policy=default}'][
+            "value"] == 1
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+    assert proc.returncode == 0, out
+    if "--telemetry-snapshot" in argv:
+        dumped = json.loads(snap.read_text())
+        assert set(dumped) == set(live)
+        assert dumped["dqn_serving_requests_total{policy=default}"][
+            "value"] == 1
 
 
 def test_serving_needs_a_card_unless_cpu_is_asked(stack, monkeypatch):

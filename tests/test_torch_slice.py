@@ -12,6 +12,7 @@ turns an ulp of gradient into an ulp of update, no more.
 """
 import dataclasses
 import json
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +32,7 @@ from dist_dqn_tpu_torch.models import build_network as torch_build
 from dist_dqn_tpu_torch.ops import sampler as tps
 from dist_dqn_tpu_torch.replay import prioritized_device as tpring
 from dist_dqn_tpu_torch.utils.params import from_flax
-from torch_parity import RESET_DRAWS, STEP_DRAWS, to_numpy_tree
+from torch_parity import RESET_DRAWS, STEP_DRAWS, cli_rows, to_numpy_tree
 
 NUM_SLOTS, B, STEPS, S = 16, 4, 22, 8
 
@@ -229,7 +230,9 @@ def test_train_cli_rows_on_cpu(capsys):
           "--set", "replay.pallas_sampler=true",
           "--set", "learner.batch_size=16", "--set", "actor.num_envs=4",
           "--set", "eval_episodes=2"])
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    lines = capsys.readouterr().out.splitlines()
+    assert json.loads(lines[0])["manifest"]["config_name"] == "cartpole"
+    rows = [json.loads(line) for line in lines[1:]]
     assert [r["env_frames"] for r in rows] == [160, 320]
     for r in rows:
         assert {"env_frames", "loss", "episode_return", "episodes",
@@ -249,7 +252,7 @@ def test_train_cli_profiles_second_chunk_on_cpu(capsys, tmp_path):
           "--set", "replay.min_fill=32", "--set", "replay.prioritized=true",
           "--set", "replay.pallas_sampler=true",
           "--set", "learner.batch_size=16", "--set", "actor.num_envs=4"])
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    rows = cli_rows(capsys.readouterr().out)
     assert [r.get("env_frames") for r in rows] == [80, None, 160, 240]
     assert rows[1]["profile_trace"] == str(tmp_path / "trace.json")
     assert rows[1]["profile_wall_s"] > 0
@@ -285,32 +288,32 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     # and runs the host-replay loop; --runtime apex is ported with its
     # remote actors (tests/test_torch_apex_service.py,
     # tests/test_torch_remote_actors.py) and its distributed options
-    # (tests/test_torch_apex_distributed.py), so its case names a
-    # telemetry flag, still refused, beside several learner devices;
+    # (tests/test_torch_apex_distributed.py), so its case names the trace
+    # flag, still refused, beside several learner devices;
+    # --telemetry-port is ported and serves the run's registry (its row
+    # names the bound port; the server closes with the run);
     # --mesh-devices is ported on the fused runtime
     # (tests/test_torch_mesh.py, tests/test_torch_distributed.py) and
     # trains two CPU ranks, of which rank 0 alone prints rows (the ranks
     # are processes of their own: capfd reads their output).
     ["--runtime", "host-replay"], ["--mesh-devices", "2"],
     ["--population", "2"],
-    ["--runtime", "apex", "--learner-devices", "2", "--telemetry-port", "0"],
-    ["--telemetry-port", "9100"],
+    ["--runtime", "apex", "--learner-devices", "2", "--trace-path", "t.json"],
+    ["--telemetry-port", "0"],
     ["--population-spec", '{"lr": [0.001, 0.002]}']])
 def test_train_cli_refuses_unported_flags(flag, capfd):
     from dist_dqn_tpu_torch.train import main
 
     if flag == ["--mesh-devices", "2"]:
         main(["--config", "cartpole", *_TINY_CLI, *flag])
-        rows = [json.loads(line)
-                for line in capfd.readouterr().out.splitlines()]
+        rows = cli_rows(capfd.readouterr().out)
         assert [r["env_frames"] for r in rows] == [160, 320]
         assert rows[-1]["grad_steps_in_chunk"] == 40
         assert all(np.isfinite(r["loss"]) for r in rows)
         return
     if flag[0] == "--population":
         main(["--config", "cartpole", *_TINY_CLI, *flag])
-        rows = [json.loads(line)
-                for line in capfd.readouterr().out.splitlines()]
+        rows = cli_rows(capfd.readouterr().out)
         assert [r["env_frames"] for r in rows] == [160, 320]
         assert rows[-1]["population"] == 2
         assert len(rows[-1]["loss_members"]) == 2
@@ -318,10 +321,23 @@ def test_train_cli_refuses_unported_flags(flag, capfd):
     if flag == ["--runtime", "host-replay"]:
         main(["--config", "cartpole", *_TINY_CLI, *flag])
         lines = capfd.readouterr().out.splitlines()
-        assert lines[0] == "# host-replay sampler: uniform"
-        rows = [json.loads(line) for line in lines[1:]]
+        assert json.loads(lines[0])["manifest"]["config_name"] == "cartpole"
+        assert lines[1] == "# host-replay sampler: uniform"
+        rows = [json.loads(line) for line in lines[2:]]
         assert [r["env_frames"] for r in rows[:-1]] == [160, 320]
         assert rows[-1]["env_steps"] == 320 and rows[-1]["pipeline"]
+        return
+    if flag[0] == "--telemetry-port":
+        main(["--config", "cartpole", *_TINY_CLI, *flag])
+        lines = capfd.readouterr().out.splitlines()
+        manifest = json.loads(lines[0])["manifest"]
+        assert manifest["config_name"] == "cartpole"
+        port = json.loads(lines[1])["telemetry_port"]
+        rows = [json.loads(line) for line in lines[2:]]
+        assert port > 0 and [r["env_frames"] for r in rows] == [160, 320]
+        with pytest.raises(OSError):        # closed with the run
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                   timeout=5)
         return
     if flag[0] == "--population-spec":
         # Two lr entries for the default --population 1.
@@ -384,10 +400,10 @@ def test_train_cli_replay_ratio_doubles_grad_steps(capsys, per):
     argv = ["--config", "cartpole", *_TINY_CLI,
             "--set", f"replay.prioritized={str(per).lower()}"]
     main(argv)
-    base = [json.loads(line)["grad_steps_in_chunk"]
-            for line in capsys.readouterr().out.splitlines()]
+    base = [r["grad_steps_in_chunk"]
+            for r in cli_rows(capsys.readouterr().out)]
     main(argv + ["--replay-ratio", "2"])
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    rows = cli_rows(capsys.readouterr().out)
     assert [r["grad_steps_in_chunk"] for r in rows] == [2 * g for g in base]
     assert base[-1] == 40 and all(np.isfinite(r["loss"]) for r in rows)
 
@@ -396,7 +412,7 @@ def test_train_cli_actor_dtype_bfloat16_runs(capsys):
     from dist_dqn_tpu_torch.train import main
 
     main(["--config", "cartpole", *_TINY_CLI, "--actor-dtype", "bfloat16"])
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    rows = cli_rows(capsys.readouterr().out)
     assert [r["env_frames"] for r in rows] == [160, 320]
     assert rows[-1]["grad_steps_in_chunk"] == 40
 
@@ -440,7 +456,7 @@ def test_train_cli_breakout_dedup_ratio_bf16_actor_on_cpu(capsys, preset):
     for assignment in _TINY_PIXEL:
         argv += ["--set", assignment]
     main(argv)
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    rows = cli_rows(capsys.readouterr().out)
     assert [r["env_frames"] for r in rows] == [240, 480]
     # Iterations 8..28 even train in the first chunk, all 15 in the second.
     assert [r["grad_steps_in_chunk"] for r in rows] == [22, 30]

@@ -7,6 +7,7 @@ consumes, so both packages step in lockstep on the same trajectory.
 """
 from __future__ import annotations
 
+import json
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,3 +207,11 @@ class NormalRecorder:
             out.append({name: (_t(d[2 * i]), _t(d[2 * i + 1]))
                         for i, name in enumerate(names)})
         return out
+
+
+def cli_rows(text: str) -> list:
+    """The JSON rows a training CLI printed, less its one run-manifest
+    line (``{"manifest": ...}``, printed first)."""
+    rows = [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+    return [r for r in rows if "manifest" not in r]
