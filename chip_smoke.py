@@ -319,6 +319,30 @@ them or outside a checkout of the repository. Phases, each fatal:
    microseconds per update, per service grad step
    (``SERVICE_UPDATES_PER_GRAD_STEP``) and per ingested record
    (``SERVICE_UPDATES_PER_RECORD``).
+18. The chip-time plane and the host-loop spans, in the same four phases
+   (telemetry/devtime.py, utils/flops.py, utils/trace.py), each phase
+   with a fresh program table: apex's ``fused.chunk`` dispatches equal
+   its chunks, its census lies within 1.5x of the analytic count of a
+   training chunk (five Nature-CNN forwards per grad step over the batch
+   and one act forward per iteration), ``dqn_learner_mfu{loop="fused"}``
+   in (0, 1], the card's ``bytes_in_use`` under its ``bytes_limit``, the
+   ledger's busy and idle series summing to the chunks' walls within
+   1e-6 s, and one more chunk's attributed seconds printed beside
+   torch.profiler's kernel union and sum (``chunk_attribution``);
+   host_replay_apex_dedup's ``sampler.draw_writeback`` dispatches equal
+   the kernel's launches, its scraped ledger the summary's
+   ``chip_time``, and ``host_replay.train_step`` carries a census;
+   apex_service_pong runs with ``trace_path``: the trace holds the
+   service's span names, the summary's ``programs`` (a census on
+   ``apex.train_step``) and ``chip_time`` are set, a
+   ``/debug/profile?seconds=1`` capture on the telemetry server's thread
+   while the service trains holds the sampler kernel launched on the
+   service's thread (retried while a window retired fewer than two grad
+   steps), and it prints µs per
+   span over 100,000 spans and the thread's seconds by part from the
+   spans beside ``loop_s``; serving_apex's ``serving.act`` dispatches
+   equal the batcher's, and a capture during a closed loop holds a CUDA
+   kernel.
 
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
@@ -481,6 +505,9 @@ POPULATION_MAX_GB = POPULATION_SIZE * APEX_DEDUP_MAX_GB
 # POPULATION_MAX_LAUNCH_RATIO times the solo path's device kernels per
 # iteration (a loop over members would launch 4x).
 PROFILED_ITERS = 10
+# Training iterations of the one apex chunk whose attributed seconds are
+# held beside torch.profiler's kernel sum (_chunk_attribution).
+CHUNK_ATTRIBUTION_ITERS = 25
 POPULATION_MAX_LAUNCH_RATIO = 2.0
 # population_learner_lockstep: the cartpole learner at its preset width, two
 # members, on the same batches as two solo learners.
@@ -513,6 +540,13 @@ SERVING_SEEDS = (0, 7)
 SERVING_RELOAD = (8, 2.0, 0.5)       # clients, seconds, save at
 SERVING_SHED = (4, 32)               # queue limit, concurrent clients
 SERVING_LONE_REQUESTS = 200
+# The untimed closed loop during which /debug/profile captures one second,
+# this many seconds into it.
+SERVING_CAPTURE_LOOP_S = 1.5
+SERVING_CAPTURE_DELAY_S = 0.25
+# /debug/profile captures apex_service_pong takes until one window
+# retired two grad steps (_CaptureWhileTraining).
+CAPTURE_TRIES = 4
 SERVING_CLOSED_LOOP = (16, 1.5)      # 1-row clients, seconds per arm
 SERVING_ACT_ITERS = 50
 # The mesh phases. mesh_apex_nccl is the apex path (fill, depth, chunk)
@@ -643,6 +677,9 @@ class _PhaseTelemetry:
         self.config_hash = man["config_hash"]
         print(json.dumps({"phase_manifest": phase,
                           "config_hash": self.config_hash}), flush=True)
+        # The phase's own program table (telemetry/devtime.py): its
+        # records' tallies and censuses start here.
+        telemetry.reset_program_registry()
         self.before = telemetry.get_registry().snapshot()
         self.server = telemetry.start_server(0)
 
@@ -903,6 +940,8 @@ def _time_sampler(sampler, w, u, iters: int) -> dict:
     times M 2-D launches, one per plane."""
     import torch
 
+    from dist_dqn_tpu_torch.utils.flops import stratified_sample_cost
+
     M, T, B = w.shape if w.dim() == 3 else (1, *w.shape)
     S = u.shape[-1]
 
@@ -929,13 +968,13 @@ def _time_sampler(sampler, w, u, iters: int) -> dict:
             sampler.kernel_stratified_sample(w[m], u[m]) for m in range(M)]
     device = {f"{k}ms": _device_ms(fn) for k, fn in fns.items()}
     eager = {f"{k}eager_ms": _eager_ms(fn, iters) for k, fn in fns.items()}
-    # Least work: read the planes and u once, write the three [S] outputs
-    # and the total of each member once; add every cell once, scan the T
-    # row sums, and per sample search log2(T) rows and walk B lanes.
-    bytes_moved = M * (T * B * 4 + S * 4 + S * 12 + 4)
-    ops = M * (T * B + T + S * (math.ceil(math.log2(T)) + B))
-    bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops = ops / F32_OPS_PER_S * 1e3
+    # Least work (utils/flops.py stratified_sample_cost): read the planes
+    # and u once, write the three [S] outputs and the total of each member
+    # once; add every cell once, scan the T row sums, and per sample search
+    # log2(T) rows and walk B lanes.
+    cost = stratified_sample_cost(T, B, S, members=M)
+    bound_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
+    bound_ops = cost["flops"] / F32_OPS_PER_S * 1e3
     return {**device, "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops
             else "operations", **eager, "graph_replay_equal": replay_ok,
@@ -1154,6 +1193,29 @@ def check_dedup_gather(lanes: int = 64, slots: int = 160, steps: int = 400,
     return report
 
 
+class _LedgerWalls:
+    """Keeps the wall of every chunk a ``UtilizationLedger`` files while
+    open: the sum the ledger's busy and idle series must conserve."""
+
+    def __enter__(self):
+        from dist_dqn_tpu_torch.telemetry import devtime
+
+        self.cls, self.real = devtime.UtilizationLedger, \
+            devtime.UtilizationLedger.observe_chunk
+        self.walls = []
+        real, walls = self.real, self.walls
+
+        def observe(ledger, wall_s, busy_s, **causes):
+            walls.append(float(wall_s))
+            return real(ledger, wall_s, busy_s, **causes)
+
+        self.cls.observe_chunk = observe
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.observe_chunk = self.real
+
+
 class _FlushWatch:
     """Counts the batched priority flushes of a run and keeps, on the
     device, whether each one changed the plane (read once, at the end)."""
@@ -1182,9 +1244,120 @@ class _FlushWatch:
         return bool(torch.stack(self.changed).all()) if self.changed else False
 
 
-def _hold_fused_scrape(tm, logged, carry, history, launches: int) -> None:
+def _fused_chunk_analytic_flops(cfg, chunk_iters: int) -> float:
+    """A training chunk of the feed-forward fused loop, analytically: its
+    grad steps at five Nature-CNN forwards each over the batch (online,
+    target and double-Q forwards, a backward of about two), and one act
+    forward over the env lanes per iteration (utils/flops.py)."""
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.utils import flops
+
+    actions = make_env(cfg.env_name, device=DEVICE).num_actions
+    grads = chunk_iters * cfg.updates_per_train / max(cfg.train_every, 1)
+    return (grads * 5 * flops.nature_cnn_fwd_flops(cfg.learner.batch_size,
+                                                   num_actions=actions)
+            + chunk_iters * flops.nature_cnn_fwd_flops(cfg.actor.num_envs,
+                                                       num_actions=actions))
+
+
+def _hold_fused_chip_time(scrape, cfg, history, chunk_iters: int,
+                          walls) -> dict:
+    """apex's chip-time plane: one ``fused.chunk`` dispatch per chunk, its
+    census within 1.5x of the analytic count of a training chunk, the
+    learner MFU in (0, 1], the card's memory in use under its total, and
+    the ledger's busy and idle series summing to the chunks' walls."""
+    prog = "{loop=fused,program=fused.chunk}"
+    flops = scrape.grew("dqn_program_flops" + prog)
+    analytic = _fused_chunk_analytic_flops(cfg, chunk_iters)
+    mfu = scrape.grew("dqn_learner_mfu{loop=fused}")
+    mem = {k: scrape.grew("dqn_device_memory_bytes{device=0,kind=" + k + "}")
+           for k in ("bytes_in_use", "peak_bytes_in_use", "bytes_reserved",
+                     "bytes_limit", "peak_bytes_in_use_seen")}
+    ledger = scrape.grew("dqn_chip_busy_seconds_total{loop=fused}") + sum(
+        scrape.grew("dqn_chip_idle_seconds_total{cause=" + c + ",loop=fused}")
+        for c in ("sample", "evac_fence", "prefetch_wait", "h2d", "other"))
+    out = {"fused_chunk_dispatches": scrape.grew(
+               "dqn_program_dispatches_total" + prog),
+           "chunks": len(history),
+           "fused_chunk_device_s": scrape.grew(
+               "dqn_program_device_seconds_total" + prog),
+           "census_flops": flops, "analytic_flops": analytic,
+           "census_over_analytic": flops / analytic,
+           "census_bytes": scrape.grew("dqn_program_bytes" + prog),
+           "learner_mfu": mfu, "device_memory_bytes": mem,
+           "ledger_s": ledger, "chunk_walls_s": sum(walls)}
+    print(json.dumps({"chip_time": "apex", **out}), flush=True)
+    if out["fused_chunk_dispatches"] != len(history):
+        _fail(f"apex: {out['fused_chunk_dispatches']} fused.chunk "
+              f"dispatches for {len(history)} chunks")
+    if not analytic / 1.5 < flops < analytic * 1.5:
+        _fail(f"apex: fused.chunk census {flops} FLOPs, analytic "
+              f"{analytic}")
+    if not 0.0 < mfu <= 1.0:
+        _fail(f"apex: dqn_learner_mfu {mfu} outside (0, 1]")
+    if not 0 < mem["bytes_in_use"] <= mem["bytes_limit"]:
+        _fail(f"apex: device memory {mem}")
+    if abs(ledger - sum(walls)) > 1e-6:
+        _fail(f"apex: ledger {ledger} s against chunk walls {sum(walls)} s")
+    return out
+
+
+def _chunk_attribution(cfg, carry, iters: int = CHUNK_ATTRIBUTION_ITERS
+                       ) -> dict:
+    """One more chunk of ``iters`` training iterations of apex's finished
+    carry (the loop rebuilt around its net), attributed as the fused loop
+    attributes ``fused.chunk``: dispatch to the fence of the chunk's one
+    stacked read. Timed once alone, then once under torch.profiler beside
+    the kernels' busy union and duration sum: the attribution is a span
+    with the gaps between launches, the kernel sum the card's work."""
+    import torch
+
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.train import _busy_seconds, _device_spans
+    from dist_dqn_tpu_torch.train_loop import make_fused_train
+
+    env = make_env(cfg.env_name, device=DEVICE)
+    _, run_chunk = make_fused_train(cfg, env, carry.learner.net,
+                                    device=DEVICE)
+    held = {"carry": carry}
+
+    def chunk() -> float:
+        t0 = time.perf_counter()
+        held["carry"], m = run_chunk(held["carry"], iters)
+        torch.stack([m["episode_return"], m["episodes"],
+                     m["loss"]]).tolist()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    alone = chunk()
+    # The card's activity alone: the host ops' events would only cost
+    # the profile's parse.
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_SETTLE_S)
+        traced = chunk()
+        time.sleep(PROFILE_SETTLE_S)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_sum = sum(e.time_range.end - e.time_range.start
+                     for e in kernels) / 1e6
+    out = {"iterations": iters, "attributed_s": alone,
+           "attributed_s_traced": traced,
+           "kernel_busy_s": _busy_seconds(prof), "kernel_sum_s": kernel_sum,
+           "device_events": len(_device_spans(prof))}
+    out["attributed_over_kernel_busy"] = alone / max(out["kernel_busy_s"],
+                                                     1e-12)
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"chunk_attribution": "apex", **out}), flush=True)
+    if not out["kernel_busy_s"] > 0:
+        _fail(f"apex: the profiled chunk shows no kernel: {out}")
+    return out
+
+
+def _hold_fused_scrape(tm, logged, carry, history, launches: int):
     """apex's scrape: the grad and env steps its rows count, its device
-    ring's size and capacity, and one sampler launch per grad step."""
+    ring's size and capacity, and one sampler launch per grad step.
+    Returns the scrape."""
     _logged_telemetry_port(tm.phase, logged)
     scrape = tm.scrape()
     ring = carry.replay.ring
@@ -1201,6 +1374,7 @@ def _hold_fused_scrape(tm, logged, carry, history, launches: int) -> None:
             scrape.grew("dqn_replay_capacity{store=device}"), slots * lanes),
         "sampler_launches_per_grad_step": (launches / max(grad_steps, 1),
                                            1.0)})
+    return scrape
 
 
 def drive_main_path(cfg, total_env_steps: int, chunk_iters: int,
@@ -1651,7 +1825,17 @@ def check_host_replay_apex_dedup(sampler) -> int:
                         "{loop=host_replay}"), out["prio_writeback_rows"]),
         "sampler_launches_per_grad_step": (
             launches / max(out["grad_steps"] + out["stale_batches"], 1),
-            1.0)})
+            1.0),
+        "dqn_program_dispatches_total{loop=sampler,"
+        "program=sampler.draw_writeback}": (
+            scrape.grew("dqn_program_dispatches_total{loop=sampler,"
+                        "program=sampler.draw_writeback}"), launches),
+        "dqn_program_dispatches_total{loop=host_replay,"
+        "program=host_replay.train_step}": (
+            scrape.grew("dqn_program_dispatches_total{loop=host_replay,"
+                        "program=host_replay.train_step}"),
+            out["grad_steps"])})
+    chip = _hold_host_replay_chip_time(scrape, out)
     history = out["history"]
     losses = [r["loss"] for r in history if "loss" in r]
     training = [r for r in history if "loss" in r]
@@ -1676,7 +1860,7 @@ def check_host_replay_apex_dedup(sampler) -> int:
            "evac_fence_wait_s_total": out["evac_fence_wait_s_total"],
            "d2h_bytes_total": out["d2h_bytes_total"],
            "h2d_staged_bytes": out["h2d_staged_bytes"],
-           "chip_time": out["chip_time"],
+           "chip_time": out["chip_time"], "programs": chip["programs"],
            "training_chunks": len(training),
            "summary_grad_steps_per_sec": out["grad_steps_per_sec"],
            "summary_env_steps_per_sec": out["env_steps_per_sec"]}
@@ -1690,6 +1874,33 @@ def check_host_replay_apex_dedup(sampler) -> int:
     if not losses or not all(math.isfinite(x) for x in losses):
         _fail(f"host_replay_apex_dedup: non-finite loss: {losses}")
     return launches
+
+
+def _hold_host_replay_chip_time(scrape, out: dict) -> dict:
+    """host_replay_apex_dedup's chip-time plane: the scraped ledger equal
+    to the summary's ``chip_time``, and a census on the train step."""
+    loop = "loop=host_replay"
+    chip = out["chip_time"]
+    got = {"busy": scrape.grew("dqn_chip_busy_seconds_total{" + loop + "}")}
+    for cause in ("sample", "evac_fence", "prefetch_wait", "h2d", "other"):
+        got[cause] = scrape.grew(
+            "dqn_chip_idle_seconds_total{cause=" + cause + "," + loop + "}")
+    progs = out["programs"]
+    res = {"ledger_scraped": got, "chip_time": chip, "programs": progs,
+           "learner_mfu": scrape.after.get(
+               "dqn_learner_mfu{" + loop + "}", {}).get("value")}
+    print(json.dumps({"chip_time": "host_replay_apex_dedup", **res}),
+          flush=True)
+    off = {k: (v, chip[k]) for k, v in got.items()
+           if abs(v - chip[k]) > 1e-6}
+    if off:
+        _fail(f"host_replay_apex_dedup: scraped ledger differs from the "
+              f"summary's chip_time: {off}")
+    train = progs.get("host_replay.train_step", {})
+    if not train.get("flops") or not train.get("bytes"):
+        _fail(f"host_replay_apex_dedup: host_replay.train_step has no "
+              f"census: {train}")
+    return res
 
 
 def check_apex_service_pong(sampler, directory: str) -> int:
@@ -1716,12 +1927,13 @@ def check_apex_service_pong(sampler, directory: str) -> int:
     actors, lanes = APEX_SERVICE_ACTORS
     cfg = apply_overrides(CONFIGS[preset], overrides)
     ckpt_dir = os.path.join(directory, "checkpoint")
+    trace_path = os.path.join(directory, "trace.json")
     rt = ApexRuntimeConfig(host_env="pong", num_actors=actors,
                            envs_per_actor=lanes, total_env_steps=total,
                            device_sampling=True, checkpoint_dir=ckpt_dir,
                            save_every_steps=total,
                            profile_dir=os.path.join(directory, "profile"),
-                           telemetry_port=0)
+                           telemetry_port=0, trace_path=trace_path)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tm = _PhaseTelemetry("apex_service_pong", cfg)
@@ -1733,9 +1945,11 @@ def check_apex_service_pong(sampler, directory: str) -> int:
             logged.append(json.loads(line))
 
     service = ApexLearnerService(cfg, rt, log_fn=log, device=DEVICE)
+    capture = _CaptureWhileTraining(tm, service)
     sampler.kernel_stratified_sample.launches = 0
     out = service.run()
     launches = sampler.kernel_stratified_sample.launches
+    capture.join()
     _logged_telemetry_port(tm.phase, logged)
     scrape = tm.scrape()
     scrape.hold({
@@ -1755,6 +1969,7 @@ def check_apex_service_pong(sampler, directory: str) -> int:
             launches / max(out["grad_steps"], 1), 1.0)})
     overhead = time_registry_updates()
     print(json.dumps({"telemetry_overhead": overhead}), flush=True)
+    _hold_service_chip_time(out, trace_path, capture.result)
     profile = service.profile_row or {}
     t_fill = out["run_s"] - out["train_s"]
     row = {"main_path": "apex_service_pong",
@@ -1827,6 +2042,135 @@ def check_apex_service_pong(sampler, directory: str) -> int:
               f"checkpoint at {out['env_steps']} env steps and a finite "
               "return")
     return launches
+
+
+class _CaptureWhileTraining:
+    """``/debug/profile?seconds=1`` captures from the phase's telemetry
+    server, on a thread of its own, once the service has retired (and
+    stopped tracing) its first train event: each runs on the server's
+    thread while the service thread works. A window in which the service
+    retired fewer than two grad steps may hold no sampler kernel, so up
+    to CAPTURE_TRIES captures are taken until one window retired two.
+    ``result`` is the last capture's JSON and kernel counts, with the
+    grad steps retired during it and the tries."""
+
+    def __init__(self, tm, service):
+        import threading
+
+        self.result = None
+
+        def work():
+            while service.profile_row is None:
+                if service._t_end is not None:
+                    return
+                time.sleep(0.05)
+            for tries in range(1, CAPTURE_TRIES + 1):
+                if service._t_end is not None:
+                    return
+                steps = service.grad_steps
+                got = _capture_profile(tm)
+                self.result = {**got, "tries": tries,
+                               "grad_steps_during": service.grad_steps
+                               - steps}
+                if self.result["grad_steps_during"] >= 2:
+                    return
+
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name="profile-capture")
+        self._thread.start()
+
+    def join(self) -> None:
+        self._thread.join(timeout=60)
+
+
+def _capture_profile(tm, delay_s: float = 0.0) -> dict:
+    """``/debug/profile?seconds=1`` from the phase's telemetry server after
+    ``delay_s``: the endpoint's JSON, the CUDA kernel events its trace
+    holds and how many of them are the sampler kernel's."""
+    time.sleep(delay_s)
+    t0 = time.perf_counter()
+    got = json.loads(tm._get("/debug/profile?seconds=1"))
+    kernels = []
+    if "trace_dir" in got:
+        with open(os.path.join(got["trace_dir"], "trace.json")) as f:
+            kernels = [e["name"] for e in json.load(f).get(
+                "traceEvents", []) if e.get("cat") == "kernel"]
+    return {"capture": got, "kernels": len(kernels),
+            "sample_kernels": sum("sample_kernel" in k for k in kernels),
+            "seconds": time.perf_counter() - t0}
+
+
+def time_span_overhead(n: int = TELEMETRY_UPDATES) -> dict:
+    """Host microseconds per span of the service's tracer (utils/trace.py
+    SpanTracer: the event and its registry histogram), over ``n`` spans,
+    and the seconds their flush to disk takes."""
+    from dist_dqn_tpu_torch.telemetry import Registry
+    from dist_dqn_tpu_torch.utils.trace import SpanTracer
+
+    with tempfile.TemporaryDirectory() as d:
+        tr = SpanTracer(os.path.join(d, "t.json"), registry=Registry())
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with tr.span("replay.sample"):
+                pass
+        us = (time.perf_counter() - t0) / n * 1e6
+        t0 = time.perf_counter()
+        tr.close()
+        flush_s = time.perf_counter() - t0
+    return {"spans": n, "us_per_span": us, "flush_s": flush_s}
+
+
+#: The service thread's parts as its spans name them (apex_service_pong's
+#: path: zero-copy actors, actor priorities, staged batches).
+SERVICE_SPAN_PARTS = {
+    "drain": ("ingest.shm_record", "ingest.tcp_record"),
+    "act": ("act.batched", "priority.actor_insert"),
+    "bootstrap": ("priority.bootstrap.dispatch", "priority.bootstrap.insert"),
+    "train": ("replay.sample", "h2d.stage", "train_step.dispatch",
+              "replay.update_priorities"),
+}
+SERVICE_SPANS = {"act.batched", "priority.actor_insert", "replay.sample",
+                 "h2d.stage", "train_step.dispatch",
+                 "replay.update_priorities", "ingest.shm_record",
+                 "replay_size", "env_steps"}
+
+
+def _hold_service_chip_time(out: dict, trace_path: str, capture) -> dict:
+    """apex_service_pong's chip-time plane and spans: the trace loads with
+    the service's span names, the summary's ``programs`` (a census on
+    the train step) and ``chip_time``, the /debug/profile capture's
+    kernels (the sampler's printed), µs per span, and the thread's
+    seconds by part from the spans beside the loop's own ``loop_s``."""
+    with open(trace_path) as f:
+        events = json.load(f)
+    names = {e["name"] for e in events}
+    sums = {}
+    for e in events:
+        if e.get("ph") == "X":
+            sums[e["name"]] = sums.get(e["name"], 0.0) + e["dur"] / 1e6
+    split = {part: sum(sums.get(n, 0.0) for n in spans)
+             for part, spans in SERVICE_SPAN_PARTS.items()}
+    run_s = out["run_s"]
+    res = {"trace_events": len(events), "span_s": sums,
+           "split_s": split,
+           "split_share": {k: v / run_s for k, v in split.items()},
+           "loop_s": out["loop_s"], "run_s": run_s,
+           "programs": out["programs"], "chip_time": out["chip_time"],
+           "capture": capture, "span_overhead": time_span_overhead()}
+    print(json.dumps({"service_spans": "apex_service_pong", **res}),
+          flush=True)
+    if not SERVICE_SPANS <= names:
+        _fail(f"apex_service_pong: trace lacks {SERVICE_SPANS - names}")
+    train = (out["programs"] or {}).get("apex.train_step", {})
+    if out["chip_time"] is None or not train.get("flops"):
+        _fail(f"apex_service_pong: chip_time {out['chip_time']}, train "
+              f"program {train}")
+    # The capture on the server's thread holds the sampler kernel that
+    # the service thread launched in its window.
+    if capture is None or not capture["sample_kernels"]:
+        _fail(f"apex_service_pong: /debug/profile capture {capture} holds "
+              "no sampler kernel")
+    return res
 
 
 def _service_row(name: str, service, out: dict, launches: int,
@@ -2746,6 +3090,16 @@ def check_serving_apex(sampler, directory: str) -> int:
             arm = _closed_loop(server.address, obs[:1], clients, seconds,
                                registry)
             served += arm["requests"]
+            if batching:
+                # /debug/profile on the telemetry server's thread while the
+                # dispatch thread serves one more, untimed, closed loop.
+                with ThreadPoolExecutor(1) as pool:
+                    capture = pool.submit(_capture_profile, tm,
+                                          SERVING_CAPTURE_DELAY_S)
+                    served += _closed_loop(server.address, obs[:1], clients,
+                                           SERVING_CAPTURE_LOOP_S,
+                                           registry)["requests"]
+                    out["profile_capture"] = capture.result(timeout=60)
         finally:
             server.close()
         out["closed_loop_batching" if batching
@@ -2754,7 +3108,15 @@ def check_serving_apex(sampler, directory: str) -> int:
             _fail(f"serving_apex: closed loop (batching={batching}): {arm}")
     key = "dqn_serving_requests_total{policy=default}"
     scrape = tm.scrape()
-    scrape.hold({key: (scrape.grew(key), served)})
+    scrape.hold({key: (scrape.grew(key), served),
+                 "dqn_program_dispatches_total{loop=serving,"
+                 "program=serving.act}": (
+                     scrape.grew("dqn_program_dispatches_total{loop=serving,"
+                                 "program=serving.act}"),
+                     scrape.grew("dqn_serving_dispatches_total"))})
+    if not out["profile_capture"]["kernels"]:
+        _fail(f"serving_apex: /debug/profile captured no CUDA kernel: "
+              f"{out['profile_capture']}")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     out["peak_device_gb"] = peak / 1e9
@@ -4123,7 +4485,7 @@ def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
             tm = _PhaseTelemetry(name, cfg)
             checkpoint["telemetry_port"] = 0
         sampler.kernel_stratified_sample.launches = 0
-        with _FlushWatch() as flushes:
+        with _FlushWatch() as flushes, _LedgerWalls() as ledger:
             carry, history, wall = drive_main_path(
                 cfg, total_env_steps, chunk_iters, logged=logged,
                 **checkpoint)
@@ -4131,7 +4493,10 @@ def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
         checkpoint.pop("telemetry_port", None)
         outputs = check_outputs(name, cfg, carry, history, launches[name])
         if tm is not None:
-            _hold_fused_scrape(tm, logged, carry, history, launches[name])
+            scrape = _hold_fused_scrape(tm, logged, carry, history,
+                                        launches[name])
+            outputs["chip_time"] = _hold_fused_chip_time(
+                scrape, cfg, history, chunk_iters, ledger.walls)
         if cfg.replay.prioritized and cfg.replay.updates_per_chunk > 1:
             # One last-wins flush per train event, each landing new values.
             outputs["priority_flushes"] = len(flushes.changed)
@@ -4160,6 +4525,8 @@ def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
         reference = carry if "resume_r2d2" in follows else None
         first_leg = {"frames": history[-1]["env_frames"],
                      "steps": carry.learner.steps}
+        if name == "apex":
+            _chunk_attribution(cfg, carry)
         del carry, history
         if "checkpoint_apex" in follows:
             launches["checkpoint_apex"] = check_checkpoint_apex(
@@ -4559,6 +4926,8 @@ def main(argv=None) -> int:
 
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # /debug/profile captures land in the forensics dir: the script's.
+        os.environ["DQN_FORENSICS_DIR"] = os.path.join(tmp, "forensics")
         run_main_paths(phases, sampler, launches, tmp)
         if "population_learner_lockstep" in phases:
             launches["population_learner_lockstep"] = \

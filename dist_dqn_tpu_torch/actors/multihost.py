@@ -57,6 +57,8 @@ class MultihostLearner:
         # order. Poisoning makes that impossible instead of relying on the
         # caller to exit after the raise.
         self._agree_poisoned = False
+        # The collective step's program record (wrap_train_step).
+        self.program = None
 
     # -- init -----------------------------------------------------------------
     def wrap_init(self, init):
@@ -88,8 +90,19 @@ class MultihostLearner:
         the scalars of ``metric_specs`` arrive averaged, the row metrics
         stay local."""
         from dist_dqn_tpu_torch.parallel.learner import _map_spec
+        from dist_dqn_tpu_torch.telemetry import devtime
 
         dev = self.mesh.device
+        # The chip-time plane (dist_dqn_tpu/actors/multihost.py:104-125):
+        # the collective step is this process's train program. Its census
+        # is unknown (the all-reduce cannot run on one process alone), and
+        # its device seconds are the retirement intervals the service
+        # reads its priorities back at (``self.program``; the step holds
+        # no fence of its own).
+        prog = devtime.register_program(
+            "multihost.train_step", loop="multihost", role="train")
+        prog.attach_cost({})
+        self.program = prog
 
         def to_device(x, axis):
             if isinstance(x, np.ndarray):
@@ -99,6 +112,7 @@ class MultihostLearner:
         def step(state, *host_data):
             data = [_map_spec(to_device, d, s)
                     for d, s in zip(host_data, data_specs)]
+            prog.count_dispatch()
             return train_step(state, *data)
 
         return step

@@ -51,9 +51,12 @@ The loop records the JAX service's telemetry families into the process
 registry (:meth:`ApexLearnerService._init_telemetry`), logs its rows
 through ``utils/metrics.py MetricLogger`` (mirrored into the registry),
 and with ``telemetry_port`` serves them at ``/metrics``. Every update is
-host arithmetic on values the loop already holds. The host-loop trace
-(``trace_path``) and the chip-time plane raise "not ported yet" naming
-ROADMAP.md A10b.
+host arithmetic on values the loop already holds. The chip-time plane
+(telemetry/devtime.py) holds one program record per device-call kind
+(``apex.train_step``/``apex.train_scan``, ``apex.act``, ...), their
+device seconds at the retirement fences, and a utilization ledger closed
+at the log cadence; ``trace_path`` writes the host loop's spans as a
+Chrome trace (utils/trace.py), the JAX service's span names.
 """
 from __future__ import annotations
 
@@ -83,9 +86,12 @@ from dist_dqn_tpu_torch.actors.transport import (ShmMailbox, ShmRing,
 from dist_dqn_tpu_torch.config import ExperimentConfig
 from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
 from dist_dqn_tpu_torch.telemetry import collectors as tmc
+from dist_dqn_tpu_torch.telemetry import devtime
 from dist_dqn_tpu_torch.telemetry import get_registry, serve_if_asked
+from dist_dqn_tpu_torch.utils import flops
 from dist_dqn_tpu_torch.utils.device import resolve_device
 from dist_dqn_tpu_torch.utils.metrics import MetricLogger
+from dist_dqn_tpu_torch.utils.trace import make_tracer
 
 # The learner-side bootstrap takes up to _PRIO_MAX_ROWS pending transitions
 # per dispatch, padded to one of two row buckets: _PRIO_CHUNK (a few rows
@@ -104,9 +110,7 @@ LOOP_PARTS = ("drain", "act", "bootstrap", "train", "trace", "idle")
 @dataclasses.dataclass
 class ApexRuntimeConfig:
     """Host-side knobs of the actor/learner split: every field and default
-    of the JAX package's. The field of the option the port leaves out
-    (tracing, ``trace_path``) is refused by :class:`ApexLearnerService`
-    when set."""
+    of the JAX package's."""
 
     host_env: str = "CartPole-v1"   # host env actors step (ale:<Game> for ALE)
     num_actors: int = 2
@@ -140,7 +144,7 @@ class ApexRuntimeConfig:
     # C++ n-step assembly on the learner-side bootstrap path (feed-forward
     # configs); falls back to the Python assembler with a log line.
     native_assembly: bool = True
-    # Host-loop Chrome trace (not ported yet).
+    # Host-loop Chrome trace of the service thread's spans (utils/trace.py).
     trace_path: Optional[str] = None
     # The shard's priority plane on the card, drawn through the sampler
     # kernel; items stay in host memory.
@@ -189,13 +193,8 @@ class ApexRuntimeConfig:
     profile_dir: Optional[str] = None
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {what} (ROADMAP.md {item})")
-
-
 def _refuse(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn) -> None:
-    """The JAX service's constructor refusals, word for word, then the
-    options the port leaves out."""
+    """The JAX service's constructor refusals, word for word."""
     if rt.ingest_shards < 1:
         raise ValueError(
             f"ingest_shards must be >= 1, got {rt.ingest_shards}")
@@ -241,9 +240,6 @@ def _refuse(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn) -> None:
     if rt.transport not in ("zerocopy", "legacy"):
         raise ValueError(f"unknown transport {rt.transport!r} "
                          f"(expected 'zerocopy' or 'legacy')")
-    # What the port leaves out.
-    if rt.trace_path is not None:
-        raise _not_ported("the host-loop trace (trace_path)", "A10b")
 
 
 def _spawn_process(target, args, kwargs):
@@ -582,11 +578,30 @@ class ApexLearnerService:
         else:
             self.state = init(*init_args)
             self._train_step = train_step
+        # The learner's step as built: the program the census counts.
+        self._learner_step = train_step
         if self.replay_ratio > 1 and (self.recurrent or self.distributed):
             log_fn("# replay.updates_per_chunk > 1 is not supported "
                    "on the recurrent / multi-host apex paths yet; "
                    "running at replay ratio 1")
             self.replay_ratio = 1
+        # The chip-time plane (JAX actors/service.py:579-602): one program
+        # record per device-call kind, created at its first dispatch
+        # (_count_device_call); the train program registers now, with
+        # role="train" (the MFU's numerator) and one sub-step's census per
+        # execution, at its first dispatch. Its device seconds are the
+        # retirement intervals (_finalize_train); the ledger closes a
+        # window at the log cadence (_flush_ledger_window).
+        self._prog_train = devtime.register_program(
+            "apex.train_scan" if self.replay_ratio > 1
+            else "apex.train_step", loop="apex", role="train",
+            execs_per_dispatch=self.replay_ratio)
+        self._prog_by_kind: Dict[str, object] = {"train": self._prog_train}
+        self._devtime_anchor = time.perf_counter()
+        self._census_args = None        # the first event's, until retired
+        self._ledger = devtime.UtilizationLedger("apex")
+        self._ledger_busy_seen = 0.0
+        self._ledger_t_last = time.perf_counter()
         if self.distributed and self.train_batch != cfg.learner.batch_size:
             log_fn("# replay.train_batch widening is single-host only "
                    "(multi-host batches shard from learner.batch_size); "
@@ -682,9 +697,16 @@ class ApexLearnerService:
         self._eval_thread: Optional[threading.Thread] = None
         self._eval_results: deque = deque()
         self._ckpt = None
-        self._profiler = None
+        # torch.profiler over the first train event: started at its first
+        # dispatch, stopped at its retirement (_finalize_train).
+        self._profile_tracer = devtime.maybe_trace_first_chunk(
+            rt.profile_dir)
         self._profile_t0 = 0.0
         self.profile_row: Optional[dict] = None
+        # The host loop's spans (a Chrome trace at trace_path), JAX's
+        # names and places.
+        self.tracer = make_tracer(rt.trace_path,
+                                  process_name="apex-learner")
         # Multi-host cursors: the agreed global env steps, a resumed run's
         # saved global count, and the next agreement's earliest time.
         self.global_env_steps = 0
@@ -1105,6 +1127,7 @@ class ApexLearnerService:
             self.log.log_fn(json.dumps(
                 {"ingest_degraded": True, "dead_actors": dead,
                  "fleet": fleet, "env_steps": self.env_steps}))
+            self.tracer.instant("ingest_degraded", dead=dead, fleet=fleet)
         elif not decimated and self._degraded:
             self._degraded = False
             self.log.log_fn(json.dumps(
@@ -1171,6 +1194,12 @@ class ApexLearnerService:
                 labels={"call": kind})
             self._tm_device_calls[kind] = c
         c.inc()
+        prog = self._prog_by_kind.get(kind)
+        if prog is None:
+            prog = devtime.register_program(f"apex.{kind}", loop="apex",
+                                            role=kind)
+            self._prog_by_kind[kind] = prog
+        prog.count_dispatch()
         if rows is not None:
             self._tm_fanin.observe(float(rows))
 
@@ -1215,74 +1244,83 @@ class ApexLearnerService:
         obs_t = torch.from_numpy(obs_cat).to(dev)
         eps_t = torch.from_numpy(eps).to(dev)
         boot = self._pop_boot_batch() if self._fused else None
-        if self.recurrent:
-            lstm = self.cfg.network.lstm_size
-            cs, hs = [], []
-            for (actor, _, _, _), r in zip(burst, rows):
-                carry = self._carry[actor]
-                if carry is None:
-                    carry = (np.zeros((r, lstm), np.float32),) * 2
-                # The assembler stores the carry entering this step.
-                self._prev_carry[actor] = carry
-                cs.append(carry[0])
-                hs.append(carry[1])
-            pad = np.zeros((obs_cat.shape[0] - total, lstm), np.float32)
-            carry_t = tuple(torch.from_numpy(np.concatenate(x + [pad])).to(dev)
-                            for x in (cs, hs))
-            (c, h), actions, q_sel, q_max = self._act_rec(
-                self._policy_params, carry_t, obs_t, self._act_gen, eps_t)
-            self._count_device_call("act", rows=total)
-            out = torch.cat([c.float(), h.float(),
-                             torch.stack([actions.float(), q_sel, q_max],
-                                         dim=1)], dim=1).cpu().numpy()
-            c_np = out[:, :lstm]
-            h_np = out[:, lstm:2 * lstm]
-            acts_np, qs_np, qm_np = (out[:, 2 * lstm + j] for j in range(3))
-        else:
-            if boot is not None:
-                actions, q_sel, q_max = self._fused_act_bootstrap(
-                    obs_t, eps_t, boot)
-                self._count_device_call("fused_act_bootstrap", rows=total)
-            else:
-                actions, q_sel, q_max = self._act_q(
-                    self._policy_params, obs_t, self._act_gen, eps_t)
-                self._count_device_call("act", rows=total)
-            out = torch.stack([actions.float(), q_sel, q_max]).cpu().numpy()
-            acts_np, qs_np, qm_np = out
-        acts_np = acts_np.astype(np.int32)
-        qs_np = np.ascontiguousarray(qs_np, np.float32)
-        qm_np = np.ascontiguousarray(qm_np, np.float32)
-        off = 0
-        for (actor, obs, t, rid), r in zip(burst, rows):
-            sl = slice(off, off + r)
-            off += r
+        with self.tracer.span("act.batched", actors=len(burst), rows=total,
+                              fused_bootstrap=boot is not None):
             if self.recurrent:
-                self._carry[actor] = (c_np[sl], h_np[sl])
-                self._prev_q[actor] = (qs_np[sl], qm_np[sl])
-            self._prev_actions[actor] = acts_np[sl]
-            self._prev_obs[actor] = obs
-            q_rows = None
-            if self.actor_prio:
-                # Transitions the same record emitted bootstrap from these
-                # rows: their bootstrap obs is the obs acted on here.
-                q_rows = (qs_np[sl], qm_np[sl])
-                self._flush_q[rid] = qm_np[sl]
-                self._last_flush_q[actor] = qm_np[sl]
-            if actor in self._decoders:
-                payload = ingest.encode_reply(
-                    acts_np[sl], actor=actor, t=t,
-                    shard=self.router.shard_for(actor),
-                    q_sel=q_rows[0] if q_rows else None,
-                    q_max=q_rows[1] if q_rows else None,
-                    params_version=int(self.grad_steps))
+                lstm = self.cfg.network.lstm_size
+                cs, hs = [], []
+                for (actor, _, _, _), r in zip(burst, rows):
+                    carry = self._carry[actor]
+                    if carry is None:
+                        carry = (np.zeros((r, lstm), np.float32),) * 2
+                    # The assembler stores the carry entering this step.
+                    self._prev_carry[actor] = carry
+                    cs.append(carry[0])
+                    hs.append(carry[1])
+                pad = np.zeros((obs_cat.shape[0] - total, lstm),
+                               np.float32)
+                carry_t = tuple(
+                    torch.from_numpy(np.concatenate(x + [pad])).to(dev)
+                    for x in (cs, hs))
+                (c, h), actions, q_sel, q_max = self._act_rec(
+                    self._policy_params, carry_t, obs_t, self._act_gen,
+                    eps_t)
+                self._count_device_call("act", rows=total)
+                out = torch.cat([c.float(), h.float(),
+                                 torch.stack([actions.float(), q_sel, q_max],
+                                             dim=1)], dim=1).cpu().numpy()
+                c_np = out[:, :lstm]
+                h_np = out[:, lstm:2 * lstm]
+                acts_np, qs_np, qm_np = (out[:, 2 * lstm + j]
+                                         for j in range(3))
             else:
-                payload = encode_arrays({"action": acts_np[sl]})
-            if actor < self.rt.num_actors:
-                self.act_boxes[actor].write(payload, version=t + 1)
-            else:
-                conn = self._actor_conn.get(actor)
-                if conn is not None:
-                    self.tcp_server.send(conn, payload)
+                if boot is not None:
+                    actions, q_sel, q_max = self._fused_act_bootstrap(
+                        obs_t, eps_t, boot)
+                    self._count_device_call("fused_act_bootstrap",
+                                            rows=total)
+                else:
+                    actions, q_sel, q_max = self._act_q(
+                        self._policy_params, obs_t, self._act_gen, eps_t)
+                    self._count_device_call("act", rows=total)
+                out = torch.stack([actions.float(), q_sel,
+                                   q_max]).cpu().numpy()
+                acts_np, qs_np, qm_np = out
+            acts_np = acts_np.astype(np.int32)
+            qs_np = np.ascontiguousarray(qs_np, np.float32)
+            qm_np = np.ascontiguousarray(qm_np, np.float32)
+            off = 0
+            for (actor, obs, t, rid), r in zip(burst, rows):
+                sl = slice(off, off + r)
+                off += r
+                if self.recurrent:
+                    self._carry[actor] = (c_np[sl], h_np[sl])
+                    self._prev_q[actor] = (qs_np[sl], qm_np[sl])
+                self._prev_actions[actor] = acts_np[sl]
+                self._prev_obs[actor] = obs
+                q_rows = None
+                if self.actor_prio:
+                    # Transitions the same record emitted bootstrap from
+                    # these rows: their bootstrap obs is the obs acted on
+                    # here.
+                    q_rows = (qs_np[sl], qm_np[sl])
+                    self._flush_q[rid] = qm_np[sl]
+                    self._last_flush_q[actor] = qm_np[sl]
+                if actor in self._decoders:
+                    payload = ingest.encode_reply(
+                        acts_np[sl], actor=actor, t=t,
+                        shard=self.router.shard_for(actor),
+                        q_sel=q_rows[0] if q_rows else None,
+                        q_max=q_rows[1] if q_rows else None,
+                        params_version=int(self.grad_steps))
+                else:
+                    payload = encode_arrays({"action": acts_np[sl]})
+                if actor < self.rt.num_actors:
+                    self.act_boxes[actor].write(payload, version=t + 1)
+                else:
+                    conn = self._actor_conn.get(actor)
+                    if conn is not None:
+                        self.tcp_server.send(conn, payload)
 
     # -- ingest ----------------------------------------------------------------
     def _hello_reject(self, detail: str, conn_id: Optional[int] = None):
@@ -1526,8 +1564,10 @@ class ApexLearnerService:
             boot = np.where(np.isnan(boot_q), boot, boot_q)
             prios = np.abs(q_start - (emitted["reward"]
                                       + emitted["discount"] * boot))
-            self.replay.add(emitted, priorities=prios,
-                            shard=self.router.shard_for(actor))
+            with self.tracer.span("priority.actor_insert",
+                                  count=int(prios.shape[0])):
+                self.replay.add(emitted, priorities=prios,
+                                shard=self.router.shard_for(actor))
             self._tm_actor_prio.inc(int(prios.shape[0]))
         self._flush_q.clear()
 
@@ -1583,10 +1623,13 @@ class ApexLearnerService:
                 if popped is None:
                     break
                 batch, items, count = popped
-                prios = self._prio_fn(self._policy_params,
-                                      self._target_policy_params,
-                                      *self._boot_tensors(batch))
-                self._count_device_call("bootstrap")
+                with self.tracer.span("priority.bootstrap.dispatch",
+                                      count=count,
+                                      rows=batch["action"].shape[0]):
+                    prios = self._prio_fn(self._policy_params,
+                                          self._target_policy_params,
+                                          *self._boot_tensors(batch))
+                    self._count_device_call("bootstrap")
                 self._boot_inflight.append((_HostCopy(prios), items, count))
         else:
             if not force and self._pending_count < _PRIO_CHUNK:
@@ -1594,7 +1637,9 @@ class ApexLearnerService:
             cat = {k: np.concatenate([p[k] for p in self._pending])
                    for k in self._pending[0]}
             self._pending, self._pending_count = [], 0
-            self._dispatch_bootstraps(cat, cat["action"].shape[0])
+            n = cat["action"].shape[0]
+            with self.tracer.span("priority.bootstrap.dispatch", count=n):
+                self._dispatch_bootstraps(cat, n)
         if force:
             self._drain_bootstraps(True)
 
@@ -1629,7 +1674,8 @@ class ApexLearnerService:
                     and not prios.ready():
                 return
             self._boot_inflight.popleft()
-            self.replay.add(items, priorities=prios.numpy()[:count])
+            with self.tracer.span("priority.bootstrap.insert", count=count):
+                self.replay.add(items, priorities=prios.numpy()[:count])
 
     def _record_seen(self) -> None:
         self._last_record = time.perf_counter()
@@ -1645,6 +1691,7 @@ class ApexLearnerService:
             self._tm_stalls.inc()
             self.log.log_fn(f'{{"ingest_stalled_s": {silent:.1f}, '
                             f'"env_steps": {self.env_steps}}}')
+            self.tracer.instant("ingest_stalled", silent_s=round(silent, 1))
 
     def _track_episode_returns(self, actor: int, reward: np.ndarray,
                                terminated: np.ndarray,
@@ -1682,7 +1729,8 @@ class ApexLearnerService:
                     break
                 drained = True
                 try:
-                    self._handle_record(rec, transport_kind="shm")
+                    with self.tracer.span("ingest.shm_record"):
+                        self._handle_record(rec, transport_kind="shm")
                 except self.HelloRejectedError:
                     raise
                 except Exception as e:  # noqa: BLE001 — counted, logged
@@ -1692,7 +1740,8 @@ class ApexLearnerService:
             if rec is None:
                 break
             drained = True
-            self._handle_record(rec)
+            with self.tracer.span("ingest.shm_record"):
+                self._handle_record(rec)
         if self.tcp_server is not None:
             for _ in range(burst):
                 rec = self.tcp_server.pop()
@@ -1701,8 +1750,9 @@ class ApexLearnerService:
                 drained = True
                 conn_id, payload = rec
                 try:
-                    self._handle_record(payload, conn_id=conn_id,
-                                        transport_kind="tcp")
+                    with self.tracer.span("ingest.tcp_record"):
+                        self._handle_record(payload, conn_id=conn_id,
+                                            transport_kind="tcp")
                 except Exception as e:  # noqa: BLE001 — untrusted input
                     self._count_bad_record("TCP", e)
         if drained:
@@ -1778,10 +1828,15 @@ class ApexLearnerService:
         from dist_dqn_tpu_torch.types import Transition
 
         if self.recurrent:
-            items, idx, weights, gen = self._sample_replay(batch_size, beta)
+            with self.tracer.span("replay.sample", batch=batch_size):
+                items, idx, weights, gen = self._sample_replay(batch_size,
+                                                               beta)
             return (self._host_sequence_sample(items, weights),), (idx, gen)
-        draws = [self._sample_replay(batch_size, beta)
-                 for _ in range(self.replay_ratio)]
+        span = {"substeps": self.replay_ratio} if self.replay_ratio > 1 \
+            else {}
+        with self.tracer.span("replay.sample", batch=batch_size, **span):
+            draws = [self._sample_replay(batch_size, beta)
+                     for _ in range(self.replay_ratio)]
         cols = []
         for k in ("obs", "action", "reward", "discount", "next_obs"):
             arr = np.stack([d[0][k] for d in draws])
@@ -1811,6 +1866,10 @@ class ApexLearnerService:
             if sample.action.dtype != torch.int64:
                 sample = sample._replace(action=sample.action.long())
             args = (sample,)
+        if self._census_args is None and not self._prog_train.cost_attached:
+            # Taken after this event retires (_finalize_train), off the
+            # retirement intervals the train program's seconds come from.
+            self._census_args = args
         if self._learners is not None:
             self.state, m = self._learners.train(
                 self.state, args, scan=not self.recurrent)
@@ -1820,6 +1879,24 @@ class ApexLearnerService:
             self.state, m = make_scan_step(self._train_step)(self.state,
                                                              *args)
         return m
+
+    def _attach_train_cost(self, args) -> None:
+        """The train program's one-shot census (JAX ``_attach_train_cost``,
+        actors/service.py:924): one event on copies of the learner and
+        the first event's batch, over ``replay_ratio`` (one execution is
+        one sub-step). The learner ranks' and the multi-host steps
+        all-reduce, which cannot run on one process alone: their cost is
+        left unknown, exactly once."""
+        from dist_dqn_tpu_torch.actors.learner_ranks import make_scan_step
+
+        if self._learners is not None or self.distributed:
+            self._prog_train.attach_cost({})
+            return
+        step = (self._learner_step if self.recurrent
+                else make_scan_step(self._learner_step))
+        self._prog_train.attach_cost(lambda: flops.scaled_sum([(
+            1.0 / self.replay_ratio,
+            flops.census(step, self.state, *args))]))
 
     def _maybe_train(self) -> None:
         if self.distributed:
@@ -1867,18 +1944,22 @@ class ApexLearnerService:
             if self._t_first_train is None:
                 self._t_first_train = time.perf_counter()
             self._profile_start()
+            span = ({"substeps": self.replay_ratio}
+                    if self.replay_ratio > 1 else {})
             if self._stager is not None:
                 # Batch g comes off the stager (uploaded while step g-1
                 # trained); batch g+1 is staged right after g's dispatch.
                 if len(self._stager) == 0:
-                    self._stager.stage(*self._host_batch(batch_size, beta))
+                    self._stage_batch(batch_size, beta)
                 args, (idx, gen) = self._stager.pop()
-                metrics = self._train_event(*args)
+                with self.tracer.span("train_step.dispatch", **span):
+                    metrics = self._train_event(*args)
                 if self.grad_steps + self.replay_ratio < target_grad_steps:
-                    self._stager.stage(*self._host_batch(batch_size, beta))
+                    self._stage_batch(batch_size, beta)
             else:
                 host, (idx, gen) = self._host_batch(batch_size, beta)
-                metrics = self._train_event(*self._to_device(host))
+                with self.tracer.span("train_step.dispatch", **span):
+                    metrics = self._train_event(*self._to_device(host))
             self._count_device_call("train")
             self.grad_steps += self.replay_ratio
             self._tm_grad_steps.inc(self.replay_ratio)
@@ -1886,32 +1967,45 @@ class ApexLearnerService:
             while len(self._in_flight) > self.rt.pipeline_depth:
                 self._finalize_train()
 
+    def _stage_batch(self, batch_size: int, beta: float) -> None:
+        """Sample one event's batch and begin its upload behind the
+        stager: the sample and upload of event g+1 overlap event g."""
+        host, aux = self._host_batch(batch_size, beta)
+        span = ({"substeps": self.replay_ratio} if self.replay_ratio > 1
+                else {})
+        with self.tracer.span("h2d.stage", batch=batch_size, **span):
+            self._stager.stage(host, aux)
+
     def _profile_start(self) -> None:
-        if self.rt.profile_dir is None or self._profiler is not None \
-                or self.profile_row is not None:
-            return
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        self._profiler = torch.profiler.profile(activities=activities)
-        self._profiler.start()
-        self._profile_t0 = time.perf_counter()
+        if self._profile_tracer.start():
+            self._profile_t0 = time.perf_counter()
 
     def _profile_stop(self) -> None:
         """End the trace at the first train event's retirement: from its
         first dispatch to its priorities on the host."""
-        if self._profiler is None:
+        t0 = time.perf_counter()
+        if not self._profile_tracer.stop():
             return
         from dist_dqn_tpu_torch.train import _write_profile
 
-        prof, self._profiler = self._profiler, None
-        t0 = time.perf_counter()
-        prof.stop()
         self.profile_row = _write_profile(
-            prof, self.rt.profile_dir, time.perf_counter() - self._profile_t0,
+            self._profile_tracer.profile, self.rt.profile_dir,
+            time.perf_counter() - self._profile_t0,
             self.device.type == "cuda")
         self.loop_s["trace"] += time.perf_counter() - t0
         self.log.log_fn(json.dumps(self.profile_row))
+
+    def _flush_ledger_window(self) -> None:
+        """Close the current utilization-ledger window: wall since the
+        last flush against the train program's device-seconds delta
+        (JAX actors/service.py:2032-2043); unattributed wall lands in
+        the `other` bucket."""
+        now = time.perf_counter()
+        busy_total = self._prog_train.device_seconds
+        self._ledger.observe_chunk(now - self._ledger_t_last,
+                                   busy_total - self._ledger_busy_seen)
+        self._ledger_t_last = now
+        self._ledger_busy_seen = busy_total
 
     def _finalize_train(self) -> None:
         """Read the oldest in-flight event's priorities back and queue
@@ -1923,7 +2017,21 @@ class ApexLearnerService:
                          metrics["loss"].float().reshape(1)]).cpu().numpy()
         # Dispatch -> materialized: the read above waited for this step
         # (and up to pipeline_depth - 1 queued before it).
-        self._tm_grad_latency.observe(time.perf_counter() - t_dispatch)
+        t_retire = time.perf_counter()
+        self._tm_grad_latency.observe(t_retire - t_dispatch)
+        # Device seconds at this fence the loop already holds: the wall
+        # from max(dispatch, previous retirement) to now is the interval
+        # this event occupied the device queue, so overlapping in-flight
+        # events never count twice (queue-occupied, not kernel-active).
+        busy = t_retire - max(t_dispatch, self._devtime_anchor)
+        self._prog_train.add_device_seconds(busy)
+        if self.distributed:
+            self._mh.program.add_device_seconds(busy)
+        self._devtime_anchor = t_retire
+        if self._census_args is not None:
+            self._attach_train_cost(self._census_args)
+            self._census_args = None
+            self._devtime_anchor = time.perf_counter()
         self._last_loss = float(out[-1])
         self._prio_pending.append((idx, out[:-1], gen))
         self._profile_stop()
@@ -1940,10 +2048,12 @@ class ApexLearnerService:
                 self.rt.prio_writeback_batch, 1):
             return
         pending, self._prio_pending = self._prio_pending, []
-        self.replay.update_priorities(
-            np.concatenate([e[0] for e in pending]),
-            np.concatenate([e[1] for e in pending]),
-            expected_gen=np.concatenate([e[2] for e in pending]))
+        idx = np.concatenate([e[0] for e in pending])
+        with self.tracer.span("replay.update_priorities",
+                              steps=len(pending), rows=idx.shape[0]):
+            self.replay.update_priorities(
+                idx, np.concatenate([e[1] for e in pending]),
+                expected_gen=np.concatenate([e[2] for e in pending]))
 
     def _finalize_all_train(self) -> None:
         while self._in_flight:
@@ -1973,21 +2083,24 @@ class ApexLearnerService:
             carry = [self.net.initial_state(n)]
 
             def act(obs, epsilon):
-                carry[0], actions, _, _ = self._act_rec(
-                    net, carry[0], torch.from_numpy(obs).to(self.device),
-                    self._eval_gen, epsilon)
-                return actions.cpu().numpy()
+                with devtime.device_work():
+                    carry[0], actions, _, _ = self._act_rec(
+                        net, carry[0], torch.from_numpy(obs).to(self.device),
+                        self._eval_gen, epsilon)
+                    return actions.cpu().numpy()
 
             def on_done(done):
-                keep = torch.from_numpy(~done).float().to(
-                    self.device)[:, None]
-                carry[0] = (carry[0][0] * keep, carry[0][1] * keep)
+                with devtime.device_work():
+                    keep = torch.from_numpy(~done).float().to(
+                        self.device)[:, None]
+                    carry[0] = (carry[0][0] * keep, carry[0][1] * keep)
         else:
             def act(obs, epsilon):
-                actions, _, _ = self._act_q(
-                    net, torch.from_numpy(obs).to(self.device),
-                    self._eval_gen, epsilon)
-                return actions.cpu().numpy()
+                with devtime.device_work():
+                    actions, _, _ = self._act_q(
+                        net, torch.from_numpy(obs).to(self.device),
+                        self._eval_gen, epsilon)
+                    return actions.cpu().numpy()
 
         returns, truncated = run_greedy_episodes(self._eval_env, act,
                                                  episodes=n, on_done=on_done)
@@ -2010,7 +2123,8 @@ class ApexLearnerService:
         if self._eval_thread is not None and self._eval_thread.is_alive():
             self.log.record(eval_skipped=1.0)  # the last one still runs
             return
-        net = copy.deepcopy(self._policy_params)
+        with devtime.device_work():
+            net = copy.deepcopy(self._policy_params)
         at_steps = self._progress()
         dev = self._mh.mesh.device
 
@@ -2072,37 +2186,45 @@ class ApexLearnerService:
             last_log = time.perf_counter()
             clock, loop_s = time.perf_counter, self.loop_s
             while self._progress() < self.rt.total_env_steps:
-                t0 = clock()
-                drained = self._drain_transports()
-                t1 = clock()
-                self._flush_act_queue()
-                self._insert_actor_prio()
-                t2 = clock()
-                self._flush_pending()
-                t3 = clock()
-                grad_steps, trace_s = self.grad_steps, loop_s["trace"]
-                self._maybe_train()
-                t4 = clock()
+                # One block of device work a pass (telemetry/devtime.py
+                # LaunchGate): a profiler starts between passes.
+                with devtime.device_work():
+                    t0 = clock()
+                    drained = self._drain_transports()
+                    t1 = clock()
+                    self._flush_act_queue()
+                    self._insert_actor_prio()
+                    t2 = clock()
+                    self._flush_pending()
+                    t3 = clock()
+                    grad_steps, trace_s = self.grad_steps, loop_s["trace"]
+                    self._maybe_train()
+                    t4 = clock()
                 loop_s["drain"] += t1 - t0
                 loop_s["act"] += t2 - t1
                 loop_s["bootstrap"] += t3 - t2
                 loop_s["train"] += t4 - t3 - (loop_s["trace"] - trace_s)
                 self.train_passes += self.grad_steps > grad_steps
-                if self._ckpt is not None and self._ckpt.maybe_save(
-                        self._progress(), self.state):
-                    self._save_replay_snapshot()
+                if self._ckpt is not None:
+                    with devtime.device_work():
+                        if self._ckpt.maybe_save(self._progress(),
+                                                 self.state):
+                            self._save_replay_snapshot()
                 if self._progress() >= self._next_eval:
                     self._next_eval = self._progress() \
                         + self.rt.eval_every_steps
-                    self._finalize_all_train()
+                    with devtime.device_work():
+                        self._finalize_all_train()
                     # Multi-host: rank 0 alone plays, in a thread; every
                     # process advances _next_eval alike (agreed cursor).
                     if self.distributed:
                         if self._rank == 0:
                             self._start_async_eval()
                     else:
+                        with self.tracer.span("eval"):
+                            eval_return = self._evaluate()
                         self.log.record(env_steps=self.env_steps,
-                                        eval_return=self._evaluate())
+                                        eval_return=eval_return)
                         self.log.flush()
                     last_log = time.perf_counter()
                 self._poll_async_eval()
@@ -2124,6 +2246,16 @@ class ApexLearnerService:
                     self._tm_ring_pending.set(self.req_ring.pending_bytes)
                     self._tm_record_age.set(now - self._last_record)
                     self._sweep_dedup_counters()
+                    # The chip-time plane once per log period: the
+                    # window's wall against the train program's device
+                    # seconds (the loop has no chunk boundary), the MFU
+                    # and the memory sweep; the trace's counter tracks.
+                    self._flush_ledger_window()
+                    devtime.set_learner_mfu("apex", device=self.device)
+                    devtime.sweep_device_memory()
+                    self.tracer.counter("replay_size", len(self.replay))
+                    self.tracer.counter("env_steps", self.env_steps)
+                    self.tracer.flush()
                     self.log.record(env_steps=self.env_steps,
                                     grad_steps=self.grad_steps,
                                     replay_size=float(len(self.replay)),
@@ -2140,31 +2272,31 @@ class ApexLearnerService:
                                 self.episodes_completed))
                     self.log.flush()
                     last_log = now
-            self._insert_actor_prio()
-            self._flush_pending(force=True)
-            self._finalize_all_train()
+            with devtime.device_work():
+                self._insert_actor_prio()
+                self._flush_pending(force=True)
+                self._finalize_all_train()
             if self._eval_thread is not None:
                 self._eval_thread.join(timeout=60)
                 self._poll_async_eval()
-            if self._profiler is not None:
+            with devtime.device_work():
                 self._profile_stop()
-            self.learner_replicas_equal = self._check_replicas()
-            if self._ckpt is not None:
-                self._ckpt.save(self._progress(), self.state)
-                self._save_replay_snapshot()
+                self.learner_replicas_equal = self._check_replicas()
+                if self._ckpt is not None:
+                    self._ckpt.save(self._progress(), self.state)
+                    self._save_replay_snapshot()
             ring_dropped = self.req_ring.dropped
             self._t_end = time.perf_counter()
             self._clean_exit = True
         finally:
-            if self._profiler is not None:
-                self._profiler.stop()
-                self._profiler = None
+            self._profile_tracer.stop()
+            self.tracer.close()
             self.shutdown()
+        self._flush_ledger_window()
         return self.summary(ring_dropped)
 
     def summary(self, ring_dropped: int = 0) -> dict:
-        """The run's summary under the JAX service's keys; the chip-time
-        plane of the telemetry (ROADMAP.md A10b) is ``None``."""
+        """The run's summary under the JAX service's keys."""
         frames, saved = self._dedup_totals()
         ingest_calls = sum(self.device_calls.get(k, 0) for k in (
             "act", "fused_act_bootstrap", "bootstrap"))
@@ -2207,8 +2339,8 @@ class ApexLearnerService:
                     ingest_calls / max(self.ingest_passes, 1), 3),
                 "tcp_backpressure": (tcp.backpressure_events
                                      if tcp is not None else 0),
-                "chip_time": None,
-                "programs": None,
+                "chip_time": self._ledger.snapshot(),
+                "programs": devtime.programs_snapshot("apex"),
                 "bad_records": self.bad_records,
                 "actor_restarts": self.actor_restarts,
                 # The port's additions: the assembler that ran, the TCP

@@ -102,13 +102,14 @@ from dist_dqn_tpu_torch.replay.host_ring import (HostTimeRing, PerSample,
 from dist_dqn_tpu_torch.replay.sharded import (shard_state,
                                                split_shard_state)
 from dist_dqn_tpu_torch.telemetry import collectors as tmc
+from dist_dqn_tpu_torch.telemetry import devtime
 from dist_dqn_tpu_torch.telemetry import get_registry, serve_if_asked
 from dist_dqn_tpu_torch.replay.staging import (DoubleBufferedStager,
                                                EvacuationWorker,
                                                SamplePrefetcher,
                                                StreamedEvacuator, tree_map)
 from dist_dqn_tpu_torch.types import Transition
-from dist_dqn_tpu_torch.utils import ckpt_schema
+from dist_dqn_tpu_torch.utils import ckpt_schema, flops
 from dist_dqn_tpu_torch.utils.checkpoint import (TrainCheckpointer,
                                                 load_state_tree,
                                                 record_checkpoint_kind,
@@ -614,6 +615,27 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         init_collect, collect = make_collect_chunk(cfg, env, stack)
     init_learner, train_step = make_learner(
         cfg.learner, net, axis=mesh if mesh_mode else None)
+    # The chip-time plane (dist_dqn_tpu/host_replay_loop.py:422-462): both
+    # hot programs in the process program table, their census taken on
+    # copies of their arguments outside any chunk's train section (the
+    # collect's at the prologue dispatch, the train step's after the
+    # first training chunk), their device seconds at the fences the loop
+    # already holds. The collect overlaps the evacuation and training in
+    # pipeline mode, so only the serial reference fences it. The
+    # data-parallel step's all-reduce cannot run on one rank alone: its
+    # census is left unknown.
+    prog_collect = devtime.register_program(
+        "host_replay.collect", loop="host_replay", role="collect")
+    prog_train = devtime.register_program(
+        "host_replay.train_step", loop="host_replay", role="train")
+    if mesh_mode:
+        prog_train.attach_cost({})
+
+    def _train(state, batch, w):
+        """Every train-step launch: one dispatch of the train program."""
+        prog_train.count_dispatch()
+        with devtime.device_work():
+            return train_step(state, batch, w)
     replay_ratio = loop_common.resolve_replay_ratio(cfg)
     lb = train_batch // dp
     # The bf16 actor snapshot: one cast per chunk; the learner's f32
@@ -690,8 +712,9 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         return _transition(hs.batch), _UniformTag(generation=hs.generation)
 
     def put_batch(tree):
-        return tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(dev),
-                        tree)
+        with devtime.device_work():
+            return tree_map(
+                lambda a: torch.from_numpy(np.asarray(a)).to(dev), tree)
 
     def ring_append(tree, lo, hi):
         nonlocal ring_bytes
@@ -795,9 +818,10 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             return
         pending, wb_pending[:] = wb_pending[:], []
         leaf = np.concatenate([a.leaf for a, _ in pending])
-        prios = np.concatenate([_prios(p) for _, p in pending])
         gens = np.concatenate([a.slot_gen for a, _ in pending])
-        per_sampler.update_priorities(leaf, prios, expected_gen=gens)
+        with devtime.device_work():
+            prios = np.concatenate([_prios(p) for _, p in pending])
+            per_sampler.update_priorities(leaf, prios, expected_gen=gens)
 
     num_chunks = max(0, math.ceil(total_env_steps / (chunk_iters * B)))
     env_steps = 0
@@ -1000,9 +1024,9 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
     fence_wait_total = 0.0
     sample_s_total = 0.0
     prefetch_wait_s_total = 0.0
-    chip_time = {"chunks": 0.0, "busy": 0.0, "sample": 0.0,
-                 "evac_fence": 0.0, "prefetch_wait": 0.0, "h2d": 0.0,
-                 "other": 0.0}
+    # The utilization ledger: each chunk's wall as the train section's
+    # device time and the named host-blocked buckets (this rank's device).
+    ledger = devtime.UtilizationLedger("host_replay", reg)
     overlap_fracs = []
     history = []
     metrics = None
@@ -1114,16 +1138,21 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         they stand now. Returns (records, stats); on the card also records
         the event the records are complete at (the evacuation's start)."""
         nonlocal carry, records_ready, collect_dispatch_s
-        t_d = time.perf_counter()
-        carry, r, st = collect(carry, actor_snapshot(state.net),
-                               chunk_iters)
-        if mesh_mode:
-            dt = time.perf_counter() - t_d
-            collect_dispatch_s += dt
-            h_collect_disp.observe(dt)
-        if dev.type == "cuda":
-            records_ready = torch.cuda.Event()
-            records_ready.record()
+        with devtime.device_work():
+            actor = actor_snapshot(state.net)
+            if not prog_collect.cost_attached:
+                prog_collect.attach_cost(
+                    lambda: flops.census(collect, carry, actor, chunk_iters))
+            t_d = time.perf_counter()
+            carry, r, st = collect(carry, actor, chunk_iters)
+            prog_collect.count_dispatch()
+            if mesh_mode:
+                dt = time.perf_counter() - t_d
+                collect_dispatch_s += dt
+                h_collect_disp.observe(dt)
+            if dev.type == "cuda":
+                records_ready = torch.cuda.Event()
+                records_ready.record()
         return r, st
 
     def submit_evac(recs):
@@ -1131,7 +1160,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
 
     profile_chunk = (min(start_chunk + 1, num_chunks - 1)
                      if profile_dir else -1)
-    prof = None
+    tracer = devtime.maybe_trace_first_chunk(profile_dir)
     server = serve_if_asked(telemetry_port if main else None,
                             telemetry_host, log_fn)
     try:
@@ -1155,11 +1184,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 records = resume_pending
         for g in range(start_chunk, num_chunks):
             if g == profile_chunk:
-                activities = [torch.profiler.ProfilerActivity.CPU]
-                if dev.type == "cuda":
-                    activities.append(torch.profiler.ProfilerActivity.CUDA)
-                prof = torch.profiler.profile(activities=activities)
-                prof.start()
+                tracer.start()
             t0 = time.perf_counter()
             next_records = next_stats = None
             if pipeline:
@@ -1178,7 +1203,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             else:
                 # Serial reference: one blocking fetch, one append, then
                 # the look-ahead dispatch (the same pre-train params).
-                host = {k: _host(v) for k, v in records.items()}
+                with devtime.device_work():
+                    host = {k: _host(v) for k, v in records.items()}
                 t_mono_fetch = time.perf_counter()
                 ring_append(host, 0, chunk_iters)
                 t_fence = time.perf_counter()
@@ -1226,7 +1252,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                             dev_tree, aux = prefetcher.pop(fence_gen)
                             ev_depth_sum += len(prefetcher)
                             batch, w = _unpack(dev_tree)
-                            state, metrics = train_step(state, batch, w)
+                            state, metrics = _train(state, batch, w)
                             _wb_add(aux, metrics)
                         ev_sample_s = prefetcher.sample_s_total - s0[0]
                         ev_wait_s = prefetcher.wait_s_total - s0[1]
@@ -1243,7 +1269,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                         for i in range(grads_this_chunk):
                             dev_tree, aux = stager.pop()
                             batch, w = _unpack(dev_tree)
-                            state, metrics = train_step(state, batch, w)
+                            state, metrics = _train(state, batch, w)
                             _wb_add(aux, metrics)
                             if i + 1 < grads_this_chunk:
                                 t_s = time.perf_counter()
@@ -1260,7 +1286,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                         sample_k += 1
                         for i in range(grads_this_chunk):
                             batch, w = _unpack(dev_tree)
-                            state, metrics = train_step(state, batch, w)
+                            state, metrics = _train(state, batch, w)
                             _wb_add(aux, metrics)
                             if i + 1 < grads_this_chunk:
                                 t_s = time.perf_counter()
@@ -1281,7 +1307,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 torch.cuda.current_stream(dev).synchronize()
             t_train = time.perf_counter()
 
-            cr, cc = torch.stack(list(stats)).tolist()
+            with devtime.device_work():
+                cr, cc = torch.stack(list(stats)).tolist()
             stats = next_stats
             h2d = (prefetcher.bytes_staged if prefetcher is not None
                    else stager.bytes_staged if stager is not None else 0)
@@ -1290,9 +1317,10 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 # the slowest shard's evacuation and fence wait, the sums
                 # of bytes, sampling walls, depths, staleness and episode
                 # stats (JAX's _MultiEvacHandle and per-shard loops).
-                table = mesh.gather([evac_s, fence_wait_s, d2h_bytes,
-                                     ev_sample_s, ev_wait_s, ev_stale,
-                                     ev_depth_sum, cr, cc, h2d])
+                with devtime.device_work():
+                    table = mesh.gather([evac_s, fence_wait_s, d2h_bytes,
+                                         ev_sample_s, ev_wait_s, ev_stale,
+                                         ev_depth_sum, cr, cc, h2d])
                 evac_s, fence_wait_s = (float(table[:, i].max())
                                         for i in (0, 1))
                 for s in range(dp):
@@ -1320,20 +1348,26 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
 
             # The train section ends at a device fence, so minus its
             # host-blocked share it is the chunk's train device time (this
-            # rank's device).
+            # rank's device); `sample` blocks only without a prefetcher.
             sample_blocked = 0.0 if prefetcher is not None else ev_sample_s
             wall = t_stats - t0
-            train_busy = min(max((t_train - t_fence) - sample_blocked
-                                 - ev_wait_s, 0.0), wall)
-            idle_other = max(wall - train_busy - sample_blocked
-                             - local_fence_wait_s - ev_wait_s, 0.0)
-            for key, secs in (("busy", train_busy),
-                              ("sample", sample_blocked),
-                              ("evac_fence", local_fence_wait_s),
-                              ("prefetch_wait", ev_wait_s),
-                              ("other", idle_other)):
-                chip_time[key] += secs
-            chip_time["chunks"] += 1
+            train_busy = max((t_train - t_fence) - sample_blocked
+                             - ev_wait_s, 0.0)
+            if did:
+                prog_train.add_device_seconds(train_busy)
+            if t_evac_parts is not None:
+                # Serial reference: the blocking fetch waits out the
+                # collect, the one place its device time is fenced.
+                prog_collect.add_device_seconds(t_evac_parts[0])
+            chip = ledger.observe_chunk(
+                wall, train_busy, sample=sample_blocked,
+                evac_fence=local_fence_wait_s, prefetch_wait=ev_wait_s)
+            devtime.set_learner_mfu("host_replay", device=dev, reg=reg)
+            devtime.sweep_device_memory(reg)
+            if did and not prog_train.cost_attached:
+                with devtime.device_work():
+                    prog_train.attach_cost(
+                        lambda: flops.census(train_step, state, batch, w))
 
             row = {
                 "env_frames": env_steps, "grad_steps": grad_steps,
@@ -1355,8 +1389,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 "ring_transitions": ring_transitions,
                 "ring_gb": round(ring.nbytes * dp / 1e9, 3),
                 "sample_s": round(ev_sample_s, 4),
-                "chip_busy_s": round(train_busy, 4),
-                "idle_other_s": round(idle_other, 4),
+                "chip_busy_s": round(chip["busy"], 4),
+                "idle_other_s": round(chip["other"], 4),
                 "prefetch_wait_s": round(ev_wait_s, 4),
                 "prefetch_depth": round(ev_depth_sum / (did * dp), 2)
                 if did else 0.0,
@@ -1368,25 +1402,25 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             if prefetcher is not None or stager is not None:
                 row["h2d_staged_bytes"] = h2d
             if did:
-                row["loss"] = round(float(metrics["loss"]), 4)
+                with devtime.device_work():
+                    row["loss"] = round(float(metrics["loss"]), 4)
             history.append(row)
             log_fn(json.dumps(row))
-            if prof is not None and g == profile_chunk:
-                prof.stop()
+            if g == profile_chunk and tracer.stop():
                 from dist_dqn_tpu_torch.train import _write_profile
                 log_fn(json.dumps(_write_profile(
-                    prof, profile_dir, wall, dev.type == "cuda")))
-                prof = None
+                    tracer.profile, profile_dir, wall, dev.type == "cuda")))
             if checkpoint_dir and env_steps >= next_save:
                 next_save = env_steps + save_period
-                _save_checkpoint(g)
+                with devtime.device_work():
+                    _save_checkpoint(g)
         if checkpoint_dir and num_chunks:
             # The final whole-state save: resuming a completed run is a
             # pass straight to the summary.
-            _save_checkpoint(num_chunks - 1)
+            with devtime.device_work():
+                _save_checkpoint(num_chunks - 1)
     finally:
-        if prof is not None:
-            prof.stop()
+        tracer.stop()
         if worker is not None:
             worker.close()
         if prefetcher is not None:
@@ -1463,7 +1497,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         "is_weight_mean": round(is_w_sum / is_w_count, 6)
         if is_w_count else 1.0,
         "is_weight_min": round(is_w_min, 6) if is_w_count else 1.0,
-        "chip_time": chip_time,
+        "chip_time": ledger.snapshot(),
+        "programs": devtime.programs_snapshot("host_replay"),
         "history": history,
         "learner": state,
     }

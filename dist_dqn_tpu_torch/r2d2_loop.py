@@ -29,6 +29,8 @@ from dist_dqn_tpu_torch.agents.r2d2 import (make_r2d2_learner,
 from dist_dqn_tpu_torch.config import ExperimentConfig
 from dist_dqn_tpu_torch.envs.base import TorchEnv
 from dist_dqn_tpu_torch.replay import sequence_device as sring
+from dist_dqn_tpu_torch.types import SequenceSample
+from dist_dqn_tpu_torch.utils import flops
 from dist_dqn_tpu_torch.utils.device import resolve_device
 
 
@@ -192,6 +194,36 @@ def make_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
             carry.replay.max_priority = axis.pmax(carry.replay.max_priority)
         return carry, loop_common.chunk_metrics(carry, B, axis)
 
+    def chunk_cost(carry: R2D2Carry, num_iters: int) -> dict:
+        """``train_loop.make_fused_train``'s ``chunk_cost`` for the
+        recurrent loop: ``num_iters`` acts and a training chunk's
+        ``num_iters * updates_per_train / train_every`` sequence steps,
+        each on a [seq_len, S] window of zeros."""
+        if axis is not None:
+            return {"flops": None, "bytes": None}
+        L, S = seq_len, batch_size
+
+        def seq(shape=(), dtype=torch.float32):
+            return torch.zeros((L, S, *shape), dtype=dtype, device=dev)
+
+        sample = SequenceSample(
+            obs=seq(carry.obs.shape[1:], carry.obs.dtype),
+            action=seq(dtype=torch.int64), reward=seq(),
+            done=seq(dtype=torch.bool), reset=seq(dtype=torch.bool),
+            start_state=carry.learner.net.initial_state(S),
+            weights=torch.ones((S,), dtype=torch.float32, device=dev),
+            t_idx=torch.zeros((S,), dtype=torch.int64, device=dev),
+            b_idx=torch.zeros((S,), dtype=torch.int64, device=dev))
+        acting = flops.census(act, carry.learner.net, carry.actor_carry,
+                              carry.obs, carry.gen_act,
+                              epsilon(carry.iteration))
+        training = flops.census(train_step, carry.learner, sample)
+        return flops.scaled_sum([
+            (num_iters, acting),
+            (num_iters * cfg.updates_per_train / max(cfg.train_every, 1),
+             training)])
+
+    run_chunk.chunk_cost = chunk_cost
     return init, run_chunk
 
 

@@ -43,6 +43,8 @@ from dist_dqn_tpu_torch.ops.sampler import (SAMPLE_BLOCK,
                                             kernel_stratified_sample,
                                             stratified_sample_rows)
 from dist_dqn_tpu_torch.telemetry import collectors as tm, get_registry
+from dist_dqn_tpu_torch.telemetry import devtime
+from dist_dqn_tpu_torch.utils import flops
 from dist_dqn_tpu_torch.utils.device import resolve_device
 from dist_dqn_tpu_torch.utils.pow2 import pad_pow2  # noqa: F401
 
@@ -325,6 +327,21 @@ class DevicePrioritySampler:
             tm.REPLAY_DEVICE_WRITEBACK_ROWS,
             "priority rows scattered into the shard's device plane "
             "(post last-write-wins dedup, pre pow2 padding)", labels)
+        # The chip-time plane (dist_dqn_tpu/replay/host.py:340-347): one
+        # program record shared by every shard's sampler, one dispatch
+        # per draw, device seconds from its dispatch to the read-back the
+        # caller already holds. Its cost is the draw's least work from the
+        # plane's shapes (utils/flops.py stratified_sample_cost): the
+        # kernel is bound through ctypes, so no census can run it.
+        self._prog_draw = devtime.register_program(
+            "sampler.draw_writeback", loop="sampler", role="sample")
+
+    def _count_draw(self, samples: int) -> None:
+        self.draw_dispatches += 1
+        if not self._prog_draw.cost_attached:
+            self._prog_draw.attach_cost(flops.stratified_sample_cost(
+                self.rows, self.lanes, samples))
+        self._prog_draw.count_dispatch()
 
     @property
     def plane(self) -> torch.Tensor:
@@ -398,12 +415,14 @@ class DevicePrioritySampler:
         """Queue the pending writes and one draw at explicit uniforms ``u``
         [S] in [0, 1) on the device; returns a handle of device tensors for
         :meth:`materialize_at`."""
-        self.draw_dispatches += 1
+        self._count_draw(len(u))
         t0 = time.perf_counter()
-        self._flush_writes()
-        u_t = torch.as_tensor(np.asarray(u, np.float32), device=self.device)
-        t, b, mass, _ = self._select_at(u_t)
-        return t0, (t.long() * self.lanes + b.long(), mass)
+        with devtime.device_work():
+            self._flush_writes()
+            u_t = torch.as_tensor(np.asarray(u, np.float32),
+                                  device=self.device)
+            t, b, mass, _ = self._select_at(u_t)
+            return t0, (t.long() * self.lanes + b.long(), mass)
 
     def materialize_at(self, handle, size: int
                        ) -> Tuple[np.ndarray, np.ndarray]:
@@ -412,13 +431,16 @@ class DevicePrioritySampler:
         zero-mass cell, is clamped into range with its mass zeroed, so the
         caller's IS weight for it is zero."""
         t0, (idx, mass) = handle
-        idx = idx.cpu().numpy().astype(np.int64)
-        mass = mass.cpu().numpy().astype(np.float64)
+        with devtime.device_work():
+            idx = idx.cpu().numpy().astype(np.int64)
+            mass = mass.cpu().numpy().astype(np.float64)
         bad = (idx >= size) | (mass <= 0.0)
         if bad.any():
             idx = np.minimum(idx, size - 1)
             mass = np.where(bad, 0.0, mass)
-        self._h_sample.observe(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._h_sample.observe(dt)
+        self._prog_draw.add_device_seconds(dt)
         return idx, mass
 
     def sample_at(self, u: np.ndarray, size: int
@@ -434,24 +456,27 @@ class DevicePrioritySampler:
         ``(size * P(i)) ** -beta`` normalized by the batch max). A pick at
         or past ``size`` (a zero-mass cell past the written region) is
         clamped to ``size - 1`` with its weight zeroed."""
-        self.draw_dispatches += 1
+        self._count_draw(batch_size)
         t0 = time.perf_counter()
-        self._flush_writes()
         dev = self.device
-        u = (torch.arange(batch_size, dtype=torch.float32, device=dev)
-             + torch.rand(batch_size, generator=self.generator, device=dev)
-             ) / batch_size
-        t, b, mass, total = self._select_at(u)
-        w = importance_weights(mass, total.float(),
-                               torch.tensor(float(size), device=dev),
-                               float(beta))
-        idx = (t.long() * self.lanes + b.long()).cpu().numpy()
-        w = w.float().cpu().numpy()
+        with devtime.device_work():
+            self._flush_writes()
+            u = (torch.arange(batch_size, dtype=torch.float32, device=dev)
+                 + torch.rand(batch_size, generator=self.generator,
+                              device=dev)) / batch_size
+            t, b, mass, total = self._select_at(u)
+            w = importance_weights(mass, total.float(),
+                                   torch.tensor(float(size), device=dev),
+                                   float(beta))
+            idx = (t.long() * self.lanes + b.long()).cpu().numpy()
+            w = w.float().cpu().numpy()
         oob = idx >= size
         if oob.any():
             idx = np.minimum(idx, size - 1)
             w = np.where(oob, np.float32(0.0), w)
-        self._h_sample.observe(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self._h_sample.observe(dt)
+        self._prog_draw.add_device_seconds(dt)
         return idx, w
 
 

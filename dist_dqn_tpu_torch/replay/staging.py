@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from dist_dqn_tpu_torch.telemetry import collectors as tm, get_registry
+from dist_dqn_tpu_torch.telemetry import devtime
 
 
 # --------------------------------------------------------------------------
@@ -169,7 +170,7 @@ class DoubleBufferedStager:
             np.copyto(buf.numpy(), a)
             nbytes += a.nbytes
         if self._cuda:
-            with torch.cuda.stream(self._stream):
+            with devtime.device_work(), torch.cuda.stream(self._stream):
                 dev = [b.to(self.device, non_blocking=True) for b in bufs]
                 event = torch.cuda.Event()
                 event.record(self._stream)
@@ -195,10 +196,11 @@ class DoubleBufferedStager:
             self._queued -= 1
         self._g_occ.set(self._queued)
         if event is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(event)
-            for x in tree_flatten(batch)[0]:
-                x.record_stream(consumer)
+            with devtime.device_work():
+                consumer = torch.cuda.current_stream(self.device)
+                consumer.wait_event(event)
+                for x in tree_flatten(batch)[0]:
+                    x.record_stream(consumer)
         return batch, aux
 
 
@@ -308,7 +310,7 @@ class StreamedEvacuator:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(device))
         slices = []
-        with torch.cuda.stream(stream):
+        with devtime.device_work(), torch.cuda.stream(stream):
             stream.wait_event(ready)
             for x in leaves:
                 x.record_stream(stream)
@@ -557,9 +559,10 @@ class SamplePrefetcher:
                     # A direct upload (a fresh copy), outside the
                     # staging pool and its counters.
                     dev = self._stager.device
-                    return tree_map(
-                        lambda a: torch.from_numpy(np.array(a)).to(dev),
-                        host_batch), aux
+                    with devtime.device_work():
+                        return tree_map(
+                            lambda a: torch.from_numpy(np.array(a)).to(dev),
+                            host_batch), aux
             if time.monotonic() >= deadline:
                 raise RuntimeError(
                     f"prefetch batch {k} waited 30s for ring "

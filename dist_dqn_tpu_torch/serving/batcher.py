@@ -52,7 +52,8 @@ from dist_dqn_tpu_torch.serving.types import (ActResult, QueueFullError,
                                               ServerClosedError,
                                               ServingError)
 from dist_dqn_tpu_torch.telemetry import collectors as tmc
-from dist_dqn_tpu_torch.telemetry import get_registry
+from dist_dqn_tpu_torch.telemetry import devtime, get_registry
+from dist_dqn_tpu_torch.utils import flops
 from dist_dqn_tpu_torch.telemetry import watchdog as tm_watchdog
 
 #: Heartbeat stage the dispatch thread beats.
@@ -205,18 +206,38 @@ class MicroBatcher:
             buckets=tmc.FANIN_BUCKETS)
         self._tm_dispatches = reg.counter(
             tmc.SERVING_DISPATCHES, "act programs dispatched")
+        # The chip-time plane (dist_dqn_tpu/serving/batcher.py:200-207):
+        # the coalesced act dispatch is the serving tier's device program;
+        # the ``.cpu()`` fence in ``_act`` is one the path already holds,
+        # so its device seconds cost no new sync. The census (all buckets
+        # share this record) is taken at the warm-up's first bucket, before
+        # the port is announced, or else after the first live dispatch's
+        # responses (``_census``): never inside a request's latency.
+        self._prog_act = devtime.register_program(
+            "serving.act", loop="serving", role="act")
         if slo is not None:
             slo.attach_queue_depth(self.queue_depth)
         self._thread = threading.Thread(
             target=self._worker, name="serving-batcher", daemon=True)
         self._thread.start()
 
+    def _census(self, params, obs: np.ndarray, eps: np.ndarray) -> None:
+        """The act program's one-shot census on copies of its arguments."""
+        if self._prog_act.cost_attached:
+            return
+        dev = self.device
+        with devtime.device_work():
+            self._prog_act.attach_cost(lambda: flops.census(
+                self.act_fn, params, torch.from_numpy(obs).to(dev),
+                self._generator, torch.from_numpy(eps).to(dev)))
+
     def _act(self, params, obs: np.ndarray, eps: np.ndarray) -> np.ndarray:
         """One act step on the card; ``.cpu()`` is the fence."""
-        actions = self.act_fn(params, torch.from_numpy(obs).to(self.device),
-                              self._generator,
-                              torch.from_numpy(eps).to(self.device))
-        return actions.cpu().numpy().astype(np.int32)
+        with devtime.device_work():
+            actions = self.act_fn(
+                params, torch.from_numpy(obs).to(self.device),
+                self._generator, torch.from_numpy(eps).to(self.device))
+            return actions.cpu().numpy().astype(np.int32)
 
     def warmup(self) -> int:
         """Run the whole pow2 bucket ladder once (one dummy dispatch per
@@ -236,10 +257,12 @@ class MicroBatcher:
         snap = self.router.store.snapshot(next(iter(policies)))
         n, buckets = 1, 0
         while n <= self.max_rows:
+            obs, eps = (np.zeros((n,) + tuple(shape), dtype),
+                        np.zeros((n,), np.float32))
             t0 = time.perf_counter()
-            self._act(snap.params, np.zeros((n,) + tuple(shape), dtype),
-                      np.zeros((n,), np.float32))
+            self._act(snap.params, obs, eps)
             self.warmup_s[n] = time.perf_counter() - t0
+            self._census(snap.params, obs, eps)
             buckets += 1
             n *= 2
         return buckets
@@ -447,6 +470,8 @@ class MicroBatcher:
                 p.event.set()
             return
         self._tm_dispatches.inc()
+        self._prog_act.count_dispatch()
+        self._prog_act.add_device_seconds(time.perf_counter() - t0)
         # Counted at DISPATCH, not admission: the mean request fan-in is
         # requests_total / dispatches_total, so a request shed at
         # admission or withdrawn by a client timeout while still queued
@@ -470,6 +495,7 @@ class MicroBatcher:
                 fanin_requests=len(batch), fanin_rows=total,
                 latency_s=latency)
             p.event.set()
+        self._census(snap.params, obs_cat, eps)
 
     def _fail_queue(self, err: BaseException) -> None:
         with self._cond:

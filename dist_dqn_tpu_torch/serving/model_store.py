@@ -43,7 +43,7 @@ import torch
 
 from dist_dqn_tpu_torch.serving.types import PolicySnapshot, UnknownPolicyError
 from dist_dqn_tpu_torch.telemetry import collectors as tmc
-from dist_dqn_tpu_torch.telemetry import get_registry
+from dist_dqn_tpu_torch.telemetry import devtime, get_registry
 from dist_dqn_tpu_torch.utils.checkpoint import (CheckpointMissingError,
                                                  TrainCheckpointer,
                                                  params_prefix,
@@ -215,8 +215,9 @@ class ModelStore:
             if current is None or newest is None or newest <= current.step:
                 continue
             try:
-                snap = self._restore(entry, step=newest,
-                                     version=current.version + 1)
+                with devtime.device_work():
+                    snap = self._restore(entry, step=newest,
+                                         version=current.version + 1)
             except Exception as e:
                 # A torn/mismatched checkpoint must not take serving
                 # down — keep the resident version, log, retry next poll.

@@ -2,8 +2,11 @@
 metrics registry, its Prometheus exposition, the metric family names and
 collector helpers every runtime records through, the ``/metrics`` scrape
 endpoint with its debug surface, the exit-flush lifecycle with the
-registry snapshot dump, the run manifest, and the health half of the
-watchdog. Stdlib only: the actor and feeder processes import it.
+registry snapshot dump, the run manifest, the chip-time plane (the
+program table, the utilization ledger, the learner MFU, device-memory
+gauges and on-demand profiles; telemetry/devtime.py), and the health half
+of the watchdog. Stdlib at import: the actor and feeder processes import
+it, and the chip-time plane imports torch only where it is used.
 
 Quick start::
 
@@ -18,10 +21,16 @@ snapshot at exit with ``telemetry.install_snapshot_dump(path)`` (or, in
 any process that calls ``maybe_install_snapshot_from_env``, through
 ``DQN_TELEMETRY_SNAPSHOT``).
 
-Not ported yet: device-time attribution and the span tracer (ROADMAP.md
-A10b); the stall watchdog's sweeper, the divergence sentinel, forensics
-bundles, the flight recorder and fleet registration (A10c).
+Not ported yet: the stall watchdog's sweeper, the divergence sentinel,
+forensics bundles, the flight recorder and fleet registration (ROADMAP.md
+A10c).
 """
+from dist_dqn_tpu_torch.telemetry.devtime import (  # noqa: F401
+    IDLE_CAUSES, ProgramRecord, ProgramRegistry, UtilizationLedger,
+    capture_profile, device_work, get_program_registry,
+    maybe_trace_first_chunk,
+    programs_snapshot, register_program, reset_program_registry,
+    set_learner_mfu, sweep_device_memory)
 from dist_dqn_tpu_torch.telemetry.exposition import (  # noqa: F401
     CONTENT_TYPE, render_prometheus, snapshot, write_snapshot)
 from dist_dqn_tpu_torch.telemetry.lifecycle import (  # noqa: F401

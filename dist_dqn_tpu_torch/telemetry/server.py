@@ -12,12 +12,16 @@ thread.
   * ``/debug/stacks`` — every live thread's Python stack, by thread NAME
   * ``/debug/config`` — the run manifest (git sha, versions, config
     hash/dict, argv; telemetry/manifest.py) of this process
-  * ``/debug/flight`` and ``/debug/profile`` — 501: the flight recorder
-    (ROADMAP.md A10c) and on-demand device profiling (A10b) are not
+  * ``/debug/profile?seconds=N`` — a torch.profiler capture of the next N
+    seconds (default 1) into the forensics dir (telemetry/devtime.py
+    ``capture_profile``); JSON with its ``trace_dir``, 409 while another
+    capture runs
+  * ``/debug/flight`` — 501: the flight recorder (ROADMAP.md A10c) is not
     ported yet, and the endpoint says so instead of a silent 404.
 
-Every body but the two 501s is byte for byte the JAX package's for the
-same registry contents, health probes and manifest. The handler renders
+Every body but the 501 and the profile capture's is byte for byte the
+JAX package's for the same registry contents, health probes and
+manifest. The handler renders
 under the registry's own locks, so a scrape never blocks a training loop
 for more than an instrument read. Loopback by default: the metric/debug
 surface is unauthenticated. Stdlib only.
@@ -28,7 +32,9 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import parse_qs, urlsplit
 
+from dist_dqn_tpu_torch.telemetry import devtime as devtime_mod
 from dist_dqn_tpu_torch.telemetry import manifest as manifest_mod
 from dist_dqn_tpu_torch.telemetry import watchdog as watchdog_mod
 from dist_dqn_tpu_torch.telemetry.exposition import (CONTENT_TYPE,
@@ -41,8 +47,6 @@ from dist_dqn_tpu_torch.telemetry.registry import Registry, get_registry
 NOT_PORTED = {
     "/debug/flight": ("the flight recorder's event tail (/debug/flight)",
                       "A10c"),
-    "/debug/profile": ("on-demand device profiling (/debug/profile)",
-                       "A10b"),
 }
 
 
@@ -86,6 +90,15 @@ class TelemetryServer:
                     man = manifest_mod.get_run_manifest()
                     body = (json.dumps(man if man is not None else {},
                                        sort_keys=True) + "\n").encode()
+                    ctype = "application/json"
+                elif path == "/debug/profile":
+                    qs = parse_qs(urlsplit(self.path).query)
+                    seconds = (qs.get("seconds") or ["1"])[0]
+                    result = devtime_mod.capture_profile(seconds)
+                    if result.get("error") == "busy":
+                        status = 409
+                    body = (json.dumps(result, sort_keys=True)
+                            + "\n").encode()
                     ctype = "application/json"
                 elif path in NOT_PORTED:
                     what, item = NOT_PORTED[path]

@@ -103,9 +103,14 @@ ephemeral port, logged as ``{"telemetry_port": N}``; rank 0 alone under a
 mesh), ``--telemetry-host`` picks the bind address and
 ``--telemetry-snapshot F`` dumps the registry to F at exit or SIGTERM. One
 ``{"manifest": ...}`` line per run records the git sha, versions, config
-and its hash. ``--trace-path`` (ROADMAP.md A10b), ``--fleet-dir``,
-``--forensics-dir`` and ``--watchdog-deadline-s`` (A10c) raise instead of
-being ignored.
+and its hash. Every runtime keeps the program table of the chip-time plane
+(telemetry/devtime.py: FLOPs, dispatches and device seconds per program,
+the utilization ledger, ``dqn_learner_mfu`` on a known card, device
+memory), served at ``/debug/profile?seconds=N`` too. ``--trace-path F``
+writes the apex runtime's host-loop spans to F as a Chrome trace; the
+fused and host-replay runtimes ignore it, as the JAX CLI does.
+``--fleet-dir``, ``--forensics-dir`` and ``--watchdog-deadline-s``
+(ROADMAP.md A10c) raise instead of being ignored.
 """
 from __future__ import annotations
 
@@ -241,6 +246,15 @@ class _FusedTelemetry:
                       "1 for the active actor inference dtype",
                       {**fl, "dtype": cfg.network.actor_dtype
                        or "float32"}).set(1)
+        # The chip-time plane (dist_dqn_tpu/train.py:206-208, :546-548):
+        # the chunk is the loop's one train program; its device seconds
+        # are the dispatch-to-fence span of each chunk.
+        self.reg = reg
+        self.program = telemetry.register_program(
+            "population.chunk" if members else "fused.chunk", loop="fused",
+            role="train")
+        self.ledger = telemetry.UtilizationLedger("fused", reg)
+        self._t_prev_fence = None
 
     def observe_chunk(self, frames_delta: int, dt: float, grad_steps: float,
                       loss, episodes, ep_ret, replay, max_priority,
@@ -279,6 +293,21 @@ class _FusedTelemetry:
                                                 max_priority=max_priority)
         self.lineage.on_chunk(self.grad_steps.value,
                               max(1, ring_slots // chunk_iters))
+
+    def observe_device(self, t0: float, dt: float, device) -> None:
+        """The chunk dispatched at ``t0`` fenced after ``dt`` s: one
+        dispatch of the chunk program with ``dt`` device seconds, and the
+        ledger's wall from the previous fence (``other`` holds the host
+        bookkeeping between them); then the MFU and the memory sweep."""
+        self.program.count_dispatch()
+        self.program.add_device_seconds(dt)
+        t_now = time.perf_counter()
+        self.ledger.observe_chunk(
+            t_now - (self._t_prev_fence if self._t_prev_fence is not None
+                     else t0), dt)
+        self._t_prev_fence = t_now
+        telemetry.set_learner_mfu("fused", device=device, reg=self.reg)
+        telemetry.sweep_device_memory(self.reg)
 
     def observe_eval(self, returns) -> None:
         """A population's per-member eval returns."""
@@ -542,32 +571,35 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
     if profile_chunk is None:
         profile_chunk = 1 if total > frames + chunk_iters * B else 0
     on_card = dev.type == "cuda"
+    tracer = telemetry.maybe_trace_first_chunk(profile_dir)
+    # The fused chunk's census: a training chunk's (train_loop.py
+    # make_fused_train chunk_cost), attached at the first chunk that
+    # trains; unknown under a mesh.
+    chunk_cost = getattr(run_chunk, "chunk_cost", None)
     chunk_index = 0
     while frames < total:
-        prof = None
-        if profile_dir is not None and chunk_index == profile_chunk:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if on_card:
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=activities)
-            prof.start()
+        if chunk_index == profile_chunk:
+            tracer.start()
         t0 = time.perf_counter()
-        carry, metrics = run_chunk(carry, chunk_iters)
-        # One read of the chunk's device accumulators: the chunk fence. A
-        # prioritized solo ring's running max priority (a device scalar)
-        # rides it for the telemetry.
-        fetch = [metrics["episode_return"], metrics["episodes"],
-                 metrics["loss"]]
-        max_prio = None if members else getattr(carry.replay,
-                                                 "max_priority", None)
-        if max_prio is not None:
-            fetch.append(max_prio.to(fetch[0].dtype))
-        ep_ret, episodes, loss, *max_prio = torch.stack(fetch).tolist()
+        # The chunk is one block of device work (telemetry/devtime.py
+        # LaunchGate): a /debug/profile capture starts between chunks.
+        with telemetry.device_work():
+            carry, metrics = run_chunk(carry, chunk_iters)
+            # One read of the chunk's device accumulators: the chunk
+            # fence. A prioritized solo ring's running max priority (a
+            # device scalar) rides it for the telemetry.
+            fetch = [metrics["episode_return"], metrics["episodes"],
+                     metrics["loss"]]
+            max_prio = None if members else getattr(
+                carry.replay, "max_priority", None)
+            if max_prio is not None:
+                fetch.append(max_prio.to(fetch[0].dtype))
+            ep_ret, episodes, loss, *max_prio = \
+                torch.stack(fetch).tolist()
         dt = time.perf_counter() - t0
-        if prof is not None:
-            prof.stop()
-            log_fn(json.dumps(_write_profile(prof, profile_dir, dt,
-                                             on_card)))
+        if tracer.stop():
+            log_fn(json.dumps(_write_profile(tracer.profile, profile_dir,
+                                             dt, on_card)))
         chunk_index += 1
         prev_frames = frames
         frames = frame_offset + metrics["env_frames"]
@@ -575,6 +607,12 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
         tm.observe_chunk(max(frames - prev_frames, 0), dt, grad_steps, loss,
                          episodes, ep_ret, carry.replay,
                          max_prio[0] if max_prio else None, chunk_iters)
+        tm.observe_device(t0, dt, dev)
+        if grad_steps and not tm.program.cost_attached:
+            with telemetry.device_work():
+                tm.program.attach_cost(
+                    (lambda: chunk_cost(carry, chunk_iters)) if chunk_cost
+                    else {})
         if members:
             row = _population_row(members, frames, ep_ret, episodes, loss,
                                   chunk_iters * B, grad_steps, dt)
@@ -594,7 +632,8 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
         # evaluation schedule; rank 0 alone runs it.
         if frames >= next_eval:
             if main:
-                returns = evaluate(carry.learner.net, eval_gen).tolist()
+                with telemetry.device_work():
+                    returns = evaluate(carry.learner.net, eval_gen).tolist()
                 if members:
                     tm.observe_eval(returns)
                     row["eval_return_members"] = returns
@@ -603,10 +642,14 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
             next_eval = frames + cfg.eval_every_steps
         history.append(row)
         log_fn(json.dumps({k: _rounded(v) for k, v in row.items()}))
-        save(final=False)
-        if stop_fn is not None and _rank0_stops(mesh, main and stop_fn(row)):
+        with telemetry.device_work():
+            save(final=False)
+            stop = stop_fn is not None and _rank0_stops(
+                mesh, main and stop_fn(row))
+        if stop:
             break
-    save(final=True)
+    with telemetry.device_work():
+        save(final=True)
     return carry, history
 
 
@@ -826,7 +869,6 @@ def _refuse_unported(args) -> None:
     """Flags of the JAX CLI this port does not implement yet, each with its
     ROADMAP.md item."""
     refused = [(flag, item) for flag, item, given in (
-        ("--trace-path", "A10b", args.trace_path is not None),
         ("--fleet-dir", "A10c", args.fleet_dir is not None),
         ("--forensics-dir", "A10c", args.forensics_dir is not None),
         ("--watchdog-deadline-s", "A10c",
@@ -907,6 +949,7 @@ def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
         num_remote_actors=args.num_remote_actors,
         spawn_remote_actors=args.remote_actor_mode == "local",
         learner_devices=args.learner_devices,
+        trace_path=args.trace_path,
         device_sampling=args.device_sampling,
         transport=args.transport,
         actor_priorities=not args.no_actor_priorities,
@@ -924,10 +967,7 @@ def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
         distributed.initialize(args.coordinator, args.num_processes,
                                args.process_id, device=args.device or "cuda")
     try:
-        try:
-            service = ApexLearnerService(cfg, rt, device=args.device)
-        except NotImplementedError as e:
-            raise SystemExit(str(e)) from e
+        service = ApexLearnerService(cfg, rt, device=args.device)
         print(json.dumps(service.run()))
     finally:
         distributed.shutdown()
@@ -1196,9 +1236,12 @@ def main(argv=None):
                         help="dump a JSON snapshot of the telemetry "
                              "registry to this path at exit (offline "
                              "runs; same data as /metrics.json)")
+    parser.add_argument("--trace-path", default=None,
+                        help="apex runtime: write a Chrome trace-event "
+                             "file of the host loop (ingest/sample/train "
+                             "spans; open in Perfetto) to this path")
     # Flags of the JAX CLI that are not ported: accepted only to be refused
     # with a reason, never ignored.
-    parser.add_argument("--trace-path", default=None)
     parser.add_argument("--fleet-dir", default=None)
     parser.add_argument("--forensics-dir", default=None)
     parser.add_argument("--watchdog-deadline-s", type=float, default=None)

@@ -45,6 +45,8 @@ from dist_dqn_tpu_torch.envs.base import TorchEnv
 from dist_dqn_tpu_torch.models.qnets import members_of
 from dist_dqn_tpu_torch.replay import device as ring
 from dist_dqn_tpu_torch.replay import prioritized_device as pring
+from dist_dqn_tpu_torch.types import Transition
+from dist_dqn_tpu_torch.utils import flops
 from dist_dqn_tpu_torch.utils.device import resolve_device
 
 
@@ -89,7 +91,9 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     ``net`` (the online Q-network, on ``device``); ``run_chunk(carry,
     num_iters)`` runs ``num_iters`` fused iterations and returns the carry
     and the chunk's metrics as device tensors (``env_frames`` and
-    ``grad_steps_in_chunk`` are host ints).
+    ``grad_steps_in_chunk`` are host ints). ``run_chunk.chunk_cost(carry,
+    num_iters)`` is the census of a training chunk (the ``fused.chunk``
+    program's cost in the program table, telemetry/devtime.py).
 
     With ``member_hp`` (a population of M), ``net`` is the members' stacked
     net (models.stack_networks), ``init(seeds)`` takes the M members' seeds
@@ -291,6 +295,39 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
             carry.replay.max_priority = axis.pmax(carry.replay.max_priority)
         return carry, loop_common.chunk_metrics(carry, B, axis)
 
+    def chunk_cost(carry: TrainCarry, num_iters: int) -> dict:
+        """The census (utils/flops.py) of one training chunk of
+        ``num_iters`` iterations, on copies of the carry's learner and
+        generators: ``num_iters`` acts and a training chunk's steady
+        ``num_iters * updates / train_every`` grad steps, each step on a
+        batch of zeros of the sampled batch's shapes. The draw and gather
+        (the sampler kernel is bound through ctypes), the ring's writes
+        and the env step are not counted. Unknown (None) under a mesh:
+        the step's all-reduce cannot run on one rank alone."""
+        if axis is not None:
+            return {"flops": None, "bytes": None}
+        lead = (M,) if M else ()
+        obs = carry.obs
+
+        def rows(shape=(), dtype=torch.float32, fill=0):
+            return torch.full((*lead, batch_size, *shape), fill,
+                              dtype=dtype, device=dev)
+
+        frame = obs.shape[len(lead) + 1:]
+        batch = Transition(obs=rows(frame, obs.dtype),
+                           action=rows(dtype=torch.int64), reward=rows(),
+                           discount=rows(fill=1), next_obs=rows(frame,
+                                                                obs.dtype))
+        step_args = (carry.learner, batch) + (
+            (rows(fill=1),) if prioritized else ())
+        acting = flops.census(act, actor_snapshot(carry.learner.net), obs,
+                              carry.gen_act, epsilon(carry.iteration))
+        training = flops.census(train_step, *step_args)
+        return flops.scaled_sum([
+            (num_iters, acting),
+            (num_iters * updates / max(cfg.train_every, 1), training)])
+
+    run_chunk.chunk_cost = chunk_cost
     return init, run_chunk
 
 

@@ -158,31 +158,49 @@ def test_constructor_refusals_match_jax_word_for_word(case):
     assert tlog == jlog
 
 
-# The distributed options (A6c) and the telemetry endpoint (A10a) run since
-# they were ported; beside a still-refused option they must not get past
-# its refusal, nor start a learner rank, a shard sampler or a telemetry
-# server before it.
+# The options once refused beside ``trace_path`` (ROADMAP.md A10b), since
+# ported: the distributed options (A6c), the telemetry endpoint (A10a) and
+# the host-loop trace itself. Each case runs the service with its option
+# and ``trace_path`` (one actor, two beside two shards, 800 CartPole
+# steps, in a process of its own: the learner ranks join a process group)
+# and writes a trace.
 _UNPORTED = {
-    "learner_devices": (dict(learner_devices=2, trace_path="t.json"),
-                        "A10b"),
-    "ingest_shards": (dict(ingest_shards=2, shard_sampling=True,
-                           trace_path="t.json"), "A10b"),
-    "trace_path": (dict(trace_path="t.json"), "A10b"),
-    "telemetry": (dict(telemetry_port=0, trace_path="t.json"), "A10b"),
+    "learner_devices": dict(learner_devices=2),
+    "ingest_shards": dict(ingest_shards=2, shard_sampling=True,
+                          num_actors=2),
+    "trace_path": {},
+    "telemetry": dict(telemetry_port=0),
 }
 
 
 @pytest.mark.parametrize("case", list(_UNPORTED))
-def test_unported_options_raise_naming_their_item(case):
-    from dist_dqn_tpu_torch.actors.transport import shm_dir
-
-    kw, item = _UNPORTED[case]
-    before = set(os.listdir(shm_dir()))
-    with pytest.raises(NotImplementedError,
-                       match=f"not ported yet: .*ROADMAP.md {item}"):
-        tservice.ApexLearnerService(
-            _tiny_cfg(), tservice.ApexRuntimeConfig(**kw), device="cpu")
-    assert set(os.listdir(shm_dir())) == before
+def test_unported_options_raise_naming_their_item(case, tmp_path):
+    """Each option once refused with ``trace_path`` now runs with it: the
+    trace loads as JSON with the service's spans, the option took effect,
+    and the summary carries the program table and the ledger."""
+    kw = _UNPORTED[case]
+    path = tmp_path / "t.json"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tests",
+                                      "torch_telemetry_workers.py"),
+         "torch", str(path), json.dumps(kw)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    s = out["summary"]
+    assert s["env_steps"] >= 800 and s["grad_steps"] > 0
+    names = {e["name"] for e in json.load(open(path))}
+    assert {"process_name", "ingest.shm_record", "act.batched",
+            "train_step.dispatch", "replay_size"} <= names
+    assert set(out["trace_names"]) == names
+    assert s["programs"]["apex.train_step"]["dispatches"] == \
+        s["device_calls"]["train"]
+    assert s["chip_time"]["chunks"] >= 1.0
+    if case == "learner_devices":
+        assert s["learner_devices"] == 2 and s["learner_replicas_equal"]
+    elif case == "ingest_shards":
+        assert s["shard_sampling"] and len(s["records_by_shard"]) == 2
 
 
 def test_telemetry_port_serves_the_service_registry():

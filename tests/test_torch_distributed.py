@@ -208,16 +208,17 @@ HOST_REPLAY_TINY = ["--set", "replay.capacity=4096",
       "800", "--set", "learner.batch_size=16", "--set", "actor.num_envs=8",
       *HOST_REPLAY_TINY], None),
     (["--runtime", "apex", "--coordinator", "127.0.0.1:1",
-      "--trace-path", "t.json"], "A10b"),
+      "--fleet-dir", "f"], "A10c"),
 ], ids=["checkpoint_replay", "host_replay", "apex_coordinator"])
 def test_unported_mesh_paths_name_their_item(argv, item, tmp_path, capsys):
     """The CLI's mesh paths: ``--checkpoint-replay`` under a mesh and
     ``--runtime host-replay --mesh-devices 2`` run (every rank writes its
     carry shard beside rank 0's steps; the host-replay summary prints
     once); ``--coordinator`` under the apex runtime runs since A6c
-    (tests/test_torch_apex_distributed.py), so its case names the trace
-    flag beside it (the telemetry flags run since A10a), refused naming
-    its ROADMAP.md item before any group is joined."""
+    (tests/test_torch_apex_distributed.py), so its case names the fleet
+    flag beside it (the telemetry flags run since A10a, the trace flag
+    since A10b), refused naming its ROADMAP.md item before any group is
+    joined."""
     argv = ["--config", "cartpole", "--device", "cpu", *argv,
             "--checkpoint-dir", str(tmp_path / "ckpt")]
     if item is not None:

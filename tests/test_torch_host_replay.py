@@ -261,8 +261,7 @@ def test_pixel_dedup_streams_single_frames():
 
 
 def test_rows_and_summary_carry_the_jax_keys():
-    """Every key of the JAX loop's per-chunk rows and summary, less the
-    telemetry registry's program table (not ported yet)."""
+    """Every key of the JAX loop's per-chunk rows and summary."""
     out = _run(_cfg("cartpole", _CARTPOLE), total=800)
     row_keys = {
         "env_frames", "grad_steps", "episode_return", "env_steps_per_sec",
@@ -285,7 +284,7 @@ def test_rows_and_summary_carry_the_jax_keys():
         "sampler", "sample_s_total", "prefetch_wait_s_total",
         "stale_batches", "prio_writeback_flushes", "prio_writeback_rows",
         "prio_writeback_dropped", "is_weight_mean", "is_weight_min",
-        "chip_time", "history"}
+        "chip_time", "programs", "history"}
     assert set(out) - {"learner"} == summary_keys
 
 
@@ -465,4 +464,4 @@ def test_cli_host_replay_runs_and_needs_a_device(capsys, monkeypatch):
         main(argv)
     with pytest.raises(SystemExit, match="not ported yet"):
         main(["--config", "cartpole", "--runtime", "apex", "--device",
-              "cpu", "--learner-devices", "2", "--trace-path", "t.json"])
+              "cpu", "--learner-devices", "2", "--fleet-dir", "f"])

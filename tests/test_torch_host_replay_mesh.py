@@ -351,7 +351,7 @@ _CARRY_LEAF = re.compile(r"^carry\d+_leaf\d+$")
 def test_against_jax_dp2(ranks, tmp_path):
     """The same PER device-plane serial run at dp 2 in both packages: equal
     env and grad steps, chunk count and per-shard bytes; the same row and
-    summary keys (less JAX's program table and the port's learner); the
+    summary keys (less the port's learner) and program names; the
     same sidecar keys apart from the number of carry leaves."""
     d = str(tmp_path / "jax")
     rows = []
@@ -369,7 +369,8 @@ def test_against_jax_dp2(ranks, tmp_path):
     assert len(got["history"]) == len(want["history"]) == 4
     assert set(got["history"][-1]) == set(want["history"][-1])
     assert set(got) - {"params", "logged", "files"} == \
-        set(want) - {"programs"} | {"history"}
+        set(want) | {"history"}
+    assert set(got["programs"]) == set(want["programs"])
     port_rows = [json.loads(x) for x in got["logged"] if x.startswith("{")
                  and "env_frames" in x]
     assert [set(r) for r in port_rows] == [set(r) for r in want["history"]]

@@ -159,6 +159,24 @@ from dist_dqn_tpu_torch.actors.learner_ranks import (LearnerRanks,
 from dist_dqn_tpu_torch.replay.sharded import (ShardSampleService,
                                                ShardSamplerError)
 from dist_dqn_tpu_torch.parallel.learner import learner_replicas_equal
+slice17 = {"dist_dqn_tpu_torch." + m for m in (
+    "telemetry.devtime", "utils.flops", "utils.trace")}
+assert slice17 <= set(names), sorted(slice17 - set(names))
+from dist_dqn_tpu_torch.telemetry import (IDLE_CAUSES, ProgramRegistry,
+                                          UtilizationLedger, capture_profile,
+                                          get_program_registry,
+                                          maybe_trace_first_chunk,
+                                          programs_snapshot,
+                                          register_program,
+                                          reset_program_registry,
+                                          set_learner_mfu,
+                                          sweep_device_memory)
+from dist_dqn_tpu_torch.utils.flops import (census, chip_peak_flops,
+                                            mfu_fields, nature_cnn_fwd_flops,
+                                            r2d2_time_model, roofline_fields,
+                                            stratified_sample_cost)
+from dist_dqn_tpu_torch.utils.trace import (SPAN_BUCKETS, NullTracer,
+                                            SpanTracer, make_tracer)
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -188,6 +206,9 @@ from dist_dqn_tpu_torch import telemetry
 from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
 make_host_env("feeder:pixel", 2).reset()
 telemetry.build_manifest(argv=["actor"])
+telemetry.sweep_device_memory()
+telemetry.UtilizationLedger("actor").observe_chunk(1.0, 0.5)
+telemetry.register_program("actor.step", loop="actor").count_dispatch()
 telemetry.maybe_install_snapshot_from_env(tag="actor0")
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("torch", "jax", "dist_dqn_tpu")
@@ -199,8 +220,9 @@ print(bad)
 def test_feeder_and_fake_ale_load_no_torch():
     """Feeder and actor processes start without torch: the feeder, the
     actors, the fake ALE, the reference table and the telemetry plane
-    (its manifest and exit snapshot included) import numpy only, and
-    nothing of utils/."""
+    (its manifest, exit snapshot and chip-time plane's ledger, program
+    table and memory sweep included) import numpy only, and nothing of
+    utils/."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _NO_TORCH], cwd=REPO,
                           env=env, capture_output=True, text=True,

@@ -288,8 +288,9 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     # and runs the host-replay loop; --runtime apex is ported with its
     # remote actors (tests/test_torch_apex_service.py,
     # tests/test_torch_remote_actors.py) and its distributed options
-    # (tests/test_torch_apex_distributed.py), so its case names the trace
-    # flag, still refused, beside several learner devices;
+    # (tests/test_torch_apex_distributed.py) and its host-loop trace
+    # (tests/test_torch_trace.py), so its case names the fleet flag, still
+    # refused (ROADMAP.md A10c), beside several learner devices;
     # --telemetry-port is ported and serves the run's registry (its row
     # names the bound port; the server closes with the run);
     # --mesh-devices is ported on the fused runtime
@@ -298,7 +299,7 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     # are processes of their own: capfd reads their output).
     ["--runtime", "host-replay"], ["--mesh-devices", "2"],
     ["--population", "2"],
-    ["--runtime", "apex", "--learner-devices", "2", "--trace-path", "t.json"],
+    ["--runtime", "apex", "--learner-devices", "2", "--fleet-dir", "f"],
     ["--telemetry-port", "0"],
     ["--population-spec", '{"lr": [0.001, 0.002]}']])
 def test_train_cli_refuses_unported_flags(flag, capfd):

@@ -6,6 +6,7 @@ manifest's config hash, and the telemetry server's bodies. Every
 comparison is exact: the same explicit inputs give byte-equal text or
 equal snapshots in both packages."""
 import json
+import os
 import signal
 import subprocess
 import sys
@@ -402,8 +403,29 @@ def test_server_bodies_are_byte_equal_to_jax(twin_telemetry_servers, path):
 @pytest.mark.parametrize("path,item", [("/debug/flight", "A10c"),
                                        ("/debug/profile?seconds=1", "A10b")])
 def test_unported_debug_endpoints_answer_501(twin_telemetry_servers, path,
-                                             item):
+                                             item, tmp_path, monkeypatch):
+    """``/debug/flight`` (A10c) still answers 501 naming its item;
+    ``/debug/profile`` (ported in A10b) captures: JSON with the JAX
+    endpoint's keys, its ``trace_dir`` in the forensics dir holding a
+    loadable trace, and 409 while another capture runs."""
+    from dist_dqn_tpu_torch.telemetry import devtime
+
     _, turl, _ = twin_telemetry_servers
+    if item == "A10b":
+        monkeypatch.setenv(devtime.FORENSICS_ENV, str(tmp_path))
+        status, ctype, body = _get(turl + path)
+        assert status == 200 and ctype == "application/json", body
+        out = json.loads(body)
+        assert set(out) == {"trace_dir", "seconds", "capture_wall_s",
+                            "files"}
+        assert out["seconds"] == 1.0 and out["capture_wall_s"] >= 1.0
+        assert os.path.dirname(out["trace_dir"]) == str(tmp_path)
+        with open(os.path.join(out["trace_dir"], "trace.json")) as f:
+            assert "traceEvents" in json.load(f)
+        with devtime._profile_lock:
+            status, _, body = _get(turl + "/debug/profile?seconds=0")
+        assert status == 409 and json.loads(body)["error"] == "busy"
+        return
     status, ctype, body = _get(turl + path)
     assert status == 501 and ctype == "text/plain"
     assert body.decode().startswith("not ported yet: ")

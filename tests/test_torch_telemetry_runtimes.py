@@ -1,9 +1,11 @@
 """The telemetry plane through the port's runtimes, against the JAX
 package's: the fused loop, host replay, the Ape-X service and serving each
 export the JAX runtime's metric families, as (name, kind, label keys), at
-a small size, less a listed set whose writers are ROADMAP.md A10b (the
-device-time plane) or A10c (the watchdog and flight recorder); counters
-that count the same thing in both packages hold the same value. The CLIs'
+a small size, less a listed set whose writers are ROADMAP.md A10c (the
+watchdog and flight recorder); the chip-time plane's program table,
+ledger and spans included (both packages' program registries are fresh
+too); counters that count the same thing in both packages hold the same
+value. The CLIs'
 ``--telemetry-port 0`` serves ``/metrics`` while the run lives,
 ``--telemetry-snapshot`` writes the live snapshot's keys at SIGTERM, and
 the feeders count their ring-full retries."""
@@ -22,21 +24,19 @@ import numpy as np
 import pytest
 
 from dist_dqn_tpu import config as jconfig
+from dist_dqn_tpu.telemetry import devtime as jdevtime
 from dist_dqn_tpu.telemetry import registry as jregistry
 from dist_dqn_tpu_torch import config as tconfig
+from dist_dqn_tpu_torch.telemetry import devtime as tdevtime
 from dist_dqn_tpu_torch.telemetry import registry as tregistry
 from torch_telemetry_workers import families
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUIET = lambda *_: None  # noqa: E731
 
-#: Families whose writers the port does not have yet: the device-time
-#: plane (ROADMAP.md A10b) and the watchdog/flight recorder (A10c).
+#: Families whose writers the port does not have yet: the watchdog and
+#: flight recorder (ROADMAP.md A10c).
 UNPORTED_FAMILIES = {
-    "dqn_program_flops", "dqn_program_bytes", "dqn_program_dispatches_total",
-    "dqn_program_device_seconds_total", "dqn_chip_idle_seconds_total",
-    "dqn_chip_busy_seconds_total", "dqn_device_memory_bytes",
-    "dqn_learner_mfu",
     "dqn_watchdog_stalls_total", "dqn_watchdog_heartbeat_age_seconds",
     "dqn_watchdog_stages", "dqn_divergence_trips_total",
     "dqn_forensics_bundles_total", "dqn_flight_events",
@@ -56,10 +56,15 @@ def _assert_same_families(jreg, treg):
 
 @pytest.fixture
 def fresh_registries(monkeypatch):
-    """Fresh process registries in both packages for one runtime run."""
+    """Fresh process registries in both packages for one runtime run, and
+    fresh program registries recording into them."""
     jreg, treg = jregistry.Registry(), tregistry.Registry()
     monkeypatch.setattr(jregistry, "_default_registry", jreg)
     monkeypatch.setattr(tregistry, "_default_registry", treg)
+    monkeypatch.setattr(jdevtime, "_program_registry",
+                        jdevtime.ProgramRegistry(jreg))
+    monkeypatch.setattr(tdevtime, "_program_registry",
+                        tdevtime.ProgramRegistry(treg))
     return jreg, treg
 
 
@@ -91,7 +96,9 @@ def test_fused_cartpole_exports_the_jax_families(fresh_registries, per):
     for key in ("dqn_env_steps_total", "dqn_grad_steps_total",
                 "dqn_replay_size{store=device}",
                 "dqn_replay_capacity{store=device}",
-                "dqn_learner_train_batch_size{loop=fused}"):
+                "dqn_learner_train_batch_size{loop=fused}",
+                "dqn_program_dispatches_total{loop=fused,"
+                "program=fused.chunk}"):
         assert _value(treg, key) == _value(jreg, key), key
     assert _value(treg, "dqn_env_steps_total") == 1600
     snap = treg.snapshot()
@@ -115,7 +122,9 @@ def test_fused_population_exports_the_jax_families(fresh_registries):
            device="cpu")
     _assert_same_families(jreg, treg)
     for key in ("dqn_env_steps_total", "dqn_grad_steps_total",
-                "dqn_population_size{loop=fused}"):
+                "dqn_population_size{loop=fused}",
+                "dqn_program_dispatches_total{loop=fused,"
+                "program=population.chunk}"):
         assert _value(treg, key) == _value(jreg, key), key
     assert _value(treg, "dqn_env_steps_total") == 2 * 800
 
@@ -148,7 +157,11 @@ def test_host_replay_exports_the_jax_families(fresh_registries, kw,
                 "dqn_replay_capacity{store=host_ring}",
                 "dqn_replay_added_total{store=host_ring}",
                 "dqn_host_replay_d2h_bytes_total{loop=host_replay}",
-                "dqn_checkpoint_shards_saved{loop=host_replay}"):
+                "dqn_checkpoint_shards_saved{loop=host_replay}",
+                "dqn_program_dispatches_total{loop=host_replay,"
+                "program=host_replay.train_step}",
+                "dqn_program_dispatches_total{loop=host_replay,"
+                "program=host_replay.collect}"):
         assert _value(treg, key) == _value(jreg, key), key
     assert _value(treg, "dqn_host_replay_d2h_bytes_total{loop=host_replay}"
                   ) == tout["d2h_bytes_total"]
@@ -157,21 +170,25 @@ def test_host_replay_exports_the_jax_families(fresh_registries, kw,
                       "{loop=host_replay}") == tout["prio_writeback_rows"]
 
 
-def _service_run(pkg: str) -> dict:
+def _service_run(pkg: str, trace_path=None) -> dict:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "tests",
-                                      "torch_telemetry_workers.py"), pkg],
+                                      "torch_telemetry_workers.py"), pkg,
+         *([str(trace_path)] if trace_path else [])],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def test_apex_service_exports_the_jax_families():
+def test_apex_service_exports_the_jax_families(tmp_path):
     """One actor process, 800 CartPole steps, each package's service in a
-    process of its own; the port's counters equal its own summary."""
-    jout, tout = _service_run("jax"), _service_run("torch")
+    process of its own with a host-loop trace (the span and trace-counter
+    families); the port's counters equal its own summary, and its program
+    table's dispatches its device-call counts."""
+    jout = _service_run("jax", tmp_path / "j.json")
+    tout = _service_run("torch", tmp_path / "t.json")
     want = {f for f in _sig(jout["families"])
             if f[0] not in UNPORTED_FAMILIES}
     got = _sig(tout["families"])
@@ -185,6 +202,10 @@ def test_apex_service_exports_the_jax_families():
         sum(s["records_by_shard"].values())
     for kind, n in s["device_calls"].items():
         assert v[f"dqn_service_device_calls_total{{call={kind}}}"] == n
+        prog = "apex.train_step" if kind == "train" else f"apex.{kind}"
+        assert s["programs"][prog]["dispatches"] == n
+        assert v["dqn_program_dispatches_total{loop=apex,program="
+                 f"{prog}}}"] == n
     assert v["dqn_service_ingest_passes_total"] == s["ingest_passes"]
     assert v["dqn_episodes_completed_total"] == s["episodes_completed"]
 
@@ -241,6 +262,8 @@ def test_serving_exports_the_jax_families(fresh_registries, tmp_path):
     _assert_same_families(jreg, treg)
     assert _value(treg, "dqn_serving_requests_total{policy=default}") == \
         _value(jreg, "dqn_serving_requests_total{policy=default}") == 1
+    assert _value(treg, "dqn_program_dispatches_total{loop=serving,"
+                  "program=serving.act}") == 1
 
 
 # -- the CLIs -------------------------------------------------------------

@@ -3,10 +3,13 @@ of its own, for tests/test_torch_telemetry_runtimes.py: the service spawns
 actor processes, so it runs from a file (never from stdin) and the test
 bounds it with a subprocess time limit.
 
-    python tests/torch_telemetry_workers.py {jax,torch}
+    python tests/torch_telemetry_workers.py {jax,torch} [TRACE_PATH [KW]]
 
 prints one JSON line: the run's summary and its registry's metric families
-as ``[name, kind, [label keys]]``, with every series' value."""
+as ``[name, kind, [label keys]]``, with every series' value; with
+``TRACE_PATH`` the service writes its host-loop spans there (``trace_path``)
+and the line carries the trace's event names. ``KW`` is a JSON object of
+further ``ApexRuntimeConfig`` fields for the port's run."""
 import dataclasses
 import json
 import os
@@ -43,7 +46,7 @@ def values(reg) -> dict:
             for k, v in reg.snapshot().items()}
 
 
-def main(pkg: str) -> None:
+def main(pkg: str, trace_path: str = None, kw: str = "{}") -> None:
     if pkg == "jax":
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -51,7 +54,8 @@ def main(pkg: str) -> None:
         from dist_dqn_tpu.config import CONFIGS
         from dist_dqn_tpu.telemetry import get_registry
         summary = run_apex(_tiny(CONFIGS["cartpole"]),
-                           ApexRuntimeConfig(**RT), log_fn=lambda s: None)
+                           ApexRuntimeConfig(**RT, trace_path=trace_path),
+                           log_fn=lambda s: None)
     else:
         import torch
         torch.set_num_threads(1)
@@ -59,17 +63,24 @@ def main(pkg: str) -> None:
                                                        run_apex)
         from dist_dqn_tpu_torch.config import CONFIGS
         from dist_dqn_tpu_torch.telemetry import get_registry
+        rt = {**RT, "telemetry_port": 0, "trace_path": trace_path,
+              **json.loads(kw)}
         summary = run_apex(_tiny(CONFIGS["cartpole"]),
-                           ApexRuntimeConfig(**RT, telemetry_port=0),
-                           log_fn=lambda s: None, device="cpu")
+                           ApexRuntimeConfig(**rt), log_fn=lambda s: None,
+                           device="cpu")
     reg = get_registry()
     keep = ("env_steps", "grad_steps", "replay_size", "records_by_shard",
             "ingest_bytes", "ingest_passes", "episodes_completed",
-            "device_calls")
-    print(json.dumps({"summary": {k: summary[k] for k in keep},
-                      "families": families(reg), "values": values(reg)},
-                     default=str))
+            "device_calls", "chip_time", "programs", "learner_devices",
+            "learner_replicas_equal", "shard_sampling")
+    names = None
+    if trace_path:
+        with open(trace_path) as f:
+            names = sorted({e["name"] for e in json.load(f)})
+    print(json.dumps({"summary": {k: summary.get(k) for k in keep},
+                      "families": families(reg), "values": values(reg),
+                      "trace_names": names}, default=str))
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])
