@@ -55,8 +55,8 @@ them or outside a checkout of the repository. Phases, each fatal:
      sampler launch, batch 256, a grad step every 4th iteration of 64
      envs, about 110 grad steps past the fill at 20,000 frames;
    * population_apex_dedup, after apex_dedup: ``--population 4`` with a
-     spec of four epsilons, learning rates and gammas, 28,000 frames per
-     member (752 grad steps each, one sampler launch per grad step for
+     spec of four epsilons, learning rates and gammas, 26,000 frames per
+     member (502 grad steps each, one sampler launch per grad step for
      all four), peak memory at most four times apex_dedup's bar, and
      fewer than twice apex_dedup's device kernels per training iteration
      (each path's carry runs 10 more training iterations under
@@ -66,7 +66,10 @@ them or outside a checkout of the repository. Phases, each fatal:
    (PER through the sampler kernel, dedup ring) from a random start to an
    episode return of +0.5 within 96,000 frames, the rainbow preset on
    CartPole to 475 within 300,000, and qrdqn, iqn and mdqn on the scaled
-   CartPole to 150 within 160,000; each stops at its bar.
+   CartPole to 150 within 160,000; each stops at its bar. The bars run one
+   after the other in a process of their own, started after
+   population_learner_lockstep, beside the later phases
+   (``start_bars``); the script waits for it at its end.
 6. Check each path's outputs: finite loss and priorities (for r2d2, live
    exactly where the loop's host predicate says), one sampler launch per
    grad step on the paths that draw through it and none on the others,
@@ -343,6 +346,30 @@ them or outside a checkout of the repository. Phases, each fatal:
    spans beside ``loop_s``; serving_apex's ``serving.act`` dispatches
    equal the batcher's, and a capture during a closed loop holds a CUDA
    kernel.
+19. Crash forensics and the fleet plane (telemetry/flight.py,
+   watchdog.py, fleet.py). host_replay_apex_dedup, apex_service_pong and
+   serving_apex run armed, at their depths: a forensics dir and a fleet
+   dir of their own (exported to the processes they spawn), the watchdog
+   at the CLI's 120 s deadline and the divergence sentinel installed.
+   Each healthy run must end with 0 stalls, 0 trips and 0 bundles (the
+   actors' included), its fleet descriptors gone, and a /debug/flight
+   tail holding the loop's own events (host replay: the evacuation
+   worker's submits and drains, the chunk fences and train events; the
+   service: its spans; the serving tier records none, as JAX's does not,
+   and must have had its ``serving.batcher`` heartbeat swept); each
+   prints µs per flight ``record()`` and per ``FlightTracer`` span over
+   100,000 each (``flight_overhead``). While apex_service_pong trains, an
+   in-process FleetAggregator over its fleet dir finds the service live
+   and healthy, labels every merged sample line of it with ``process``
+   and ``role``, and a ``/fleet/profile?seconds=1`` capture through the
+   aggregator holds the sampler kernel; serving_apex's CLI, given
+   ``--forensics-dir`` and ``--fleet-dir``, is a ``serving`` member while
+   it serves. Then watchdog_device_wait (at most 15 s): a stage with a
+   1 s deadline waits in ``torch.cuda.synchronize()`` behind a
+   ``torch.cuda._sleep`` spin of about 5 s; the bundle must land while
+   the wait is pending, its ``stacks.txt`` name the waiting thread in
+   ``synchronize``, ``/healthz`` answer 503 then, and 200 once the stage
+   beats again.
 
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
@@ -362,6 +389,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -488,15 +516,16 @@ FAKE_ALE_EPISODES = 2
 HOST_REPLAY_PAIR = ("apex", ["replay.frame_dedup=true", "replay.min_fill=800",
                              "eval_every_steps=0"], 2_000, 25)
 # The population path: apex_dedup's preset with four members, each trained
-# as a solo apex_dedup run of its own epsilon, lr and gamma. 28,000 frames
-# per member: the fill at 22,000, then 376 train events of two grad steps.
+# as a solo apex_dedup run of its own epsilon, lr and gamma. 26,000 frames
+# per member (cut from 28,000; PERF.md §4): the fill at 22,000, then
+# 251 train events of two grad steps.
 POPULATION_SIZE = 4
 POPULATION_SPEC = json.dumps({"epsilon": [0.01, 0.05, 0.1, 0.02],
                               "lr": [1e-4, 5e-5, 2e-4, 1e-4],
                               "gamma": [0.99, 0.99, 0.98, 0.995]})
-POPULATION_FRAMES = 28_000
+POPULATION_FRAMES = 26_000
 POPULATION_CHUNK = 125
-POPULATION_GRAD_STEPS = 752
+POPULATION_GRAD_STEPS = 502
 POPULATION_MAX_GB = POPULATION_SIZE * APEX_DEDUP_MAX_GB
 # After apex_dedup's and the population's runs, PROFILED_ITERS more
 # training iterations of each are traced with torch.profiler (no trace is
@@ -547,6 +576,32 @@ SERVING_CAPTURE_DELAY_S = 0.25
 # /debug/profile captures apex_service_pong takes until one window
 # retired two grad steps (_CaptureWhileTraining).
 CAPTURE_TRIES = 4
+# The crash-forensics and fleet plane (telemetry/flight.py, watchdog.py,
+# fleet.py), armed around host_replay_apex_dedup, apex_service_pong and
+# serving_apex at their depths: the stall deadline of those healthy runs
+# (the train CLI's default), the flight events each run's /debug/flight
+# tail must hold (fnmatch patterns; the serving tier records none, as
+# JAX's does not), and the records and spans the overhead is timed over.
+FORENSICS_DEADLINE_S = 120.0
+FLIGHT_TAIL_WANT = {
+    "host_replay_apex_dedup": ("evac.host_replay.submit",
+                               "evac.host_replay.drained",
+                               "host_replay.chunk",
+                               "host_replay.train_event"),
+    "apex_service_pong": ("act.batched", "replay.sample",
+                          "train_step.dispatch"),
+    "serving_apex": (),
+}
+FLIGHT_OVERHEAD_N = 100_000
+# watchdog_device_wait: a stage with a 1 s deadline waits in
+# torch.cuda.synchronize() behind a torch.cuda._sleep spin of about 5 s;
+# the phase must end within 15 s.
+DEVICE_WAIT_DEADLINE_S = 1.0
+DEVICE_WAIT_SPIN_S = 5.0
+DEVICE_WAIT_MAX_S = 15.0
+# A forensics bundle's directory name (telemetry/watchdog.py
+# dump_forensics); profile captures beside them are "profile-*".
+_BUNDLE_RE = re.compile(r"_pid\d+_\d{3}_\w+$")
 SERVING_CLOSED_LOOP = (16, 1.5)      # 1-row clients, seconds per arm
 SERVING_ACT_ITERS = 50
 # The mesh phases. mesh_apex_nccl is the apex path (fill, depth, chunk)
@@ -1783,12 +1838,14 @@ def _drive_host_replay(cfg, total_env_steps: int, chunk_iters: int,
     return out, time.perf_counter() - t0
 
 
-def check_host_replay_apex_dedup(sampler) -> int:
+def check_host_replay_apex_dedup(sampler, directory: str) -> int:
     """HOST_REPLAY_PATH through the host-replay runtime (pipelined and
     prefetched, PER on the device plane): one sampler launch per grad
     step at the plane [1954, 512], a finite loss. Prints the rows' rates,
     the evacuation columns, host RSS and the card's peak memory; returns
-    the launches."""
+    the launches. Runs armed (:class:`_ArmedForensics`): no stall, trip
+    or bundle, and the loop's evacuation, fence and train events in its
+    /debug/flight tail."""
     import torch
 
     from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
@@ -1797,15 +1854,21 @@ def check_host_replay_apex_dedup(sampler) -> int:
     cfg = apply_overrides(CONFIGS[preset], overrides)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tm = _PhaseTelemetry("host_replay_apex_dedup", cfg)
-    logged = []
-    sampler.kernel_stratified_sample.launches = 0
-    out, wall = _drive_host_replay(cfg, total, chunk_iters, logged=logged,
-                                   prioritized=True, device_sampling=True,
-                                   telemetry_port=0)
-    launches = sampler.kernel_stratified_sample.launches
-    _logged_telemetry_port(tm.phase, logged)
-    scrape = tm.scrape()
+    armed = _ArmedForensics("host_replay_apex_dedup", directory)
+    try:
+        tm = _PhaseTelemetry("host_replay_apex_dedup", cfg)
+        logged = []
+        sampler.kernel_stratified_sample.launches = 0
+        out, wall = _drive_host_replay(cfg, total, chunk_iters,
+                                       logged=logged, prioritized=True,
+                                       device_sampling=True,
+                                       telemetry_port=0)
+        launches = sampler.kernel_stratified_sample.launches
+        _logged_telemetry_port(tm.phase, logged)
+        armed.hold(tm)
+        scrape = tm.scrape()
+    finally:
+        armed.close()
     ring_key = "{store=host_ring}"
     scrape.hold({
         "dqn_replay_size" + ring_key: (
@@ -1909,10 +1972,13 @@ def check_apex_service_pong(sampler, directory: str) -> int:
     priorities, PER through the device plane. Holds: at least
     APEX_SERVICE_MIN_GRAD_STEPS grad steps, one sampler launch per grad
     step, one act dispatch per ingest pass, no dropped, torn or bad
-    records and no actor restarts, a finite loss; traces the first train event (torch.profiler) for the
-    device's busy share; then the learner checkpoint it saved at the end
-    is restored and played by the port's evaluate CLI. Returns the
-    launches."""
+    records and no actor restarts, a finite loss; traces the first train
+    event (torch.profiler) for the device's busy share; then the learner
+    checkpoint it saved at the end is restored and played by the port's
+    evaluate CLI. Runs armed (:class:`_ArmedForensics`): no stall, trip
+    or bundle, the service's spans in its /debug/flight tail, and a
+    fleet aggregator finds it live while it trains (:func:`_fleet_check`).
+    Returns the launches."""
     import contextlib
     import io
 
@@ -1936,22 +2002,35 @@ def check_apex_service_pong(sampler, directory: str) -> int:
                            telemetry_port=0, trace_path=trace_path)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tm = _PhaseTelemetry("apex_service_pong", cfg)
-    logged = []
+    armed = _ArmedForensics("apex_service_pong", directory)
+    try:
+        tm = _PhaseTelemetry("apex_service_pong", cfg)
+        logged = []
 
-    def log(line):
-        print(line, flush=True)
-        if line.startswith('{"telemetry_port"'):
-            logged.append(json.loads(line))
+        def log(line):
+            print(line, flush=True)
+            if line.startswith('{"telemetry_port"'):
+                logged.append(json.loads(line))
 
-    service = ApexLearnerService(cfg, rt, log_fn=log, device=DEVICE)
-    capture = _CaptureWhileTraining(tm, service)
-    sampler.kernel_stratified_sample.launches = 0
-    out = service.run()
-    launches = sampler.kernel_stratified_sample.launches
-    capture.join()
-    _logged_telemetry_port(tm.phase, logged)
-    scrape = tm.scrape()
+        service = ApexLearnerService(cfg, rt, log_fn=log, device=DEVICE)
+        capture = _CaptureWhileTraining(tm, service, armed.fleet_dir)
+        sampler.kernel_stratified_sample.launches = 0
+        out = service.run()
+        launches = sampler.kernel_stratified_sample.launches
+        capture.join()
+        _logged_telemetry_port(tm.phase, logged)
+        fleet_res = capture.fleet
+        armed.hold(tm, {"fleet": fleet_res})
+        scrape = tm.scrape()
+    finally:
+        armed.close()
+    profile_ok = (fleet_res or {}).get("profile", {})
+    if not fleet_res or fleet_res["member"]["state"] != "live" \
+            or fleet_res["member"]["healthy"] is not True \
+            or fleet_res["member"]["labels"] != {"loop": "apex"} \
+            or fleet_res["unlabeled"] or not fleet_res["merged_samples"] \
+            or not profile_ok.get("sample_kernels"):
+        _fail(f"apex_service_pong: the fleet check: {fleet_res}")
     scrape.hold({
         "dqn_env_steps_total": (scrape.grew("dqn_env_steps_total"),
                                 out["env_steps"]),
@@ -2052,12 +2131,15 @@ class _CaptureWhileTraining:
     retired fewer than two grad steps may hold no sampler kernel, so up
     to CAPTURE_TRIES captures are taken until one window retired two.
     ``result`` is the last capture's JSON and kernel counts, with the
-    grad steps retired during it and the tries."""
+    grad steps retired during it and the tries. With ``fleet_dir`` the
+    thread then runs :func:`_fleet_check` (``fleet``) while the service
+    still trains."""
 
-    def __init__(self, tm, service):
+    def __init__(self, tm, service, fleet_dir: str = None):
         import threading
 
         self.result = None
+        self.fleet = None
 
         def work():
             while service.profile_row is None:
@@ -2073,14 +2155,16 @@ class _CaptureWhileTraining:
                                "grad_steps_during": service.grad_steps
                                - steps}
                 if self.result["grad_steps_during"] >= 2:
-                    return
+                    break
+            if fleet_dir is not None:
+                self.fleet = _fleet_check(fleet_dir, service)
 
         self._thread = threading.Thread(target=work, daemon=True,
                                         name="profile-capture")
         self._thread.start()
 
     def join(self) -> None:
-        self._thread.join(timeout=60)
+        self._thread.join(timeout=180)
 
 
 def _capture_profile(tm, delay_s: float = 0.0) -> dict:
@@ -2090,14 +2174,9 @@ def _capture_profile(tm, delay_s: float = 0.0) -> dict:
     time.sleep(delay_s)
     t0 = time.perf_counter()
     got = json.loads(tm._get("/debug/profile?seconds=1"))
-    kernels = []
-    if "trace_dir" in got:
-        with open(os.path.join(got["trace_dir"], "trace.json")) as f:
-            kernels = [e["name"] for e in json.load(f).get(
-                "traceEvents", []) if e.get("cat") == "kernel"]
-    return {"capture": got, "kernels": len(kernels),
-            "sample_kernels": sum("sample_kernel" in k for k in kernels),
-            "seconds": time.perf_counter() - t0}
+    counts = (_count_trace_kernels(got["trace_dir"]) if "trace_dir" in got
+              else {"kernels": 0, "sample_kernels": 0})
+    return {"capture": got, **counts, "seconds": time.perf_counter() - t0}
 
 
 def time_span_overhead(n: int = TELEMETRY_UPDATES) -> dict:
@@ -2118,6 +2197,297 @@ def time_span_overhead(n: int = TELEMETRY_UPDATES) -> dict:
         tr.close()
         flush_s = time.perf_counter() - t0
     return {"spans": n, "us_per_span": us, "flush_s": flush_s}
+
+
+def time_flight_overhead(n: int = FLIGHT_OVERHEAD_N) -> dict:
+    """Host microseconds per flight-recorder ``record()`` and per
+    ``FlightTracer`` span (the service's default tracer without a trace
+    path), each over ``n`` events into a ring of their own."""
+    from dist_dqn_tpu_torch.telemetry.flight import FlightRecorder
+    from dist_dqn_tpu_torch.utils.trace import FlightTracer
+
+    fr = FlightRecorder()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fr.record("queue", "evac.bench.submit", slices=4)
+    record_us = (time.perf_counter() - t0) / n * 1e6
+    tr = FlightTracer(FlightRecorder())
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with tr.span("replay.sample", batch=512):
+            pass
+    span_us = (time.perf_counter() - t0) / n * 1e6
+    return {"events": n, "us_per_record": record_us,
+            "us_per_flight_span": span_us}
+
+
+def _bundles(directory: str) -> list:
+    """The forensics bundles (finished or being written) in a directory."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(d for d in os.listdir(directory)
+                  if _BUNDLE_RE.search(d.removesuffix(".writing")))
+
+
+class _ArmedForensics:
+    """The crash-forensics and fleet plane around one healthy phase: a
+    forensics dir and a fleet dir of the phase's own, exported to the
+    processes it spawns, the watchdog (FORENSICS_DEADLINE_S) and the
+    divergence sentinel installed, the flight ring fresh. :meth:`hold`
+    reads the phase's /debug/flight tail and then fails the phase on any
+    stall, trip or bundle (the spawned processes' included), a bundle
+    write that failed, or a tail without the loop's own events; it
+    prints the ``forensics`` line and the ``flight_overhead`` line.
+    :meth:`close` disarms and restores the environment."""
+
+    def __init__(self, phase: str, directory: str):
+        from dist_dqn_tpu_torch.telemetry import fleet, flight, watchdog
+
+        self.phase = phase
+        self.dir = os.path.join(directory, "forensics")
+        self.fleet_dir = os.path.join(directory, "fleet")
+        os.makedirs(self.fleet_dir, exist_ok=True)
+        self._env = {k: os.environ.get(k) for k in (
+            watchdog.FORENSICS_ENV, watchdog.DEADLINE_ENV, fleet.FLEET_ENV)}
+        os.environ[watchdog.FORENSICS_ENV] = self.dir
+        os.environ[watchdog.DEADLINE_ENV] = str(FORENSICS_DEADLINE_S)
+        os.environ[fleet.FLEET_ENV] = self.fleet_dir
+        flight.configure(enabled=True)
+        log = lambda line: print(line, flush=True)  # noqa: E731
+        self.watchdog = watchdog.install_watchdog(
+            forensics_dir=self.dir, deadline_s=FORENSICS_DEADLINE_S,
+            log_fn=log)
+        self.sentinel = watchdog.install_sentinel(forensics_dir=self.dir,
+                                                  log_fn=log)
+
+    def hold(self, tm, extra: dict = None) -> dict:
+        """After the phase's run (whose fleet descriptors must be gone)
+        and before ``tm.scrape()`` (which closes the phase's server)."""
+        import fnmatch
+
+        from dist_dqn_tpu_torch import telemetry
+
+        body = json.loads(tm._get("/debug/flight"))
+        names = [e["name"] for e in body["events"]]
+        kinds = sorted({e["kind"] for e in body["events"]})
+        missing = [w for w in FLIGHT_TAIL_WANT[self.phase]
+                   if not fnmatch.filter(names, w)]
+        now = telemetry.get_registry().snapshot()
+
+        def grew(family):
+            return sum(v["value"] - tm.before.get(k, {}).get("value", 0.0)
+                       for k, v in now.items()
+                       if k == family or k.startswith(family + "{"))
+
+        self.watchdog.check()        # one sweep at the phase's end
+        left = sorted(os.listdir(self.fleet_dir))
+        # Every stage this phase's own watchdog swept (it keeps one age
+        # gauge per stage it ever saw), closed ones included.
+        stages = sorted(self.watchdog._age_gauges)
+        res = {"forensics": self.phase,
+               "stalls": grew("dqn_watchdog_stalls_total"),
+               "trips": grew("dqn_divergence_trips_total"),
+               "bundles_counted": grew("dqn_forensics_bundles_total"),
+               "bundles": _bundles(self.dir),
+               "bundle_errors": (self.watchdog.bundle_errors
+                                 + self.sentinel.bundle_errors),
+               "tripped": self.sentinel.tripped,
+               "stale": self.watchdog.stale(),
+               "stages_swept": stages,
+               "flight_total": body["total"],
+               "flight_tail": len(names), "flight_kinds": kinds,
+               "flight_names": sorted(set(names))[:40],
+               "flight_missing": missing, "fleet_left": left,
+               **(extra or {})}
+        print(json.dumps(res), flush=True)
+        print(json.dumps({"flight_overhead": self.phase,
+                          **time_flight_overhead()}), flush=True)
+        if (res["stalls"] or res["trips"] or res["bundles_counted"]
+                or res["bundles"] or res["bundle_errors"] or res["tripped"]
+                or res["stale"] or left):
+            _fail(f"{self.phase}: the healthy armed run tripped the "
+                  f"forensics plane: {res}")
+        if missing or "watchdog" in kinds or "divergence" in kinds:
+            _fail(f"{self.phase}: /debug/flight tail without the loop's "
+                  f"own events {missing} or with a trip: {kinds}")
+        return res
+
+    def close(self) -> None:
+        from dist_dqn_tpu_torch.telemetry import watchdog
+
+        watchdog.uninstall_watchdog()
+        for k, v in self._env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _count_trace_kernels(trace_dir: str) -> dict:
+    """The CUDA kernel events of a torch.profiler trace directory, and how
+    many are the sampler kernel's."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        kernels = [e["name"] for e in json.load(f).get("traceEvents", [])
+                   if e.get("cat") == "kernel"]
+    return {"kernels": len(kernels),
+            "sample_kernels": sum("sample_kernel" in k for k in kernels)}
+
+
+def _fleet_check(fleet_dir: str, service) -> dict:
+    """While the service trains: an in-process FleetAggregator over the
+    phase's fleet dir finds the service (role learner, loop apex) live and
+    healthy, labels every merged sample line of it with ``process`` and
+    ``role``, and a ``/fleet/profile?seconds=1`` capture through the
+    aggregator's HTTP face holds the sampler kernel (retried, up to
+    CAPTURE_TRIES, while a window holds none)."""
+    from dist_dqn_tpu_torch.telemetry import fleet
+
+    name = f"learner-{os.getpid()}"
+    agg = fleet.FleetAggregator(fleet_dir, scrape_timeout_s=10.0)
+    agg.sweep_once()
+    member = agg.status()["members"].get(name, {})
+    samples = [ln for ln in agg.render_metrics().splitlines()
+               if ln and not ln.startswith("#")
+               and not ln.startswith("dqn_fleet_")]
+    unlabeled = [ln for ln in samples
+                 if f'process="{name}"' not in ln
+                 or 'role="learner"' not in ln]
+    res = {"member": {k: member.get(k) for k in (
+               "state", "healthy", "labels", "role")},
+           "members": sorted(agg.status()["members"]),
+           "merged_samples": len(samples), "unlabeled": unlabeled[:5]}
+    pane = fleet.FleetServer(agg)
+    try:
+        for tries in range(1, CAPTURE_TRIES + 1):
+            if service._t_end is not None:
+                break
+            steps = service.grad_steps
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{pane.port}/fleet/profile?seconds=1",
+                    timeout=120) as r:
+                body = json.loads(r.read())
+            entry = body["members"].get(name, {})
+            got = (_count_trace_kernels(entry["trace_dir"])
+                   if "trace_dir" in entry
+                   else {"kernels": 0, "sample_kernels": 0})
+            res["profile"] = {**got, "entry": entry, "tries": tries,
+                              "wall_s": time.perf_counter() - t0,
+                              "grad_steps_during": service.grad_steps
+                              - steps}
+            if got["sample_kernels"]:
+                break
+    finally:
+        pane.close()
+    return res
+
+
+def check_watchdog_device_wait(directory: str) -> dict:
+    """A stall inside a device wait: a stage with a DEVICE_WAIT_DEADLINE_S
+    deadline beats, queues a ``torch.cuda._sleep`` spin of about
+    DEVICE_WAIT_SPIN_S and waits in ``torch.cuda.synchronize()``. A
+    poller thread holds that the watchdog's bundle lands while the wait is
+    pending, that its ``stacks.txt`` names the waiting thread inside
+    ``synchronize``, and that ``/healthz`` answers 503; after the wait the
+    stage beats and ``/healthz`` returns to 200. No sampler launch."""
+    import threading
+
+    import torch
+
+    from dist_dqn_tpu_torch import telemetry
+    from dist_dqn_tpu_torch.telemetry import watchdog
+
+    t_phase = time.perf_counter()
+    bundles = os.path.join(directory, "forensics")
+    # The spin's rate on this card: one short spin timed by events.
+    torch.cuda._sleep(1_000)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    probe = 50_000_000
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(probe * DEVICE_WAIT_SPIN_S * 1e3 / start.elapsed_time(end))
+    wd = watchdog.install_watchdog(
+        forensics_dir=bundles, deadline_s=DEVICE_WAIT_DEADLINE_S,
+        poll_s=0.1, log_fn=lambda line: print(line, flush=True))
+    server = telemetry.start_server(0)
+    url = f"http://127.0.0.1:{server.port}/healthz"
+    seen = {}
+    waiting = threading.Event()
+    returned = threading.Event()
+
+    def healthz():
+        try:
+            with urllib.request.urlopen(url, timeout=5) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    def poll():
+        waiting.wait(30)
+        while not returned.is_set():
+            done = [b for b in _bundles(bundles)
+                    if not b.endswith(".writing")]
+            if done:
+                seen["bundle_s"] = time.perf_counter() - seen["t_wait"]
+                seen["pending_at_bundle"] = not returned.is_set()
+                with open(os.path.join(bundles, done[0],
+                                       "stacks.txt")) as f:
+                    text = f.read()
+                main = text.split("--- thread 'MainThread'", 1)[-1] \
+                    .split("--- thread", 1)[0]
+                seen["stacks_name_waiter"] = (
+                    "--- thread 'MainThread'" in text
+                    and "synchronize" in main)
+                seen["healthz_during"] = healthz()
+                seen["pending_at_healthz"] = not returned.is_set()
+                return
+            time.sleep(0.02)
+
+    poller = threading.Thread(target=poll, daemon=True,
+                              name="device-wait-poller")
+    poller.start()
+    hb = telemetry.heartbeat("device_wait.main")
+    try:
+        hb.beat()
+        torch.cuda._sleep(cycles)
+        seen["t_wait"] = time.perf_counter()
+        waiting.set()
+        torch.cuda.synchronize()
+        seen["wait_s"] = time.perf_counter() - seen["t_wait"]
+        returned.set()
+        hb.beat()
+        poller.join(timeout=10)
+        deadline = time.perf_counter() + 5
+        while healthz() != 200 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        seen["healthz_after"] = healthz()
+        seen["recovered_s"] = time.perf_counter() - seen["t_wait"] \
+            - seen["wait_s"]
+    finally:
+        returned.set()
+        hb.close()
+        server.close()
+        seen.pop("t_wait", None)
+        res = {"watchdog_device_wait": seen, "cycles": cycles,
+               "bundles": _bundles(bundles),
+               "bundle_errors": list(wd.bundle_errors),
+               "phase_s": time.perf_counter() - t_phase}
+        watchdog.uninstall_watchdog()
+    print(json.dumps(res), flush=True)
+    if not (seen.get("pending_at_bundle") and seen.get("stacks_name_waiter")
+            and seen.get("healthz_during") == 503
+            and seen.get("pending_at_healthz")
+            and seen.get("healthz_after") == 200
+            and len(res["bundles"]) == 1 and not res["bundle_errors"]
+            and seen.get("wait_s", 0) > 2 * DEVICE_WAIT_DEADLINE_S):
+        _fail(f"watchdog_device_wait: {res}")
+    if res["phase_s"] > DEVICE_WAIT_MAX_S:
+        _fail(f"watchdog_device_wait took {res['phase_s']:.1f} s, want <= "
+              f"{DEVICE_WAIT_MAX_S}")
+    return res
 
 
 #: The service thread's parts as its spans name them (apex_service_pong's
@@ -2795,7 +3165,21 @@ def check_serving_apex(sampler, directory: str) -> int:
     and serves the step-200 net's actions after the swap; 429 with
     Retry-After and no 5xx under overload; the CLI announces, answers,
     serves /healthz and /metrics and drains to rc 0 on SIGTERM. Prints
-    the timings; no sampler launch (returns the count)."""
+    the timings; no sampler launch (returns the count). Runs armed
+    (:class:`_ArmedForensics`): the batcher's ``serving.batcher`` stage
+    is swept with no stall, trip or bundle, and the CLI, given
+    ``--forensics-dir`` and ``--fleet-dir``, is a ``serving`` member of
+    the fleet while it serves and leaves none behind."""
+    t_phase = time.perf_counter()
+    armed = _ArmedForensics("serving_apex", directory)
+    try:
+        return _serving_apex(sampler, directory, armed, t_phase)
+    finally:
+        armed.close()
+
+
+def _serving_apex(sampler, directory: str, armed, t_phase: float) -> int:
+    """The body of :func:`check_serving_apex`, armed."""
     import dataclasses
     import http.client
     import itertools
@@ -2816,7 +3200,6 @@ def check_serving_apex(sampler, directory: str) -> int:
     from dist_dqn_tpu_torch.telemetry import get_registry
     from dist_dqn_tpu_torch.utils.checkpoint import TrainCheckpointer
 
-    t_phase = time.perf_counter()
     cfg = CONFIGS["apex"]
     env = make_env(cfg.env_name, device=DEVICE)
     shape, n_act = tuple(env.observation_shape), env.num_actions
@@ -3107,6 +3490,10 @@ def check_serving_apex(sampler, directory: str) -> int:
         if arm["errors"] or not arm["requests"]:
             _fail(f"serving_apex: closed loop (batching={batching}): {arm}")
     key = "dqn_serving_requests_total{policy=default}"
+    forensics = armed.hold(tm)
+    if "serving.batcher" not in forensics["stages_swept"]:
+        _fail(f"serving_apex: the batcher's heartbeat was never swept: "
+              f"{forensics['stages_swept']}")
     scrape = tm.scrape()
     scrape.hold({key: (scrape.grew(key), served),
                  "dqn_program_dispatches_total{loop=serving,"
@@ -3128,7 +3515,8 @@ def check_serving_apex(sampler, directory: str) -> int:
     proc = subprocess.Popen(
         [sys.executable, "-m", "dist_dqn_tpu_torch.serving", "--config",
          "apex", "--checkpoint-dir", directory, "--port", "0",
-         "--telemetry-port", "0"],
+         "--telemetry-port", "0", "--forensics-dir", armed.dir,
+         "--fleet-dir", armed.fleet_dir],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     cli, lines = {}, []
@@ -3154,6 +3542,11 @@ def check_serving_apex(sampler, directory: str) -> int:
         if "port" not in cli:
             _fail(f"serving_apex: the CLI never announced its port: "
                   f"{lines[-20:]}")
+        desc_path = os.path.join(armed.fleet_dir,
+                                 f"serving-{proc.pid}.json")
+        with open(desc_path) as f:
+            desc = json.load(f)
+        cli["fleet_descriptor"] = {k: desc[k] for k in ("role", "port")}
         c = ServingClient(f"127.0.0.1:{cli['port']}")
         try:
             r = c.act(obs[:2], greedy=True)
@@ -3188,12 +3581,17 @@ def check_serving_apex(sampler, directory: str) -> int:
     tail = [json.loads(ln) for ln in rest.splitlines() if ln.startswith("{")]
     cli["drained"] = bool(tail) and tail[-1].get("serving_drained") is True
     cli["s"] = time.perf_counter() - t_cli
+    cli["fleet_left"] = sorted(os.listdir(armed.fleet_dir))
+    cli["bundles"] = _bundles(armed.dir)
     out["cli"] = cli
     if (cli["rc"] != 0 or not cli["drained"] or not cli["answered"]
             or cli["healthz"] != 200 or cli["metrics_status"] != 200
             or not cli["metrics_requests"]
             or cli["telemetry_endpoint_requests"]
-            != ['dqn_serving_requests_total{policy="default"} 1']):
+            != ['dqn_serving_requests_total{policy="default"} 1']
+            or cli["fleet_descriptor"] != {
+                "role": "serving", "port": cli["telemetry_port"]}
+            or cli["fleet_left"] or cli["bundles"]):
         _fail(f"serving_apex: the CLI: {cli} {rest[-2000:]}")
 
     launches = sampler.kernel_stratified_sample.launches
@@ -4452,8 +4850,70 @@ APEX_DIST_PHASES = {
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
           "population_learner_lockstep", *HOST_REPLAY_PHASES,
-          *APEX_SERVICE_PHASES, "serving_apex", *MESH_PHASES,
+          *APEX_SERVICE_PHASES, "serving_apex", "watchdog_device_wait",
+          *MESH_PHASES,
           "sharded_store_device", *APEX_DIST_PHASES, *BAR_PHASES)
+
+
+def start_bars(phases):
+    """Start the selected learning bars (BAR_PHASES order) in a side
+    process of this script, which runs them one after the other while
+    this process runs the phases after the fused paths: the bars are
+    host-bound on one thread each and took 498 s of a slow host's 1,424
+    (PERF.md §4); a bar's frames to its bar do not depend on its wall. The
+    side process's lines pass through, and it is killed if this process
+    exits first. Returns the handle :func:`finish_bars` takes, or None."""
+    import atexit
+    import threading
+
+    names = [n for n in BAR_PHASES if n in phases]
+    if not names:
+        return None
+    got = {}
+    side = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--bar-worker",
+         ",".join(names)], stdout=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def relay():
+        # To the process's own stdout: a phase that captures sys.stdout
+        # (the mesh and evaluate CLIs' rows) must not read the bars'.
+        for line in side.stdout:
+            sys.__stdout__.write(line)
+            sys.__stdout__.flush()
+            if line.startswith('{"bar_worker"'):
+                got.update(json.loads(line)["bar_worker"])
+
+    def kill():
+        if side.poll() is None:
+            side.kill()
+            side.wait()
+
+    atexit.register(kill)
+    reader = threading.Thread(target=relay, daemon=True,
+                              name="bar-worker-relay")
+    reader.start()
+    print(json.dumps({"bars_started": names}), flush=True)
+    return side, reader, got, names, time.perf_counter(), kill
+
+
+def finish_bars(handle) -> dict:
+    """Wait for the bars' side process: it must exit 0 having reached
+    every bar. Returns their sampler launches by bar."""
+    if handle is None:
+        return {}
+    side, reader, got, names, t0, kill = handle
+    try:
+        rc = side.wait()
+        reader.join(timeout=30)
+    finally:
+        kill()
+    print(json.dumps({"bars_done": names, "rc": rc,
+                      "wall_s": time.perf_counter() - t0}), flush=True)
+    if rc != 0 or set(got) != set(names):
+        _fail(f"learning bars: their process ended with {rc}, reporting "
+              f"{got} of {names}")
+    return got
 
 
 def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
@@ -4895,6 +5355,10 @@ def main(argv=None) -> int:
                         help="comma-separated phases to run, of "
                              f"{', '.join(PHASES)}; a partial run prints "
                              "no result line (default: all)")
+    # start_bars' side process: these learning bars only, then their
+    # launches on one line.
+    parser.add_argument("--bar-worker", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -4916,6 +5380,14 @@ def main(argv=None) -> int:
         built = {n: str(f.result()) for n, f in futures.items()}
     print(json.dumps({"built": built,
                       "build_s": time.perf_counter() - t_start}), flush=True)
+    if args.bar_worker:
+        worker = {}
+        for name in args.bar_worker.split(","):
+            worker[name] = run_learning_bar(name, sampler)
+            print(json.dumps({"bar_done": name, "elapsed_s":
+                              time.perf_counter() - t_start}), flush=True)
+        print(json.dumps({"bar_worker": worker}), flush=True)
+        return 0
 
     sampler_report = (check_sampler(sampler, TIMING_ITERS)
                       if "sampler" in phases else None)
@@ -4933,9 +5405,13 @@ def main(argv=None) -> int:
             launches["population_learner_lockstep"] = \
                 check_population_learner_lockstep(sampler)
             _clock("population_learner_lockstep")
+        # The bars run beside the rest from here: the sampler's timing and
+        # the fused paths' chip-time and kernel counts are taken alone.
+        bars = start_bars(phases)
         if "host_replay_apex_dedup" in phases:
             launches["host_replay_apex_dedup"] = \
-                check_host_replay_apex_dedup(sampler)
+                check_host_replay_apex_dedup(
+                    sampler, os.path.join(tmp, "host_replay_apex_dedup"))
             _clock("host_replay_apex_dedup")
         if "host_replay_uniform_pair" in phases:
             launches["host_replay_uniform_pair"] = \
@@ -4978,6 +5454,10 @@ def main(argv=None) -> int:
             launches["serving_apex"] = check_serving_apex(
                 sampler, os.path.join(tmp, "serving_apex"))
             _clock("serving_apex")
+        if "watchdog_device_wait" in phases:
+            check_watchdog_device_wait(
+                os.path.join(tmp, "watchdog_device_wait"))
+            _clock("watchdog_device_wait")
         if "mesh_apex_nccl" in phases:
             launches["mesh_apex_nccl"] = check_mesh_apex_nccl(
                 sampler, os.path.join(tmp, "mesh_apex_nccl"))
@@ -4993,10 +5473,7 @@ def main(argv=None) -> int:
             launches[name] = check(sampler)
             _clock(name)
 
-    for name in BAR_PHASES:
-        if name in phases:
-            launches[name] = run_learning_bar(name, sampler)
-            _clock(name)
+    launches.update(finish_bars(bars))
 
     print(json.dumps({"phases": phases,
                       "wall_s": time.perf_counter() - t_start}), flush=True)

@@ -14,9 +14,11 @@ lock-step, reconnecting with a fresh hello when the connection drops.
 Each actor process keeps its own telemetry registry (a wall-clock
 heartbeat gauge, its env steps and, remote, its connects) and dumps it at
 exit or SIGTERM where ``DQN_TELEMETRY_SNAPSHOT`` names a file (``{pid}`` and
-``{tag}`` expand per process). The watchdog's stage heartbeats and the chaos
-seams are not ported (ROADMAP.md A10c, A10d). This module imports numpy and
-no torch: the service starts actors with the ``spawn`` method, and an actor
+``{tag}`` expand per process). Where ``DQN_FORENSICS_DIR`` is set each
+actor arms its own stall watchdog and beats an ``actor.loop`` heartbeat
+every step, so a worker wedged inside ``env.step`` or a transport wait
+dumps its own forensics bundle. The chaos seams are not ported (ROADMAP.md
+A10d). This module imports numpy and no torch: the service starts actors with the ``spawn`` method, and an actor
 never initialises CUDA.
 """
 from __future__ import annotations
@@ -34,6 +36,7 @@ from dist_dqn_tpu_torch.actors.transport import (CORRUPT_FRAME_NACK_KIND,
 from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
 from dist_dqn_tpu_torch.telemetry import (get_registry,
                                           maybe_install_snapshot_from_env)
+from dist_dqn_tpu_torch.telemetry import watchdog
 
 
 def _actor_telemetry(actor_id: int, tag: str):
@@ -41,14 +44,23 @@ def _actor_telemetry(actor_id: int, tag: str):
     wall-clock heartbeat gauge and the steps counter. Actors are separate
     processes, so the registry is process-local; ``DQN_TELEMETRY_SNAPSHOT``
     dumps it on exit (SIGTERM included), which is how a post-mortem tells
-    a wedged actor (stale heartbeat) from a dead one."""
+    a wedged actor (stale heartbeat) from a dead one.
+
+    Also arms the process's stall watchdog from ``DQN_FORENSICS_DIR`` (the
+    service CLI's ``--forensics-dir`` exports it) and returns the
+    ``actor.loop`` stage heartbeat."""
     reg = get_registry()
     maybe_install_snapshot_from_env(tag=f"{tag}{actor_id}")
+    watchdog.maybe_install_from_env()
     labels = {"actor": str(actor_id)}
     return (reg.gauge("dqn_actor_heartbeat_timestamp",
                       "unix time of the last step-loop pass", labels),
             reg.counter("dqn_actor_env_steps_total",
-                        "env steps taken by this actor process", labels))
+                        "env steps taken by this actor process", labels),
+            # Startup grace: the first pass waits on the service's first
+            # act, which pays its one-time set-up.
+            watchdog.heartbeat("actor.loop",
+                               startup_grace_s=watchdog.STARTUP_GRACE_S))
 
 
 def _step_and_encode(env, actions, actor_id: int, t: int,
@@ -152,7 +164,7 @@ def run_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
         payload = encode_arrays({"obs": obs},
                                 _hello_meta(actor_id, t, transport))
     box = ShmMailbox(act_box)
-    heartbeat, steps_total = _actor_telemetry(actor_id, "actor")
+    heartbeat, steps_total, hb_stage = _actor_telemetry(actor_id, "actor")
     steps = 0
     params_ver = 0
     try:
@@ -182,6 +194,7 @@ def run_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
             steps += num_envs
             steps_total.inc(num_envs)
             heartbeat.set(time.time())
+            hb_stage.beat()
             while not ring.push(payload):
                 if os.path.exists(stop_path):
                     return
@@ -238,7 +251,7 @@ def run_remote_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
             compress="auto"))
         return client
 
-    heartbeat, steps_total = _actor_telemetry(actor_id, "remote")
+    heartbeat, steps_total, hb_stage = _actor_telemetry(actor_id, "remote")
     reconnects = get_registry().counter(
         "dqn_actor_reconnects_total",
         "remote-actor connection (re)establishments",
@@ -268,6 +281,7 @@ def run_remote_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
                 reconnects.inc()
             except OSError:
                 failures += 1
+                hb_stage.beat()      # retrying is responsive, not wedged
                 backoff = min(reconnect_backoff_s
                               * (2.0 ** min(failures - 1, 6)),
                               max_reconnect_backoff_s)
@@ -308,6 +322,7 @@ def run_remote_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
         steps += num_envs
         steps_total.inc(num_envs)
         heartbeat.set(time.time())
+        hb_stage.beat()
         if not client.push(payload):
             client.close()
             client = None

@@ -20,9 +20,11 @@ Each feeder process counts the records it pushed and the pushes a full ring
 refused (``dqn_feeder_records_total``, ``dqn_feeder_ring_full_total``: the
 service-is-the-bottleneck signal this load generator exists to measure)
 in its own registry, and dumps it at exit or SIGTERM where
-``DQN_TELEMETRY_SNAPSHOT`` names a file. The heartbeat gauge, watchdog
-heartbeat and chaos seams are not ported (ROADMAP.md A10c, A10d). This
-module imports numpy and no torch.
+``DQN_TELEMETRY_SNAPSHOT`` names a file, beside the wall-clock heartbeat
+gauge of its pump loop. Where ``DQN_FORENSICS_DIR`` is set it arms its own
+stall watchdog and beats a ``feeder.pump`` heartbeat on the gauge's
+cadence. The chaos seams are not ported (ROADMAP.md A10d). This module
+imports numpy and no torch.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import numpy as np
 from dist_dqn_tpu_torch import ingest
 from dist_dqn_tpu_torch.telemetry import (get_registry,
                                           maybe_install_snapshot_from_env)
+from dist_dqn_tpu_torch.telemetry import watchdog as tm_watchdog
 from dist_dqn_tpu_torch.actors.transport import (ShmMailbox, ShmRing,
                                                  encode_arrays)
 
@@ -162,11 +165,21 @@ def run_feeder(actor_id: int, spec: str, num_envs: int, seed: int,
     box = ShmMailbox(act_box)
     reg = get_registry()
     maybe_install_snapshot_from_env(tag=f"feeder{actor_id}")
+    # Feeders are processes of their own: each arms its own watchdog from
+    # DQN_FORENSICS_DIR (the parent's --forensics-dir) and beats a stage
+    # heartbeat on the liveness gauge's cadence. Startup grace: the first
+    # beat waits on the service's hello reply, which waits on its first
+    # act.
+    tm_watchdog.maybe_install_from_env()
+    hb = tm_watchdog.heartbeat(
+        "feeder.pump", startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
     labels = {"actor": str(actor_id)}
     c_records = reg.counter("dqn_feeder_records_total",
                             "records pushed into the shm ring", labels)
     c_full = reg.counter("dqn_feeder_ring_full_total",
                          "push attempts refused by a full ring", labels)
+    g_heartbeat = reg.gauge("dqn_actor_heartbeat_timestamp",
+                            "unix time of the last pump-loop pass", labels)
     steps = 0
     i = 0
     last_mark = 0
@@ -202,10 +215,14 @@ def run_feeder(actor_id: int, spec: str, num_envs: int, seed: int,
                     stop = os.path.exists(stop_path)
                     c_records.inc(i - last_mark)
                     last_mark = i
+                    g_heartbeat.set(time.time())
+                    hb.beat()
             else:
                 # Ring full: the service is the bottleneck, which is what
                 # a feeder run measures. Yield briefly and retry.
                 c_full.inc()
+                g_heartbeat.set(time.time())
+                hb.beat()
                 time.sleep(0.0005)
                 stop = os.path.exists(stop_path)
     finally:

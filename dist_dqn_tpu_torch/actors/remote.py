@@ -15,9 +15,10 @@ again, so killing and restarting one costs at most one assembly window.
 
 ``--telemetry-port P`` serves the worker's telemetry registry (its env
 steps and connects) at ``/metrics`` (0: an ephemeral port, printed as
-``{"telemetry_port": N}``). This module imports numpy and no torch. The JAX
-entry's ``--fleet-dir`` and ``--forensics-dir`` are refused (ROADMAP.md
-A10c).
+``{"telemetry_port": N}``) and, with ``--fleet-dir`` (or
+``DQN_FLEET_DIR``), announces it to the run's fleet as an ``actor``-role
+member; ``--forensics-dir`` arms the worker's stall watchdog. This module
+imports numpy and no torch.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import tempfile
 
 from dist_dqn_tpu_torch import telemetry
 from dist_dqn_tpu_torch.actors.actor import run_remote_actor
+from dist_dqn_tpu_torch.telemetry import fleet, watchdog
 
 
 def main(argv=None) -> None:
@@ -59,19 +61,32 @@ def main(argv=None) -> None:
                              "text) on this port; 0 = ephemeral. Worker "
                              "hosts are scraped independently of the "
                              "learner (docs/observability.md)")
-    # Flags of the JAX entry that are not ported: refused, never ignored.
-    parser.add_argument("--fleet-dir", default=None)
-    parser.add_argument("--forensics-dir", default=None)
+    parser.add_argument("--fleet-dir", default=None,
+                        help="announce this worker's telemetry endpoint "
+                             "as an actor-role descriptor so the fleet "
+                             "aggregator (python -m dist_dqn_tpu_torch."
+                             "telemetry.fleet) federates it; defaults "
+                             "to $DQN_FLEET_DIR")
+    parser.add_argument("--forensics-dir", default=None,
+                        help="arm this worker's stall watchdog: a wedged "
+                             "step loop dumps a forensics bundle (named "
+                             "thread stacks, flight-recorder tail, "
+                             "registry snapshot, manifest) under this "
+                             "directory and flips the worker's /healthz "
+                             "to 503 (the hang runbook in README.md)")
     args = parser.parse_args(argv)
-    refused = [flag for flag, given in (
-        ("--fleet-dir", args.fleet_dir is not None),
-        ("--forensics-dir", args.forensics_dir is not None)) if given]
-    if refused:
-        raise SystemExit(f"not ported yet: {', '.join(refused)} "
-                         "(ROADMAP.md A10c)")
+    # Through the environment, so the watchdog arms where spawned workers
+    # arm theirs (actors/actor.py _actor_telemetry); an explicit flag
+    # overrides whatever the supervisor exported.
+    if args.forensics_dir:
+        os.environ[watchdog.FORENSICS_ENV] = args.forensics_dir
+    if args.fleet_dir:
+        os.environ[fleet.FLEET_ENV] = args.fleet_dir
+    # Registered after bind, so the descriptor carries the real port.
     server = telemetry.serve_if_asked(
         args.telemetry_port, "127.0.0.1",
-        functools.partial(print, flush=True))
+        functools.partial(print, flush=True), role="actor",
+        labels={"actor_id": str(args.actor_id)})
     host, port = args.address.rsplit(":", 1)
     seed = args.seed if args.seed is not None else 1000 + 7 * args.actor_id
     run_remote_actor(args.actor_id, args.env, args.num_envs, seed,

@@ -88,6 +88,7 @@ from dist_dqn_tpu_torch.envs.gym_adapter import make_host_env
 from dist_dqn_tpu_torch.telemetry import collectors as tmc
 from dist_dqn_tpu_torch.telemetry import devtime
 from dist_dqn_tpu_torch.telemetry import get_registry, serve_if_asked
+from dist_dqn_tpu_torch.telemetry import watchdog as tm_watchdog
 from dist_dqn_tpu_torch.utils import flops
 from dist_dqn_tpu_torch.utils.device import resolve_device
 from dist_dqn_tpu_torch.utils.metrics import MetricLogger
@@ -475,7 +476,8 @@ class ApexLearnerService:
             self._build(log_fn, obs_example, axis, slot)
             # Every process of a multi-host group binds its own.
             self.telemetry_server = serve_if_asked(
-                rt.telemetry_port, rt.telemetry_host, log_fn)
+                rt.telemetry_port, rt.telemetry_host, log_fn,
+                role="learner", labels={"loop": "apex"})
         except BaseException:
             self.shutdown()
             raise
@@ -680,6 +682,9 @@ class ApexLearnerService:
         self._replay_draws_counted = 0
         self.ingest_passes = 0
         self._last_loss = 0.0
+        # Held over each train event's launches (the emergency hook's
+        # side of it: telemetry/watchdog.py FenceLock).
+        self._fence = tm_watchdog.FenceLock()
         self.replay_snapshot: Optional[dict] = None
         self.learner_replicas_equal: Optional[bool] = None
         # Wall clock marks of the summary: the run, the first train event.
@@ -764,8 +769,7 @@ class ApexLearnerService:
         """Registry instruments of the service loop (JAX
         ``actors/service.py:747-860``): pipeline queue depths, throughput
         counters, and the grad-step latency and param-mirror staleness
-        histograms that localize a learner-utilization drop. The
-        chip-time plane's program table is ROADMAP.md A10b."""
+        histograms that localize a learner-utilization drop."""
         reg = get_registry()
         self._tm_env_steps = reg.counter(
             tmc.ENV_STEPS, "env transitions ingested from actors")
@@ -1007,6 +1011,27 @@ class ApexLearnerService:
         suffix = f"_p{self._rank}" if self.distributed else ""
         return os.path.join(self.rt.checkpoint_dir,
                             f"replay_shard{suffix}.npz")
+
+    def _emergency_save(self) -> None:
+        """The ``apex.checkpoint`` emergency hook (a watchdog abort runs
+        it on a side thread): the learner as the last launched train
+        event leaves it (``_fence`` is held over each event's launches,
+        and the copy queues behind them on the same stream), to a side
+        file, and with ``--checkpoint-replay`` the raw store snapshot
+        without the quiescing flushes of the periodic save (those touch
+        service state the wedged main thread may hold): a salvage
+        artifact whose newest in-flight priorities may be missing."""
+        from dist_dqn_tpu_torch.utils.checkpoint import (atomic_savez,
+                                                        save_emergency)
+
+        save_emergency(os.path.join(self.rt.checkpoint_dir,
+                                    "emergency_learner.pt"),
+                       lambda: {"learner": self.state}, self._fence,
+                       tm_watchdog.EMERGENCY_FENCE_WAIT_S)
+        if self.rt.checkpoint_replay and len(self.replay):
+            atomic_savez(os.path.join(self.rt.checkpoint_dir,
+                                      "emergency_replay.npz"),
+                         **self.replay.state_dict())
 
     def _save_replay_snapshot(self) -> None:
         """Snapshot the shard beside the learner checkpoint, atomically.
@@ -1517,6 +1542,7 @@ class ApexLearnerService:
             rid = self._reply_actions(actor, arrays["obs"], t)
             emitted = asm.drain()
             if emitted is not None:
+                self._stamp_lineage(emitted, meta)
                 self._prio_await.append((actor, rid, emitted))
             return
         emitted = asm.drain()
@@ -1536,9 +1562,28 @@ class ApexLearnerService:
                 self.replay.add(emitted, priorities=prios,
                                 shard=self.router.shard_for(actor))
             else:
+                self._stamp_lineage(emitted, meta)
                 self._pending.append(emitted)
                 self._pending_count += emitted["action"].shape[0]
         self._reply_actions(actor, arrays["obs"], t)
+
+    def _stamp_lineage(self, emitted: Dict, meta: Dict) -> None:
+        """Attach the record's wire lineage stamp to every transition it
+        emitted (JAX ``_stamp_lineage``). Record granularity: an n-step
+        window spans at most n_step actor steps, so the completing
+        record's birth time and acting-params version bound the whole
+        window. The stores are field-generic (add, sample, snapshot and
+        reshard carry any key) and every path to the card names its
+        fields (``_host_batch``, ``_boot_tensors``; the learner ranks
+        broadcast what ``_host_batch`` selected), so the two host lanes
+        ride to sample time and never reach the card or a collective."""
+        bt = meta.get("birth_time")
+        if bt is None:
+            return
+        n = emitted["action"].shape[0]
+        emitted["lineage_birth_time"] = np.full(n, bt, np.float64)
+        emitted["lineage_params_version"] = np.full(
+            n, int(meta.get("params_version", 0)), np.int64)
 
     def _insert_actor_prio(self) -> None:
         """Insert the transitions parked this pass with priorities
@@ -1952,13 +1997,15 @@ class ApexLearnerService:
                 if len(self._stager) == 0:
                     self._stage_batch(batch_size, beta)
                 args, (idx, gen) = self._stager.pop()
-                with self.tracer.span("train_step.dispatch", **span):
+                with self.tracer.span("train_step.dispatch", **span), \
+                        self._fence.held():
                     metrics = self._train_event(*args)
                 if self.grad_steps + self.replay_ratio < target_grad_steps:
                     self._stage_batch(batch_size, beta)
             else:
                 host, (idx, gen) = self._host_batch(batch_size, beta)
-                with self.tracer.span("train_step.dispatch", **span):
+                with self.tracer.span("train_step.dispatch", **span), \
+                        self._fence.held():
                     metrics = self._train_event(*self._to_device(host))
             self._count_device_call("train")
             self.grad_steps += self.replay_ratio
@@ -2013,8 +2060,13 @@ class ApexLearnerService:
         if not self._in_flight:
             return
         idx, gen, metrics, t_dispatch = self._in_flight.popleft()
-        out = torch.cat([metrics["priorities"].float().reshape(-1),
-                         metrics["loss"].float().reshape(1)]).cpu().numpy()
+        # One read: the priorities, then the loss (and the grad norm of a
+        # step that reports one; a scanned event reports the mean loss).
+        scalars = [metrics[k] for k in ("loss", "grad_norm") if k in metrics]
+        prios = metrics["priorities"].float().reshape(-1)
+        out = torch.cat([prios] + [x.float().reshape(1) for x in scalars]
+                        ).cpu().numpy()
+        n = prios.shape[0]
         # Dispatch -> materialized: the read above waited for this step
         # (and up to pipeline_depth - 1 queued before it).
         t_retire = time.perf_counter()
@@ -2032,8 +2084,16 @@ class ApexLearnerService:
             self._attach_train_cost(self._census_args)
             self._census_args = None
             self._devtime_anchor = time.perf_counter()
-        self._last_loss = float(out[-1])
-        self._prio_pending.append((idx, out[:-1], gen))
+        self._last_loss = float(out[n])
+        # The divergence sentinel on every retired event's loss (and grad
+        # norm), from the one read above, no device read of its own:
+        # NaN/Inf dumps a forensics bundle once instead of the run
+        # training on to garbage.
+        tm_watchdog.observe_divergence(
+            loss=self._last_loss,
+            grad_norm=float(out[n + 1]) if len(scalars) > 1 else None,
+            step=self.grad_steps)
+        self._prio_pending.append((idx, out[:n], gen))
         self._profile_stop()
         self._flush_prio_writebacks()
 
@@ -2180,6 +2240,19 @@ class ApexLearnerService:
     def run(self) -> dict:
         """The service loop until ``total_env_steps`` env steps have been
         ingested; returns the summary (the JAX service's keys)."""
+        # Stall-watchdog heartbeats (null-safe until --forensics-dir arms
+        # them): "apex.ingest" proves the drain/act half of the loop turns
+        # over, "apex.learner" the train half. A pass wedged inside a
+        # device wait, a transport lock or the sum tree leaves both stale
+        # and the forensics stacks show where. Startup grace covers the
+        # spawn and the first pass's one-time set-up.
+        hb_ingest = tm_watchdog.heartbeat(
+            "apex.ingest", startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
+        hb_learner = tm_watchdog.heartbeat(
+            "apex.learner", startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
+        if self.rt.checkpoint_dir:
+            tm_watchdog.register_emergency_hook("apex.checkpoint",
+                                                self._emergency_save)
         try:
             self.spawn_actors()
             self._t_run = self._last_record = time.perf_counter()
@@ -2196,9 +2269,11 @@ class ApexLearnerService:
                     self._insert_actor_prio()
                     t2 = clock()
                     self._flush_pending()
+                    hb_ingest.beat()
                     t3 = clock()
                     grad_steps, trace_s = self.grad_steps, loop_s["trace"]
                     self._maybe_train()
+                    hb_learner.beat()
                     t4 = clock()
                 loop_s["drain"] += t1 - t0
                 loop_s["act"] += t2 - t1
@@ -2289,6 +2364,9 @@ class ApexLearnerService:
             self._t_end = time.perf_counter()
             self._clean_exit = True
         finally:
+            tm_watchdog.unregister_emergency_hook("apex.checkpoint")
+            hb_ingest.close()
+            hb_learner.close()
             self._profile_tracer.stop()
             self.tracer.close()
             self.shutdown()

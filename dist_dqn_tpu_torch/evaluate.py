@@ -13,8 +13,9 @@ a population run's stacked checkpoint (and is required there).
 ``dmc:<domain>:<task>``), the deploy-side counterpart of an Ape-X run. Runs
 on ``cuda`` unless ``--device cpu`` is given. ``--telemetry-port``,
 ``--telemetry-host`` and ``--telemetry-snapshot`` expose the process's
-telemetry registry as the train CLI does; ``--fleet-dir`` raises (ROADMAP.md
-A10c).
+telemetry registry as the train CLI does; with ``--fleet-dir`` (or
+``DQN_FLEET_DIR``) the endpoint joins the run's fleet as an ``eval``-role
+member.
 """
 from __future__ import annotations
 
@@ -247,14 +248,6 @@ def _apply_risk_eta(cfg: ExperimentConfig, eta) -> ExperimentConfig:
         cfg, network=dataclasses.replace(cfg.network, risk_cvar_eta=eta))
 
 
-def _refuse_unported(args) -> None:
-    """Flags of the JAX CLI this port does not implement yet, refused with
-    the ROADMAP.md item that brings them."""
-    if args.fleet_dir is not None:
-        raise SystemExit("not ported yet: --fleet-dir (fleet registration, "
-                         "ROADMAP.md A10c)")
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", choices=sorted(CONFIGS), required=True)
@@ -308,17 +301,21 @@ def main(argv=None):
                         help="dump a JSON snapshot of the telemetry "
                              "registry to this path at exit (offline "
                              "runs; same data as /metrics.json)")
-    # Flags of the JAX CLI that are not ported: accepted only to be refused
-    # with a reason, never ignored.
-    parser.add_argument("--fleet-dir", default=None)
+    parser.add_argument("--fleet-dir", default=None,
+                        help="fleet registry directory: announce this eval "
+                             "run's telemetry endpoint as an eval-role "
+                             "member (requires --telemetry-port); "
+                             "defaults to $DQN_FLEET_DIR")
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     # The train CLI's scrape and snapshot knobs.
     if args.telemetry_snapshot:
         telemetry.install_snapshot_dump(args.telemetry_snapshot)
+    if args.fleet_dir:
+        from dist_dqn_tpu_torch.telemetry import fleet
+        os.environ[fleet.FLEET_ENV] = args.fleet_dir
     server = telemetry.serve_if_asked(
         args.telemetry_port, args.telemetry_host,
-        functools.partial(print, flush=True))
+        functools.partial(print, flush=True), role="eval")
     if args.export_params and (args.all_steps or args.host_env):
         parser.error("--export-params applies to the single-point surface "
                      "of the config's env (not --all-steps or --host-env)")

@@ -69,9 +69,18 @@ registry (``{loop="host_replay"}``: the evacuation overlap and fence
 wait, D2H bytes, the learner config gauges and grad rate, the per-shard
 collect dispatch wall under the mesh, and the checkpoint saves, resumes
 and refusals by reason), beside those of its ring, samplers and staging.
-``telemetry_port`` serves rank 0's registry at ``/metrics``. The
-heartbeats, flight records, watchdog hooks and chaos seams are not ported
-yet (ROADMAP.md A10c, A10d).
+``telemetry_port`` serves rank 0's registry at ``/metrics`` (and
+announces it to the run's fleet under ``DQN_FLEET_DIR``).
+
+Crash forensics (null-safe until the CLI arms them): the collect and
+train stages beat their heartbeats (``host_replay.collect``, or
+``host_replay.collect.s{rank}`` on a mesh rank, which is a process of its
+own with its own watchdog; ``host_replay.train``), each chunk records a
+``fence`` and a ``train`` flight event, the divergence sentinel sees every
+train event's loss and a non-finite end-of-run param checksum, and the
+``host_replay.checkpoint`` emergency hook saves the learner at its last
+fence plus this rank's ring as a side snapshot. The chaos seams are not
+ported yet (ROADMAP.md A10d).
 """
 from __future__ import annotations
 
@@ -104,6 +113,8 @@ from dist_dqn_tpu_torch.replay.sharded import (shard_state,
 from dist_dqn_tpu_torch.telemetry import collectors as tmc
 from dist_dqn_tpu_torch.telemetry import devtime
 from dist_dqn_tpu_torch.telemetry import get_registry, serve_if_asked
+from dist_dqn_tpu_torch.telemetry import flight as tm_flight
+from dist_dqn_tpu_torch.telemetry import watchdog as tm_watchdog
 from dist_dqn_tpu_torch.replay.staging import (DoubleBufferedStager,
                                                EvacuationWorker,
                                                SamplePrefetcher,
@@ -111,9 +122,11 @@ from dist_dqn_tpu_torch.replay.staging import (DoubleBufferedStager,
 from dist_dqn_tpu_torch.types import Transition
 from dist_dqn_tpu_torch.utils import ckpt_schema, flops
 from dist_dqn_tpu_torch.utils.checkpoint import (TrainCheckpointer,
+                                                atomic_savez,
                                                 load_state_tree,
                                                 record_checkpoint_kind,
-                                                state_tree, tree_leaves)
+                                                save_emergency, state_tree,
+                                                tree_leaves)
 from dist_dqn_tpu_torch.utils.device import resolve_device
 
 
@@ -1162,7 +1175,47 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                      if profile_dir else -1)
     tracer = devtime.maybe_trace_first_chunk(profile_dir)
     server = serve_if_asked(telemetry_port if main else None,
-                            telemetry_host, log_fn)
+                            telemetry_host, log_fn, role="learner",
+                            labels={"loop": "host_replay"})
+    # Crash forensics: per-stage heartbeats (the evacuation and prefetch
+    # stages beat inside their workers) with startup grace for the first
+    # chunk's one-time set-up, per-chunk flight events, the sentinel on
+    # each train event's loss. A mesh rank names its shard in its stage.
+    fr = tm_flight.get_flight()
+    hb_collect = tm_watchdog.heartbeat(
+        f"host_replay.collect.s{rank}" if mesh_mode
+        else "host_replay.collect",
+        startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
+    hb_train = tm_watchdog.heartbeat(
+        "host_replay.train", startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
+    # The train section mutates the learner in place from its first step
+    # to its stream's fence; the emergency hook copies it only between.
+    fence = tm_watchdog.FenceLock()
+    if checkpoint_dir:
+        def _emergency_save():
+            """The learner at its last fence (rank 0) plus this rank's
+            ring and PER sampler under the ring's own fence: a redeploy
+            and forensics artifact, not a bit-identical resume point (the
+            loop cursors are not quiesced, so the sidecar carries none of
+            the resume schema's fields)."""
+            if main:
+                save_emergency(
+                    os.path.join(checkpoint_dir, "emergency_learner.pt"),
+                    lambda: {"learner": state}, fence,
+                    tm_watchdog.EMERGENCY_FENCE_WAIT_S)
+            # Ring and sampler under one hold of the ring's fence: appends
+            # may still be in flight, and a publish between the two
+            # snapshots would tear sampler mass against ring state.
+            eside = {f"ring_{k}": v for k, v in shard_state(
+                rank, ring, per_sampler).items()}
+            eside.update(dp=np.int64(dp), per=np.bool_(per_enabled),
+                         env_steps=np.int64(env_steps))
+            name = (f"emergency_sidecar.s{rank}.npz" if mesh_mode
+                    else "emergency_sidecar.npz")
+            atomic_savez(os.path.join(checkpoint_dir, name), **eside)
+
+        tm_watchdog.register_emergency_hook("host_replay.checkpoint",
+                                            _emergency_save)
     try:
         # Extending a finished run: its checkpoint is a final save (no
         # chunk in flight), so it dispatches as a fresh start does.
@@ -1192,6 +1245,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 # evacuation tail and training.
                 if g + 1 < num_chunks:
                     next_records, next_stats = _dispatch_chunk()
+                hb_collect.beat()
                 t_dispatch = time.perf_counter()
                 # Stage 2: fence on chunk g's evacuation.
                 handle.wait()
@@ -1217,95 +1271,104 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 t_evac_parts = (t_mono_fetch - t0, t_fence - t_mono_fetch)
                 if g + 1 < num_chunks:
                     next_records, next_stats = _dispatch_chunk()
+                hb_collect.beat()
             local_fence_wait_s = fence_wait_s
             records = next_records
+            fr.record("fence", "host_replay.chunk", chunk=g,
+                      fence_wait_s=round(fence_wait_s, 4),
+                      evac_s=round(evac_s, 4), d2h_bytes=d2h_bytes)
             env_steps += chunk_iters * B
             # Occupancy after chunk g's fence, before chunk g+1's appends.
             ring_transitions = ring.size * B
 
             # Stage 3: chunk g's train event.
-            did = 0
-            ev_sample_s = ev_wait_s = 0.0
-            ev_depth_sum = ev_stale = 0
-            if (ring.can_sample(cfg.learner.n_step)
-                    and ring_transitions >= cfg.replay.min_fill):
-                train_debt_iters += chunk_iters
-                events = train_debt_iters // max(cfg.train_every, 1)
-                train_debt_iters -= events * max(cfg.train_every, 1)
-                grads_this_chunk = events * updates_per_train
-                if grads_this_chunk:
-                    # Chunk g is published and chunk g+1's appends wait
-                    # until this event's samples are drawn: the generation
-                    # is stable across the event.
-                    fence_gen = ring.generation
+            # The fence lock spans the learner's in-place updates.
+            with fence.held():
+                did = 0
+                ev_sample_s = ev_wait_s = 0.0
+                ev_depth_sum = ev_stale = 0
+                if (ring.can_sample(cfg.learner.n_step)
+                        and ring_transitions >= cfg.replay.min_fill):
+                    train_debt_iters += chunk_iters
+                    events = train_debt_iters // max(cfg.train_every, 1)
+                    train_debt_iters -= events * max(cfg.train_every, 1)
+                    grads_this_chunk = events * updates_per_train
+                    if grads_this_chunk:
+                        # Chunk g is published and chunk g+1's appends wait
+                        # until this event's samples are drawn: the generation
+                        # is stable across the event.
+                        fence_gen = ring.generation
 
-                    def _unpack(dev_tree):
-                        return dev_tree if per_sampler is not None \
-                            else (dev_tree, weights)
+                        def _unpack(dev_tree):
+                            return dev_tree if per_sampler is not None \
+                                else (dev_tree, weights)
 
-                    if prefetcher is not None:
-                        s0 = (prefetcher.sample_s_total,
-                              prefetcher.wait_s_total,
-                              prefetcher.stale_total)
-                        prefetcher.request(grads_this_chunk, fence_gen)
-                        for _ in range(grads_this_chunk):
-                            dev_tree, aux = prefetcher.pop(fence_gen)
-                            ev_depth_sum += len(prefetcher)
-                            batch, w = _unpack(dev_tree)
-                            state, metrics = _train(state, batch, w)
-                            _wb_add(aux, metrics)
-                        ev_sample_s = prefetcher.sample_s_total - s0[0]
-                        ev_wait_s = prefetcher.wait_s_total - s0[1]
-                        ev_stale = prefetcher.stale_total - s0[2]
-                        sample_k = prefetcher.next_k
-                    elif stager is not None:
-                        # Main-thread double buffering: batch i+1's gather
-                        # and upload overlap step i's device time.
-                        t_s = time.perf_counter()
-                        host, aux = sample_host(sample_k)
-                        stager.stage(host, aux=aux)
-                        ev_sample_s += time.perf_counter() - t_s
-                        sample_k += 1
-                        for i in range(grads_this_chunk):
-                            dev_tree, aux = stager.pop()
-                            batch, w = _unpack(dev_tree)
-                            state, metrics = _train(state, batch, w)
-                            _wb_add(aux, metrics)
-                            if i + 1 < grads_this_chunk:
-                                t_s = time.perf_counter()
-                                host, nxt = sample_host(sample_k)
-                                stager.stage(host, aux=nxt)
-                                ev_sample_s += time.perf_counter() - t_s
-                                sample_k += 1
-                    else:
-                        # Fully serial: sample -> upload -> train.
-                        t_s = time.perf_counter()
-                        host, aux = sample_host(sample_k)
-                        dev_tree = put_batch(host)
-                        ev_sample_s += time.perf_counter() - t_s
-                        sample_k += 1
-                        for i in range(grads_this_chunk):
-                            batch, w = _unpack(dev_tree)
-                            state, metrics = _train(state, batch, w)
-                            _wb_add(aux, metrics)
-                            if i + 1 < grads_this_chunk:
-                                t_s = time.perf_counter()
-                                host, aux = sample_host(sample_k)
-                                dev_tree = put_batch(host)
-                                ev_sample_s += time.perf_counter() - t_s
-                                sample_k += 1
-                    did = grads_this_chunk
-                    grad_steps += did
-                    ring.current_params_version = grad_steps
-            # Chunk g+1's evacuation: every sample of chunk g's event is
-            # drawn, so its slices may publish from here on.
-            if pipeline and records is not None:
-                handle = submit_evac(records)
-                records = None
-            if did and dev.type == "cuda":
-                # The train section ends at its stream's fence.
-                torch.cuda.current_stream(dev).synchronize()
+                        if prefetcher is not None:
+                            s0 = (prefetcher.sample_s_total,
+                                  prefetcher.wait_s_total,
+                                  prefetcher.stale_total)
+                            prefetcher.request(grads_this_chunk, fence_gen)
+                            for _ in range(grads_this_chunk):
+                                dev_tree, aux = prefetcher.pop(fence_gen)
+                                ev_depth_sum += len(prefetcher)
+                                batch, w = _unpack(dev_tree)
+                                state, metrics = _train(state, batch, w)
+                                _wb_add(aux, metrics)
+                            ev_sample_s = prefetcher.sample_s_total - s0[0]
+                            ev_wait_s = prefetcher.wait_s_total - s0[1]
+                            ev_stale = prefetcher.stale_total - s0[2]
+                            sample_k = prefetcher.next_k
+                        elif stager is not None:
+                            # Main-thread double buffering: batch i+1's gather
+                            # and upload overlap step i's device time.
+                            t_s = time.perf_counter()
+                            host, aux = sample_host(sample_k)
+                            stager.stage(host, aux=aux)
+                            ev_sample_s += time.perf_counter() - t_s
+                            sample_k += 1
+                            for i in range(grads_this_chunk):
+                                dev_tree, aux = stager.pop()
+                                batch, w = _unpack(dev_tree)
+                                state, metrics = _train(state, batch, w)
+                                _wb_add(aux, metrics)
+                                if i + 1 < grads_this_chunk:
+                                    t_s = time.perf_counter()
+                                    host, nxt = sample_host(sample_k)
+                                    stager.stage(host, aux=nxt)
+                                    ev_sample_s += time.perf_counter() - t_s
+                                    sample_k += 1
+                        else:
+                            # Fully serial: sample -> upload -> train.
+                            t_s = time.perf_counter()
+                            host, aux = sample_host(sample_k)
+                            dev_tree = put_batch(host)
+                            ev_sample_s += time.perf_counter() - t_s
+                            sample_k += 1
+                            for i in range(grads_this_chunk):
+                                batch, w = _unpack(dev_tree)
+                                state, metrics = _train(state, batch, w)
+                                _wb_add(aux, metrics)
+                                if i + 1 < grads_this_chunk:
+                                    t_s = time.perf_counter()
+                                    host, aux = sample_host(sample_k)
+                                    dev_tree = put_batch(host)
+                                    ev_sample_s += time.perf_counter() - t_s
+                                    sample_k += 1
+                        did = grads_this_chunk
+                        grad_steps += did
+                        ring.current_params_version = grad_steps
+                # Chunk g+1's evacuation: every sample of chunk g's event is
+                # drawn, so its slices may publish from here on.
+                if pipeline and records is not None:
+                    handle = submit_evac(records)
+                    records = None
+                if did and dev.type == "cuda":
+                    # The train section ends at its stream's fence.
+                        torch.cuda.current_stream(dev).synchronize()
+            hb_train.beat()
             t_train = time.perf_counter()
+            fr.record("train", "host_replay.train_event", chunk=g,
+                      grad_steps=did)
 
             with devtime.device_work():
                 cr, cc = torch.stack(list(stats)).tolist()
@@ -1403,7 +1466,12 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 row["h2d_staged_bytes"] = h2d
             if did:
                 with devtime.device_work():
-                    row["loss"] = round(float(metrics["loss"]), 4)
+                    loss_val = float(metrics["loss"])
+                row["loss"] = round(loss_val, 4)
+                # A NaN/Inf loss dumps a forensics bundle instead of
+                # training on silently.
+                tm_watchdog.observe_divergence(loss=loss_val,
+                                               step=grad_steps)
             history.append(row)
             log_fn(json.dumps(row))
             if g == profile_chunk and tracer.stop():
@@ -1429,6 +1497,9 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             ckpt.close()
         if server is not None:
             server.close()
+        tm_watchdog.unregister_emergency_hook("host_replay.checkpoint")
+        hb_collect.close()
+        hb_train.close()
 
     # Land any accumulated write-backs before the summary counts them.
     _wb_flush()
@@ -1437,6 +1508,14 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
     param_checksum = float(sum(
         np.float64(np.sum(p.detach().cpu().numpy().astype(np.float64)))
         for p in state.net.parameters()))
+    # The checksum doubles as the sentinel's divergence signal: NaN/Inf
+    # parameters at run end produce a bundle even when no train event
+    # logged a loss. Finiteness only: the sentinel's explosion tracking
+    # compares consecutive observations of one run's stream, and this is
+    # a once-per-run value.
+    if not math.isfinite(param_checksum):
+        tm_watchdog.observe_divergence(param_checksum=param_checksum,
+                                       step=grad_steps)
     n = max(len(overlap_fracs), 1)
     g_grad_rate.set(grad_steps / wall)
     per = per_sampler

@@ -480,6 +480,11 @@ class DevicePrioritySampler:
         return idx, w
 
 
+#: The wire lineage lanes the Ape-X service stamps on each transition
+#: (actors/service.py ``_stamp_lineage``): host-side only.
+LINEAGE_KEYS = ("lineage_birth_time", "lineage_params_version")
+
+
 class PrioritizedHostReplay:
     """One prioritized replay shard over host DRAM (the Ape-X service's
     store).
@@ -578,6 +583,10 @@ class PrioritizedHostReplay:
         self._ensure_storage(items)
         idx = (self._pos + np.arange(batch)) % self.capacity
         for k, v in items.items():
+            if k not in self._data and k in LINEAGE_KEYS:
+                # A snapshot from before the stamps restored: it stays
+                # lane-free (staleness accounting degrades, never gates).
+                continue
             self._data[k][idx] = v
         if priorities is None:
             p = np.full(batch, self._max_priority)

@@ -32,9 +32,13 @@ overwritten through), and a slice is a host view of the records.
 Each class records the JAX module's telemetry families, labeled
 ``{loop=name}``: staging occupancy and volume, D2H bytes and slices (with
 ``{shard}`` twins under the mesh), evacuation and slice-lag seconds, and
-the prefetcher's sample and wait seconds, depth and stale drops. The
-heartbeats, flight records and chaos seams are not ported yet (ROADMAP.md
-A10c, A10d).
+the prefetcher's sample and wait seconds, depth and stale drops. The two
+workers beat their stall-watchdog heartbeats (``evac.<name>``,
+``prefetch.<name>``: per queue wake, per published slice, per drawn
+batch, so idling is healthy and a worker wedged mid-drain goes stale with
+its thread named in the bundle's stacks) and record their ``queue``
+flight events (submits, drains, stale drops, failures). The chaos seams
+are not ported yet (ROADMAP.md A10d).
 """
 from __future__ import annotations
 
@@ -48,6 +52,8 @@ import torch
 
 from dist_dqn_tpu_torch.telemetry import collectors as tm, get_registry
 from dist_dqn_tpu_torch.telemetry import devtime
+from dist_dqn_tpu_torch.telemetry import flight as tm_flight
+from dist_dqn_tpu_torch.telemetry import watchdog as tm_watchdog
 
 
 # --------------------------------------------------------------------------
@@ -376,6 +382,13 @@ class EvacuationWorker:
         self._on_slice = on_slice
         self._q: "queue.Queue" = queue.Queue()
         self._exc: Optional[BaseException] = None
+        # Beaten per queue wake and per published slice, so a worker
+        # wedged inside a transfer wait or a ring append goes stale and
+        # the forensics stacks name the "evac-<name>" thread. Idle is
+        # healthy: the drain loop wakes on a queue timeout and beats.
+        self._hb = tm_watchdog.heartbeat(f"evac.{name}")
+        self._flight = tm_flight.get_flight()
+        self._name = name
         labels = {"loop": name}
         reg = get_registry()
         self._h_evac = reg.histogram(
@@ -406,39 +419,70 @@ class EvacuationWorker:
         if not self._thread.is_alive():
             raise RuntimeError("evacuation worker is closed")
         job = self._evac.start(records, ready)
+        self._flight.record("queue", f"evac.{self._name}.submit",
+                            slices=len(job.bounds))
         self._q.put(job)
         return job
 
+    def _get_beating(self):
+        """Queue pop that beats the heartbeat while idle (an empty queue
+        is healthy; a worker stuck mid-drain is the stall). The wake
+        period stays well under the stage's deadline, or idling between
+        beats would itself read as a stall."""
+        timeout = min(1.0, self._hb.deadline_s / 4.0)
+        while True:
+            self._hb.beat()
+            try:
+                return self._q.get(timeout=timeout)
+            except queue.Empty:
+                continue
+
     def _run(self) -> None:
         while True:
-            job = self._q.get()
+            job = self._get_beating()
             if job is None:
+                self._hb.close()
                 return
             try:
                 t0 = job.submitted_at
 
                 def _lag(_i, t0=t0):
                     self._h_lag.observe(time.perf_counter() - t0)
+                    self._hb.beat()
 
                 stats = self._evac.drain(job, self._on_slice,
                                          on_slice_done=_lag)
                 self._h_evac.observe(stats["evac_s"])
                 if self._g_shard_evac is not None:
                     self._g_shard_evac.set(stats["evac_s"])
+                self._flight.record("queue", f"evac.{self._name}.drained",
+                                    slices=stats["slices"],
+                                    bytes=stats["bytes"],
+                                    evac_s=round(stats["evac_s"], 4))
                 job._finish(stats)
             except BaseException as e:  # propagate, never hang the fence
                 self._exc = e
+                self._flight.record("queue", f"evac.{self._name}.failed",
+                                    error=f"{type(e).__name__}: {e}")
                 job._fail(e)
+                # A tombstone: every job already queued fails at once
+                # instead of stranding its fence, and its passes still
+                # beat (a DEAD worker re-raises loudly from submit() and
+                # wait(); the watchdog hunts the silent kind).
                 while True:
-                    pending = self._q.get()
+                    pending = self._get_beating()
                     if pending is None:
+                        self._hb.close()
                         return
                     pending._fail(e)
 
     def close(self) -> None:
-        """Stop the worker and join; queued jobs finish first."""
+        """Stop the worker and join; queued jobs finish first. The stage
+        heartbeat deregisters with the thread: a closed worker is not a
+        stall."""
         self._q.put(None)
         self._thread.join()
+        self._hb.close()
 
     @property
     def failed(self) -> Optional[BaseException]:
@@ -503,6 +547,9 @@ class SamplePrefetcher:
             tm.HOST_REPLAY_PREFETCH_DEPTH,
             "device-resident batches staged ahead of the learner",
             labels)
+        self._hb = tm_watchdog.heartbeat(f"prefetch.{name}")
+        self._flight = tm_flight.get_flight()
+        self._name = name
         self._thread = threading.Thread(target=self._run,
                                         name=f"prefetch-{name}",
                                         daemon=True)
@@ -585,6 +632,10 @@ class SamplePrefetcher:
         if getattr(aux, "generation", min_generation) < min_generation:
             self.stale_total += 1
             self._c_stale.inc()
+            self._flight.record(
+                "queue", f"prefetch.{self._name}.stale", k=k,
+                sampled_gen=int(aux.generation),
+                required_gen=int(min_generation))
             device_batch, aux = self._resample(k, min_generation)
         self._g_depth.set(len(self._stager))
         dt = time.perf_counter() - t0
@@ -593,24 +644,33 @@ class SamplePrefetcher:
         return device_batch, aux
 
     def _run(self) -> None:
-        timeout = 0.5
+        timeout = min(0.5, self._hb.deadline_s / 4.0)
         while True:
+            self._hb.beat()
             try:
                 item = self._work.get(timeout=timeout)
             except queue.Empty:
                 if self._closing:
+                    self._hb.close()
                     return
                 continue
             if item is None:
+                self._hb.close()
                 return
             k, min_gen = item
             try:
+                # Fence handshake: never sample a window older than the
+                # one the train event will fence on.
                 if self._wait_gen is not None:
                     while not self._wait_gen(min_gen, timeout=timeout):
+                        self._hb.beat()
                         if self._closing:
+                            self._hb.close()
                             return
                 while not self._free.acquire(timeout=timeout):
+                    self._hb.beat()
                     if self._closing:
+                        self._hb.close()
                         return
                 t0 = time.perf_counter()
                 host_batch, aux = self._sample_fn(k)
@@ -623,22 +683,31 @@ class SamplePrefetcher:
                 self._ready.release()
             except BaseException as e:  # propagate, never hang a pop
                 self._exc = e
+                self._flight.record("queue",
+                                    f"prefetch.{self._name}.failed",
+                                    error=f"{type(e).__name__}: {e}")
+                # Tombstone: drain the remaining work so close() returns;
+                # pop() and request() re-raise loudly.
                 while True:
+                    self._hb.beat()
                     try:
                         pending = self._work.get(timeout=timeout)
                     except queue.Empty:
                         if self._closing:
+                            self._hb.close()
                             return
                         continue
                     if pending is None:
+                        self._hb.close()
                         return
 
     def close(self) -> None:
         """Stop the worker and join; staged-but-unpopped batches are
-        discarded."""
+        discarded. The stage heartbeat deregisters with the thread."""
         self._closing = True
         self._work.put(None)
         self._thread.join()
+        self._hb.close()
 
     @property
     def failed(self) -> Optional[BaseException]:

@@ -11,9 +11,11 @@ the bucket ladder ran, ``serving_port`` once requests are accepted, and
 requests and exit 0 (also while still waiting for a first checkpoint).
 ``--telemetry-port`` also serves the registry on a separate telemetry
 endpoint (logged as ``telemetry_port``), and ``--telemetry-snapshot``
-dumps it at exit. Fleet registration (ROADMAP.md A10c), forensics (A10c)
-and chaos plans (A10d) are not ported yet; asking for them raises with
-the reason.
+dumps it at exit. ``--forensics-dir`` arms the stall watchdog (the
+``serving.batcher`` heartbeat) and the divergence sentinel with forensics
+bundles, as on the train CLI; ``--fleet-dir`` (or ``DQN_FLEET_DIR``)
+announces the replica to the run's fleet. Chaos plans (ROADMAP.md A10d)
+are not ported yet: ``DQN_CHAOS_PLAN`` raises with the reason.
 """
 from __future__ import annotations
 
@@ -36,20 +38,12 @@ def _parse_kv(pairs, what, cast=str):
     return out
 
 
-def _refuse_unported(args) -> None:
-    """Flags and the chaos plan of the JAX CLI this port does not
-    implement yet, refused with the ROADMAP.md item that brings them."""
-    refused = [reason for reason, given in (
-        ("--fleet-dir (fleet registration, ROADMAP.md A10c)",
-         args.fleet_dir is not None),
-        ("--forensics-dir/--watchdog-deadline-s (watchdog, ROADMAP.md "
-         "A10c)", args.forensics_dir is not None
-         or args.watchdog_deadline_s is not None),
-        ("DQN_CHAOS_PLAN (chaos, ROADMAP.md A10d)",
-         bool(os.environ.get("DQN_CHAOS_PLAN"))),
-    ) if given]
-    if refused:
-        raise SystemExit(f"not ported yet: {', '.join(refused)}")
+def _refuse_unported() -> None:
+    """The chaos plan of the JAX CLI, which this port does not implement
+    yet, refused with the ROADMAP.md item that brings it."""
+    if os.environ.get("DQN_CHAOS_PLAN"):
+        raise SystemExit("not ported yet: DQN_CHAOS_PLAN (chaos, "
+                         "ROADMAP.md A10d)")
 
 
 def main(argv=None):
@@ -131,18 +125,30 @@ def main(argv=None):
                         help="bind address for --telemetry-port")
     parser.add_argument("--telemetry-snapshot", default=None,
                         help="dump a registry JSON snapshot here at exit")
-    # Flags of the JAX CLI that are not ported: accepted only to be refused
-    # with a reason, never ignored (so their defaults are None).
-    parser.add_argument("--fleet-dir", default=None)
-    parser.add_argument("--forensics-dir", default=None)
-    parser.add_argument("--watchdog-deadline-s", type=float, default=None)
+    parser.add_argument("--fleet-dir", default=None,
+                        help="fleet registry directory: "
+                             "announce this replica's metrics endpoint "
+                             "(the telemetry server when started, else "
+                             "the act server — it serves /metrics + "
+                             "/healthz too) to the run's aggregator; "
+                             "defaults to $DQN_FLEET_DIR")
+    parser.add_argument("--forensics-dir", default=None,
+                        help="arm the stall watchdog (serving.batcher "
+                             "heartbeat) + forensics bundles, as on the "
+                             "train CLI")
+    parser.add_argument("--watchdog-deadline-s", type=float, default=120.0)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+    _refuse_unported()
     if args.telemetry_snapshot:
         # Written at exit: the drain below ends in a normal exit, whose
         # atexit leg dumps it whichever SIGTERM handler came first.
         from dist_dqn_tpu_torch.telemetry import install_snapshot_dump
         install_snapshot_dump(args.telemetry_snapshot)
+    if args.forensics_dir:
+        from dist_dqn_tpu_torch.telemetry import watchdog
+        watchdog.install_watchdog(forensics_dir=args.forensics_dir,
+                                  deadline_s=args.watchdog_deadline_s)
+        watchdog.install_sentinel(forensics_dir=args.forensics_dir)
 
     try:
         cfg = apply_overrides(CONFIGS[args.config], args.overrides)
@@ -202,9 +208,19 @@ def main(argv=None):
         raise
 
     from dist_dqn_tpu_torch import telemetry
+    from dist_dqn_tpu_torch.telemetry import fleet
+    # A replica is a fleet member like any actor: the descriptor points at
+    # whichever endpoint scrapes (the act server serves /metrics and
+    # /healthz too).
+    if args.fleet_dir:
+        os.environ[fleet.FLEET_ENV] = args.fleet_dir
     telemetry_server = telemetry.serve_if_asked(
         args.telemetry_port, args.telemetry_host,
-        lambda line: print(line, flush=True))
+        lambda line: print(line, flush=True), role="serving")
+    registration = None
+    if telemetry_server is None:
+        registration = fleet.register_endpoint("serving", server.port,
+                                               host=server.host)
     print(json.dumps({
         "serving_port": server.port, "serving_host": server.host,
         "policies": {pid: {"version": hdr["version"], "step": hdr["step"]}
@@ -225,6 +241,8 @@ def main(argv=None):
               flush=True)
         if telemetry_server is not None:
             telemetry_server.close()
+        if registration is not None:
+            registration.close()
 
 
 if __name__ == "__main__":

@@ -30,9 +30,10 @@ baseline) the same thread dispatches one request per act step, at once,
 where the JAX package dispatches it from the handler thread under a
 serial lock: the card still sees one serialized dispatch per request.
 
-Not ported (ROADMAP.md A10): the ``serving.dispatch`` chaos seam and the
-``serving.act`` device-time program record; the heartbeat is the no-op
-twin until a watchdog can be installed.
+The dispatch thread beats the ``serving.batcher`` stall-watchdog
+heartbeat (live once ``--forensics-dir`` installs a watchdog) and records
+its launches under the ``serving.act`` device-time program. Not ported
+yet: the ``serving.dispatch`` chaos seam (ROADMAP.md A10d).
 """
 from __future__ import annotations
 

@@ -8,11 +8,9 @@ layers, plus helpers for state the owning module cannot observe itself:
 the device rings, whose occupancy the loops read between chunks.
 
 Every name, help text and bucket tuple is the JAX package's, so a
-``/metrics`` scrape of either package reads the same series. Some families
-have no writer in the port yet (the ``PROGRAM_*``/``CHIP_*`` device-time
-plane and ``DEVICE_MEMORY_BYTES``: ROADMAP.md A10b; ``WATCHDOG_*``,
-``DIVERGENCE_TRIPS``, ``FORENSICS_BUNDLES`` and ``FLIGHT_*``: A10c;
-``CHAOS_*``: A10d); their names are here so those slices add writers only.
+``/metrics`` scrape of either package reads the same series. The
+``CHAOS_*`` families have no writer in the port yet (ROADMAP.md A10d);
+their names are here so that slice adds writers only.
 
 Stdlib only, no torch: the actor and feeder processes import this
 package. A device scalar is never read here; callers pass host values.
@@ -105,8 +103,8 @@ LEARNER_ACTOR_DTYPE_INFO = "dqn_learner_actor_dtype_info"
 LEARNER_GRAD_RATE = "dqn_learner_grad_steps_per_sec"
 LEARNER_MFU = "dqn_learner_mfu"
 
-# Chip-time attribution plane (ROADMAP.md A10b; no writer in the port
-# yet): the per-program device-time ledger. PROGRAM_* are labeled
+# Chip-time attribution plane (telemetry/devtime.py): the per-program
+# device-time ledger. PROGRAM_* are labeled
 # {program, loop}: FLOPS/BYTES are the cost totals for ONE execution of
 # the program; DISPATCHES counts host-side launches; DEVICE_SECONDS
 # accumulates device time sampled at fences the loops already hold —

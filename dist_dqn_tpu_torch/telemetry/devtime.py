@@ -477,9 +477,14 @@ _profile_lock = threading.Lock()
 
 
 def _profile_base_dir() -> str:
-    """Where captures land: $DQN_FORENSICS_DIR, else a tempdir. JAX looks
-    first at the armed watchdog's or sentinel's forensics directory; the
-    port has neither until ROADMAP.md A10c, which adds that lookup."""
+    """Where captures land: the armed watchdog's or sentinel's forensics
+    directory, else $DQN_FORENSICS_DIR, else a tempdir: the order the
+    crash path uses, so traces sit next to the forensics bundles."""
+    from dist_dqn_tpu_torch.telemetry import watchdog as wd
+
+    armed = wd.armed_forensics_dir()
+    if armed:
+        return str(armed)
     env = os.environ.get(FORENSICS_ENV)
     if env:
         return env

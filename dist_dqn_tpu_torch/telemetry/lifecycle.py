@@ -4,8 +4,9 @@
 Every telemetry sink registers its flush here exactly once:
 ``install_snapshot_dump(path)`` registers a registry JSON dump
 (``DQN_TELEMETRY_SNAPSHOT=<path>`` does the same from the environment,
-which is how spawned actor and feeder processes opt in). The span
-tracer's flush joins it with ROADMAP.md A10b.
+which is how spawned actor and feeder processes opt in); the span
+tracer (utils/trace.py) registers its flush, and a fleet endpoint
+registration (telemetry/fleet.py) the removal of its descriptor.
 
 The SIGTERM handler CHAINS any pre-existing handler (the serving CLI
 installs its own drain handler; order of installation does not matter:

@@ -7,8 +7,10 @@ thread.
 
   * ``/metrics`` and ``/`` — Prometheus text exposition (scrape this)
   * ``/metrics.json`` — the JSON snapshot (same data, offline tooling)
-  * ``/healthz`` — liveness probe: 200 ``ok``, or 503 with the failing
-    health probes as JSON (telemetry/watchdog.py ``health_state``)
+  * ``/healthz`` — liveness probe: 200 ``ok``, or 503 with what failed
+    as JSON (telemetry/watchdog.py ``health_state``): stale stage
+    heartbeats of an installed watchdog, the latched signals of an armed
+    divergence sentinel, failing health probes
   * ``/debug/stacks`` — every live thread's Python stack, by thread NAME
   * ``/debug/config`` — the run manifest (git sha, versions, config
     hash/dict, argv; telemetry/manifest.py) of this process
@@ -16,15 +18,14 @@ thread.
     seconds (default 1) into the forensics dir (telemetry/devtime.py
     ``capture_profile``); JSON with its ``trace_dir``, 409 while another
     capture runs
-  * ``/debug/flight`` — 501: the flight recorder (ROADMAP.md A10c) is not
-    ported yet, and the endpoint says so instead of a silent 404.
+  * ``/debug/flight`` — the flight recorder's event tail as JSON
+    (telemetry/flight.py)
 
-Every body but the 501 and the profile capture's is byte for byte the
-JAX package's for the same registry contents, health probes and
-manifest. The handler renders
-under the registry's own locks, so a scrape never blocks a training loop
-for more than an instrument read. Loopback by default: the metric/debug
-surface is unauthenticated. Stdlib only.
+Every body but the profile capture's is byte for byte the JAX package's
+for the same registry contents, health state, flight events and manifest.
+The handler renders under the registry's own locks, so a scrape never
+blocks a training loop for more than an instrument read. Loopback by
+default: the metric/debug surface is unauthenticated. Stdlib only.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from typing import Optional
 from urllib.parse import parse_qs, urlsplit
 
 from dist_dqn_tpu_torch.telemetry import devtime as devtime_mod
+from dist_dqn_tpu_torch.telemetry import flight as flight_mod
 from dist_dqn_tpu_torch.telemetry import manifest as manifest_mod
 from dist_dqn_tpu_torch.telemetry import watchdog as watchdog_mod
 from dist_dqn_tpu_torch.telemetry.exposition import (CONTENT_TYPE,
@@ -42,20 +44,14 @@ from dist_dqn_tpu_torch.telemetry.exposition import (CONTENT_TYPE,
                                                      snapshot)
 from dist_dqn_tpu_torch.telemetry.registry import Registry, get_registry
 
-#: The debug endpoints of the JAX server whose modules the port lacks:
-#: path -> (what, ROADMAP.md item). They answer 501 naming the item.
-NOT_PORTED = {
-    "/debug/flight": ("the flight recorder's event tail (/debug/flight)",
-                      "A10c"),
-}
-
 
 def healthz_body():
-    """(status, body): 200 ``ok`` when no health probe reports trouble;
-    503 + JSON naming the failing probes otherwise
-    (telemetry/watchdog.py ``health_state``). Shared with the serving
-    tier's HTTP surface (dist_dqn_tpu_torch/serving/server.py) so
-    /healthz means the same thing on every endpoint of a process."""
+    """(status, body): 200 ``ok`` when nothing armed reports trouble;
+    503 + JSON naming stale stages, latched divergence signals and/or
+    failing health probes otherwise (telemetry/watchdog.py
+    ``health_state``). Shared with the serving tier's HTTP surface
+    (dist_dqn_tpu_torch/serving/server.py) so /healthz means the same
+    thing on every endpoint of a process."""
     ok, detail = watchdog_mod.health_state()
     if ok:
         return 200, b"ok\n"
@@ -86,6 +82,10 @@ class TelemetryServer:
                 elif path == "/debug/stacks":
                     body = watchdog_mod.format_stacks().encode()
                     ctype = "text/plain"
+                elif path == "/debug/flight":
+                    body = (json.dumps(flight_mod.get_flight().snapshot())
+                            + "\n").encode()
+                    ctype = "application/json"
                 elif path == "/debug/config":
                     man = manifest_mod.get_run_manifest()
                     body = (json.dumps(man if man is not None else {},
@@ -100,12 +100,6 @@ class TelemetryServer:
                     body = (json.dumps(result, sort_keys=True)
                             + "\n").encode()
                     ctype = "application/json"
-                elif path in NOT_PORTED:
-                    what, item = NOT_PORTED[path]
-                    status = 501
-                    body = (f"not ported yet: {what} (ROADMAP.md {item})\n"
-                            ).encode()
-                    ctype = "text/plain"
                 else:
                     self.send_error(404)
                     return
@@ -124,12 +118,17 @@ class TelemetryServer:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="telemetry-http", daemon=True)
         self._thread.start()
+        #: The fleet descriptor announcing this server (telemetry/fleet.py
+        #: ``register_endpoint``), removed when the server closes.
+        self.registration = None
 
     @property
     def address(self) -> str:
         return f"http://{self.host}:{self.port}/metrics"
 
     def close(self) -> None:
+        if self.registration is not None:
+            self.registration.close()
         try:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -144,13 +143,24 @@ def start_server(port: int, host: str = "127.0.0.1",
     return TelemetryServer(port=port, host=host, registry=registry)
 
 
-def serve_if_asked(port: Optional[int], host: str, log_fn
+def serve_if_asked(port: Optional[int], host: str, log_fn,
+                   role: Optional[str] = None,
+                   labels: Optional[dict] = None
                    ) -> Optional[TelemetryServer]:
     """An entry point's ``--telemetry-port``: None serves nothing;
     otherwise the server, its bound port logged through ``log_fn`` as the
-    JAX entry points log it, ``{"telemetry_port": N}``."""
+    JAX entry points log it, ``{"telemetry_port": N}``. With ``role`` the
+    server is announced to the run's fleet after it bound and before the
+    port is logged (telemetry/fleet.py ``register_endpoint``; a no-op
+    without ``DQN_FLEET_DIR``), and its descriptor goes when it
+    closes."""
     if port is None:
         return None
     server = start_server(port, host=host)
+    if role is not None:
+        from dist_dqn_tpu_torch.telemetry import fleet
+
+        server.registration = fleet.register_endpoint(
+            role, server.port, host=host, labels=labels)
     log_fn(json.dumps({"telemetry_port": server.port}))
     return server

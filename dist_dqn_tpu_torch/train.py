@@ -109,12 +109,21 @@ the utilization ledger, ``dqn_learner_mfu`` on a known card, device
 memory), served at ``/debug/profile?seconds=N`` too. ``--trace-path F``
 writes the apex runtime's host-loop spans to F as a Chrome trace; the
 fused and host-replay runtimes ignore it, as the JAX CLI does.
-``--fleet-dir``, ``--forensics-dir`` and ``--watchdog-deadline-s``
-(ROADMAP.md A10c) raise instead of being ignored.
+
+Crash forensics and the fleet plane (telemetry/watchdog.py, flight.py,
+fleet.py): ``--forensics-dir D`` arms the stall watchdog (stage
+heartbeats past ``--watchdog-deadline-s``) and the divergence sentinel,
+which write forensics bundles under D and flip ``/healthz`` to 503;
+``--watchdog-abort`` then saves an emergency checkpoint and ends the run;
+``--no-flight-recorder`` turns the in-memory event ring off;
+``--fleet-dir F`` announces the process's telemetry endpoint in F for the
+aggregator (``python -m dist_dqn_tpu_torch.telemetry.fleet``). Each is
+exported through the environment, so spawned actors and ranks follow.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -137,12 +146,14 @@ from dist_dqn_tpu_torch.models import build_network, stack_networks
 from dist_dqn_tpu_torch.parallel import distributed
 from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_evaluator, make_r2d2_train
 from dist_dqn_tpu_torch.telemetry import collectors as tmc
+from dist_dqn_tpu_torch.telemetry import watchdog as tm_watchdog
 from dist_dqn_tpu_torch.train_loop import make_evaluator, make_fused_train
 from dist_dqn_tpu_torch.utils.checkpoint import (RankCarryShards,
                                                 TrainCheckpointer,
                                                 check_mesh_width,
                                                 record_checkpoint_kind,
-                                                record_population_size)
+                                                record_population_size,
+                                                save_emergency)
 from dist_dqn_tpu_torch.utils.device import resolve_device
 
 # Why --coordinator cannot carry the host-replay runtime.
@@ -392,13 +403,15 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     tm = _FusedTelemetry(cfg)
     server = telemetry.serve_if_asked(
         telemetry_port if mesh is None or mesh.rank == 0 else None,
-        telemetry_host, log_fn)
+        telemetry_host, log_fn, role="learner", labels={"loop": "fused"})
     try:
-        return _chunk_loop(cfg, init(seed), run_chunk, evaluate, eval_gen,
-                           ckpt, total_env_steps or cfg.total_env_steps,
-                           chunk_iters, log_fn, dev, stop_fn, profile_dir,
-                           profile_chunk, checkpoint_replay, tm, mesh=mesh,
-                           shards=shards)
+        with _chunk_heartbeat() as hb:
+            return _chunk_loop(cfg, init(seed), run_chunk, evaluate,
+                               eval_gen, ckpt,
+                               total_env_steps or cfg.total_env_steps,
+                               chunk_iters, log_fn, dev, stop_fn,
+                               profile_dir, profile_chunk, checkpoint_replay,
+                               tm, hb, mesh=mesh, shards=shards)
     finally:
         if server is not None:
             server.close()
@@ -444,12 +457,16 @@ def _train_population(cfg: ExperimentConfig, total_env_steps: int = 0,
                  for s in seeds]
     tm = _FusedTelemetry(cfg, members=M)
     server = telemetry.serve_if_asked(telemetry_port, telemetry_host,
-                                      log_fn)
+                                      log_fn, role="learner",
+                                      labels={"loop": "fused"})
     try:
-        return _chunk_loop(cfg, init(seeds), run_chunk, evaluate, eval_gens,
-                           ckpt, total_env_steps or cfg.total_env_steps,
-                           chunk_iters, log_fn, dev, stop_fn, profile_dir,
-                           profile_chunk, checkpoint_replay, tm, members=M)
+        with _chunk_heartbeat(M) as hb:
+            return _chunk_loop(cfg, init(seeds), run_chunk, evaluate,
+                               eval_gens, ckpt,
+                               total_env_steps or cfg.total_env_steps,
+                               chunk_iters, log_fn, dev, stop_fn,
+                               profile_dir, profile_chunk, checkpoint_replay,
+                               tm, hb, members=M)
     finally:
         if server is not None:
             server.close()
@@ -483,9 +500,32 @@ def _checkpointer(checkpoint_dir, save_every_frames, cfg, checkpoint_replay):
     return ckpt
 
 
+def _chunk_stage(members: int, part: str = ".chunk") -> str:
+    """The fused loop's heartbeat stage (``part`` ".checkpoint": its
+    emergency hook), JAX's names."""
+    return ("population" if members else "fused") + part
+
+
+@contextlib.contextmanager
+def _chunk_heartbeat(members: int = 0):
+    """The fused loop's stage heartbeat, registered WITH startup grace (the
+    first chunk carries the one-time set-up), and deregistered with the
+    loop's emergency hook even when the loop raises: a leaked heartbeat
+    would read as a permanent stall in a process that caught the
+    exception and lived on."""
+    hb = tm_watchdog.heartbeat(_chunk_stage(members),
+                               startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
+    try:
+        yield hb
+    finally:
+        hb.close()
+        tm_watchdog.unregister_emergency_hook(
+            _chunk_stage(members, ".checkpoint"))
+
+
 def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
                 chunk_iters, log_fn, dev, stop_fn, profile_dir, profile_chunk,
-                checkpoint_replay, tm, members: int = 0, mesh=None,
+                checkpoint_replay, tm, hb_chunk, members: int = 0, mesh=None,
                 shards=None):
     """Resume from ``ckpt``, then run chunks until the frame cursor reaches
     ``total``, logging one row per chunk and recording it into ``tm`` (a
@@ -499,6 +539,14 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
     main = mesh is None or mesh.rank == 0
     if not main:
         profile_dir = None
+    # Crash forensics (null-safe no-ops until --forensics-dir /
+    # --no-flight-recorder arm or disarm them): the caller's stage
+    # heartbeat (:func:`_chunk_heartbeat`) beaten per chunk, a per-chunk
+    # flight event, and the divergence sentinel on every chunk's loss (the
+    # host value the chunk's one read already brought back: no read of its
+    # own).
+    stage = _chunk_stage(members)
+    flight = telemetry.get_flight()
     frames = 0            # the loop's frame cursor (per member)
     frame_offset = 0      # added to the carry's own frame count
     restored = None
@@ -541,6 +589,22 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
     def save_tree():
         return carry if checkpoint_replay else carry.learner
 
+    # Emergency checkpoint on a watchdog abort: the newest chunk-boundary
+    # state, so a wedged run loses at most one chunk instead of a whole
+    # save period. The optimiser updates in place, so the hook copies
+    # under the fence lock the loop holds from its chunk's first launch
+    # to its fence (never a state torn between two steps), and writes a
+    # side file rather than through the checkpointer the main thread may
+    # be wedged inside.
+    fence = tm_watchdog.FenceLock()
+    if ckpt is not None:
+        tm_watchdog.register_emergency_hook(
+            _chunk_stage(members, ".checkpoint"),
+            lambda: save_emergency(
+                os.path.join(ckpt.directory, "emergency_learner.pt"),
+                lambda: {"learner": save_tree()}, fence,
+                tm_watchdog.EMERGENCY_FENCE_WAIT_S))
+
     def save(final: bool) -> None:
         """A save at this chunk boundary (``final``: the run's last). A
         mesh's carry-kind save is rank 0's decision on every rank: each
@@ -582,8 +646,9 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
             tracer.start()
         t0 = time.perf_counter()
         # The chunk is one block of device work (telemetry/devtime.py
-        # LaunchGate): a /debug/profile capture starts between chunks.
-        with telemetry.device_work():
+        # LaunchGate): a /debug/profile capture starts between chunks. The
+        # fence lock spans its launches to its fence.
+        with fence.held(), telemetry.device_work():
             carry, metrics = run_chunk(carry, chunk_iters)
             # One read of the chunk's device accumulators: the chunk
             # fence. A prioritized solo ring's running max priority (a
@@ -608,6 +673,14 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
                          episodes, ep_ret, carry.replay,
                          max_prio[0] if max_prio else None, chunk_iters)
         tm.observe_device(t0, dt, dev)
+        hb_chunk.beat()
+        mean_loss = sum(loss) / members if members else loss
+        flight.record("chunk", stage, frames=frames, loss=mean_loss,
+                      wall_s=round(dt, 4))
+        # A population's sentinel watches the member MEAN: one diverged
+        # member shifts it enough to trip, and the bundle's registry
+        # carries the per-member losses.
+        tm_watchdog.observe_divergence(loss=mean_loss, step=frames)
         if grad_steps and not tm.program.cost_attached:
             with telemetry.device_work():
                 tm.program.attach_cost(
@@ -838,6 +911,11 @@ def _rank_main(local_rank: int, cfg, address: str, world: int, first: int,
 
     if manifest is not None:
         telemetry.set_run_manifest(manifest)
+    # A spawned rank arms its own watchdog and sentinel from the
+    # environment --forensics-dir exported (the rank in this process has
+    # the CLI's already).
+    if tm_watchdog.get_watchdog() is None:
+        tm_watchdog.maybe_install_from_env()
     if threads:
         torch.set_num_threads(threads)
     dev = distributed.initialize(address, world, first + local_rank,
@@ -860,26 +938,80 @@ def _rank_main(local_rank: int, cfg, address: str, world: int, first: int,
         distributed.shutdown()
 
 
+def add_forensics_flags(parser) -> None:
+    """The JAX CLI's crash-forensics and fleet flags, with its help
+    texts."""
+    parser.add_argument("--fleet-dir", default=None,
+                        help="fleet registry directory: this "
+                             "process writes a role-labeled endpoint "
+                             "descriptor next to every other member of "
+                             "the run so the fleet aggregator (python "
+                             "-m dist_dqn_tpu_torch.telemetry.fleet) can "
+                             "federate one /metrics pane + /fleet/"
+                             "status rollup. Exported as DQN_FLEET_DIR "
+                             "so spawned actor/feeder processes "
+                             "register their own endpoints. Requires "
+                             "--telemetry-port")
+    parser.add_argument("--forensics-dir", default=None,
+                        help="arm the stall watchdog + divergence "
+                             "sentinel (telemetry/watchdog.py): a "
+                             "pipeline stage missing its heartbeat "
+                             "deadline, or a NaN/Inf loss, dumps a "
+                             "forensics bundle (named thread stacks, "
+                             "flight-recorder tail, registry snapshot, "
+                             "run manifest) under this directory and "
+                             "flips /healthz to 503. Exported as "
+                             "DQN_FORENSICS_DIR so spawned actor/feeder "
+                             "processes arm their own. See the hang "
+                             "runbook in README.md")
+    parser.add_argument("--watchdog-deadline-s", type=float, default=120.0,
+                        help="heartbeat staleness that counts as a stall "
+                             "(per stage; requires --forensics-dir)")
+    parser.add_argument("--watchdog-abort", action="store_true",
+                        help="after dumping the forensics bundle, "
+                             "SIGTERM the process (graceful: the "
+                             "telemetry flush chains off SIGTERM) with a "
+                             "bounded hard-exit fallback — for "
+                             "supervisors that restart on exit rather "
+                             "than scrape /healthz")
+    parser.add_argument("--no-flight-recorder", action="store_true",
+                        help="disable the in-memory flight-recorder "
+                             "ring (telemetry/flight.py; ~1µs/event "
+                             "when on). Forensics bundles and "
+                             "/debug/flight then carry no event tail")
+
+
 def _reached_return(target: float, row: dict) -> bool:
     """``--stop-at-return``'s test of a row."""
     return row.get("eval_return", -float("inf")) >= target
 
 
 def _refuse_unported(args) -> None:
-    """Flags of the JAX CLI this port does not implement yet, each with its
-    ROADMAP.md item."""
-    refused = [(flag, item) for flag, item, given in (
-        ("--fleet-dir", "A10c", args.fleet_dir is not None),
-        ("--forensics-dir", "A10c", args.forensics_dir is not None),
-        ("--watchdog-deadline-s", "A10c",
-         args.watchdog_deadline_s is not None),
-    ) if given]
-    if refused:
-        raise SystemExit(
-            f"not ported yet: {', '.join(f for f, _ in refused)} "
-            f"(ROADMAP.md {', '.join(i for _, i in refused)})")
+    """What the CLI refuses before anything starts."""
     if args.coordinator is not None and args.runtime == "host-replay":
         raise SystemExit(HOST_REPLAY_COORDINATOR)
+
+
+def arm_forensics(args) -> None:
+    """The crash-forensics and fleet flags (JAX ``train.py:1049-1068``),
+    before any loop wires its recorder or heartbeats, and through the
+    environment so spawned actor, feeder and rank processes follow."""
+    from dist_dqn_tpu_torch.telemetry import flight as tm_flight
+
+    if args.no_flight_recorder:
+        os.environ[tm_flight.ENABLE_ENV] = "0"
+        tm_flight.configure(enabled=False)
+    if args.fleet_dir:
+        from dist_dqn_tpu_torch.telemetry import fleet
+        os.environ[fleet.FLEET_ENV] = args.fleet_dir
+    if args.forensics_dir:
+        os.environ[tm_watchdog.FORENSICS_ENV] = args.forensics_dir
+        os.environ[tm_watchdog.DEADLINE_ENV] = str(args.watchdog_deadline_s)
+        tm_watchdog.install_watchdog(forensics_dir=args.forensics_dir,
+                                     deadline_s=args.watchdog_deadline_s,
+                                     abort=args.watchdog_abort)
+        tm_watchdog.install_sentinel(forensics_dir=args.forensics_dir,
+                                     abort=args.watchdog_abort)
 
 
 def _run_manifest(cfg: ExperimentConfig, device) -> dict:
@@ -1240,17 +1372,14 @@ def main(argv=None):
                         help="apex runtime: write a Chrome trace-event "
                              "file of the host loop (ingest/sample/train "
                              "spans; open in Perfetto) to this path")
-    # Flags of the JAX CLI that are not ported: accepted only to be refused
-    # with a reason, never ignored.
-    parser.add_argument("--fleet-dir", default=None)
-    parser.add_argument("--forensics-dir", default=None)
-    parser.add_argument("--watchdog-deadline-s", type=float, default=None)
+    add_forensics_flags(parser)
     args = parser.parse_args(argv)
 
     cfg = apply_overrides(CONFIGS[args.config], args.overrides)
     _refuse_unported(args)
     if args.telemetry_snapshot:
         telemetry.install_snapshot_dump(args.telemetry_snapshot)
+    arm_forensics(args)
     if args.eval_every_steps is not None:
         cfg = dataclasses.replace(cfg, eval_every_steps=args.eval_every_steps)
     # The learner-utilization knobs, with the JAX CLI's ignored-flag

@@ -65,9 +65,10 @@ def _is_namedtuple(obj) -> bool:
 
 def state_tree(obj) -> Any:
     """The plain, ``torch.save``-able tree of a live object: dataclasses
-    and NamedTuples become dicts by field, lists and tuples lists, an
-    ``nn.Module`` its ``state_dict``, a ``torch.Generator`` its state
-    tensor; tensors (detached) and host scalars stay as they are."""
+    and NamedTuples become dicts by field, dicts dicts, lists and tuples
+    lists, an ``nn.Module`` its ``state_dict``, a ``torch.Generator`` its
+    state tensor; tensors (detached) and host scalars stay as they
+    are."""
     if isinstance(obj, torch.Tensor):
         return obj.detach()
     if isinstance(obj, nn.Module):
@@ -79,6 +80,8 @@ def state_tree(obj) -> Any:
                 for f in dataclasses.fields(obj)}
     if _is_namedtuple(obj):
         return {name: state_tree(getattr(obj, name)) for name in obj._fields}
+    if isinstance(obj, dict):
+        return {k: state_tree(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         return [state_tree(x) for x in obj]
     if obj is None or isinstance(obj, (bool, int, float, str)):
@@ -679,6 +682,37 @@ def save_pytree(path: str, tree) -> None:
     if not os.path.isdir(parent):
         raise FileNotFoundError(errno.ENOENT, "no such directory", parent)
     _atomic_torch_save(state_tree(tree), path)
+
+
+def _host_copy(tree):
+    """A :func:`state_tree` with every tensor copied to host memory."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_host_copy(v) for v in tree]
+    return tree
+
+
+def save_emergency(path: str, take, fence, timeout_s: float) -> None:
+    """The emergency-checkpoint hook's save (telemetry/watchdog.py
+    ``register_emergency_hook``): ``take()`` names the live objects to
+    save, whose :func:`state_tree` is copied to host memory while holding
+    the loop's ``fence`` (a ``watchdog.FenceLock``, waited on for at most
+    ``timeout_s``), so the copy is a state of one fence, never one the
+    in-place optimiser has half written; the copies run inside
+    ``devtime.device_work()`` like every launch off the main thread. The
+    file is written after the lock is released, atomically. A loop that
+    keeps its fence past ``timeout_s`` raises ``TimeoutError`` and
+    nothing is written."""
+    from dist_dqn_tpu_torch.telemetry import devtime
+
+    def copy():
+        with devtime.device_work():   # blocking copies: host values
+            return _host_copy(state_tree(take()))
+
+    _atomic_torch_save(fence.snapshot(copy, timeout_s), path)
 
 
 def restore_pytree(path: str, example):

@@ -24,10 +24,12 @@ is registered on the shared exit lifecycle (telemetry/lifecycle.py):
 traces from atexit'd or SIGTERM'd processes keep every flushed-plus-
 buffered event instead of silently losing the tail.
 
-Not here yet (ROADMAP.md A10c): JAX's ``FlightTracer`` and the span
-mirror into the flight-recorder ring, which need ``telemetry/flight.py``.
-Until then ``make_tracer(None)`` returns the inert ``NullTracer``.
-Stdlib only.
+Flight-recorder integration: every span close, instant and counter of a
+live ``SpanTracer`` is mirrored into the process flight ring
+(telemetry/flight.py), and with no Chrome trace path ``make_tracer(None)``
+returns ``FlightTracer``, which records ONLY into that ring while the
+recorder is on (the default), so forensics bundles and ``/debug/flight``
+carry the service's spans either way. Stdlib only.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 from dist_dqn_tpu_torch.telemetry import lifecycle
+from dist_dqn_tpu_torch.telemetry.flight import get_flight
 from dist_dqn_tpu_torch.telemetry.registry import get_registry
 
 #: Span-duration histogram buckets: host-loop spans run ~10µs (ring pop)
@@ -70,6 +73,37 @@ class NullTracer:
         pass
 
 
+class FlightTracer(NullTracer):
+    """Span surface that records ONLY into the flight-recorder ring.
+
+    The default tracer when Chrome tracing is off but the flight recorder
+    is on: one ``record()`` per span close, instant or counter (about a
+    microsecond), no buffering, no file. ``enabled`` stays False: callers
+    that gate EXPENSIVE argument computation on ``tracer.enabled`` keep
+    skipping it; the ring gets the cheap events.
+    """
+
+    def __init__(self, flight=None):
+        self._flight = flight if flight is not None else get_flight()
+
+    @contextmanager
+    def span(self, name: str, **args):
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._flight.record(
+                "span", name,
+                dur_s=round(time.perf_counter() - start, 6),
+                **args)
+
+    def instant(self, name: str, **args) -> None:
+        self._flight.record("instant", name, **args)
+
+    def counter(self, name: str, value: float) -> None:
+        self._flight.record("counter", name, value=float(value))
+
+
 class SpanTracer(NullTracer):
     """Chrome trace-event recorder for one host process.
 
@@ -96,6 +130,7 @@ class SpanTracer(NullTracer):
         self._closed = False
         self.registry = (registry if registry is not None
                          else get_registry())
+        self._flight = get_flight()
         self._span_hists: Dict[str, object] = {}
         self._counter_gauges: Dict[str, object] = {}
         # Shared flush lifecycle: a SIGTERM'd/atexit'd process keeps its
@@ -126,11 +161,15 @@ class SpanTracer(NullTracer):
                     ("X", name, start, end - start,
                      threading.get_ident(), args or None))
             self._span_hist(name).observe((end - start) / 1e6)
+            self._flight.record("span", name,
+                                dur_s=round((end - start) / 1e6, 6),
+                                **(args or {}))
 
     def instant(self, name: str, **args) -> None:
         with self._lock:
             self._events.append(("i", name, self._now_us(), 0.0,
                                  threading.get_ident(), args or None))
+        self._flight.record("instant", name, **args)
 
     def counter(self, name: str, value: float) -> None:
         with self._lock:
@@ -201,8 +240,12 @@ class SpanTracer(NullTracer):
 
 def make_tracer(trace_path: Optional[str],
                 process_name: str = "dist_dqn_tpu"):
-    """Tracer factory: a real SpanTracer when a path is given, else the
-    inert twin (JAX's flight-ring-only tracer is ROADMAP.md A10c)."""
+    """Tracer factory: a real SpanTracer when a path is given; the
+    flight-ring-only tracer when the flight recorder is on (the default);
+    the inert twin when both are off."""
     if trace_path:
         return SpanTracer(trace_path, process_name=process_name)
+    flight = get_flight()
+    if flight.enabled:
+        return FlightTracer(flight)
     return NullTracer()

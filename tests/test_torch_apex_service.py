@@ -409,8 +409,9 @@ def test_actor_priorities_fold_like_the_jax_service(wire_dedup,
     the learner cadence, the beta anneal, the pipelined, batched and
     generation-guarded write-back, and the epsilon ladder. Every reply,
     IS weight, stored item, priority, generation and counter is equal,
-    bit for bit. The JAX store also stamps each item's wire lineage
-    (ROADMAP.md A10c); the port stores no lineage."""
+    bit for bit, the two wire lineage lanes each store stamps on its
+    items included; the port's train batch selects its fields, so the
+    lanes never reach the card."""
     import jax.numpy as jnp
     import torch
 
@@ -503,8 +504,9 @@ def test_actor_priorities_fold_like_the_jax_service(wire_dedup,
         assert (ours.router.bytes_by_transport
                 == theirs.router.bytes_by_transport)
         a, b = ours.replay, theirs.replay
-        assert set(b._data) - set(a._data) == {
+        assert set(a._data) == set(b._data) >= {
             "lineage_birth_time", "lineage_params_version"}
+        assert (a._data["lineage_birth_time"] > 0).any()
         for k in a._data:
             assert a._data[k].dtype == b._data[k].dtype, k
             np.testing.assert_array_equal(a._data[k], b._data[k], err_msg=k)
@@ -514,11 +516,76 @@ def test_actor_priorities_fold_like_the_jax_service(wire_dedup,
         assert (a._pos, a._size, a.added, a.sampled, a._max_priority) == (
             b._pos, b._size, b.added, b.sampled, b._max_priority)
         assert a.added_by_shard == b.added_by_shard
+        # The train batch holds the five device fields only.
+        host, _ = ours._host_batch(8, 0.4)
+        assert type(host[0])._fields == ("obs", "action", "reward",
+                                         "discount", "next_obs")
     finally:
         ours.shutdown()
         if theirs is not None:
             theirs.shutdown()
     assert not ours.run_dir.exists()
+
+
+_LINEAGE = ("lineage_birth_time", "lineage_params_version")
+
+
+def _lineage_items(rng, n, t):
+    return {"obs": rng.integers(0, 9, (n, 3)).astype(np.uint8),
+            "action": rng.integers(0, 2, n).astype(np.int32),
+            "lineage_birth_time": np.full(n, 1722470400.5 + t),
+            "lineage_params_version": np.full(n, 40 + t, np.int64)}
+
+
+def test_store_lineage_lanes_ride_add_sample_snapshot_and_reshard():
+    """One stamped record stream into the port's store and JAX's: the
+    lineage lanes ride add, sample, snapshot and a two-shard reshard
+    equal in both, bit for bit; a snapshot without lineage lanes still
+    restores, and the restored store takes stamped adds without growing
+    them."""
+    from dist_dqn_tpu.replay import host as jhost
+    from dist_dqn_tpu.replay import sharded as jsharded
+    from dist_dqn_tpu_torch.replay import host as thost
+    from dist_dqn_tpu_torch.replay import sharded as tsharded
+
+    stores = [thost.PrioritizedHostReplay(64, seed=3, native=False),
+              jhost.PrioritizedHostReplay(64, seed=3, native=False)]
+    for store in stores:
+        rng = np.random.default_rng(5)
+        for t in range(12):
+            store.add(_lineage_items(rng, 8, t),
+                      priorities=rng.random(8) + 0.1)
+    draws = [s.sample(16, 0.4) for s in stores]
+    for k in _LINEAGE:
+        np.testing.assert_array_equal(draws[0][0][k], draws[1][0][k])
+        np.testing.assert_array_equal(stores[0]._data[k],
+                                      stores[1]._data[k])
+    snaps = [s.state_dict() for s in stores]
+    assert set(snaps[0]) == set(snaps[1])
+    for k in _LINEAGE:
+        np.testing.assert_array_equal(snaps[0][f"data.{k}"],
+                                      snaps[1][f"data.{k}"])
+    resharded = [tsharded.ShardedPrioritizedReplay(2, 64, seed=3,
+                                                   native=False),
+                 jsharded.ShardedPrioritizedReplay(2, 64, seed=3,
+                                                   native=False)]
+    ev = [mod.restore_replay_snapshot(r, s) for mod, r, s in zip(
+        (tsharded, jsharded), resharded, snaps)]
+    assert ev[0] == ev[1] and ev[0]["resharded"]
+    for i in range(2):
+        for k in _LINEAGE:
+            np.testing.assert_array_equal(
+                resharded[0].shards[i]._data[k],
+                resharded[1].shards[i]._data[k])
+    # A snapshot from before the stamps restores and stays lane-free.
+    lane_free = {k: v for k, v in snaps[0].items()
+                 if not k.startswith("data.lineage_")}
+    old = thost.PrioritizedHostReplay(64, seed=3, native=False)
+    old.load_state_dict(lane_free)
+    old.add(_lineage_items(np.random.default_rng(6), 4, 99))
+    assert set(old._data) == {"obs", "action"}
+    items, _, _ = old.sample(4, 0.4)
+    assert set(items) == {"obs", "action"}
 
 
 _PONG_TINY = ["--config", "apex", "--host-env", "pong",

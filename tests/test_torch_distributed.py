@@ -33,6 +33,7 @@ from dist_dqn_tpu_torch import train as ttr
 from dist_dqn_tpu_torch.parallel import distributed
 import torch_mesh_workers as workers
 from torch_mesh_workers import DEADLINE_S, run_ranks
+from torch_parity import train_cli_in_fleet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--total-env-steps", "320", "--chunk-iters", "40",
@@ -215,15 +216,26 @@ def test_unported_mesh_paths_name_their_item(argv, item, tmp_path, capsys):
     ``--runtime host-replay --mesh-devices 2`` run (every rank writes its
     carry shard beside rank 0's steps; the host-replay summary prints
     once); ``--coordinator`` under the apex runtime runs since A6c
-    (tests/test_torch_apex_distributed.py), so its case names the fleet
-    flag beside it (the telemetry flags run since A10a, the trace flag
-    since A10b), refused naming its ROADMAP.md item before any group is
-    joined."""
+    (tests/test_torch_apex_distributed.py), and the fleet flag beside it
+    since A10c: a one-process group's service (on a free rendezvous
+    port) is a live learner-role member of the fleet while it runs, and
+    its descriptor goes with it."""
     argv = ["--config", "cartpole", "--device", "cpu", *argv,
             "--checkpoint-dir", str(tmp_path / "ckpt")]
     if item is not None:
-        with pytest.raises(SystemExit, match=rf"not ported yet.*{item}"):
-            ttr.main(argv)
+        argv = argv[:argv.index("--coordinator")] + [
+            "--coordinator", f"127.0.0.1:{distributed.free_port()}",
+            "--num-processes", "1", "--host-env", "CartPole-v1",
+            "--num-actors", "1", "--envs-per-actor", "4",
+            "--total-env-steps", "600", "--set",
+            "network.mlp_features=(32,)", "--set", "replay.min_fill=128",
+            "--set", "learner.batch_size=32"]
+        rows, status, left = train_cli_in_fleet(argv,
+                                                str(tmp_path / "fleet"))
+        (name, member), = status["members"].items()
+        assert name.startswith("learner-") and member["state"] == "live"
+        assert member["labels"] == {"loop": "apex"}
+        assert rows[-1]["env_steps"] >= 600 and left == []
         return
     ttr.main(argv)
     entries = sorted(os.listdir(tmp_path / "ckpt"))

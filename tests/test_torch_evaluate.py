@@ -184,7 +184,7 @@ def test_r2d2_and_carry_kind_directories_are_evaluable(tmp_path):
 
 
 # ROADMAP.md items ported since their flags were refused here.
-_PORTED_ITEMS = {"A8", "A10a"}
+_PORTED_ITEMS = {"A8", "A10a", "A10c"}
 
 
 @pytest.mark.parametrize("flag,reason", [
@@ -196,6 +196,8 @@ _PORTED_ITEMS = {"A8", "A10a"}
     # --telemetry-port (A10a) is ported: the eval serves /metrics while
     # it plays.
     (["--telemetry-port", "0"], "A10a"),
+    # --fleet-dir (A10c) is ported: beside --telemetry-port the eval's
+    # endpoint is an eval-role fleet member while it plays.
     (["--fleet-dir", "fleet"], "A10c"),
 ])
 def test_cli_refuses_unported_flags_with_the_reason(tmp_path, flag, reason,
@@ -208,6 +210,9 @@ def test_cli_refuses_unported_flags_with_the_reason(tmp_path, flag, reason,
         return
     if reason == "A10a":
         _check_eval_serves_metrics(tmp_path, argv, capsys, monkeypatch)
+        return
+    if reason == "A10c":
+        _check_eval_joins_fleet(tmp_path, argv, capsys, monkeypatch)
         return
     cfg = _cartpole()
     net = build_network(cfg.network, 2, (4,), device="cpu", seed=0)
@@ -259,6 +264,46 @@ def _check_eval_serves_metrics(tmp_path, argv, capsys, monkeypatch):
         argv += ["--set", a]
     ev.main(argv + ["--episodes", "1"])
     assert seen == {"/metrics": 200, "/debug/stacks": 200}
+    row = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert row["frames"] == 5 and 1.0 <= row["eval_return"] <= 500.0
+
+
+def _check_eval_joins_fleet(tmp_path, argv, capsys, monkeypatch):
+    """``--fleet-dir D`` (with ``--telemetry-port 0``): an ``eval-<pid>``
+    descriptor naming the bound port is in D while the evaluation plays,
+    a fleet aggregator over D finds the member live, and the descriptor
+    goes with the run."""
+    from dist_dqn_tpu_torch.telemetry import fleet
+
+    fleet_dir = tmp_path / "fleet_dir"
+    argv = [str(fleet_dir) if a == "fleet" else a for a in argv]
+    monkeypatch.delenv(fleet.FLEET_ENV, raising=False)
+    cfg = _cartpole()
+    net = build_network(cfg.network, 2, (4,), device="cpu", seed=0)
+    TrainCheckpointer(str(tmp_path)).save(
+        5, make_learner(cfg.learner, net)[0](net))
+    seen = {}
+    real = ev.evaluate_checkpoint
+
+    def sweeping(*a, **k):
+        port = json.loads(capsys.readouterr().out.splitlines()[0])[
+            "telemetry_port"]
+        desc = json.loads((fleet_dir / f"eval-{os.getpid()}.json")
+                          .read_text())
+        agg = fleet.FleetAggregator(str(fleet_dir), scrape_timeout_s=5.0)
+        agg.sweep_once()
+        seen.update(port=port, desc=desc, status=agg.status())
+        return real(*a, **k)
+
+    monkeypatch.setattr(ev, "evaluate_checkpoint", sweeping)
+    for a in CARTPOLE_TINY:
+        argv += ["--set", a]
+    ev.main(argv + ["--episodes", "1", "--telemetry-port", "0"])
+    assert seen["desc"]["role"] == "eval"
+    assert seen["desc"]["port"] == seen["port"]
+    member = seen["status"]["members"][f"eval-{os.getpid()}"]
+    assert member["state"] == "live" and member["healthy"] is True
+    assert os.listdir(fleet_dir) == []
     row = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert row["frames"] == 5 and 1.0 <= row["eval_return"] <= 500.0
 

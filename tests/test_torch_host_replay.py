@@ -37,7 +37,7 @@ from dist_dqn_tpu_torch import host_replay_loop as thrl
 from dist_dqn_tpu_torch import loop_common as tlc
 from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
 from dist_dqn_tpu_torch.envs import make_env
-from torch_parity import RESET_DRAWS, STEP_DRAWS
+from torch_parity import RESET_DRAWS, STEP_DRAWS, train_cli_in_fleet
 import torch_mesh_workers as workers
 
 _CARTPOLE = ["network.mlp_features=(32,)", "replay.capacity=4096",
@@ -442,9 +442,12 @@ def test_cli_ignored_lines_match_jax(flags, capsys, monkeypatch):
     assert want and got == want
 
 
-def test_cli_host_replay_runs_and_needs_a_device(capsys, monkeypatch):
+def test_cli_host_replay_runs_and_needs_a_device(capsys, monkeypatch,
+                                                 tmp_path):
     """The CLI branch trains on the CPU when asked and prints the summary;
-    without --device cpu and without a card it raises."""
+    without --device cpu and without a card it raises. The apex branch's
+    fleet flag, refused until ROADMAP.md A10c, runs: the service is a live
+    learner-role fleet member while it trains."""
     from dist_dqn_tpu_torch.train import main
     argv = ["--config", "cartpole", "--runtime", "host-replay",
             "--total-env-steps", "800", "--chunk-iters", "50", "--per",
@@ -462,6 +465,11 @@ def test_cli_host_replay_runs_and_needs_a_device(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(argv)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["--config", "cartpole", "--runtime", "apex", "--device",
-              "cpu", "--learner-devices", "2", "--fleet-dir", "f"])
+    rows, status, left = train_cli_in_fleet(
+        ["--config", "cartpole", "--runtime", "apex", "--device", "cpu",
+         "--host-env", "CartPole-v1", "--num-actors", "1",
+         "--envs-per-actor", "4", "--total-env-steps", "600", "--set",
+         "network.mlp_features=(32,)", "--set", "replay.min_fill=128",
+         "--set", "learner.batch_size=32"], str(tmp_path / "fleet"))
+    assert [m["state"] for m in status["members"].values()] == ["live"]
+    assert rows[-1]["env_steps"] >= 600 and left == []

@@ -177,6 +177,23 @@ from dist_dqn_tpu_torch.utils.flops import (census, chip_peak_flops,
                                             stratified_sample_cost)
 from dist_dqn_tpu_torch.utils.trace import (SPAN_BUCKETS, NullTracer,
                                             SpanTracer, make_tracer)
+slice18 = {"dist_dqn_tpu_torch." + m for m in (
+    "telemetry.flight", "telemetry.fleet")}
+assert slice18 <= set(names), sorted(slice18 - set(names))
+from dist_dqn_tpu_torch.telemetry import (DivergenceSentinel, FenceLock,
+                                          FlightRecorder,
+                                          NullFlightRecorder, Watchdog,
+                                          dump_forensics, get_flight,
+                                          get_watchdog, install_sentinel,
+                                          install_watchdog,
+                                          maybe_install_from_env,
+                                          observe_divergence)
+from dist_dqn_tpu_torch.telemetry.fleet import (FleetAggregator,
+                                                FleetServer,
+                                                merge_expositions,
+                                                register_endpoint)
+from dist_dqn_tpu_torch.utils.trace import FlightTracer
+from dist_dqn_tpu_torch.utils.checkpoint import save_emergency
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -210,6 +227,10 @@ telemetry.sweep_device_memory()
 telemetry.UtilizationLedger("actor").observe_chunk(1.0, 0.5)
 telemetry.register_program("actor.step", loop="actor").count_dispatch()
 telemetry.maybe_install_snapshot_from_env(tag="actor0")
+from dist_dqn_tpu_torch.telemetry import fleet, flight, watchdog
+flight.get_flight().record("queue", "probe", rows=1)
+watchdog.heartbeat("actor.loop").beat()
+fleet.merge_expositions([{"text": "dqn_x 1\n", "labels": {"role": "a"}}])
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("torch", "jax", "dist_dqn_tpu")
              or k.startswith("dist_dqn_tpu_torch.utils"))
@@ -221,8 +242,8 @@ def test_feeder_and_fake_ale_load_no_torch():
     """Feeder and actor processes start without torch: the feeder, the
     actors, the fake ALE, the reference table and the telemetry plane
     (its manifest, exit snapshot and chip-time plane's ledger, program
-    table and memory sweep included) import numpy only, and nothing of
-    utils/."""
+    table and memory sweep, the flight recorder, the watchdog and the
+    fleet plane included) import numpy only, and nothing of utils/."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _NO_TORCH], cwd=REPO,
                           env=env, capture_output=True, text=True,

@@ -66,6 +66,7 @@ TIME_LIMIT_S = {
     "test_greedy_actions_equal_the_jax_server": 120,
     "test_wire_is_the_jax_wire": 120,
     "test_host_replay_checkpoint_evaluates_and_serves": 120,
+    "test_cli_refuses_unported_flags_with_the_reason": 120,
     "test_cli_telemetry_flags_serve_and_snapshot": 120,
 }
 
@@ -528,14 +529,84 @@ def test_cli_sigterm_during_checkpoint_wait_exits_zero(tmp_path):
 ], ids=["fleet_dir", "forensics_dir", "watchdog_deadline_s",
         "chaos_plan"])
 def test_cli_refuses_unported_flags_with_the_reason(argv, env, tmp_path,
-                                                    monkeypatch):
-    if env is None:
-        monkeypatch.delenv("DQN_CHAOS_PLAN", raising=False)
-    else:
+                                                    monkeypatch, stack):
+    """The chaos plan (ROADMAP.md A10d) is still refused naming its item.
+    The watchdog and fleet flags are ported: ``--fleet-dir`` announces the
+    act server (no telemetry port) as a ``serving`` member while the CLI
+    serves, and the descriptor goes at SIGTERM; ``--forensics-dir`` arms
+    the watchdog, whose sweeper thread and ``serving.batcher`` heartbeat
+    show on the telemetry endpoint's ``/debug/stacks`` and the act
+    server's ``/metrics`` while ``/healthz`` stays 200 and no bundle is
+    written; a ``--watchdog-deadline-s`` without it arms nothing (JAX's
+    CLI)."""
+    if env is not None:
         monkeypatch.setenv("DQN_CHAOS_PLAN", env)
-    with pytest.raises(SystemExit, match=r"not ported yet: .*ROADMAP.md A10"):
-        serving_cli.main(["--config", "cartpole", "--device", "cpu",
-                          "--checkpoint-dir", str(tmp_path)] + argv)
+        with pytest.raises(SystemExit,
+                           match=r"not ported yet: .*ROADMAP.md A10d"):
+            serving_cli.main(["--config", "cartpole", "--device", "cpu",
+                              "--checkpoint-dir", str(tmp_path)] + argv)
+        return
+    argv = [str(tmp_path / a) if a in ("fleet", "forensics") else a
+            for a in argv]
+    fleet_case = argv[0] == "--fleet-dir"
+    if not fleet_case:
+        argv += ["--telemetry-port", "0"]
+    penv = {k: v for k, v in os.environ.items()
+            if k not in ("DQN_CHAOS_PLAN", "DQN_FLEET_DIR",
+                         "DQN_FORENSICS_DIR")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dist_dqn_tpu_torch.serving",
+         "--config", "cartpole", "--checkpoint-dir", stack.dir,
+         "--device", "cpu", "--port", "0", "--max-batch-rows", "2",
+         "--max-wait-ms", "1", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO, env=penv)
+    try:
+        ports = {}
+        while "serving_port" not in ports:
+            line = proc.stdout.readline()
+            assert line, f"CLI ended early: {ports}"
+            if line.startswith("{"):
+                ports.update(json.loads(line))
+        base = f"http://127.0.0.1:{ports['serving_port']}"
+        import urllib.request
+        with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+            assert r.status == 200
+        armed = argv[0] == "--forensics-dir"
+        if not fleet_case:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ports['telemetry_port']}"
+                    "/debug/stacks", timeout=10) as r:
+                stacks = r.read().decode()
+            assert ("'telemetry-watchdog'" in stacks) == armed
+        if armed:
+            def swept():
+                with urllib.request.urlopen(base + "/metrics",
+                                            timeout=10) as r:
+                    return ('dqn_watchdog_heartbeat_age_seconds{stage='
+                            '"serving.batcher"}') in r.read().decode()
+            deadline = time.monotonic() + 20
+            while not swept():
+                assert time.monotonic() < deadline, "no watchdog sweep"
+                time.sleep(0.2)
+        if fleet_case:
+            desc = json.loads((tmp_path / "fleet" / f"serving-{proc.pid}"
+                               ".json").read_text())
+            assert desc["role"] == "serving"
+            assert desc["port"] == ports["serving_port"]
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, out
+    assert "serving_drained" in out
+    if fleet_case:
+        assert os.listdir(tmp_path / "fleet") == []
+    if argv[0] == "--forensics-dir":
+        assert not (tmp_path / "forensics").exists() or not os.listdir(
+            tmp_path / "forensics")
 
 
 @pytest.mark.parametrize("argv", [

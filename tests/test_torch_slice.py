@@ -32,7 +32,8 @@ from dist_dqn_tpu_torch.models import build_network as torch_build
 from dist_dqn_tpu_torch.ops import sampler as tps
 from dist_dqn_tpu_torch.replay import prioritized_device as tpring
 from dist_dqn_tpu_torch.utils.params import from_flax
-from torch_parity import RESET_DRAWS, STEP_DRAWS, cli_rows, to_numpy_tree
+from torch_parity import (RESET_DRAWS, STEP_DRAWS, cli_rows, to_numpy_tree,
+                          train_cli_in_fleet)
 
 NUM_SLOTS, B, STEPS, S = 16, 4, 22, 8
 
@@ -289,8 +290,9 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     # remote actors (tests/test_torch_apex_service.py,
     # tests/test_torch_remote_actors.py) and its distributed options
     # (tests/test_torch_apex_distributed.py) and its host-loop trace
-    # (tests/test_torch_trace.py), so its case names the fleet flag, still
-    # refused (ROADMAP.md A10c), beside several learner devices;
+    # (tests/test_torch_trace.py), and its fleet flag (ROADMAP.md A10c):
+    # beside two learner devices the service is a live learner-role member
+    # of the fleet while it runs, and its descriptor goes with it;
     # --telemetry-port is ported and serves the run's registry (its row
     # names the bound port; the server closes with the run);
     # --mesh-devices is ported on the fused runtime
@@ -302,8 +304,26 @@ def test_device_busy_is_the_union_of_kernel_intervals():
     ["--runtime", "apex", "--learner-devices", "2", "--fleet-dir", "f"],
     ["--telemetry-port", "0"],
     ["--population-spec", '{"lr": [0.001, 0.002]}']])
-def test_train_cli_refuses_unported_flags(flag, capfd):
+def test_train_cli_refuses_unported_flags(flag, capfd, tmp_path):
     from dist_dqn_tpu_torch.train import main
+
+    if flag[:2] == ["--runtime", "apex"]:
+        rows, status, left = train_cli_in_fleet(
+            ["--config", "cartpole", "--device", "cpu", "--host-env",
+             "CartPole-v1", "--num-actors", "1", "--envs-per-actor", "4",
+             "--total-env-steps", "800", "--set",
+             "network.mlp_features=(32,)", "--set", "replay.min_fill=128",
+             "--set", "learner.batch_size=32", *flag[:-2]],
+            str(tmp_path / "fleet"))
+        (name, member), = status["members"].items()
+        assert name.startswith("learner-") and member["state"] == "live"
+        assert member["labels"] == {"loop": "apex"}
+        assert member["healthy"] is True
+        summary = rows[-1]
+        assert summary["learner_devices"] == 2
+        assert summary["learner_replicas_equal"] is True
+        assert left == []
+        return
 
     if flag == ["--mesh-devices", "2"]:
         main(["--config", "cartpole", *_TINY_CLI, *flag])
@@ -340,14 +360,11 @@ def test_train_cli_refuses_unported_flags(flag, capfd):
             urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                    timeout=5)
         return
-    if flag[0] == "--population-spec":
-        # Two lr entries for the default --population 1.
-        with pytest.raises(SystemExit):
-            main(["--config", "apex", "--device", "cpu", *flag])
-        assert "each vector must be length M" in capfd.readouterr().err
-        return
-    with pytest.raises(SystemExit, match="not ported yet"):
+    # --population-spec: two lr entries for the default --population 1.
+    assert flag[0] == "--population-spec"
+    with pytest.raises(SystemExit):
         main(["--config", "apex", "--device", "cpu", *flag])
+    assert "each vector must be length M" in capfd.readouterr().err
 
 
 _CONFIG_CASES = {

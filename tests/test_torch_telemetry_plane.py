@@ -404,11 +404,16 @@ def test_server_bodies_are_byte_equal_to_jax(twin_telemetry_servers, path):
                                        ("/debug/profile?seconds=1", "A10b")])
 def test_unported_debug_endpoints_answer_501(twin_telemetry_servers, path,
                                              item, tmp_path, monkeypatch):
-    """``/debug/flight`` (A10c) still answers 501 naming its item;
-    ``/debug/profile`` (ported in A10b) captures: JSON with the JAX
-    endpoint's keys, its ``trace_dir`` in the forensics dir holding a
-    loadable trace, and 409 while another capture runs."""
+    """Both debug endpoints the port once answered 501 are ported.
+    ``/debug/flight`` (A10c) serves JAX's body for the same recorded
+    events: the ring's capacity and total and its events in order, equal
+    less each event's ``t`` and ``thread``. ``/debug/profile`` (A10b)
+    captures: JSON with the JAX endpoint's keys, its ``trace_dir`` in the
+    forensics dir holding a loadable trace, and 409 while another capture
+    runs."""
+    from dist_dqn_tpu.telemetry import flight as jflight
     from dist_dqn_tpu_torch.telemetry import devtime
+    from dist_dqn_tpu_torch.telemetry import flight as tflight
 
     _, turl, _ = twin_telemetry_servers
     if item == "A10b":
@@ -426,10 +431,28 @@ def test_unported_debug_endpoints_answer_501(twin_telemetry_servers, path,
             status, _, body = _get(turl + "/debug/profile?seconds=0")
         assert status == 409 and json.loads(body)["error"] == "busy"
         return
-    status, ctype, body = _get(turl + path)
-    assert status == 501 and ctype == "text/plain"
-    assert body.decode().startswith("not ported yet: ")
-    assert f"(ROADMAP.md {item})" in body.decode()
+    jurl, turl, _ = twin_telemetry_servers
+    bodies = []
+    try:
+        for mod, url in ((jflight, jurl), (tflight, turl)):
+            fr = mod.configure(enabled=True, capacity=4)
+            for i in range(6):
+                fr.record("queue", f"evac.host_replay.{i}", slices=i)
+            fr.record("chunk", "fused.chunk", frames=640, loss=0.25)
+            status, ctype, body = _get(url + path)
+            assert status == 200 and ctype == "application/json", body
+            out = json.loads(body)
+            for e in out["events"]:
+                assert e.pop("thread") and e.pop("t") > 0
+            bodies.append(out)
+    finally:
+        jflight._reset_for_tests()
+        tflight._reset_for_tests()
+    assert bodies[0] == bodies[1]
+    assert bodies[1]["capacity"] == 4 and bodies[1]["total"] == 7
+    assert [e["name"] for e in bodies[1]["events"]] == [
+        "evac.host_replay.3", "evac.host_replay.4", "evac.host_replay.5",
+        "fused.chunk"]
 
 
 def test_stacks_name_the_threads_and_unknown_paths_404(

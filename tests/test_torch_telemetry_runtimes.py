@@ -1,8 +1,9 @@
 """The telemetry plane through the port's runtimes, against the JAX
 package's: the fused loop, host replay, the Ape-X service and serving each
 export the JAX runtime's metric families, as (name, kind, label keys), at
-a small size, less a listed set whose writers are ROADMAP.md A10c (the
-watchdog and flight recorder); the chip-time plane's program table,
+a small size, exactly (the watchdog's and flight recorder's families
+included, from a sweep of each package's watchdog at every chunk of the
+fused loop); the chip-time plane's program table,
 ledger and spans included (both packages' program registries are fresh
 too); counters that count the same thing in both packages hold the same
 value. The CLIs'
@@ -34,13 +35,8 @@ from torch_telemetry_workers import families
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUIET = lambda *_: None  # noqa: E731
 
-#: Families whose writers the port does not have yet: the watchdog and
-#: flight recorder (ROADMAP.md A10c).
-UNPORTED_FAMILIES = {
-    "dqn_watchdog_stalls_total", "dqn_watchdog_heartbeat_age_seconds",
-    "dqn_watchdog_stages", "dqn_divergence_trips_total",
-    "dqn_forensics_bundles_total", "dqn_flight_events",
-    "dqn_flight_capacity"}
+#: Families whose writers the port does not have yet: none.
+UNPORTED_FAMILIES = set()
 
 
 def _sig(fams) -> set:
@@ -78,21 +74,40 @@ _FUSED = ["replay.capacity=2048", "replay.min_fill=128",
 
 
 @pytest.mark.parametrize("per", [False, True], ids=["uniform", "per"])
-def test_fused_cartpole_exports_the_jax_families(fresh_registries, per):
+def test_fused_cartpole_exports_the_jax_families(fresh_registries, per,
+                                                monkeypatch):
     """The twin of tests/test_telemetry.py's CartPole train smoke: the
     same families, and the same env steps, grad steps and device replay
-    occupancy (the cadence is the JAX loop's)."""
+    occupancy (the cadence is the JAX loop's). Each package's watchdog
+    (installed, not swept by a thread) is swept once a chunk while the
+    loop's heartbeat is registered, so its families are held too."""
+    from dist_dqn_tpu.telemetry import watchdog as jwatchdog
     from dist_dqn_tpu.train import train as jtrain
+    from dist_dqn_tpu_torch.telemetry import watchdog as twatchdog
     from dist_dqn_tpu_torch.train import train as ttrain
 
     jreg, treg = fresh_registries
     sets = [*_FUSED, f"replay.prioritized={str(per).lower()}"]
+    for mod in (jwatchdog, twatchdog):
+        monkeypatch.setattr(mod, "_watchdog", mod.Watchdog(
+            start=False, log_fn=None))
+
+    def sweep(mod):
+        def stop_fn(row):
+            assert mod._watchdog.check() == {}
+            return False
+        return stop_fn
+
     jtrain(jconfig.apply_overrides(jconfig.CONFIGS["cartpole"], sets),
-           total_env_steps=1600, chunk_iters=50, log_fn=QUIET)
+           total_env_steps=1600, chunk_iters=50, log_fn=QUIET,
+           stop_fn=sweep(jwatchdog))
     ttrain(tconfig.apply_overrides(tconfig.CONFIGS["cartpole"], sets),
            total_env_steps=1600, chunk_iters=50, log_fn=QUIET,
-           device="cpu")
+           device="cpu", stop_fn=sweep(twatchdog))
     _assert_same_families(jreg, treg)
+    assert _value(treg, 'dqn_watchdog_stalls_total{stage=fused.chunk}') \
+        == _value(jreg, 'dqn_watchdog_stalls_total{stage=fused.chunk}') \
+        == 0
     for key in ("dqn_env_steps_total", "dqn_grad_steps_total",
                 "dqn_replay_size{store=device}",
                 "dqn_replay_capacity{store=device}",

@@ -215,3 +215,41 @@ def cli_rows(text: str) -> list:
     rows = [json.loads(line) for line in text.splitlines()
             if line.startswith("{")]
     return [r for r in rows if "manifest" not in r]
+
+
+def train_cli_in_fleet(argv, fleet_dir: str, timeout: float = 240.0):
+    """Run ``python -m dist_dqn_tpu_torch.train *argv --fleet-dir D
+    --telemetry-port 0`` and, once it announced its port, sweep D with the
+    port's fleet aggregator. Returns (the CLI's JSON rows less its
+    manifest, the aggregator's status taken while the run lived, the
+    descriptors left in D after it ended)."""
+    import os
+    import subprocess
+    import sys
+
+    from dist_dqn_tpu_torch.telemetry import fleet
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", fleet.FLEET_ENV)}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dist_dqn_tpu_torch.train", *argv,
+         "--fleet-dir", fleet_dir, "--telemetry-port", "0"],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    lines, status = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if status is None and line.startswith('{"telemetry_port"'):
+                agg = fleet.FleetAggregator(fleet_dir, scrape_timeout_s=10.0)
+                agg.sweep_once()
+                status = agg.status()
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    left = sorted(os.listdir(fleet_dir)) if os.path.isdir(fleet_dir) else []
+    return cli_rows("".join(lines)), status, left
