@@ -370,6 +370,37 @@ them or outside a checkout of the repository. Phases, each fatal:
    the wait is pending, its ``stacks.txt`` name the waiting thread in
    ``synchronize``, ``/healthz`` answer 503 then, and 200 once the stage
    beats again.
+20. chaos (after population_learner_lockstep, before the learning bars
+   start; about a minute): the chaos plane (``dist_dqn_tpu_torch/chaos/``),
+   the sizing gate and the device cleanup on the card.
+   * The ``replay.device_sample`` seam on the sampler kernel's dispatch
+     at the host plane ``[1954, 512]`` (apex's 1M slots, S = 512), with
+     writes pending: an injected exception must raise before any launch
+     and leave the pending writes and the plane as they were; the next
+     draw launches and closes the trip; it and the 19 after it (one
+     stalled 0.05 s) must pick the plain version's cells at the same
+     uniforms, max abs err 0.0, one launch per draw.
+   * The seeded chaos smoke's plan (an ``evac.drain`` stall of 0.8 s, a
+     ``prefetch.sample`` stall, a commit-without-stamp
+     ``checkpoint.save``, a torn ``latest.write``) on a uniform
+     host-replay run at apex_dedup's widths (Nature CNN, bf16, batch 512,
+     a dedup ring cut to 16,384 slots), 3,200 frames in chunks of 25
+     iterations with a save every other chunk, twice: the same sorted (seam,
+     fault, hit) list as the plan's both times, no open trip, no stale
+     batch, the params of an unarmed run (``param_checksum``), and at
+     least 0.4 s of the stall filed under the ledger's ``evac_fence``.
+   * A CartPole train CLI on the card, SIGTERM'd after its first row: it
+     must exit ``128 + SIGTERM`` within 30 s (utils/device_cleanup.py),
+     leave ``nvidia-smi --query-compute-apps`` within 10 s of that (by
+     pid; by the list's length where the list shows other pids than this
+     machine's, or none), and the card's free memory, lower while it ran,
+     come back to within 512 MB of before (half of it allocated again at
+     once).
+   * For each fused main path this call ran, the sizing gate's
+     ``sizing_predicted_s`` (utils/sizing.py, the CLI's
+     ``fused_gate_args``) beside its measured wall: none may be below.
+   It prints µs per unarmed ``chaos.fire()`` and the seconds from each
+   injection to its recovery per seam.
 
 It prints one ``main_path`` line per path (the learning bars with their
 frames to the bar), then the ``kernels`` JSON line, the card's name and
@@ -4831,6 +4862,323 @@ def _coordinator_nccl(sampler) -> dict:
     return out
 
 
+# The chaos phase: the chaos plane (chaos/), the sizing gate
+# (utils/sizing.py) and the device cleanup (utils/device_cleanup.py) on
+# the card. The host plane of apex's 1M slots, [1954, 512], S = 512 per
+# draw: an injected exception at the first draw, a 0.05 s stall at the
+# third, CHAOS_DRAWS draws after the exception.
+CHAOS_PLANE = (1_000_000, 512, 512)
+CHAOS_DRAWS = 20
+# The host-replay runs under the seeded chaos smoke's plan (evac.drain and
+# prefetch.sample stalls, a commit-without-stamp save, a torn LATEST):
+# apex_dedup's widths (Nature CNN, bf16, batch 512, 16 lanes, a dedup
+# ring), uniform, in HOST_REPLAY_PAIR's chunks of 25 iterations (400
+# frames), filled at 800, 3,200 frames (200 grad steps), with the ring cut
+# to 16,384 slots so each sidecar (the ring window, 0.12 GB) stays small;
+# a save every other chunk, as that smoke saves (four saves: the
+# crash, a stamp, the torn stamp, the stamp that recovers it). The
+# evacuation stall is devtime's chaos case's 0.8 s at the second drain,
+# which the ledger must file under evac_fence (at least 0.4 s of it): a
+# save in the same body would quiesce the evacuation first and take the
+# wait itself.
+CHAOS_HOST_REPLAY = ("apex", ["replay.frame_dedup=true",
+                              "replay.min_fill=800",
+                              "replay.capacity=16384",
+                              "eval_every_steps=0"], 3_200, 25)
+CHAOS_SAVE_EVERY = 800
+CHAOS_EVAC_STALL_S = 0.8
+CHAOS_EVAC_FENCE_MIN_S = 0.4
+# Device cleanup: a CartPole train CLI on the card SIGTERM'd once it has
+# logged its first chunk; it must exit within CLEANUP_EXIT_MAX_S, leave
+# nvidia-smi's compute apps within CLEANUP_GONE_MAX_S of its exit, and the
+# card's free memory come back to within CLEANUP_FREE_SLACK of before.
+CLEANUP_EXIT_MAX_S = 30.0
+CLEANUP_GONE_MAX_S = 10.0
+CLEANUP_FREE_SLACK = 512 << 20
+# Unarmed chaos.fire() calls timed on the host.
+FIRE_CALLS = 1_000_000
+
+
+def _chaos_plane_draws(sampler) -> dict:
+    """The replay.device_sample seam on the sampler kernel's dispatch at
+    the host plane: the injected exception raises before any launch with
+    the plane's pending writes intact; the next draw launches, recovers
+    the trip, and it and every later draw (one of them stalled) pick the
+    plain version's cells at the same uniforms."""
+    import numpy as np
+    import torch
+
+    from dist_dqn_tpu_torch import chaos
+    from dist_dqn_tpu_torch.replay.host import DevicePrioritySampler
+    from dist_dqn_tpu_torch.telemetry.registry import Registry
+
+    capacity, lanes, S = CHAOS_PLANE
+    rng = np.random.default_rng(19)
+    plane = DevicePrioritySampler(capacity, lanes=lanes, device=DEVICE)
+    shape = tuple(plane.plane.shape)
+    if not plane.use_kernel or shape != (1954, 512):
+        _fail(f"chaos: the host plane is {shape}, kernel {plane.use_kernel}")
+    plane.set(np.arange(capacity), rng.random(capacity) + 0.01)
+    plane.sample_at(np.full(S, 0.5, np.float32), capacity)      # flushed
+    rows = rng.choice(capacity, 4096, replace=False)
+    plane.set(rows, rng.random(4096) * 4.0)                     # pending
+    pending = [a.copy() for a in plane._pending_idx]
+    torch.cuda.synchronize()
+    before = plane.plane.clone()
+
+    def uniforms():
+        return ((np.arange(S) + rng.random(S)) / S).astype(np.float32)
+
+    plan = chaos.FaultPlan(seed=19, events=(
+        chaos.FaultEvent("replay.device_sample", "exception", at_hit=1),
+        chaos.FaultEvent("replay.device_sample", "stall", at_hit=3,
+                         args={"delay_s": 0.05})))
+    reg = Registry()
+    sampler.kernel_stratified_sample.launches = 0
+    agree, max_err, open_after_first = True, 0.0, None
+    with chaos.installed(plan, registry=reg) as inj:
+        try:
+            plane.dispatch_at(uniforms())
+            raised = False
+        except chaos.ChaosInjectedError:
+            raised = True
+        torch.cuda.synchronize()
+        launched_on_raise = sampler.kernel_stratified_sample.launches
+        intact = ([a.tolist() for a in plane._pending_idx]
+                  == [a.tolist() for a in pending]
+                  and torch.equal(plane.plane, before))
+        for i in range(CHAOS_DRAWS):
+            u = uniforms()
+            idx, mass = plane.sample_at(u, capacity)
+            if i == 0:
+                open_after_first = inj.open_trips()
+            t, b, m, _ = sampler.plain_stratified_sample(
+                plane.plane, torch.from_numpy(u).to(plane.plane.device))
+            idx_p = (t.long() * lanes + b.long()).cpu().numpy()
+            agree &= bool(np.array_equal(idx, idx_p))
+            max_err = max(max_err, float(np.abs(
+                mass - m.cpu().numpy().astype(np.float64)).max()))
+        injected = [(e["seam"], e["fault"], e["hit"]) for e in inj.injected]
+        open_trips = inj.open_trips()
+    launches = sampler.kernel_stratified_sample.launches
+    out = {"plane": list(shape), "S": S, "raised_before_launch": raised
+           and launched_on_raise == 0, "pending_writes_intact": intact,
+           "draws": CHAOS_DRAWS + 1, "launches": launches,
+           "agree_with_plain": agree, "max_abs_err": max_err,
+           "open_trips_after_next_draw": open_after_first,
+           "injected": injected, "open_trips": open_trips,
+           "recovery_s": _recovery_seconds(reg)}
+    print(json.dumps({"chaos_plane_draws": out}), flush=True)
+    if not (out["raised_before_launch"] and intact and agree
+            and max_err == 0.0 and launches == CHAOS_DRAWS
+            and open_after_first == [] and open_trips == []
+            and injected == [("replay.device_sample", "exception", 1),
+                             ("replay.device_sample", "stall", 3)]):
+        _fail(f"chaos: the device draw seam misbehaved: {out}")
+    return out
+
+
+def _recovery_seconds(reg) -> dict:
+    """Mean seconds from injection to recovery per seam, from an
+    injector's registry."""
+    return {h.labels["seam"]: h.sum / h.count
+            for h in reg.collect().get("dqn_recovery_seconds", [])
+            if h.count}
+
+
+def _chaos_host_replay(directory: str) -> dict:
+    """An unarmed uniform host-replay run, then the same run twice under
+    the smoke's plan with checkpoints: the same (seam, fault, hit) list
+    both times, the unarmed run's params, no open trip, and the
+    evacuation stall in the ledger's evac_fence."""
+    import torch
+
+    from dist_dqn_tpu_torch import chaos
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+    from dist_dqn_tpu_torch.telemetry.registry import Registry
+
+    preset, overrides, total, chunk_iters = CHAOS_HOST_REPLAY
+    cfg = apply_overrides(CONFIGS[preset], overrides)
+    plan = chaos.FaultPlan(seed=8, events=(
+        chaos.FaultEvent("evac.drain", "stall", at_hit=2,
+                         args={"delay_s": CHAOS_EVAC_STALL_S}),
+        chaos.FaultEvent("prefetch.sample", "stall", at_hit=3,
+                         args={"delay_s": 0.05}),
+        chaos.FaultEvent("checkpoint.save", "crash_before_stamp",
+                         at_hit=1),
+        chaos.FaultEvent("latest.write", "torn", at_hit=2)))
+    want = sorted((e.seam, e.fault, e.at_hit) for e in plan.events)
+    torch.cuda.empty_cache()
+    ref, ref_wall = _drive_host_replay(cfg, total, chunk_iters,
+                                       prioritized=False)
+    runs = []
+    for tag in ("a", "b"):
+        reg = Registry()
+        with chaos.installed(plan, registry=reg) as inj:
+            out, wall = _drive_host_replay(
+                cfg, total, chunk_iters, prioritized=False,
+                checkpoint_dir=os.path.join(directory, tag),
+                save_every_frames=CHAOS_SAVE_EVERY)
+            injected = sorted((e["seam"], e["fault"], e["hit"])
+                              for e in inj.injected)
+            open_trips = inj.open_trips()
+        runs.append({"wall_s": wall, "grad_steps": out["grad_steps"],
+                     "param_checksum": out["param_checksum"],
+                     "injected": injected, "open_trips": open_trips,
+                     "evac_fence_s": out["chip_time"]["evac_fence"],
+                     "stale_batches": out["stale_batches"],
+                     "recovery_s": _recovery_seconds(reg)})
+    row = {"reference_wall_s": ref_wall,
+           "reference_checksum": ref["param_checksum"],
+           "reference_evac_fence_s": ref["chip_time"]["evac_fence"],
+           "runs": runs}
+    print(json.dumps({"chaos_host_replay": row}), flush=True)
+    ok = all(r["injected"] == [tuple(x) for x in want]
+             and r["open_trips"] == []
+             and r["param_checksum"] == ref["param_checksum"]
+             and r["grad_steps"] == ref["grad_steps"] > 0
+             and r["evac_fence_s"] >= CHAOS_EVAC_FENCE_MIN_S
+             and r["stale_batches"] == 0 for r in runs)
+    if not ok:
+        _fail(f"chaos: the armed host-replay runs broke an invariant "
+              f"(want {want}): {row}")
+    return row
+
+
+def _compute_apps() -> dict:
+    """pid -> used memory text of nvidia-smi's compute apps."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    apps = {}
+    for line in smi.stdout.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = mem.strip()
+    return apps
+
+
+def _chaos_device_cleanup() -> dict:
+    """SIGTERM a train CLI holding the card mid-chunk: it must exit (the
+    cleanup's 128 + SIGTERM) within CLEANUP_EXIT_MAX_S, leave nvidia-smi's
+    compute apps (by pid, or by the list's length where the list does not
+    show this process namespace's pids), and give back the memory it
+    held."""
+    import signal
+
+    import torch
+
+    torch.cuda.synchronize()
+    free_before, _ = torch.cuda.mem_get_info()
+    apps_before = _compute_apps()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dist_dqn_tpu_torch.train", "--config",
+         "cartpole", "--total-env-steps", "100000000", "--chunk-iters",
+         "500", "--eval-every-steps", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        t0 = time.perf_counter()
+        lines = []
+        while True:
+            line = proc.stdout.readline()
+            if not line:
+                _fail(f"chaos: the train CLI ended before a row: {lines}")
+            lines.append(line.rstrip())
+            if '"env_frames"' in line:
+                break
+            if time.perf_counter() - t0 > 300:
+                _fail("chaos: no train row within 300 s")
+        apps_during = _compute_apps()
+        free_during, _ = torch.cuda.mem_get_info()
+        seen = proc.pid in apps_during
+        listed = seen or len(apps_during) > len(apps_before)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=CLEANUP_EXIT_MAX_S + 30)
+        exit_s = time.perf_counter() - t_term
+        rest = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    gone_s = None
+    while time.perf_counter() - t_term < exit_s + CLEANUP_GONE_MAX_S:
+        apps = _compute_apps()
+        if proc.pid not in apps and len(apps) <= len(apps_before):
+            gone_s = time.perf_counter() - t_term
+            break
+        time.sleep(0.1)
+    free_after, _ = torch.cuda.mem_get_info()
+    probe = torch.empty(int(free_before * 0.5), dtype=torch.uint8,
+                        device=DEVICE)
+    del probe
+    torch.cuda.empty_cache()
+    out = {"rc": rc, "exit_s": exit_s, "exit_max_s": CLEANUP_EXIT_MAX_S,
+           "pid_seen_while_running": seen, "listed_while_running": listed,
+           "apps_before": len(apps_before), "apps_during": len(apps_during),
+           "gone_s": gone_s, "free_gb_before": free_before / 1e9,
+           "free_gb_during": free_during / 1e9,
+           "free_gb_after": free_after / 1e9,
+           "first_row": lines[-1][:200], "tail": rest[-300:]}
+    print(json.dumps({"chaos_device_cleanup": out}), flush=True)
+    if rc != 128 + signal.SIGTERM or exit_s > CLEANUP_EXIT_MAX_S \
+            or gone_s is None or free_during >= free_before \
+            or free_after < free_before - CLEANUP_FREE_SLACK:
+        _fail(f"chaos: the SIGTERM'd train CLI did not leave the card: "
+              f"{out}")
+    return out
+
+
+def _chaos_sizing(walls: dict) -> dict:
+    """The sizing gate's prediction for each fused main path this call
+    ran, beside the wall it took: the gate must be conservative."""
+    from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
+    from dist_dqn_tpu_torch.envs import make_env
+    from dist_dqn_tpu_torch.utils import sizing
+
+    rows = {}
+    for name, wall in walls.items():
+        preset, overrides, total, chunk_iters = MAIN_PATHS[name]
+        cfg = apply_overrides(CONFIGS[preset], overrides)
+        env = make_env(cfg.env_name, device="cpu")
+        verdict = sizing.gate_fused(
+            budget_s=float("inf"),
+            **sizing.fused_gate_args(cfg, env, total, chunk_iters))
+        rows[name] = {"sizing_predicted_s": verdict.predicted_s,
+                      "wall_s": wall, "ok": verdict.ok}
+    print(json.dumps({"chaos_sizing": rows,
+                      "device_memory_gb": sizing.device_memory_bytes() / 1e9}),
+          flush=True)
+    low = {n: r for n, r in rows.items()
+           if not r["ok"] or r["sizing_predicted_s"] < r["wall_s"]}
+    if low:
+        _fail(f"chaos: the sizing gate predicted below a measured wall "
+              f"(or refused a path the card ran): {low}")
+    return rows
+
+
+def check_chaos(sampler, directory: str, walls: dict) -> int:
+    """The chaos phase (about a minute): the device draw seam at the host
+    plane, the smoke plan's host-replay runs, the device cleanup of a
+    SIGTERM'd train CLI, and the sizing gate against the main paths'
+    walls. Returns the sampler launches of its draws."""
+    from dist_dqn_tpu_torch import chaos
+
+    t0 = time.perf_counter()
+    for _ in range(FIRE_CALLS):
+        chaos.fire("replay.device_sample")
+    fire_us = (time.perf_counter() - t0) / FIRE_CALLS * 1e6
+    print(json.dumps({"chaos_fire_unarmed_us": fire_us,
+                      "calls": FIRE_CALLS}), flush=True)
+    draws = _chaos_plane_draws(sampler)
+    _chaos_host_replay(directory)
+    _chaos_device_cleanup()
+    _chaos_sizing(walls)
+    return draws["launches"]
+
+
 BAR_PHASES = ("cartpole", "catch", "rainbow_cartpole", "qrdqn_cartpole",
               "iqn_cartpole", "mdqn_cartpole")
 HOST_REPLAY_PHASES = ("host_replay_apex_dedup", "host_replay_uniform_pair")
@@ -4849,7 +5197,7 @@ APEX_DIST_PHASES = {
 }
 PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
-          "population_learner_lockstep", *HOST_REPLAY_PHASES,
+          "population_learner_lockstep", "chaos", *HOST_REPLAY_PHASES,
           *APEX_SERVICE_PHASES, "serving_apex", "watchdog_device_wait",
           *MESH_PHASES,
           "sharded_store_device", *APEX_DIST_PHASES, *BAR_PHASES)
@@ -4916,10 +5264,11 @@ def finish_bars(handle) -> dict:
     return got
 
 
-def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
+def run_main_paths(phases, sampler, launches: dict, tmp: str,
+                   walls: dict) -> None:
     """Drive each selected main path (and each one a selected follow-up
     phase reuses), then its follow-ups; records the sampler launches of
-    each in ``launches``."""
+    each in ``launches`` and its train() wall in ``walls``."""
     import torch
 
     from dist_dqn_tpu_torch.config import CONFIGS, apply_overrides
@@ -4950,6 +5299,7 @@ def run_main_paths(phases, sampler, launches: dict, tmp: str) -> None:
                 cfg, total_env_steps, chunk_iters, logged=logged,
                 **checkpoint)
         launches[name] = sampler.kernel_stratified_sample.launches
+        walls[name] = wall
         checkpoint.pop("telemetry_port", None)
         outputs = check_outputs(name, cfg, carry, history, launches[name])
         if tm is not None:
@@ -5400,11 +5750,16 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # /debug/profile captures land in the forensics dir: the script's.
         os.environ["DQN_FORENSICS_DIR"] = os.path.join(tmp, "forensics")
-        run_main_paths(phases, sampler, launches, tmp)
+        walls = {}
+        run_main_paths(phases, sampler, launches, tmp, walls)
         if "population_learner_lockstep" in phases:
             launches["population_learner_lockstep"] = \
                 check_population_learner_lockstep(sampler)
             _clock("population_learner_lockstep")
+        if "chaos" in phases:
+            launches["chaos"] = check_chaos(
+                sampler, os.path.join(tmp, "chaos"), walls)
+            _clock("chaos")
         # The bars run beside the rest from here: the sampler's timing and
         # the fused paths' chip-time and kernel counts are taken alone.
         bars = start_bars(phases)

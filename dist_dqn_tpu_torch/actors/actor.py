@@ -17,9 +17,12 @@ exit or SIGTERM where ``DQN_TELEMETRY_SNAPSHOT`` names a file (``{pid}`` and
 ``{tag}`` expand per process). Where ``DQN_FORENSICS_DIR`` is set each
 actor arms its own stall watchdog and beats an ``actor.loop`` heartbeat
 every step, so a worker wedged inside ``env.step`` or a transport wait
-dumps its own forensics bundle. The chaos seams are not ported (ROADMAP.md
-A10d). This module imports numpy and no torch: the service starts actors with the ``spawn`` method, and an actor
-never initialises CUDA.
+dumps its own forensics bundle. Each actor arms its slice of the parent's
+chaos plan from ``DQN_CHAOS_PLAN`` and fires the ``actor.step`` seam once a
+step-loop pass (wedge, crash, slow_start); a remote actor's re-established,
+re-hello'd connection marks ``transport.send`` recovered. This module
+imports numpy and no torch: the service starts actors with the ``spawn``
+method, and an actor never initialises CUDA.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import time
 
 import numpy as np
 
-from dist_dqn_tpu_torch import ingest
+from dist_dqn_tpu_torch import chaos, ingest
 from dist_dqn_tpu_torch.actors.transport import (CORRUPT_FRAME_NACK_KIND,
                                                  PROTO_MISMATCH_NACK_KIND,
                                                  ShmMailbox, ShmRing,
@@ -52,6 +55,10 @@ def _actor_telemetry(actor_id: int, tag: str):
     reg = get_registry()
     maybe_install_snapshot_from_env(tag=f"{tag}{actor_id}")
     watchdog.maybe_install_from_env()
+    # Spawned workers arm their slice of the parent's fault plan from
+    # DQN_CHAOS_PLAN, like the watchdog/snapshot env twins above — a game
+    # day reaches into every process of the fleet.
+    chaos.maybe_install_from_env()
     labels = {"actor": str(actor_id)}
     return (reg.gauge("dqn_actor_heartbeat_timestamp",
                       "unix time of the last step-loop pass", labels),
@@ -61,6 +68,21 @@ def _actor_telemetry(actor_id: int, tag: str):
             # act, which pays its one-time set-up.
             watchdog.heartbeat("actor.loop",
                                startup_grace_s=watchdog.STARTUP_GRACE_S))
+
+
+def _chaos_step_seam() -> None:
+    """The per-pass ``actor.step`` seam: wedge (sleep through heartbeat
+    deadlines — the watchdog's prey), crash (kill -9 semantics: no
+    cleanup, no snapshot flush — supervision must restart us), or
+    slow_start (spawn-time stagger). Interpreted here so the local and
+    remote step loops cannot drift."""
+    ev = chaos.fire("actor.step")
+    if ev is None:
+        return
+    if ev.fault == "crash":
+        os._exit(137)           # SIGKILL's exit code: die WITHOUT cleanup
+    chaos.sleep_for(ev)         # wedge / slow_start
+    chaos.mark_recovered("actor.step")
 
 
 def _step_and_encode(env, actions, actor_id: int, t: int,
@@ -182,6 +204,7 @@ def run_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
                 actions, q_sel, q_max, hdr = ingest.decode_reply(data)
                 shard = hdr["shard"]       # the sticky routing tag, echoed
                 params_ver = hdr.get("params_version", params_ver)
+                _chaos_step_seam()
                 obs, t, payload = _step_and_encode_zc(
                     env, actions, enc, actor_id, t, shard, q_sel, q_max,
                     params_version=params_ver)
@@ -189,6 +212,7 @@ def run_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
                 # A rejected same-host hello raises in the service itself
                 # (a deploy bug, not wire churn): no NACK handling here.
                 arrays, _ = decode_arrays(data)
+                _chaos_step_seam()
                 obs, t, payload = _step_and_encode(env, arrays["action"],
                                                    actor_id, t)
             steps += num_envs
@@ -279,6 +303,10 @@ def run_remote_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
                 client = connect_and_hello(obs, t)
                 failures = 0
                 reconnects.inc()
+                # A re-established, re-hello'd connection IS the
+                # recovery proof for send-side faults (disconnect,
+                # truncate, drop) — close any open transport.send trip.
+                chaos.mark_recovered("transport.send")
             except OSError:
                 failures += 1
                 hb_stage.beat()      # retrying is responsive, not wedged
@@ -312,6 +340,7 @@ def run_remote_actor(actor_id: int, env_name: str, num_envs: int, seed: int,
                     f"actor {actor_id}: service rejected hello — "
                     f"{meta.get('detail', 'protocol mismatch')}")
             actions = arrays["action"]
+        _chaos_step_seam()
         if enc is not None:
             obs, t, payload = _step_and_encode_zc(
                 env, actions, enc, actor_id, t, shard, q_sel, q_max,

@@ -23,8 +23,9 @@ in its own registry, and dumps it at exit or SIGTERM where
 ``DQN_TELEMETRY_SNAPSHOT`` names a file, beside the wall-clock heartbeat
 gauge of its pump loop. Where ``DQN_FORENSICS_DIR`` is set it arms its own
 stall watchdog and beats a ``feeder.pump`` heartbeat on the gauge's
-cadence. The chaos seams are not ported (ROADMAP.md A10d). This module
-imports numpy and no torch.
+cadence. It arms its slice of the parent's chaos plan from
+``DQN_CHAOS_PLAN`` like an actor does (its slot ring's ``shm.publish``
+seam fires in this process). This module imports numpy and no torch.
 """
 from __future__ import annotations
 
@@ -171,6 +172,9 @@ def run_feeder(actor_id: int, spec: str, num_envs: int, seed: int,
     # beat waits on the service's hello reply, which waits on its first
     # act.
     tm_watchdog.maybe_install_from_env()
+    # Feeders join a game day like actors do.
+    from dist_dqn_tpu_torch import chaos
+    chaos.maybe_install_from_env()
     hb = tm_watchdog.heartbeat(
         "feeder.pump", startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
     labels = {"actor": str(actor_id)}

@@ -77,7 +77,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dist_dqn_tpu_torch import ingest
+from dist_dqn_tpu_torch import chaos, ingest
 from dist_dqn_tpu_torch.actors.act_dispatch import pack_act_rows
 from dist_dqn_tpu_torch.actors.assembler import NStepAssembler
 from dist_dqn_tpu_torch.actors.transport import (ShmMailbox, ShmRing,
@@ -848,6 +848,10 @@ class ApexLearnerService:
             tmc.INGEST_DEGRADED,
             "1 while supervision sees at least half the actor fleet "
             "dead (degraded, not wedged)")
+        # A new service starts with its whole fleet to come: the gauge
+        # must not keep an earlier service's verdict in the same process
+        # (a game day's scenarios share it).
+        self._tm_degraded.set(0.0)
         self._degraded = False
         self._tm_actor_alive: Dict[int, object] = {}
         self._tm_episodes = reg.counter(
@@ -2259,6 +2263,15 @@ class ApexLearnerService:
             last_log = time.perf_counter()
             clock, loop_s = time.perf_counter, self.loop_s
             while self._progress() < self.rt.total_env_steps:
+                # Chaos seam: the learner-process kill for game days —
+                # die with SIGKILL semantics (no cleanup, no stop file,
+                # no device release) at a plan-determined loop pass, so
+                # the learner-restart invariant (actors re-attach via
+                # re-hello, trajectory resumes from the checkpoint) is
+                # exercised at a reproducible dataflow position.
+                cev = chaos.fire("service.loop")
+                if cev is not None and cev.fault == "crash":
+                    os._exit(137)
                 # One block of device work a pass (telemetry/devtime.py
                 # LaunchGate): a profiler starts between passes.
                 with devtime.device_work():
@@ -2453,5 +2466,10 @@ class ApexLearnerService:
 def run_apex(cfg: ExperimentConfig, rt: ApexRuntimeConfig, log_fn=print,
              device=None) -> dict:
     """Build the service on ``device`` (default: the card) and run it to
-    completion; returns its summary."""
+    completion; returns its summary. A SIGTERM'd service releases the card
+    (utils/device_cleanup.py)."""
+    from dist_dqn_tpu_torch.utils.device_cleanup import \
+        install as _install_cleanup
+
+    _install_cleanup()
     return ApexLearnerService(cfg, rt, log_fn=log_fn, device=device).run()

@@ -19,9 +19,11 @@ part of ``dist_dqn_tpu/actors/transport.py``).
 The server's counts are plain attributes the service's summary reads, and
 registry series of the JAX module's names besides: records, backlog,
 backpressure, shed records and live connections of the TCP listener, and
-frames failing the integrity check by ``{reason, side}``. The chaos seams
-are not ported (ROADMAP.md A10d). Stdlib + numpy only: actor processes
-import this module and no torch.
+frames failing the integrity check by ``{reason, side}``. Chaos seams:
+``transport.send`` on the client's frame (drop, delay, bit_flip after the
+CRC, truncate, disconnect) and ``transport.recv`` on the server's raw frame
+before its CRC check (drop, delay, bit_flip, disconnect). Stdlib + numpy
+only: actor processes import this module and no torch.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from dist_dqn_tpu_torch import chaos
 from dist_dqn_tpu_torch.telemetry import get_registry
 from dist_dqn_tpu_torch.telemetry.collectors import (TRANSPORT_CORRUPT,
                                                      TRANSPORT_SHED)
@@ -448,6 +451,20 @@ class TcpRecordServer:
                 if payload is None:
                     self._count_corrupt("truncated")
                     return
+                ev = chaos.fire("transport.recv")
+                if ev is not None:
+                    if ev.fault == "bit_flip":
+                        # Corrupt BEFORE verification: the CRC gate
+                        # below must catch it — the e2e corrupt-frame
+                        # invariant (a flipped bit never reaches the
+                        # array codec).
+                        payload = chaos.corrupt_bytes(payload, ev)
+                    elif ev.fault == "drop":
+                        continue
+                    elif ev.fault == "delay":
+                        chaos.sleep_for(ev)
+                    elif ev.fault == "disconnect":
+                        return
                 if not _frame_check(payload, crc):
                     # The boundary held (the length matched): drop just
                     # this frame and NACK the lock-step sender.
@@ -455,6 +472,7 @@ class TcpRecordServer:
                     self.send(conn_id, encode_arrays(
                         {}, {"kind": CORRUPT_FRAME_NACK_KIND}))
                     continue
+                chaos.mark_recovered("transport.recv")
                 self._append(conn_id, payload)
         finally:
             with self._lock:
@@ -584,6 +602,30 @@ class TcpRecordClient:
         connection. Sends get the whole stall bound: a large record may sit
         mid-send while the server's backpressure pauses its reads."""
         frame = frame_encode(payload)
+        ev = chaos.fire("transport.send")
+        if ev is not None:
+            if ev.fault == "drop":
+                # Simulated wire loss: report success, send nothing —
+                # the reply never comes and the stall/reconnect path
+                # must recover the lane.
+                return True
+            if ev.fault == "delay":
+                chaos.sleep_for(ev)
+            elif ev.fault == "bit_flip":
+                # Corrupt AFTER the CRC was computed: genuine wire
+                # corruption — the server's integrity gate must drop
+                # and NACK it.
+                frame = chaos.corrupt_bytes(frame, ev)
+            elif ev.fault == "truncate":
+                frame = chaos.truncate_bytes(frame, ev)
+                try:
+                    self._sock.sendall(frame)
+                finally:
+                    self.close()   # a half frame can never resync
+                return False
+            elif ev.fault == "disconnect":
+                self.close()
+                return False
         try:
             self._sock.settimeout(self._max_stall_s)
             self._sock.sendall(frame)

@@ -79,8 +79,18 @@ own with its own watchdog; ``host_replay.train``), each chunk records a
 ``fence`` and a ``train`` flight event, the divergence sentinel sees every
 train event's loss and a non-finite end-of-run param checksum, and the
 ``host_replay.checkpoint`` emergency hook saves the learner at its last
-fence plus this rank's ring as a side snapshot. The chaos seams are not
-ported yet (ROADMAP.md A10d).
+fence plus this rank's ring as a side snapshot.
+
+Chaos seams (chaos/plan.py): ``host_replay.collect`` before each collect
+dispatch (crash or stall), ``sidecar.write`` on the composed sidecar
+(torn) and ``host_replay.chunk`` after each chunk's save (crash). A
+resume marks the crash seams recovered, and ``sidecar.write`` too when it
+fell back past a torn sidecar. On a mesh every rank is a process with an
+injector of its own (armed from ``DQN_CHAOS_PLAN`` in a spawned rank):
+each counts the ``dp`` collect dispatches of a chunk, as JAX's one process
+counts its shards', so a plan's ``at_hit`` names the same (chunk, shard)
+on every rank; only that shard's rank sleeps a stall, and a crash ends
+every rank, as it ends JAX's one process.
 """
 from __future__ import annotations
 
@@ -97,7 +107,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from dist_dqn_tpu_torch import loop_common
+from dist_dqn_tpu_torch import chaos, loop_common
 from dist_dqn_tpu_torch.agents.dqn import (LearnerState, broadcast_learner,
                                            make_actor_step, make_learner)
 from dist_dqn_tpu_torch.config import ExperimentConfig
@@ -347,6 +357,17 @@ def compose_sidecar(path: str, shared: Dict[str, np.ndarray],
                                       force_zip64=True) as fo:
                         shutil.copyfileobj(fi, fo, 1 << 24)
     os.replace(tmp, path)
+
+
+def _chaos_sidecar_seam(path: str) -> None:
+    """The ``sidecar.write`` chaos seam on a sidecar just composed at
+    ``path``: "torn" leaves a truncated sidecar at the final path (a crash
+    mid-write on a filesystem without atomic-rename semantics) while the
+    learner step still commits — resume must detect the unreadable
+    sidecar, delete the unusable step and fall back to the previous one."""
+    cev = chaos.fire("sidecar.write")
+    if cev is not None and cev.fault == "torn":
+        os.truncate(path, max(16, os.path.getsize(path) // 7))
 
 
 def prune_sidecars(checkpoint_dir: str, keep, upto: int) -> None:
@@ -888,6 +909,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         # reads only the shared keys; each rank reads its own below.
         side = step = None
         refusal = None
+        fell_back = False
         if main:
             try:
                 for cand in sorted(ckpt.all_steps(), reverse=True):
@@ -901,6 +923,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                     except (FileNotFoundError, ValueError, EOFError,
                             KeyError, zipfile.BadZipFile) as e:
                         _count_refused("torn_sidecar")
+                        fell_back = True
                         log_fn(f"# checkpoint step {cand}: sidecar "
                                f"unreadable ({type(e).__name__}: {e}) — "
                                "deleting the unusable step and falling "
@@ -1030,6 +1053,17 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                                "resumed_per": per_enabled}))
             reg.counter(tmc.CHECKPOINT_RESUMES,
                         "successful whole-state resumes", _labels).inc()
+            # Resuming from the checkpoint IS the recovery proof for an
+            # injected mid-run crash (in-process chaos replay); a
+            # resume that fell back past an injected torn sidecar
+            # proves that seam recovered too.
+            chaos.mark_recovered("host_replay.chunk")
+            # ...and for a crash injected at a shard's collect dispatch:
+            # the resumed process restores that shard's carry from the
+            # sidecar, which is the surviving path.
+            chaos.mark_recovered("host_replay.collect")
+            if fell_back:
+                chaos.mark_recovered("sidecar.write")
 
     d2h_bytes_total = 0
     d2h_bytes_by_shard = [0] * dp if mesh_mode else None
@@ -1119,6 +1153,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             side = {**own, **shared}
             ckpt_schema.validate_sidecar(side.keys())
             compose_sidecar(path, side, [])
+            _chaos_sidecar_seam(path)
         else:
             part = _part_path(env_steps, rank)
             compose_sidecar(part, own, [])
@@ -1131,6 +1166,7 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 # The sidecar lands before the step: a committed step
                 # implies its sidecar exists.
                 compose_sidecar(path, shared, parts)
+                _chaos_sidecar_seam(path)
                 for p in parts:
                     os.remove(p)
         last_saved = env_steps
@@ -1151,6 +1187,20 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
         they stand now. Returns (records, stats); on the card also records
         the event the records are complete at (the evacuation's start)."""
         nonlocal carry, records_ready, collect_dispatch_s
+        # Chaos seam: per-shard crash/stall at the dispatch site, before
+        # any launch. Stall recovery = the completed dispatch below;
+        # crash recovery = the next process's resume (anchored beside
+        # host_replay.chunk's). Every rank counts all dp shards' fires.
+        stalled = False
+        for s in range(dp):
+            cev = chaos.fire("host_replay.collect")
+            if cev is not None:
+                if cev.fault == "crash":
+                    raise chaos.ChaosInjectedError("host_replay.collect",
+                                                   cev.fault)
+                if s == rank:
+                    chaos.sleep_for(cev)
+                stalled = True
         with devtime.device_work():
             actor = actor_snapshot(state.net)
             if not prog_collect.cost_attached:
@@ -1166,6 +1216,8 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
             if dev.type == "cuda":
                 records_ready = torch.cuda.Event()
                 records_ready.record()
+        if stalled:
+            chaos.mark_recovered("host_replay.collect")
         return r, st
 
     def submit_evac(recs):
@@ -1482,6 +1534,13 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
                 next_save = env_steps + save_period
                 with devtime.device_work():
                     _save_checkpoint(g)
+            # Chaos seam: the deliberate mid-run kill the
+            # resume-bit-identical pin uses — fired AFTER the save so
+            # "killed at chunk k" means "with a checkpoint at k".
+            cev = chaos.fire("host_replay.chunk")
+            if cev is not None and cev.fault == "crash":
+                raise chaos.ChaosInjectedError("host_replay.chunk",
+                                               cev.fault)
         if checkpoint_dir and num_chunks:
             # The final whole-state save: resuming a completed run is a
             # pass straight to the summary.

@@ -32,6 +32,10 @@ encoder's scratch — consumed (sent / ring-published) before the next
 The header layout is the JAX package's: ``WIRE_HISTORY`` keeps its
 fingerprints, and ``tests/test_torch_ingest.py`` holds the bytes equal.
 
+Chaos seam ``ingest.decode`` at both step decoders, on the payload before
+validation (bit_flip in the header, truncate), so a corrupt record is
+rejected whole; the next record that decodes marks it recovered.
+
 Stdlib + numpy only: actor processes import no torch.
 """
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from dist_dqn_tpu_torch import chaos
 from dist_dqn_tpu_torch.ingest.schema import (PROTOCOL_VERSION,
                                         TrajectorySchema,
                                         validate_dedup_stack)
@@ -155,6 +160,27 @@ def peek_header(payload) -> Dict[str, int]:
             "t": t, "lanes": lanes}
 
 
+def _chaos_decode_seam(payload, hdr):
+    """The ``ingest.decode`` chaos seam, shared by the plain and dedup
+    step decoders: corrupt BEFORE validation, so the gates below must
+    reject the record whole (corruption never decodes) on the zero-copy
+    path too. bit_flip targets the HEADER (the codec's own validation
+    surface); body integrity belongs to the TCP CRC frame / shm seqlock.
+    Returns (payload, parsed hdr)."""
+    ev = chaos.fire("ingest.decode")
+    if ev is not None:
+        if ev.fault == "bit_flip":
+            payload = (chaos.corrupt_bytes(
+                bytes(payload[:HEADER_BYTES]), ev)
+                + bytes(payload[HEADER_BYTES:]))
+        elif ev.fault == "truncate":
+            payload = chaos.truncate_bytes(bytes(payload), ev)
+        hdr = None          # the bytes changed: re-validate them
+    if hdr is None:
+        hdr = peek_header(payload)
+    return payload, hdr
+
+
 class StepEncoder:
     """Encode step records into ONE reusable buffer.
 
@@ -247,8 +273,7 @@ class StepDecoder:
         payload — the ingest loop peeks once to route to the actor's
         decoder, and passing it here avoids a second unpack per record
         on the hot path."""
-        if hdr is None:
-            hdr = peek_header(payload)
+        payload, hdr = _chaos_decode_seam(payload, hdr)
         if hdr["kind"] != KIND_STEP:
             raise WireFormatError(f"expected step record, got kind "
                                   f"{hdr['kind']}")
@@ -280,6 +305,7 @@ class StepDecoder:
             meta["q_max"] = np.frombuffer(payload, _F32, lanes,
                                           self._base + 4 * lanes)
         _lineage_meta(payload, hdr["flags"], meta)
+        chaos.mark_recovered("ingest.decode")
         return out, meta
 
 
@@ -766,8 +792,7 @@ class DedupStepDecoder:
     def decode(self, payload,
                hdr: Optional[Dict[str, int]] = None
                ) -> Tuple[Dict[str, np.ndarray], Dict]:
-        if hdr is None:
-            hdr = peek_header(payload)
+        payload, hdr = _chaos_decode_seam(payload, hdr)
         lay = self.lay
         if hdr["kind"] != KIND_STEP:
             raise WireFormatError(f"expected step record, got kind "
@@ -835,6 +860,7 @@ class DedupStepDecoder:
         self.frames_reused += self._canon_reused
         self.bytes_saved += (lay.plain_len_q if has_q
                              else lay.plain_len_nq) + lin - len(payload)
+        chaos.mark_recovered("ingest.decode")
         return out, meta
 
     def _decode_general(self, payload, hdr, has_q: bool):
@@ -915,5 +941,6 @@ class DedupStepDecoder:
         self.records_general += 1
         self.frames_reused += 2 * lay.fs * lay.lanes - n_inline
         self.bytes_saved += lay.plain_len(has_q) + lin - len(payload)
+        chaos.mark_recovered("ingest.decode")
         return out, _lineage_meta(payload, hdr["flags"],
                                   self._meta(hdr, payload))

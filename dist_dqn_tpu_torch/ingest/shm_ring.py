@@ -29,6 +29,10 @@ it into a consumer-side queue, so the drain cannot tell feeders from
 actors. A batch of one takes :meth:`ShmSlotRing.push`, byte for byte the
 unbatched wire, and a torn batched slot drops the whole batch.
 
+Chaos seam ``shm.publish`` on both publishes: "drop" reports success and
+publishes nothing, "stall" sleeps, "torn" advances ``write_seq`` with the
+stamp left odd (die-mid-write); the next clean publish marks it recovered.
+
 Stdlib + numpy only (actor processes import no torch).
 """
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from dist_dqn_tpu_torch import chaos
 from dist_dqn_tpu_torch.telemetry import get_registry
 from dist_dqn_tpu_torch.telemetry.collectors import (INGEST_SHM_BATCH_FANIN,
                                                      INGEST_SHM_TORN,
@@ -130,6 +135,14 @@ class ShmSlotRing:
         if n > self.slot_size:
             raise ValueError(f"record of {n} bytes exceeds slot_size "
                              f"{self.slot_size}")
+        ev = chaos.fire("shm.publish")
+        if ev is not None:
+            if ev.fault == "drop":
+                # Simulated loss: report success, publish nothing — the
+                # stall watchdog / supervision path must recover.
+                return True
+            if ev.fault == "stall":
+                chaos.sleep_for(ev)
         w = self._claim()
         if w is None:
             return False
@@ -137,8 +150,15 @@ class ShmSlotRing:
         self._stamps[i][0] = 2 * w + 1          # odd: write in flight
         self._lengths[i][0] = n
         self._slot_data(i)[:n] = payload
+        if ev is not None and ev.fault == "torn":
+            # Die-mid-write semantics: the seq advances but the stamp
+            # stays odd — the consumer must detect and drop, never
+            # decode. (Recovery proof = the next clean publish.)
+            self._hdr[_WRITE_SEQ] = w + 1
+            return True
         self._stamps[i][0] = 2 * w + 2          # even: published
         self._hdr[_WRITE_SEQ] = w + 1
+        chaos.mark_recovered("shm.publish")
         return True
 
     def push_batch(self, payloads: Sequence) -> bool:
@@ -155,6 +175,12 @@ class ShmSlotRing:
             raise ValueError(
                 f"batch of {len(payloads)} records needs {total} bytes, "
                 f"exceeds slot_size {self.slot_size}")
+        ev = chaos.fire("shm.publish")
+        if ev is not None:
+            if ev.fault == "drop":
+                return True
+            if ev.fault == "stall":
+                chaos.sleep_for(ev)
         w = self._claim()
         if w is None:
             return False
@@ -169,8 +195,15 @@ class ShmSlotRing:
             off += 4
             slot[off:off + len(p)] = p
             off += len(p)
+        if ev is not None and ev.fault == "torn":
+            # Die-mid-write semantics: the WHOLE batch must be dropped
+            # by the consumer's stamp check — one seqlock covers one
+            # slot, so partial delivery of a torn batch cannot happen.
+            self._hdr[_WRITE_SEQ] = w + 1
+            return True
         self._stamps[i][0] = 2 * w + 2          # even: published
         self._hdr[_WRITE_SEQ] = w + 1
+        chaos.mark_recovered("shm.publish")
         return True
 
     def push_batch_wait(self, payloads: Sequence, stop=lambda: False,

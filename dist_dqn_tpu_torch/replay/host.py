@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dist_dqn_tpu_torch import chaos
 from dist_dqn_tpu_torch.ops.sampler import (SAMPLE_BLOCK,
                                             importance_weights,
                                             kernel_stratified_sample,
@@ -411,10 +412,25 @@ class DevicePrioritySampler:
             return kernel_stratified_sample(self._plane, u)
         return stratified_sample_rows(self._plane, self._blk_sums, u)
 
+    def _fire_draw_seam(self) -> None:
+        """Chaos seam: the per-shard device draw — exception tests the
+        coordinator's failure contract, stall its pipeline slack; recovery
+        is anchored at the next draw that MATERIALIZES (mark_recovered in
+        :meth:`materialize_at`/:meth:`sample`). It fires before the
+        pending writes flush and before any launch, so an injected
+        exception leaves the plane and its pending writes as they were."""
+        cev = chaos.fire("replay.device_sample")
+        if cev is not None:
+            if cev.fault == "exception":
+                raise chaos.ChaosInjectedError("replay.device_sample",
+                                               cev.fault)
+            chaos.sleep_for(cev)
+
     def dispatch_at(self, u: np.ndarray):
         """Queue the pending writes and one draw at explicit uniforms ``u``
         [S] in [0, 1) on the device; returns a handle of device tensors for
         :meth:`materialize_at`."""
+        self._fire_draw_seam()
         self._count_draw(len(u))
         t0 = time.perf_counter()
         with devtime.device_work():
@@ -441,6 +457,7 @@ class DevicePrioritySampler:
         dt = time.perf_counter() - t0
         self._h_sample.observe(dt)
         self._prog_draw.add_device_seconds(dt)
+        chaos.mark_recovered("replay.device_sample")
         return idx, mass
 
     def sample_at(self, u: np.ndarray, size: int
@@ -456,6 +473,7 @@ class DevicePrioritySampler:
         ``(size * P(i)) ** -beta`` normalized by the batch max). A pick at
         or past ``size`` (a zero-mass cell past the written region) is
         clamped to ``size - 1`` with its weight zeroed."""
+        self._fire_draw_seam()
         self._count_draw(batch_size)
         t0 = time.perf_counter()
         dev = self.device
@@ -477,6 +495,7 @@ class DevicePrioritySampler:
         dt = time.perf_counter() - t0
         self._h_sample.observe(dt)
         self._prog_draw.add_device_seconds(dt)
+        chaos.mark_recovered("replay.device_sample")
         return idx, w
 
 

@@ -37,8 +37,11 @@ workers beat their stall-watchdog heartbeats (``evac.<name>``,
 ``prefetch.<name>``: per queue wake, per published slice, per drawn
 batch, so idling is healthy and a worker wedged mid-drain goes stale with
 its thread named in the bundle's stacks) and record their ``queue``
-flight events (submits, drains, stale drops, failures). The chaos seams
-are not ported yet (ROADMAP.md A10d).
+flight events (submits, drains, stale drops, failures). Their chaos
+seams, ``evac.drain`` and ``prefetch.sample`` (exception or stall), fire
+on the worker threads before a drain or a draw: on the card the chunk's
+copies and their events were queued by ``submit`` on the main thread, so
+a stall holds the host thread only and leaves no event unrecorded.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dist_dqn_tpu_torch import chaos
 from dist_dqn_tpu_torch.telemetry import collectors as tm, get_registry
 from dist_dqn_tpu_torch.telemetry import devtime
 from dist_dqn_tpu_torch.telemetry import flight as tm_flight
@@ -444,6 +448,18 @@ class EvacuationWorker:
                 self._hb.close()
                 return
             try:
+                # Chaos seam: exception exercises the tombstone +
+                # fence-poisoning contract below with a provenance-typed
+                # error; stall exercises the watchdog (a sleep past the
+                # deadline = one bundle + 503, beats resume = recovery) —
+                # both against the REAL drain path.
+                ev = chaos.fire("evac.drain")
+                if ev is not None:
+                    if ev.fault == "exception":
+                        raise chaos.ChaosInjectedError("evac.drain",
+                                                       ev.fault)
+                    chaos.sleep_for(ev)
+                    chaos.mark_recovered("evac.drain")
                 t0 = job.submitted_at
 
                 def _lag(_i, t0=t0):
@@ -672,6 +688,17 @@ class SamplePrefetcher:
                     if self._closing:
                         self._hb.close()
                         return
+                # Chaos seam: the prefetcher's failure contract
+                # (exception re-raises from pop()/request(), tombstone
+                # drains, close() never hangs) and its stall behavior,
+                # driven on the real worker thread.
+                cev = chaos.fire("prefetch.sample")
+                if cev is not None:
+                    if cev.fault == "exception":
+                        raise chaos.ChaosInjectedError("prefetch.sample",
+                                                       cev.fault)
+                    chaos.sleep_for(cev)
+                    chaos.mark_recovered("prefetch.sample")
                 t0 = time.perf_counter()
                 host_batch, aux = self._sample_fn(k)
                 dt = time.perf_counter() - t0

@@ -14,8 +14,9 @@ endpoint (logged as ``telemetry_port``), and ``--telemetry-snapshot``
 dumps it at exit. ``--forensics-dir`` arms the stall watchdog (the
 ``serving.batcher`` heartbeat) and the divergence sentinel with forensics
 bundles, as on the train CLI; ``--fleet-dir`` (or ``DQN_FLEET_DIR``)
-announces the replica to the run's fleet. Chaos plans (ROADMAP.md A10d)
-are not ported yet: ``DQN_CHAOS_PLAN`` raises with the reason.
+announces the replica to the run's fleet. ``DQN_CHAOS_PLAN`` (inline JSON
+or a file path) arms a fault plan for serving game days
+(``serving.dispatch``, ``serving.reload``), as on the train CLI.
 """
 from __future__ import annotations
 
@@ -36,14 +37,6 @@ def _parse_kv(pairs, what, cast=str):
         name, value = raw.split("=", 1)
         out[name] = cast(value)
     return out
-
-
-def _refuse_unported() -> None:
-    """The chaos plan of the JAX CLI, which this port does not implement
-    yet, refused with the ROADMAP.md item that brings it."""
-    if os.environ.get("DQN_CHAOS_PLAN"):
-        raise SystemExit("not ported yet: DQN_CHAOS_PLAN (chaos, "
-                         "ROADMAP.md A10d)")
 
 
 def main(argv=None):
@@ -138,7 +131,6 @@ def main(argv=None):
                              "train CLI")
     parser.add_argument("--watchdog-deadline-s", type=float, default=120.0)
     args = parser.parse_args(argv)
-    _refuse_unported()
     if args.telemetry_snapshot:
         # Written at exit: the drain below ends in a normal exit, whose
         # atexit leg dumps it whichever SIGTERM handler came first.
@@ -173,6 +165,12 @@ def main(argv=None):
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
+
+    # Serving game days (reload-under-load, slow dispatch) arm their
+    # fault plan via DQN_CHAOS_PLAN like the training CLIs and spawned
+    # workers do.
+    from dist_dqn_tpu_torch import chaos
+    chaos.maybe_install_from_env()
 
     from dist_dqn_tpu_torch.serving.server import build_server
 

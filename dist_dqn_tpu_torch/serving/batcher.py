@@ -32,8 +32,11 @@ serial lock: the card still sees one serialized dispatch per request.
 
 The dispatch thread beats the ``serving.batcher`` stall-watchdog
 heartbeat (live once ``--forensics-dir`` installs a watchdog) and records
-its launches under the ``serving.act`` device-time program. Not ported
-yet: the ``serving.dispatch`` chaos seam (ROADMAP.md A10d).
+its launches under the ``serving.act`` device-time program. The
+``serving.dispatch`` chaos seam fires once a batch before its snapshot and
+launch: "slow_model" sleeps the dispatch thread, "exception" fails every
+rider of the batch with a structured error; the next completed dispatch
+marks it recovered.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from dist_dqn_tpu_torch import chaos
 from dist_dqn_tpu_torch.actors.act_dispatch import (bucket_rows,
                                                     pack_act_rows,
                                                     split_rows)
@@ -458,6 +462,17 @@ class MicroBatcher:
     def _dispatch_inner(self, batch: List[_Pending]) -> None:
         t0 = time.perf_counter()
         try:
+            # Chaos seam: slow_model exercises the SLO/backpressure
+            # degradation path (p99 breach -> 503, queue growth -> 429)
+            # under a genuinely slow dispatch; exception exercises the
+            # fan-out of a dispatch failure to every rider as a
+            # structured 500, not a connection reset.
+            ev = chaos.fire("serving.dispatch")
+            if ev is not None:
+                if ev.fault == "exception":
+                    raise chaos.ChaosInjectedError("serving.dispatch",
+                                                   ev.fault)
+                chaos.sleep_for(ev)
             # ONE snapshot per batch: every row acts on the same params
             # and every response echoes the same version header — the
             # hot-reload atomicity contract.
@@ -470,6 +485,9 @@ class MicroBatcher:
                 p.error = e
                 p.event.set()
             return
+        # A completed dispatch proves recovery from an injected slow/
+        # failed one (the chaos recovery metric's serving anchor).
+        chaos.mark_recovered("serving.dispatch")
         self._tm_dispatches.inc()
         self._prog_act.count_dispatch()
         self._prog_act.add_device_seconds(time.perf_counter() - t0)

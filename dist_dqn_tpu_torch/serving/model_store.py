@@ -29,7 +29,12 @@ before the reference swap, so the dispatch thread never sees a
 half-loaded module. An old snapshot is dropped only after the dispatch
 thread's last use of it, which ends in the ``.cpu()`` fence of its batch.
 
-Not ported (ROADMAP.md A10d): the ``serving.reload`` chaos seam.
+The ``serving.reload`` chaos seam fires at the top of every restore (hit
+1 is the startup restore): "slow_reload" holds the restore mid-flight on
+the host, before the restore's device-work block, while the act path keeps
+serving the resident snapshot; "fail" exercises the watcher's
+keep-resident-and-retry contract. The next completed swap marks it
+recovered.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from dist_dqn_tpu_torch import chaos
 from dist_dqn_tpu_torch.serving.types import PolicySnapshot, UnknownPolicyError
 from dist_dqn_tpu_torch.telemetry import collectors as tmc
 from dist_dqn_tpu_torch.telemetry import devtime, get_registry
@@ -176,16 +182,25 @@ class ModelStore:
         """Restore ``step`` (None = newest) into a fresh snapshot with a
         module of its own. Blocking I/O — called at startup and from the
         watcher thread, NEVER from the act path."""
+        # Chaos seam: slow_reload holds the restore mid-flight
+        # (reload-during-load — the act path must keep serving the
+        # resident snapshot, version headers must never tear); fail
+        # exercises poll_once's keep-resident-and-retry contract.
+        ev = chaos.fire("serving.reload")
+        if ev is not None:
+            if ev.fault == "fail":
+                raise chaos.ChaosInjectedError("serving.reload", ev.fault)
+            chaos.sleep_for(ev)
         stream, ctx = self._restore_context()
-        with ctx:
+        with devtime.device_work(), ctx:
             module = copy.deepcopy(self.example_params)
             restored = entry.ckpt.restore_params(module, step=step,
                                                  prefix=entry.prefix,
                                                  member=entry.member)
-        if stream is not None:
-            # The copy and the load are on the card before anyone can
-            # reach the new module.
-            stream.synchronize()
+            if stream is not None:
+                # The copy and the load are on the card before anyone
+                # can reach the new module.
+                stream.synchronize()
         if restored is None:
             return None
         got_step, params = restored
@@ -215,9 +230,8 @@ class ModelStore:
             if current is None or newest is None or newest <= current.step:
                 continue
             try:
-                with devtime.device_work():
-                    snap = self._restore(entry, step=newest,
-                                         version=current.version + 1)
+                snap = self._restore(entry, step=newest,
+                                     version=current.version + 1)
             except Exception as e:
                 # A torn/mismatched checkpoint must not take serving
                 # down — keep the resident version, log, retry next poll.
@@ -229,6 +243,7 @@ class ModelStore:
                 continue
             with self._lock:
                 entry.snapshot = snap  # THE atomic swap
+            chaos.mark_recovered("serving.reload")
             reloaded.append(entry.policy_id)
             self._reload_counter(entry.policy_id).inc()
             self._version_gauge(entry.policy_id).set(snap.version)

@@ -28,7 +28,8 @@ watchdog heartbeat (the no-op twin until ``install_watchdog`` arms it),
 and ``telemetry.observe_divergence(loss=...)`` feeds the NaN/explosion
 sentinel; see telemetry/flight.py and telemetry/watchdog.py. The fleet
 plane (``register_endpoint``, the aggregator and its CLI) is
-telemetry/fleet.py. Not here yet: the chaos seams (ROADMAP.md A10d).
+telemetry/fleet.py. The chaos plane (``dist_dqn_tpu_torch.chaos``) counts
+its injections and recoveries in this registry.
 """
 from dist_dqn_tpu_torch.telemetry.devtime import (  # noqa: F401
     IDLE_CAUSES, ProgramRecord, ProgramRegistry, UtilizationLedger,

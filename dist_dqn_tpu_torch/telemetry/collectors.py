@@ -9,8 +9,8 @@ the device rings, whose occupancy the loops read between chunks.
 
 Every name, help text and bucket tuple is the JAX package's, so a
 ``/metrics`` scrape of either package reads the same series. The
-``CHAOS_*`` families have no writer in the port yet (ROADMAP.md A10d);
-their names are here so that slice adds writers only.
+``CHAOS_*`` families' writers (``chaos_injected_counter``,
+``chaos_recovery_histogram``) are the chaos injector's.
 
 Stdlib only, no torch: the actor and feeder processes import this
 package. A device scalar is never read here; callers pass host values.
@@ -342,6 +342,23 @@ class FusedLineageTable:
                                 for b, _ in self._chunks])
         self._staleness.observe_many([max(cur - v, 0.0)
                                       for _, v in self._chunks])
+
+
+def chaos_injected_counter(seam: str, fault: str,
+                           registry: Optional[Registry] = None):
+    """``dqn_chaos_injected_total{seam,fault}``: one fault the chaos
+    injector (chaos/injector.py) fired at a seam."""
+    reg = registry if registry is not None else get_registry()
+    return reg.counter(CHAOS_INJECTED, "faults injected by the chaos harness",
+                       labels={"seam": seam, "fault": fault})
+
+
+def chaos_recovery_histogram(seam: str, registry: Optional[Registry] = None):
+    """``dqn_recovery_seconds{seam}``: injection -> recovery proof."""
+    reg = registry if registry is not None else get_registry()
+    return reg.histogram(CHAOS_RECOVERY_SECONDS,
+                         "fault injection -> recovery proof, per seam",
+                         labels={"seam": seam})
 
 
 def histogram_quantile(hist, q: float) -> float:

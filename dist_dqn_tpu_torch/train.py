@@ -119,6 +119,16 @@ which write forensics bundles under D and flip ``/healthz`` to 503;
 ``--fleet-dir F`` announces the process's telemetry endpoint in F for the
 aggregator (``python -m dist_dqn_tpu_torch.telemetry.fleet``). Each is
 exported through the environment, so spawned actors and ranks follow.
+
+Chaos, sizing and cleanup: ``DQN_CHAOS_PLAN`` (inline JSON or a file
+path) arms a fault plan after the manifest line, which it annotates
+(``chaos_plan``); spawned actors, feeders and mesh ranks arm their own
+copy from the same variable. On the card the fused runtime prints its
+predicted wall (``{"sizing_predicted_s": ..., "wall_budget_s": ...}``,
+utils/sizing.py) and, with ``--wall-budget-s S``, refuses (exit 4) a run
+not predicted to finish inside 60 % of S; the host-replay and apex
+runtimes say the flag is not modeled there. A SIGTERM (or a normal exit)
+releases the card (utils/device_cleanup.py).
 """
 from __future__ import annotations
 
@@ -916,6 +926,11 @@ def _rank_main(local_rank: int, cfg, address: str, world: int, first: int,
     # the CLI's already).
     if tm_watchdog.get_watchdog() is None:
         tm_watchdog.maybe_install_from_env()
+    # ...and its own copy of the run's chaos plan (DQN_CHAOS_PLAN, which
+    # chaos.install(..., export_env=True) sets): every rank counts its
+    # own seam hits.
+    from dist_dqn_tpu_torch import chaos
+    chaos.maybe_install_from_env()
     if threads:
         torch.set_num_threads(threads)
     dev = distributed.initialize(address, world, first + local_rank,
@@ -1041,6 +1056,12 @@ def _main_apex(cfg: ExperimentConfig, args, parser) -> None:
         print("# --mesh-devices applies to the fused/host-replay "
               "runtimes; use --learner-devices for apex batch "
               "sharding")
+    if args.wall_budget_s is not None:
+        print("# --wall-budget-s is not modeled for --runtime apex: size "
+              "the run manually (worst case = start-up + the fill + grad "
+              "steps x measured grad-step wall; chip_smoke.py's service "
+              "phases print it) — a run SIGTERM'd mid-chunk loses its "
+              "work")
     if args.stop_at_return is not None:
         print("# --stop-at-return applies to the fused runtime only; "
               "ignored under --runtime apex")
@@ -1126,6 +1147,16 @@ def _main_host_replay(cfg: ExperimentConfig, args) -> None:
     if args.eval_every_steps:
         print("# periodic eval is not supported by --runtime "
               "host-replay; ignored")
+    if args.wall_budget_s is not None:
+        # No calibrated time model exists for this loop (it is
+        # host-bound, not chunk-count-bound), so the fused sizing gate
+        # cannot vet the budget — say so rather than silently dropping
+        # the flag.
+        print("# --wall-budget-s is not modeled for --runtime "
+              "host-replay: size the run manually (worst case = "
+              "start-up + chunks x measured chunk wall; chip_smoke.py's "
+              "host-replay phases print it) — a run SIGTERM'd "
+              "mid-chunk loses its work")
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, seed=args.seed)
     # --mesh-devices N > 1 spawns N ranks (run_mesh); rank 0 prints the
@@ -1151,6 +1182,31 @@ def _main_host_replay(cfg: ExperimentConfig, args) -> None:
     out.pop("history", None)
     out.pop("learner", None)
     print(json.dumps(out))
+
+
+def _gate_sizing(cfg: ExperimentConfig, args) -> None:
+    """The pre-flight sizing gate of a fused run on the card (JAX
+    ``train.py:1321-1361``): print the predicted wall beside the budget;
+    with ``--wall-budget-s``, refuse (exit 4) a run the gate refuses;
+    without it, only warn (nothing will kill the run mid-chunk)."""
+    from dist_dqn_tpu_torch.utils.sizing import fused_gate_args, gate_fused
+
+    env = make_env(cfg.env_name, device="cpu")
+    verdict = gate_fused(
+        budget_s=args.wall_budget_s or float("inf"),
+        **fused_gate_args(cfg, env,
+                          args.total_env_steps or cfg.total_env_steps,
+                          args.chunk_iters))
+    print(json.dumps({"sizing_predicted_s": round(verdict.predicted_s, 1),
+                      "wall_budget_s": args.wall_budget_s}))
+    if not verdict.ok:
+        if args.wall_budget_s is None:
+            print(json.dumps({"sizing_gate": "warning",
+                              "reason": verdict.reason}))
+        else:
+            print(json.dumps({"sizing_gate": "refused",
+                              "reason": verdict.reason}))
+            raise SystemExit(4)
 
 
 def _warn_host_replay_flags(args, parser) -> None:
@@ -1373,7 +1429,20 @@ def main(argv=None):
                              "file of the host loop (ingest/sample/train "
                              "spans; open in Perfetto) to this path")
     add_forensics_flags(parser)
+    # JAX's --wall-budget-s (dist_dqn_tpu/train.py:924), with the card's
+    # reason.
+    parser.add_argument("--wall-budget-s", type=float, default=None,
+                        help="card runs: refuse to start unless the "
+                             "predicted wall time fits comfortably inside "
+                             "this kill budget (set it to the external "
+                             "`timeout` you wrap the run in; a run killed "
+                             "mid-chunk loses its work)")
     args = parser.parse_args(argv)
+    # SIGTERM/exit device release: a killed run leaves the card to the
+    # next process (utils/device_cleanup.py).
+    from dist_dqn_tpu_torch.utils.device_cleanup import \
+        install as _install_cleanup
+    _install_cleanup()
 
     cfg = apply_overrides(CONFIGS[args.config], args.overrides)
     _refuse_unported(args)
@@ -1441,6 +1510,12 @@ def main(argv=None):
     manifest = _run_manifest(cfg, args.device)
     telemetry.set_run_manifest(manifest)
     print(json.dumps({"manifest": manifest}))
+    # Game-day runs arm a fault plan via DQN_CHAOS_PLAN — AFTER the
+    # manifest is set so the armed plan annotates it (the provenance line
+    # above already printed; /debug/config and the forensics bundles
+    # read the annotated copy).
+    from dist_dqn_tpu_torch import chaos
+    chaos.maybe_install_from_env()
     if args.runtime == "host-replay":
         _main_host_replay(cfg, args)
         return
@@ -1451,6 +1526,10 @@ def main(argv=None):
     stop_fn = None
     if args.stop_at_return is not None:
         stop_fn = functools.partial(_reached_return, args.stop_at_return)
+    if args.device != "cpu" and torch.cuda.is_available():
+        # A run on the card (JAX gates every non-CPU backend); without a
+        # card, train() raises with the reason as before.
+        _gate_sizing(cfg, args)
     kwargs = dict(total_env_steps=args.total_env_steps, seed=args.seed,
                   chunk_iters=args.chunk_iters, stop_fn=stop_fn,
                   profile_dir=args.profile_dir,

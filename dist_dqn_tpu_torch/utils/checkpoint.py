@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dist_dqn_tpu_torch import chaos
 from dist_dqn_tpu_torch.population import extract_member
 
 _STATE_FILE = "state.pt"
@@ -265,6 +266,14 @@ class TrainCheckpointer:
         steps = self.all_steps()
         if steps and steps[-1] >= frames:
             return False
+        # Chaos seam: "fail" is a disk-full save (the caller must surface
+        # it, not train on silently); "crash_before_stamp" commits the
+        # step but never stamps LATEST — exactly the crash window
+        # latest_step()'s listing fallback exists for.
+        ev = chaos.fire("checkpoint.save")
+        if ev is not None and ev.fault == "fail":
+            raise OSError(errno.ENOSPC,
+                          "chaos: injected disk-full on checkpoint save")
         t0 = time.perf_counter()
         tmp = os.path.join(self.directory, f".tmp-{int(frames)}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -272,12 +281,18 @@ class TrainCheckpointer:
         size = _atomic_torch_save(state_tree(tree),
                                   os.path.join(tmp, _STATE_FILE))
         os.replace(tmp, self._step_dir(frames))
+        self.last_save = {"step": int(frames),
+                          "seconds": time.perf_counter() - t0, "bytes": size}
+        if ev is not None and ev.fault == "crash_before_stamp":
+            return True
         write_latest_pointer(self.directory, frames,
                              param_checksum=_pointer_checksum(tree))
         for old in self.all_steps()[:-self.max_to_keep]:
             self.delete(old)
-        self.last_save = {"step": int(frames),
-                          "seconds": time.perf_counter() - t0, "bytes": size}
+        self.last_save["seconds"] = time.perf_counter() - t0
+        # A completed save + stamp proves recovery from any earlier
+        # injected save/stamp fault.
+        chaos.mark_recovered("checkpoint.save")
         return True
 
     def wait(self) -> None:
@@ -551,10 +566,22 @@ def write_latest_pointer(directory: str, step: int,
                "manifest_hash": man.get("config_hash") if man else None,
                "saved_unix": time.time()}
     path = os.path.join(directory, _LATEST_FILE)
+    ev = chaos.fire("latest.write")
+    if ev is not None and ev.fault == "torn":
+        # A torn stamp: half a JSON object lands as the final file
+        # (crash mid-write on a filesystem without atomic rename
+        # semantics). read_latest_pointer must reject it and every
+        # reader must fall back to the directory listing.
+        with open(path, "w") as fh:
+            fh.write(json.dumps(payload)[: max(4, len(str(step)))])
+        return
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as fh:
         json.dump(payload, fh, sort_keys=True)
     os.replace(tmp, path)
+    # A committed, well-formed stamp proves recovery from an earlier
+    # injected torn write.
+    chaos.mark_recovered("latest.write")
 
 
 def read_latest_pointer(directory: str):

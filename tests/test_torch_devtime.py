@@ -4,9 +4,8 @@ get-or-create identity, one-shot cost and snapshots, the registry-derived
 learner MFU (absent without a known card peak), the utilization ledger's
 conservation and clamping (its snapshots equal JAX's for the same inputs),
 the device-memory sweep, on-demand profiles and the one-chunk profiler,
-and the host-replay runtime's summary census beside JAX's. JAX's chaos
-case (an injected evacuation stall) waits for the port's chaos plane
-(ROADMAP.md A10d)."""
+the host-replay runtime's summary census beside JAX's, and JAX's chaos
+case: an injected evacuation stall lands in the ledger's ``evac_fence``."""
 import json
 import os
 import time
@@ -556,3 +555,48 @@ def test_host_replay_summary_census_matches_jax(kw, monkeypatch):
     assert 0.0 < total <= tout["wall_s"] + 0.05
     assert tp["host_replay.train_step"]["device_seconds"] == \
         pytest.approx(chip["busy"])
+
+
+@pytest.mark.chaos
+def test_host_replay_chaos_evac_stall_lands_in_evac_fence():
+    """Twin of tests/test_devtime.py:241: an injected ``evac.drain`` stall
+    blocks the loop at the evac fence it already holds — the ledger must
+    file that wait under ``evac_fence`` (not ``other``), the run's summary
+    census must name both registered programs with dispatch counts, and
+    the per-cause totals must conserve against the run wall."""
+    from dist_dqn_tpu_torch import chaos
+    from dist_dqn_tpu_torch import host_replay_loop as thrl
+
+    devtime.reset_program_registry(Registry())
+    plan = chaos.FaultPlan(seed=7, events=(
+        chaos.FaultEvent("evac.drain", "stall", at_hit=2,
+                         args={"delay_s": 0.8}),))
+    cfg = tconfig.apply_overrides(tconfig.CONFIGS["cartpole"],
+                                  _HOST_REPLAY + ["replay.prioritized=false"])
+    with chaos.installed(plan, registry=Registry()) as inj:
+        out = thrl.run_host_replay(cfg, total_env_steps=3200,
+                                   chunk_iters=50, log_fn=lambda s: None,
+                                   device="cpu")
+    assert [e["seam"] for e in inj.injected] == ["evac.drain"]
+    assert inj.open_trips() == []
+
+    chip = out["chip_time"]
+    assert chip["chunks"] == 8.0  # 3200 / (50 iters x 8 lanes)
+    # The 0.8 s stall sat on the critical path at the fence; a tiny
+    # CPU chunk has nowhere near that much pipeline slack to hide it.
+    assert chip["evac_fence"] >= 0.4, chip
+    # Conservation: the decomposition never exceeds the run wall and
+    # busy never exceeds the decomposed total.
+    total = chip["busy"] + sum(chip[c] for c in devtime.IDLE_CAUSES)
+    assert 0.0 < total <= out["wall_s"] + 1e-6
+    assert chip["busy"] <= total
+
+    progs = out["programs"]
+    assert set(progs) >= {"host_replay.collect",
+                          "host_replay.train_step"}
+    assert progs["host_replay.train_step"]["dispatches"] \
+        == out["grad_steps"]
+    # Train device-seconds were attributed at the existing fences and
+    # reconcile with the ledger's busy total exactly (same samples).
+    assert progs["host_replay.train_step"]["device_seconds"] \
+        == pytest.approx(chip["busy"])

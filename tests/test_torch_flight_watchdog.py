@@ -290,8 +290,18 @@ def test_wedged_evacuation_worker_dumps_bundle_and_flips_healthz(tmp_path):
         assert "evac.wedge" in body["stale_stages_age_s"]
         assert twatchdog.get_watchdog().bundle_errors == []
         release.set()
-        _wait_for(lambda: urllib.request.urlopen(url, timeout=10).status
-                  == 200, timeout_s=60, what="healthz recovery")
+
+        def healthy():
+            # 503 until the released worker beats again (urlopen raises
+            # on it): keep polling for the 200, up to the wait's bound.
+            try:
+                return urllib.request.urlopen(url, timeout=10).status == 200
+            except urllib.error.HTTPError as e:
+                if e.code != 503:
+                    raise
+                return False
+
+        _wait_for(healthy, timeout_s=60, what="healthz recovery")
         assert "evac.wedge.drained" in [
             e["name"] for e in tflight.get_flight().tail()]
     finally:

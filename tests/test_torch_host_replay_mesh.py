@@ -18,7 +18,12 @@ every rank case of the module, the twins of JAX's
   device plane; so does one killed inside its 5th save, between the
   ranks' part files and rank 0's compose, whose stray parts a later save
   removes;
-* the sampler-kind refusal on resume.
+* the sampler-kind refusal on resume;
+* under an armed chaos plan, JAX's chaos cases of those files: a run killed
+  by ``host_replay.chunk`` at hit 4 (uniform, and the PER device plane)
+  resumes bit-identically with every trip closed, its newest sidecar
+  holding every rank's collect carry; a ``host_replay.collect`` stall at
+  hit 3 recovers, a crash at hit 5 ends the run on both ranks.
 
 In this process: ``sharded_collect=True`` at dp 1 (a world-size-1 mesh)
 is bit-equal to the plain program, the dp and collect-mode refusals, and
@@ -36,6 +41,8 @@ import sys
 import numpy as np
 import pytest
 import torch
+
+from dist_dqn_tpu_torch import chaos
 
 from dist_dqn_tpu import host_replay_loop as jhrl
 from dist_dqn_tpu.config import CONFIGS as JCONFIGS
@@ -71,6 +78,19 @@ def _jcfg(prioritized=False, min_fill=64):
                                    min_fill=min_fill,
                                    prioritized=prioritized),
         learner=dataclasses.replace(cfg.learner, batch_size=16))
+
+
+def _crash_plan(seam: str, fault: str = "crash", hit: int = 4, **args):
+    return chaos.FaultPlan(seed=9, events=(chaos.FaultEvent(
+        seam, fault, at_hit=hit, args=args),)).to_json()
+
+
+def _chaos_kill_resume(directory, **kw):
+    """The killed (by the armed plan) and resumed runs of a chaos case."""
+    return [dict(**RESUME, chunk_iters=CHUNK, checkpoint_dir=directory,
+                 **kw),
+            dict(**RESUME, chunk_iters=CHUNK, checkpoint_dir=directory,
+                 **kw)]
 
 
 def _kill_resume(directory, **kw):
@@ -122,6 +142,28 @@ def ranks(tmp_path_factory):
                  kill_in_save=4),
             dict(**{**RESUME, "save_every_frames": 800}, chunk_iters=CHUNK,
                  checkpoint_dir=str(d / "torn"))])),
+        # 6: uniform, killed by the armed host_replay.chunk crash at hit 4
+        # (right after the save at 1,600 frames), then resumed.
+        ("host_replay", dict(
+            preset="cartpole", overrides=TINY,
+            chaos_plan=_crash_plan("host_replay.chunk"),
+            runs=_chaos_kill_resume(str(d / "chaos_uniform")))),
+        # 7: the PER device plane, serial, the same crash and resume.
+        ("host_replay", dict(
+            preset="cartpole", overrides=TINY,
+            chaos_plan=_crash_plan("host_replay.chunk"),
+            runs=_chaos_kill_resume(str(d / "chaos_plane"),
+                                    device_sampling=True, **SERIAL_PER))),
+        # 8, 9: a host_replay.collect stall at hit 3, a crash at hit 5.
+        ("host_replay", dict(
+            preset="cartpole", overrides=TINY,
+            chaos_plan=_crash_plan("host_replay.collect", "stall", hit=3,
+                                   delay_s=0.05),
+            runs=[dict(**common)])),
+        ("host_replay", dict(
+            preset="cartpole", overrides=TINY,
+            chaos_plan=_crash_plan("host_replay.collect", hit=5),
+            runs=[dict(**common)])),
     ]
     return {"dir": d, "ranks": run_ranks(jobs)}
 
@@ -429,3 +471,61 @@ def test_cli_coordinator_with_host_replay_is_refused():
     with pytest.raises(ValueError, match="local ranks of one process"):
         ttr.run_mesh(_cfg(), 2, device="cpu", coordinator="127.0.0.1:1",
                      num_processes=2, runtime="host-replay")
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("job,ref_job,ref_run", [(6, 1, 2), (7, 3, 0)],
+                         ids=["uniform", "per_device_plane"])
+def test_chaos_killed_resume_bit_identical(ranks, job, ref_job, ref_run):
+    """Twins of tests/test_sharded_checkpoint.py:58,
+    tests/test_sharded_collect.py:256 and
+    tests/test_device_sharded_sampling.py:315: a dp=2 run killed at chunk 4
+    by an injected crash raises ``ChaosInjectedError`` on both ranks (each
+    rank arms the plan and counts its own hits, as a JAX process counts
+    its own); the newest sidecar carries both ranks' collect carries
+    under the schema; the resumed run closes every trip and ends
+    bit-identical to the uninterrupted, never-checkpointed reference."""
+    from dist_dqn_tpu_torch.utils import ckpt_schema
+
+    for r, (runs, refs) in enumerate(zip(_job(ranks, job),
+                                         _job(ranks, ref_job))):
+        killed, resumed = runs
+        assert "host_replay.chunk" in killed["chaos_killed"]
+        assert [e["hit"] for e in killed["chaos_injected"]] == [4]
+        assert resumed["chaos_open_trips"] == [], (r, resumed)
+        _equal_runs(resumed, refs[ref_run])
+        assert resumed["prio_writeback_rows"] == \
+            refs[ref_run]["prio_writeback_rows"]
+    keys = _job(ranks, job)[0][0]["sidecar_keys"]
+    for s in (0, 1):
+        assert f"carry{s}_leaf0" in keys, keys
+    ckpt_schema.validate_sidecar(keys)
+    rows = [json.loads(x) for x in _job(ranks, job)[0][1]["logged"]
+            if x.startswith("{")]
+    assert rows[0]["resumed_at_frames"] == 1600
+    assert rows[0]["resumed_dp"] == 2
+    ref_rows = [json.loads(x) for x in _job(ranks, ref_job)[0][ref_run][
+        "logged"] if x.startswith("{")]
+    la = [r["loss"] for r in ref_rows if "loss" in r]
+    lb = [r["loss"] for r in rows if "loss" in r]
+    assert lb == la[len(la) - len(lb):]
+
+
+@pytest.mark.chaos
+def test_chaos_collect_crash_and_stall(ranks):
+    """Twin of tests/test_sharded_collect.py:299: the
+    ``host_replay.collect`` seam counts every shard's dispatch on every
+    rank (hit 3 is chunk 2's shard 0), so a stall delays one shard's
+    dispatch and the completed pass marks the recovery; a crash at hit 5
+    ends the dispatch pass loudly, on both ranks."""
+    for r in range(2):
+        stalled = _job(ranks, 8)[r][0]
+        assert [e["fault"] for e in stalled["chaos_injected"]] == ["stall"]
+        assert stalled["chaos_injected"][0]["hit"] == 3
+        assert stalled["chaos_open_trips"] == []
+        assert stalled["grad_steps"] > 0
+        crashed = _job(ranks, 9)[r][0]
+        assert "host_replay.collect" in crashed["chaos_killed"]
+        assert [e["fault"] for e in crashed["chaos_injected"]] == ["crash"]
+    np.testing.assert_array_equal(_job(ranks, 8)[0][0]["params"],
+                                  _job(ranks, 8)[1][0]["params"])

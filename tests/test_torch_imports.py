@@ -194,6 +194,24 @@ from dist_dqn_tpu_torch.telemetry.fleet import (FleetAggregator,
                                                 register_endpoint)
 from dist_dqn_tpu_torch.utils.trace import FlightTracer
 from dist_dqn_tpu_torch.utils.checkpoint import save_emergency
+slice19 = {"dist_dqn_tpu_torch." + m for m in (
+    "chaos", "chaos.plan", "chaos.injector", "chaos.run", "utils.sizing",
+    "utils.device_cleanup")}
+assert slice19 <= set(names), sorted(slice19 - set(names))
+from dist_dqn_tpu_torch.chaos import (CHAOS_PLAN_ENV, SEAMS,
+                                      ChaosInjectedError, ChaosInjector,
+                                      FaultEvent, FaultPlan, corrupt_bytes,
+                                      fire, get_injector, install, installed,
+                                      maybe_install_from_env,
+                                      mark_recovered, sleep_for,
+                                      truncate_bytes, uninstall)
+from dist_dqn_tpu_torch.chaos.run import PLANS, SCENARIOS, print_plans
+from dist_dqn_tpu_torch.utils.sizing import (KNOWN_BAD, PROVEN_SAFE,
+                                             SizingVerdict, check_envelope,
+                                             fused_gate_args, gate_fused,
+                                             predict_fused_hbm_bytes,
+                                             predict_fused_seconds)
+from dist_dqn_tpu_torch.utils.device_cleanup import install, release
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -231,6 +249,9 @@ from dist_dqn_tpu_torch.telemetry import fleet, flight, watchdog
 flight.get_flight().record("queue", "probe", rows=1)
 watchdog.heartbeat("actor.loop").beat()
 fleet.merge_expositions([{"text": "dqn_x 1\n", "labels": {"role": "a"}}])
+from dist_dqn_tpu_torch import chaos
+with chaos.installed(chaos.FaultPlan.generate(1, ["actor.step"])) as inj:
+    assert [chaos.fire("actor.step") for _ in range(2)][0] is None
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("torch", "jax", "dist_dqn_tpu")
              or k.startswith("dist_dqn_tpu_torch.utils"))
@@ -243,7 +264,8 @@ def test_feeder_and_fake_ale_load_no_torch():
     actors, the fake ALE, the reference table and the telemetry plane
     (its manifest, exit snapshot and chip-time plane's ledger, program
     table and memory sweep, the flight recorder, the watchdog and the
-    fleet plane included) import numpy only, and nothing of utils/."""
+    fleet plane included) and the chaos plane they arm import numpy
+    only, and nothing of utils/."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _NO_TORCH], cwd=REPO,
                           env=env, capture_output=True, text=True,

@@ -261,3 +261,165 @@ def test_slot_ring_layout_is_the_jax_packages():
     finally:
         ring.close()
         ring.unlink()
+
+
+# --------------------------------------------------------------------------
+# Chaos seams (twins of tests/test_ingest.py:243-345 and
+# tests/test_ingest_dedup.py:237-263).
+# --------------------------------------------------------------------------
+
+def _step_payload(seed):
+    rng = np.random.default_rng(seed)
+    schema = tingest.step_schema((4,), np.float32, 4)
+    rec = _records(rng, (4,), np.float32, 4, steps=1)[0]
+    return schema, bytes(tingest.StepEncoder(schema).encode_step(
+        rec, actor=0, t=1))
+
+
+@pytest.mark.chaos
+def test_shm_ring_torn_publish_dropped_and_counted():
+    """Chaos seam ``shm.publish: torn`` — die-mid-write semantics: the
+    consumer must drop + count the slot, never decode it, and the next
+    clean publish must flow (and close the chaos trip)."""
+    from dist_dqn_tpu_torch import chaos
+
+    plan = chaos.FaultPlan(seed=1, events=(
+        chaos.FaultEvent("shm.publish", "torn", at_hit=2),))
+    ring = tingest.ShmSlotRing(_ring_name(), slot_size=32, nslots=4,
+                               create=True)
+    try:
+        with chaos.installed(plan) as inj:
+            assert ring.push(b"first")
+            assert ring.push(b"torn-victim")     # injected: stamp stays odd
+            assert ring.push(b"after")
+            assert ring.pop() == b"first"
+            before = ring.torn_reads
+            assert ring.pop() is None            # dropped, not decoded
+            assert ring.torn_reads == before + 1
+            assert ring.pop() == b"after"
+            assert [e["fault"] for e in inj.injected] == ["torn"]
+            assert "shm.publish" not in inj.open_trips()
+    finally:
+        ring.close()
+        ring.unlink()
+
+
+@pytest.mark.chaos
+def test_chaos_decode_seam_rejects_and_recovers():
+    """Chaos seam ``ingest.decode`` — header corruption at the codec
+    gate mirrors the transport bit_flip pin: the record rejects whole,
+    and the next clean decode proves recovery."""
+    from dist_dqn_tpu_torch import chaos
+
+    schema, payload = _step_payload(7)
+    dec = tingest.StepDecoder(schema)
+    plan = chaos.FaultPlan(seed=2, events=(
+        chaos.FaultEvent("ingest.decode", "bit_flip", at_hit=1,
+                         args={"bit": 0}),       # flips the ZC magic
+        chaos.FaultEvent("ingest.decode", "truncate", at_hit=2,
+                         args={"keep_frac": 0.3}),))
+    with chaos.installed(plan) as inj:
+        with pytest.raises(tingest.WireFormatError):
+            dec.decode(payload)
+        with pytest.raises(tingest.WireFormatError):
+            dec.decode(payload)
+        out, _ = dec.decode(payload)             # clean pass = recovery
+        assert out["obs"].shape == (4, 4)
+        assert len(inj.injected) == 2
+        assert "ingest.decode" not in inj.open_trips()
+
+
+@pytest.mark.chaos
+def test_zc_wire_corruption_never_reaches_codec():
+    """The layering pin: a bit flipped on a zero-copy TCP frame dies at
+    the CRC gate — dropped + counted + NACKed — so the zero-copy decoder
+    only ever sees intact payloads; disconnects cost the connection,
+    which a reconnect + re-push recovers."""
+    import time
+
+    from dist_dqn_tpu_torch import chaos
+    from dist_dqn_tpu_torch.actors.transport import (TcpRecordClient,
+                                                     TcpRecordServer)
+
+    schema, payload = _step_payload(8)
+    dec = tingest.StepDecoder(schema)
+    plan = chaos.FaultPlan(seed=3, events=(
+        chaos.FaultEvent("transport.send", "bit_flip", at_hit=2,
+                         args={"bit": 400}),     # lands in the body
+        chaos.FaultEvent("transport.send", "disconnect", at_hit=4),))
+    server = TcpRecordServer()
+    try:
+        with chaos.installed(plan) as inj:
+            client = TcpRecordClient(server.address)
+            assert client.push(payload)          # hit 1: clean
+            assert client.push(payload)          # hit 2: flipped on wire
+            assert client.push(payload)          # hit 3: clean
+            deadline = 200
+            got = []
+            while len(got) < 2 and deadline:
+                rec = server.pop()
+                if rec is None:
+                    time.sleep(0.01)
+                    deadline -= 1
+                    continue
+                got.append(rec[1])
+            assert len(got) == 2                 # corrupt frame dropped
+            assert server.corrupt_frames == 1
+            for g in got:                        # survivors decode intact
+                out, _ = dec.decode(g)
+                assert out["obs"].tobytes() == payload[
+                    tingest.codec.HEADER_BYTES:
+                    tingest.codec.HEADER_BYTES + out["obs"].nbytes]
+            assert not client.push(payload)      # hit 4: disconnect
+            client2 = TcpRecordClient(server.address)
+            assert client2.push(payload)         # reconnect recovers
+            chaos.mark_recovered("transport.send")
+            client.close()
+            client2.close()
+            assert [e["fault"] for e in inj.injected] == \
+                ["bit_flip", "disconnect"]
+            assert not inj.open_trips()
+    finally:
+        server.close()
+
+
+@pytest.mark.chaos
+def test_dedup_chaos_bit_flip_rejects_then_rehello_recovers():
+    """Chaos ``ingest.decode: bit_flip`` on a dedup stream: the
+    corrupted record rejects whole, the chain stays broken (dedup records
+    are not independently decodable), and the re-hello path recovers
+    with the trip closed."""
+    from dist_dqn_tpu_torch import chaos
+
+    lanes, fs = 4, 4
+    env = make_host_env("synthstack", lanes, seed=5)
+    obs = env.reset()
+    schema = tingest.step_schema(obs.shape[1:], obs.dtype, lanes)
+    enc = tingest.DedupStepEncoder(schema, fs)
+    dec = tingest.DedupStepDecoder(schema, fs, t0=0)
+    rng = np.random.default_rng(2)
+
+    def step():
+        o, nxt, reward, term, trunc = env.step(rng.integers(0, 4, lanes))
+        return {"obs": o, "next_obs": nxt, "reward": reward,
+                "terminated": term.astype(np.uint8),
+                "truncated": trunc.astype(np.uint8)}
+
+    plan = chaos.FaultPlan(seed=2, events=(
+        chaos.FaultEvent("ingest.decode", "bit_flip", at_hit=2,
+                         args={"bit": 0}),))     # flips the ZC magic
+    with chaos.installed(plan) as inj:
+        dec.decode(bytes(enc.encode_step(step(), actor=0, t=1)))
+        with pytest.raises(tingest.WireFormatError):
+            dec.decode(bytes(enc.encode_step(step(), actor=0, t=2)))
+        with pytest.raises(tingest.WireFormatError):
+            dec.decode(bytes(enc.encode_step(step(), actor=0, t=3)))
+        # Recovery = the NACK-driven reconnect + re-hello (transport
+        # layer): fresh chain on both ends.
+        enc.reset()
+        dec = tingest.DedupStepDecoder(schema, fs, t0=3)
+        arrays = step()
+        out, _ = dec.decode(bytes(enc.encode_step(arrays, actor=0, t=4)))
+        np.testing.assert_array_equal(out["obs"], arrays["obs"])
+        assert [e["fault"] for e in inj.injected] == ["bit_flip"]
+        assert not inj.open_trips()

@@ -270,3 +270,114 @@ def test_remote_actor_mode_external_with_the_remote_entry(tmp_path):
                 p.kill()
                 p.wait()
         err.close()
+
+
+def _apex_service_entry(cfg, rt, summary_path, log_path):
+    """Spawn target: run the learner service on the CPU to completion,
+    mirroring its log stream and final summary to files the parent can
+    read. Module-level so the spawn context can pickle it."""
+    def _log(s):
+        with open(log_path, "a") as fh:
+            fh.write(str(s) + "\n")
+
+    out = tservice.run_apex(cfg, rt, log_fn=_log, device="cpu")
+    with open(summary_path, "w") as fh:
+        json.dump({k: v for k, v in out.items()
+                   if isinstance(v, (int, float, str, type(None)))}, fh)
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+def test_learner_kill_restart_actors_reattach(tmp_path):
+    """Twin of tests/test_remote_actors.py:237: kill -9 the Ape-X learner
+    mid-run with LIVE external remote actors, restart it against the same
+    checkpoint dir and TCP port, and require (a) the restarted learner
+    resumes from the killed run's last completed checkpoint, (b) the SAME
+    actor processes — never restarted — re-attach via reconnect +
+    re-hello and feed it to completion, and (c) the env-steps trajectory
+    continues from the resume point instead of restarting at zero."""
+    import dataclasses
+    import multiprocessing as mp
+    import socket
+
+    from dist_dqn_tpu_torch.utils.checkpoint import read_latest_pointer
+
+    cfg = tconfig.apply_overrides(tconfig.CONFIGS["apex"], _FF)
+    probe = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    probe.bind(("127.0.0.1", 0))     # socket: bound+closed immediately
+    port = probe.getsockname()[1]
+    probe.close()
+    ckpt_dir = str(tmp_path / "ckpt")
+    stop_path = str(tmp_path / "stop_actors")
+    rt = tservice.ApexRuntimeConfig(
+        host_env="CartPole-v1", num_actors=0, envs_per_actor=4,
+        total_env_steps=10 ** 9,      # run 1 ends by kill, not target
+        inserts_per_grad_step=32, log_every_s=0.5,
+        tcp_port=port, num_remote_actors=2, spawn_remote_actors=False,
+        checkpoint_dir=ckpt_dir, save_every_steps=400)
+
+    ctx = mp.get_context("spawn")
+    actors = [
+        ctx.Process(
+            target=tactor.run_remote_actor,
+            args=(i, "CartPole-v1", 4, 1000 + 7 * i,
+                  ("127.0.0.1", port), stop_path),
+            kwargs=dict(max_consecutive_failures=2000,
+                        reconnect_backoff_s=0.05),
+            name=f"test-remote-actor-{i}", daemon=True)
+        for i in range(2)]
+    svc1 = ctx.Process(
+        target=_apex_service_entry,
+        args=(cfg, rt, str(tmp_path / "s1.json"), str(tmp_path / "s1.log")),
+        name="test-apex-learner-1", daemon=False)
+    svc2 = None
+    try:
+        svc1.start()
+        for a in actors:
+            a.start()
+        deadline = time.time() + 300
+        ptr = None
+        while time.time() < deadline:
+            ptr = read_latest_pointer(ckpt_dir)
+            if ptr is not None:
+                break
+            assert svc1.is_alive(), "learner died before first save"
+            time.sleep(0.2)
+        assert ptr is not None, "no checkpoint within 300s"
+        svc1.kill()
+        svc1.join(30)
+        assert not os.path.exists(tmp_path / "s1.json")
+        assert all(a.is_alive() for a in actors)
+
+        rt2 = dataclasses.replace(
+            rt, total_env_steps=int(ptr["step"]) + 2000)
+        svc2 = ctx.Process(
+            target=_apex_service_entry,
+            args=(cfg, rt2, str(tmp_path / "s2.json"),
+                  str(tmp_path / "s2.log")),
+            name="test-apex-learner-2", daemon=False)
+        svc2.start()
+        svc2.join(300)
+        assert svc2.exitcode == 0, "restarted learner did not finish"
+
+        with open(tmp_path / "s2.json") as fh:
+            summary = json.load(fh)
+        log2 = (tmp_path / "s2.log").read_text()
+        resumed = [json.loads(ln)["resumed_at_env_steps"]
+                   for ln in log2.splitlines()
+                   if "resumed_at_env_steps" in ln]
+        assert resumed and resumed[0] >= int(ptr["step"])
+        assert summary["env_steps"] >= rt2.total_env_steps
+        assert summary["grad_steps"] > 0
+        assert all(a.is_alive() for a in actors)
+    finally:
+        with open(stop_path, "w") as fh:
+            fh.write("stop")
+        for p in ([svc1] + ([svc2] if svc2 is not None else [])):
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        for a in actors:
+            a.join(60)
+            if a.is_alive():
+                a.terminate()

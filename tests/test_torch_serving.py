@@ -47,7 +47,6 @@ from dist_dqn_tpu_torch.models import build_network
 from dist_dqn_tpu_torch.serving import (QueueFullError, ServingClient,
                                         ServingError, UnknownPolicyError,
                                         build_server)
-from dist_dqn_tpu_torch.serving import __main__ as serving_cli
 from dist_dqn_tpu_torch.serving.model_store import ModelStore
 from dist_dqn_tpu_torch.telemetry import watchdog as tm_watchdog
 from dist_dqn_tpu_torch.utils.checkpoint import TrainCheckpointer
@@ -525,35 +524,34 @@ def test_cli_sigterm_during_checkpoint_wait_exits_zero(tmp_path):
     (["--fleet-dir", "fleet"], None),
     (["--forensics-dir", "forensics"], None),
     (["--watchdog-deadline-s", "60"], None),
-    ([], '{"faults": []}'),
+    ([], json.dumps({"seed": 3, "events": [
+        {"seam": "serving.dispatch", "fault": "exception", "at_hit": 2,
+         "args": {}}]})),
 ], ids=["fleet_dir", "forensics_dir", "watchdog_deadline_s",
         "chaos_plan"])
 def test_cli_refuses_unported_flags_with_the_reason(argv, env, tmp_path,
-                                                    monkeypatch, stack):
-    """The chaos plan (ROADMAP.md A10d) is still refused naming its item.
-    The watchdog and fleet flags are ported: ``--fleet-dir`` announces the
-    act server (no telemetry port) as a ``serving`` member while the CLI
-    serves, and the descriptor goes at SIGTERM; ``--forensics-dir`` arms
-    the watchdog, whose sweeper thread and ``serving.batcher`` heartbeat
-    show on the telemetry endpoint's ``/debug/stacks`` and the act
-    server's ``/metrics`` while ``/healthz`` stays 200 and no bundle is
-    written; a ``--watchdog-deadline-s`` without it arms nothing (JAX's
-    CLI)."""
-    if env is not None:
-        monkeypatch.setenv("DQN_CHAOS_PLAN", env)
-        with pytest.raises(SystemExit,
-                           match=r"not ported yet: .*ROADMAP.md A10d"):
-            serving_cli.main(["--config", "cartpole", "--device", "cpu",
-                              "--checkpoint-dir", str(tmp_path)] + argv)
-        return
+                                                    stack):
+    """The flags and the variable the port once refused, now run: the
+    chaos plan in ``DQN_CHAOS_PLAN`` arms the CLI (its second dispatch
+    fails as injected: the request answers a structured 500 naming the
+    seam, and the next one 200, the trip recovered); ``--fleet-dir``
+    announces the act server (no telemetry port) as a ``serving`` member
+    while the CLI serves, and the descriptor goes at SIGTERM;
+    ``--forensics-dir`` arms the watchdog, whose sweeper thread and
+    ``serving.batcher`` heartbeat show on the telemetry endpoint's
+    ``/debug/stacks`` and the act server's ``/metrics`` while ``/healthz``
+    stays 200 and no bundle is written; a ``--watchdog-deadline-s``
+    without it arms nothing (JAX's CLI)."""
     argv = [str(tmp_path / a) if a in ("fleet", "forensics") else a
             for a in argv]
-    fleet_case = argv[0] == "--fleet-dir"
+    fleet_case = bool(argv) and argv[0] == "--fleet-dir"
     if not fleet_case:
         argv += ["--telemetry-port", "0"]
     penv = {k: v for k, v in os.environ.items()
             if k not in ("DQN_CHAOS_PLAN", "DQN_FLEET_DIR",
                          "DQN_FORENSICS_DIR")}
+    if env is not None:
+        penv["DQN_CHAOS_PLAN"] = env
     proc = subprocess.Popen(
         [sys.executable, "-m", "dist_dqn_tpu_torch.serving",
          "--config", "cartpole", "--checkpoint-dir", stack.dir,
@@ -573,6 +571,26 @@ def test_cli_refuses_unported_flags_with_the_reason(argv, env, tmp_path,
         with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
             assert r.status == 200
         armed = argv[0] == "--forensics-dir"
+        if env is not None:
+            from dist_dqn_tpu_torch.serving import ServingClient
+            from dist_dqn_tpu_torch.serving.types import ServingError
+
+            client = ServingClient(f"127.0.0.1:{ports['serving_port']}")
+            obs = np.zeros((1, 4), np.float32)
+            assert client.act(obs).actions.shape == (1,)
+            with pytest.raises(ServingError,
+                               match=r"HTTP 500: .*ChaosInjectedError.*"
+                                     r"serving\.dispatch"):
+                client.act(obs)
+            assert client.act(obs).actions.shape == (1,)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ports['telemetry_port']}"
+                    "/metrics", timeout=10) as r:
+                body = r.read().decode()
+            assert ('dqn_chaos_injected_total{fault="exception",'
+                    'seam="serving.dispatch"} 1') in body, body
+            assert 'dqn_recovery_seconds_count{seam="serving.dispatch"} 1' \
+                in body
         if not fleet_case:
             with urllib.request.urlopen(
                     f"http://127.0.0.1:{ports['telemetry_port']}"
@@ -607,6 +625,10 @@ def test_cli_refuses_unported_flags_with_the_reason(argv, env, tmp_path,
     if argv[0] == "--forensics-dir":
         assert not (tmp_path / "forensics").exists() or not os.listdir(
             tmp_path / "forensics")
+    if env is not None:
+        # The CLI's injector logs each injection on its stdout.
+        assert ('{"chaos_injected": {"seam": "serving.dispatch", '
+                '"fault": "exception", "hit": 2') in out
 
 
 @pytest.mark.parametrize("argv", [

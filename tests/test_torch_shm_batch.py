@@ -136,3 +136,29 @@ def test_push_batch_wait_honours_stop(ring_name):
     finally:
         ring.close()
         ring.unlink()
+
+
+@pytest.mark.chaos
+def test_shm_push_batch_torn_drops_whole_batch(ring_name):
+    """Twin of tests/test_ingest_dedup.py:318: one seqlock covers one
+    slot, so a torn batched publish can never deliver a partial batch —
+    all records dropped, counted once."""
+    from dist_dqn_tpu_torch import chaos
+
+    plan = chaos.FaultPlan(seed=1, events=(
+        chaos.FaultEvent("shm.publish", "torn", at_hit=2),))
+    ring = tring.ShmSlotRing(ring_name, slot_size=128, nslots=4,
+                             create=True)
+    try:
+        with chaos.installed(plan) as inj:
+            assert ring.push_batch([b"a1", b"a2"])
+            assert ring.push_batch([b"b1", b"b2", b"b3"])   # torn whole
+            assert ring.push_batch([b"c1"])
+            got = [ring.pop() for _ in range(8)]
+            assert [g for g in got if g is not None] == \
+                [b"a1", b"a2", b"c1"]
+            assert ring.torn_reads == 1
+            assert "shm.publish" not in inj.open_trips()
+    finally:
+        ring.close()
+        ring.unlink()

@@ -277,7 +277,35 @@ def host_replay(mesh, case):
     ``catch`` records the error the run raises). Per run: the summary
     without ``learner``, the flat final params, the rows this rank logged
     and the checkpoint directory's files, or ``{"killed": True, ...}``, or
-    ``{"error": text}``."""
+    ``{"error": text}``. With ``case["chaos_plan"]`` (a plan's JSON) every
+    run of the case runs under one injector this rank arms, as a JAX test
+    holds one ``chaos.installed`` across its runs: a run the plan kills
+    records ``{"chaos_killed": text, ...}`` with the newest sidecar's keys,
+    and every run its injector's evidence so far (``chaos_injected``,
+    ``chaos_open_trips``)."""
+    from dist_dqn_tpu_torch import chaos
+
+    plan = case.get("chaos_plan")
+    if plan is None:
+        return _host_replay_runs(mesh, case)
+    with chaos.installed(chaos.FaultPlan.from_json(plan)) as inj:
+        return _host_replay_runs(mesh, case, inj)
+
+
+def _newest_sidecar_keys(directory: str) -> list:
+    """The member names of the newest composed sidecar in ``directory``."""
+    import re
+
+    steps = [int(m.group(1)) for m in (
+        re.match(r"^host_loop_(\d+)\.npz$", n) for n in os.listdir(directory))
+        if m is not None]
+    path = os.path.join(directory, f"host_loop_{max(steps)}.npz")
+    with np.load(path) as f:
+        return sorted(f.files)
+
+
+def _host_replay_runs(mesh, case, inj=None):
+    from dist_dqn_tpu_torch import chaos
     from dist_dqn_tpu_torch.host_replay_loop import run_host_replay
 
     cfg = _cfg_of(case)
@@ -300,6 +328,13 @@ def host_replay(mesh, case):
             out.append({"killed": True, "logged": logged,
                         "files": sorted(os.listdir(directory))})
             continue
+        except chaos.ChaosInjectedError as e:
+            out.append({"chaos_killed": str(e), "logged": logged,
+                        "chaos_injected": list(inj.injected),
+                        "chaos_open_trips": inj.open_trips(),
+                        "sidecar_keys": (_newest_sidecar_keys(directory)
+                                         if directory else [])})
+            continue
         except Exception as e:  # noqa: BLE001 — the case asked for it
             if not catch:
                 raise
@@ -310,6 +345,9 @@ def host_replay(mesh, case):
         summary["logged"] = logged
         if directory:
             summary["files"] = sorted(os.listdir(directory))
+        if inj is not None:
+            summary["chaos_injected"] = list(inj.injected)
+            summary["chaos_open_trips"] = inj.open_trips()
         out.append(summary)
     return out
 
