@@ -6,6 +6,12 @@
 Needs one CUDA card and nvcc; exits nonzero, printing no result, without
 them or outside a checkout of the repository. Phases, each fatal:
 
+0. dqnlint (host only, first; ``--only dqnlint`` selects it): ``python -m
+   dist_dqn_tpu_torch.analysis --all --json`` over this checkout in a
+   subprocess of this Python. It prints one ``dqnlint`` line (each check's
+   unsuppressed and baselined counts, the phase's seconds) and fails on any
+   unsuppressed finding, a stale baseline entry, a check count other than
+   eleven, or a report that is not the JSON artifact.
 1. Build every kernel of the port from ``dist_dqn_tpu_torch/csrc/`` (one
    nvcc per source, all started together).
 2. Hold each kernel against its plain PyTorch version on the card, at the
@@ -883,6 +889,37 @@ def _clock(phase: str) -> None:
                       "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
+def check_dqnlint() -> dict:
+    """Phase 0: the port's static checks over this checkout, on the card
+    machine's Python; returns the ``dqnlint`` line's payload."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dist_dqn_tpu_torch.analysis", "--all",
+         "--json", "--root", root], cwd=root, capture_output=True,
+        text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    try:
+        report = json.loads(proc.stdout)
+    except ValueError:
+        _fail(f"dqnlint: rc {proc.returncode} and no JSON report: "
+              f"{(proc.stderr or proc.stdout).strip()[-2000:]}")
+    row = {"checks": {c["name"]: {"findings": len(c["findings"]),
+                                  "suppressed": len(c["suppressed"])}
+                      for c in report["checks"]},
+           "summary": report["summary"], "rc": proc.returncode,
+           "seconds": seconds}
+    print(json.dumps({"dqnlint": row}), flush=True)
+    findings = [f"{f['check']} {f['path']}:{f['line']}: {f['message']}"
+                for c in report["checks"] for f in c["findings"]]
+    if proc.returncode != 0 or not report["ok"] or findings \
+            or report["summary"]["checks_run"] != 11:
+        _fail(f"dqnlint: rc {proc.returncode}, "
+              f"{report['summary']['checks_run']} checks, findings: "
+              + "; ".join(findings))
+    return row
+
+
 def _eager_ms(fn, iters: int, warmup: int = 10) -> float:
     """Per-call time of ``fn`` launched from Python back to back: the
     device time, or the host's launch time where that is longer."""
@@ -1403,6 +1440,8 @@ def _chunk_attribution(cfg, carry, iters: int = CHUNK_ATTRIBUTION_ITERS
     from dist_dqn_tpu_torch.train_loop import make_fused_train
 
     env = make_env(cfg.env_name, device=DEVICE)
+    # devtime: a timing fixture over the apex path's carry; the path's own
+    # chunk program was registered by train() as fused.chunk.
     _, run_chunk = make_fused_train(cfg, env, carry.learner.net,
                                     device=DEVICE)
     held = {"carry": carry}
@@ -3159,7 +3198,8 @@ def _closed_loop(address: str, obs, clients: int, seconds: float,
             with lock:
                 lat.extend(mine)
 
-    threads = [threading.Thread(target=run, name=f"serving-load-{i}")
+    threads = [threading.Thread(target=run, name=f"serving-load-{i}",
+                                daemon=False)
                for i in range(clients)]
     for t in threads:
         t.start()
@@ -3280,7 +3320,9 @@ def _serving_apex(sampler, directory: str, armed, t_phase: float) -> int:
             barrier.wait()
             res[i] = clients[i].act(obs[i:i + 1], greedy=True)
 
-        threads = [threading.Thread(target=one, args=(i,))
+        threads = [threading.Thread(target=one, args=(i,),
+                                    name=f"serving-lockstep-{i}",
+                                    daemon=False)
                    for i in range(3)]
         for t in threads:
             t.start()
@@ -3371,7 +3413,9 @@ def _serving_apex(sampler, directory: str, armed, t_phase: float) -> int:
             finally:
                 c.close()
 
-        threads = [threading.Thread(target=hammer, args=(i,))
+        threads = [threading.Thread(target=hammer, args=(i,),
+                                    name=f"serving-hammer-{i}",
+                                    daemon=False)
                    for i in range(n_clients)]
         for t in threads:
             t.start()
@@ -3457,7 +3501,9 @@ def _serving_apex(sampler, directory: str, armed, t_phase: float) -> int:
             conn.close()
 
     try:
-        threads = [threading.Thread(target=shed_one) for _ in range(n_shed)]
+        threads = [threading.Thread(target=shed_one,
+                                    name=f"serving-shed-{k}", daemon=False)
+                   for k in range(n_shed)]
         for t in threads:
             t.start()
         for t in threads:
@@ -4060,6 +4106,7 @@ def _mesh_sharded_step(mesh) -> dict:
     tx_whole, state, step = learner()
     whole, m_whole = step(state, batch, weights)
     tx_part, state, step = learner(mesh)
+    # devtime: a test fixture, held against the whole-batch step.
     sharded = make_sharded_train_step(step, mesh, *train_step_specs())
     part, m_part = sharded(state, batch, weights)
     tx_local, state, step = learner()
@@ -5195,7 +5242,7 @@ APEX_DIST_PHASES = {
     "apex_service_learners_2rank": check_apex_service_learners_2rank,
     "apex_service_multihost_2proc": check_apex_service_multihost_2proc,
 }
-PHASES = ("sampler", "dedup_gather", *MAIN_PATHS,
+PHASES = ("dqnlint", "sampler", "dedup_gather", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
           "population_learner_lockstep", "chaos", *HOST_REPLAY_PHASES,
           *APEX_SERVICE_PHASES, "serving_apex", "watchdog_device_wait",
@@ -5650,8 +5697,11 @@ def check_population_learner_lockstep(sampler) -> int:
         pop_net = stack_networks([build_network(
             cfg.network, env.num_actions, env.observation_shape,
             device=DEVICE, seed=s) for s in seeds])
+        # devtime: test fixtures: the lockstep check compares these
+        # programs' outputs, outside any loop's program table.
         p_init, p_run = pop.make_population_train(cfg, env, pop_net,
                                                   device=DEVICE)
+        # devtime: the solo twins of the same fixture.
         runs = [make_fused_train(members[k], env, build_network(
             cfg.network, env.num_actions, env.observation_shape,
             device=DEVICE, seed=seeds[k]), device=DEVICE) for k in range(2)]
@@ -5717,19 +5767,23 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+    if "dqnlint" in phases and not args.bar_worker:
+        check_dqnlint()
+        _clock("dqnlint")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from dist_dqn_tpu_torch.ops import sampler
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t_start = time.perf_counter()
+    t_build = time.perf_counter()
     build_fns = {"stratified_sample": sampler.build_library}
     with ThreadPoolExecutor(len(build_fns)) as pool:
         futures = {n: pool.submit(b) for n, b in build_fns.items()}
         built = {n: str(f.result()) for n, f in futures.items()}
     print(json.dumps({"built": built,
-                      "build_s": time.perf_counter() - t_start}), flush=True)
+                      "build_s": time.perf_counter() - t_build}), flush=True)
     if args.bar_worker:
         worker = {}
         for name in args.bar_worker.split(","):

@@ -97,10 +97,17 @@ def make_scan_step(train_step):
 def _steps(train_step, mesh, recurrent: bool):
     """{command: the row-sharded step} of every rank: the sequence step, or
     the scan over stacked transition batches (the service's layout at
-    every replay ratio)."""
+    every replay ratio).
+
+    devtime: rank 0 is the service, whose train events the service
+    registers as apex.train_step (its census left unknown: the step
+    all-reduces, which cannot run on one process alone); the other ranks
+    keep no program table of their own."""
     if recurrent:
+        # devtime: apex.train_step on rank 0 (docstring).
         return {STEP: make_sharded_train_step(
             train_step, mesh, *train_step_specs(recurrent=True))}
+    # devtime: apex.train_step on rank 0 (docstring).
     return {SCAN: make_sharded_train_step(make_scan_step(train_step), mesh,
                                           *scan_train_step_specs())}
 

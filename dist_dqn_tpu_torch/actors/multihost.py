@@ -32,7 +32,6 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 
 class MultihostLearner:
@@ -160,8 +159,7 @@ class MultihostLearner:
             try:
                 if on_card:
                     torch.cuda.set_device(mesh.device)
-                dist.all_reduce(counters, group=mesh.group)
-                result["out"] = counters.cpu().numpy()
+                result["out"] = mesh.psum([counters])[0].cpu().numpy()
             except Exception as e:  # noqa: BLE001 — re-raised on the caller
                 result["err"] = e
 

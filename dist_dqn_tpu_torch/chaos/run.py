@@ -562,7 +562,8 @@ def scenario_fleet_pane(seed: int, workdir: str, opts) -> dict:
                                 scrape_timeout_s=2.0)
     out = {}
     runner = threading.Thread(
-        target=lambda: out.update(service.run()), daemon=True)
+        target=lambda: out.update(service.run()), name="chaos-service",
+        daemon=True)
     runner.start()
     try:
         # Quorum up: learner + both workers on the pane.

@@ -1234,10 +1234,14 @@ def run_host_replay(cfg: ExperimentConfig, total_env_steps: int,
     # chunk's one-time set-up, per-chunk flight events, the sentinel on
     # each train event's loss. A mesh rank names its shard in its stage.
     fr = tm_flight.get_flight()
-    hb_collect = tm_watchdog.heartbeat(
-        f"host_replay.collect.s{rank}" if mesh_mode
-        else "host_replay.collect",
-        startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
+    if mesh_mode:
+        hb_collect = tm_watchdog.heartbeat(
+            f"host_replay.collect.s{rank}",
+            startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
+    else:
+        hb_collect = tm_watchdog.heartbeat(
+            "host_replay.collect",
+            startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
     hb_train = tm_watchdog.heartbeat(
         "host_replay.train", startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
     # The train section mutates the learner in place from its first step

@@ -123,6 +123,8 @@ def shutdown() -> None:
 def free_port(host: str = "127.0.0.1") -> int:
     """A TCP port on ``host`` that nothing listens on now (the rendezvous
     of a local group)."""
+    # socket: bind-only probe: it never connects, listens or accepts, so
+    # nothing here can block.
     with socket.socket() as s:
         s.bind((host, 0))
         return s.getsockname()[1]

@@ -65,6 +65,8 @@ def make_mesh_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
     PER flush ride the per-rank body unchanged: every rank draws its own
     sub-step batches from its shard and averages gradients once per
     sub-step."""
+    # devtime: the caller registers the mesh program (train.py
+    # _FusedTelemetry, fused.chunk).
     init_local, run_local = make_fused_train(
         cfg, env, net, device=mesh.device, axis=mesh,
         num_shards=mesh.shape[axis])
@@ -78,6 +80,8 @@ def make_mesh_r2d2_train(cfg: ExperimentConfig, env: TorchEnv, net,
     contract of :func:`make_mesh_fused_train`."""
     from dist_dqn_tpu_torch.r2d2_loop import make_r2d2_train
 
+    # devtime: the caller registers the mesh program (train.py
+    # _FusedTelemetry, fused.chunk).
     init_local, run_local = make_r2d2_train(
         cfg, env, net, device=mesh.device, axis=mesh,
         num_shards=mesh.shape[axis])

@@ -185,4 +185,6 @@ def make_population_train(cfg: ExperimentConfig, env, net, device=None):
     ``num_iters`` iterations, every metric an [M] tensor.
     """
     hp = member_hp(cfg, resolve_spec(cfg))
+    # devtime: the caller registers the program (train.py _FusedTelemetry,
+    # population.chunk).
     return make_fused_train(cfg, env, net, device=device, member_hp=hp)

@@ -143,7 +143,8 @@ class DoubleBufferedStager:
             labels)
 
     def __len__(self) -> int:
-        return self._queued
+        with self._lock:
+            return self._queued
 
     @property
     def staged_total(self) -> int:
@@ -151,8 +152,12 @@ class DoubleBufferedStager:
 
     def stage(self, host_batch: Any, aux: Any = None) -> None:
         """Copy ``host_batch`` into the next staging set and begin its
-        upload."""
-        if self._queued >= self.depth:
+        upload. The depth count is read and written under ``_lock``: a
+        :class:`SamplePrefetcher` stages from its worker thread while the
+        training thread pops and reads ``len()``."""
+        with self._lock:
+            full = self._queued >= self.depth
+        if full:
             raise RuntimeError(
                 f"stager depth {self.depth} exceeded: pop() before "
                 "staging further batches")
@@ -189,22 +194,26 @@ class DoubleBufferedStager:
             dev, event = [b.clone() for b in bufs], None
         with self._lock:
             self._queued += 1
+            queued = self._queued
         self._queue.put((rebuild(dev), event, aux))
         self._staged_total += 1
         self.bytes_staged += nbytes
         self._c_staged.inc()
         self._c_bytes.inc(nbytes)
-        self._g_occ.set(self._queued)
+        self._g_occ.set(queued)
 
     def pop(self) -> Tuple[Any, Any]:
         """Oldest staged ``(device_batch, aux)``; raises when empty. On the
         card the current stream waits for the batch's upload."""
-        if not self._queued:
+        with self._lock:
+            empty = not self._queued
+        if empty:
             raise RuntimeError("pop() on an empty stager — stage() first")
         batch, event, aux = self._queue.get()
         with self._lock:
             self._queued -= 1
-        self._g_occ.set(self._queued)
+            queued = self._queued
+        self._g_occ.set(queued)
         if event is not None:
             with devtime.device_work():
                 consumer = torch.cuda.current_stream(self.device)

@@ -389,15 +389,23 @@ def train(cfg: ExperimentConfig, total_env_steps: int = 0, seed: int = None,
     env = make_env(cfg.env_name, device=dev)
     net = build_network(cfg.network, env.num_actions, env.observation_shape,
                         device=dev, seed=seed)
+    # Every branch builds the loop's one chunk program. devtime: each is
+    # registered as fused.chunk by _FusedTelemetry below, and _chunk_loop
+    # attaches its census at the first chunk that takes grad steps.
     if mesh is not None:
         from dist_dqn_tpu_torch.parallel import (make_mesh_fused_train,
                                                  make_mesh_r2d2_train)
-        make = (make_mesh_r2d2_train if cfg.network.lstm_size
-                else make_mesh_fused_train)
-        init, run_chunk = make(cfg, env, net, mesh)
+        if cfg.network.lstm_size:
+            # devtime: fused.chunk (above).
+            init, run_chunk = make_mesh_r2d2_train(cfg, env, net, mesh)
+        else:
+            # devtime: fused.chunk (above).
+            init, run_chunk = make_mesh_fused_train(cfg, env, net, mesh)
     elif cfg.network.lstm_size:
+        # devtime: fused.chunk (above).
         init, run_chunk = make_r2d2_train(cfg, env, net, device=dev)
     else:
+        # devtime: fused.chunk (above).
         init, run_chunk = make_fused_train(cfg, env, net, device=dev)
     evaluate = (make_r2d2_evaluator if cfg.network.lstm_size
                 else make_evaluator)(cfg, env, num_episodes=cfg.eval_episodes)
@@ -461,6 +469,8 @@ def _train_population(cfg: ExperimentConfig, total_env_steps: int = 0,
     net = stack_networks([build_network(cfg.network, env.num_actions,
                                         env.observation_shape, device=dev,
                                         seed=s) for s in seeds])
+    # devtime: registered as population.chunk by _FusedTelemetry(members=M)
+    # below; _chunk_loop attaches its census.
     init, run_chunk = pop.make_population_train(cfg, env, net, device=dev)
     evaluate = make_evaluator(cfg, env, num_episodes=cfg.eval_episodes)
     eval_gens = [torch.Generator(device=dev).manual_seed(s + 1)
@@ -523,8 +533,14 @@ def _chunk_heartbeat(members: int = 0):
     loop's emergency hook even when the loop raises: a leaked heartbeat
     would read as a permanent stall in a process that caught the
     exception and lived on."""
-    hb = tm_watchdog.heartbeat(_chunk_stage(members),
-                               startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
+    # Literal stage names, JAX's: the heartbeat-stages check matches
+    # them against the runbook's table.
+    if members:
+        hb = tm_watchdog.heartbeat(
+            "population.chunk", startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
+    else:
+        hb = tm_watchdog.heartbeat(
+            "fused.chunk", startup_grace_s=tm_watchdog.STARTUP_GRACE_S)
     try:
         yield hb
     finally:

@@ -67,14 +67,16 @@ def _child(variant: str, captures: int, seconds: float) -> None:
                     net(obs).argmax(-1).cpu()
                 iters[0] += 1
 
-    server = threading.Thread(target=serve, daemon=True)
+    server = threading.Thread(target=serve, name="capture-probe-serve",
+                              daemon=True)
     server.start()
     time.sleep(0.3)
     rows = []
     for i in range(captures):
         got, n0, t0 = {}, iters[0], time.perf_counter()
         th = threading.Thread(target=lambda: got.update(
-            devtime.capture_profile(seconds, base_dir=base)))
+            devtime.capture_profile(seconds, base_dir=base)),
+            name=f"capture-probe-{i}", daemon=True)
         th.start()
         th.join()
         kernels, runtime = _events(got["trace_dir"])

@@ -297,3 +297,34 @@ def test_serving_cli_help_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "--checkpoint-dir" in proc.stdout and "--device" in proc.stdout
     assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+_DQNLINT = r"""
+import io, json, runpy, sys
+from contextlib import redirect_stdout
+sys.argv = ["dist_dqn_tpu_torch.analysis", "--all", "--json"]
+out = io.StringIO()
+try:
+    with redirect_stdout(out):
+        runpy.run_module("dist_dqn_tpu_torch.analysis", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, (e.code, out.getvalue()[-2000:])
+payload = json.loads(out.getvalue())
+assert payload["ok"] and payload["summary"]["checks_run"] == 11, payload
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("torch", "jax", "jaxlib", "dist_dqn_tpu"))
+print(bad)
+"""
+
+
+def test_dqnlint_loads_no_torch_no_jax_no_reference_package():
+    """``python -m dist_dqn_tpu_torch.analysis --all --json`` runs all
+    eleven checks with the standard library alone: no torch, no JAX and
+    nothing of dist_dqn_tpu (the wire and ckpt-schema checks import the
+    port's framework-free codec and schema modules)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _DQNLINT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
