@@ -38,6 +38,17 @@ them or outside a checkout of the repository. Phases, each fatal:
    dedup rebuild must equal the stacked gather bit for bit, for every
    transition start (obs and next_obs, merged rows) and for 64 windows of
    R2D2's 125 steps.
+3b. helpers (host-cheap, after dedup_gather; ``--only helpers`` selects
+   it): the JAX helpers the port keeps for its tests and benchmarks.
+   ``ops/losses.py n_step_from_rollout`` on CUDA tensors at apex's widths
+   (batch 512, a rollout of 40 steps, n = 3, float32) and
+   ``q_learning_error`` (batch 512, 6 actions) with its gradient must
+   equal the same calls on CPU copies within ``HELPERS_ATOL``, the
+   gradient reaching ``q`` only; then ``ShmSlotRing.push_wait`` from a
+   producer thread (``poll_s=0.0``) into the port's ring on this host
+   (2,000 records of 1-511 bytes, 8 slots of 512 bytes) must deliver every
+   record once, in order, with 0 torn reads. It prints one ``helpers``
+   line with the max abs errors it saw.
 4. Drive the main paths through ``dist_dqn_tpu_torch.train.train``, each
    at full width past ``min_fill`` for a few hundred grad steps (apex and
    apex_dedup with ``min_fill`` 22,000 in place of 50,000; only r2d2
@@ -434,6 +445,14 @@ from concurrent.futures import ThreadPoolExecutor
 # float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The helpers phase: apex's batch, a rollout of 40 steps at the preset's
+# n-step 3, PixelPong's 6 actions; the hammer of JAX's ring test. The two
+# devices' elementwise float32 ops round alike, so the tolerance is far
+# above any difference they could show at these magnitudes.
+HELPERS_ROLLOUT = (512, 40, 3)
+HELPERS_TD = (512, 6)
+HELPERS_RING = (2_000, 512, 8)           # records, slot bytes, slots
+HELPERS_ATOL = 1e-5
 # Main paths: name -> (preset, --set overrides, total env frames,
 # iterations per chunk). apex and apex_dedup fill their rings at 22,000
 # frames here (the preset's min_fill is 50,000: a depth cut, see PERF.md
@@ -1313,6 +1332,126 @@ def check_dedup_gather(lanes: int = 64, slots: int = 160, steps: int = 400,
     if not all(checks.values()) or not report["starts_with_reset_in_context"]:
         _fail(f"dedup rebuild differs from the stacked gather, or no reset "
               f"fell inside a stack context: {report}")
+    return report
+
+
+def _ring_round_trip(records: int, slot_size: int, nslots: int) -> dict:
+    """``push_wait`` from a producer thread into the port's slot ring, the
+    consumer popping on this thread: what arrived, in what order."""
+    import threading
+    import uuid
+
+    import numpy as np
+
+    from dist_dqn_tpu_torch.ingest.shm_ring import ShmSlotRing
+
+    rng = np.random.default_rng(6)
+    msgs = [rng.integers(0, 256, rng.integers(1, slot_size))
+            .astype(np.uint8).tobytes() for _ in range(records)]
+    name = f"chip_smoke_helpers_{uuid.uuid4().hex[:8]}"
+    ring = ShmSlotRing(name, slot_size=slot_size, nslots=nslots, create=True)
+    producer_ring = ShmSlotRing(name)
+    try:
+        def produce():
+            for m in msgs:
+                producer_ring.push_wait(m, poll_s=0.0)
+
+        t0 = time.perf_counter()
+        th = threading.Thread(target=produce, daemon=True,
+                              name="chip-smoke-helpers-producer")
+        th.start()
+        got = []
+        deadline = time.monotonic() + 60.0
+        while len(got) < records and time.monotonic() < deadline:
+            b = ring.pop()
+            if b is not None:
+                got.append(b)
+        seconds = time.perf_counter() - t0
+        th.join(timeout=10)
+        return {"records": records, "received": len(got),
+                "in_order": got == msgs, "torn_reads": ring.torn_reads,
+                "producer_done": not th.is_alive(), "seconds": seconds,
+                "records_per_s": len(got) / seconds}
+    finally:
+        producer_ring.close()
+        ring.close()
+        ring.unlink()
+
+
+def check_helpers() -> dict:
+    """``n_step_from_rollout`` and ``q_learning_error`` (with its gradient)
+    on the card against the same calls on CPU copies, and a ``push_wait``
+    round trip through the port's slot ring; prints one ``helpers`` line
+    and fails on any mismatch."""
+    import numpy as np
+    import torch
+
+    from dist_dqn_tpu_torch.ops import losses
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    batch, steps, n = HELPERS_ROLLOUT
+    rewards = rng.normal(size=(batch, steps)).astype(np.float32)
+    discounts = (0.99 * (rng.random((batch, steps)) > 0.1)).astype(
+        np.float32)
+    want = losses.n_step_from_rollout(torch.from_numpy(rewards),
+                                      torch.from_numpy(discounts), n)
+    got = losses.n_step_from_rollout(torch.from_numpy(rewards).to(dev),
+                                     torch.from_numpy(discounts).to(dev), n)
+    out_shape = (batch, steps - n + 1)
+    rollout = {
+        "shape": [batch, steps], "n": n,
+        "out_shape": list(got[0].shape),
+        "on_card": all(g.device.type == "cuda" for g in got),
+        "finite": all(bool(torch.isfinite(g).all()) for g in got),
+        "max_abs_err": {k: float((g.cpu() - w).abs().max()) for k, g, w in
+                        zip(("returns", "discounts"), got, want)}}
+
+    rows, actions_n = HELPERS_TD
+    q = rng.normal(size=(rows, actions_n)).astype(np.float32)
+    actions = rng.integers(0, actions_n, rows).astype(np.int32)
+    target_parts = [rng.normal(size=rows).astype(np.float32),
+                    (0.99 * (rng.random(rows) > 0.1)).astype(np.float32),
+                    rng.normal(size=rows).astype(np.float32)]
+
+    def td(device):
+        tq = torch.from_numpy(q).to(device).requires_grad_()
+        parts = [torch.from_numpy(x).to(device).requires_grad_()
+                 for x in target_parts]
+        err = losses.q_learning_error(
+            tq, torch.from_numpy(actions).to(device), *parts)
+        err.sum().backward()
+        return (err.detach(), tq.grad,
+                all(p.grad is None for p in parts))
+
+    want_err, want_grad, _ = td(torch.device("cpu"))
+    got_err, got_grad, no_target_grad = td(dev)
+    td_error = {
+        "shape": [rows, actions_n], "out_shape": list(got_err.shape),
+        "on_card": got_err.device.type == "cuda",
+        "finite": bool(torch.isfinite(got_err).all()),
+        "target_grads_none": no_target_grad,
+        "max_abs_err": {
+            "error": float((got_err.cpu() - want_err).abs().max()),
+            "grad_q": float((got_grad.cpu() - want_grad).abs().max())}}
+
+    ring = _ring_round_trip(*HELPERS_RING)
+    report = {"n_step_from_rollout": rollout, "q_learning_error": td_error,
+              "atol": HELPERS_ATOL, "push_wait": ring,
+              "seconds": time.perf_counter() - t0}
+    print(json.dumps({"helpers": report}), flush=True)
+    errors = [*rollout["max_abs_err"].values(),
+              *td_error["max_abs_err"].values()]
+    if (rollout["out_shape"] != list(out_shape)
+            or td_error["out_shape"] != [rows]
+            or not (rollout["on_card"] and td_error["on_card"])
+            or not (rollout["finite"] and td_error["finite"])
+            or not no_target_grad
+            or not all(e <= HELPERS_ATOL for e in errors)
+            or ring["received"] != ring["records"] or not ring["in_order"]
+            or ring["torn_reads"] or not ring["producer_done"]):
+        _fail(f"helpers: {report}")
     return report
 
 
@@ -5242,7 +5381,7 @@ APEX_DIST_PHASES = {
     "apex_service_learners_2rank": check_apex_service_learners_2rank,
     "apex_service_multihost_2proc": check_apex_service_multihost_2proc,
 }
-PHASES = ("dqnlint", "sampler", "dedup_gather", *MAIN_PATHS,
+PHASES = ("dqnlint", "sampler", "dedup_gather", "helpers", *MAIN_PATHS,
           *(f for follows in FOLLOW_UPS.values() for f in follows),
           "population_learner_lockstep", "chaos", *HOST_REPLAY_PHASES,
           *APEX_SERVICE_PHASES, "serving_apex", "watchdog_device_wait",
@@ -5799,6 +5938,9 @@ def main(argv=None) -> int:
     if "dedup_gather" in phases:
         check_dedup_gather()
         _clock("dedup_gather")
+    if "helpers" in phases:
+        check_helpers()
+        _clock("helpers")
 
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

@@ -28,6 +28,8 @@ is ``u32 n | (u32 len_i | bytes_i) * n``; :meth:`ShmSlotRing.pop` unbatches
 it into a consumer-side queue, so the drain cannot tell feeders from
 actors. A batch of one takes :meth:`ShmSlotRing.push`, byte for byte the
 unbatched wire, and a torn batched slot drops the whole batch.
+:meth:`ShmSlotRing.push_wait` and :meth:`ShmSlotRing.push_batch_wait` are
+their blocking forms: they retry a full ring until it takes the record.
 
 Chaos seam ``shm.publish`` on both publishes: "drop" reports success and
 publishes nothing, "stall" sleeps, "torn" advances ``write_seq`` with the
@@ -204,6 +206,15 @@ class ShmSlotRing:
         self._stamps[i][0] = 2 * w + 2          # even: published
         self._hdr[_WRITE_SEQ] = w + 1
         chaos.mark_recovered("shm.publish")
+        return True
+
+    def push_wait(self, payload, stop=lambda: False,
+                  poll_s: float = 0.0005) -> bool:
+        """Blocking push: retry until published or ``stop()``."""
+        while not self.push(payload):
+            if stop():
+                return False
+            time.sleep(poll_s)
         return True
 
     def push_batch_wait(self, payloads: Sequence, stop=lambda: False,

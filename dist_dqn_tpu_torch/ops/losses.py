@@ -1,12 +1,13 @@
 """TD-loss family of the port (twin of dist_dqn_tpu/ops/losses.py): the
-scalar head's Huber loss and double-Q bootstrap, Munchausen-DQN's soft
-bootstrap and log-policy bonus, R2D2's value rescaling, the C51
-categorical projection and cross-entropy, and the QR-DQN / IQN
-quantile-Huber regression.
+scalar head's Huber loss, the n-step fold of a rollout, the double-Q
+bootstrap and one-step TD error, Munchausen-DQN's soft bootstrap and
+log-policy bonus, R2D2's value rescaling, the C51 categorical projection
+and cross-entropy, and the QR-DQN / IQN quantile-Huber regression.
 
 The JAX package's stop-gradient points are ``.detach()`` at the same
-places: the C51 target probs, the quantile targets and the taus. Every
-loss is computed in float32.
+places: the TD error's target, the C51 target probs, the quantile targets
+and the taus. Every loss is computed in float32; ``n_step_from_rollout``
+and ``q_learning_error`` keep their inputs' dtype, as JAX's do.
 """
 from __future__ import annotations
 
@@ -22,12 +23,52 @@ def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
     return 0.5 * quad * quad + delta * (abs_x - quad)
 
 
+def n_step_from_rollout(rewards: torch.Tensor, discounts: torch.Tensor,
+                        n: int):
+    """Fold a rollout into n-step returns and compound discounts.
+
+    Args:
+      rewards:   [..., T] per-step rewards r_t.
+      discounts: [..., T] per-step discounts (gamma * (1 - terminated_t)).
+      n: static n-step horizon (loop is unrolled at trace time).
+
+    Returns:
+      (returns, discounts): each [..., T - n + 1] where
+        returns[t]   = sum_{k<n} (prod_{j<k} discounts[t+j]) * rewards[t+k]
+        discounts[t] = prod_{k<n} discounts[t+k]
+      so target_t = returns[t] + discounts[t] * bootstrap(obs[t+n]).
+    """
+    T = rewards.shape[-1]
+    if n < 1 or n > T:
+        raise ValueError(f"n_step={n} out of range for rollout length {T}")
+    out = T - n + 1
+    acc_r = torch.zeros_like(rewards[..., :out])
+    acc_d = torch.ones_like(acc_r)
+    for k in range(n):
+        acc_r = acc_r + acc_d * rewards[..., k:k + out]
+        acc_d = acc_d * discounts[..., k:k + out]
+    return acc_r, acc_d
+
+
 def double_q_bootstrap(q_next_online: torch.Tensor,
                        q_next_target: torch.Tensor) -> torch.Tensor:
     """Double-DQN bootstrap: argmax from online net, value from target net.
     ``torch.argmax`` returns the first maximal index, as ``jnp.argmax``."""
     a_star = q_next_online.argmax(dim=-1, keepdim=True)
     return q_next_target.gather(-1, a_star)[..., 0]
+
+
+def q_learning_error(
+    q: torch.Tensor,
+    actions: torch.Tensor,
+    rewards: torch.Tensor,
+    discounts: torch.Tensor,
+    bootstrap_q: torch.Tensor,
+) -> torch.Tensor:
+    """TD error q(s,a) - (r + discount * bootstrap). Gradient flows into q only."""
+    qa = q.gather(-1, actions[..., None].long())[..., 0]
+    target = rewards + discounts * bootstrap_q
+    return qa - target.detach()
 
 
 def take_action(x: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,7 @@ CartPole physics floats to an ulp, see its test).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from dist_dqn_tpu.envs import make_jax_env
@@ -116,3 +117,29 @@ def test_cartpole_step_matches():
                                       np.asarray(jout.obs)[done])
         dones += int(done.sum())
     assert dones > 0
+
+
+@pytest.mark.parametrize("name", ["cartpole", "pixel_pong", "pixel_breakout",
+                                  "pixel_catch", "dmc_pixels"])
+def test_every_registered_env_emits_one_obs_array(name):
+    """JAX's ``loop_common.ring_obs_example`` refuses a multi-leaf obs under
+    ``replay.flat_storage``. No env of either registry emits one: each obs
+    is one array of the env's ``observation_shape``, at reset and after a
+    step, so the port's rings take ``flatten(obs)[0]`` as their example
+    (train_loop.py, r2d2_loop.py) with nothing to refuse."""
+    env = make_env(name, device="cpu")
+    state, obs = env.v_reset(2, torch.Generator().manual_seed(0))
+    _, out = env.v_step(state, torch.zeros(2, dtype=torch.long),
+                        torch.Generator().manual_seed(1))
+    for o in (obs, out.obs, out.next_obs):
+        assert isinstance(o, torch.Tensor)
+        assert tuple(o.shape) == (2,) + tuple(env.observation_shape)
+    jenv = make_jax_env(name)
+    jstate, jobs = jax.eval_shape(lambda k: jenv.v_reset(k, 2),
+                                  jax.random.PRNGKey(0))
+    _, jout = jax.eval_shape(jenv.v_step, jstate,
+                             jax.ShapeDtypeStruct((2,), jnp.int32))
+    for o in (jobs, jout.obs, jout.next_obs):
+        leaves = jax.tree.leaves(o)
+        assert len(leaves) == 1
+        assert leaves[0].shape == (2,) + tuple(env.observation_shape)

@@ -3,6 +3,8 @@ against the JAX package's ``dist_dqn_tpu/ingest/``: the same schemas, the
 same record and reply bytes (plain, with q planes, with the lineage
 trailer, and the frame-stack dedup plane), the same sticky shards, and a
 slot ring either package can read. Exact: these are bytes."""
+import threading
+import time
 import uuid
 
 import numpy as np
@@ -258,6 +260,74 @@ def test_slot_ring_layout_is_the_jax_packages():
         assert [ring.pop(), ring.pop()] == [b"a", b"bc"]
         assert ring.push(b"from the port") and jpeer.pop() == b"from the port"
         jpeer.close()
+    finally:
+        ring.close()
+        ring.unlink()
+
+
+@pytest.mark.parametrize("consumer", [tingest.ShmSlotRing, jshm.ShmSlotRing],
+                         ids=["port", "jax"])
+def test_shm_ring_concurrent_hammer(consumer):
+    """Twin of JAX's hammer (tests/test_ingest.py): the port's
+    ``push_wait`` from a producer thread on an attached ring, across many
+    wraparounds, into either package's consumer: every record arrives
+    once, in order, bit-intact, with no torn read."""
+    rng = np.random.default_rng(6)
+    name = _ring_name()
+    ring = consumer(name, slot_size=512, nslots=8, create=True)
+    att = tingest.ShmSlotRing(name)
+    msgs = [rng.integers(0, 256, rng.integers(1, 512)).astype(np.uint8)
+            .tobytes() for _ in range(2000)]
+    try:
+        def produce():
+            for m in msgs:
+                att.push_wait(m, poll_s=0.0)
+
+        th = threading.Thread(target=produce, daemon=True,
+                              name="hammer-producer")
+        th.start()
+        got = []
+        deadline = time.monotonic() + 60.0
+        while len(got) < len(msgs) and time.monotonic() < deadline:
+            b = ring.pop()
+            if b is not None:
+                got.append(b)
+        th.join(timeout=10)
+        assert not th.is_alive()
+        assert got == msgs
+        assert ring.torn_reads == 0
+    finally:
+        att.close()
+        ring.close()
+        ring.unlink()
+
+
+@pytest.mark.parametrize("fault", [
+    None, pytest.param("drop", marks=pytest.mark.chaos)])
+def test_push_wait_on_a_full_ring_publishes_nothing(fault):
+    """On a full ring ``push_wait`` retries until ``stop()`` is true and
+    returns False; under the ``shm.publish: drop`` seam it returns True at
+    once, as JAX's does. Neither publishes the record."""
+    from dist_dqn_tpu_torch import chaos
+
+    ring = tingest.ShmSlotRing(_ring_name(), slot_size=16, nslots=2,
+                               create=True)
+    stops = []
+
+    def stop():
+        stops.append(1)
+        return len(stops) >= 3
+
+    events = () if fault is None else (
+        chaos.FaultEvent("shm.publish", fault, at_hit=3),)
+    try:
+        with chaos.installed(chaos.FaultPlan(seed=1, events=events)):
+            assert ring.push_wait(b"a") and ring.push_wait(b"b")
+            published = ring.push_wait(b"c", stop=stop, poll_s=0.0)
+        assert published is (fault == "drop")
+        assert len(stops) == (0 if fault else 3)
+        assert ring.pending == 2 and int(ring._hdr[2]) == 2
+        assert [ring.pop(), ring.pop(), ring.pop()] == [b"a", b"b", None]
     finally:
         ring.close()
         ring.unlink()
