@@ -24,8 +24,12 @@ them or outside a checkout of the repository. Phases, each fatal:
    rank's plane ``[977, 512]`` with S = 256 (500,000 live cells, also each
    shard plane of the two-shard 1M store), and the population's
    four apex planes ``[4, 62500, 16]`` in one member-axis launch, which
-   must equal four 2-D launches bit for bit), and time both beside one
+   must equal four 2-D launches bit for bit; then the wide-row path at
+   ragged widths, 500, 520 and 510 lanes), and time both beside one
    PyTorch library call computing the same function and the card's bound.
+   Every case must pick the plain version's cells. A ``sampler_width_sweep``
+   line times both kernel paths at about 1M cells for each B of
+   ``SWEEP_LANES``, beside the routed one, the library call and the bound.
    Times are device times (CUDA events around replays of a CUDA graph of
    20 calls); the ``*eager_ms`` keys time the same calls launched from
    Python one by one, which is what the main path pays. The kernel's
@@ -1057,16 +1061,25 @@ def _mass(rng, T, B, zero_frac, row_stride=1):
 # host-replay plane; one rank's plane of the two-rank apex mesh (8 of
 # the 16 lanes, 256 of the 512 rows); and one rank's host-replay plane of
 # the two-rank host-replay mesh (62,500 slots x 8 lanes, 256 rows), which
-# is also each shard plane of the two-shard 1M store (500,000 slots).
+# is also each shard plane of the two-shard 1M store (500,000 slots); then
+# the wide-row path at ragged widths: 500 lanes (a partial span), 520 (a
+# second span of 8 cells) and 510 (B % 4 != 0: scalar loads).
 SAMPLER_CASES = {"apex": (62500, 16, 512, 0.3, 1),
                  "ragged": (700, 8, 128, 0.9, 1),
                  "r2d2": (6250, 16, 64, 0.0, 40),
                  "catch": (512, 32, 32, 0.0, 1),
                  "host_plane": (1954, 512, 512, 0.3, 1),
                  "mesh_rank": (62500, 8, 256, 0.3, 1),
-                 "mesh_host_plane": (977, 512, 256, 0.3, 1)}
+                 "mesh_host_plane": (977, 512, 256, 0.3, 1),
+                 "wide_500": (977, 500, 256, 0.3, 1),
+                 "wide_520": (977, 520, 512, 0.3, 1),
+                 "wide_510": (977, 510, 256, 0.9, 1)}
 TIMED_CASES = ("apex", "r2d2", "catch", "host_plane", "mesh_rank",
-               "mesh_host_plane")
+               "mesh_host_plane", "wide_500", "wide_520", "wide_510")
+# The width sweep: about 1M cells (T = ceil(1e6 / B)) at each B, S = 512,
+# both kernel paths timed beside the routed one, the library call and the
+# bound; it places SAMPLER_WIDE_MIN_LANES.
+SWEEP_LANES = (16, 32, 64, 128, 256, 512)
 # The host-replay device planes' written cells: apex's 1M slots in
 # [ceil(1e6 / 512), 512] (the last 448 cells are never written), and a
 # rank's (or a store shard's) 500,000 in [977, 512] (the last 224).
@@ -1080,10 +1093,6 @@ def _time_sampler(sampler, w, u, iters: int) -> dict:
     With a member axis (w [M, T, B], u [M, S]) the library call is the
     stacked cumsum with searchsorted, and ``one_launch_per_member_ms``
     times M 2-D launches, one per plane."""
-    import torch
-
-    from dist_dqn_tpu_torch.utils.flops import stratified_sample_cost
-
     M, T, B = w.shape if w.dim() == 3 else (1, *w.shape)
     S = u.shape[-1]
 
@@ -1095,32 +1104,47 @@ def _time_sampler(sampler, w, u, iters: int) -> dict:
     if not replay_ok:
         _fail(f"sampler kernel outputs differ between eager calls and CUDA "
               f"graph replays (M={M}, T={T})")
-    flat = w.reshape(M, -1)
-    u2 = u.reshape(M, S)
-
-    def library():
-        cdf = torch.cumsum(flat, dim=1)
-        return torch.searchsorted(cdf, u2 * cdf[:, -1:])
-
     fns = {"": kernel,
            "plain_": lambda: sampler.plain_stratified_sample(w, u),
-           "library_": library}
+           "library_": _library_draw(w, u)}
     if w.dim() == 3:
         fns["one_launch_per_member_"] = lambda: [
             sampler.kernel_stratified_sample(w[m], u[m]) for m in range(M)]
     device = {f"{k}ms": _device_ms(fn) for k, fn in fns.items()}
     eager = {f"{k}eager_ms": _eager_ms(fn, iters) for k, fn in fns.items()}
-    # Least work (utils/flops.py stratified_sample_cost): read the planes
-    # and u once, write the three [S] outputs and the total of each member
-    # once; add every cell once, scan the T row sums, and per sample search
-    # log2(T) rows and walk B lanes.
+    return {**device, **_sampler_bound(T, B, S, M), **eager,
+            "graph_replay_equal": replay_ok,
+            "device_launches_per_call": launches_per_call}
+
+
+def _library_draw(w, u):
+    """The library call the kernel is timed beside: torch.cumsum of each
+    flattened plane and torch.searchsorted of its targets."""
+    import torch
+    M = w.shape[0] if w.dim() == 3 else 1
+    flat = w.reshape(M, -1)
+    u2 = u.reshape(M, -1)
+
+    def library():
+        cdf = torch.cumsum(flat, dim=1)
+        return torch.searchsorted(cdf, u2 * cdf[:, -1:])
+
+    return library
+
+
+def _sampler_bound(T: int, B: int, S: int, M: int = 1) -> dict:
+    """The card's least time for one draw (utils/flops.py
+    stratified_sample_cost): read the planes and u once, write the three
+    [S] outputs and the total of each member once; add every cell once,
+    scan the T row sums, and per sample search log2(T) rows and walk B
+    lanes; over the card's memory rate and float32 rate."""
+    from dist_dqn_tpu_torch.utils.flops import stratified_sample_cost
     cost = stratified_sample_cost(T, B, S, members=M)
     bound_bytes = cost["bytes"] / HBM_BYTES_PER_S * 1e3
     bound_ops = cost["flops"] / F32_OPS_PER_S * 1e3
-    return {**device, "bound_ms": max(bound_bytes, bound_ops),
+    return {"bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops
-            else "operations", **eager, "graph_replay_equal": replay_ok,
-            "device_launches_per_call": launches_per_call}
+            else "operations"}
 
 
 def _time_rows_twin(sampler, w, u, iters: int) -> dict:
@@ -1172,6 +1196,7 @@ def check_sampler(sampler, iters: int) -> dict:
         total64 = float(w_np.astype(np.float64).sum())
         checks = {
             "agreement>=0.98": agree >= 0.98,
+            "picks==plain": agree == 1.0,
             "mass_sel==w[t,b]": bool(np.allclose(pk, w_np[tk, bk], rtol=1e-6,
                                                  atol=0.0)),
             "no_zero_mass_pick": bool((pk > 0).all() and
@@ -1201,7 +1226,50 @@ def check_sampler(sampler, iters: int) -> dict:
     report["population"] = check_sampler_members(sampler, rng, iters)
     report["max_abs_err"] = max(report["max_abs_err"],
                                 report["population"]["max_abs_err"])
+    report["width_sweep"] = sampler_width_sweep(sampler, rng)
     return report
+
+
+def sampler_width_sweep(sampler, rng) -> list:
+    """At about 1M cells for each B of SWEEP_LANES (S = 512, a 0.3 zero
+    share): the routed kernel's device time and path, both paths' times
+    (each must pick the plain version's cells), the library call's and
+    the bound. Prints one ``sampler_width_sweep`` line."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    S = 512
+    rows = []
+    for B in SWEEP_LANES:
+        T = -(-1_000_000 // B)
+        w = torch.from_numpy(_mass(rng, T, B, 0.3)).to(dev)
+        u = torch.from_numpy(((np.arange(S) + rng.uniform(size=S)) / S)
+                             .astype(np.float32)).to(dev)
+        want = sampler.plain_stratified_sample(w, u)
+        routed = sampler.launch_geometry(T, S, B=B)
+        row = {"B": B, "T": T, "S": S,
+               "path": "wide" if routed.wide else "narrow"}
+        for path in ("narrow", "wide"):
+            geo = sampler.launch_geometry(T, S, B=B, wide=path == "wide")
+
+            def kernel(geo=geo):
+                return sampler._launch(w, u, geo)
+
+            got = kernel()
+            same = all(torch.equal(g, x) for g, x in zip(got, want[:3]))
+            if not (same and math.isclose(float(got[3]), float(want[3]),
+                                          rel_tol=1e-5)):
+                _fail(f"sampler {path} path at [{T}, {B}] disagrees with "
+                      f"its plain version")
+            row[f"{path}_ms"] = _device_ms(kernel)
+        row["ms"] = row[f"{row['path']}_ms"]
+        row["library_ms"] = _device_ms(_library_draw(w, u))
+        rows.append({**row, **_sampler_bound(T, B, S)})
+    print(json.dumps({"sampler_width_sweep": rows,
+                      "wide_min_lanes": sampler.SAMPLER_WIDE_MIN_LANES}),
+          flush=True)
+    return rows
 
 
 # The population_apex_dedup plane: M members' [T, B] planes, S per member.
@@ -6071,6 +6139,13 @@ def main(argv=None) -> int:
             "M", "T", "B", "S", "ms", "one_launch_per_member_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "eager_ms",
             "one_launch_per_member_eager_ms", "device_launches_per_call")},
+        # The wide-row path at ragged widths, and where it takes over.
+        **{f"{case}_shape": {k: sampler_report[case][k] for k in (
+            "T", "B", "S", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_launches_per_call")}
+           for case in ("wide_500", "wide_520", "wide_510")},
+        "wide_min_lanes": sampler.SAMPLER_WIDE_MIN_LANES,
+        "width_sweep": sampler_report["width_sweep"],
         "pass": True,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,8 +15,9 @@ Counterpart of ``dist_dqn_tpu/ops/pallas_sampler.py``:
     in torch ops. ``kernel_stratified_sample.launches`` counts launches,
     and :func:`launch_geometry` gives the kernel's grid (one launch: G
     blocks that each scan a chunk of R rows, and P blocks that draw, per
-    member). A population draws its M planes ``[M, T, B]`` in one launch,
-    the twin of the JAX package's vmapped ``pallas_call``.
+    member), on its narrow path or, from ``SAMPLER_WIDE_MIN_LANES`` lanes
+    on, its wide-row path. A population draws its M planes ``[M, T, B]``
+    in one launch, the twin of the JAX package's vmapped ``pallas_call``.
   * :func:`stratified_sample_rows` (``:200``), the three-level draw over
     block sums that the host-replay device plane uses below the kernel's
     crossover, and :func:`importance_weights` (``:250``).
@@ -43,12 +44,22 @@ _SRC = Path(__file__).resolve().parents[1] / "csrc" / "stratified_sample.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dist_dqn_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# Mirrors kThreads and kMaxChunks in csrc/stratified_sample.cu.
+# Mirrors kThreads, kMaxChunks and kWideMinLanes in
+# csrc/stratified_sample.cu: planes of at least SAMPLER_WIDE_MIN_LANES
+# lanes take the kernel's wide-row path (one warp per row and per sample).
 SAMPLER_THREADS = 256
 SAMPLER_MAX_CHUNKS = 2048
+SAMPLER_WIDE_MIN_LANES = 128
 # Samples per draw block: few enough that a block's scattered loads wait
-# on latency, not on its SM's load unit.
+# on latency, not on its SM's load unit; the wide path's one per warp.
 SAMPLER_DRAW_SAMPLES = 32
+SAMPLER_WIDE_DRAW_SAMPLES = SAMPLER_THREADS // 32
+# The wide path's chunks hold about as many cells as the narrow path's at
+# the apex shape (256 rows of 16 lanes), but are small enough that at
+# least SAMPLER_MIN_CHUNK_BLOCKS chunk blocks scan (the H100's SMs), where
+# T allows.
+SAMPLER_CHUNK_CELLS = 4096
+SAMPLER_MIN_CHUNK_BLOCKS = 132
 
 Samples = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -168,11 +179,13 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_library()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.dqn_stratified_sample.argtypes = [
-                ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
-                ptr, ptr, ptr, ptr]
+                ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr, ptr,
+                ptr, ptr, ptr, ptr, ptr]
             lib.dqn_stratified_sample.restype = i32
-            lib.dqn_stratified_sample_static_smem.argtypes = []
-            lib.dqn_stratified_sample_static_smem.restype = i32
+            for name in ("dqn_stratified_sample_static_smem",
+                         "dqn_stratified_sample_wide_min_lanes"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = i32
             lib.dqn_cuda_error_string.argtypes = [i32]
             lib.dqn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -200,7 +213,7 @@ class LaunchGeometry(NamedTuple):
     planes: one launch of M·(G + P) blocks of ``threads`` threads, per
     member ``chunks`` (G) blocks that each scan ``rows_per_chunk`` (R)
     consecutive rows, with G·R >= T > (G−1)·R, and ``draw_blocks`` (P)
-    blocks that draw the samples."""
+    blocks that draw the samples; on the wide-row path where ``wide``."""
     rows_per_chunk: int
     chunks: int
     draw_blocks: int
@@ -209,24 +222,47 @@ class LaunchGeometry(NamedTuple):
     #                           totals [G]
     static_smem_bytes: int    # the kernel's `Shared` struct
     sync_words: int           # ticket counter, M done and M drawn counts
+    wide: bool                # one warp per row and per sample
 
 
-def launch_geometry(T: int, S: int = 1, members: int = 1) -> LaunchGeometry:
-    """The kernel's grid for ``T`` rows and ``S`` samples of each of
-    ``members`` planes: chunks of one tile of ``SAMPLER_THREADS`` rows each
+def launch_geometry(T: int, S: int = 1, members: int = 1, *, B: int,
+                    wide: Optional[bool] = None) -> LaunchGeometry:
+    """The kernel's grid for ``T`` rows of ``B`` lanes and ``S`` samples of
+    each of ``members`` planes. ``wide`` is None for the kernel's own
+    choice, the wide-row path from ``SAMPLER_WIDE_MIN_LANES`` lanes on
+    (``chip_smoke.py``'s width sweep forces each path to time both).
+
+    The narrow path: chunks of one tile of ``SAMPLER_THREADS`` rows each
     (G = 245 at the apex preset's T=62,500, so every SM scans one), grown
     by whole tiles only where T needs more than ``SAMPLER_MAX_CHUNKS``
     chunks, which is as many chunk offsets as a block's shared memory
-    holds; and one draw block per ``SAMPLER_DRAW_SAMPLES`` samples."""
-    tiles = -(-T // SAMPLER_THREADS)
-    rows = SAMPLER_THREADS * -(-tiles // SAMPLER_MAX_CHUNKS)
-    chunks = -(-T // rows)
-    draws = -(-S // SAMPLER_DRAW_SAMPLES)
+    holds; and one draw block per ``SAMPLER_DRAW_SAMPLES`` samples. The
+    wide path: chunks of ``SAMPLER_CHUNK_CELLS`` cells in whole rows, cut
+    to fewer rows where that leaves fewer than
+    ``SAMPLER_MIN_CHUNK_BLOCKS`` chunks and T allows more (R = 8 and
+    G = 245 at [1954, 512], R = 7 and G = 140 at [977, 512]), grown where
+    T needs more than ``SAMPLER_MAX_CHUNKS``; one draw block per
+    ``SAMPLER_WIDE_DRAW_SAMPLES`` samples."""
+    if wide is None:
+        wide = B >= SAMPLER_WIDE_MIN_LANES
     warps = SAMPLER_THREADS // 32
-    # double offset[max_chunks + 1]; double warp[warps]; u32 ticket (padded).
+    if wide:
+        rows = max(1, min(SAMPLER_CHUNK_CELLS // B,
+                          T // SAMPLER_MIN_CHUNK_BLOCKS),
+                   -(-T // SAMPLER_MAX_CHUNKS))
+        per_block = SAMPLER_WIDE_DRAW_SAMPLES
+    else:
+        tiles = -(-T // SAMPLER_THREADS)
+        rows = SAMPLER_THREADS * -(-tiles // SAMPLER_MAX_CHUNKS)
+        per_block = SAMPLER_DRAW_SAMPLES
+    chunks = -(-T // rows)
+    draws = -(-S // per_block)
+    # double offset[max_chunks + 1] (a union with the wide path's
+    # double rows[threads]); double warp[warps]; u32 ticket (padded).
     smem = 8 * (SAMPLER_MAX_CHUNKS + 1 + warps + 1)
     return LaunchGeometry(rows, chunks, draws, SAMPLER_THREADS,
-                          members * (2 * T + chunks), smem, 1 + 2 * members)
+                          members * (2 * T + chunks), smem, 1 + 2 * members,
+                          wide)
 
 
 # Per card: the kernel's sync words (u32 it leaves at zero: 1 + 2·M)
@@ -269,8 +305,8 @@ def kernel_stratified_sample(w: torch.Tensor, u: torch.Tensor) -> Samples:
     on plane m alone (the 2-D call is the M = 1 launch). A CUDA tensor
     launches the Hopper kernel on the current stream (no synchronisation)
     and raises if the launch fails; a CPU tensor runs
-    :func:`plain_stratified_sample`. Either way ``launches`` counts one
-    per call, whatever M.
+    :func:`plain_stratified_sample`. ``launches`` counts each launch, one
+    per call on the card whatever M, and nothing on the CPU.
     """
     _check_inputs(w, u)
     device = w.device
@@ -284,11 +320,25 @@ def kernel_stratified_sample(w: torch.Tensor, u: torch.Tensor) -> Samples:
         # The kernel launches on the current card.
         with torch.cuda.device(device):
             return kernel_stratified_sample(w, u)
-    lib = _load()
     stacked = w.dim() == 3
     M, T, B = w.shape if stacked else (1, *w.shape)
     S = u.shape[-1]
-    geo = launch_geometry(T, S, M)
+    t_idx, b_idx, mass, total = _launch(w, u, launch_geometry(T, S, M, B=B))
+    if not stacked:
+        return t_idx, b_idx, mass, total[0]
+    return (t_idx.view(M, S), b_idx.view(M, S), mass.view(M, S), total)
+
+
+def _launch(w: torch.Tensor, u: torch.Tensor,
+            geo: LaunchGeometry) -> Samples:
+    """One launch of the kernel at ``geo`` on contiguous [M, T, B] planes
+    (or one [T, B] plane) and their uniforms, on the current card and
+    stream: t_idx, b_idx and mass_sel [M·S] and total [M], views of one
+    fresh buffer. Counts the launch."""
+    lib = _load()
+    M, T, B = w.shape if w.dim() == 3 else (1, *w.shape)
+    S = u.shape[-1]
+    device = w.device
     sync, scratch = _workspace(device, geo)
     # t_idx [M, S] | b_idx [M, S] | mass [M, S] | total [M], 4 bytes each.
     n = M * S
@@ -300,18 +350,16 @@ def kernel_stratified_sample(w: torch.Tensor, u: torch.Tensor) -> Samples:
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     err = lib.dqn_stratified_sample(
         w.data_ptr(), u.data_ptr(), M, T, B, S, geo.rows_per_chunk,
-        geo.chunks, geo.draw_blocks, scratch.data_ptr(), sync.data_ptr(),
-        base, base + 4 * n, base + 8 * n, base + 12 * n, stream)
+        geo.chunks, geo.draw_blocks, int(geo.wide), scratch.data_ptr(),
+        sync.data_ptr(), base, base + 4 * n, base + 8 * n, base + 12 * n,
+        stream)
     if err != 0:
         raise RuntimeError("stratified sample kernel launch failed: "
                            + lib.dqn_cuda_error_string(err).decode())
     kernel_stratified_sample.launches += 1
     t_idx, b_idx, rest = out.split([n, n, n + M])
     values = rest.view(torch.float32)
-    mass, total = values[:n], values[n:]
-    if not stacked:
-        return t_idx, b_idx, mass, total[0]
-    return (t_idx.view(M, S), b_idx.view(M, S), mass.view(M, S), total)
+    return t_idx, b_idx, values[:n], values[n:]
 
 
 kernel_stratified_sample.launches = 0

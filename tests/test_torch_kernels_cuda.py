@@ -52,7 +52,7 @@ def _mass(rng, T, B, zero_frac):
     return w
 
 
-R = tps.launch_geometry(62500).rows_per_chunk     # rows per block's chunk
+R = tps.launch_geometry(62500, B=16).rows_per_chunk  # rows per chunk
 # Chunk edges: one row, one partial chunk, a chunk short of, equal to and
 # one row past R, and a partial last chunk; B=1 and 5 take the scalar
 # loads, B=8 and 16 the float4 ones.
@@ -182,7 +182,7 @@ def test_sampler_draw_is_one_device_kernel(cuda):
 def test_sampler_kernel_shared_memory_matches_launch_geometry(cuda):
     lib = tps._load()
     assert (lib.dqn_stratified_sample_static_smem()
-            == tps.launch_geometry(62500).static_smem_bytes)
+            == tps.launch_geometry(62500, B=16).static_smem_bytes)
 
 
 @pytest.mark.cuda
@@ -225,7 +225,7 @@ def test_sampler_kernel_on_the_r2d2_sequence_plane(cuda, live):
     draw blocks): the kernel picks exactly the plain version's cells, all
     on live rows, across zero rows and whole zero chunks."""
     T, S = 6250, 64
-    geo = tps.launch_geometry(T, S)
+    geo = tps.launch_geometry(T, S, B=16)
     assert (geo.chunks, geo.draw_blocks) == (25, 2)
     live_rows = {"full": np.arange(T), "filling": np.arange(1200),
                  "band": np.arange(2000, 3300)}[live]
@@ -505,3 +505,114 @@ def test_kernel_draw_on_a_restored_plane(cuda):
     _assert_same_draw(got, tps.plain_stratified_sample(plane, u))
     flat = got[0].long() * HOST_B + got[1].long()
     assert int(flat.max()) < size and bool((got[2] > 0).all())
+
+
+# --------------------------------------------------------------------------
+# The wide-row path: one warp per row and per sample, from
+# SAMPLER_WIDE_MIN_LANES lanes on.
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_wide_min_lanes_mirrors_the_kernel(cuda):
+    lib = tps._load()
+    assert (lib.dqn_stratified_sample_wide_min_lanes()
+            == tps.SAMPLER_WIDE_MIN_LANES)
+    assert tps.launch_geometry(HOST_T, 512, B=HOST_B).wide
+    assert not tps.launch_geometry(62500, 512, B=16).wide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,S,zero_frac", [
+    (7813, 128, 512, 0.3),   # about 1M cells at B = 128
+    (977, 500, 256, 0.3),    # a partial span
+    (1954, 512, 512, 0.0),   # the host plane, every cell with mass
+    (977, 1024, 256, 0.3),   # two spans
+    (50, 520, 64, 0.9),      # a second span of 8 cells, mostly zero
+    (1, 512, 32, 0.5),       # one row
+])
+def test_wide_path_picks_the_plain_version_cells(cuda, T, B, S, zero_frac):
+    w, u = _draw_inputs(cuda, T=T, B=B, S=S, zero_frac=zero_frac, seed=30)
+    assert tps.launch_geometry(T, S, B=B).wide
+    before = tps.kernel_stratified_sample.launches
+    got = tps.kernel_stratified_sample(w, u)
+    assert tps.kernel_stratified_sample.launches == before + 1
+    _assert_same_draw(got[:3], tps.plain_stratified_sample(w, u)[:3])
+    assert bool((got[2] > 0).all())
+
+
+@pytest.mark.cuda
+def test_wide_path_misaligned_plane_takes_scalar_loads(cuda):
+    """A [977, 512] plane 4 bytes off a 16-byte boundary: the wide path's
+    scalar loads pick what its float4 loads pick on an aligned copy."""
+    w0, u = _draw_inputs(cuda, T=977, B=512, S=256, seed=31)
+    flat = torch.empty(w0.numel() + 1, device=cuda)
+    w = flat[1:].view(w0.shape)
+    w.copy_(w0)
+    assert w.data_ptr() % 16 != 0 and w.is_contiguous()
+    _assert_same_draw(tps.kernel_stratified_sample(w, u),
+                      tps.kernel_stratified_sample(w0, u))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,S", [(HOST_T, HOST_B, 512), (977, 520, 256)])
+def test_wide_path_replays_in_a_cuda_graph(cuda, T, B, S):
+    """Eager calls and a CUDA graph of 20 calls replayed twice give what one
+    eager call gives: the wide path leaves its sync words at zero too."""
+    w, u = _draw_inputs(cuda, T=T, B=B, S=S, seed=32)
+    want = [x.clone() for x in tps.kernel_stratified_sample(w, u)]
+    _assert_same_draw(tps.kernel_stratified_sample(w, u), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tps.kernel_stratified_sample(w, u)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tps.kernel_stratified_sample(w, u) for _ in range(20)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got in outs:
+            _assert_same_draw(got, want)
+    # A narrow call between wide ones shares the workspace.
+    tps.kernel_stratified_sample(*_draw_inputs(cuda))
+    _assert_same_draw(tps.kernel_stratified_sample(w, u), want)
+
+
+@pytest.mark.cuda
+def test_wide_path_draw_is_one_device_kernel(cuda):
+    from torch.autograd import DeviceType
+    w, u = _draw_inputs(cuda, T=HOST_T, B=HOST_B, S=512, seed=33)
+    tps.kernel_stratified_sample(w, u)
+    torch.cuda.synchronize()
+    with _counted_profile() as prof:
+        for _ in range(10):
+            tps.kernel_stratified_sample(w, u)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 10 and all("sample_kernel" in n for n in names)
+
+
+@pytest.mark.cuda
+def test_wide_path_member_axis_equals_one_launch_per_plane(cuda):
+    """Two host planes [2, 1954, 512] in one launch: each member's draw bit
+    for bit a 2-D launch on its plane, and the plain version's cells."""
+    w, u = _member_inputs(cuda, 2, HOST_T, HOST_B, 512, seed=34)
+    got = tps.kernel_stratified_sample(w, u)
+    for m in range(2):
+        _assert_same_draw([x[m] for x in got],
+                          tps.kernel_stratified_sample(w[m], u[m]))
+    _assert_same_draw(got[:3], tps.plain_stratified_sample(w, u)[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 32, 64, 128, 256, 512])
+def test_both_paths_pick_the_same_cells(cuda, B):
+    """Forced onto either path at about 1M cells, the kernel picks the
+    plain version's cells: the crossover changes the time, never the
+    draw."""
+    T = -(-1_000_000 // B)
+    w, u = _draw_inputs(cuda, T=T, B=B, S=512, seed=35)
+    want = tps.plain_stratified_sample(w, u)
+    for wide in (False, True):
+        got = tps._launch(w, u, tps.launch_geometry(T, 512, B=B, wide=wide))
+        _assert_same_draw(got[:3], want[:3])

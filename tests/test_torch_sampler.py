@@ -16,6 +16,7 @@ import torch
 
 from dist_dqn_tpu.ops import pallas_sampler as jps
 from dist_dqn_tpu_torch.ops import sampler as tps
+from torch_sampler_model import model_draw
 
 
 def _mass(rng, T, B, zero_frac=0.3):
@@ -53,6 +54,28 @@ def test_plain_matches_pallas_and_numpy_reference():
     assert np.mean((t == tj) & (b == bj)) >= 0.98
     assert t.dtype == np.int32 and b.dtype == np.int32
     assert p.dtype == np.float32 and tot.dtype == np.float32
+
+
+@pytest.mark.parametrize("zero_frac", [0.0, 0.3])
+def test_wide_path_model_and_plain_match_pallas(zero_frac):
+    """A small wide plane ([64, 512], S = 64), which the kernel draws on its
+    wide-row path: the numpy model of that path and the plain version both
+    meet the bars against the Pallas kernel in interpret mode, and pick
+    the same cells as each other."""
+    rng = np.random.default_rng(9)
+    T, B, S = 64, 512, 64
+    assert tps.launch_geometry(T, S, B=B).wide
+    w = _mass(rng, T, B, zero_frac)
+    u = _uniforms(rng, S)
+    (tj, bj, pj, totj), (t, b, p, tot) = _both(w, u)
+    tm, bm, pm, totm = model_draw(w, u)
+    for tt, bb, pp, total in ((t, b, p, tot), (tm, bm, pm, totm)):
+        assert np.mean((tt == tj) & (bb == bj)) >= 0.98
+        np.testing.assert_allclose(pp, w[tt, bb], rtol=1e-6)
+        np.testing.assert_allclose(total, totj, rtol=1e-5)
+        assert (pp > 0).all()
+    np.testing.assert_array_equal(tm, t)
+    np.testing.assert_array_equal(bm, b)
 
 
 def test_plain_never_selects_zero_mass():
