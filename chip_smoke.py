@@ -350,8 +350,9 @@ them or outside a checkout of the repository. Phases, each fatal:
    training chunk (five Nature-CNN forwards per grad step over the batch
    and one act forward per iteration), ``dqn_learner_mfu{loop="fused"}``
    in (0, 1], the card's ``bytes_in_use`` under its ``bytes_limit``, the
-   ledger's busy and idle series summing to the chunks' walls within
-   1e-6 s, and one more chunk's attributed seconds printed beside
+   ledger's busy and idle series summing to the walls of the chunks it
+   filed within 1e-6 s (the fused loop files a chunk a profiler traced
+   only, and the phase traces none), and one more chunk's attributed seconds printed beside
    torch.profiler's kernel union and sum (``chunk_attribution``);
    host_replay_apex_dedup's ``sampler.draw_writeback`` dispatches equal
    the kernel's launches, its scraped ledger the summary's
@@ -1595,7 +1596,8 @@ def _hold_fused_chip_time(scrape, cfg, history, chunk_iters: int,
     """apex's chip-time plane: one ``fused.chunk`` dispatch per chunk, its
     census within 1.5x of the analytic count of a training chunk, the
     learner MFU in (0, 1], the card's memory in use under its total, and
-    the ledger's busy and idle series summing to the chunks' walls."""
+    the ledger's busy and idle series summing to the walls of the chunks
+    it filed (those a profiler traced)."""
     prog = "{loop=fused,program=fused.chunk}"
     flops = scrape.grew("dqn_program_flops" + prog)
     analytic = _fused_chunk_analytic_flops(cfg, chunk_iters)

@@ -26,6 +26,11 @@ gradients of the summed member losses flow back through ordinary autograd
 steps it at its own rate (``make_population_optimizer``). The noise and
 taus each member draws come from its own generator, in the order and
 shapes of a solo step.
+
+Both steps open profiler spans (utils/trace.py ``span``): the loss in
+``learner.forward``, the gradients in ``learner.backward``, a mesh's
+all-reduce in ``learner.allreduce``, Adam and the target sync in
+``learner.optimizer``.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from dist_dqn_tpu_torch.models.qnets import (MemberView, draw_noise,
                                              member_forward, members_of)
 from dist_dqn_tpu_torch.ops import losses
 from dist_dqn_tpu_torch.types import Transition
+from dist_dqn_tpu_torch.utils.trace import span
 
 
 # --------------------------------------------------------------------------
@@ -444,31 +450,34 @@ def make_learner(cfg: LearnerConfig, net: nn.Module,
                    weights: Optional[torch.Tensor] = None,
                    draws: Optional[Draws] = None
                    ) -> Tuple[LearnerState, Dict[str, torch.Tensor]]:
-        if weights is None:
-            weights = torch.ones_like(batch.reward)
-        if axis is not None and kind == "iqn":
-            draws = rank_taus(state, draws, batch.reward.shape[0])
-
         def source(name):
             if not random:
                 return None
             return draws[name] if draws is not None else state.generator
 
         params = list(state.net.parameters())
-        per_example, priorities = loss_fn(state, batch, source)
-        loss = torch.mean(weights * per_example)
-        grads = list(torch.autograd.grad(loss, params))
+        with span("learner.forward"):
+            if weights is None:
+                weights = torch.ones_like(batch.reward)
+            if axis is not None and kind == "iqn":
+                draws = rank_taus(state, draws, batch.reward.shape[0])
+            per_example, priorities = loss_fn(state, batch, source)
+            loss = torch.mean(weights * per_example)
+        with span("learner.backward"):
+            grads = list(torch.autograd.grad(loss, params))
         loss = loss.detach()
         raw_loss = per_example.detach().mean()
         mean_gap = priorities.mean()
         if axis is not None:
             # The gradient all-reduce over the dp axis, with the scalar
             # metrics riding the same flat buffer.
-            *grads, loss, raw_loss, mean_gap = axis.pmean(
-                grads + [loss, raw_loss, mean_gap])
-        grad_norm = tx.step(params, grads, state.opt_state)
-        state.steps += 1
-        sync_target(cfg, state)
+            with span("learner.allreduce"):
+                *grads, loss, raw_loss, mean_gap = axis.pmean(
+                    grads + [loss, raw_loss, mean_gap])
+        with span("learner.optimizer"):
+            grad_norm = tx.step(params, grads, state.opt_state)
+            state.steps += 1
+            sync_target(cfg, state)
         metrics = {
             "loss": loss,
             "raw_loss": raw_loss,
@@ -485,11 +494,6 @@ def make_learner(cfg: LearnerConfig, net: nn.Module,
         """One step of every member: ``batch`` leaves and ``weights`` are
         [M, S, ...]; ``draws`` (optional) hold each forward's draws with
         a leading member axis. Metrics are [M] (priorities [M, S])."""
-        if weights is None:
-            weights = torch.ones_like(batch.reward)
-        if random and draws is None:
-            S = batch.reward.shape[1]
-            draws = _stack_trees([draw_step(g, S) for g in state.generator])
         params = dict(state.net.named_parameters())
         target_params = dict(state.target_net.named_parameters())
 
@@ -501,14 +505,23 @@ def make_learner(cfg: LearnerConfig, net: nn.Module,
             return (torch.mean(weights * per_example),
                     per_example.detach().mean(), priorities)
 
-        loss, raw_loss, priorities = torch.func.vmap(
-            member_loss, in_dims=(0, 0, 0, 0, 0 if random else None))(
-                params, target_params, batch, weights, draws)
-        grads = torch.autograd.grad(loss.sum(), list(params.values()))
-        grad_norm = tx.step(list(params.values()), list(grads),
-                            state.opt_state)
-        state.steps += 1
-        sync_target(cfg, state)
+        with span("learner.forward"):
+            if weights is None:
+                weights = torch.ones_like(batch.reward)
+            if random and draws is None:
+                S = batch.reward.shape[1]
+                draws = _stack_trees([draw_step(g, S)
+                                      for g in state.generator])
+            loss, raw_loss, priorities = torch.func.vmap(
+                member_loss, in_dims=(0, 0, 0, 0, 0 if random else None))(
+                    params, target_params, batch, weights, draws)
+        with span("learner.backward"):
+            grads = torch.autograd.grad(loss.sum(), list(params.values()))
+        with span("learner.optimizer"):
+            grad_norm = tx.step(list(params.values()), list(grads),
+                                state.opt_state)
+            state.steps += 1
+            sync_target(cfg, state)
         metrics = {
             "loss": loss.detach(),
             "raw_loss": raw_loss,

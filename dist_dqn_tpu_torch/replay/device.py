@@ -31,6 +31,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from dist_dqn_tpu_torch.types import Transition
+from dist_dqn_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass
@@ -348,7 +349,9 @@ def time_ring_sample(state: TimeRingState, generator, batch_size: int,
     step of the same env. Frame-dedup rings also skip the oldest
     ``frame_stack - 1`` starts, whose rebuild context is not stored. A
     stacked ring takes a list of M member generators (each draws a solo
-    run's numbers) and [M] gammas, and gives [M, S, ...] leaves."""
+    run's numbers) and [M] gammas, and gives [M, S, ...] leaves. The
+    draw and the gather run in the profiler spans ``replay.draw`` and
+    ``replay.gather`` (utils/trace.py ``span``)."""
     num_slots, num_envs = state.action.shape[-2:]
     dev = state.action.device
     extra = max(frame_stack - 1, 0)
@@ -360,12 +363,14 @@ def time_ring_sample(state: TimeRingState, generator, batch_size: int,
                 torch.randint(0, num_envs, (batch_size,), generator=gen,
                               device=dev))
 
-    if state.members:
-        u, b_idx = (torch.stack(x) for x in zip(*map(draw, generator)))
-    else:
-        u, b_idx = draw(generator)
-    t_idx = (state.pos - state.size + extra + u) % num_slots
-    return gather_transitions(state, t_idx, b_idx, n_step, gamma,
-                              merge_obs_rows=merge_obs_rows,
-                              frame_stack=frame_stack,
-                              frame_shape=frame_shape)
+    with span("replay.draw"):
+        if state.members:
+            u, b_idx = (torch.stack(x) for x in zip(*map(draw, generator)))
+        else:
+            u, b_idx = draw(generator)
+        t_idx = (state.pos - state.size + extra + u) % num_slots
+    with span("replay.gather"):
+        return gather_transitions(state, t_idx, b_idx, n_step, gamma,
+                                  merge_obs_rows=merge_obs_rows,
+                                  frame_stack=frame_stack,
+                                  frame_shape=frame_shape)

@@ -25,6 +25,7 @@ from dist_dqn_tpu_torch.ops.sampler import (importance_weights,
                                             stratified_sample_at)
 from dist_dqn_tpu_torch.replay import device as ring
 from dist_dqn_tpu_torch.types import Transition
+from dist_dqn_tpu_torch.utils.trace import span
 
 
 @dataclasses.dataclass
@@ -109,24 +110,28 @@ def prioritized_ring_sample(state: PrioritizedRingState, generator,
     packages the same ones). ``frame_stack`` / ``frame_shape``: a
     frame-dedup ring (replay/device.py ``gather_transitions``). A stacked
     ring takes a list of M member generators (or [M, S] uniforms) and [M]
-    gammas: one draw over the [M, T, B] planes, [M, S] outputs.
+    gammas: one draw over the [M, T, B] planes, [M, S] outputs. The draw
+    runs in the profiler span ``replay.draw``, the gather in
+    ``replay.gather`` (utils/trace.py ``span``).
     """
     num_envs = state.priorities.shape[-1]
-    mask = _valid_start_mask(state.ring, n_step, frame_stack)     # [T]
-    w = torch.where(mask[:, None], state.priorities ** alpha,
-                    torch.zeros((), device=mask.device))  # [(M,) T, B]
-    n_valid = mask.sum().float() * num_envs
-    if u is None:
-        t_idx, b_idx, mass_sel, total = stratified_sample(
-            w, generator, batch_size, use_kernel=use_kernel)
-    else:
-        t_idx, b_idx, mass_sel, total = stratified_sample_at(
-            w, u, use_kernel=use_kernel)
-    weights = importance_weights(mass_sel, total, n_valid, beta)
-    batch = ring.gather_transitions(state.ring, t_idx, b_idx, n_step, gamma,
-                                    merge_obs_rows=merge_obs_rows,
-                                    frame_stack=frame_stack,
-                                    frame_shape=frame_shape)
+    with span("replay.draw"):
+        mask = _valid_start_mask(state.ring, n_step, frame_stack)   # [T]
+        w = torch.where(mask[:, None], state.priorities ** alpha,
+                        torch.zeros((), device=mask.device))  # [(M,) T, B]
+        n_valid = mask.sum().float() * num_envs
+        if u is None:
+            t_idx, b_idx, mass_sel, total = stratified_sample(
+                w, generator, batch_size, use_kernel=use_kernel)
+        else:
+            t_idx, b_idx, mass_sel, total = stratified_sample_at(
+                w, u, use_kernel=use_kernel)
+        weights = importance_weights(mass_sel, total, n_valid, beta)
+    with span("replay.gather"):
+        batch = ring.gather_transitions(
+            state.ring, t_idx, b_idx, n_step, gamma,
+            merge_obs_rows=merge_obs_rows, frame_stack=frame_stack,
+            frame_shape=frame_shape)
     return PrioritizedSample(batch=batch, weights=weights, t_idx=t_idx,
                              b_idx=b_idx)
 

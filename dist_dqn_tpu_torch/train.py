@@ -10,7 +10,9 @@ prints one JSON row per chunk with the same keys as the JAX package
 ``env_steps_per_sec``, ``grad_steps_in_chunk``, ``grad_steps_per_sec``,
 and ``eval_return`` on the eval cadence). ``--profile-dir`` traces one
 chunk (the second, or ``--profile-chunk``) with ``torch.profiler``, as the
-JAX CLI's flag does with ``jax.profiler``.
+JAX CLI's flag does with ``jax.profiler``; its row's ``layers`` split the
+chunk by the loop's profiler spans (utils/trace.py ``FUSED_SPANS``), and
+the utilization ledger files that chunk's measured device-busy time.
 
 Runs on ``cuda`` unless ``--device cpu`` / ``device="cpu"`` is given.
 ``--replay-ratio N`` and ``--actor-dtype`` set ``replay.updates_per_chunk``
@@ -133,6 +135,7 @@ releases the card (utils/device_cleanup.py).
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import functools
@@ -141,6 +144,7 @@ import os
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -165,6 +169,7 @@ from dist_dqn_tpu_torch.utils.checkpoint import (RankCarryShards,
                                                 record_population_size,
                                                 save_emergency)
 from dist_dqn_tpu_torch.utils.device import resolve_device
+from dist_dqn_tpu_torch.utils.trace import FUSED_SPANS
 
 # Why --coordinator cannot carry the host-replay runtime.
 HOST_REPLAY_COORDINATOR = (
@@ -193,18 +198,53 @@ def _busy_seconds(prof) -> float:
     return busy_us / 1e6
 
 
+def _layers(prof, averages, on_card: bool) -> dict:
+    """Per fused-loop span (utils/trace.py ``FUSED_SPANS``) the profiler
+    saw: its host self ms and, on the card, its device ms, the kernel time
+    of every op that starts inside one of its intervals, on any thread
+    (autograd launches a backward from its own thread while the caller
+    waits in ``learner.backward``). An op's kernels are its own by
+    correlation id."""
+    intervals = {}
+    launched = []          # (start us, self device us) of launching ops
+    for e in prof.events():
+        if e.name in FUSED_SPANS:
+            intervals.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+        if on_card and e.device_type == DeviceType.CPU:
+            own = e.self_device_time_total
+            if own > 0:
+                launched.append((e.time_range.start, own))
+    layers = {avg.key: {"host_self_ms": avg.self_cpu_time_total / 1e3}
+              for avg in averages if avg.key in intervals}
+    if on_card:
+        launched.sort()
+        starts = [t for t, _ in launched]
+        for name, spans in intervals.items():
+            device_us = 0.0
+            for start, end in spans:
+                lo = bisect.bisect_left(starts, start)
+                hi = bisect.bisect_right(starts, end)
+                device_us += sum(own for _, own in launched[lo:hi])
+            layers[name]["device_ms"] = device_us / 1e3
+    return layers
+
+
 def _write_profile(prof, profile_dir: str, wall_s: float, on_card: bool
                    ) -> dict:
     """Chrome trace + per-op table of one profiled chunk, and its summary
-    row: the chunk's wall time and, on the card, the device busy share and
-    the number of device events (kernels, copies, memsets)."""
+    row: the chunk's wall time, ``layers`` (:func:`_layers`) and, on the
+    card, the device busy seconds and share and the number of device
+    events (kernels, copies, memsets)."""
     os.makedirs(profile_dir, exist_ok=True)
     trace = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(trace)
     sort_by = "self_device_time_total" if on_card else "self_cpu_time_total"
+    averages = prof.key_averages()
     with open(os.path.join(profile_dir, "ops.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by=sort_by, row_limit=-1))
-    row = {"profile_trace": trace, "profile_wall_s": wall_s}
+        f.write(averages.table(sort_by=sort_by, row_limit=-1))
+    row = {"profile_trace": trace, "profile_wall_s": wall_s,
+           "layers": _layers(prof, averages, on_card)}
     if on_card:
         busy = _busy_seconds(prof)
         row.update(device_busy_s=busy, device_busy_share=busy / wall_s,
@@ -269,13 +309,13 @@ class _FusedTelemetry:
                        or "float32"}).set(1)
         # The chip-time plane (dist_dqn_tpu/train.py:206-208, :546-548):
         # the chunk is the loop's one train program; its device seconds
-        # are the dispatch-to-fence span of each chunk.
+        # are the dispatch-to-fence span of each chunk. The ledger files
+        # the chunks whose device-busy time a profiler measured.
         self.reg = reg
         self.program = telemetry.register_program(
             "population.chunk" if members else "fused.chunk", loop="fused",
             role="train")
         self.ledger = telemetry.UtilizationLedger("fused", reg)
-        self._t_prev_fence = None
 
     def observe_chunk(self, frames_delta: int, dt: float, grad_steps: float,
                       loss, episodes, ep_ret, replay, max_priority,
@@ -315,18 +355,19 @@ class _FusedTelemetry:
         self.lineage.on_chunk(self.grad_steps.value,
                               max(1, ring_slots // chunk_iters))
 
-    def observe_device(self, t0: float, dt: float, device) -> None:
-        """The chunk dispatched at ``t0`` fenced after ``dt`` s: one
-        dispatch of the chunk program with ``dt`` device seconds, and the
-        ledger's wall from the previous fence (``other`` holds the host
-        bookkeeping between them); then the MFU and the memory sweep."""
+    def observe_device(self, dt: float, device,
+                       busy_s: Optional[float] = None) -> None:
+        """A chunk fenced ``dt`` s after its dispatch: one dispatch of the
+        chunk program with ``dt`` device seconds; with ``busy_s``, the
+        device-busy seconds a profiler measured in it, the ledger files
+        the chunk (``other`` holds its idle rest), and an unmeasured
+        chunk files nothing there: the loop's host launches the card's
+        work, so its wall is not the card's. Then the MFU and the memory
+        sweep."""
         self.program.count_dispatch()
         self.program.add_device_seconds(dt)
-        t_now = time.perf_counter()
-        self.ledger.observe_chunk(
-            t_now - (self._t_prev_fence if self._t_prev_fence is not None
-                     else t0), dt)
-        self._t_prev_fence = t_now
+        if busy_s is not None:
+            self.ledger.observe_chunk(dt, busy_s)
         telemetry.set_learner_mfu("fused", device=device, reg=self.reg)
         telemetry.sweep_device_memory(self.reg)
 
@@ -688,9 +729,12 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
             ep_ret, episodes, loss, *max_prio = \
                 torch.stack(fetch).tolist()
         dt = time.perf_counter() - t0
+        busy = None
         if tracer.stop():
-            log_fn(json.dumps(_write_profile(tracer.profile, profile_dir,
-                                             dt, on_card)))
+            profile_row = _write_profile(tracer.profile, profile_dir, dt,
+                                         on_card)
+            busy = profile_row.get("device_busy_s")
+            log_fn(json.dumps(profile_row))
         chunk_index += 1
         prev_frames = frames
         frames = frame_offset + metrics["env_frames"]
@@ -698,7 +742,7 @@ def _chunk_loop(cfg, carry, run_chunk, evaluate, eval_gen, ckpt, total,
         tm.observe_chunk(max(frames - prev_frames, 0), dt, grad_steps, loss,
                          episodes, ep_ret, carry.replay,
                          max_prio[0] if max_prio else None, chunk_iters)
-        tm.observe_device(t0, dt, dev)
+        tm.observe_device(dt, dev, busy)
         hb_chunk.beat()
         mean_loss = sum(loss) / members if members else loss
         flight.record("chunk", stage, frames=frames, loss=mean_loss,

@@ -27,6 +27,14 @@ generators, epsilon decays per member (``loop_common.make_member_epsilon``)
 and each member's gamma folds its n-step returns. All members fill, train
 and evaluate on the same iterations, since those depend on host counters
 alone.
+
+Profiler spans (utils/trace.py ``span``) mark every layer of a chunk:
+``fused.chunk`` around it, and in each iteration ``fused.act``,
+``fused.env``, ``fused.ring_add``, ``fused.train`` around a train event
+and ``fused.episode_stats``; the replay (``replay.draw``,
+``replay.gather``, ``replay.writeback``) and the learner
+(``learner.forward``, ``learner.backward``, ``learner.allreduce``,
+``learner.optimizer``) open theirs inside a train event's grad steps.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from dist_dqn_tpu_torch.replay import prioritized_device as pring
 from dist_dqn_tpu_torch.types import Transition
 from dist_dqn_tpu_torch.utils import flops
 from dist_dqn_tpu_torch.utils.device import resolve_device
+from dist_dqn_tpu_torch.utils.trace import span
 
 
 class MemberHP(NamedTuple):
@@ -171,8 +180,16 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
         flatten_lanes = flatten
         flatten = (lambda x: flatten_lanes(x.flatten(0, 1)).unflatten(
             0, (M, B)))
-    # Dedup gathers return rebuilt, unflattened stacks.
-    decode = (lambda x: x) if stack else unflatten
+    # Dedup gathers return rebuilt, unflattened stacks; rows of a flat
+    # ring are reshaped back to obs.
+    decode = unflatten if flat_storage and not stack else None
+
+    def decoded(batch: Transition) -> Transition:
+        if decode is None:
+            return batch
+        with span("replay.gather"):
+            return batch._replace(obs=decode(batch.obs),
+                                  next_obs=decode(batch.next_obs))
 
     def ring_of(replay) -> ring.TimeRingState:
         return replay.ring if prioritized else replay
@@ -232,68 +249,77 @@ def make_fused_train(cfg: ExperimentConfig, env: TorchEnv, net,
                     cfg.replay.priority_exponent, beta,
                     use_kernel=use_kernel, merge_obs_rows=flat_storage,
                     frame_stack=stack, frame_shape=frame_shape)
-                batch = s.batch._replace(obs=decode(s.batch.obs),
-                                         next_obs=decode(s.batch.next_obs))
-                _, metrics = train_step(c.learner, batch, s.weights)
+                _, metrics = train_step(c.learner, decoded(s.batch),
+                                        s.weights)
                 if defer_writeback:
                     deferred.append((s.t_idx, s.b_idx, metrics["priorities"]))
                 else:
-                    pring.prioritized_ring_update(
-                        c.replay, s.t_idx, s.b_idx, metrics["priorities"],
-                        eps=cfg.replay.priority_eps)
+                    with span("replay.writeback"):
+                        pring.prioritized_ring_update(
+                            c.replay, s.t_idx, s.b_idx,
+                            metrics["priorities"],
+                            eps=cfg.replay.priority_eps)
             else:
                 batch = ring.time_ring_sample(
                     c.replay, c.gen_sample, batch_size, n_step, gamma,
                     merge_obs_rows=flat_storage, frame_stack=stack,
                     frame_shape=frame_shape)
-                batch = batch._replace(obs=decode(batch.obs),
-                                       next_obs=decode(batch.next_obs))
-                _, metrics = train_step(c.learner, batch)
+                _, metrics = train_step(c.learner, decoded(batch))
             loss = loss + metrics["loss"]
         if deferred:
-            t_i, b_i, prios = (torch.stack(x) for x in zip(*deferred))
-            pring.prioritized_ring_update_batched(
-                c.replay, t_i, b_i, prios, eps=cfg.replay.priority_eps)
+            with span("replay.writeback"):
+                t_i, b_i, prios = (torch.stack(x) for x in zip(*deferred))
+                pring.prioritized_ring_update_batched(
+                    c.replay, t_i, b_i, prios, eps=cfg.replay.priority_eps)
         return loss
 
     def one_iteration(c: TrainCarry, actor_net) -> None:
-        actions = act(actor_net, c.obs, c.gen_act, epsilon(c.iteration))
-        step = env.v_step_members if M else env.v_step
-        c.env_state, out = step(c.env_state, actions, c.gen_env)
-        add = pring.prioritized_ring_add if prioritized else \
-            ring.time_ring_add
-        add(c.replay, flatten(slice_newest(c.obs)), actions, out.reward,
-            out.terminated, out.truncated,
-            final_obs=flatten(out.next_obs) if store_final else None,
-            merge_obs_rows=flat_storage)
+        with span("fused.act"):
+            actions = act(actor_net, c.obs, c.gen_act, epsilon(c.iteration))
+        with span("fused.env"):
+            step = env.v_step_members if M else env.v_step
+            c.env_state, out = step(c.env_state, actions, c.gen_env)
+        with span("fused.ring_add"):
+            add = pring.prioritized_ring_add if prioritized else \
+                ring.time_ring_add
+            add(c.replay, flatten(slice_newest(c.obs)), actions, out.reward,
+                out.terminated, out.truncated,
+                final_obs=flatten(out.next_obs) if store_final else None,
+                merge_obs_rows=flat_storage)
         if can_train(c.replay, c.iteration):
-            c.loss_sum = c.loss_sum + train_event(c, beta_at(c.iteration))
+            with span("fused.train"):
+                c.loss_sum = c.loss_sum + train_event(c,
+                                                      beta_at(c.iteration))
             c.train_count += updates
-        done = out.terminated | out.truncated
-        c.ep_return, c.completed_return, c.completed_count = \
-            loop_common.episode_stats_update(
-                c.ep_return, c.completed_return, c.completed_count,
-                out.reward, done)
-        c.obs = out.obs
+        with span("fused.episode_stats"):
+            done = out.terminated | out.truncated
+            c.ep_return, c.completed_return, c.completed_count = \
+                loop_common.episode_stats_update(
+                    c.ep_return, c.completed_return, c.completed_count,
+                    out.reward, done)
+            c.obs = out.obs
         c.iteration += 1
 
     def run_chunk(carry: TrainCarry, num_iters: int
                   ) -> Tuple[TrainCarry, Dict[str, object]]:
         """Run ``num_iters`` iterations; the chunk accumulators are zeroed
         on entry."""
-        carry.completed_return = torch.zeros_like(carry.completed_return)
-        carry.completed_count = torch.zeros_like(carry.completed_count)
-        carry.loss_sum = torch.zeros_like(carry.loss_sum)
-        carry.train_count = 0
-        # The bf16 actor reads one snapshot of the chunk-entry net; else the
-        # live learner net.
-        actor_net = actor_snapshot(carry.learner.net)
-        for _ in range(num_iters):
-            one_iteration(carry, actor_net)
-        if axis is not None and prioritized:
-            # Keep the new-item priority seed replicated (the global max).
-            carry.replay.max_priority = axis.pmax(carry.replay.max_priority)
-        return carry, loop_common.chunk_metrics(carry, B, axis)
+        with span("fused.chunk"):
+            carry.completed_return = torch.zeros_like(carry.completed_return)
+            carry.completed_count = torch.zeros_like(carry.completed_count)
+            carry.loss_sum = torch.zeros_like(carry.loss_sum)
+            carry.train_count = 0
+            # The bf16 actor reads one snapshot of the chunk-entry net; else
+            # the live learner net.
+            actor_net = actor_snapshot(carry.learner.net)
+            for _ in range(num_iters):
+                one_iteration(carry, actor_net)
+            if axis is not None and prioritized:
+                # Keep the new-item priority seed replicated (the global
+                # max).
+                carry.replay.max_priority = axis.pmax(
+                    carry.replay.max_priority)
+            return carry, loop_common.chunk_metrics(carry, B, axis)
 
     def chunk_cost(carry: TrainCarry, num_iters: int) -> dict:
         """The census (utils/flops.py) of one training chunk of

@@ -12,6 +12,15 @@ happens at flush) and writes the Chrome trace-event format, so traces
 open in chrome://tracing or Perfetto next to a torch.profiler device
 timeline.
 
+Profiler spans: :func:`span` is the one span of the port that a
+torch.profiler capture sees. While a profiler records, it opens a range
+the profiler keeps as an op (a host ``cpu_op`` event on the kernels'
+clock, nothing on the device track); with none recording it is one flag
+check. The fused loop's layers (train_loop.py, replay/, agents/dqn.py)
+open it at every boundary, and every tracer's ``span`` opens it too, so
+``--profile-dir`` and ``/debug/profile`` captures name the service's
+spans as well.
+
 A ``NullTracer`` with the same surface is the disabled path — call sites
 never branch.
 
@@ -29,12 +38,16 @@ live ``SpanTracer`` is mirrored into the process flight ring
 (telemetry/flight.py), and with no Chrome trace path ``make_tracer(None)``
 returns ``FlightTracer``, which records ONLY into that ring while the
 recorder is on (the default), so forensics bundles and ``/debug/flight``
-carry the service's spans either way. Stdlib only.
+carry the service's spans either way. Stdlib only at import: torch is
+read from ``sys.modules`` at the first span, so torch-free processes
+(spawned actors) never load it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import sys
 import threading
 import time
 from contextlib import contextmanager
@@ -51,14 +64,48 @@ SPAN_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3,
                 5e-3, 1e-2, 2.5e-2, 5e-2, 0.1, 0.25, 0.5, 1.0, 5.0, 30.0)
 
 
+#: The profiler spans of the fused loop (train_loop.py, replay/,
+#: agents/dqn.py), in the order a chunk opens them; ``--profile-dir``
+#: rows report each.
+FUSED_SPANS = (
+    "fused.chunk", "fused.act", "fused.env", "fused.ring_add",
+    "fused.train", "replay.draw", "replay.gather", "learner.forward",
+    "learner.backward", "learner.allreduce", "learner.optimizer",
+    "replay.writeback", "fused.episode_stats")
+
+_NO_SPAN = contextlib.nullcontext()
+# (is a profiler recording, the op-recording range), bound from torch at
+# the first span after torch is loaded.
+_profiler = None
+
+
+def span(name: str):
+    """A context manager naming the code it wraps in a torch.profiler
+    capture: an op ``name`` (``is_user_annotation`` false) while a
+    profiler records, so its interval lies on the clock of the device
+    events the code launches and adds no device event; a shared no-op
+    otherwise."""
+    global _profiler
+    if _profiler is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return _NO_SPAN
+        _profiler = (torch._C._autograd._profiler_enabled,
+                     torch._C._profiler._RecordFunctionFast)
+    recording, op_range = _profiler
+    if not recording():
+        return _NO_SPAN
+    return op_range(name)
+
+
 class NullTracer:
-    """No-op twin of SpanTracer (the default when tracing is off)."""
+    """No-op twin of SpanTracer (the default when tracing is off): its
+    spans reach a running profiler only (:func:`span`)."""
 
     enabled = False
 
-    @contextmanager
     def span(self, name: str, **args):
-        yield
+        return span(name)
 
     def instant(self, name: str, **args) -> None:
         pass
@@ -90,7 +137,8 @@ class FlightTracer(NullTracer):
     def span(self, name: str, **args):
         start = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self._flight.record(
                 "span", name,
@@ -153,7 +201,8 @@ class SpanTracer(NullTracer):
     def span(self, name: str, **args):
         start = self._now_us()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             end = self._now_us()
             with self._lock:
